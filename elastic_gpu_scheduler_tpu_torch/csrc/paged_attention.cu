@@ -1,0 +1,205 @@
+// Paged decode / verify attention (kernel K2) for Hopper, sm_90a.
+//
+// Replaces the Pallas TPU kernel `_paged_kernel` of
+// elastic_gpu_scheduler_tpu/ops/paged_attention.py (launched by
+// `paged_attention`): attention read straight from the serving engine's
+// page pool, never gathered into a contiguous copy.  Query w of row b sits
+// at position lengths[b] + w and attends to every key position <= its own,
+// restricted to the sliding window when window > 0; the key at position t
+// lives in pool page tables[b, t / ps], slot t % ps.
+//
+// What bounds it on this card: bytes.  Each live K/V page is read once and
+// the arithmetic is a few FLOPs per byte, far below the H100's ridge point.
+// This first version is right and simple:
+//   - one block per (kv-head, batch row); the block reads its own page ids
+//     from `tables` (Hopper has no scalar prefetch) and loops over the live
+//     pages, loading each page's (ps, Dh) K and V tile into shared memory;
+//   - the block covers all n_rep * W query rows of its kv-head, so GQA never
+//     expands K/V;
+//   - all math in fp32 (the TPU kernel upcasts q, k and v), the scale
+//     applied after the dot, an online softmax across pages, and
+//     out = acc / max(l, 1e-30);
+//   - live pages: page_start <= length + W - 1; with a window, pages wholly
+//     below the earliest query's window are neither read nor computed.
+// Split-K over long contexts (more blocks per row) is later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NTHREADS = 128;
+constexpr float NEG_INF = -1e30f;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// shared-memory floats for R query rows, page size ps, head dim Dh
+__host__ __device__ inline size_t smem_floats(int R, int ps, int Dh) {
+  return (size_t)R * Dh          // q rows
+         + (size_t)ps * (Dh + 1)  // K page (padded: no bank conflicts in the dot)
+         + (size_t)ps * Dh        // V page
+         + (size_t)R * Dh         // output accumulator
+         + (size_t)R * ps         // scores, then probabilities
+         + 3 * (size_t)R;         // m, l, alpha
+}
+
+template <typename T, int Dh>
+__global__ void __launch_bounds__(NTHREADS)
+paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
+                  const T* __restrict__ pool_v, const int* __restrict__ tables,
+                  const int* __restrict__ lengths, T* __restrict__ out, int W, int Hn, int Hkv,
+                  int ps, int NB, int window, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int n_rep = Hn / Hkv;
+  const int R = n_rep * W;  // query rows of this kv-head: row r = (w, rep)
+  float* sQ = sm;
+  float* sK = sQ + R * Dh;
+  float* sV = sK + ps * (Dh + 1);
+  float* sAcc = sV + ps * Dh;
+  float* sS = sAcc + R * Dh;
+  float* sM = sS + R * ps;
+  float* sL = sM + R;
+  float* sA = sL + R;
+
+  const int hk = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int length = lengths[b];
+
+  for (int i = tid; i < R * Dh; i += NTHREADS) {
+    const int r = i / Dh, d = i % Dh;
+    const int w = r / n_rep, head = hk * n_rep + r % n_rep;
+    sQ[i] = to_float(q[(((size_t)b * W + w) * Hn + head) * Dh + d]);
+    sAcc[i] = 0.f;
+  }
+  for (int r = tid; r < R; r += NTHREADS) {
+    sM[r] = NEG_INF;
+    sL[r] = 0.f;
+  }
+
+  const int last = length + W - 1;  // keys exist up to the last query's position
+  const int j_end = min(NB, last / ps + 1);
+  const size_t row_stride = (size_t)Hkv * Dh;  // one token's K (or V) row in the pool
+  for (int j = 0; j < j_end; ++j) {
+    const int page_start = j * ps;
+    // wholly below the earliest query's (w = 0) window: dead for every query
+    if (window > 0 && page_start + ps - 1 < length - window + 1) continue;
+    const size_t base = (size_t)tables[(size_t)b * NB + j] * ps * row_stride + (size_t)hk * Dh;
+    __syncthreads();  // the previous page is no longer read
+    for (int i = tid; i < ps * Dh; i += NTHREADS) {
+      const int t = i / Dh, d = i % Dh;
+      const size_t g = base + t * row_stride + d;
+      sK[t * (Dh + 1) + d] = to_float(pool_k[g]);
+      sV[t * Dh + d] = to_float(pool_v[g]);
+    }
+    __syncthreads();
+    for (int i = tid; i < R * ps; i += NTHREADS) {
+      const int r = i / ps, t = i % ps;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < Dh; ++d) acc += sQ[r * Dh + d] * sK[t * (Dh + 1) + d];
+      sS[i] = acc * scale;
+    }
+    __syncthreads();
+    for (int r = tid; r < R; r += NTHREADS) {
+      const int qpos = length + r / n_rep;
+      float mx = NEG_INF;
+      for (int t = 0; t < ps; ++t) {
+        const int kpos = page_start + t;
+        const bool keep = kpos <= qpos && (window <= 0 || qpos - kpos < window);
+        if (keep) mx = fmaxf(mx, sS[r * ps + t]);
+      }
+      const float m_old = sM[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int t = 0; t < ps; ++t) {
+        const int kpos = page_start + t;
+        const bool keep = kpos <= qpos && (window <= 0 || qpos - kpos < window);
+        const float p = keep ? expf(sS[r * ps + t] - m_new) : 0.f;
+        sS[r * ps + t] = p;
+        sum += p;
+      }
+      const float alpha = expf(m_old - m_new);
+      sA[r] = alpha;
+      sL[r] = sL[r] * alpha + sum;
+      sM[r] = m_new;
+    }
+    __syncthreads();
+    for (int i = tid; i < R * Dh; i += NTHREADS) {
+      const int r = i / Dh, d = i % Dh;
+      float acc = 0.f;
+      for (int t = 0; t < ps; ++t) acc += sS[r * ps + t] * sV[t * Dh + d];
+      sAcc[i] = sAcc[i] * sA[r] + acc;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < R * Dh; i += NTHREADS) {
+    const int r = i / Dh, d = i % Dh;
+    const int w = r / n_rep, head = hk * n_rep + r % n_rep;
+    out[(((size_t)b * W + w) * Hn + head) * Dh + d] =
+        from_float<T>(sAcc[i] / fmaxf(sL[r], 1e-30f));
+  }
+}
+
+template <typename T, int Dh>
+int launch(const void* q, const void* pk, const void* pv, const void* tables,
+           const void* lengths, void* out, int B, int W, int Hn, int Hkv, int ps, int NB,
+           int window, float scale, cudaStream_t stream) {
+  const size_t smem = smem_floats((Hn / Hkv) * W, ps, Dh) * sizeof(float);
+  auto kern = paged_attn_kernel<T, Dh>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Hkv, B);
+  kern<<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(pk), static_cast<const T*>(pv),
+      static_cast<const int*>(tables), static_cast<const int*>(lengths), static_cast<T*>(out),
+      W, Hn, Hkv, ps, NB, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_d(int Dh, const void* q, const void* pk, const void* pv, const void* tables,
+               const void* lengths, void* out, int B, int W, int Hn, int Hkv, int ps, int NB,
+               int window, float scale, cudaStream_t s) {
+  switch (Dh) {
+    case 32:
+      return launch<T, 32>(q, pk, pv, tables, lengths, out, B, W, Hn, Hkv, ps, NB, window, scale, s);
+    case 64:
+      return launch<T, 64>(q, pk, pv, tables, lengths, out, B, W, Hn, Hkv, ps, NB, window, scale, s);
+    case 128:
+      return launch<T, 128>(q, pk, pv, tables, lengths, out, B, W, Hn, Hkv, ps, NB, window, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Bytes of dynamic shared memory one block needs (the wrapper checks it
+// against the card's limit before launching).
+extern "C" long long egs_paged_attention_smem(int R, int ps, int Dh) {
+  return (long long)(smem_floats(R, ps, Dh) * sizeof(float));
+}
+
+// q (B,W,Hn,Dh); pools (n_pages,ps,Hkv,Dh) in q's dtype; tables (B,NB) and
+// lengths (B,) int32; out like q.  dtype: 0 = float32, 1 = bfloat16.
+// Returns cudaGetLastError().
+extern "C" int egs_paged_attention(const void* q, const void* pool_k, const void* pool_v,
+                                   const void* tables, const void* lengths, void* out, int B,
+                                   int W, int Hn, int Hkv, int Dh, int ps, int NB, int dtype,
+                                   int window, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16>(Dh, q, pool_k, pool_v, tables, lengths, out, B, W, Hn,
+                                     Hkv, ps, NB, window, scale, s);
+  if (dtype == 0)
+    return dispatch_d<float>(Dh, q, pool_k, pool_v, tables, lengths, out, B, W, Hn, Hkv, ps,
+                             NB, window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

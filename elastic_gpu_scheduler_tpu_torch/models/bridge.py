@@ -1,0 +1,62 @@
+"""Parameter trees between the JAX package's layout and the port's.
+
+``params_from_jax`` takes the reference's parameter tree with its leaves
+already as numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX
+side) and returns the same tree of torch tensors: the same nesting, the
+same shapes (weights (in, out), layers stacked on a leading L axis) and
+the same dtypes.  It imports nothing of JAX.
+
+bfloat16 arrives as an ``ml_dtypes`` bfloat16 array, which
+``torch.from_numpy`` refuses, so it crosses as its raw 16 bits
+(``view(np.uint16)`` → ``view(torch.bfloat16)``): the conversion is
+bit-exact.  ``params_to_numpy`` is the way back, with bfloat16 leaves as
+their raw bits in uint16 arrays (view them as ``ml_dtypes.bfloat16`` to
+compare).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .transformer import resolve_device
+
+_NP_TO_TORCH = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.int8): torch.int8,
+}
+
+
+def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    if a.dtype not in _NP_TO_TORCH:
+        raise TypeError(f"no torch counterpart for numpy dtype {a.dtype}")
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def params_from_jax(tree, device=None):
+    """Nested dict of numpy arrays → the same nested dict of tensors."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, dev) for k, v in tree.items()}
+    return tensor_from_numpy(tree, dev)
+
+
+def params_to_numpy(tree):
+    """Nested dict of tensors → nested dict of numpy arrays (bf16 as uint16 bits)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tensor_to_numpy(tree)

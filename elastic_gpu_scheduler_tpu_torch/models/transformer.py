@@ -1,0 +1,234 @@
+"""Flagship decoder-only transformer LM, dense inference forward.
+
+Counterpart of ``elastic_gpu_scheduler_tpu/models/transformer.py``: the
+same config, the same L-stacked parameter dict (weights stored (in, out),
+so ``x @ w`` matches), the same norm, rotary and GQA conventions.  Layers
+run as a Python loop over the stacked leaves instead of ``lax.scan``;
+attention goes through the port's ``flash_attention`` (kernel K1 on CUDA).
+
+Not ported yet, and rejected by name where a config or a parameter tree
+asks for them: ring attention, pipeline parallelism, MoE, LoRA adapters
+and int8 weights.  ``remat`` and ``xent_chunks`` only shape training,
+which is a later slice; the inference forward is the same either way.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import flash_attention
+from .quantize import wmat
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(
+            f"dtype {name!r} not supported by the port (want one of {sorted(_DTYPES)})"
+        ) from None
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another.  Never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is False); pass "
+            "device='cpu' to run the port's plain PyTorch path"
+        )
+    return dev
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    d_ff: int = 1376
+    n_kv_heads: int = 0  # 0 → MHA; 0 < n_kv_heads < n_heads → GQA
+    window_size: int = 0  # >0 → sliding-window attention
+    rope_theta: float = 10000.0
+    dtype: str = "bfloat16"  # compute dtype
+    params_dtype: str = ""  # at-rest dtype of the matmul weights ("" → dtype)
+    remat: bool = False
+    use_ring_attention: bool = False
+    n_experts: int = 0
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    n_microbatches: int = 0
+    xent_chunks: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def rest_dtype(self) -> torch.dtype:
+        return torch_dtype(self.params_dtype or self.dtype)
+
+
+def check_dense(cfg: TransformerConfig, params: Optional[dict] = None) -> None:
+    """Raise, by name, on the config fields and parameter leaves this slice
+    of the port does not serve."""
+    unported = {
+        "use_ring_attention": cfg.use_ring_attention,
+        "n_microbatches": cfg.n_microbatches > 0,
+        "n_experts": cfg.n_experts > 0,
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"config fields {bad} are not ported yet (ring attention, "
+            "pipeline and MoE are later slices of the port)"
+        )
+    if params is not None:
+        lora = sorted(k for k in params.get("layers", {}) if k.endswith("_lora"))
+        if lora:
+            raise NotImplementedError(
+                f"LoRA leaves {lora} are not ported yet (a later slice)"
+            )
+
+
+# -- init --------------------------------------------------------------------
+
+
+def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None) -> dict:
+    """Random weights with the reference's shapes, scales and at-rest
+    dtypes (normal / sqrt(fan_in); fp32 norms).  The values come from
+    ``generator`` and differ from ``jax.random``'s: parity tests carry
+    the reference's weights across with ``bridge.params_from_jax``."""
+    check_dense(cfg)
+    dev = resolve_device(device)
+    D, H, F_, L, V = (
+        cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff, cfg.n_layers, cfg.vocab_size
+    )
+    KV = cfg.kv_heads * cfg.head_dim
+    rest = cfg.rest_dtype
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
+        return (w * fan_in ** -0.5).to(rest)
+
+    layers = {
+        "attn_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
+        "wq": dense((L, D, H), D),
+        "wk": dense((L, D, KV), D),
+        "wv": dense((L, D, KV), D),
+        "wo": dense((L, H, D), H),
+        "mlp_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
+        "w_in": dense((L, D, F_), D),
+        "w_gate": dense((L, D, F_), D),
+        "w_out": dense((L, F_, D), F_),
+    }
+    return {
+        "embed": dense((V, D), 1.0),
+        "layers": layers,
+        "final_norm": torch.ones((D,), dtype=torch.float32, device=dev),
+        "unembed": dense((D, V), D),
+    }
+
+
+def param_count(params: dict) -> int:
+    n = 0
+    for v in params.values():
+        n += param_count(v) if isinstance(v, dict) else v.numel()
+    return n
+
+
+def layer_slice(layers: dict, i: int) -> dict:
+    """Layer ``i`` of the L-stacked leaves (views, no copy)."""
+    return {k: v[i] for k, v in layers.items()}
+
+
+# -- building blocks ---------------------------------------------------------
+
+
+def _embed_lookup(embed, tokens, dtype):
+    return wmat(embed, dtype)[tokens.long()]
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def _rope_tables(positions: torch.Tensor, half: int, theta: float):
+    freqs = theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    )
+    angles = positions.float()[..., None] * freqs  # (..., half)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, half-split layout.  x: (B, S, H, Dh); positions: (S,)."""
+    half = x.shape[-1] // 2
+    cos, sin = _rope_tables(positions, half, theta)  # (S, half)
+    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    x1, x2 = x.float().split(half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, Dh) → (B, S, Hkv·n_rep, Dh): grouped KV heads expanded."""
+    if n_rep == 1:
+        return k
+    B, S, Hkv, Dh = k.shape
+    return k[:, :, :, None, :].expand(B, S, Hkv, n_rep, Dh).reshape(B, S, Hkv * n_rep, Dh)
+
+
+def _attention(q, k, v, cfg: TransformerConfig):
+    """(B, S, H, Dh) → (B, S, H, Dh) through flash attention."""
+    n_rep = cfg.n_heads // cfg.kv_heads
+    k = repeat_kv(k, n_rep)
+    v = repeat_kv(v, n_rep)
+    o = flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        True, None, cfg.window_size,
+    )
+    return o.transpose(1, 2)
+
+
+def _layer(x, p, cfg: TransformerConfig):
+    B, S, _ = x.shape
+    Hn, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    dtype = torch_dtype(cfg.dtype)
+    h = rms_norm(x, p["attn_norm"])
+    q = (h @ wmat(p["wq"], dtype)).reshape(B, S, Hn, Dh)
+    k = (h @ wmat(p["wk"], dtype)).reshape(B, S, Hkv, Dh)
+    v = (h @ wmat(p["wv"], dtype)).reshape(B, S, Hkv, Dh)
+    positions = torch.arange(S, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = _attention(q, k, v, cfg).reshape(B, S, Hn * Dh)
+    x = x + o @ wmat(p["wo"], dtype)
+    h = rms_norm(x, p["mlp_norm"])
+    gate = F.silu(h @ wmat(p["w_gate"], dtype))
+    up = h @ wmat(p["w_in"], dtype)
+    return x + (gate * up) @ wmat(p["w_out"], dtype)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """tokens: (B, S) int → logits (B, S, V) float32."""
+    check_dense(cfg, params)
+    dtype = torch_dtype(cfg.dtype)
+    x = _embed_lookup(params["embed"], tokens, dtype)
+    for i in range(cfg.n_layers):
+        x = _layer(x, layer_slice(params["layers"], i), cfg)
+    x = rms_norm(x, params["final_norm"])
+    return (x @ wmat(params["unembed"], dtype)).float()

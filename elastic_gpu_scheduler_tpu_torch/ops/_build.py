@@ -1,0 +1,183 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` (one
+process per source, all started together), and the objects link into one
+shared library with a plain C interface, loaded through ``ctypes``.  No
+PyTorch header is compiled, so a build takes seconds.
+
+The library is built at first use into ``_torch_kernels_build/`` inside
+the package (listed in ``.gitignore``), named by a digest of the sources
+and flags, so an edited source rebuilds and an unchanged one loads the
+library already there.  Nothing here runs at import: the CPU tests import
+every module of the port on a machine with no ``nvcc``.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` raises on anything but 0, so a launch the card refuses (too many
+threads, too much shared memory) never passes silently.
+
+``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that its main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_torch_kernels_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills, per kernel
+)
+
+LAUNCHES: dict[str, int] = {"flash_fwd": 0, "paged_attention": 0}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, o, lse, B, H, Sq, Sk, D, dtype, causal, window, scale, stream
+    "egs_flash_fwd": ([_P] * 5 + [_I] * 8 + [_F, _P], ctypes.c_int),
+    # q, pool_k, pool_v, tables, lengths, out, B, W, Hn, Hkv, Dh, ps, NB,
+    # dtype, window, scale, stream
+    "egs_paged_attention": ([_P] * 6 + [_I] * 9 + [_F, _P], ctypes.c_int),
+    "egs_paged_attention_smem": ([_I, _I, _I], ctypes.c_longlong),
+    "egs_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    """The toolkit's ``nvcc``: ``$CUDA_HOME/bin`` as PyTorch resolves it,
+    else the one on ``PATH``.  Raises when there is none."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+        "CUDA kernels are built from csrc/ at first use"
+    )
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libegs_kernels_{_digest(sources())}.so"
+
+
+def build_log_path() -> Path:
+    return library_path().with_suffix(".log")
+
+
+def build() -> Path:
+    """Compile and link the kernels unless this exact build exists.  Safe
+    against concurrent builders (threads and processes): a file lock
+    serializes them and the library appears by atomic rename."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    lib_path = library_path()
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        if lib_path.exists():
+            return lib_path
+        nvcc = nvcc_path()
+        tag = lib_path.stem
+        objs, procs = [], []
+        for s in srcs:
+            obj = BUILD_DIR / f"{tag}_{s.stem}.o"
+            objs.append(obj)
+            procs.append((s, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        log = []
+        failed = []
+        for s, p in procs:
+            out, _ = p.communicate()
+            log.append(f"== nvcc {s.name} (rc={p.returncode})\n{out}")
+            if p.returncode != 0:
+                failed.append(s.name)
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed for {failed}:\n" + "\n".join(log)
+            )
+        tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        log.append(f"== link (rc={link.returncode})\n{link.stdout}")
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
+        lib_path.with_suffix(".log").write_text("\n".join(log))
+        os.replace(tmp, lib_path)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, (args, res) in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = args
+                fn.restype = res
+            _lib = handle
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib().egs_error_string(err)
+        raise RuntimeError(
+            f"{what}: CUDA error {err} "
+            f"({msg.decode() if msg else 'unknown'})"
+        )
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as a pointer value."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,147 @@
+"""Paged decode / verify attention: the hand-written Hopper kernel K2 and
+its plain PyTorch version.
+
+Counterpart of ``elastic_gpu_scheduler_tpu/ops/paged_attention.py``.  On a
+CUDA tensor ``paged_attention`` launches ``csrc/paged_attention.cu``, which
+reads the serving engine's page pool in place (one block per (kv-head,
+batch row), each live page loaded once into shared memory, GQA grouped,
+never expanded); on a CPU tensor it computes
+``paged_attention_reference``, the gather-then-attend version.
+
+The int8 pool (``scales_k``/``scales_v``) is the remaining part of K2 and
+a later slice: passing scales raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .attention import HEAD_DIMS, NEG_INF, _DTYPE_CODES
+
+# dynamic shared memory one block may take on an H100 (227 KB)
+MAX_SMEM_BYTES = 232448
+
+
+def paged_attention_reference(
+    q, pool_k, pool_v, tables, lengths, *, window: int = 0, dtype=None,
+):
+    """Gather-then-attend oracle.
+
+    q: (B, Hn, Dh) — one query per row at position lengths[b] — or
+    (B, W, Hn, Dh) — W queries at lengths[b]..lengths[b]+W-1; pool_k/v:
+    (n_pages, page_size, Hkv, Dh); tables: (B, NB) int32; lengths: (B,)
+    int32.  Query w of row b attends to positions 0..lengths[b]+w, minus
+    anything outside the sliding ``window`` when > 0.  Returns q's rank.
+    ``dtype`` matters only for int8 pools (not ported yet)."""
+    squeeze = q.ndim == 3
+    if squeeze:
+        q = q[:, None]
+    B, W, Hn, Dh = q.shape
+    NB = tables.shape[1]
+    ps, Hkv = pool_k.shape[1], pool_k.shape[2]
+    n_rep = Hn // Hkv
+    tl = tables.long()
+    k = pool_k[tl].reshape(B, NB * ps, Hkv, Dh).float()
+    v = pool_v[tl].reshape(B, NB * ps, Hkv, Dh).float()
+    qg = q.reshape(B, W, Hkv, n_rep, Dh).float()
+    s = torch.einsum("bwhrd,bthd->bwhrt", qg, k) * (Dh ** -0.5)
+    kpos = torch.arange(NB * ps, device=q.device)[None, None, :]
+    qpos = lengths.long()[:, None, None] + torch.arange(W, device=q.device)[None, :, None]
+    keep = kpos <= qpos
+    if window > 0:
+        keep = keep & ((qpos - kpos) < window)
+    s = torch.where(keep[:, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bwhrt,bthd->bwhrd", p, v)
+    o = o.reshape(B, W, Hn, Dh).to(q.dtype)
+    return o[:, 0] if squeeze else o
+
+
+def paged_attention(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    tables: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scales_k=None,
+    scales_v=None,
+    window: int = 0,
+    dtype=None,
+) -> torch.Tensor:
+    """Decode attention straight off the page pool; semantics identical to
+    ``paged_attention_reference``.  q is rank 3 (plain decode, W = 1) or
+    rank 4 (the W-query verify window)."""
+    if scales_k is not None or scales_v is not None:
+        raise NotImplementedError(
+            "paged_attention over an int8 pool (scales_k/scales_v) is the "
+            "remaining part of kernel K2 and a later slice of the port"
+        )
+    devs = {t.device for t in (q, pool_k, pool_v, tables, lengths)}
+    if len(devs) != 1:
+        raise ValueError(
+            f"paged_attention inputs on different devices: {sorted(map(str, devs))}"
+        )
+    if q.device.type == "cpu":
+        return paged_attention_reference(
+            q, pool_k, pool_v, tables, lengths, window=window, dtype=dtype
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    return _paged_cuda(q, pool_k, pool_v, tables, lengths, window)
+
+
+def _paged_cuda(q, pool_k, pool_v, tables, lengths, window):
+    """Launch K2 (csrc/paged_attention.cu); raises on anything it does not
+    take."""
+    squeeze = q.ndim == 3
+    q4 = q[:, None] if squeeze else q
+    if q4.ndim != 4 or pool_k.ndim != 4 or pool_k.shape != pool_v.shape:
+        raise ValueError(
+            f"paged_attention: bad shapes q{tuple(q.shape)} pool{tuple(pool_k.shape)}"
+        )
+    B, W, Hn, Dh = q4.shape
+    _, ps, Hkv, Dk = pool_k.shape
+    if Dk != Dh or Hn % Hkv:
+        raise ValueError(
+            f"paged_attention: q{tuple(q.shape)} does not fit pool{tuple(pool_k.shape)}"
+        )
+    if q.dtype not in _DTYPE_CODES or pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
+        raise TypeError(
+            f"paged_attention kernel takes float32 or bfloat16 q and pools of "
+            f"one dtype, got {q.dtype}/{pool_k.dtype}/{pool_v.dtype}"
+        )
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"paged_attention kernel takes head_dim in {HEAD_DIMS}, got {Dh}")
+    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("paged_attention kernel takes int32 tables and lengths")
+    if tables.ndim != 2 or tables.shape[0] != B or lengths.shape != (B,):
+        raise ValueError(
+            f"paged_attention: tables{tuple(tables.shape)} / "
+            f"lengths{tuple(lengths.shape)} do not fit batch {B}"
+        )
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    lib = _build.lib()
+    R = (Hn // Hkv) * W
+    smem = lib.egs_paged_attention_smem(R, ps, Dh)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"paged_attention kernel: {R} query rows per kv-head at page "
+            f"size {ps} need {smem} bytes of shared memory (> {MAX_SMEM_BYTES})"
+        )
+    q4 = q4.contiguous()
+    pool_k, pool_v = pool_k.contiguous(), pool_v.contiguous()
+    tables, lengths = tables.contiguous(), lengths.contiguous()
+    out = torch.empty_like(q4)
+    if out.numel() == 0:
+        return out[:, 0] if squeeze else out
+    err = lib.egs_paged_attention(
+        q4.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), B, W, Hn, Hkv, Dh, ps, tables.shape[1],
+        _DTYPE_CODES[q.dtype], int(window), Dh ** -0.5, _build.stream_ptr(q.device),
+    )
+    _build.check(err, "paged_attention launch")
+    _build.LAUNCHES["paged_attention"] += 1
+    return out[:, 0] if squeeze else out

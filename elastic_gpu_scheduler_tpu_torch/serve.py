@@ -1,0 +1,108 @@
+"""``python -m elastic_gpu_scheduler_tpu_torch.serve --init`` — the
+inference HTTP server around the port's paged serving engine.
+
+Counterpart of ``elastic_gpu_scheduler_tpu/serve.py`` with the flags this
+slice serves, under the reference's names.  ``--init`` builds random
+weights from the model flags (seed 0); the HF checkpoint
+import (``--hf``) waits for the port of ``models/convert.py``.  The
+engine runs on the CUDA device unless ``--cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import signal
+import threading
+
+log = logging.getLogger("tpu-scheduler")
+
+
+def build_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--init", action="store_true", required=True,
+                   help="random init from the model flags (the HF import "
+                        "is a later slice of the port)")
+    p.add_argument("--vocab-size", type=int, default=32000)
+    p.add_argument("--d-model", type=int, default=512)
+    p.add_argument("--n-layers", type=int, default=4)
+    p.add_argument("--n-heads", type=int, default=8)
+    p.add_argument("--d-ff", type=int, default=1376)
+    p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--max-len", type=int, default=2048)
+    p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--n-pages", type=int, default=0,
+                   help="KV pool pages (0 = slot-contiguous equivalent)")
+    p.add_argument("--fused-steps", type=int, default=16)
+    p.add_argument("--paged-kernel", action="store_true",
+                   help="decode attention reads the page pool in place "
+                        "through the CUDA paged-attention kernel")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU with the plain PyTorch paths (tests/dev)")
+    p.add_argument("--drain-timeout", type=float, default=30.0,
+                   help="graceful-drain window on SIGTERM/SIGINT; a second "
+                        "signal hard-stops")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = build_args(argv)
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
+    )
+    import torch
+
+    from .models.serving import InferenceEngine
+    from .models.transformer import TransformerConfig, init_params, resolve_device
+    from .server.inference import drain, serve_inference
+
+    device = resolve_device("cpu" if args.cpu else None)
+    cfg = TransformerConfig(
+        vocab_size=args.vocab_size, d_model=args.d_model, n_layers=args.n_layers,
+        n_heads=args.n_heads, d_ff=args.d_ff,
+        dtype=args.dtype,
+    )
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device)
+    engine = InferenceEngine(
+        params, cfg, max_batch=args.max_batch, max_len=args.max_len,
+        page_size=args.page_size, n_pages=args.n_pages,
+        fused_steps=args.fused_steps, paged_kernel=args.paged_kernel, device=device,
+    )
+    server, loop = serve_inference(engine, port=args.port, host=args.host)
+    log.info(
+        "serving random-init model (%d layers, d=%d) on %s, %s:%d",
+        cfg.n_layers, cfg.d_model, device, args.host, server.server_address[1],
+    )
+    stop = threading.Event()
+    signals_seen = []
+
+    def on_signal(signum, frame):
+        signals_seen.append(signum)
+        if len(signals_seen) > 1:
+            log.info("second signal: hard stop")
+            stop.set()
+            return
+        log.info("signal %d: draining (second signal hard-stops)", signum)
+
+        def _drain():
+            ok = drain(loop, timeout=args.drain_timeout)
+            log.info("drain %s", "complete" if ok else "timed out")
+            stop.set()
+
+        threading.Thread(target=_drain, name="drain", daemon=True).start()
+
+    signal.signal(signal.SIGINT, on_signal)
+    signal.signal(signal.SIGTERM, on_signal)
+    stop.wait()
+    server.shutdown()
+    loop.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

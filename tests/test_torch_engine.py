@@ -1,0 +1,147 @@
+"""Port parity for the paged serving engine.
+
+The JAX package's ``InferenceEngine`` in its sequential mode
+(``overlap=False``) and the port's engine serve the same prompts on the
+same weights (``bridge.params_from_jax``), float32: the greedy tokens must
+be identical, on the gather path and on the paged-kernel path, with mixed
+prompt lengths (one-pass prefill), a one-token prompt (fed by the fused
+chunks) and more requests than slots.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from elastic_gpu_scheduler_tpu.models.serving import (
+    InferenceEngine as JaxEngine,
+    Request as JaxRequest,
+)
+from elastic_gpu_scheduler_tpu.models.transformer import (
+    TransformerConfig as JaxConfig,
+    init_params as jax_init_params,
+)
+from elastic_gpu_scheduler_tpu_torch.models.bridge import params_from_jax
+from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
+from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig
+
+# the suite runs in parallel worker processes: one intra-op thread keeps
+# this file from crowding the workers that run beside it
+torch.set_num_threads(1)
+
+CFG = dict(vocab_size=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+           d_ff=128, dtype="float32")
+PROMPTS = [[5, 17, 3], [60, 2, 9, 9], list(range(1, 17)), [42],
+           [7] * 11, [33, 1, 80, 4, 4, 19]]
+MAX_NEW = [8, 6, 8, 9, 5, 7]
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = JaxConfig(**CFG)
+    jp = jax_init_params(jax.random.key(2), jcfg)
+    return jcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _jax_tokens(jcfg, jp, prompts, max_new, **kw):
+    eng = JaxEngine(jp, jcfg, overlap=False, **kw)
+    reqs = [eng.submit(JaxRequest(prompt=p, max_new_tokens=n)) for p, n in zip(prompts, max_new)]
+    eng.run_until_idle()
+    for r in reqs:
+        assert r.done.is_set() and not r.error, r.error
+    return [r.output for r in reqs]
+
+
+def _port_tokens(params, prompts, max_new, **kw):
+    eng = InferenceEngine(params, TransformerConfig(**CFG), device="cpu", **kw)
+    reqs = [eng.submit(Request(prompt=p, max_new_tokens=n)) for p, n in zip(prompts, max_new)]
+    eng.run_until_idle()
+    for r in reqs:
+        assert r.done.is_set() and not r.error, r.error
+    assert len(eng.free_pages) == eng.n_pages - 1  # every page came back
+    return [r.output for r in reqs], eng
+
+
+@pytest.mark.parametrize("paged_kernel", [False, True])
+def test_engine_greedy_tokens_match_jax(weights, paged_kernel):
+    jcfg, jp, params = weights
+    kw = dict(max_batch=4, max_len=64, page_size=8, fused_steps=4, paged_kernel=paged_kernel)
+    want = _jax_tokens(jcfg, jp, PROMPTS, MAX_NEW, **kw)
+    got, eng = _port_tokens(params, PROMPTS, MAX_NEW, **kw)
+    assert got == want
+    assert [len(t) for t in got] == MAX_NEW
+    # every prompt of two or more tokens went through the one-pass prefill
+    assert eng.prefills_run == sum(len(p) >= 2 for p in PROMPTS)
+
+
+def test_engine_sliding_window_matches_jax():
+    """A sliding-window model: pages wholly below the window are skipped
+    by the paged path; both paths still match the JAX engine."""
+    cfg = dict(CFG, window_size=12)
+    jcfg = JaxConfig(**cfg)
+    jp = jax_init_params(jax.random.key(3), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    prompts, new = [list(range(1, 30)), [7, 8, 9], [50] * 20, [1]], [8, 8, 8, 8]
+    for paged_kernel in (False, True):
+        kw = dict(max_batch=4, max_len=64, page_size=8, paged_kernel=paged_kernel)
+        want = _jax_tokens(jcfg, jp, prompts, new, **kw)
+        eng = InferenceEngine(params, TransformerConfig(**cfg), device="cpu", **kw)
+        reqs = [eng.submit(Request(prompt=p, max_new_tokens=n)) for p, n in zip(prompts, new)]
+        eng.run_until_idle()
+        assert [r.output for r in reqs] == want, f"paged_kernel={paged_kernel}"
+
+
+def test_engine_stall_and_resume_matches_jax(weights):
+    """4 usable pages of 8 tokens: two requests of ~24 tokens cannot hold
+    their peak pages at once, so one stalls and resumes."""
+    jcfg, jp, params = weights
+    kw = dict(max_batch=2, max_len=32, page_size=8, n_pages=5, fused_steps=4)
+    prompts, new = [[7, 8, 9], [11, 12]], [12, 12]
+    want = _jax_tokens(jcfg, jp, prompts, new, **kw)
+    got, _ = _port_tokens(params, prompts, new, **kw)
+    assert got == want
+
+
+def test_engine_pool_exhaustion_raises(weights):
+    _, _, params = weights
+    eng = InferenceEngine(
+        params, TransformerConfig(**CFG), max_batch=1, max_len=32, page_size=8,
+        n_pages=2, fused_steps=8, device="cpu",
+    )  # one usable page = 8 tokens; a 16-token request can never fit
+    eng.submit(Request(prompt=[1, 2, 3], max_new_tokens=13))
+    with pytest.raises(RuntimeError, match="page pool exhausted"):
+        eng.run_until_idle()
+
+
+def test_engine_stop_tokens_and_sampling(weights):
+    _, _, params = weights
+    full, _ = _port_tokens(params, [[3, 9, 14]], [12], max_batch=2, max_len=64, page_size=8)
+    stop = full[0][4]
+    eng = InferenceEngine(params, TransformerConfig(**CFG), max_batch=2, max_len=64,
+                          page_size=8, device="cpu")
+    r = eng.submit(Request(prompt=[3, 9, 14], max_new_tokens=12, stop_tokens=(stop,)))
+    s = eng.submit(Request(prompt=[3, 9, 14], max_new_tokens=12, temperature=0.8,
+                           top_k=5, top_p=0.9))
+    eng.run_until_idle()
+    assert r.output == full[0][: full[0].index(stop) + 1]
+    assert len(s.output) == 12 and all(0 <= t < 97 for t in s.output)
+
+
+def test_engine_rejects_unported_options_and_fields(weights):
+    _, _, params = weights
+    cfg = TransformerConfig(**CFG)
+    for opt in ("spec_k", "prefix_cache", "kv_int8", "overlap", "prefill_chunk"):
+        with pytest.raises(NotImplementedError, match=opt):
+            InferenceEngine(params, cfg, device="cpu", **{opt: 1})
+    with pytest.raises(TypeError, match="seed"):
+        Request(prompt=[1], max_new_tokens=2, seed=3)
+    eng = InferenceEngine(params, cfg, max_len=16, device="cpu")
+    bad = eng.submit(Request(prompt=[1] * 10, max_new_tokens=10))
+    assert bad.done.is_set() and "max_len" in bad.error
+
+
+def test_engine_without_cuda_raises_unless_cpu_requested(weights, monkeypatch):
+    _, _, params = weights
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(params, TransformerConfig(**CFG))

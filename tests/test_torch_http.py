@@ -1,0 +1,139 @@
+"""The port's HTTP front end on the CPU: completions as JSON and as SSE,
+stats, health, version, validation, and the pool-exhaustion preemption of
+the serving loop — over real sockets."""
+
+import http.client
+import json
+
+import pytest
+import torch
+
+from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
+from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
+from elastic_gpu_scheduler_tpu_torch.server.inference import (
+    EngineLoop,
+    drain,
+    serve_inference,
+)
+
+# the suite runs in parallel worker processes: one intra-op thread keeps
+# this file from crowding the workers that run beside it
+torch.set_num_threads(1)
+
+CFG = TransformerConfig(vocab_size=64, d_model=64, n_layers=2, n_heads=2, d_ff=64,
+                        dtype="float32")
+
+
+def _params():
+    return init_params(CFG, torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.fixture(scope="module")
+def served():
+    engine = InferenceEngine(_params(), CFG, max_batch=2, max_len=64, page_size=8,
+                             device="cpu")
+    server, loop = serve_inference(engine, port=0, host="127.0.0.1")
+    yield server.server_address, engine
+    server.shutdown()
+    server.server_close()
+    loop.stop()
+
+
+def _post(addr, body, path="/v1/completions"):
+    conn = http.client.HTTPConnection(*addr, timeout=60)
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = resp.status, json.loads(resp.read())
+    conn.close()
+    return out
+
+
+def _get(addr, path):
+    conn = http.client.HTTPConnection(*addr, timeout=30)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    out = resp.status, json.loads(resp.read())
+    conn.close()
+    return out
+
+
+def test_completion_json_matches_engine(served):
+    addr, engine = served
+    code, body = _post(addr, {"prompt": [3, 9, 14], "max_tokens": 8})
+    assert code == 200 and len(body["tokens"]) == 8
+    r = engine.submit(Request(prompt=[3, 9, 14], max_new_tokens=8))
+    assert r.done.wait(60) and r.output == body["tokens"]
+
+
+def test_completion_sse_matches_json(served):
+    addr, _ = served
+    _, full = _post(addr, {"prompt": [2, 4, 6], "max_tokens": 6})
+    conn = http.client.HTTPConnection(*addr, timeout=60)
+    conn.request("POST", "/v1/completions",
+                 json.dumps({"prompt": [2, 4, 6], "max_tokens": 6, "stream": True}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200
+    assert resp.getheader("Content-Type") == "text/event-stream"
+    events = [raw[len("data: "):] for raw in resp.read().decode().split("\n\n")
+              if raw.startswith("data: ")]
+    conn.close()
+    assert events[-1] == "[DONE]"
+    assert [json.loads(e)["token"] for e in events[:-1]] == full["tokens"]
+
+
+def test_stats_health_version_and_validation(served):
+    addr, engine = served
+    code, stats = _get(addr, "/v1/stats")
+    assert code == 200 and stats["max_batch"] == 2
+    assert stats["total_pages"] == engine.n_pages - 1 and stats["device"] == "cpu"
+    assert _get(addr, "/healthz") == (200, {"ok": True})
+    code, body = _get(addr, "/version")
+    assert code == 200 and body["version"]
+    code, body = _post(addr, {"prompt": "not ids"})
+    assert code == 400 and "token ids" in body["error"]
+    code, body = _post(addr, {"prompt": [1], "max_tokens": 999})
+    assert code == 400 and "max_len" in body["error"]
+    code, body = _post(addr, {"prompt": [1], "seed": 3, "logprobs": 2})
+    assert code == 400 and "seed" in body["error"] and "logprobs" in body["error"]
+    code, body = _post(addr, {"prompt": [1], "n": 2})
+    assert code == 400 and "'n'" in body["error"]
+    assert _post(addr, {}, path="/v1/nope")[0] == 404
+
+
+def test_pool_exhaustion_preempts_one_victim_not_all():
+    """Every slot stalls for pages: the loop preempts ONE request (most
+    pages held), requeues it once, fails it the second time; the other
+    finishes."""
+    engine = InferenceEngine(_params(), CFG, max_batch=2, max_len=32, page_size=8,
+                             n_pages=5, device="cpu")
+    loop = EngineLoop(engine).start()
+    try:
+        ra = Request(prompt=[3, 9, 14, 27, 5, 1, 2, 6], max_new_tokens=16)
+        rb = Request(prompt=[2, 4, 6, 8, 10, 12, 1, 7], max_new_tokens=16)
+        engine.submit(ra)
+        engine.submit(rb)
+        assert ra.done.wait(60) and rb.done.wait(60)
+    finally:
+        loop.stop()
+    errs = [r for r in (ra, rb) if r.error]
+    assert len(errs) == 1 and "preempted" in errs[0].error
+    survivor = rb if errs[0] is ra else ra
+    assert len(survivor.output) == 16
+
+
+def test_drain_rejects_new_and_finishes_inflight():
+    engine = InferenceEngine(_params(), CFG, max_batch=2, max_len=64, page_size=8,
+                             device="cpu")
+    server, loop = serve_inference(engine, port=0, host="127.0.0.1")
+    try:
+        r = engine.submit(Request(prompt=[5, 6, 7], max_new_tokens=20))
+        assert drain(loop, timeout=60)
+        assert r.done.is_set() and len(r.output) == 20
+        assert _get(server.server_address, "/healthz")[0] == 503
+        code, body = _post(server.server_address, {"prompt": [1, 2], "max_tokens": 2})
+        assert code == 503 and "draining" in body["error"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()

@@ -1,0 +1,59 @@
+"""The port imports neither JAX nor any module of the JAX package.
+
+A fresh interpreter imports every module of the port and then lists
+``sys.modules``.  The port's package name BEGINS with the JAX package's,
+so names are compared whole (``m == pkg or m.startswith(pkg + ".")``),
+never as bare prefixes.  The same run checks that importing starts no
+kernel build (a CPU-only machine has no nvcc).
+"""
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import elastic_gpu_scheduler_tpu_torch as port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r"""
+import importlib, json, pkgutil, sys
+import elastic_gpu_scheduler_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+from elastic_gpu_scheduler_tpu_torch.ops import _build
+print(json.dumps({"imported": names, "modules": sorted(sys.modules),
+                  "built": _build._lib is not None}))
+"""
+
+
+def _is_jax_package(m: str) -> bool:
+    return any(m == p or m.startswith(p + ".")
+               for p in ("jax", "jaxlib", "elastic_gpu_scheduler_tpu"))
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _SCRIPT], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    expected = {m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")}
+    assert set(res["imported"]) == expected
+    assert {"elastic_gpu_scheduler_tpu_torch.models.serving",
+            "elastic_gpu_scheduler_tpu_torch.server.inference",
+            "elastic_gpu_scheduler_tpu_torch.ops.paged_attention"} <= expected
+    bad = [m for m in res["modules"] if _is_jax_package(m)]
+    assert not bad, bad
+    assert "elastic_gpu_scheduler_tpu_torch" in res["modules"]
+    assert not res["built"]
+
+
+def test_whole_name_check_tells_the_packages_apart():
+    assert _is_jax_package("elastic_gpu_scheduler_tpu.models.serving")
+    assert _is_jax_package("jax.numpy")
+    assert not _is_jax_package("elastic_gpu_scheduler_tpu_torch.models.serving")
+    assert not _is_jax_package("jaxtyping")

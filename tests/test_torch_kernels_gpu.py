@@ -1,0 +1,157 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the ``gpu`` marker and skips (from the ``cuda``
+fixture) where there is no CUDA device.  The file imports torch and the
+port only, so it also runs on a GPU host without JAX:
+
+    python -m pytest tests/test_torch_kernels_gpu.py -m gpu
+
+Tolerances: float32 2e-5 absolute; bfloat16 2e-2 absolute plus 1e-2
+relative (the kernel and the plain version round P at different points,
+and an output past |2| then sits one bfloat16 step, 2^-8 relative, either
+side); logsumexp 1e-4.  TF32 is off so float32 products stay float32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from elastic_gpu_scheduler_tpu_torch.models import serving
+from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
+from elastic_gpu_scheduler_tpu_torch.ops import _build
+from elastic_gpu_scheduler_tpu_torch.ops.attention import flash_attention, mha_reference
+from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_reference,
+)
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+RTOL = {torch.float32: 0.0, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def _close(out, ref):
+    return bool(((out.float() - ref.float()).abs()
+                 <= TOL[ref.dtype] + RTOL[ref.dtype] * ref.float().abs()).all())
+
+
+# (B, H, Sq, Sk, D, causal, window)
+K1_CASES = [
+    (2, 2, 64, 64, 32, True, 0),
+    (1, 3, 48, 80, 64, True, 0),
+    (1, 2, 96, 96, 32, True, 20),
+    (2, 1, 37, 37, 32, True, 0),
+    (1, 2, 21, 50, 64, True, 9),
+    (1, 2, 40, 40, 32, False, 0),
+    (1, 4, 128, 1000, 128, True, 0),
+    (1, 2, 1, 300, 128, True, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", K1_CASES, ids=str)
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    B, H, Sq, Sk, D, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(B, H, Sq, D, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, H, Sk, D, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, H, Sk, D, generator=g, device=cuda).to(dtype)
+    before = _build.LAUNCHES["flash_fwd"]
+    out, lse = flash_attention(q, k, v, causal, None, window, return_lse=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_fwd"] == before + 1
+    ref, ref_lse = mha_reference(q, k, v, causal, None, window)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _close(out, ref)
+    assert _err(lse, ref_lse) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 1, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    h = torch.zeros(1, 1, 8, 32, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(h, h, h)
+    q = torch.zeros(1, 1, 16, 32, device=cuda)
+    k = torch.zeros(1, 1, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        flash_attention(q, k, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("W", [0, 1, 4])
+@pytest.mark.parametrize("window", [0, 20])
+@pytest.mark.parametrize("heads", [(8, 4), (6, 2), (16, 8)], ids=str)
+def test_paged_kernel_matches_plain(cuda, dtype, W, window, heads):
+    Hn, Hkv = heads
+    B, Dh, ps, NP, NB = 4, 128, 16, 40, 6
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qshape = (B, Hn, Dh) if W == 0 else (B, W, Hn, Dh)
+    q = torch.randn(qshape, generator=g, device=cuda).to(dtype)
+    pk = torch.randn(NP, ps, Hkv, Dh, generator=g, device=cuda).to(dtype)
+    pv = torch.randn(NP, ps, Hkv, Dh, generator=g, device=cuda).to(dtype)
+    tables = torch.randint(0, NP, (B, NB), generator=g, device=cuda, dtype=torch.int32)
+    lengths = torch.tensor([0, 15, 16, NB * ps - max(W, 1)], dtype=torch.int32, device=cuda)
+    before = _build.LAUNCHES["paged_attention"]
+    out = paged_attention(q, pk, pv, tables, lengths, window=window)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["paged_attention"] == before + 1
+    ref = paged_attention_reference(q, pk, pv, tables, lengths, window=window)
+    assert out.shape == q.shape
+    assert _close(out, ref)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 2, 48, device=cuda)
+    pool = torch.zeros(4, 8, 2, 48, device=cuda)
+    t = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    n = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention(q, pool, pool, t, n)
+    q = torch.zeros(1, 2, 32, device=cuda)
+    pool = torch.zeros(4, 8, 2, 32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        paged_attention(q, pool, pool, t.long(), n)
+
+
+@pytest.mark.gpu
+def test_engine_on_card_matches_cpu_float32(cuda):
+    """Small float32 model: greedy tokens on the card (both kernels) equal
+    the port's CPU run on the same weights."""
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (1, 3, 17, 40, 9)]
+    outs = {}
+    for dev in ("cpu", cuda):
+        eng = serving.InferenceEngine(params, cfg, max_batch=4, max_len=96, page_size=16,
+                                      fused_steps=4, paged_kernel=True, device=dev)
+        reqs = [eng.submit(serving.Request(prompt=p, max_new_tokens=12)) for p in prompts]
+        _build.reset_launches()
+        eng.run_until_idle()
+        assert all(r.done.is_set() and not r.error for r in reqs)
+        outs[str(dev)] = [r.output for r in reqs]
+        if dev is cuda:
+            assert _build.LAUNCHES["flash_fwd"] == cfg.n_layers * eng.prefills_run
+            assert _build.LAUNCHES["paged_attention"] == (
+                cfg.n_layers * eng.fused_steps * eng.steps_run
+            )
+    assert outs["cpu"] == outs[str(cuda)]
