@@ -10,18 +10,31 @@ Phases, each failing the run (non-zero exit) on any fault:
 3. K1 (flash-attention forward) against ``mha_reference`` on the card:
    the prefill shapes of the main path plus edge cases;
 4. K2 (paged decode attention) against ``paged_attention_reference``;
-5. the port's serving engine at the full width of the repo's largest LM
+5. K4 (flash-attention backward) against ``flash_backward_reference``
+   rounded where the kernel rounds: the training shape plus edge cases;
+   faults planted in the training-shape result, which the tolerance must
+   refuse; gradients through ``FlashAttention`` (K1 + K4) against
+   autograd of ``mha_reference``;
+6. the port's serving engine at the full width of the repo's largest LM
    config (~1.01B parameters, GQA 16q/8kv, bf16, random weights from a
    seed, 16 layers): 12 mixed-length greedy prompts, 64 new tokens each,
    with the paged kernel; launch counts must match the path exactly; the
    gather-path engine on the same weights must agree; a small float32
    model must give identical greedy tokens on the card and on the CPU;
-6. HTTP: ``serve_inference`` on the card-resident engine, one blocking
+7. HTTP: ``serve_inference`` on the card-resident engine, one blocking
    and one SSE completion against the engine's own tokens, /healthz and
    /v1/stats;
-7. one fused decode chunk of the full-width engine under torch.profiler:
+8. one fused decode chunk of the full-width engine under torch.profiler:
    device time by kernel and the device's idle share;
-8. a ``{"kernels": [...]}`` line with each kernel's launches on the main
+9. the training path at the same full width (``remat``, 8 vocab chunks,
+   AdamW with a bf16 first moment and fp32 masters, B 8, S 1024 from the
+   port's synthetic token stream): one warm-up step and 5 timed steps;
+   the loss must be finite and fall, and K1 / K4 launches must equal
+   2L and L per step; a small float32 model must train to the same
+   losses and parameters on the card and on the CPU; ``launcher.run_job``
+   with the reference's default ``JobSpec``; one train step under
+   torch.profiler;
+10. a ``{"kernels": [...]}`` line with each kernel's launches on its main
    path, error against its plain version, time, plain time, library
    time and lower bound, then the card line and the final ``{"ok": ...}``.
 
@@ -30,6 +43,7 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import http.client
 import json
 import os
@@ -88,20 +102,46 @@ def device_kernels(prof) -> list[dict]:
     return sorted(out, key=lambda k: -k["ms"])
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time of one call (every kernel it launches, summed; host
-    launch overhead excluded), from torch.profiler over ``reps`` calls."""
+# Now and then torch.profiler hands back no device events for a window
+# (one window in ~50 of one run on the card, cause not known); such a
+# window runs again, up to this many times in all
+PROFILE_TRIES = 3
+
+
+def profiled(fn, what: str, cpu: bool = False) -> tuple[float, list[dict]]:
+    """Run ``fn`` once under torch.profiler: (wall ms, device kernels).
+    The run fails if no try of PROFILE_TRIES saw the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = device_kernels(prof)
+        if kernels:
+            return wall_ms, kernels
+        log(f"the profiler saw no device time in {what} (attempt {attempt} of {PROFILE_TRIES})")
+    fail(f"the profiler saw no device time in {what} in {PROFILE_TRIES} attempts")
+
+
+def device_ms(fn, reps: int, match: str = "") -> float:
+    """Device time of one call (every kernel it launches whose name holds
+    ``match``, summed; host launch overhead excluded), from torch.profiler
+    over ``reps`` calls."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    total = sum(k["ms"] for k in device_kernels(prof))
-    check(total > 0, "the profiler saw no device time")
+
+    _, kernels = profiled(run, f"{reps} calls ({match or 'all kernels'})")
+    total = sum(k["ms"] for k in kernels if match in k["kernel"])
+    check(total > 0, f"no kernel named {match!r} ran")
     return total / reps
 
 
@@ -220,7 +260,7 @@ def phase_k2(dev):
     return worst
 
 
-# -- phase 5: the engine ---------------------------------------------------
+# -- phase 6: the engine ---------------------------------------------------
 
 
 FULL = dict(vocab_size=32000, d_model=2048, n_layers=16, n_heads=16, n_kv_heads=8,
@@ -382,7 +422,7 @@ def phase_engine(dev):
     return eng, prompts, reqs, launches, sampler, perf
 
 
-# -- phase 6: HTTP ---------------------------------------------------------
+# -- phase 7: HTTP ---------------------------------------------------------
 
 
 def phase_http(eng, prompt):
@@ -430,7 +470,7 @@ def phase_http(eng, prompt):
         loop.stop()
 
 
-# -- phase 7: the kernels line ---------------------------------------------
+# -- phases 8 and 10: profile and the kernels line -------------------------
 
 
 def kernel_k1(eng, prompts, launches, worst):
@@ -533,26 +573,17 @@ def phase_profile(eng, prompts) -> None:
     """One fused decode chunk of a full batch under torch.profiler: device
     time by kernel, and the device's busy share of the chunk's wall time
     (one stream, so busy = the sum of kernel times)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from elastic_gpu_scheduler_tpu_torch.models.serving import Request
 
-    reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=3 * eng.fused_steps))
+    # enough tokens that every slot stays live through a window run again
+    reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=5 * eng.fused_steps))
             for p in prompts[: eng.max_batch]]
     eng._admit()  # the prefills, outside the window
     eng.step()  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, kernels = profiled(eng.step, "a fused decode chunk", cpu=True)
     eng.run_until_idle()
     check(all(r.done.is_set() and not r.error for r in reqs), "profiled requests failed")
-    kernels = device_kernels(prof)
     busy = sum(k["ms"] for k in kernels)
-    check(busy > 0, "the profiler saw no device time")
     res = {"window": f"one fused chunk ({eng.fused_steps} decode iterations, "
                      f"batch {eng.max_batch})",
            "wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
@@ -562,6 +593,386 @@ def phase_profile(eng, prompts) -> None:
         f"(idle share {1 - busy / wall_ms:.3f}), {res['launches']} kernel launches")
     for k in kernels[:12]:
         log(f"  {k['ms']:9.3f} ms  x{k['count']:5d}  {k['kernel']}")
+
+
+# -- phase 5: K4 -----------------------------------------------------------
+
+
+def tol_use(got, ref, rounded=True) -> tuple[float, str]:
+    """The largest share of its K4 tolerance (``grad_limit``) any element
+    of ``got`` takes (<= 1 passes), and a line with the readings behind it."""
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import grad_limit
+
+    r = ref.float()
+    d = (got.float() - r).abs()
+    use = float((d / grad_limit(ref, got.dtype, rounded)).max())
+    text = (f"max|d|={float(d.max()):.3g} median|ref|={float(r.abs().median()):.3g} "
+            f"rms(ref)={float(r.pow(2).mean().sqrt()):.3g} max|ref|={float(r.abs().max()):.3g} "
+            f"tolerance used {use:.3g}")
+    return use, text
+
+
+TRAIN_ATTN = (8, 16, 1024, 1024, 128)  # B, H (after repeat_kv), Sq, Sk, Dh
+
+
+def planted_faults(q, k, v, out, lse, do, got, want) -> dict:
+    """K4's bf16 check must refuse a wrong kernel: faults planted in the
+    kernel's train-shape result (or its inputs) must each exceed the
+    tolerance.  Returns each fault's share of the tolerance."""
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import flash_backward, grad_close
+
+    dq, dk, dv = got
+    no_delta = flash_backward(q, k, v, out.new_zeros(out.shape), lse, do, True, None, 0)
+    faults = {
+        "dv, last 128 keys zeroed": (_scaled_tail(dv, 128, 0.0), want[2]),
+        "dk, last 64 keys zeroed": (_scaled_tail(dk, 64, 0.0), want[1]),
+        "dq, rows 512 on x0.97": (_scaled_tail(dq, 512, 0.97), want[0]),
+        "dq, delta dropped": (no_delta[0], want[0]),
+        "dk, delta dropped": (no_delta[1], want[1]),
+    }
+    res = {}
+    for name, (bad, ref) in faults.items():
+        use, text = tol_use(bad, ref)
+        log(f"K4 planted fault ({name}): {text}")
+        check(not grad_close(bad, ref), f"K4's tolerance lets a planted fault through: {name}")
+        res[name] = use
+    return res
+
+
+def _scaled_tail(t, n, factor):
+    """A copy of (B, H, S, D) ``t`` with its last ``n`` rows times ``factor``."""
+    bad = t.clone()
+    bad[:, :, -n:] = (bad[:, :, -n:].float() * factor).to(t.dtype)
+    return bad
+
+
+def phase_k4(dev):
+    """Returns the worst |kernel - plain| of dq and of dk/dv at the train
+    shape (bf16), and the planted faults' shares of the tolerance."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_backward,
+        flash_backward_reference,
+        grad_close,
+        mha_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, H, S, _, D = TRAIN_ATTN
+    # (B, H, Sq, Sk, D, dtype, causal, window)
+    cases = [
+        (B, H, S, S, D, torch.bfloat16, True, 0),  # the train path's shape
+        (1, 16, 1000, 1000, 128, torch.bfloat16, True, 0),  # non-power-of-two
+        (1, 16, 200, 640, 128, torch.bfloat16, True, 0),  # rectangular
+        (1, 16, 512, 512, 128, torch.bfloat16, True, 128),  # sliding window
+        (2, 8, 384, 384, 64, torch.bfloat16, True, 0),  # head_dim 64
+        (2, 4, 96, 160, 64, torch.float32, True, 0),  # fp32, TF32 off
+    ]
+    worst, uses = {"dq": 0.0, "dkv": 0.0}, {}
+    for B_, H_, sq, sk, D_, dt, causal, window in cases:
+        q = torch.randn(B_, H_, sq, D_, generator=g, device=dev).to(dt)
+        k = torch.randn(B_, H_, sk, D_, generator=g, device=dev).to(dt)
+        v = torch.randn(B_, H_, sk, D_, generator=g, device=dev).to(dt)
+        do = torch.randn(B_, H_, sq, D_, generator=g, device=dev).to(dt)
+        out, lse = mha_reference(q, k, v, causal, None, window)
+        got = flash_backward(q, k, v, out, lse, do, causal, None, window)
+        torch.cuda.synchronize()
+        # rounded where the kernel rounds (P and dS to bf16), so the bf16
+        # tolerance can be a few bf16 steps
+        want = flash_backward_reference(q, k, v, out, lse, do, causal, None, window,
+                                        round_like_kernel=True)
+        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        at = f"B={B_} H={H_} Sq={sq} Sk={sk} D={D_} {name} causal={causal} window={window}"
+        for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+            use, text = tol_use(a, b)
+            log(f"K4 {at} {nm}: {text}")
+            check(a.dtype == b.dtype and grad_close(a, b),
+                  f"K4 {nm} disagrees with flash_backward_reference at {at}")
+            uses[f"{at} {nm}"] = use
+        if (B_, H_, sq, D_, dt) == (B, H, S, D, torch.bfloat16):
+            errs = [maxerr(a, b) for a, b in zip(got, want)]
+            worst = {"dq": errs[0], "dkv": max(errs[1], errs[2])}
+            faults = planted_faults(q, k, v, out, lse, do, got, want)
+        del q, k, v, do, out, lse, got, want
+        torch.cuda.empty_cache()
+    # K1 + K4 through the autograd function against autograd of the plain
+    # forward, which rounds neither P nor dS (the looser bf16 tolerance)
+    for shape, dt in (((2, 16, 512, 128), torch.bfloat16), ((1, 4, 200, 64), torch.float32)):
+        leaves = [torch.randn(*shape, generator=g, device=dev).to(dt).requires_grad_()
+                  for _ in range(3)]
+        do = torch.randn(*shape, generator=g, device=dev).to(dt)
+        got = torch.autograd.grad(flash_attention(*leaves, True, None, 0), leaves, do)
+        want = torch.autograd.grad(mha_reference(*leaves, True, None, 0)[0], leaves, do)
+        for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+            use, text = tol_use(a, b, rounded=False)
+            log(f"FlashAttention {shape} {dt} {nm} against autograd of mha_reference: {text}")
+            check(grad_close(a, b, rounded=False),
+                  f"FlashAttention gradients disagree at {shape} {dt}")
+            uses[f"FlashAttention {shape} {dt} {nm}"] = use
+    torch.cuda.empty_cache()
+    log(json.dumps({"k4_tolerance_used": uses, "k4_planted_faults": faults}))
+    return worst
+
+
+# -- phase 9: training -------------------------------------------------------
+
+
+TRAIN = dict(FULL, remat=True, xent_chunks=8)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 5
+
+
+def matmul_flops_fwd(cfg, batch: int, seq: int) -> float:
+    """Matmul-only forward FLOPs, as the repo's bench counts them
+    (bench.py ``matmul_flops_fwd``): projections, FFN, unembed and the
+    causal half of QK^T and PV; the embedding gather is excluded."""
+    D, F, L, V, S = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size, seq
+    H = cfg.n_heads * cfg.head_dim
+    KV = cfg.kv_heads * cfg.head_dim
+    per_token_dense = L * (2 * D * (H + 2 * KV) + 2 * H * D + 6 * D * F)
+    per_token_dense += 2 * D * V  # unembed
+    dense = batch * S * per_token_dense
+    attn = L * batch * 2 * (S * S // 2) * (2 * H)  # causal half, qk + pv
+    return float(dense + attn)
+
+
+def phase_train(dev):
+    """The full-width training path: 1 warm-up and TRAIN_STEPS timed steps."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.data import SyntheticTokenDataset, batches
+    from elastic_gpu_scheduler_tpu_torch.models.train import (
+        init_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import (
+        TransformerConfig,
+        param_count,
+    )
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    cfg = TransformerConfig(**TRAIN)
+    opt = make_optimizer(mu_dtype="bfloat16")
+    params, state = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = param_count(params)
+    step = make_train_step(cfg, opt)
+    # one batch of the synthetic stream, stepped on repeatedly (as the
+    # repo's train bench does), so "the loss falls" does not hang on how
+    # hard the next batch happens to be
+    batch = next(batches(SyntheticTokenDataset(cfg.vocab_size, seed=0), TRAIN_B, TRAIN_S, seed=1))
+    toks = [torch.from_numpy(batch).to(dev)] * (TRAIN_STEPS + 1)
+    log(f"train: {n_params / 1e9:.3f}B parameters, B={TRAIN_B} S={TRAIN_S}, remat, "
+        f"xent_chunks={cfg.xent_chunks}, AdamW mu bf16 + fp32 masters")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path: counts at 0 just before, read just after
+    _build.reset_launches()
+    losses, times = [], []
+    for t in toks:
+        t0 = time.perf_counter()
+        _, _, loss = step(params, state, t)
+        losses.append(float(loss))  # synchronizes
+        times.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    n_steps = len(toks)
+    L = cfg.n_layers
+    want = {"flash_fwd": 2 * L * n_steps, "flash_bwd_dq": L * n_steps,
+            "flash_bwd_dkv": L * n_steps, "paged_attention": 0}
+    log(f"train main path: {n_steps} steps, losses {[round(x, 4) for x in losses]}, "
+        f"launches {launches} (want {want})")
+    check(all(np.isfinite(losses)), "train loss not finite")
+    check(losses[-1] < losses[0], "train loss did not fall")
+    check(launches == want, "train-path launches differ from 2L / L per step")
+    step_ms = float(np.mean(times[1:])) * 1e3
+    flops = 3 * matmul_flops_fwd(cfg, TRAIN_B, TRAIN_S)
+    perf = {
+        "step_ms": step_ms, "step_ms_each": [x * 1e3 for x in times],
+        "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
+        "model_tflops": flops / (step_ms / 1e3) / 1e12,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "params_b": n_params / 1e9, "losses": losses,
+    }
+    log("train perf: " + json.dumps(perf))
+    return cfg, params, state, step, toks[0], launches, perf
+
+
+def phase_train_profile(step, params, state, tokens) -> dict:
+    """One full-width train step under torch.profiler: device busy time,
+    idle share, top kernels and K4's share."""
+    wall_ms, kernels = profiled(lambda: float(step(params, state, tokens)[2]),
+                                "a train step", cpu=True)
+    busy = sum(k["ms"] for k in kernels)
+
+    def share(sub):
+        return sum(k["ms"] for k in kernels if sub in k["kernel"]) / busy
+
+    res = {"window": "one full-width train step", "wall_ms": wall_ms,
+           "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+           "launches": sum(k["count"] for k in kernels),
+           "k4_share": share("flash_bwd"), "k1_share": share("flash_fwd"),
+           "top": kernels[:25]}
+    log(json.dumps({"train_profile": res}))
+    log(f"train profile: step wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+        f"(idle share {res['idle_share']:.3f}), K4 {res['k4_share']:.3f} and K1 "
+        f"{res['k1_share']:.3f} of device time, {res['launches']} kernel launches")
+    for k in kernels[:12]:
+        log(f"  {k['ms']:9.3f} ms  x{k['count']:5d}  {k['kernel']}")
+    return res
+
+
+def phase_train_cpu_vs_card(dev) -> None:
+    """A small float32 model, 3 steps on the card and 3 on the CPU from
+    the same weights and tokens: losses and final parameters within 1e-4
+    relative (of the loss; of each leaf's largest magnitude)."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.data import SyntheticTokenDataset, batches
+    from elastic_gpu_scheduler_tpu_torch.models.train import (
+        _leaves,
+        make_optimizer,
+        make_train_step,
+        state_for,
+    )
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+
+    small = TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                              n_kv_heads=2, d_ff=512, dtype="float32", remat=True,
+                              xent_chunks=4)
+    base = init_params(small, torch.Generator().manual_seed(3), "cpu")
+    stream = batches(SyntheticTokenDataset(512, seed=4), 4, 128, seed=5)
+    toks = [torch.from_numpy(next(stream)) for _ in range(3)]
+    out = {}
+    for where in ("cpu", dev):
+        opt = make_optimizer(lr=3e-4, warmup_steps=1, total_steps=4, grad_clip=1.0)
+        params = {k: (v.clone().to(where) if not isinstance(v, dict)
+                      else {n: t.clone().to(where) for n, t in v.items()})
+                  for k, v in base.items()}
+        params, state = state_for(params, opt)
+        step = make_train_step(small, opt)
+        losses = [float(step(params, state, t.to(where))[2]) for t in toks]
+        out[str(where)] = (losses, [p.detach().cpu() for p in _leaves(params)])
+    (lc, pc), (lg, pg) = out["cpu"], out[str(dev)]
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    param_rel = max(float((a - b).abs().max() / a.abs().max()) for a, b in zip(pc, pg))
+    log(f"small float32 train, card vs CPU: losses {lg} vs {lc}; max loss rel diff "
+        f"{loss_rel:.3g}, max param diff / leaf max {param_rel:.3g} (tol 1e-4)")
+    check(loss_rel <= 1e-4 and param_rel <= 1e-4, "float32 training differs between card and CPU")
+
+
+def phase_launcher(dev) -> dict:
+    """``launcher.run_job`` with the reference's default JobSpec (the
+    default 4-layer bf16 model, B 8, S 128), 3 steps on the card."""
+    from elastic_gpu_scheduler_tpu_torch import launcher
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    spec = launcher.JobSpec(steps=3)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    losses = launcher.run_job(spec, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    L = spec.model.n_layers
+    log(f"launcher.run_job default JobSpec: losses {losses} in {wall:.2f} s, launches {launches}")
+    check(len(losses) == 3 and all(np.isfinite(losses)), "run_job losses")
+    check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == L * 3
+          and launches["flash_fwd"] == L * 3, "run_job did not run K1/K4 once a layer a step")
+    return {"losses": losses, "wall_s": wall}
+
+
+def k4_bound_ms(B, H, sq, sk, D, causal, window, itemsize) -> tuple[float, str]:
+    """The whole backward the two K4 kernels replace: 5 products a kept
+    pair (S, dP, dV, dQ, dK; 2 FLOPs a MAC); q, k, v, out, dO and the fp32
+    lse read once, dq, dk, dv written once."""
+    pairs = B * H * k1_pairs(sq, sk, causal, window)
+    flops = 2 * 5 * pairs * D
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    byts = B * H * (3 * sq + 2 * sk) * D * itemsize + B * H * sq * 4
+    byts += B * H * (sq + 2 * sk) * D * itemsize
+    t_ops, t_bytes = flops / peak * 1e3, byts / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# each K4 kernel's share of the backward's bound: the products it alone
+# must do (the dq kernel dQ; the dkv kernel S, dP, dV and dK), so the two
+# rows add up to the function's bound and not to the 7 products the
+# two-kernel design does
+K4_SHARE = {"dq": 1 / 5, "dkv": 4 / 5}
+
+
+def kernel_train_rows(dev, launches, k4_err) -> list[dict]:
+    """K1 and K4 at the train path's attention shape (bf16, causal)."""
+    import torch
+    import torch.nn.functional as F
+
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_backward,
+        flash_backward_reference,
+        mha_reference,
+    )
+
+    B, H, S, _, D = TRAIN_ATTN
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    # K1 forward
+    out, lse = flash_attention(q, k, v, True, None, 0, return_lse=True)
+    ref, ref_lse = mha_reference(q, k, v, True, None, 0)
+    k1_err = maxerr(out, ref)
+    k1_ms = device_ms(lambda: flash_attention(q, k, v, True, None, 0), 20)
+    k1_plain = device_ms(lambda: mha_reference(q, k, v, True, None, 0), 5)
+    k1_lib = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
+    k1_bound, k1_by = k1_bound_ms(B, H, S, S, D, True, 0, 2)
+    # K4: each kernel's own device time, from the same calls
+    def bwd():
+        return flash_backward(q, k, v, out, lse, do, True, None, 0)
+
+    dq_ms = device_ms(bwd, 10, match="flash_bwd_dq")
+    dkv_ms = device_ms(bwd, 10, match="flash_bwd_dkv")
+    plain_ms = device_ms(lambda: flash_backward_reference(q, k, v, ref, ref_lse, do, True,
+                                                          None, 0), 3)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        return torch.autograd.grad(o, leaves, do)
+
+    lib_bwd = device_ms(sdpa_fwd_bwd, 10) - k1_lib
+    log(f"train-shape timing (B={B} H={H} S={S} D={D} bf16 causal): K1 {k1_ms:.4f} ms "
+        f"(plain {k1_plain:.4f}, sdpa {k1_lib:.4f}, bound {k1_bound:.5f} {k1_by}); "
+        f"K4 dq {dq_ms:.4f} ms + dkv {dkv_ms:.4f} ms (plain backward {plain_ms:.4f}, "
+        f"sdpa backward {lib_bwd:.4f})")
+    rows = [{
+        "name": "flash_fwd", "path": "train", "route": "cuda",
+        "source": "elastic_gpu_scheduler_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:290",
+        "launches": launches["flash_fwd"], "max_abs_err": k1_err,
+        "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
+        "library_ms": k1_lib,
+    }]
+    k4_bound, k4_by = k4_bound_ms(B, H, S, S, D, True, 0, 2)
+    log(f"K4 bound (the whole backward): {k4_bound:.5f} ms ({k4_by}); dq + dkv "
+        f"{dq_ms + dkv_ms:.4f} ms, {(dq_ms + dkv_ms) / k4_bound:.1f}x")
+    for which, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+        bound, by = K4_SHARE[which] * k4_bound, k4_by
+        rows.append({
+            "name": f"flash_bwd_{which}", "path": "train", "route": "cuda",
+            "source": "elastic_gpu_scheduler_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:633",
+            "launches": launches[f"flash_bwd_{which}"], "max_abs_err": k4_err[which],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_bwd,
+            "note": "plain_ms and library_ms are the whole backward (dq, dk and dv): "
+                    "flash_backward_reference, and SDPA forward+backward minus forward; "
+                    "bound_ms is this kernel's share (dq 1/5, dkv 4/5) of the whole "
+                    "backward's bound",
+        })
+    return rows
 
 
 def main() -> int:
@@ -596,25 +1007,44 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
 
-    # 3. and 4. the kernels against their plain versions
+    # 3. to 5. the kernels against their plain versions
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
+    k4_err = phase_k4(dev)
 
-    # 5. the engine, 6. HTTP
+    # 6. the engine, 7. HTTP
     eng, prompts, reqs, launches, sampler, perf = phase_engine(dev)
     phase_http(eng, prompts[0])
 
-    # 7. where a fused chunk's time goes, 8. the kernels line
+    # 8. where a fused chunk's time goes; the engine's kernel rows
     phase_profile(eng, prompts)
     kernels = [kernel_k1(eng, prompts, launches, k1_err), kernel_k2(sampler, launches, k2_err)]
+    kernels[0]["path"] = kernels[1]["path"] = "serve"
+    del eng, prompts, reqs, sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. the training path, card against CPU, the launcher, a profiled step
+    cfg, params, state, step, tokens, train_launches, train_perf = phase_train(dev)
+    train_prof = phase_train_profile(step, params, state, tokens)
+    del cfg, params, state, step, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_cpu_vs_card(dev)
+    launcher_res = phase_launcher(dev)
+
+    # 10. the kernels line
+    kernels += kernel_train_rows(dev, train_launches, k4_err)
     for k in kernels:
-        check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
+        check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
     log(json.dumps({"engine": perf}))
+    log(json.dumps({"train": train_perf, "train_profile_idle_share": train_prof["idle_share"],
+                    "launcher": launcher_res}))
     log(card)
     print(json.dumps({"kernels": kernels}))
+    # the one card this script drives (cuda:0)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
 
 

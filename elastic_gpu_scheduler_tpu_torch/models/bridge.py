@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .train import AdamWState, MasterState
 from .transformer import resolve_device
 
 _NP_TO_TORCH = {
@@ -60,3 +61,35 @@ def params_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tensor_to_numpy(tree)
+
+
+def _adam_states(tree, found: list) -> None:
+    """Every namedtuple with a ``count`` field, in order (optax's
+    ``ScaleByAdamState`` and ``ScaleByScheduleState``)."""
+    if hasattr(tree, "_fields"):
+        if "count" in tree._fields:
+            found.append(tree)
+            return
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            _adam_states(t, found)
+
+
+def opt_state_from_jax(state, device=None):
+    """An optax AdamW state (numpy leaves) → the port's ``AdamWState``, or
+    a ``MasterState`` of (master, inner) → the port's ``MasterState``."""
+    dev = resolve_device(device)
+    if hasattr(state, "_fields") and {"master", "inner"} <= set(state._fields):
+        return MasterState(params_from_jax(state.master, dev),
+                           opt_state_from_jax(state.inner, dev))
+    found: list = []
+    _adam_states(state, found)
+    adam = [s for s in found if "mu" in s._fields and "nu" in s._fields]
+    if len(adam) != 1:
+        raise ValueError(f"expected one adam state (count, mu, nu), found {len(adam)}")
+    counts = {int(np.asarray(s.count)) for s in found}
+    if len(counts) != 1:
+        raise ValueError(f"adam and schedule counts disagree: {sorted(counts)}")
+    a = adam[0]
+    return AdamWState(count=counts.pop(), mu=params_from_jax(a.mu, dev),
+                      nu=params_from_jax(a.nu, dev))

@@ -20,6 +20,10 @@ leave a fixed-shape batch between fused decode chunks:
   (kernel K2 on CUDA); otherwise it gathers each slot's pages into a
   contiguous view and attends with ``cached_attention``.
 
+The step functions run under ``torch.inference_mode()``: serving
+parameters that require grad (a model fresh from ``models/train.py``)
+builds no autograd graph.
+
 A slot that cannot get pages stalls (state intact) until completions free
 some; a higher-priority stalled slot spills a lower-priority one (its
 request requeues and resumes exactly); if every slot is stalled the engine
@@ -195,6 +199,7 @@ def _paged_attn_call(q, lkv, tables, lengths, cfg, dtype):
     )
 
 
+@torch.inference_mode()
 def _paged_decode_step(params, tokens, kv, tables, lengths, cfg, page_size,
                        paged_kernel=False):
     """One decode step for every slot at its own position.
@@ -234,6 +239,7 @@ def _paged_decode_step(params, tokens, kv, tables, lengths, cfg, page_size,
     return logits.float(), kv
 
 
+@torch.inference_mode()
 def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size):
     """One-pass prompt ingestion for ONE slot: causal self-attention over
     the whole (padded) prompt block, K/V scattered into the slot's pages.
@@ -275,6 +281,7 @@ def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size):
     return logits.float(), kv
 
 
+@torch.inference_mode()
 def _fused_serve_chunk(
     params, kv, tables, tokens, lengths, active, prompts, prompt_lens,
     temps, top_ks, top_ps, generator,

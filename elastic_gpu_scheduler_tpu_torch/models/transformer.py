@@ -1,15 +1,18 @@
-"""Flagship decoder-only transformer LM, dense inference forward.
+"""Flagship decoder-only transformer LM, dense forward and backward.
 
 Counterpart of ``elastic_gpu_scheduler_tpu/models/transformer.py``: the
 same config, the same L-stacked parameter dict (weights stored (in, out),
 so ``x @ w`` matches), the same norm, rotary and GQA conventions.  Layers
 run as a Python loop over the stacked leaves instead of ``lax.scan``;
-attention goes through the port's ``flash_attention`` (kernel K1 on CUDA).
+attention goes through the port's ``flash_attention`` (kernel K1 forward
+and K4 backward on CUDA).  ``cfg.remat`` recomputes each layer in the
+backward (``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint``); ``cfg.xent_chunks`` selects the vocab-chunked loss in
+``models/train.py``.
 
 Not ported yet, and rejected by name where a config or a parameter tree
 asks for them: ring attention, pipeline parallelism, MoE, LoRA adapters
-and int8 weights.  ``remat`` and ``xent_chunks`` only shape training,
-which is a later slice; the inference forward is the same either way.
+and int8 weights.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import flash_attention
 from .quantize import wmat
@@ -105,6 +109,35 @@ def check_dense(cfg: TransformerConfig, params: Optional[dict] = None) -> None:
 # -- init --------------------------------------------------------------------
 
 
+def check_no_mesh(mesh, what: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what}: a device mesh needs parallel/ (sharding, collectives), "
+            "which is a later slice of the port; this slice runs on one device"
+        )
+
+
+# norm scales (and the reference's MoE router) stay fp32 at rest
+_FP32_AT_REST = ("attn_norm", "mlp_norm", "final_norm", "moe_gate")
+
+
+def cast_params_to_rest(params: dict, cfg: TransformerConfig) -> dict:
+    """Cast fp32 matmul weights to the at-rest dtype (no-op for float32);
+    ``wmat`` casts to the compute dtype per use either way."""
+    pd = cfg.rest_dtype
+    if pd == torch.float32:
+        return params
+
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if name in _FP32_AT_REST or tree.dtype != torch.float32:
+            return tree
+        return tree.to(pd)
+
+    return walk(params)
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None) -> dict:
     """Random weights with the reference's shapes, scales and at-rest
     dtypes (normal / sqrt(fan_in); fp32 norms).  The values come from
@@ -116,11 +149,10 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None)
         cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff, cfg.n_layers, cfg.vocab_size
     )
     KV = cfg.kv_heads * cfg.head_dim
-    rest = cfg.rest_dtype
 
     def dense(shape, fan_in):
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
-        return (w * fan_in ** -0.5).to(rest)
+        return w * fan_in ** -0.5
 
     layers = {
         "attn_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
@@ -133,12 +165,13 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None)
         "w_gate": dense((L, D, F_), D),
         "w_out": dense((L, F_, D), F_),
     }
-    return {
+    params = {
         "embed": dense((V, D), 1.0),
         "layers": layers,
         "final_norm": torch.ones((D,), dtype=torch.float32, device=dev),
         "unembed": dense((D, V), D),
     }
+    return cast_params_to_rest(params, cfg)
 
 
 def param_count(params: dict) -> int:
@@ -223,12 +256,42 @@ def _layer(x, p, cfg: TransformerConfig):
     return x + (gate * up) @ wmat(p["w_out"], dtype)
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """tokens: (B, S) int → logits (B, S, V) float32."""
+def hidden_with_aux(
+    params: dict, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) int → (final-norm hidden (B, S, D), aux scalar 0).
+
+    The pre-unembed trunk, so the chunked loss (ops/xent.py) can take
+    hidden states without the logits ever existing.  The stacked layer
+    leaves are unbound once, so their gradients gather into the stacked
+    tensors by one stack in the backward, not by L full-size adds.  With
+    ``cfg.remat`` each layer is checkpointed: only its input is kept and
+    its forward (K1 included) runs again in the backward."""
+    check_no_mesh(mesh, "hidden_with_aux")
     check_dense(cfg, params)
     dtype = torch_dtype(cfg.dtype)
     x = _embed_lookup(params["embed"], tokens, dtype)
+    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x = _layer(x, layer_slice(params["layers"], i), cfg)
+        lp = {k: v[i] for k, v in per_layer.items()}
+        if remat:
+            x = checkpoint(_layer, x, lp, cfg, use_reentrant=False)
+        else:
+            x = _layer(x, lp, cfg)
     x = rms_norm(x, params["final_norm"])
-    return (x @ wmat(params["unembed"], dtype)).float()
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_with_aux(
+    params: dict, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) int → (logits (B, S, V) float32, aux scalar)."""
+    x, aux = hidden_with_aux(params, tokens, cfg, mesh)
+    logits = x @ wmat(params["unembed"], torch_dtype(cfg.dtype))
+    return logits.float(), aux
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+    """tokens: (B, S) int → logits (B, S, V) float32."""
+    return forward_with_aux(params, tokens, cfg, mesh)[0]

@@ -41,7 +41,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills, per kernel
 )
 
-LAUNCHES: dict[str, int] = {"flash_fwd": 0, "paged_attention": 0}
+LAUNCHES: dict[str, int] = {
+    "flash_fwd": 0, "paged_attention": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -56,6 +58,11 @@ _SIGNATURES = {
     # dtype, window, scale, stream
     "egs_paged_attention": ([_P] * 6 + [_I] * 9 + [_F, _P], ctypes.c_int),
     "egs_paged_attention_smem": ([_I, _I, _I], ctypes.c_longlong),
+    # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, dtype, causal, window,
+    # scale, stream
+    "egs_flash_bwd_dq": ([_P] * 7 + [_I] * 8 + [_F, _P], ctypes.c_int),
+    # q, k, v, dout, lse, delta, dk, dv, then as egs_flash_bwd_dq
+    "egs_flash_bwd_dkv": ([_P] * 8 + [_I] * 8 + [_F, _P], ctypes.c_int),
     "egs_error_string": ([_I], ctypes.c_char_p),
 }
 

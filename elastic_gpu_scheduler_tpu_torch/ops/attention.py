@@ -1,18 +1,21 @@
-"""Flash attention forward: the hand-written Hopper kernel K1 and its
-plain PyTorch version.
+"""Flash attention: the hand-written Hopper kernels K1 (forward) and K4
+(backward), their plain PyTorch versions, and the autograd function that
+joins them.
 
-Counterpart of ``elastic_gpu_scheduler_tpu/ops/attention.py``.  On a CUDA
-tensor ``flash_attention`` launches ``csrc/flash_fwd.cu`` (one block per
+Counterpart of ``elastic_gpu_scheduler_tpu/ops/attention.py``.  On CUDA
+tensors ``flash_attention`` launches ``csrc/flash_fwd.cu`` (one block per
 64-row query tile, K/V streamed through shared memory, online softmax in
-fp32, bf16 products on the tensor cores); on a CPU tensor it computes
-``mha_reference``, the same function in plain tensor code.  Nothing else
-chooses between the two: a CUDA tensor the kernel does not take makes the
-wrapper raise.
+fp32, bf16 products on the tensor cores) and, when a gradient is asked
+for, ``csrc/flash_bwd.cu`` (the FlashAttention-2 backward from the saved
+logsumexp: a dq kernel over query tiles and a dk/dv kernel over key
+tiles, no atomics).  On CPU tensors it computes ``mha_reference`` and
+``flash_backward_reference``, the same functions in plain tensor code.
+Nothing else chooses between the two: a CUDA tensor a kernel does not
+take makes the wrapper raise.
 
-Only the forward is ported.  The backward (kernel K4,
-``_flash_backward_pallas`` in the reference) is a later slice, so calling
-``flash_attention`` under autograd raises instead of differentiating the
-plain version.
+``FlashAttention`` is the counterpart of the reference's ``custom_vjp``:
+the forward saves (q, k, v, out, lse) and the backward recomputes the
+probabilities block by block, so no (Sq, Sk) tensor is kept for it.
 
 Layouts are the reference's: q (B, H, Sq, D), k/v (B, H, Sk, D), queries
 aligned to the LAST Sq key positions.
@@ -45,21 +48,125 @@ def mha_reference(
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
-    if causal or window > 0:
-        sq, sk = q.shape[2], k.shape[2]
-        q_ids = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-        k_ids = torch.arange(sk, device=q.device)[None, :]
-        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= q_ids >= k_ids
-        if window > 0:
-            mask &= (q_ids - k_ids) < window
+    mask = _mask(q.shape[2], k.shape[2], causal, window, q.device)
+    if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
     lse = torch.logsumexp(logits, dim=-1)
     p = torch.exp(logits - lse[..., None])
     # P in V's dtype before the product, fp32 accumulation
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype), lse
+
+
+def _mask(sq: int, sk: int, causal: bool, window: int, device) -> Optional[torch.Tensor]:
+    """(Sq, Sk) keep-mask with queries at the last Sq keys, or None."""
+    if not (causal or window > 0):
+        return None
+    q_ids = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    k_ids = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_ids >= k_ids
+    if window > 0:
+        mask &= (q_ids - k_ids) < window
+    return mask
+
+
+def flash_backward_reference(q, k, v, out, lse, do, causal=True, sm_scale=None, window=0,
+                             round_like_kernel=False):
+    """Plain version of K4: the reference's non-Pallas backward (fp32
+    einsums over the whole (Sq, Sk) score matrix, masked logits at
+    ``NEG_INF``, delta from dO * out).  Returns (dq, dk, dv) in the
+    dtypes of q, k, v.
+
+    With ``round_like_kernel`` it also rounds where K4 and the TPU kernels
+    do: P to dO's dtype before dV = P^T dO, and dS to q's dtype before
+    dQ = dS K and dK = dS^T Q (nothing changes in float32).  A bfloat16
+    kernel result then differs from it only by the order of its fp32 sums
+    and the final rounding, which ``grad_close`` holds to a few bfloat16
+    steps."""
+    scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    mask = _mask(q.shape[2], k.shape[2], causal, window, q.device)
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    p = torch.exp(logits - lse[..., None])
+    pv = p.to(do.dtype).float() if round_like_kernel else p
+    dv = torch.einsum("bhqk,bhqd->bhkd", pv, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    delta = torch.sum(dof * out.float(), dim=-1, keepdim=True)
+    ds = p * (dp - delta) * scale
+    if round_like_kernel:
+        ds = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def grad_close(got, ref, rounded=True) -> bool:
+    """K4's tolerance for one gradient against its plain version: finite,
+    and everywhere |got - ref| <= ``grad_limit(ref, got.dtype, rounded)``."""
+    d = (got.float() - ref.float()).abs()
+    return bool((d <= grad_limit(ref, got.dtype, rounded)).all()) and bool(
+        torch.isfinite(got).all()
+    )
+
+
+def grad_limit(ref, dtype, rounded=True) -> torch.Tensor:
+    """Elementwise limit rtol |ref| + atol rms(ref) on a K4 gradient.
+
+    - float32: rtol 1e-5, atol 1e-4 (sums of up to Sk terms in another
+      order);
+    - bfloat16 against ``flash_backward_reference(round_like_kernel=True)``
+      (``rounded``): rtol 2^-6 (two to four bfloat16 steps: both round
+      the same fp32 sums, taken in another order) and atol 2^-5.  The
+      absolute term is for a dS that lies near a rounding edge and
+      rounds the other way: it moves each element of its dq row and dk
+      row by one bfloat16 step of dS times |k| or |q|;
+    - bfloat16 against a plain version that rounds neither P nor dS
+      (autograd of ``mha_reference``): rtol 2^-5 and atol 2^-3, since
+      every one of up to Sk terms then carries its own rounding.
+
+    The absolute term scales with rms(ref), not max(ref): at S 1024 a
+    few early rows hold gradients 50x the typical one."""
+    r = ref.float()
+    if dtype == torch.float32:
+        rtol, atol = 1e-5, 1e-4
+    elif rounded:
+        rtol, atol = 2.0 ** -6, 2.0 ** -5
+    else:
+        rtol, atol = 2.0 ** -5, 2.0 ** -3
+    return rtol * r.abs() + atol * r.pow(2).mean().sqrt()
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 forward and K4 backward (their plain versions on CPU tensors).
+    Returns (out, lse); lse is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, window):
+        devs = {t.device for t in (q, k, v)}
+        if len(devs) != 1:
+            raise ValueError(f"q, k, v on different devices: {sorted(map(str, devs))}")
+        if q.device.type == "cpu":
+            out, lse = mha_reference(q, k, v, causal, sm_scale, window=window)
+        elif q.device.type == "cuda":
+            out, lse = _flash_fwd_cuda(q, k, v, causal, sm_scale, window)
+        else:
+            raise ValueError(f"flash_attention: unsupported device {q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale, ctx.window = causal, sm_scale, window
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(
+            q, k, v, out, lse, do, ctx.causal, ctx.sm_scale, ctx.window
+        )
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -71,56 +178,92 @@ def flash_attention(
     window: int = 0,
     return_lse: bool = False,
 ):
-    """Flash attention forward.  q (B, H, Sq, D), k/v (B, H, Sk, D) →
-    out like q (and lse (B, H, Sq) fp32 with ``return_lse``)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward yet: the flash backward "
-            "(kernel K4, reference ops/attention.py _flash_backward_pallas) "
-            "is a later slice of the port"
-        )
-    devs = {t.device for t in (q, k, v)}
-    if len(devs) != 1:
-        raise ValueError(f"q, k, v on different devices: {sorted(map(str, devs))}")
+    """Flash attention, differentiable in q, k, v.  q (B, H, Sq, D), k/v
+    (B, H, Sk, D) → out like q (and lse (B, H, Sq) fp32 with
+    ``return_lse``)."""
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
-    if q.device.type == "cpu":
-        out, lse = mha_reference(q, k, v, causal, scale, window=window)
-    elif q.device.type == "cuda":
-        out, lse = _flash_fwd_cuda(q, k, v, causal, scale, window)
-    else:
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    out, lse = FlashAttention.apply(q, k, v, bool(causal), scale, int(window))
     return (out, lse) if return_lse else out
+
+
+def flash_backward(q, k, v, out, lse, do, causal=True, sm_scale=None, window=0):
+    """Gradients (dq, dk, dv) of flash attention from the forward's out and
+    lse: K4 on CUDA tensors (two launches, ``flash_bwd_dq`` and
+    ``flash_bwd_dkv``), ``flash_backward_reference`` on CPU tensors."""
+    scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+    devs = {t.device for t in (q, k, v, out, lse, do)}
+    if len(devs) != 1:
+        raise ValueError(f"flash_backward: tensors on different devices: {sorted(map(str, devs))}")
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, out, lse, do, causal, scale, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_backward: unsupported device {q.device}")
+    B, H, Sq, Sk, D = _check_kernel_inputs(q, k, v, window, "flash_backward")
+    if out.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, Sq):
+        raise ValueError(
+            f"flash_backward: out{tuple(out.shape)} do{tuple(do.shape)} "
+            f"lse{tuple(lse.shape)} do not fit q{tuple(q.shape)}"
+        )
+    # delta = rowsum(dO * O) in fp32, outside the kernels as in the reference
+    delta = torch.sum(do.float() * out.float(), dim=-1).contiguous()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    dof = do.to(q.dtype).contiguous()
+    lse = lse.float().contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    _check_aligned((q, k, v, dof, lse, delta, dq, dk, dv), "flash_backward")
+    lib = _build.lib()
+    common = (B, H, Sq, Sk, D, _DTYPE_CODES[q.dtype], int(bool(causal)), int(window),
+              scale, _build.stream_ptr(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dof.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    err = lib.egs_flash_bwd_dq(*ptrs, dq.data_ptr(), *common)
+    _build.check(err, "flash_bwd_dq launch")
+    _build.LAUNCHES["flash_bwd_dq"] += 1
+    err = lib.egs_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *common)
+    _build.check(err, "flash_bwd_dkv launch")
+    _build.LAUNCHES["flash_bwd_dkv"] += 1
+    return dq, dk, dv
+
+
+def _check_kernel_inputs(q, k, v, window, what):
+    """Raise on what K1 and K4 do not take; returns (B, H, Sq, Sk, D)."""
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+        raise ValueError(f"{what}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)}")
+    B, H, Sq, D = q.shape
+    if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
+        raise ValueError(f"{what}: q{tuple(q.shape)} and k{tuple(k.shape)} disagree")
+    Sk = k.shape[2]
+    if Sq > Sk:
+        raise ValueError(f"{what} kernel needs Sq <= Sk, got {Sq} > {Sk}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"{what} kernel takes float32 or bfloat16 q/k/v of one "
+            f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what} kernel takes head_dim in {HEAD_DIMS}, got {D}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    return B, H, Sq, Sk, D
+
+
+def _check_aligned(tensors, what):
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} kernel needs 16-byte aligned tensors")
 
 
 def _flash_fwd_cuda(q, k, v, causal, scale, window):
     """Launch K1 (csrc/flash_fwd.cu); raises on anything it does not take."""
-    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
-        raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)}")
-    B, H, Sq, D = q.shape
-    if k.shape[0] != B or k.shape[1] != H or k.shape[3] != D:
-        raise ValueError(
-            f"flash_attention: q{tuple(q.shape)} and k{tuple(k.shape)} disagree"
-        )
-    Sk = k.shape[2]
-    if Sq > Sk:
-        raise ValueError(f"flash_attention kernel needs Sq <= Sk, got {Sq} > {Sk}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            f"flash_attention kernel takes float32 or bfloat16 q/k/v of one "
-            f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}"
-        )
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, got {D}")
-    if window < 0:
-        raise ValueError(f"window must be >= 0, got {window}")
+    B, H, Sq, Sk, D = _check_kernel_inputs(q, k, v, window, "flash_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError("flash_attention kernel needs 16-byte aligned tensors")
+    _check_aligned((q, k, v), "flash_attention")
     lib = _build.lib()
     err = lib.egs_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),

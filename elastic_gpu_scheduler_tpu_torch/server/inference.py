@@ -27,6 +27,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+import torch
+
 from .. import __version__
 from ..models.serving import DRAINING_ERROR, InferenceEngine, Request
 
@@ -85,6 +87,11 @@ class EngineLoop:
             self._thread.join(timeout=5)
 
     def _run(self) -> None:
+        # serving never differentiates: trainable parameters build no graph
+        with torch.inference_mode():
+            self._serve()
+
+    def _serve(self) -> None:
         eng = self.engine
         failures = 0
         while not self._stop.is_set():

@@ -102,6 +102,13 @@ def test_flash_attention_matches_pallas_interpret(case, resident):
 
 
 def test_flash_attention_refuses_autograd():
+    """Autograd runs through the output (K4's backward, ported) and is
+    refused through the logsumexp, which the reference does not
+    differentiate either."""
     q = torch.zeros(1, 1, 8, 32, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K4"):
-        flash_attention(q, q, q)
+    out, lse = flash_attention(q, q, q, return_lse=True)
+    assert out.requires_grad and not lse.requires_grad
+    with pytest.raises(RuntimeError, match="does not require grad"):
+        torch.autograd.grad(lse.sum(), q)
+    (dq,) = torch.autograd.grad(out.sum(), q)
+    assert dq.shape == q.shape and bool(torch.isfinite(dq).all())

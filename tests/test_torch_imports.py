@@ -45,7 +45,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(res["imported"]) == expected
     assert {"elastic_gpu_scheduler_tpu_torch.models.serving",
             "elastic_gpu_scheduler_tpu_torch.server.inference",
-            "elastic_gpu_scheduler_tpu_torch.ops.paged_attention"} <= expected
+            "elastic_gpu_scheduler_tpu_torch.ops.paged_attention",
+            "elastic_gpu_scheduler_tpu_torch.ops.xent",
+            "elastic_gpu_scheduler_tpu_torch.models.train",
+            "elastic_gpu_scheduler_tpu_torch.models.data",
+            "elastic_gpu_scheduler_tpu_torch.launcher"} <= expected
     bad = [m for m in res["modules"] if _is_jax_package(m)]
     assert not bad, bad
     assert "elastic_gpu_scheduler_tpu_torch" in res["modules"]

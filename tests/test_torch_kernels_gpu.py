@@ -10,6 +10,11 @@ Tolerances: float32 2e-5 absolute; bfloat16 2e-2 absolute plus 1e-2
 relative (the kernel and the plain version round P at different points,
 and an output past |2| then sits one bfloat16 step, 2^-8 relative, either
 side); logsumexp 1e-4.  TF32 is off so float32 products stay float32.
+
+Gradients (K4): ``attention.grad_close``, against
+``flash_backward_reference`` rounded where the kernel rounds (P and dS to
+bfloat16), and with its looser bfloat16 rule against autograd of
+``mha_reference``, which rounds neither.
 """
 
 import numpy as np
@@ -19,7 +24,13 @@ import torch
 from elastic_gpu_scheduler_tpu_torch.models import serving
 from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
 from elastic_gpu_scheduler_tpu_torch.ops import _build
-from elastic_gpu_scheduler_tpu_torch.ops.attention import flash_attention, mha_reference
+from elastic_gpu_scheduler_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_backward,
+    flash_backward_reference,
+    grad_close,
+    mha_reference,
+)
 from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_reference,
@@ -91,6 +102,62 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     k = torch.zeros(1, 1, 8, 32, device=cuda)
     with pytest.raises(ValueError, match="Sq <= Sk"):
         flash_attention(q, k, k)
+
+
+# (B, H, Sq, Sk, D, causal, window): the K1 cases plus the train shape's
+# head_dim and ragged lengths
+K4_CASES = K1_CASES + [(2, 2, 1000, 1000, 128, True, 0), (1, 2, 130, 190, 64, True, 50)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", K4_CASES, ids=str)
+def test_flash_backward_kernel_matches_plain(cuda, case, dtype):
+    B, H, Sq, Sk, D, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(B, H, Sq, D, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, H, Sk, D, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, H, Sk, D, generator=g, device=cuda).to(dtype)
+    do = torch.randn(B, H, Sq, D, generator=g, device=cuda).to(dtype)
+    out, lse = mha_reference(q, k, v, causal, None, window)
+    before = dict(_build.LAUNCHES)
+    got = flash_backward(q, k, v, out, lse, do, causal, None, window)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert _build.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = flash_backward_reference(q, k, v, out, lse, do, causal, None, window,
+                                    round_like_kernel=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert grad_close(a, b), (name, _err(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_grads_match_autograd_of_plain(cuda, dtype):
+    """K1 + K4 through the autograd function against autograd of
+    mha_reference, on the card."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, H, S, D = 2, 4, 200, 64
+    leaves = [torch.randn(B, H, S, D, generator=g, device=cuda).to(dtype).requires_grad_()
+              for _ in range(3)]
+    do = torch.randn(B, H, S, D, generator=g, device=cuda).to(dtype)
+    got = torch.autograd.grad(flash_attention(*leaves, True, None, 0), leaves, do)
+    want = torch.autograd.grad(mha_reference(*leaves, True, None, 0)[0], leaves, do)
+    for a, b in zip(got, want):
+        assert grad_close(a, b, rounded=False), _err(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_backward_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 1, 8, 48, device=cuda)
+    lse = torch.zeros(1, 1, 8, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_backward(q, q, q, q, lse, q)
+    q = torch.zeros(1, 1, 16, 32, device=cuda)
+    k = torch.zeros(1, 1, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        flash_backward(q, k, k, q, torch.zeros(1, 1, 16, device=cuda), q)
 
 
 @pytest.mark.gpu
