@@ -9,7 +9,14 @@ Phases, each failing the run (non-zero exit) on any fault:
 2. build: every ``csrc/*.cu`` of the port compiled with nvcc for sm_90a;
 3. K1 (flash-attention forward) against ``mha_reference`` on the card:
    the prefill shapes of the main path plus edge cases;
-4. K2 (paged decode attention) against ``paged_attention_reference``;
+4. K2 (paged decode attention) against ``paged_attention_reference``,
+   over dense pools and (its int8 half) over int8 pools with per-(token,
+   kv-head) scales, plus inputs on which skipping the dequantised values'
+   rounding through bf16 would fail the tolerance; K3 (blockwise attention with softmax statistics)
+   against ``flash_block_stats_reference``, at the prefix-cached path's
+   shapes plus edge cases (ragged lengths, offsets, rows that keep no
+   key, not causal, GQA and MHA, Dh 64 and 128, fp32 and bf16), and its
+   pv / l against ``mha_reference`` over the kept keys;
 5. K4 (flash-attention backward) against ``flash_backward_reference``
    rounded where the kernel rounds: the training shape plus edge cases;
    faults planted in the training-shape result, which the tolerance must
@@ -21,6 +28,18 @@ Phases, each failing the run (non-zero exit) on any fault:
    with the paged kernel; launch counts must match the path exactly; the
    gather-path engine on the same weights must agree; a small float32
    model must give identical greedy tokens on the card and on the CPU;
+6b. the prefix-cached, chunked, int8-KV engine at the same full width
+   (``kv_int8``, ``prefix_cache``, ``prefill_chunk=128``, paged kernel,
+   max_len 1024): a wave that primes the cache (a 256-token shared prefix
+   with a 64-token tail) beside two unshared prompts of 700 and 900
+   tokens, then a wave of 8 prompts on the shared prefix; launch counts
+   must equal the passes (K1 = L x passes at t0 = 0, K3 = L x passes at
+   t0 > 0, K2-int8 = L x fused_steps x chunks) and the prefix counters
+   the traffic; a small float32 model with the same options must give
+   identical greedy tokens on the card and the CPU, with the kernel and
+   gather paths, and with and without the prefix cache; the bf16
+   agreement with a cache-less engine and the device memory against
+   ``estimate_hbm_bytes`` are reported;
 7. HTTP: ``serve_inference`` on the card-resident engine, one blocking
    and one SSE completion against the engine's own tokens, /healthz and
    /v1/stats;
@@ -260,6 +279,219 @@ def phase_k2(dev):
     return worst
 
 
+def int8_pool(g, n_pages, ps, Hkv, Dh, dev):
+    """An int8 K or V pool with its scales, quantised from unit normals by
+    the engine's own ``_quantize_rows``."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import _quantize_rows
+
+    rows = torch.randn(n_pages * ps, Hkv, Dh, generator=g, device=dev).to(torch.bfloat16)
+    q8, scale = _quantize_rows(rows)
+    return q8.reshape(n_pages, ps, Hkv, Dh), scale.reshape(n_pages, ps, Hkv)
+
+
+def phase_k2_int8(dev):
+    """K2 over int8 pools at the prefix engine's shapes (B 8, 16q/8kv,
+    Dh 128, page 16, 64 pages a row: max_len 1024)."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, Hn, Hkv, Dh, ps, NB = 8, 16, 8, 128, 16, 64
+    n_pages = B * NB + 1
+    pk, sk = int8_pool(g, n_pages, ps, Hkv, Dh, dev)
+    pv, sv = int8_pool(g, n_pages, ps, Hkv, Dh, dev)
+    tables = (torch.randperm(n_pages - 1, generator=g, device=dev)[: B * NB] + 1)
+    tables = tables.reshape(B, NB).to(torch.int32)
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bfloat16" if dt == torch.bfloat16 else "float32"
+        for W in (1, 4):
+            lengths = torch.tensor([0, 15, 16, 300, 511, 700, 900, NB * ps - W],
+                                   dtype=torch.int32, device=dev)
+            q = torch.randn(B, W, Hn, Dh, generator=g, device=dev).to(dt)
+            if W == 1:
+                q = q[:, 0]
+            out = paged_attention(q, pk, pv, tables, lengths, scales_k=sk, scales_v=sv)
+            torch.cuda.synchronize()
+            ref = paged_attention_reference(q, pk, pv, tables, lengths, scales_k=sk,
+                                            scales_v=sv)
+            e = maxerr(out, ref)
+            log(f"K2-int8 B={B} Hn={Hn} Hkv={Hkv} Dh={Dh} ps={ps} W={W} {name}: "
+                f"max|out-ref|={e:.3g} (tol {TOL[name]} + {RTOL[name]}|ref|)")
+            check(close(out, ref, name), f"K2-int8 disagrees with its plain version "
+                                         f"({name}, W={W})")
+            if dt == torch.bfloat16 and W == 1:
+                worst = max(worst, e)
+    k2_int8_rounding_probe(dev)
+    return worst
+
+
+def k2_int8_rounding_probe(dev) -> None:
+    """Inputs on which K2-int8's bf16 result shows whether it rounds the
+    dequantised K/V through bf16 (random inputs cannot: the rounding moves
+    their output ~1e-4).  Two keys a row, each (token, head) row constant.
+    Row 0: k = 1.0035 and 1.0 (bf16: both 1.0) under q = 8, v = +1 and -1:
+    rounded, the scores tie and out = 0; unrounded, out = 0.157.  Row 1:
+    k = 0, v = 100.2 and -100 (bf16: +-100): rounded 0, unrounded 0.1.
+    The kernel must match the plain version, which must in turn differ
+    from the unrounded result by more than the tolerance."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_reference,
+    )
+
+    Hn, Hkv, Dh, ps = 16, 8, 128, 16
+    pk = torch.zeros(3, ps, Hkv, Dh, dtype=torch.int8)  # page 0: scratch
+    pv = torch.zeros_like(pk)
+    sk = torch.ones(3, ps, Hkv)
+    sv = torch.ones(3, ps, Hkv)
+    pk[1, :2], pv[1:, 0], pv[1:, 1] = 127, 127, -127
+    sk[1, 0], sk[1, 1], sv[1, :2] = 1.0035 / 127, 1 / 127, 1 / 127
+    sv[2, 0], sv[2, 1] = 100.2 / 127, 100 / 127
+    q = torch.full((2, Hn, Dh), 8.0, dtype=torch.bfloat16)
+    args = [t.to(dev) for t in (q, pk, pv, torch.tensor([[1], [2]], dtype=torch.int32),
+                                torch.ones(2, dtype=torch.int32))]
+    kw = dict(scales_k=sk.to(dev), scales_v=sv.to(dev))
+    out = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    ref = paged_attention_reference(*args, **kw)
+    unrounded = paged_attention_reference(args[0].float(), *args[1:], **kw)
+    log(f"K2-int8 rounding probe bfloat16: max|out-ref|={maxerr(out, ref):.3g}, "
+        f"max|unrounded-ref|={maxerr(unrounded, ref):.3g} (tol {TOL['bfloat16']} + "
+        f"{RTOL['bfloat16']}|ref|)")
+    check(close(out, ref, "bfloat16"), "K2-int8 disagrees with its plain version on the "
+                                       "rounding probe")
+    check(not close(unrounded, ref, "bfloat16") and not close(out, unrounded, "bfloat16"),
+          "the rounding probe cannot tell a kernel that skips the bf16 rounding")
+
+
+def k3_pairs(sq, sk, q_off, k_off, causal) -> int:
+    """(query, key) pairs K3's output depends on: the kept pairs, plus every
+    key of a row that keeps none (its pv is the sum of v)."""
+    if not causal:
+        return sq * sk
+    kept = np.clip(q_off + np.arange(sq) - k_off + 1, 0, sk)
+    return int(kept.sum() + sk * (kept == 0).sum())
+
+
+def k3_keys(sq, sk, q_off, k_off, causal) -> tuple[int, int]:
+    """(K rows, V rows) K3's output depends on: when causal, keys up to
+    the last row's diagonal; every V row when some row keeps no key (its
+    pv is the sum of v)."""
+    if not causal:
+        return sk, sk
+    n_k = int(np.clip(q_off + sq - k_off, 0, sk))
+    return n_k, (sk if q_off < k_off else n_k)
+
+
+def k3_bound_ms(B, H, Hkv, sq, sk, D, q_off, k_off, causal, itemsize) -> tuple[float, str]:
+    """q and the K/V rows the output depends on read once, pv (fp32) and
+    m, l written once; 4 FLOPs a pair a head dimension (Q K^T and P V)."""
+    flops = 4 * B * H * k3_pairs(sq, sk, q_off, k_off, causal) * D
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    n_k, n_v = k3_keys(sq, sk, q_off, k_off, causal)
+    byts = B * (H * sq + Hkv * (n_k + n_v)) * D * itemsize + B * H * sq * (D + 2) * 4
+    t_ops, t_bytes = flops / peak * 1e3, byts / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kept_keys_reference(q, k, v, q_off, k_off, causal):
+    """mha_reference over the keys each row keeps, where row i keeps keys
+    0..(q_off - k_off + i), or all keys when not causal; None when some
+    row keeps no key or the diagonal runs past the keys."""
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import mha_reference
+
+    n_rep = q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(n_rep, dim=1) for t in (k, v))
+    if not causal:
+        return mha_reference(q, ke, ve, False)[0]
+    diag = q_off - k_off
+    if diag < 0 or diag + q.shape[2] > k.shape[2]:
+        return None
+    n = diag + q.shape[2]
+    return mha_reference(q, ke[:, :, :n], ve[:, :, :n], True)[0]
+
+
+def check_k3(q, k, v, q_off, k_off, causal, label) -> float:
+    """K3 against its plain version (pv, m, l) and pv / l against
+    mha_reference over the kept keys; returns max |pv/l - plain pv/l|."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import (
+        NEG_INF,
+        block_stats_tolerance_used,
+        flash_block_stats,
+        flash_block_stats_reference,
+    )
+
+    got = flash_block_stats(q, k, v, q_off, k_off, causal)
+    torch.cuda.synchronize()
+    want = flash_block_stats_reference(q, k, v, q_off, k_off, causal)
+    shares = block_stats_tolerance_used(got, want, q.dtype)
+    name = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    out = got[0] / got[2][..., None]
+    ref = kept_keys_reference(q, k, v, q_off, k_off, causal)
+    text = " ".join(f"{n} {u:.3g}" for n, u in shares.items())
+    if ref is not None:
+        d = (out - ref.float()).abs()
+        use = float((d / (TOL[name] + RTOL[name] * ref.float().abs())).max())
+        text += f"; pv/l vs mha_reference over the kept keys {use:.3g}"
+        shares["out"] = use
+    n_empty = int((got[1] == NEG_INF).sum())
+    log(f"K3 {label} {name}: tolerance used {text}; rows keeping no key {n_empty}")
+    check(max(shares.values()) <= 1.0, f"K3 disagrees with its plain version at {label} {name}")
+    if causal and q_off < k_off:
+        empty = slice(0, min(q.shape[2], k_off - q_off))
+        check(bool((got[1][:, :, empty] == NEG_INF).all())
+              and bool((got[2][:, :, empty] == k.shape[2]).all()),
+              f"K3 rows that keep no key differ from the TPU kernel's at {label}")
+    return maxerr(out, want[0] / want[2][..., None])
+
+
+# the prefix engine's K3 geometry: (T, M, start) of its passes
+K3_PATH = [(128, 256, 128), (64, 512, 256), (128, 1024, 768), (16, 512, 256),
+           (256, 512, 256), (8, 1024, 896)]
+# (B, H, Hkv, Sq, Sk, D, q_offset, k_offset, causal)
+K3_EDGES = [
+    (1, 16, 8, 200, 640, 128, 440, 0, True),  # Sq 200 / Sk 640, ragged
+    (2, 4, 4, 96, 160, 64, 32, 0, True),  # MHA, Dh 64, q_offset > 0
+    (1, 4, 2, 64, 128, 64, 0, 40, True),  # k_offset > 0: rows 0..39 keep no key
+    (1, 2, 1, 64, 128, 128, 0, 200, True),  # no row keeps a key
+    (1, 4, 2, 70, 90, 128, 7, 3, False),  # not causal
+]
+
+
+def phase_k3(dev):
+    """K3 at the path's shapes (bf16, 16q/8kv, Dh 128) and the edge cases
+    (fp32 and bf16); returns the worst bf16 error at the path's shapes."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    worst = 0.0
+    cases = [((1, 16, 8, T, M, 128, start, 0, True), (torch.bfloat16,))
+             for T, M, start in K3_PATH]
+    cases += [(c, (torch.float32, torch.bfloat16)) for c in K3_EDGES]
+    for (B, H, Hkv, sq, sk, D, q_off, k_off, causal), dts in cases:
+        for dt in dts:
+            q = torch.randn(B, H, sq, D, generator=g, device=dev).to(dt)
+            k = torch.randn(B, Hkv, sk, D, generator=g, device=dev).to(dt)
+            v = torch.randn(B, Hkv, sk, D, generator=g, device=dev).to(dt)
+            label = (f"B={B} H={H} Hkv={Hkv} Sq={sq} Sk={sk} D={D} q_off={q_off} "
+                     f"k_off={k_off} causal={causal}")
+            e = check_k3(q, k, v, q_off, k_off, causal, label)
+            if (B, H, Hkv, D) == (1, 16, 8, 128) and k_off == 0 and dt == torch.bfloat16:
+                worst = max(worst, e)
+    return worst
+
+
 # -- phase 6: the engine ---------------------------------------------------
 
 
@@ -296,20 +528,29 @@ def drive(eng, prompts, max_new):
     return reqs, t_admit, t_step
 
 
-class K2Sampler:
-    """Keeps a few of the main path's K2 calls (their inputs) so the
-    kernel can be timed and checked on exactly what the path gave it."""
+class CallSampler:
+    """Keeps the inputs of a few of the main path's calls of ``fn`` (every
+    ``every``-th, up to ``keep``), so a kernel can be timed and checked on
+    exactly what the path gave it.  ``clone`` copies what the path may
+    overwrite later."""
 
-    def __init__(self, every: int = 211, keep: int = 12):
-        self.every, self.keep, self.n, self.calls = every, keep, 0, []
+    def __init__(self, clone, every: int, keep: int = 6):
+        self.clone, self.every, self.keep, self.n, self.calls = clone, every, keep, 0, []
 
     def wrap(self, fn):
-        def call(q, lkv, tables, lengths, cfg, dtype):
+        def call(*args, **kw):
             self.n += 1
             if self.n % self.every == 1 and len(self.calls) < self.keep:
-                self.calls.append((q.clone(), lkv, tables.clone(), lengths.clone(), cfg))
-            return fn(q, lkv, tables, lengths, cfg, dtype)
+                self.calls.append(self.clone(*args, **kw))
+            return fn(*args, **kw)
         return call
+
+
+def k2_sampler(every: int, keep: int) -> CallSampler:
+    """Samples ``serving._paged_attn_call``: the query, tables and lengths
+    copied, the layer's pool views as they are (K2 is timed on them)."""
+    return CallSampler(lambda q, lkv, tables, lengths, cfg, dtype: (
+        q.clone(), lkv, tables.clone(), lengths.clone(), cfg), every=every, keep=keep)
 
 
 def phase_engine(dev):
@@ -333,7 +574,7 @@ def phase_engine(dev):
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
 
     eng = InferenceEngine(params, cfg, paged_kernel=True, device=dev, **ENGINE)
-    sampler = K2Sampler()
+    sampler = k2_sampler(every=211, keep=12)
     real_call = serving._paged_attn_call
     serving._paged_attn_call = sampler.wrap(real_call)
     torch.cuda.synchronize()
@@ -355,6 +596,8 @@ def phase_engine(dev):
     check(eng.prefills_run == len(prompts), "every prompt should take the one-pass prefill")
     check(launches["flash_fwd"] == want_k1 > 0, "K1 launches != layers x prefills")
     check(launches["paged_attention"] == want_k2 > 0, "K2 launches != layers x decode steps")
+    check(launches["paged_attention_int8"] == launches["flash_block_stats"] == 0,
+          "the dense engine launched the int8 K2 or K3")
     gen_tokens = sum(len(r.output) for r in reqs)
     decode_iters = eng.steps_run * eng.fused_steps
     perf = {
@@ -382,7 +625,7 @@ def phase_engine(dev):
         e = InferenceEngine(params, cfg, paged_kernel=pk_, device=dev, **ENGINE)
         e.prompts[0, : len(p)] = p  # slot 0, prefilled by hand
         check(e._ensure_pages(0, len(p) + 1), "pages for the logits check")
-        pre = e._prefill_dispatch(0, len(p))
+        pre = e._prefill_dispatch(0, 0, len(p))
         tables = torch.tensor(e.tables[:, :32], device=dev)
         tables[1:] = 0
         lengths = torch.zeros(8, dtype=torch.int32, device=dev)
@@ -420,6 +663,228 @@ def phase_engine(dev):
     log(f"small float32 engine: greedy tokens identical on card and CPU "
         f"({sum(map(len, outs['cpu']))} tokens)")
     return eng, prompts, reqs, launches, sampler, perf
+
+
+# -- phase 6b: the prefix-cached, chunked, int8-KV engine --------------------
+
+
+PREFIX_ENGINE = dict(kv_int8=True, prefix_cache=True, prefill_chunk=128, paged_kernel=True,
+                     max_batch=8, max_len=1024, page_size=16, fused_steps=16)
+SHARED_PREFIX = 256
+WAVE1_LENS = (64, 700, 900)  # the primer's tail, then two unshared prompts
+WAVE2_TAILS = (16, 48, 80, 112, 129, 176, 208, 256)
+
+
+def prefix_traffic(rng, vocab, shared_len, wave1_lens, wave2_tails):
+    shared = rng.integers(0, vocab, shared_len).tolist()
+    wave1 = [shared + rng.integers(0, vocab, wave1_lens[0]).tolist()]
+    wave1 += [rng.integers(0, vocab, n).tolist() for n in wave1_lens[1:]]
+    wave2 = [shared + rng.integers(0, vocab, n).tolist() for n in wave2_tails]
+    return wave1, wave2
+
+
+def common_prefix(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def phase_prefix_engine(dev, params, cfg):
+    """The prefix-cached, chunked, int8-KV engine on the full-width model:
+    exact launch counts, prefix counters, memory, bf16 agreement with a
+    cache-less engine, and the small float32 model's identities."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models import generate, serving
+    from elastic_gpu_scheduler_tpu_torch.models.serving import (
+        InferenceEngine,
+        estimate_hbm_bytes,
+    )
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(12)
+    wave1, wave2 = prefix_traffic(rng, cfg.vocab_size, SHARED_PREFIX, WAVE1_LENS, WAVE2_TAILS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = InferenceEngine(params, cfg, device=dev, **PREFIX_ENGINE)
+    passes = {"plain": 0, "prefixed": 0}
+
+    def counted(fn, kind):
+        def call(*args, **kw):
+            passes[kind] += 1
+            return fn(*args, **kw)
+        return call
+
+    # spread the samples over both waves (~400 K3 and ~3300 K2 calls)
+    k3_sampler = CallSampler(lambda q, k, v, q_off, k_off, causal=True: (
+        q.contiguous().clone(), k.contiguous().clone(), v.contiguous().clone(),
+        int(q_off), int(k_off), causal), every=67)
+    k2i_sampler = k2_sampler(every=499, keep=6)
+    real = (serving._paged_prefill, serving._paged_prefill_prefixed,
+            generate.flash_block_stats, serving._paged_attn_call)
+    serving._paged_prefill = counted(real[0], "plain")
+    serving._paged_prefill_prefixed = counted(real[1], "prefixed")
+    generate.flash_block_stats = k3_sampler.wrap(real[2])
+    serving._paged_attn_call = k2i_sampler.wrap(real[3])
+    torch.cuda.synchronize()
+    # the main path: counts at 0 just before, read just after
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        reqs1, ta1, ts1 = drive(eng, wave1, NEW_TOKENS)
+        t1 = time.perf_counter()
+        reqs2, ta2, ts2 = drive(eng, wave2, NEW_TOKENS)
+    finally:
+        (serving._paged_prefill, serving._paged_prefill_prefixed,
+         generate.flash_block_stats, serving._paged_attn_call) = real
+    t2 = time.perf_counter()
+    launches = dict(_build.LAUNCHES)
+    L = cfg.n_layers
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=L * passes["plain"], flash_block_stats=L * passes["prefixed"],
+                paged_attention_int8=L * eng.fused_steps * eng.steps_run)
+    log(f"prefix engine main path: passes {passes} (t0 = 0 / t0 > 0), chunks "
+        f"{eng.steps_run}, launches {launches} (want {want})")
+    check(launches == want and min(want["flash_fwd"], want["flash_block_stats"],
+                                   want["paged_attention_int8"]) > 0,
+          "prefix engine launches differ from L x passes / L x fused_steps x chunks")
+    counters = {"prefix_lookups": eng.prefix_lookups,
+                "prefix_admission_hits": eng.prefix_admission_hits,
+                "prefix_hit_tokens": eng.prefix_hit_tokens}
+    want_c = {"prefix_lookups": len(wave1) + len(wave2),
+              "prefix_admission_hits": len(wave2),
+              "prefix_hit_tokens": len(wave2) * SHARED_PREFIX}
+    log(f"prefix counters {counters} (want {want_c})")
+    check(counters == want_c, "prefix counters differ from the traffic")
+    unref = sum(1 for pg in eng.page_key if eng.page_ref[pg] == 0)
+    check(not eng.page_ref.any() and len(eng.free_pages) + unref == eng.n_pages - 1,
+          "pages not conserved after the prefix engine drained")
+    pool_bytes = sum(t.numel() * t.element_size() for t in eng.kv.values())
+    est = estimate_hbm_bytes(cfg, eng.max_batch, eng.max_len, eng.page_size, kv_int8=True)
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    mem = {"max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "kv_pool_bytes": pool_bytes, "estimate_kv_pool_bytes": est["kv_pool_bytes"],
+           "param_bytes": param_bytes, "estimate_target_param_bytes": est["target_param_bytes"],
+           "estimate_total": est["total"]}
+    log("prefix engine memory: " + json.dumps(mem))
+    check(pool_bytes == est["kv_pool_bytes"], "int8 KV pool bytes differ from estimate_hbm_bytes")
+    gen1 = sum(len(r.output) for r in reqs1)
+    gen2 = sum(len(r.output) for r in reqs2)
+    perf = {"wall_s": t2 - t0, "generated_tokens": gen1 + gen2,
+            "tokens_per_s": (gen1 + gen2) / (t2 - t0),
+            "wave1": {"wall_s": t1 - t0, "admit_s": ta1, "step_s": ts1,
+                      "tokens_per_s": gen1 / (t1 - t0)},
+            "wave2": {"wall_s": t2 - t1, "admit_s": ta2, "step_s": ts2,
+                      "tokens_per_s": gen2 / (t2 - t1),
+                      "prefill_ms_per_request": ta2 / len(wave2) * 1e3},
+            "passes": passes, "chunks": eng.steps_run, "memory": mem}
+    log("prefix engine perf: " + json.dumps(perf))
+
+    # bf16 at full width: against an int8 engine without the prefix cache
+    # on the wave-2 prompts (reported, not gated)
+    ref_eng = InferenceEngine(params, cfg, device=dev, **dict(PREFIX_ENGINE, prefix_cache=False))
+    rreqs, _, _ = drive(ref_eng, wave2, NEW_TOKENS)
+    firsts = sum(a.output[0] == b.output[0] for a, b in zip(reqs2, rreqs))
+    prefixes = [common_prefix(a.output, b.output) for a, b in zip(reqs2, rreqs)]
+    log(f"bf16 prefix cache vs none on wave 2: first tokens equal {firsts}/{len(wave2)}, "
+        f"common prefix lengths {prefixes} of {NEW_TOKENS}")
+    perf["bf16_vs_no_cache"] = {"first_tokens_equal": firsts, "common_prefix": prefixes}
+    del ref_eng, rreqs
+    perf["profile_idle_share"] = phase_prefix_profile(eng, wave1[0][:SHARED_PREFIX])["idle_share"]
+    phase_prefix_small_fp32(dev)
+    return eng, launches, k3_sampler, k2i_sampler, perf
+
+
+def phase_prefix_profile(eng, shared) -> dict:
+    """One step of the prefix engine under torch.profiler, with 8 slots on
+    the shared prefix: each slot's continuing prefill chunk (K3) and then
+    one fused decode chunk (K2-int8).  Device time by kernel class and the
+    device's idle share."""
+    from elastic_gpu_scheduler_tpu_torch.models.serving import Request
+
+    rng = np.random.default_rng(14)
+    # tails of prefill_chunk + 72..121: admission runs one chunk, the step
+    # the last pass
+    tails = [eng.prefill_chunk + 72 + 7 * i for i in range(eng.max_batch)]
+    reqs = [eng.submit(Request(prompt=shared + rng.integers(0, eng.cfg.vocab_size, n).tolist(),
+                               max_new_tokens=4 * eng.fused_steps))
+            for n in tails]
+    eng._admit()  # the first passes, outside the window
+    wall_ms, kernels = profiled(eng.step, "a prefix engine step", cpu=True)
+    eng.run_until_idle()
+    check(all(r.done.is_set() and not r.error for r in reqs), "profiled prefix requests failed")
+    busy = sum(k["ms"] for k in kernels)
+
+    def share(sub):
+        return sum(k["ms"] for k in kernels if sub in k["kernel"]) / busy
+
+    res = {"window": "one prefix engine step (8 slots' last prefill passes, 72-121 rows "
+                     "behind 384 cached or chunked positions, then a fused decode chunk)",
+           "wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+           "launches": sum(k["count"] for k in kernels),
+           "k3_share": share("flash_stats"), "k2_share": share("paged_attn"),
+           "top": kernels[:25]}
+    log(json.dumps({"prefix_profile": res}))
+    log(f"prefix profile: step wall {wall_ms:.2f} ms, device busy {busy:.2f} ms (idle share "
+        f"{res['idle_share']:.3f}), K3 {res['k3_share']:.3f} and K2-int8 "
+        f"{res['k2_share']:.3f} of device time, {res['launches']} kernel launches")
+    for k in kernels[:12]:
+        log(f"  {k['ms']:9.3f} ms  x{k['count']:5d}  {k['kernel']}")
+    return res
+
+
+def phase_prefix_small_fp32(dev) -> None:
+    """A small float32 model with int8 KV, the prefix cache and chunked
+    prefill: greedy tokens identical on the card and the CPU, with the
+    paged kernel and the gather path, and with and without the cache."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+
+    small = TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                              n_kv_heads=2, d_ff=512, dtype="float32")
+    sp = init_params(small, torch.Generator().manual_seed(3), "cpu")
+    wave1, wave2 = prefix_traffic(np.random.default_rng(13), 512, 64, (16, 100, 150),
+                                  (5, 20, 40, 70))
+    kw = dict(kv_int8=True, prefill_chunk=32, max_batch=4, max_len=256, page_size=16,
+              fused_steps=8)
+    outs = {}
+    for where, paged, cache in (("cpu", True, True), (dev, True, True),
+                                (dev, False, True), (dev, True, False)):
+        se = InferenceEngine(sp, small, paged_kernel=paged, prefix_cache=cache,
+                             device=where, **kw)
+        got = []
+        for wave in (wave1, wave2):
+            rs = [se.submit(Request(prompt=p, max_new_tokens=12)) for p in wave]
+            se.run_until_idle()
+            check(all(r.done.is_set() and not r.error for r in rs),
+                  "small prefix engine request failed")
+            got.append([r.output for r in rs])
+        if cache:
+            check(se.prefix_admission_hits == len(wave2), "small engine missed the cache")
+        outs[(str(where), paged, cache)] = got
+    card = str(dev)
+    check(outs[("cpu", True, True)] == outs[(card, True, True)],
+          "float32 prefix engine: greedy tokens differ between card and CPU")
+    check(outs[(card, True, True)] == outs[(card, False, True)],
+          "float32 prefix engine: kernel and gather paths differ")
+    check(outs[(card, True, True)][1] == outs[(card, True, False)][1],
+          "float32 prefix engine: wave-2 tokens differ with and without the cache")
+    log(f"small float32 prefix engine: greedy tokens identical card vs CPU, kernel vs "
+        f"gather, cache vs none ({sum(map(len, outs[(card, True, True)][1]))} wave-2 tokens)")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
 
 
 # -- phase 7: HTTP ---------------------------------------------------------
@@ -518,26 +983,27 @@ def kernel_k1(eng, prompts, launches, worst):
     }
 
 
-def kernel_k2(sampler, launches, worst):
-    """K2 on inputs the main path gave it (sampled calls)."""
-    import torch
-
+def kernel_k2(sampler, launches, worst, name="paged_attention"):
+    """K2 on inputs the main path gave it (sampled calls); ``name`` is
+    ``paged_attention_int8`` for the int8-pool variant."""
     from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import (
         paged_attention,
         paged_attention_reference,
     )
 
-    check(sampler.calls, "no K2 call was sampled on the main path")
+    check(sampler.calls, f"no {name} call was sampled on the main path")
     ms_l, plain_l, bound_l, err = [], [], [], worst
     for q, lkv, tables, lengths, cfg in sampler.calls:
         pk, pv = lkv["k"], lkv["v"]
-        w = cfg.window_size
+        kw = dict(window=cfg.window_size, scales_k=lkv.get("ks"), scales_v=lkv.get("vs"))
+        check((kw["scales_k"] is not None) == (name == "paged_attention_int8"),
+              f"{name}: the sampled pool is not of its kind")
 
         def kern():
-            return paged_attention(q, pk, pv, tables, lengths, window=w)
+            return paged_attention(q, pk, pv, tables, lengths, **kw)
 
         def plain():
-            return paged_attention_reference(q, pk, pv, tables, lengths, window=w)
+            return paged_attention_reference(q, pk, pv, tables, lengths, **kw)
 
         err = max(err, maxerr(kern(), plain()))
         ms_l.append(device_ms(kern, 50))
@@ -553,19 +1019,66 @@ def kernel_k2(sampler, launches, worst):
         for b in range(B):
             for j in range(min(NB, int(ln[b]) // ps + 1)):
                 live.add(int(tb[b, j]))
-        isz = pk.element_size()
-        byts = (len(live) * ps * Hkv * Dh * isz * 2 + 2 * q.numel() * q.element_size()
+        # an int8 page also carries its fp32 scales, one a (token, kv-head)
+        page_bytes = ps * Hkv * (Dh * pk.element_size() + (4 if kw["scales_k"] is not None
+                                                            else 0))
+        byts = (len(live) * page_bytes * 2 + 2 * q.numel() * q.element_size()
                 + tables.numel() * 4 + lengths.numel() * 4)
         bound_l.append(byts / PEAK_BYTES * 1e3)
-    log(f"K2 timing over {len(ms_l)} main-path calls: kernel {np.mean(ms_l):.4f} ms, "
+    log(f"{name} timing over {len(ms_l)} main-path calls: kernel {np.mean(ms_l):.4f} ms, "
         f"plain {np.mean(plain_l):.4f} ms, bound {np.mean(bound_l):.5f} ms (bytes)")
     return {
-        "name": "paged_attention", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "elastic_gpu_scheduler_tpu_torch/csrc/paged_attention.cu",
         "replaces": "elastic_gpu_scheduler_tpu/ops/paged_attention.py:204",
-        "launches": launches["paged_attention"], "max_abs_err": err,
+        "launches": launches[name], "max_abs_err": err,
         "ms": float(np.mean(ms_l)), "plain_ms": float(np.mean(plain_l)),
         "bound_ms": float(np.mean(bound_l)), "bound_by": "bytes", "library_ms": None,
+    }
+
+
+def kernel_k3(sampler, launches, worst):
+    """K3 on inputs the prefix engine's main path gave it (sampled calls):
+    kernel, plain and SDPA (with ``enable_gqa`` and the same causal
+    offsets as a mask: the same attention, returned normalised)."""
+    import torch
+    import torch.nn.functional as F
+
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import (
+        flash_block_stats,
+        flash_block_stats_reference,
+    )
+
+    check(sampler.calls, "no K3 call was sampled on the main path")
+    rows, err = [], worst
+    for q, k, v, q_off, k_off, causal in sampler.calls:
+        B, H, sq, D = q.shape
+        Hkv, sk = k.shape[1], k.shape[2]
+        err = max(err, check_k3(q, k, v, q_off, k_off, causal,
+                                f"main-path call T={sq} M={sk} start={q_off}"))
+        qpos = q_off + torch.arange(sq, device=q.device)
+        kpos = k_off + torch.arange(sk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        ms = device_ms(lambda: flash_block_stats(q, k, v, q_off, k_off, causal), 50,
+                       match="flash_stats_kernel")
+        plain = device_ms(lambda: flash_block_stats_reference(q, k, v, q_off, k_off, causal), 10)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                               enable_gqa=True), 50)
+        bound, by = k3_bound_ms(B, H, Hkv, sq, sk, D, q_off, k_off, causal, q.element_size())
+        rows.append((ms, plain, lib, bound, by))
+        log(f"K3 timing T={sq} M={sk} start={q_off}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"sdpa {lib:.4f} ms, bound {bound:.5f} ms ({by})")
+    mean = [float(np.mean([r[i] for r in rows])) for i in range(4)]
+    return {
+        "name": "flash_block_stats", "route": "cuda",
+        "source": "elastic_gpu_scheduler_tpu_torch/csrc/flash_stats.cu",
+        "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:902",
+        "launches": launches["flash_block_stats"], "max_abs_err": err,
+        "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
+        "bound_by": max(set(r[4] for r in rows), key=[r[4] for r in rows].count),
+        "library_ms": mean[2],
+        "note": "max_abs_err is on pv / l; library_ms is SDPA (enable_gqa, the same "
+                "causal offsets as a mask), which returns normalised output",
     }
 
 
@@ -778,8 +1291,8 @@ def phase_train(dev):
     launches = dict(_build.LAUNCHES)
     n_steps = len(toks)
     L = cfg.n_layers
-    want = {"flash_fwd": 2 * L * n_steps, "flash_bwd_dq": L * n_steps,
-            "flash_bwd_dkv": L * n_steps, "paged_attention": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=2 * L * n_steps, flash_bwd_dq=L * n_steps, flash_bwd_dkv=L * n_steps)
     log(f"train main path: {n_steps} steps, losses {[round(x, 4) for x in losses]}, "
         f"launches {launches} (want {want})")
     check(all(np.isfinite(losses)), "train loss not finite")
@@ -1010,6 +1523,8 @@ def main() -> int:
     # 3. to 5. the kernels against their plain versions
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
+    k2i_err = phase_k2_int8(dev)
+    k3_err = phase_k3(dev)
     k4_err = phase_k4(dev)
 
     # 6. the engine, 7. HTTP
@@ -1020,7 +1535,16 @@ def main() -> int:
     phase_profile(eng, prompts)
     kernels = [kernel_k1(eng, prompts, launches, k1_err), kernel_k2(sampler, launches, k2_err)]
     kernels[0]["path"] = kernels[1]["path"] = "serve"
-    del eng, prompts, reqs, sampler
+
+    # 6b. the prefix-cached, chunked, int8-KV engine on the same weights
+    peng, plaunches, k3_sampler, k2i_sampler, pperf = phase_prefix_engine(
+        dev, eng.params, eng.cfg)
+    prefix_rows = [kernel_k2(k2i_sampler, plaunches, k2i_err, name="paged_attention_int8"),
+                   kernel_k3(k3_sampler, plaunches, k3_err)]
+    for r in prefix_rows:
+        r["path"] = "serve: prefix cache, prefill_chunk 128, int8 KV"
+    kernels += prefix_rows
+    del eng, prompts, reqs, sampler, peng, k3_sampler, k2i_sampler
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1038,6 +1562,7 @@ def main() -> int:
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
     log(json.dumps({"engine": perf}))
+    log(json.dumps({"prefix_engine": pperf}))
     log(json.dumps({"train": train_perf, "train_profile_idle_share": train_prof["idle_share"],
                     "launcher": launcher_res}))
     log(card)

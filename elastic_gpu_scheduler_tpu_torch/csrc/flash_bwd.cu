@@ -36,21 +36,17 @@
 // A later PR can move this to wgmma + TMA, keep the accumulators in
 // registers and run more than one block an SM.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
-#include <stdint.h>
-#include <type_traits>
+
+#include "attn_common.cuh"
 
 namespace {
 
 using namespace nvcuda;
+using namespace egs;
 
-constexpr int BT = 64;           // rows per tile, queries and keys alike
-constexpr int NWARPS = BT / 16;  // each warp owns 16 rows
-constexpr int NTHREADS = NWARPS * 32;
-
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
+constexpr int BT = TILE;  // rows per tile, queries and keys alike
+constexpr int NTHREADS = TILE_THREADS;  // four warps, each owning 16 rows
 
 // Shared-memory plan of both kernels.  Row strides in elements; bf16 tiles
 // are padded (WMMA wants 32-byte aligned fragment pointers and ldm a
@@ -69,32 +65,6 @@ struct Plan {
   static constexpr size_t ACC = align128(sizeof(float) * BT * LDO);
   static constexpr size_t ROW = align128(sizeof(float) * BT);
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// rows [row0, row0 + 64) of a (rows_total, D) row-major matrix into a
-// shared tile of stride ld, 16 bytes a thread a step; rows past the end
-// are zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0,
-                                          int rows_total, int ld) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = D / VEC;
-  for (int i = threadIdx.x; i < BT * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * VEC;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < rows_total) val = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
 
 // lse and delta of rows [row0, row0 + 64); rows past the end read 0
 __device__ __forceinline__ void load_rows(float* s_lse, float* s_delta,

@@ -23,78 +23,20 @@
 //     positions (q_shift = Sk - Sq); rows with l == 0 write 0.
 // A later PR can move this to wgmma + TMA with a producer warp.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <mma.h>
-#include <stdint.h>
-#include <type_traits>
+
+#include "attn_common.cuh"
 
 namespace {
 
 using namespace nvcuda;
+using namespace egs;
 
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // key rows per streamed tile
-constexpr int NWARPS = BQ / 16;  // each warp owns 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1e30f;  // finite, as in the reference
-
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
+constexpr int BQ = TILE;  // query rows per block
+constexpr int BK = TILE;  // key rows per streamed tile
+constexpr int NTHREADS = TILE_THREADS;  // four warps, each owning 16 query rows
 template <typename T, int D>
-struct Layout {
-  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  // row strides (elements): padded, every row start 16-byte aligned (WMMA
-  // needs 32-byte aligned fragment pointers: all offsets below keep that)
-  static constexpr int LD = D + (kBf16 ? 8 : 4);  // Q, K, V tiles
-  static constexpr int LDS = BK + 4;              // scores, fp32
-  static constexpr int LDP = BK + (kBf16 ? 8 : 4);  // P, in T
-  static constexpr int LDO = D + 4;               // output accumulator, fp32
-  static constexpr size_t Q_OFF = 0;
-  static constexpr size_t K_OFF = Q_OFF + align128(sizeof(T) * BQ * LD);
-  static constexpr size_t V_OFF = K_OFF + align128(sizeof(T) * BK * LD);
-  static constexpr size_t S_OFF = V_OFF + align128(sizeof(T) * BK * LD);
-  static constexpr size_t P_OFF = S_OFF + align128(sizeof(float) * BQ * LDS);
-  static constexpr size_t O_OFF = P_OFF + align128(sizeof(T) * BQ * LDP);
-  static constexpr size_t M_OFF = O_OFF + align128(sizeof(float) * BQ * LDO);
-  static constexpr size_t L_OFF = M_OFF + align128(sizeof(float) * BQ);
-  static constexpr size_t A_OFF = L_OFF + align128(sizeof(float) * BQ);
-  static constexpr size_t BYTES = A_OFF + align128(sizeof(float) * BQ);
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// rows [row0, row0 + 64) of a (rows_total, D) row-major matrix into a padded
-// shared tile, 16 bytes per thread per step; rows past the end are zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0,
-                                          int rows_total, int ld) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CHUNKS = D / VEC;
-  for (int i = threadIdx.x; i < 64 * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * VEC;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < rows_total) val = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
+using Layout = FwdLayout<T, D>;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)

@@ -21,24 +21,21 @@
 //     out = acc / max(l, 1e-30);
 //   - live pages: page_start <= length + W - 1; with a window, pages wholly
 //     below the earliest query's window are neither read nor computed.
+// int8 pools (the reference's kv_int8 engine): K/V rows stored as int8
+// with one fp32 scale per (token, kv-head).  Each element is dequantised
+// as it is loaded into shared memory, through the compute dtype T exactly
+// as the reference's `_dequant` does (int8 -> fp32, times the scale,
+// rounded to T, back to fp32), so the kernel and the gather engine see the
+// same K/V values and stay token-identical; the pool's bytes halve.
 // Split-K over long contexts (more blocks per row) is later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "attn_common.cuh"
 
 namespace {
 
-constexpr int NTHREADS = 128;
-constexpr float NEG_INF = -1e30f;
+using namespace egs;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int NTHREADS = 128;
 
 // shared-memory floats for R query rows, page size ps, head dim Dh
 __host__ __device__ inline size_t smem_floats(int R, int ps, int Dh) {
@@ -50,12 +47,15 @@ __host__ __device__ inline size_t smem_floats(int R, int ps, int Dh) {
          + 3 * (size_t)R;         // m, l, alpha
 }
 
-template <typename T, int Dh>
+// T: q / out and compute dtype; P: pool element (T, or int8_t with scales)
+template <typename T, typename P, int Dh>
 __global__ void __launch_bounds__(NTHREADS)
-paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                  const T* __restrict__ pool_v, const int* __restrict__ tables,
+paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ pool_k,
+                  const P* __restrict__ pool_v, const float* __restrict__ scales_k,
+                  const float* __restrict__ scales_v, const int* __restrict__ tables,
                   const int* __restrict__ lengths, T* __restrict__ out, int W, int Hn, int Hkv,
                   int ps, int NB, int window, float scale) {
+  constexpr bool kInt8 = std::is_same<P, int8_t>::value;
   extern __shared__ __align__(16) float sm[];
   const int n_rep = Hn / Hkv;
   const int R = n_rep * W;  // query rows of this kv-head: row r = (w, rep)
@@ -89,13 +89,22 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     const int page_start = j * ps;
     // wholly below the earliest query's (w = 0) window: dead for every query
     if (window > 0 && page_start + ps - 1 < length - window + 1) continue;
-    const size_t base = (size_t)tables[(size_t)b * NB + j] * ps * row_stride + (size_t)hk * Dh;
+    const size_t page = (size_t)tables[(size_t)b * NB + j];
+    const size_t base = page * ps * row_stride + (size_t)hk * Dh;
     __syncthreads();  // the previous page is no longer read
     for (int i = tid; i < ps * Dh; i += NTHREADS) {
       const int t = i / Dh, d = i % Dh;
       const size_t g = base + t * row_stride + d;
-      sK[t * (Dh + 1) + d] = to_float(pool_k[g]);
-      sV[t * Dh + d] = to_float(pool_v[g]);
+      float kx = to_float(pool_k[g]);
+      float vx = to_float(pool_v[g]);
+      if constexpr (kInt8) {
+        // int8 * scale in fp32, rounded through the compute dtype
+        const size_t si = (page * ps + t) * Hkv + hk;
+        kx = to_float(from_float<T>(kx * scales_k[si]));
+        vx = to_float(from_float<T>(vx * scales_v[si]));
+      }
+      sK[t * (Dh + 1) + d] = kx;
+      sV[t * Dh + d] = vx;
     }
     __syncthreads();
     for (int i = tid; i < R * ps; i += NTHREADS) {
@@ -146,34 +155,38 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   }
 }
 
-template <typename T, int Dh>
-int launch(const void* q, const void* pk, const void* pv, const void* tables,
-           const void* lengths, void* out, int B, int W, int Hn, int Hkv, int ps, int NB,
-           int window, float scale, cudaStream_t stream) {
+template <typename T, typename P, int Dh>
+int launch(const void* q, const void* pk, const void* pv, const void* sk, const void* sv,
+           const void* tables, const void* lengths, void* out, int B, int W, int Hn, int Hkv,
+           int ps, int NB, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats((Hn / Hkv) * W, ps, Dh) * sizeof(float);
-  auto kern = paged_attn_kernel<T, Dh>;
+  auto kern = paged_attn_kernel<T, P, Dh>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Hkv, B);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pk), static_cast<const T*>(pv),
+      static_cast<const T*>(q), static_cast<const P*>(pk), static_cast<const P*>(pv),
+      static_cast<const float*>(sk), static_cast<const float*>(sv),
       static_cast<const int*>(tables), static_cast<const int*>(lengths), static_cast<T*>(out),
       W, Hn, Hkv, ps, NB, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int Dh, const void* q, const void* pk, const void* pv, const void* tables,
-               const void* lengths, void* out, int B, int W, int Hn, int Hkv, int ps, int NB,
-               int window, float scale, cudaStream_t s) {
+template <typename T, typename P>
+int dispatch_d(int Dh, const void* q, const void* pk, const void* pv, const void* sk,
+               const void* sv, const void* tables, const void* lengths, void* out, int B, int W,
+               int Hn, int Hkv, int ps, int NB, int window, float scale, cudaStream_t s) {
   switch (Dh) {
     case 32:
-      return launch<T, 32>(q, pk, pv, tables, lengths, out, B, W, Hn, Hkv, ps, NB, window, scale, s);
+      return launch<T, P, 32>(q, pk, pv, sk, sv, tables, lengths, out, B, W, Hn, Hkv, ps, NB,
+                              window, scale, s);
     case 64:
-      return launch<T, 64>(q, pk, pv, tables, lengths, out, B, W, Hn, Hkv, ps, NB, window, scale, s);
+      return launch<T, P, 64>(q, pk, pv, sk, sv, tables, lengths, out, B, W, Hn, Hkv, ps, NB,
+                              window, scale, s);
     case 128:
-      return launch<T, 128>(q, pk, pv, tables, lengths, out, B, W, Hn, Hkv, ps, NB, window, scale, s);
+      return launch<T, P, 128>(q, pk, pv, sk, sv, tables, lengths, out, B, W, Hn, Hkv, ps, NB,
+                               window, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -196,10 +209,30 @@ extern "C" int egs_paged_attention(const void* q, const void* pool_k, const void
                                    int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(Dh, q, pool_k, pool_v, tables, lengths, out, B, W, Hn,
-                                     Hkv, ps, NB, window, scale, s);
+    return dispatch_d<__nv_bfloat16, __nv_bfloat16>(Dh, q, pool_k, pool_v, nullptr, nullptr,
+                                                    tables, lengths, out, B, W, Hn, Hkv, ps,
+                                                    NB, window, scale, s);
   if (dtype == 0)
-    return dispatch_d<float>(Dh, q, pool_k, pool_v, tables, lengths, out, B, W, Hn, Hkv, ps,
-                             NB, window, scale, s);
+    return dispatch_d<float, float>(Dh, q, pool_k, pool_v, nullptr, nullptr, tables, lengths,
+                                    out, B, W, Hn, Hkv, ps, NB, window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// As egs_paged_attention over an int8 pool: pools (n_pages,ps,Hkv,Dh) int8,
+// scales (n_pages,ps,Hkv) fp32; dtype is q's, and the compute dtype the
+// K/V values are dequantised through.
+extern "C" int egs_paged_attention_int8(const void* q, const void* pool_k, const void* pool_v,
+                                        const void* scales_k, const void* scales_v,
+                                        const void* tables, const void* lengths, void* out,
+                                        int B, int W, int Hn, int Hkv, int Dh, int ps, int NB,
+                                        int dtype, int window, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16, int8_t>(Dh, q, pool_k, pool_v, scales_k, scales_v, tables,
+                                             lengths, out, B, W, Hn, Hkv, ps, NB, window,
+                                             scale, s);
+  if (dtype == 0)
+    return dispatch_d<float, int8_t>(Dh, q, pool_k, pool_v, scales_k, scales_v, tables, lengths,
+                                     out, B, W, Hn, Hkv, ps, NB, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

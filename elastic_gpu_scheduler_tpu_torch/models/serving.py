@@ -10,9 +10,26 @@ leave a fixed-shape batch between fused decode chunks:
   is a scratch page: inactive rows and prompt padding write there and
   nobody reads it.  Rows are written in place (``index_put_``), where the
   reference returns a new pool.
+- **int8 KV** (``kv_int8``): the pool stores K/V as int8 with one fp32
+  scale per (token, kv-head) (``_quantize_rows``); every read
+  dequantises through the compute dtype, in the gather path and inside
+  kernel K2 alike, so the two stay token-identical.
 - **Prefill**: an admitted prompt is ingested in one pass
   (``_paged_prefill``, flash attention: kernel K1 on CUDA), padded to a
-  power of two; only the last real row is unembedded.
+  power of two; only the last real row is unembedded.  A pass behind
+  pages already written (a prefix-cache hit, or a later chunk of a
+  chunked prefill) attends over the slot's gathered pages instead
+  (``_paged_prefill_prefixed``, ``generate.cached_attention_multi``:
+  kernel K3 on CUDA).
+- **Prefix cache** (``prefix_cache``): full prompt pages of a finished
+  request stay in the pool under a BLAKE2b digest chain of their tokens
+  (``utils/prefixdigest``); a new prompt attaches matching pages
+  read-only (refcounted) and prefills only the rest.  Unreferenced
+  cached pages are evicted least recently used when the free list runs
+  dry.
+- **Chunked prefill** (``prefill_chunk`` > 0): a long prompt is ingested
+  at most that many tokens per engine step, between other slots' decode
+  chunks.
 - **Fused decode**: each engine step runs ``fused_steps`` decode
   iterations (``_fused_serve_chunk``) with prompt feeding and sampling on
   the device; the host drains the sampled tokens afterwards.  With
@@ -29,11 +46,12 @@ some; a higher-priority stalled slot spills a lower-priority one (its
 request requeues and resumes exactly); if every slot is stalled the engine
 raises "page pool exhausted".
 
-Not ported yet, and rejected by name: int8 KV, prefix cache, LoRA
-adapters, speculative decoding, a mesh, chunked prefill, the overlapped
-pipeline and the bounded queue (engine options), and the per-request
-logprobs, penalties, logit bias, allowed tokens, min_tokens and seeds
-(``Request`` has no such fields).
+Not ported yet, and rejected by name: LoRA adapters, speculative
+decoding, a mesh, the overlapped pipeline, the bounded queue and the
+compile cache (engine options), the per-request logprobs, penalties,
+logit bias, allowed tokens, min_tokens and seeds (``Request`` has no
+such fields), and the disaggregated KV export / import / migration
+verbs.
 """
 
 from __future__ import annotations
@@ -51,8 +69,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import flash_attention
-from ..ops.paged_attention import paged_attention
-from .generate import cached_attention
+from ..ops.paged_attention import dequant, paged_attention
+from ..utils import prefixdigest
+from .generate import cached_attention, cached_attention_multi
 from .quantize import wmat
 from .sampling import categorical, sample_batched, sample_static
 from .transformer import (
@@ -76,18 +95,25 @@ SCRATCH_PAGE = 0  # reserved; inactive slots write here, nobody reads it
 
 # reference engine options this slice does not serve (a truthy value raises)
 _UNPORTED_OPTIONS = (
-    "kv_int8", "prefix_cache", "adapters", "spec_k", "draft", "mesh",
-    "prefill_chunk", "max_queue", "overlap", "compile_cache",
+    "adapters", "spec_k", "draft", "mesh", "max_queue", "overlap", "compile_cache",
 )
 
 
 # -- paged KV pool -----------------------------------------------------------
 
 
-def make_kv_pool(cfg: TransformerConfig, n_pages: int, page_size: int, device) -> dict:
-    """Dense pool {"k", "v"} of shape (L, P, page_size, Hkv, Dh) in the
-    compute dtype.  (The int8 pool is a later slice.)"""
+def make_kv_pool(cfg: TransformerConfig, n_pages: int, page_size: int, device,
+                 int8: bool = False) -> dict:
+    """Pool {"k", "v"} of shape (L, P, page_size, Hkv, Dh) in the compute
+    dtype, or int8 with {"ks", "vs"} (L, P, page_size, Hkv) fp32 scales."""
     shape = (cfg.n_layers, n_pages, page_size, cfg.kv_heads, cfg.head_dim)
+    if int8:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ks": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            "vs": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        }
     dtype = torch_dtype(cfg.dtype)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -95,29 +121,54 @@ def make_kv_pool(cfg: TransformerConfig, n_pages: int, page_size: int, device) -
     }
 
 
+def _quantize_rows(x):
+    """(N, Hkv, Dh) → int8 rows and per-(token, head) fp32 scales:
+    symmetric, max |x| / 127, round half to even (as ``jnp.round``),
+    the scale floored at 1e-8 for the division."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    safe = torch.clamp(scale, min=1e-8)
+    q = torch.clamp(torch.round(xf / safe[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
 def _layer_kv(kv: dict, i: int) -> dict:
-    """Layer ``i``'s pool slice: views, so writes land in the pool."""
-    return {"k": kv["k"][i], "v": kv["v"][i]}
+    """Layer ``i``'s pool slice (K, V and, for int8, their scales): views,
+    so writes land in the pool."""
+    return {name: t[i] for name, t in kv.items()}
 
 
 def _kv_write_rows(lkv: dict, pidx, off, k_rows, v_rows) -> dict:
     """Scatter new K/V rows into one layer's pool slice at (pidx, off), IN
-    PLACE (``index_put_``): the reference returns a new pool, the port
-    updates the one it has and saves the copy."""
+    PLACE (``index_put_``), quantised when the pool is int8: the
+    reference returns a new pool, the port updates the one it has and
+    saves the copy."""
     idx = (pidx.long(), off.long())
-    lkv["k"].index_put_(idx, k_rows.to(lkv["k"].dtype))
-    lkv["v"].index_put_(idx, v_rows.to(lkv["v"].dtype))
+    if "ks" in lkv:
+        qk, sk = _quantize_rows(k_rows)
+        qv, sv = _quantize_rows(v_rows)
+        lkv["k"].index_put_(idx, qk)
+        lkv["v"].index_put_(idx, qv)
+        lkv["ks"].index_put_(idx, sk)
+        lkv["vs"].index_put_(idx, sv)
+    else:
+        lkv["k"].index_put_(idx, k_rows.to(lkv["k"].dtype))
+        lkv["v"].index_put_(idx, v_rows.to(lkv["v"].dtype))
     return lkv
 
 
 def _kv_gather(lkv: dict, tables, page_size: int, dtype):
-    """One layer's pages → virtually-contiguous (B, M, Hkv, Dh) K and V."""
+    """One layer's pages → virtually-contiguous (B, M, Hkv, Dh) K and V
+    (dequantised through ``dtype`` when the pool is int8)."""
     B, maxp = tables.shape
     Hkv, Dh = lkv["k"].shape[-2], lkv["k"].shape[-1]
     t = tables.long()
-    k = lkv["k"][t].reshape(B, maxp * page_size, Hkv, Dh).to(dtype)
-    v = lkv["v"][t].reshape(B, maxp * page_size, Hkv, Dh).to(dtype)
-    return k, v
+    k = lkv["k"][t].reshape(B, maxp * page_size, Hkv, Dh)
+    v = lkv["v"][t].reshape(B, maxp * page_size, Hkv, Dh)
+    if "ks" in lkv:
+        k = dequant(k, lkv["ks"][t].reshape(B, maxp * page_size, Hkv), dtype)
+        v = dequant(v, lkv["vs"][t].reshape(B, maxp * page_size, Hkv), dtype)
+    return k.to(dtype), v.to(dtype)
 
 
 @dataclass
@@ -192,10 +243,12 @@ def _paged_layer(x, p, lkv, positions, pidx, off, attn, cfg, dtype):
 
 
 def _paged_attn_call(q, lkv, tables, lengths, cfg, dtype):
-    """Attend straight off one layer's page pool (kernel K2 on CUDA).
+    """Attend straight off one layer's page pool (kernel K2 on CUDA, its
+    int8 variant with in-kernel dequantisation for an int8 pool).
     q: (B, Hn, Dh) decode or (B, W, Hn, Dh) verify."""
     return paged_attention(
-        q, lkv["k"], lkv["v"], tables, lengths, window=cfg.window_size, dtype=dtype
+        q, lkv["k"], lkv["v"], tables, lengths, scales_k=lkv.get("ks"),
+        scales_v=lkv.get("vs"), window=cfg.window_size, dtype=dtype,
     )
 
 
@@ -282,6 +335,50 @@ def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size):
 
 
 @torch.inference_mode()
+def _paged_prefill_prefixed(params, tokens, kv, pages, t0: int, t_real: int, *, cfg,
+                            page_size):
+    """One-pass prompt ingestion BEHIND pages already written (a
+    prefix-cache hit, or a later chunk of a chunked prefill).
+
+    Same contract as ``_paged_prefill`` except the slot's pages already
+    hold K/V for positions < t0: the new tokens sit at positions
+    t0..t0+t_real-1, and attention gathers the slot's pages (dequantised
+    when int8) so the queries see the cached prefix
+    (``generate.cached_attention_multi``: kernel K3 on CUDA).  Padding
+    rows write to the scratch page; their outputs are never consumed."""
+    dtype = torch_dtype(cfg.dtype)
+    Tpad = tokens.shape[1]
+    Hn, Dh = cfg.n_heads, cfg.head_dim
+    dev = tokens.device
+    x = _embed_lookup(params["embed"], tokens, dtype)  # (1, Tpad, D)
+    rel = torch.arange(Tpad, device=dev)
+    positions = t0 + rel
+    # padding positions may index past the table row: clamp, as the
+    # reference's gather does, then route them to scratch
+    col = torch.clamp(positions // page_size, max=pages.shape[0] - 1)
+    pidx = torch.where(
+        rel < t_real, pages.long()[col], torch.full_like(positions, SCRATCH_PAGE)
+    )
+    off = positions % page_size
+
+    def attn(q, k, v, lkv):
+        k_all, v_all = _kv_gather(lkv, pages[None, :], page_size, dtype)
+        return cached_attention_multi(
+            q, k_all, v_all, t0, window=cfg.window_size
+        ).reshape(1, Tpad, Hn * Dh)
+
+    for i in range(cfg.n_layers):
+        x = _paged_layer(
+            x, layer_slice(params["layers"], i), _layer_kv(kv, i), positions[None, :],
+            pidx, off, attn, cfg, dtype,
+        )
+    x = x[:, t_real - 1:t_real]  # (1, 1, D)
+    x = rms_norm(x, params["final_norm"])
+    logits = (x @ wmat(params["unembed"], dtype))[0, 0]
+    return logits.float(), kv
+
+
+@torch.inference_mode()
 def _fused_serve_chunk(
     params, kv, tables, tokens, lengths, active, prompts, prompt_lens,
     temps, top_ks, top_ps, generator,
@@ -324,6 +421,63 @@ def default_n_pages(max_batch: int, max_len: int, page_size: int) -> int:
     return max_batch * (-(-max_len // page_size)) + 1
 
 
+def estimate_hbm_bytes(
+    cfg,
+    max_batch: int,
+    max_len: int,
+    page_size: int,
+    n_pages: int = 0,
+    kv_int8: bool = False,
+) -> dict:
+    """Static device-memory accounting for an engine configuration (no
+    allocation), as the reference counts it by default: the KV pool (int8
+    K/V plus fp32 scales when ``kv_int8``) and the weights at 2 bytes a
+    parameter (the norm scales, kept in fp32, take 2 bytes more each).
+    Returns byte counts plus ``total``."""
+    n_pages = n_pages or default_n_pages(max_batch, max_len, page_size)
+    page_elems = page_size * cfg.kv_heads * cfg.head_dim
+    per_tensor = cfg.n_layers * n_pages * page_elems
+    if kv_int8:
+        pool = 2 * per_tensor  # int8 k + v
+        pool += 2 * cfg.n_layers * n_pages * page_size * cfg.kv_heads * 4
+    else:
+        pool = 2 * per_tensor * torch_dtype(cfg.dtype).itemsize
+    out = {
+        "kv_pool_bytes": int(pool),
+        "target_param_bytes": int(_cfg_param_count(cfg) * 2),
+    }
+    out["total"] = sum(out.values())
+    return out
+
+
+def _cfg_param_count(cfg) -> int:
+    """Parameter count from config shapes alone (embed, per-layer
+    attention and FFN, norms, unembed; MoE experts included)."""
+    D, F_, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
+    H = cfg.n_heads * cfg.head_dim
+    KV = cfg.kv_heads * cfg.head_dim
+    attn = D * (H + 2 * KV) + H * D
+    ffn = 3 * D * F_
+    if cfg.n_experts > 0:
+        ffn = cfg.n_experts * ffn + D * cfg.n_experts  # experts + router
+    per_layer = attn + ffn + 2 * D  # + the two norms
+    return V * D + L * per_layer + D + D * V
+
+
+def _prefix_page_key(prev: bytes, toks: np.ndarray) -> bytes:
+    """One link of the prefix-cache key chain: a 16-byte BLAKE2b digest
+    over (previous link, this page's int32 token bytes), the chain
+    ``utils/prefixdigest`` defines (byte-identical to the reference's)."""
+    return prefixdigest.prefix_page_key(prev, toks.tobytes())
+
+
+def _prefix_seed(adapter_id: int) -> bytes:
+    """Chain seed: cached K/V depends on the adapter, so pages cached
+    under one must never match another's prompts (the port serves the
+    base model only: adapter id 0)."""
+    return prefixdigest.prefix_seed(adapter_id)
+
+
 @dataclass
 class _PendingChunk:
     """A dispatched fused chunk and the host snapshot needed to drain it;
@@ -353,14 +507,21 @@ class InferenceEngine:
         page_size: int = 16,
         n_pages: int = 0,
         fused_steps: int = 8,
+        kv_int8: bool = False,
+        prefix_cache: bool = False,
         paged_kernel: bool = False,
+        prefill_chunk: int = 0,
         device=None,
         **unported,
     ):
         """``paged_kernel``: decode attention reads the page pool in place
         (kernel K2 on CUDA) instead of gathering a contiguous copy per
-        step.  ``device``: ``cuda`` unless asked otherwise; the weights
-        move there."""
+        step.  ``kv_int8``: the pool holds int8 K/V with per-(token,
+        kv-head) scales.  ``prefix_cache``: full prompt pages stay cached
+        after a request and later prompts with the same leading pages
+        attach them.  ``prefill_chunk`` > 0: prompts longer than that
+        ingest that many tokens per engine step.  ``device``: ``cuda``
+        unless asked otherwise; the weights move there."""
         unknown = sorted(set(unported) - set(_UNPORTED_OPTIONS))
         if unknown:
             raise TypeError(f"unknown engine options {unknown}")
@@ -382,8 +543,9 @@ class InferenceEngine:
         if self.n_pages < 2:
             raise ValueError("need at least the scratch page and one real page")
         self.fused_steps = max(1, fused_steps)
+        self.kv_int8 = kv_int8
         self.paged_kernel = paged_kernel
-        self.kv = make_kv_pool(cfg, self.n_pages, page_size, self.device)
+        self.kv = make_kv_pool(cfg, self.n_pages, page_size, self.device, int8=kv_int8)
         self.free_pages = list(range(self.n_pages - 1, SCRATCH_PAGE, -1))
         self.tables = np.zeros((max_batch, self.max_pages_per_slot), np.int32)
         self.slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
@@ -394,6 +556,11 @@ class InferenceEngine:
         self.temps = np.zeros(max_batch, np.float32)
         self.top_ks = np.zeros(max_batch, np.int32)
         self.top_ps = np.ones(max_batch, np.float32)
+        # chunked prefill: a slot mid-way through its prompt ingests one
+        # chunk per engine step (``_continue_prefills``) and stays out of
+        # the decode chunks until its last pass emits
+        self.prefill_chunk = max(0, prefill_chunk)
+        self.prefilling = np.zeros(max_batch, bool)
         self.next_token = np.zeros(max_batch, np.int32)
         self.emitted = np.zeros(max_batch, np.int32)
         self.stalled = np.zeros(max_batch, bool)  # couldn't get pages
@@ -411,6 +578,18 @@ class InferenceEngine:
         self.steps_run = 0  # fused decode chunks dispatched
         self.prefills_run = 0  # prompt-ingest dispatches
         self.tokens_emitted = 0
+        # prefix cache: refcounts per page, the digest chain's entries,
+        # and an LRU clock over cached pages
+        self.prefix_cache = prefix_cache
+        self.page_ref = np.zeros(self.n_pages, np.int32)
+        self.prefix_entries: dict[bytes, int] = {}  # key → page id
+        self.page_key: dict[int, bytes] = {}  # page id → key (for eviction)
+        self.page_lru: dict[int, int] = {}
+        self._lru_clock = 0
+        self.prefix_hit_tokens = 0
+        # admission outcomes (a hit attaches at least one full page)
+        self.prefix_lookups = 0
+        self.prefix_admission_hits = 0
 
     # -- public API ----------------------------------------------------------
 
@@ -471,8 +650,10 @@ class InferenceEngine:
         raise RuntimeError("run_until_idle: step budget exhausted")
 
     def step(self) -> None:
-        """One fused decode chunk for every runnable slot, dispatched and
-        then drained (the sequential loop)."""
+        """One engine step: every mid-chunked-prefill slot ingests one
+        chunk, then one fused decode chunk runs for every other runnable
+        slot, dispatched and then drained (the sequential loop)."""
+        self._continue_prefills()
         pending = self._dispatch_chunk()
         if pending is not None:
             self._drain_chunk(pending)
@@ -536,41 +717,124 @@ class InferenceEngine:
             self.stalled[i] = False
             # no page zeroing: the position mask only exposes positions
             # <= length, all of which the new tenant rewrites
-            self.lengths[i] = 0
+            matched = self._match_prefix(i) if self.prefix_cache else 0
+            if self.prefix_cache:
+                self.prefix_lookups += 1
+                if matched:
+                    self.prefix_admission_hits += 1
+            self.lengths[i] = matched
+            if matched:
+                self.next_token[i] = int(self.prompts[i, matched])
             self._try_prefill(i, req)
 
-    def _prefill_dispatch(self, i: int, n: int) -> torch.Tensor:
-        """One prefill pass over the slot's first n fed tokens (pages must
-        cover them); returns the last real position's logits (V,).  The
-        length pads to a power of two (from 8), the table row to a power
-        of two of pages."""
+    def _match_prefix(self, i: int) -> int:
+        """Attach cached pages matching the fed prompt's leading full pages
+        (capped at plen - 1, so at least one prompt token runs through
+        the model for the first logits).  Returns the tokens matched."""
+        ps = self.page_size
+        plen = int(self.prompt_lens[i])
+        key = _prefix_seed(0)
+        row = self.prompts[i]
+        matched_pages = 0
+        for j in range(self.max_pages_per_slot):
+            end = (j + 1) * ps
+            if end > plen - 1:
+                break
+            key = _prefix_page_key(key, row[j * ps:end])
+            pg = self.prefix_entries.get(key)
+            if pg is None:
+                break
+            self.tables[i, j] = pg
+            self.slot_pages[i].append(pg)
+            self.page_ref[pg] += 1
+            self._touch(pg)
+            matched_pages += 1
+        self.prefix_hit_tokens += matched_pages * ps
+        return matched_pages * ps
+
+    def _touch(self, pg: int) -> None:
+        self._lru_clock += 1
+        self.page_lru[pg] = self._lru_clock
+
+    def _register_prompt_pages(self, i: int, req: Request) -> None:
+        """On release: publish the slot's pages fully covered by the
+        prompt AND by the written length (a request cancelled mid-prompt
+        never wrote the rest) into the prefix cache.  A page whose content
+        is already cached under another page stays unregistered and is
+        freed normally."""
+        ps = self.page_size
+        plen = min(len(req.prompt), int(self.lengths[i]))
+        key = _prefix_seed(0)
+        # the same int32 byte layout _match_prefix hashes
+        ptoks = np.asarray(req.prompt[:plen], np.int32)
+        for j, pg in enumerate(self.slot_pages[i]):
+            end = (j + 1) * ps
+            if end > plen:
+                break
+            key = _prefix_page_key(key, ptoks[j * ps:end])
+            existing = self.prefix_entries.get(key)
+            if existing is None:
+                self.prefix_entries[key] = pg
+                self.page_key[pg] = key
+                self._touch(pg)
+            elif existing == pg:
+                self._touch(pg)  # a shared page matched at admission
+
+    def _prefill_dispatch(self, i: int, t0: int, n: int) -> torch.Tensor:
+        """One prefill pass over fed tokens t0..t0+n-1 (pages must cover
+        them); returns the last real position's logits (V,).  t0 == 0 is
+        the plain one-pass prefill (K1 on CUDA); t0 > 0 runs behind the
+        pages already written (K3 on CUDA).  The length pads to a power of
+        two (from 8), the table row to a power of two of pages covering
+        t0 + n, so the prefixed pass's attention follows the live prompt
+        length, not max_len."""
         tpad = 8
         while tpad < n:
             tpad *= 2
         tpad = min(tpad, self.max_len)
-        need_pages = -(-n // self.page_size)
+        need_pages = -(-(t0 + n) // self.page_size)
         pbucket = 1
         while pbucket < need_pages:
             pbucket *= 2
         pbucket = min(pbucket, self.max_pages_per_slot)
         row = torch.tensor(self.tables[i, :pbucket], device=self.device)
         toks = np.zeros((1, tpad), np.int32)
-        toks[0, :n] = self.prompts[i, :n]
-        logits, self.kv = _paged_prefill(
-            self.params, torch.tensor(toks, device=self.device), self.kv, row, n,
-            cfg=self.cfg, page_size=self.page_size,
-        )
+        toks[0, :n] = self.prompts[i, t0:t0 + n]
+        toks = torch.tensor(toks, device=self.device)
+        if t0 == 0:
+            logits, self.kv = _paged_prefill(
+                self.params, toks, self.kv, row, n, cfg=self.cfg, page_size=self.page_size,
+            )
+        else:
+            logits, self.kv = _paged_prefill_prefixed(
+                self.params, toks, self.kv, row, t0, n, cfg=self.cfg,
+                page_size=self.page_size,
+            )
         self.prefills_run += 1
         return logits
 
     def _try_prefill(self, i: int, req: Request) -> None:
-        """Ingest the prompt in one pass when pages are available;
-        otherwise (or for a one-token prompt) leave the slot to the fused
-        chunks' incremental prompt feeding."""
+        """Ingest the (rest of the) prompt in one pass when pages are
+        available; otherwise (or for a one-token remainder) leave the slot
+        to the fused chunks' incremental prompt feeding.  A prefix-cache
+        hit skips the matched tokens.  With ``prefill_chunk`` C, a
+        remainder longer than C + 1 ingests C tokens without emitting and
+        the slot stays ``prefilling`` (``_continue_prefills`` goes on)."""
         plen = int(self.prompt_lens[i])
-        if plen < 2 or not self._ensure_pages(i, plen):
+        t0 = int(self.lengths[i])  # prefix-cache hit or chunks ingested so far
+        rem = plen - t0
+        C = self.prefill_chunk
+        if C > 0 and rem - 1 > C:
+            self.prefilling[i] = True
+            if not self._ensure_pages(i, t0 + C):
+                return  # pool pressure: retried next engine step
+            self._prefill_dispatch(i, t0, C)  # logits discarded
+            self.lengths[i] = t0 + C
             return
-        logits = self._prefill_dispatch(i, plen)
+        if rem < 2 or not self._ensure_pages(i, plen):
+            return
+        self.prefilling[i] = False  # the final (or only) pass emits below
+        logits = self._prefill_dispatch(i, t0, rem)
         if req.temperature > 0:
             tok = int(sample_static(
                 logits[None], self.generator, temperature=req.temperature,
@@ -587,7 +851,20 @@ class InferenceEngine:
             self._release_slot(i)
 
     def _alloc_page(self) -> Optional[int]:
-        return self.free_pages.pop() if self.free_pages else None
+        """A free page, else (prefix cache) the least recently used cached
+        page nobody references, evicted from the cache; None when the
+        pool is exhausted."""
+        if self.free_pages:
+            return self.free_pages.pop()
+        if self.prefix_cache:
+            candidates = [pg for pg in self.page_key if self.page_ref[pg] == 0]
+            if candidates:
+                pg = min(candidates, key=lambda p: self.page_lru.get(p, 0))
+                key = self.page_key.pop(pg)
+                self.prefix_entries.pop(key, None)
+                self.page_lru.pop(pg, None)
+                return pg
+        return None
 
     def _ensure_pages(self, i: int, upto: int) -> bool:
         """Grow slot i's pages to cover positions < upto.  False (partial
@@ -600,25 +877,39 @@ class InferenceEngine:
                 return False
             self.tables[i, len(self.slot_pages[i])] = pg
             self.slot_pages[i].append(pg)
+            self.page_ref[pg] += 1
         return True
+
+    def _free_slot_pages(self, i: int) -> None:
+        """Drop slot i's references; a page nobody references goes back to
+        the free list unless the prefix cache holds it."""
+        for pg in reversed(self.slot_pages[i]):
+            self.page_ref[pg] -= 1
+            if self.page_ref[pg] <= 0 and pg not in self.page_key:
+                self.free_pages.append(pg)
 
     def _clear_slot(self, i: int) -> None:
         self.slot_pages[i] = []
         self.tables[i, :] = SCRATCH_PAGE
         self.slots[i] = None
         self.stalled[i] = False
+        self.prefilling[i] = False
         self.gen_before[i] = 0
         self.priorities[i] = 0
 
     def _release_slot(self, i: int) -> None:
-        self.free_pages.extend(reversed(self.slot_pages[i]))
+        req = self.slots[i]
+        if self.prefix_cache and req is not None and not req.error:
+            self._register_prompt_pages(i, req)
+        self._free_slot_pages(i)
         self._clear_slot(i)
 
     def _force_drop_slot(self, i: int) -> None:
-        """Last-resort teardown for the serving loop's failure path; never
+        """Last-resort teardown for the serving loop's failure path: frees
+        the slot's pages without prefix-cache registration and never
         raises (a half-released slot must not keep live pages attached)."""
         try:
-            self.free_pages.extend(reversed(self.slot_pages[i]))
+            self._free_slot_pages(i)
         except Exception:
             log.exception("page cleanup for slot %d failed; pages leak", i)
         self._clear_slot(i)
@@ -638,6 +929,27 @@ class InferenceEngine:
                 if req.cancelled:
                     req.done.set()
                     self._release_slot(i)
+                    continue
+                if self.prefilling[i]:
+                    # mid-chunked-prefill: fed by _continue_prefills, never
+                    # by a decode chunk.  A pool-pressure stall it recorded
+                    # may be stale after a spill freed pages: clear it iff
+                    # the FULL next-pass target is grantable, and never by
+                    # taking pages a higher-priority stalled slot awaits
+                    if self.stalled[i]:
+                        hp = max(
+                            (int(self.priorities[j]) for j, r in enumerate(self.slots)
+                             if r is not None and self.stalled[j] and j != i),
+                            default=None,
+                        )
+                        if hp is not None and hp > int(self.priorities[i]):
+                            continue  # yield the freed pages upward
+                        t0 = int(self.lengths[i])
+                        plen = int(self.prompt_lens[i])
+                        C = self.prefill_chunk
+                        target = t0 + C if C > 0 and (plen - t0) - 1 > C else plen
+                        if self._ensure_pages(i, target):
+                            self.stalled[i] = False
                     continue
                 if self._ensure_pages(i, int(self.lengths[i]) + lookahead):
                     active[i] = True
@@ -691,6 +1003,27 @@ class InferenceEngine:
         self._release_slot(v)
         self._enqueue(req)
         return True
+
+    def _continue_prefills(self) -> bool:
+        """Advance every mid-chunked-prefill slot by one chunk.  Returns
+        True if any slot made progress."""
+        progressed = False
+        for i, req in enumerate(self.slots):
+            if req is None or not self.prefilling[i]:
+                continue
+            if req.cancelled:
+                req.done.set()
+                self._release_slot(i)
+                progressed = True
+                continue
+            before = int(self.lengths[i])
+            self._try_prefill(i, req)
+            if not self.prefilling[i] or int(self.lengths[i]) > before:
+                progressed = True
+                self.stalled[i] = False
+            else:
+                self.stalled[i] = True  # pool-pressure stall; retried
+        return progressed
 
     def _dispatch_chunk(self) -> Optional[_PendingChunk]:
         """Prepare and run one fused decode chunk; returns the record to

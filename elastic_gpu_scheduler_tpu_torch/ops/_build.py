@@ -3,13 +3,15 @@
 Every ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` (one
 process per source, all started together), and the objects link into one
 shared library with a plain C interface, loaded through ``ctypes``.  No
-PyTorch header is compiled, so a build takes seconds.
+PyTorch header is compiled, so a build takes seconds.  The sources share
+``csrc/*.cuh`` headers.
 
 The library is built at first use into ``_torch_kernels_build/`` inside
-the package (listed in ``.gitignore``), named by a digest of the sources
-and flags, so an edited source rebuilds and an unchanged one loads the
-library already there.  Nothing here runs at import: the CPU tests import
-every module of the port on a machine with no ``nvcc``.
+the package (listed in ``.gitignore``), named by a digest of the sources,
+headers and flags, so an edited source or header rebuilds and an
+unchanged tree loads the library already there.  Nothing here runs at
+import: the CPU tests import every module of the port on a machine with
+no ``nvcc``.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0, so a launch the card refuses (too many
@@ -42,7 +44,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: dict[str, int] = {
-    "flash_fwd": 0, "paged_attention": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "flash_fwd": 0, "paged_attention": 0, "paged_attention_int8": 0,
+    "flash_block_stats": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
 }
 
 _lock = threading.Lock()
@@ -57,7 +60,13 @@ _SIGNATURES = {
     # q, pool_k, pool_v, tables, lengths, out, B, W, Hn, Hkv, Dh, ps, NB,
     # dtype, window, scale, stream
     "egs_paged_attention": ([_P] * 6 + [_I] * 9 + [_F, _P], ctypes.c_int),
+    # q, pool_k, pool_v (int8), scales_k, scales_v, tables, lengths, out,
+    # then as egs_paged_attention
+    "egs_paged_attention_int8": ([_P] * 8 + [_I] * 9 + [_F, _P], ctypes.c_int),
     "egs_paged_attention_smem": ([_I, _I, _I], ctypes.c_longlong),
+    # q, k, v, pv, m, l, B, H, Hkv, Sq, Sk, D, dtype, causal, q_offset,
+    # k_offset, scale, stream
+    "egs_flash_block_stats": ([_P] * 6 + [_I] * 10 + [_F, _P], ctypes.c_int),
     # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, dtype, causal, window,
     # scale, stream
     "egs_flash_bwd_dq": ([_P] * 7 + [_I] * 8 + [_F, _P], ctypes.c_int),
@@ -94,16 +103,18 @@ def nvcc_path() -> str:
     )
 
 
-def _digest(srcs: list[Path]) -> str:
+def _digest(files: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in files:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
 
 
 def library_path() -> Path:
-    return BUILD_DIR / f"libegs_kernels_{_digest(sources())}.so"
+    """Named by a digest of the sources AND the headers they include."""
+    files = sources() + sorted(CSRC_DIR.glob("*.cuh"))
+    return BUILD_DIR / f"libegs_kernels_{_digest(files)}.so"
 
 
 def build_log_path() -> Path:

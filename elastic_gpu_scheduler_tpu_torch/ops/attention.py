@@ -1,6 +1,6 @@
-"""Flash attention: the hand-written Hopper kernels K1 (forward) and K4
-(backward), their plain PyTorch versions, and the autograd function that
-joins them.
+"""Flash attention: the hand-written Hopper kernels K1 (forward), K4
+(backward) and K3 (blockwise attention with softmax statistics), their
+plain PyTorch versions, and the autograd function that joins K1 and K4.
 
 Counterpart of ``elastic_gpu_scheduler_tpu/ops/attention.py``.  On CUDA
 tensors ``flash_attention`` launches ``csrc/flash_fwd.cu`` (one block per
@@ -19,6 +19,12 @@ probabilities block by block, so no (Sq, Sk) tensor is kept for it.
 
 Layouts are the reference's: q (B, H, Sq, D), k/v (B, H, Sk, D), queries
 aligned to the LAST Sq key positions.
+
+``flash_block_stats`` launches ``csrc/flash_stats.cu`` (K3) on CUDA
+tensors and computes ``flash_block_stats_reference`` on CPU tensors: the
+unnormalised (pv, m, l) of queries and keys at explicit global offsets,
+what a prefix-cached or chunked prefill needs (``generate.
+cached_attention_multi``).  Its k/v may have fewer heads than q (GQA).
 """
 
 from __future__ import annotations
@@ -253,6 +259,131 @@ def _check_aligned(tensors, what):
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{what} kernel needs 16-byte aligned tensors")
+
+
+def flash_block_stats_reference(q, k, v, q_offset, k_offset, causal=True, sm_scale=None,
+                                round_like_kernel=True):
+    """Plain version of K3: (pv (B, H, Sq, D) fp32 unnormalised, m and l
+    (B, H, Sq) fp32) over the whole (Sq, Sk) score matrix at once.
+
+    q (B, H, Sq, D); k, v (B, Hkv, Sk, D) with Hkv dividing H (query head
+    h reads kv-head h // (H / Hkv)).  Causal keeps (i, j) iff
+    ``q_offset + i >= k_offset + j``; a masked logit is ``NEG_INF`` and
+    takes part in the max and the sums, so a row that keeps no key gives
+    m = NEG_INF, l = Sk and pv = the sum of v, as the TPU kernel does.
+
+    ``round_like_kernel`` (the default) rounds p to v's dtype before the
+    P V product, as K3 and the TPU kernel do, while l sums the unrounded
+    p; nothing changes in float32.  K3 computes the same sums online, one
+    key tile at a time, so in bfloat16 a term p_j v_j may round at
+    another scale of its row's running max."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    n_rep = H // Hkv
+    scale = D ** -0.5 if sm_scale is None else float(sm_scale)
+    if Sk == 0:
+        zeros = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+        return (torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device),
+                zeros + NEG_INF, zeros)
+    qg = q.float().reshape(B, Hkv, n_rep, Sq, D)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float()) * scale
+    if causal:
+        qpos = int(q_offset) + torch.arange(Sq, device=q.device)
+        kpos = int(k_offset) + torch.arange(Sk, device=q.device)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    if round_like_kernel:
+        p = p.to(v.dtype).float()
+    pv = torch.einsum("bgrqk,bgkd->bgrqd", p, v.float())
+    return pv.reshape(B, H, Sq, D), m.reshape(B, H, Sq), l.reshape(B, H, Sq)
+
+
+def block_stats_tolerance_used(got, ref, dtype) -> dict:
+    """K3's tolerance against ``flash_block_stats_reference(...,
+    round_like_kernel=True)`` on q/k/v of ``dtype``, as the largest share
+    of it any element takes, for pv, m and l (each <= 1 passes;
+    non-finite values fail):
+
+    - pv, held in units of its row's l (pv / l is an attention output):
+      |d| <= atol l + rtol |ref|, float32 atol 2e-5 and rtol 0 (sums of up
+      to Sk terms in another order), bfloat16 atol 2^-6 and rtol 2^-8 (p
+      rounds to bfloat16 at its tile's running max in the kernel and at
+      the row's final max in the plain version: up to two bfloat16 steps
+      a term);
+    - m: |d| <= 1e-4 + 1e-6 |ref| (fp32 dot products summed in another
+      order; NEG_INF rows must match it);
+    - l: |d| <= 1e-4 |ref|."""
+    pv, m, l = (t.float() for t in got)
+    rpv, rm, rl = (t.float() for t in ref)
+    atol, rtol = (2e-5, 0.0) if dtype == torch.float32 else (2.0 ** -6, 2.0 ** -8)
+
+    def share(d, lim, x):
+        if not bool(torch.isfinite(x).all()):
+            return float("inf")
+        return float(torch.where(d == 0, 0.0, d / lim).max()) if d.numel() else 0.0
+
+    return {
+        "pv": share((pv - rpv).abs(), atol * rl[..., None] + rtol * rpv.abs(), pv),
+        "m": share((m - rm).abs(), 1e-4 + 1e-6 * rm.abs(), m),
+        "l": share((l - rl).abs(), 1e-4 * rl.abs(), l),
+    }
+
+
+def flash_block_stats(q, k, v, q_offset, k_offset, causal: bool = True,
+                      sm_scale: Optional[float] = None):
+    """Blockwise attention with softmax statistics: (pv, m, l) as
+    ``flash_block_stats_reference`` defines them.  K3 on CUDA tensors
+    (counted as ``flash_block_stats``), the plain version on CPU tensors.
+    ``q_offset`` / ``k_offset`` are the global positions of the first
+    query and key (ints, or 0-d tensors read on the host)."""
+    scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+    q_offset, k_offset = int(q_offset), int(k_offset)
+    devs = {t.device for t in (q, k, v)}
+    if len(devs) != 1:
+        raise ValueError(f"flash_block_stats: q, k, v on different devices: "
+                         f"{sorted(map(str, devs))}")
+    if q.device.type == "cpu":
+        return flash_block_stats_reference(q, k, v, q_offset, k_offset, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_block_stats: unsupported device {q.device}")
+    return _flash_stats_cuda(q, k, v, q_offset, k_offset, bool(causal), scale)
+
+
+def _flash_stats_cuda(q, k, v, q_offset, k_offset, causal, scale):
+    """Launch K3 (csrc/flash_stats.cu); raises on anything it does not take."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_block_stats: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or H % Hkv:
+        raise ValueError(f"flash_block_stats: q{tuple(q.shape)} and k{tuple(k.shape)} "
+                         "disagree (k/v need q's batch and head_dim, and heads "
+                         "dividing q's)")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_block_stats kernel takes float32 or bfloat16 q/k/v of one "
+            f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_block_stats kernel takes head_dim in {HEAD_DIMS}, got {D}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    pv = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if pv.numel() == 0:
+        return pv, m, l
+    _check_aligned((q, k, v), "flash_block_stats")
+    err = _build.lib().egs_flash_block_stats(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pv.data_ptr(), m.data_ptr(), l.data_ptr(),
+        B, H, Hkv, Sq, Sk, D, _DTYPE_CODES[q.dtype], int(causal), q_offset, k_offset,
+        scale, _build.stream_ptr(q.device),
+    )
+    _build.check(err, "flash_block_stats launch")
+    _build.LAUNCHES["flash_block_stats"] += 1
+    return pv, m, l
 
 
 def _flash_fwd_cuda(q, k, v, causal, scale, window):

@@ -8,8 +8,12 @@ batch row), each live page loaded once into shared memory, GQA grouped,
 never expanded); on a CPU tensor it computes
 ``paged_attention_reference``, the gather-then-attend version.
 
-The int8 pool (``scales_k``/``scales_v``) is the remaining part of K2 and
-a later slice: passing scales raises.
+An int8 pool comes with per-(token, kv-head) fp32 scales
+(``scales_k``/``scales_v``, shape (n_pages, page_size, Hkv)).  Both
+versions dequantise as the reference's ``_dequant`` does: int8 to fp32,
+times the scale, rounded to the compute ``dtype``, back to fp32, so the
+kernel and the engine's gather path see the same K/V values.  The int8
+kernel's launches count as ``paged_attention_int8``.
 """
 
 from __future__ import annotations
@@ -23,8 +27,15 @@ from .attention import HEAD_DIMS, NEG_INF, _DTYPE_CODES
 MAX_SMEM_BYTES = 232448
 
 
+def dequant(x, scales, dtype):
+    """int8 rows times per-(token, head) scales, through ``dtype`` (the
+    reference's ``_dequant``; the serving gather path uses it too)."""
+    return (x.float() * scales[..., None]).to(dtype)
+
+
 def paged_attention_reference(
-    q, pool_k, pool_v, tables, lengths, *, window: int = 0, dtype=None,
+    q, pool_k, pool_v, tables, lengths, *, scales_k=None, scales_v=None,
+    window: int = 0, dtype=None,
 ):
     """Gather-then-attend oracle.
 
@@ -33,7 +44,8 @@ def paged_attention_reference(
     (n_pages, page_size, Hkv, Dh); tables: (B, NB) int32; lengths: (B,)
     int32.  Query w of row b attends to positions 0..lengths[b]+w, minus
     anything outside the sliding ``window`` when > 0.  Returns q's rank.
-    ``dtype`` matters only for int8 pools (not ported yet)."""
+    ``scales_k/v``: (n_pages, page_size, Hkv) scales of an int8 pool,
+    dequantised through ``dtype`` (q's dtype when None)."""
     squeeze = q.ndim == 3
     if squeeze:
         q = q[:, None]
@@ -41,9 +53,14 @@ def paged_attention_reference(
     NB = tables.shape[1]
     ps, Hkv = pool_k.shape[1], pool_k.shape[2]
     n_rep = Hn // Hkv
+    dtype = dtype or q.dtype
     tl = tables.long()
-    k = pool_k[tl].reshape(B, NB * ps, Hkv, Dh).float()
-    v = pool_v[tl].reshape(B, NB * ps, Hkv, Dh).float()
+    k = pool_k[tl].reshape(B, NB * ps, Hkv, Dh)
+    v = pool_v[tl].reshape(B, NB * ps, Hkv, Dh)
+    if scales_k is not None:
+        k = dequant(k, scales_k[tl].reshape(B, NB * ps, Hkv), dtype)
+        v = dequant(v, scales_v[tl].reshape(B, NB * ps, Hkv), dtype)
+    k, v = k.float(), v.float()
     qg = q.reshape(B, W, Hkv, n_rep, Dh).float()
     s = torch.einsum("bwhrd,bthd->bwhrt", qg, k) * (Dh ** -0.5)
     kpos = torch.arange(NB * ps, device=q.device)[None, None, :]
@@ -72,28 +89,29 @@ def paged_attention(
 ) -> torch.Tensor:
     """Decode attention straight off the page pool; semantics identical to
     ``paged_attention_reference``.  q is rank 3 (plain decode, W = 1) or
-    rank 4 (the W-query verify window)."""
-    if scales_k is not None or scales_v is not None:
-        raise NotImplementedError(
-            "paged_attention over an int8 pool (scales_k/scales_v) is the "
-            "remaining part of kernel K2 and a later slice of the port"
-        )
-    devs = {t.device for t in (q, pool_k, pool_v, tables, lengths)}
+    rank 4 (the W-query verify window).  An int8 pool passes both
+    ``scales_k`` and ``scales_v``."""
+    if (scales_k is None) != (scales_v is None):
+        raise ValueError("paged_attention: pass both scales_k and scales_v, or neither")
+    scales = () if scales_k is None else (scales_k, scales_v)
+    devs = {t.device for t in (q, pool_k, pool_v, tables, lengths, *scales)}
     if len(devs) != 1:
         raise ValueError(
             f"paged_attention inputs on different devices: {sorted(map(str, devs))}"
         )
     if q.device.type == "cpu":
         return paged_attention_reference(
-            q, pool_k, pool_v, tables, lengths, window=window, dtype=dtype
+            q, pool_k, pool_v, tables, lengths, scales_k=scales_k, scales_v=scales_v,
+            window=window, dtype=dtype,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    return _paged_cuda(q, pool_k, pool_v, tables, lengths, window)
+    return _paged_cuda(q, pool_k, pool_v, tables, lengths, window, scales, dtype)
 
 
-def _paged_cuda(q, pool_k, pool_v, tables, lengths, window):
-    """Launch K2 (csrc/paged_attention.cu); raises on anything it does not
+def _paged_cuda(q, pool_k, pool_v, tables, lengths, window, scales=(), dtype=None):
+    """Launch K2 (csrc/paged_attention.cu), its int8-pool variant when
+    ``scales`` holds (scales_k, scales_v); raises on anything it does not
     take."""
     squeeze = q.ndim == 3
     q4 = q[:, None] if squeeze else q
@@ -107,11 +125,25 @@ def _paged_cuda(q, pool_k, pool_v, tables, lengths, window):
         raise ValueError(
             f"paged_attention: q{tuple(q.shape)} does not fit pool{tuple(pool_k.shape)}"
         )
-    if q.dtype not in _DTYPE_CODES or pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
+    int8 = bool(scales)
+    pool_dtype = torch.int8 if int8 else q.dtype
+    if q.dtype not in _DTYPE_CODES or pool_k.dtype != pool_dtype or pool_v.dtype != pool_dtype:
         raise TypeError(
-            f"paged_attention kernel takes float32 or bfloat16 q and pools of "
-            f"one dtype, got {q.dtype}/{pool_k.dtype}/{pool_v.dtype}"
+            f"paged_attention kernel takes float32 or bfloat16 q with pools of "
+            f"q's dtype (int8 with scales), got {q.dtype}/{pool_k.dtype}/{pool_v.dtype}"
         )
+    if int8:
+        if (dtype or q.dtype) != q.dtype:
+            raise TypeError(
+                f"paged_attention kernel dequantises through q's dtype {q.dtype}, "
+                f"not {dtype}"
+            )
+        for sc in scales:
+            if sc.dtype != torch.float32 or sc.shape != pool_k.shape[:3]:
+                raise ValueError(
+                    f"paged_attention: scales must be float32 of shape "
+                    f"{tuple(pool_k.shape[:3])}, got {sc.dtype} {tuple(sc.shape)}"
+                )
     if Dh not in HEAD_DIMS:
         raise ValueError(f"paged_attention kernel takes head_dim in {HEAD_DIMS}, got {Dh}")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
@@ -137,11 +169,21 @@ def _paged_cuda(q, pool_k, pool_v, tables, lengths, window):
     out = torch.empty_like(q4)
     if out.numel() == 0:
         return out[:, 0] if squeeze else out
-    err = lib.egs_paged_attention(
-        q4.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, W, Hn, Hkv, Dh, ps, tables.shape[1],
-        _DTYPE_CODES[q.dtype], int(window), Dh ** -0.5, _build.stream_ptr(q.device),
-    )
-    _build.check(err, "paged_attention launch")
-    _build.LAUNCHES["paged_attention"] += 1
+    tail = (out.data_ptr(), B, W, Hn, Hkv, Dh, ps, tables.shape[1], _DTYPE_CODES[q.dtype],
+            int(window), Dh ** -0.5, _build.stream_ptr(q.device))
+    if int8:
+        sk, sv = (sc.contiguous() for sc in scales)
+        err = lib.egs_paged_attention_int8(
+            q4.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), sk.data_ptr(), sv.data_ptr(),
+            tables.data_ptr(), lengths.data_ptr(), *tail,
+        )
+        name = "paged_attention_int8"
+    else:
+        err = lib.egs_paged_attention(
+            q4.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tables.data_ptr(),
+            lengths.data_ptr(), *tail,
+        )
+        name = "paged_attention"
+    _build.check(err, f"{name} launch")
+    _build.LAUNCHES[name] += 1
     return out[:, 0] if squeeze else out

@@ -40,6 +40,14 @@ def build_args(argv=None):
     p.add_argument("--paged-kernel", action="store_true",
                    help="decode attention reads the page pool in place "
                         "through the CUDA paged-attention kernel")
+    p.add_argument("--kv-int8", action="store_true",
+                   help="int8 KV pool with per-(token, kv-head) scales")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="keep full prompt pages cached for later prompts "
+                        "that share them")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="ingest long prompts this many tokens per engine "
+                        "step, between decode chunks (0 = one pass)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU with the plain PyTorch paths (tests/dev)")
     p.add_argument("--drain-timeout", type=float, default=30.0,
@@ -71,7 +79,9 @@ def main(argv=None) -> int:
     engine = InferenceEngine(
         params, cfg, max_batch=args.max_batch, max_len=args.max_len,
         page_size=args.page_size, n_pages=args.n_pages,
-        fused_steps=args.fused_steps, paged_kernel=args.paged_kernel, device=device,
+        fused_steps=args.fused_steps, kv_int8=args.kv_int8,
+        prefix_cache=args.prefix_cache, paged_kernel=args.paged_kernel,
+        prefill_chunk=args.prefill_chunk, device=device,
     )
     server, loop = serve_inference(engine, port=args.port, host=args.host)
     log.info(

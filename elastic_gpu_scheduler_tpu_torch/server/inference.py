@@ -7,14 +7,16 @@ routes this slice serves (stdlib HTTP only):
                              blocking JSON, or Server-Sent Events with
                              {"stream": true} (``data: {"token": t}`` …
                              ``data: [DONE]``)
-    GET  /v1/stats         → engine state (slots, pages, queue)
+    GET  /v1/stats         → engine state (slots, pages, queue, prefix cache)
     GET  /healthz          → liveness (503 while draining)
     GET  /version          → build version
 
 ONE engine thread (``EngineLoop``) owns all engine state and drives fused
 chunks; HTTP handler threads only submit requests and wait on them.  A
 body field the slice has not ported (logprobs, penalties, logit bias,
-seeds, adapters, n > 1, ...) is a 400 that names it, never ignored.
+seeds, adapters, n > 1, ...) is a 400 that names it, never ignored.  The
+reference's disaggregated-serving verbs (``/v1/kv/*``, ``/v1/prefill``,
+``/v1/migrate/*``) are not ported and answer 404.
 """
 
 from __future__ import annotations
@@ -238,13 +240,25 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                     "queued": eng.queue.qsize(),
                     "free_pages": len(eng.free_pages),
                     "total_pages": eng.n_pages - 1,
+                    "prefix_hit_tokens": int(eng.prefix_hit_tokens),
                     "page_size": eng.page_size,
+                    "prefill_chunk": eng.prefill_chunk,
                     "paged_kernel": eng.paged_kernel,
                     "vocab_size": eng.cfg.vocab_size,
                     "device": str(eng.device),
                     "steps_run": int(eng.steps_run),
                     "prefills_run": int(eng.prefills_run),
                     "tokens_emitted": int(eng.tokens_emitted),
+                    # the prefix-cache counters, under the reference's names
+                    "kv": {
+                        "prefix_lookups": int(eng.prefix_lookups),
+                        "prefix_hits": int(eng.prefix_admission_hits),
+                        "prefix_misses": int(
+                            eng.prefix_lookups - eng.prefix_admission_hits
+                        ),
+                        "resident_pages": int(eng.n_pages - 1 - len(eng.free_pages)),
+                        "cached_pages": len(eng.page_key),
+                    },
                 })
             return self._json(404, {"error": f"no route {self.path}"})
 

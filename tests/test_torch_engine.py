@@ -6,13 +6,24 @@ same weights (``bridge.params_from_jax``), float32: the greedy tokens must
 be identical, on the gather path and on the paged-kernel path, with mixed
 prompt lengths (one-pass prefill), a one-token prompt (fed by the fused
 chunks) and more requests than slots.
+
+The reference engine runs behind ``reference_engine_copies_uploads``: on
+the CPU backend ``jnp.asarray`` of an aligned numpy array aliases its
+buffer, and the reference engine mutates host arrays (``lengths`` right
+after an asynchronous chunk dispatch, ``tables``, ``next_token``) that a
+dispatched computation may still read, so its tokens would depend on
+timing.  The fixture hands the reference serving module a ``jnp`` whose
+``asarray`` copies host arrays; nothing in the JAX package changes.  The
+other engine-parity files import the fixture from here.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from elastic_gpu_scheduler_tpu.models import serving as jax_serving
 from elastic_gpu_scheduler_tpu.models.serving import (
     InferenceEngine as JaxEngine,
     Request as JaxRequest,
@@ -34,6 +45,35 @@ CFG = dict(vocab_size=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
 PROMPTS = [[5, 17, 3], [60, 2, 9, 9], list(range(1, 17)), [42],
            [7] * 11, [33, 1, 80, 4, 4, 19]]
 MAX_NEW = [8, 6, 8, 9, 5, 7]
+
+
+class _CopyingJnp:
+    """``jax.numpy`` with an ``asarray`` that copies numpy arrays (the
+    reference engine's uploads of host state it later mutates)."""
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def asarray(a, dtype=None, **kw):
+        if isinstance(a, np.ndarray):
+            return jnp.array(a, dtype=dtype, copy=True)
+        return jnp.asarray(a, dtype=dtype, **kw)
+
+
+@pytest.fixture(autouse=True)
+def reference_engine_copies_uploads(monkeypatch):
+    monkeypatch.setattr(jax_serving, "jnp", _CopyingJnp())
+
+
+def test_copying_jnp_copies_host_arrays_only():
+    a = np.arange(1024, dtype=np.int32)
+    dev = _CopyingJnp().asarray(a)
+    a += 1
+    assert int(dev[0]) == 0 and int(dev[-1]) == 1023
+    x = jnp.ones(3)
+    assert _CopyingJnp().asarray(x) is x
+    assert _CopyingJnp().int32 is jnp.int32
 
 
 @pytest.fixture(scope="module")
@@ -130,7 +170,7 @@ def test_engine_stop_tokens_and_sampling(weights):
 def test_engine_rejects_unported_options_and_fields(weights):
     _, _, params = weights
     cfg = TransformerConfig(**CFG)
-    for opt in ("spec_k", "prefix_cache", "kv_int8", "overlap", "prefill_chunk"):
+    for opt in ("spec_k", "adapters", "overlap", "max_queue", "compile_cache"):
         with pytest.raises(NotImplementedError, match=opt):
             InferenceEngine(params, cfg, device="cpu", **{opt: 1})
     with pytest.raises(TypeError, match="seed"):

@@ -4,6 +4,12 @@ the serving loop — over real sockets."""
 
 import http.client
 import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
 
 import pytest
 import torch
@@ -137,3 +143,51 @@ def test_drain_rejects_new_and_finishes_inflight():
         server.shutdown()
         server.server_close()
         loop.stop()
+
+
+def test_serve_cli_with_kv_int8_prefix_cache_and_chunked_prefill():
+    """``serve --init --cpu --kv-int8 --prefix-cache --prefill-chunk 8`` in
+    its own process: the same prompt twice answers the same tokens, the
+    second time through the prefix cache, and /v1/stats shows the
+    counters under the reference's names; SIGTERM drains and exits 0."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "elastic_gpu_scheduler_tpu_torch.serve", "--init", "--cpu",
+           "--kv-int8", "--prefix-cache", "--prefill-chunk", "8", "--port", str(port),
+           "--host", "127.0.0.1", "--vocab-size", "64", "--d-model", "64",
+           "--n-layers", "2", "--n-heads", "2", "--d-ff", "64", "--dtype", "float32",
+           "--max-batch", "2", "--max-len", "64", "--page-size", "8", "--fused-steps", "4"]
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    addr = ("127.0.0.1", port)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                if _get(addr, "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            assert proc.poll() is None, proc.stderr.read()
+            assert time.monotonic() < deadline, "serve did not come up"
+            time.sleep(0.2)
+        prompt = list(range(1, 30))  # 3 full pages of 8, 5 tokens past them
+        first = _post(addr, {"prompt": prompt, "max_tokens": 6})
+        second = _post(addr, {"prompt": prompt, "max_tokens": 6})
+        assert first[0] == second[0] == 200
+        assert first[1]["tokens"] == second[1]["tokens"] and len(first[1]["tokens"]) == 6
+        code, stats = _get(addr, "/v1/stats")
+        assert code == 200 and stats["prefill_chunk"] == 8
+        assert stats["kv"]["prefix_lookups"] == 2 and stats["kv"]["prefix_hits"] == 1
+        assert stats["kv"]["prefix_misses"] == 1
+        assert stats["prefix_hit_tokens"] == 24 and stats["kv"]["cached_pages"] >= 3
+        assert _post(addr, {"tokens": [1]}, path="/v1/kv/export")[0] == 404
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

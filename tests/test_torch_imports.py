@@ -49,6 +49,8 @@ def test_port_imports_no_jax_and_no_jax_package():
             "elastic_gpu_scheduler_tpu_torch.ops.xent",
             "elastic_gpu_scheduler_tpu_torch.models.train",
             "elastic_gpu_scheduler_tpu_torch.models.data",
+            "elastic_gpu_scheduler_tpu_torch.models.generate",
+            "elastic_gpu_scheduler_tpu_torch.utils.prefixdigest",
             "elastic_gpu_scheduler_tpu_torch.launcher"} <= expected
     bad = [m for m in res["modules"] if _is_jax_package(m)]
     assert not bad, bad

@@ -15,6 +15,11 @@ Gradients (K4): ``attention.grad_close``, against
 ``flash_backward_reference`` rounded where the kernel rounds (P and dS to
 bfloat16), and with its looser bfloat16 rule against autograd of
 ``mha_reference``, which rounds neither.
+
+Blockwise statistics (K3): ``attention.block_stats_tolerance_used``
+against ``flash_block_stats_reference`` (p rounded like the kernel);
+pv / l against ``mha_reference`` over the kept keys with K1's output
+tolerances.  K2 over an int8 pool: the same tolerances as dense K2.
 """
 
 import numpy as np
@@ -25,9 +30,13 @@ from elastic_gpu_scheduler_tpu_torch.models import serving
 from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
 from elastic_gpu_scheduler_tpu_torch.ops import _build
 from elastic_gpu_scheduler_tpu_torch.ops.attention import (
+    NEG_INF,
+    block_stats_tolerance_used,
     flash_attention,
     flash_backward,
     flash_backward_reference,
+    flash_block_stats,
+    flash_block_stats_reference,
     grad_close,
     mha_reference,
 )
@@ -221,4 +230,143 @@ def test_engine_on_card_matches_cpu_float32(cuda):
             assert _build.LAUNCHES["paged_attention"] == (
                 cfg.n_layers * eng.fused_steps * eng.steps_run
             )
+    assert outs["cpu"] == outs[str(cuda)]
+
+
+# (B, H, Hkv, Sq, Sk, D, q_offset, k_offset, causal)
+K3_CASES = [
+    (1, 16, 8, 128, 512, 128, 384, 0, True),  # a prefix-cached chunk (GQA)
+    (1, 16, 8, 200, 640, 128, 440, 0, True),  # ragged Sq and Sk
+    (2, 4, 4, 96, 160, 64, 0, 0, True),  # MHA, more keys than the diagonal
+    (1, 4, 2, 64, 128, 64, 0, 40, True),  # rows 0..39 keep no key
+    (1, 2, 1, 64, 128, 32, 0, 200, True),  # no row keeps a key
+    (1, 4, 2, 70, 90, 32, 7, 3, False),  # not causal
+]
+
+
+def _kept_keys_reference(q, k, v, q_off, k_off, causal):
+    """mha_reference over the keys the rows keep, where every row keeps
+    keys 0..(q_off - k_off + i) (or all keys when not causal); None when
+    the geometry has rows with no key."""
+    n_rep = q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(n_rep, dim=1) for t in (k, v))
+    if not causal:
+        return mha_reference(q, ke, ve, False)[0]
+    diag = q_off - k_off
+    if diag < 0 or diag + q.shape[2] > k.shape[2]:
+        return None
+    n = diag + q.shape[2]
+    return mha_reference(q, ke[:, :, :n], ve[:, :, :n], True)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", K3_CASES, ids=str)
+def test_block_stats_kernel_matches_plain(cuda, case, dtype):
+    B, H, Hkv, Sq, Sk, D, q_off, k_off, causal = case
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(B, H, Sq, D, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Hkv, Sk, D, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Hkv, Sk, D, generator=g, device=cuda).to(dtype)
+    before = _build.LAUNCHES["flash_block_stats"]
+    got = flash_block_stats(q, k, v, q_off, k_off, causal=causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_block_stats"] == before + 1
+    want = flash_block_stats_reference(q, k, v, q_off, k_off, causal)
+    shares = block_stats_tolerance_used(got, want, dtype)
+    assert max(shares.values()) <= 1.0, shares
+    pv, m, l = got
+    if causal and q_off < k_off:  # the rows that keep no key, as on the TPU
+        empty = slice(0, min(Sq, k_off - q_off))
+        assert torch.all(m[:, :, empty] == NEG_INF) and torch.all(l[:, :, empty] == Sk)
+    ref = _kept_keys_reference(q, k, v, q_off, k_off, causal)
+    if ref is not None:
+        assert _close((pv / l[..., None]).to(dtype), ref)
+
+
+@pytest.mark.gpu
+def test_block_stats_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 2, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_block_stats(q, q, q, 0, 0)
+    q = torch.zeros(1, 3, 8, 32, device=cuda)
+    k = torch.zeros(1, 2, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="heads"):
+        flash_block_stats(q, k, k, 0, 0)
+    h = torch.zeros(1, 2, 8, 32, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_block_stats(h, h, h, 0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("W", [0, 4])
+@pytest.mark.parametrize("window", [0, 20])
+def test_paged_kernel_int8_matches_plain(cuda, dtype, W, window):
+    Hn, Hkv, B, Dh, ps, NP, NB = 16, 8, 4, 128, 16, 40, 6
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qshape = (B, Hn, Dh) if W == 0 else (B, W, Hn, Dh)
+    q = torch.randn(qshape, generator=g, device=cuda).to(dtype)
+    pk, pv = (torch.randint(-127, 128, (NP, ps, Hkv, Dh), generator=g, device=cuda,
+                            dtype=torch.int8) for _ in range(2))
+    sk, sv = (torch.rand(NP, ps, Hkv, generator=g, device=cuda) * 0.02 for _ in range(2))
+    tables = torch.randint(0, NP, (B, NB), generator=g, device=cuda, dtype=torch.int32)
+    lengths = torch.tensor([0, 15, 16, NB * ps - max(W, 1)], dtype=torch.int32, device=cuda)
+    before = dict(_build.LAUNCHES)
+    out = paged_attention(q, pk, pv, tables, lengths, scales_k=sk, scales_v=sv, window=window)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["paged_attention_int8"] == before["paged_attention_int8"] + 1
+    assert _build.LAUNCHES["paged_attention"] == before["paged_attention"]
+    ref = paged_attention_reference(q, pk, pv, tables, lengths, scales_k=sk, scales_v=sv,
+                                    window=window)
+    assert out.shape == q.shape
+    assert _close(out, ref)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_int8_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 2, 32, device=cuda)
+    pool = torch.zeros(4, 8, 2, 32, device=cuda, dtype=torch.int8)
+    t = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    n = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="scales"):
+        paged_attention(q, pool, pool, t, n, scales_k=torch.zeros(4, 8, 3, device=cuda),
+                        scales_v=torch.zeros(4, 8, 3, device=cuda))
+    s = torch.zeros(4, 8, 2, device=cuda)
+    with pytest.raises(TypeError, match="dequantises"):
+        paged_attention(q, pool, pool, t, n, scales_k=s, scales_v=s, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        paged_attention(q, pool.float(), pool.float(), t, n, scales_k=s, scales_v=s)
+
+
+@pytest.mark.gpu
+def test_prefix_chunked_int8_engine_on_card_matches_cpu_float32(cuda):
+    """Small float32 model with int8 KV, the prefix cache and chunked
+    prefill: greedy tokens on the card (K1, K2-int8, K3) equal the port's
+    CPU run, and every kernel of the path ran."""
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, 256, 32).tolist()
+    waves = [[shared + [1, 2], rng.integers(0, 256, 50).tolist()],
+             [shared + rng.integers(0, 256, n).tolist() for n in (3, 12, 30)]]
+    outs = {}
+    for dev in ("cpu", cuda):
+        eng = serving.InferenceEngine(params, cfg, max_batch=4, max_len=96, page_size=16,
+                                      fused_steps=4, paged_kernel=True, kv_int8=True,
+                                      prefix_cache=True, prefill_chunk=16, device=dev)
+        _build.reset_launches()
+        got = []
+        for wave in waves:
+            reqs = [eng.submit(serving.Request(prompt=p, max_new_tokens=10)) for p in wave]
+            eng.run_until_idle()
+            assert all(r.done.is_set() and not r.error for r in reqs)
+            got.append([r.output for r in reqs])
+        outs[str(dev)] = got
+        if dev is cuda:
+            assert eng.prefix_admission_hits == 3
+            for name in ("flash_fwd", "flash_block_stats", "paged_attention_int8"):
+                assert _build.LAUNCHES[name] > 0, name
+            assert _build.LAUNCHES["paged_attention"] == 0
     assert outs["cpu"] == outs[str(cuda)]

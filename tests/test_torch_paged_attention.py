@@ -1,7 +1,7 @@
 """Port parity for paged decode / verify attention (kernel K2).
 
-The matrix of tests/test_paged_kernel.py without int8 (int8 pools are a
-later slice): the same numpy inputs through the JAX package's
+The matrix of tests/test_paged_kernel.py over dense pools (int8 pools:
+tests/test_torch_kv_int8.py): the same numpy inputs through the JAX package's
 ``paged_attention`` (Pallas, interpret mode), its
 ``paged_attention_reference``, and the port's ``paged_attention`` on CPU
 tensors.  The CUDA kernel is held against the plain version on the card
@@ -90,7 +90,10 @@ def test_paged_attention_rank3_equals_w1():
 
 
 def test_paged_attention_refuses_int8_scales():
+    """int8 pools are served (tests/test_torch_kv_int8.py); scales given
+    one without the other are refused."""
     args = [tensor_from_numpy(a, "cpu") for a in
             _inputs(1, 0, 2, 2, 32, 8, 4, 2, "float32", [3])]
-    with pytest.raises(NotImplementedError, match="int8"):
-        paged_attention(*args, scales_k=torch.ones(4, 8, 2), scales_v=torch.ones(4, 8, 2))
+    for half in ("scales_k", "scales_v"):
+        with pytest.raises(ValueError, match="both scales"):
+            paged_attention(*args, **{half: torch.ones(4, 8, 2)})
