@@ -6,9 +6,12 @@ Phases, each failing the run (non-zero exit) on any fault:
 
 1. device and toolchain: the card's name and power limit (nvidia-smi),
    torch / CUDA / nvcc versions;
-2. build: every ``csrc/*.cu`` of the port compiled with nvcc for sm_90a;
+2. build: every ``csrc/*.cu`` of the port compiled with nvcc for sm_90a
+   (ptxas registers and spills logged);
 3. K1 (flash-attention forward) against ``mha_reference`` on the card:
-   the prefill shapes of the main path plus edge cases;
+   the serve-prefill shapes, the train shape and edge cases on its grid,
+   each logging the kernel (and so the query tile) that ran, so that every
+   kernel of ``flash_fwd.cu`` is held;
 4. K2 (paged decode attention) against ``paged_attention_reference``,
    over dense pools and (its int8 half) over int8 pools with per-(token,
    kv-head) scales, plus inputs on which skipping the dequantised values'
@@ -53,9 +56,12 @@ Phases, each failing the run (non-zero exit) on any fault:
    losses and parameters on the card and on the CPU; ``launcher.run_job``
    with the reference's default ``JobSpec``; one train step under
    torch.profiler;
-10. a ``{"kernels": [...]}`` line with each kernel's launches on its main
+10. K1 and K4 called twice at the train shape must give identical bytes;
+   a ``{"kernels": [...]}`` line with each kernel's launches on its main
    path, error against its plain version, time, plain time, library
-   time and lower bound, then the card line and the final ``{"ok": ...}``.
+   time and lower bound, its share of the bound (``of_bound``) and its
+   factor over the library call (``vs_library``), then the card line and
+   the final ``{"ok": ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -200,39 +206,86 @@ def k1_bound_ms(B, H, sq, sk, D, causal, window, itemsize) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# the kernels of csrc/flash_fwd.cu, by the name the profiler reports
+K1_KERNELS = {
+    "flash_fwd_wgmma_kernel": "bf16, wgmma + TMA, 128-row query tiles",
+    "flash_fwd_bf16_kernel": "bf16, mma.sync, 64-row query tiles",
+    "flash_fwd_fp32_kernel": "float32, FMA, 64-row query tiles",
+}
+
+
+def k1_kernel(kernels: list[dict]) -> str:
+    """The one K1 kernel among a profiled call's device kernels."""
+    names = {n for k in kernels for n in K1_KERNELS if n in k["kernel"]}
+    check(len(names) == 1, f"one K1 kernel a call expected, the profiler saw {sorted(names)}")
+    return names.pop()
+
+
 def phase_k1(dev):
+    """K1 against mha_reference: the serve-prefill shapes (1 x 16 heads),
+    the train shape and edge cases on its grid, float32.  Each call runs
+    under torch.profiler, which names the kernel that ran (and so the
+    query tile it took); every kernel of flash_fwd.cu must be held here."""
     import torch
 
     from elastic_gpu_scheduler_tpu_torch.ops.attention import flash_attention, mha_reference
 
     g = torch.Generator(device=dev).manual_seed(1)
+    tb, th, ts, _, td = TRAIN_ATTN
     # (B, H, Sq, Sk, D, dtype, causal, window)
-    cases = [(1, 16, s, s, 128, torch.bfloat16, True, 0) for s in (8, 128, 512)] + [
+    cases = [(1, 16, s, s, 128, torch.bfloat16, True, 0) for s in (8, 64, 128, 256, 512)] + [
         (1, 16, 1000, 1000, 128, torch.bfloat16, True, 0),  # non-power-of-two
         (1, 16, 200, 640, 128, torch.bfloat16, True, 0),  # rectangular
         (1, 16, 512, 512, 128, torch.bfloat16, True, 128),  # sliding window
+        (tb, th, ts, ts, td, torch.bfloat16, True, 0),  # the train shape
+        (tb, th, 300, 640, td, torch.bfloat16, True, 0),  # its grid: ragged, rectangular
+        (tb, th, 512, 512, td, torch.bfloat16, True, 100),  # a window ending mid-tile
         (2, 4, 96, 160, 64, torch.float32, True, 0),  # fp32, TF32 off
         (1, 2, 37, 37, 32, torch.float32, False, 0),  # fp32, not causal
     ]
-    worst = 0.0
+    worst, ran = 0.0, set()
     for B, H, sq, sk, D, dt, causal, window in cases:
         q = torch.randn(B, H, sq, D, generator=g, device=dev).to(dt)
         k = torch.randn(B, H, sk, D, generator=g, device=dev).to(dt)
         v = torch.randn(B, H, sk, D, generator=g, device=dev).to(dt)
-        out, lse = flash_attention(q, k, v, causal, None, window, return_lse=True)
-        torch.cuda.synchronize()
+        res = []
+
+        def call():
+            res[:] = flash_attention(q, k, v, causal, None, window, return_lse=True)
+
+        _, kernels = profiled(call, f"K1 at {(B, H, sq, sk, D)}")
+        out, lse = res
+        kern = k1_kernel(kernels)
+        ran.add(kern)
         ref, ref_lse = mha_reference(q, k, v, causal, None, window)
         name = "bfloat16" if dt == torch.bfloat16 else "float32"
         e, el = maxerr(out, ref), maxerr(lse, ref_lse)
         ok = close(out, ref, name) and el <= 1e-4
         log(f"K1 B={B} H={H} Sq={sq} Sk={sk} D={D} {name} causal={causal} "
-            f"window={window}: max|out-ref|={e:.3g} (tol {TOL[name]} + "
-            f"{RTOL[name]}|ref|) "
-            f"max|lse-ref|={el:.3g} (tol 1e-4)")
+            f"window={window}: {kern} ({K1_KERNELS[kern]}) max|out-ref|={e:.3g} "
+            f"(tol {TOL[name]} + {RTOL[name]}|ref|) max|lse-ref|={el:.3g} (tol 1e-4)")
         check(ok, f"K1 disagrees with mha_reference at {(B, H, sq, sk, D, name, window)}")
-        if dt == torch.bfloat16 and window == 0 and sq == sk:
+        if B == 1 and dt == torch.bfloat16 and window == 0 and sq == sk:
             worst = max(worst, e)
+    check(ran == set(K1_KERNELS), f"K1 cases ran {sorted(ran)}, not every kernel of flash_fwd.cu")
     return worst
+
+
+def check_repeatable(q, k, v, do) -> None:
+    """K1 and K4 called twice on the same bf16 inputs give identical
+    bytes (no atomics; every sum in a fixed order)."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import flash_attention, flash_backward
+
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention(q, k, v, True, None, 0, return_lse=True)
+        runs.append((out, lse) + flash_backward(q, k, v, out, lse, do, True, None, 0))
+    torch.cuda.synchronize()
+    same = {n: bool(torch.equal(a, b)) for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs)}
+    log(f"K1 + K4 bitwise repeatable at {tuple(q.shape)} bf16: {same}")
+    check(all(same.values()), "K1 / K4 differ between two calls on the same inputs")
 
 
 # -- phase 4: K2 -----------------------------------------------------------
@@ -1433,10 +1486,14 @@ def kernel_train_rows(dev, launches, k4_err) -> list[dict]:
     g = torch.Generator(device=dev).manual_seed(7)
     q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=dev).to(torch.bfloat16)
                    for _ in range(4))
+    check_repeatable(q, k, v, do)
     # K1 forward
     out, lse = flash_attention(q, k, v, True, None, 0, return_lse=True)
     ref, ref_lse = mha_reference(q, k, v, True, None, 0)
-    k1_err = maxerr(out, ref)
+    k1_err, k1_lse_err = maxerr(out, ref), maxerr(lse, ref_lse)
+    log(f"K1 at the train shape: max|out-ref|={k1_err:.3g} max|lse-ref|={k1_lse_err:.3g}")
+    check(close(out, ref, "bfloat16") and k1_lse_err <= 1e-4,
+          "K1 disagrees with mha_reference at the train shape")
     k1_ms = device_ms(lambda: flash_attention(q, k, v, True, None, 0), 20)
     k1_plain = device_ms(lambda: mha_reference(q, k, v, True, None, 0), 5)
     k1_lib = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
@@ -1486,6 +1543,10 @@ def kernel_train_rows(dev, launches, k4_err) -> list[dict]:
                     "backward's bound",
         })
     return rows
+
+
+# the PR that last rebuilt each kernel's bf16 path for Hopper
+REDESIGNED = {"flash_fwd": "PR 4", "flash_bwd_dq": "PR 4", "flash_bwd_dkv": "PR 4"}
 
 
 def main() -> int:
@@ -1561,6 +1622,10 @@ def main() -> int:
     kernels += kernel_train_rows(dev, train_launches, k4_err)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
+        k["of_bound"] = k["bound_ms"] / k["ms"]
+        k["vs_library"] = k["ms"] / k["library_ms"] if k["library_ms"] else None
+        if k["name"] in REDESIGNED:
+            k["redesigned"] = REDESIGNED[k["name"]]
     log(json.dumps({"engine": perf}))
     log(json.dumps({"prefix_engine": pperf}))
     log(json.dumps({"train": train_perf, "train_profile_idle_share": train_prof["idle_share"],

@@ -1,8 +1,11 @@
 // Helpers the port's attention kernels share: K1 (flash_fwd.cu), K2
 // (paged_attention.cu), K3 (flash_stats.cu) and K4 (flash_bwd.cu).
-// Conversions between the storage types and fp32, warp reductions,
-// 128-byte shared-memory alignment, the 64-row tile load of the flash
-// kernels, and the shared-memory plan of the two forward kernels (K1, K3).
+// Conversions between the storage types and fp32 and the warp reductions
+// (K2, K3, and the fp32 paths of K1 and K4), the finite NEG_INF of the
+// masked logit (all four), 128-byte shared-memory alignment, the
+// synchronous 64-row tile load (K3 and the fp32 paths of K1 and K4), and
+// the shared-memory plan of K3 and of K1's fp32 path (FwdLayout).  The
+// bf16 paths of K1 and K4 build on warp_mma.cuh instead.
 // ops/_build.py digests this header with the sources, so an edit here
 // rebuilds every kernel.
 
@@ -58,7 +61,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
   }
 }
 
-// Shared-memory plan of the forward kernels (K1, K3): a query tile, a K
+// Shared-memory plan of K3 and of K1's fp32 path: a query tile, a K
 // and a V tile, fp32 scores, P in T, the fp32 output accumulator and the
 // per-row m, l and alpha.  Row strides are padded so every row starts
 // 16-byte aligned and every WMMA fragment pointer 32-byte aligned.

@@ -4,12 +4,15 @@ plain PyTorch versions, and the autograd function that joins K1 and K4.
 
 Counterpart of ``elastic_gpu_scheduler_tpu/ops/attention.py``.  On CUDA
 tensors ``flash_attention`` launches ``csrc/flash_fwd.cu`` (one block per
-64-row query tile, K/V streamed through shared memory, online softmax in
-fp32, bf16 products on the tensor cores) and, when a gradient is asked
-for, ``csrc/flash_bwd.cu`` (the FlashAttention-2 backward from the saved
-logsumexp: a dq kernel over query tiles and a dk/dv kernel over key
-tiles, no atomics).  On CPU tensors it computes ``mha_reference`` and
-``flash_backward_reference``, the same functions in plain tensor code.
+64-row query tile, K/V streamed through shared memory by cp.async, online
+softmax in fp32; in bf16 the scores, softmax and output accumulator stay
+in registers and the products run on mma.sync, or, at head_dim 128 on a
+grid large enough for 128-row tiles, on wgmma fed by TMA) and, when a gradient
+is asked for, ``csrc/flash_bwd.cu`` (the FlashAttention-2 backward from
+the saved logsumexp: a dq kernel over query tiles and a dk/dv kernel over
+key tiles, no atomics, so bitwise repeatable).  Float32 takes the first,
+plain-FMA versions of both.  On CPU tensors it computes ``mha_reference``
+and ``flash_backward_reference``, the same functions in plain tensor code.
 Nothing else chooses between the two: a CUDA tensor a kernel does not
 take makes the wrapper raise.
 

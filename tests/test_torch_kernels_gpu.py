@@ -22,6 +22,8 @@ pv / l against ``mha_reference`` over the kept keys with K1's output
 tolerances.  K2 over an int8 pool: the same tolerances as dense K2.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -67,7 +69,10 @@ def _close(out, ref):
                  <= TOL[ref.dtype] + RTOL[ref.dtype] * ref.float().abs()).all())
 
 
-# (B, H, Sq, Sk, D, causal, window)
+# (B, H, Sq, Sk, D, causal, window).  Each runs in bf16 (the register
+# design: 64-row tiles on mma.sync, or 128-row tiles on wgmma at D 128 where
+# they give >= 2 blocks an SM, the cases marked "wgmma" on an H100) and in
+# float32 (the first version).
 K1_CASES = [
     (2, 2, 64, 64, 32, True, 0),
     (1, 3, 48, 80, 64, True, 0),
@@ -77,6 +82,17 @@ K1_CASES = [
     (1, 2, 40, 40, 32, False, 0),
     (1, 4, 128, 1000, 128, True, 0),
     (1, 2, 1, 300, 128, True, 0),
+    (1, 3, 17, 60, 128, True, 0),  # one key tile, ragged
+    (1, 2, 100, 320, 64, False, 0),  # five key tiles: the ring drains on an odd count
+    (1, 2, 150, 192, 32, True, 0),  # three key tiles, causal
+    (1, 2, 1, 1, 64, True, 0),  # Sq = Sk = 1
+    (1, 2, 129, 129, 128, True, 0),  # two 64-row tiles plus one row
+    (1, 2, 256, 256, 128, True, 100),  # a window that ends mid-tile
+    (4, 34, 129, 129, 128, True, 0),  # wgmma: a 128-row tile plus one row
+    (8, 17, 200, 300, 128, True, 0),  # wgmma: ragged, Sq < Sk
+    (8, 17, 256, 256, 64, True, 70),  # a large grid at D 64: mma.sync under a window
+    (8, 17, 256, 256, 128, True, 70),  # wgmma under a window that ends mid-tile
+    (4, 34, 384, 512, 128, False, 0),  # wgmma, not causal, Sq < Sk
 ]
 
 
@@ -99,6 +115,62 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert _err(lse, ref_lse) <= 1e-4
 
 
+def _k1_kernels(q, k, v, window) -> set:
+    """Names of the K1 kernels one causal call launched, from torch.profiler
+    (which now and then sees no device event, so up to three tries)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_attention(q, k, v, True, None, window)
+            torch.cuda.synchronize()
+        names = {m.group(0) for e in prof.key_averages()
+                 if (m := re.search(r"flash_fwd_\w+?_kernel", e.key))}
+        if names:
+            return names
+    return set()
+
+
+# (B, H, S, D, window, dtype) -> the kernel that runs there on an H100
+K1_ROUTES = [
+    ((8, 16, 1024, 128, 0, torch.bfloat16), "flash_fwd_wgmma_kernel"),  # the train shape
+    ((8, 17, 256, 128, 70, torch.bfloat16), "flash_fwd_wgmma_kernel"),
+    ((1, 16, 512, 128, 0, torch.bfloat16), "flash_fwd_bf16_kernel"),  # the longest serve prefill
+    ((8, 16, 1024, 64, 0, torch.bfloat16), "flash_fwd_bf16_kernel"),  # wgmma is D 128 only
+    ((8, 16, 1024, 128, 0, torch.float32), "flash_fwd_fp32_kernel"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case, kernel", K1_ROUTES, ids=str)
+def test_flash_kernel_route(cuda, case, kernel):
+    """bf16 K1 runs the wgmma kernel at D 128 while its 128-row tiles give
+    >= 2 blocks an SM, the 64-row mma.sync kernel otherwise; float32 the
+    first version."""
+    B, H, S, D, window, dtype = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device=cuda).to(dtype) for _ in range(3))
+    assert _k1_kernels(q, k, v, window) == {kernel}
+
+
+@pytest.mark.gpu
+def test_flash_kernels_bitwise_repeatable(cuda):
+    """K1 and K4 (no atomics, fixed summation order) give identical bytes
+    when called twice on the same bf16 inputs."""
+    B, H, S, D = 2, 4, 1000, 128
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=cuda).to(torch.bfloat16)
+                   for _ in range(4))
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention(q, k, v, True, None, 0, return_lse=True)
+        runs.append((out, lse) + flash_backward(q, k, v, out, lse, do, True, None, 0))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.gpu
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 1, 8, 48, device=cuda)
@@ -114,8 +186,14 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 
 
 # (B, H, Sq, Sk, D, causal, window): the K1 cases plus the train shape's
-# head_dim and ragged lengths
-K4_CASES = K1_CASES + [(2, 2, 1000, 1000, 128, True, 0), (1, 2, 130, 190, 64, True, 50)]
+# head_dim and ragged lengths.  Sq = Sk = 1 gives each row one key, whose
+# softmax has no gradient: dq and dk are zero up to rounding, so no
+# tolerance relative to them holds; one row over two keys takes its place.
+K4_CASES = [c for c in K1_CASES if c[3] > 1] + [
+    (1, 2, 1, 2, 64, True, 0),
+    (2, 2, 1000, 1000, 128, True, 0),
+    (1, 2, 130, 190, 64, True, 50),
+]
 
 
 @pytest.mark.gpu
