@@ -14,12 +14,18 @@ Phases, each failing the run (non-zero exit) on any fault:
    kernel of ``flash_fwd.cu`` is held;
 4. K2 (paged decode attention) against ``paged_attention_reference``,
    over dense pools and (its int8 half) over int8 pools with per-(token,
-   kv-head) scales, plus inputs on which skipping the dequantised values'
-   rounding through bf16 would fail the tolerance; K3 (blockwise attention with softmax statistics)
-   against ``flash_block_stats_reference``, at the prefix-cached path's
-   shapes plus edge cases (ragged lengths, offsets, rows that keep no
-   key, not causal, GQA and MHA, Dh 64 and 128, fp32 and bf16), and its
-   pv / l against ``mha_reference`` over the kept keys;
+   kv-head) scales, at table widths that split the pages across blocks
+   and one that does not, with rows on both sides of a split's edge, W 1
+   and 4, window 0 and 256, plus inputs on which skipping the dequantised
+   values' rounding through bf16 would fail the tolerance; K3 (blockwise
+   attention with softmax statistics) against
+   ``flash_block_stats_reference``, at the prefix-cached path's shapes
+   plus edge cases (ragged lengths, offsets, rows that keep no key over
+   several key splits, not causal, GQA and MHA, Dh 64 and 128, fp32 and
+   bf16), its pv / l against ``mha_reference`` over the kept keys, and
+   the engine's transposed views read in place; each K2 and K3 call logs
+   the kernels that ran (torch.profiler), which must be the combine
+   kernel exactly when the kernel's plan splits;
 5. K4 (flash-attention backward) against ``flash_backward_reference``
    rounded where the kernel rounds: the training shape plus edge cases;
    faults planted in the training-shape result, which the tolerance must
@@ -56,7 +62,8 @@ Phases, each failing the run (non-zero exit) on any fault:
    losses and parameters on the card and on the CPU; ``launcher.run_job``
    with the reference's default ``JobSpec``; one train step under
    torch.profiler;
-10. K1 and K4 called twice at the train shape must give identical bytes;
+10. K1 and K4 at the train shape, K3 and K2 (dense and int8) with split
+   keys, called twice, must give identical bytes;
    a ``{"kernels": [...]}`` line with each kernel's launches on its main
    path, error against its plain version, time, plain time, library
    time and lower bound, its share of the bound (``of_bound``) and its
@@ -72,6 +79,7 @@ import gc
 import http.client
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -272,26 +280,86 @@ def phase_k1(dev):
 
 
 def check_repeatable(q, k, v, do) -> None:
-    """K1 and K4 called twice on the same bf16 inputs give identical
-    bytes (no atomics; every sum in a fixed order)."""
+    """K1 and K4 at the train shape, K3 with its keys split (the path's
+    8 queries on 1024 keys) and K2 over dense and int8 pools with their
+    pages split (the engines' shapes) called twice on the same bf16 inputs
+    give identical bytes (no atomics; every sum and merge in a fixed order)."""
     import torch
 
-    from elastic_gpu_scheduler_tpu_torch.ops.attention import flash_attention, flash_backward
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_backward,
+        flash_block_stats,
+    )
+    from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import paged_attention
 
+    dev = q.device
+    g = torch.Generator(device=dev).manual_seed(10)
+    q3 = torch.randn(1, 16, 8, 128, generator=g, device=dev).to(torch.bfloat16)
+    k3, v3 = (torch.randn(1, 8, 1024, 128, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    B, NB, ps = 8, 64, 16
+    n_pages = B * NB + 1
+    pk, sk = int8_pool(g, n_pages, ps, 8, 128, dev)
+    pv, sv = int8_pool(g, n_pages, ps, 8, 128, dev)
+    dk_, dv_ = (torch.randn(n_pages, ps, 8, 128, generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+    tables = (torch.randperm(n_pages - 1, generator=g, device=dev)[: B * NB] + 1)
+    tables = tables.reshape(B, NB).to(torch.int32)
+    lengths = k2_lengths(B, NB, ps, 1, dev, [0, 15, 255, 256, 511, 700, 900])
+    q2 = torch.randn(B, 16, 128, generator=g, device=dev).to(torch.bfloat16)
     runs = []
     for _ in range(2):
         out, lse = flash_attention(q, k, v, True, None, 0, return_lse=True)
-        runs.append((out, lse) + flash_backward(q, k, v, out, lse, do, True, None, 0))
+        runs.append((out, lse) + flash_backward(q, k, v, out, lse, do, True, None, 0)
+                    + flash_block_stats(q3, k3, v3, 1016, 0)
+                    + (paged_attention(q2, dk_, dv_, tables, lengths),
+                       paged_attention(q2, pk, pv, tables, lengths, scales_k=sk, scales_v=sv)))
     torch.cuda.synchronize()
-    same = {n: bool(torch.equal(a, b)) for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs)}
-    log(f"K1 + K4 bitwise repeatable at {tuple(q.shape)} bf16: {same}")
-    check(all(same.values()), "K1 / K4 differ between two calls on the same inputs")
+    names = ("K1 out", "K1 lse", "K4 dq", "K4 dk", "K4 dv", "K3 pv", "K3 m", "K3 l", "K2",
+             "K2-int8")
+    same = {n: bool(torch.equal(a, b)) for n, a, b in zip(names, *runs)}
+    log(f"K1 + K4 at {tuple(q.shape)}, K3 (8 x 1024 keys, split) and K2 / K2-int8 (B 8, "
+        f"NB 64, split) bitwise repeatable, bf16: {same}")
+    check(all(same.values()), "K1 / K2 / K3 / K4 differ between two calls on the same inputs")
 
 
 # -- phase 4: K2 -----------------------------------------------------------
 
 
-def phase_k2(dev):
+def kernels_ran(fn, pattern: str, what: str) -> set:
+    """Names matching ``pattern`` of the kernels one call of ``fn``
+    launched, read from torch.profiler."""
+    _, kernels = profiled(fn, what)
+    return {m.group(0) for k in kernels if (m := re.search(pattern, k["kernel"]))}
+
+
+K2_PATTERN = r"paged_attn_\w*kernel"
+
+
+def k2_splits(q, Hkv, NB) -> int:
+    """Splits of the table K2 takes for q (from the kernel's own plan)."""
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    W = 1 if q.ndim == 3 else q.shape[1]
+    B, Hn, Dh = q.shape[0], q.shape[-2], q.shape[-1]
+    words = _build.lib().egs_paged_attention_workspace(B, W, Hn, Hkv, Dh, NB)
+    return words // (B * W * Hn * (Dh + 2)) if words else 1
+
+
+def k2_lengths(B, NB, ps, W, dev, lens):
+    """``lens`` (clipped to the table) for the first B - 1 rows, and the
+    last row at NB * ps - W, the verify window on the table's last slot."""
+    import torch
+
+    top = NB * ps - W
+    return torch.tensor([min(x, top) for x in lens[:B - 1]] + [top], dtype=torch.int32,
+                        device=dev)
+
+
+def check_k2_call(q, pools, tables, lengths, window, scales, name, label) -> tuple[float, set]:
+    """One K2 call against its plain version; the kernels that ran must be
+    the split kernel, plus the combine kernel exactly when the plan splits."""
     import torch
 
     from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import (
@@ -299,36 +367,54 @@ def phase_k2(dev):
         paged_attention_reference,
     )
 
+    kw = dict(window=window, scales_k=scales[0], scales_v=scales[1])
+    res = []
+    names = kernels_ran(lambda: res.append(paged_attention(q, *pools, tables, lengths, **kw)),
+                        K2_PATTERN, label)
+    out = res[-1]
+    torch.cuda.synchronize()
+    ref = paged_attention_reference(q, *pools, tables, lengths, **kw)
+    e = maxerr(out, ref)
+    splits = k2_splits(q, pools[0].shape[2], tables.shape[1])
+    want = {"paged_attn_kernel"} | ({"paged_attn_combine_kernel"} if splits > 1 else set())
+    log(f"{label}: {splits} split(s), kernels {sorted(names)}, max|out-ref|={e:.3g} "
+        f"(tol {TOL[name]} + {RTOL[name]}|ref|)")
+    check(names == want, f"{label}: ran {sorted(names)}, want {sorted(want)}")
+    check(close(out, ref, name), f"K2 disagrees with paged_attention_reference at {label}")
+    return e, names
+
+
+def phase_k2(dev):
+    """Dense K2 at the engine's shapes (B 8, 16q/8kv, Dh 128, page 16): its
+    table width NB 40 and the prefix engine's 64 (pages split across
+    blocks) and NB 4 (one split); rows at 0, on pages, on both sides of a
+    split's edge and at NB * ps - W; W 1 and 4, window 0 and 256."""
+    import torch
+
     g = torch.Generator(device=dev).manual_seed(2)
-    B, Hn, Hkv, Dh, ps, NB = 8, 16, 8, 128, 16, 40
-    n_pages = B * NB + 1
-    worst = 0.0
-    for dt in (torch.bfloat16, torch.float32):
-        name = "bfloat16" if dt == torch.bfloat16 else "float32"
-        pk = torch.randn(n_pages, ps, Hkv, Dh, generator=g, device=dev).to(dt)
-        pv = torch.randn(n_pages, ps, Hkv, Dh, generator=g, device=dev).to(dt)
+    B, Hn, Hkv, Dh, ps = 8, 16, 8, 128, 16
+    worst, routes = 0.0, set()
+    for NB in (40, 64, 4):
+        n_pages = B * NB + 1
         tables = (torch.randperm(n_pages - 1, generator=g, device=dev)[: B * NB] + 1)
         tables = tables.reshape(B, NB).to(torch.int32)
-        for W in (1, 4):
-            # 0, page boundaries, mid-context, and the last slot
-            lengths = torch.tensor(
-                [0, 15, 16, 31, 32, 300, 511, NB * ps - W], dtype=torch.int32, device=dev
-            )
-            for window in (0, 256):
-                q = torch.randn(B, W, Hn, Dh, generator=g, device=dev).to(dt)
-                if W == 1:
-                    q = q[:, 0]  # rank 3: plain decode
-                out = paged_attention(q, pk, pv, tables, lengths, window=window)
-                torch.cuda.synchronize()
-                ref = paged_attention_reference(q, pk, pv, tables, lengths, window=window)
-                e = maxerr(out, ref)
-                log(f"K2 B={B} Hn={Hn} Hkv={Hkv} Dh={Dh} ps={ps} W={W} window={window} "
-                    f"{name}: max|out-ref|={e:.3g} (tol {TOL[name]} + {RTOL[name]}|ref|)")
-                check(close(out, ref, name),
-                      f"K2 disagrees with paged_attention_reference ({name}, W={W}, "
-                      f"window={window})")
-                if dt == torch.bfloat16 and W == 1 and window == 0:
-                    worst = max(worst, e)
+        for dt in (torch.bfloat16, torch.float32):
+            name = "bfloat16" if dt == torch.bfloat16 else "float32"
+            pk = torch.randn(n_pages, ps, Hkv, Dh, generator=g, device=dev).to(dt)
+            pv = torch.randn(n_pages, ps, Hkv, Dh, generator=g, device=dev).to(dt)
+            for W in (1, 4):
+                lengths = k2_lengths(B, NB, ps, W, dev, [0, 16, 127, 128, 255, 256, 511])
+                for window in (0, 256):
+                    q = torch.randn(B, W, Hn, Dh, generator=g, device=dev).to(dt)
+                    if W == 1:
+                        q = q[:, 0]  # rank 3: plain decode
+                    e, names = check_k2_call(q, (pk, pv), tables, lengths, window, (None, None),
+                                             name, f"K2 NB={NB} W={W} window={window} {name}")
+                    routes |= names
+                    if dt == torch.bfloat16 and W == 1 and window == 0 and NB == 40:
+                        worst = max(worst, e)
+    check(routes == {"paged_attn_kernel", "paged_attn_combine_kernel"},
+          f"K2 cases ran {sorted(routes)}, not both kernels of paged_attention.cu")
     return worst
 
 
@@ -346,41 +432,31 @@ def int8_pool(g, n_pages, ps, Hkv, Dh, dev):
 
 def phase_k2_int8(dev):
     """K2 over int8 pools at the prefix engine's shapes (B 8, 16q/8kv,
-    Dh 128, page 16, 64 pages a row: max_len 1024)."""
+    Dh 128, page 16, 64 pages a row: max_len 1024) and at NB 41 (a last
+    split of one page), W 1 and 4, window 0 and 256."""
     import torch
 
-    from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import (
-        paged_attention,
-        paged_attention_reference,
-    )
-
     g = torch.Generator(device=dev).manual_seed(8)
-    B, Hn, Hkv, Dh, ps, NB = 8, 16, 8, 128, 16, 64
-    n_pages = B * NB + 1
-    pk, sk = int8_pool(g, n_pages, ps, Hkv, Dh, dev)
-    pv, sv = int8_pool(g, n_pages, ps, Hkv, Dh, dev)
-    tables = (torch.randperm(n_pages - 1, generator=g, device=dev)[: B * NB] + 1)
-    tables = tables.reshape(B, NB).to(torch.int32)
+    B, Hn, Hkv, Dh, ps = 8, 16, 8, 128, 16
     worst = 0.0
-    for dt in (torch.bfloat16, torch.float32):
-        name = "bfloat16" if dt == torch.bfloat16 else "float32"
-        for W in (1, 4):
-            lengths = torch.tensor([0, 15, 16, 300, 511, 700, 900, NB * ps - W],
-                                   dtype=torch.int32, device=dev)
-            q = torch.randn(B, W, Hn, Dh, generator=g, device=dev).to(dt)
-            if W == 1:
-                q = q[:, 0]
-            out = paged_attention(q, pk, pv, tables, lengths, scales_k=sk, scales_v=sv)
-            torch.cuda.synchronize()
-            ref = paged_attention_reference(q, pk, pv, tables, lengths, scales_k=sk,
-                                            scales_v=sv)
-            e = maxerr(out, ref)
-            log(f"K2-int8 B={B} Hn={Hn} Hkv={Hkv} Dh={Dh} ps={ps} W={W} {name}: "
-                f"max|out-ref|={e:.3g} (tol {TOL[name]} + {RTOL[name]}|ref|)")
-            check(close(out, ref, name), f"K2-int8 disagrees with its plain version "
-                                         f"({name}, W={W})")
-            if dt == torch.bfloat16 and W == 1:
-                worst = max(worst, e)
+    for NB in (64, 41):
+        n_pages = B * NB + 1
+        pk, sk = int8_pool(g, n_pages, ps, Hkv, Dh, dev)
+        pv, sv = int8_pool(g, n_pages, ps, Hkv, Dh, dev)
+        tables = (torch.randperm(n_pages - 1, generator=g, device=dev)[: B * NB] + 1)
+        tables = tables.reshape(B, NB).to(torch.int32)
+        for dt in (torch.bfloat16, torch.float32):
+            name = "bfloat16" if dt == torch.bfloat16 else "float32"
+            for W in (1, 4):
+                lengths = k2_lengths(B, NB, ps, W, dev, [0, 15, 255, 256, 511, 700, 900])
+                for window in (0, 256):
+                    q = torch.randn(B, W, Hn, Dh, generator=g, device=dev).to(dt)
+                    if W == 1:
+                        q = q[:, 0]
+                    e, _ = check_k2_call(q, (pk, pv), tables, lengths, window, (sk, sv), name,
+                                         f"K2-int8 NB={NB} W={W} window={window} {name}")
+                    if dt == torch.bfloat16 and W == 1 and window == 0 and NB == 64:
+                        worst = max(worst, e)
     k2_int8_rounding_probe(dev)
     return worst
 
@@ -519,7 +595,13 @@ K3_EDGES = [
     (1, 4, 2, 64, 128, 64, 0, 40, True),  # k_offset > 0: rows 0..39 keep no key
     (1, 2, 1, 64, 128, 128, 0, 200, True),  # no row keeps a key
     (1, 4, 2, 70, 90, 128, 7, 3, False),  # not causal
+    (1, 4, 2, 64, 1000, 64, 0, 300, True),  # no-key rows over several splits, ragged Sk
+    (1, 16, 8, 33, 700, 128, 600, 0, True),  # the diagonal mid-tile, a 1-row last tile
+    (1, 32, 4, 40, 600, 64, 500, 0, True),  # n_rep 8: a warp spans two heads
+    (1, 6, 2, 50, 300, 128, 200, 0, True),  # n_rep 3: a padding row in each block
+    (1, 16, 8, 64, 64, 128, 0, 0, True),  # one key tile: no split
 ]
+K3_PATTERN = r"flash_stats_kernel\w*"
 
 
 def phase_k3(dev):
@@ -527,8 +609,11 @@ def phase_k3(dev):
     (fp32 and bf16); returns the worst bf16 error at the path's shapes."""
     import torch
 
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import flash_block_stats
+
     g = torch.Generator(device=dev).manual_seed(9)
-    worst = 0.0
+    worst, routes = 0.0, set()
     cases = [((1, 16, 8, T, M, 128, start, 0, True), (torch.bfloat16,))
              for T, M, start in K3_PATH]
     cases += [(c, (torch.float32, torch.bfloat16)) for c in K3_EDGES]
@@ -539,9 +624,36 @@ def phase_k3(dev):
             v = torch.randn(B, Hkv, sk, D, generator=g, device=dev).to(dt)
             label = (f"B={B} H={H} Hkv={Hkv} Sq={sq} Sk={sk} D={D} q_off={q_off} "
                      f"k_off={k_off} causal={causal}")
+            names = kernels_ran(lambda: flash_block_stats(q, k, v, q_off, k_off, causal),
+                                K3_PATTERN, f"K3 at {label}")
+            splits = _build.lib().egs_flash_block_stats_splits(
+                B, H, Hkv, sq, sk, int(dt == torch.bfloat16), int(causal), q_off, k_off)
+            if dt == torch.float32:
+                want = {"flash_stats_kernel"}
+            else:
+                want = {"flash_stats_kernel_bf16"} | (
+                    {"flash_stats_kernel_combine"} if splits > 1 else set())
+            log(f"K3 {label}: {splits} split(s), kernels {sorted(names)}")
+            check(names == want, f"K3 at {label} ran {sorted(names)}, want {sorted(want)}")
+            routes |= names
             e = check_k3(q, k, v, q_off, k_off, causal, label)
             if (B, H, Hkv, D) == (1, 16, 8, 128) and k_off == 0 and dt == torch.bfloat16:
                 worst = max(worst, e)
+    check(routes == {"flash_stats_kernel", "flash_stats_kernel_bf16",
+                     "flash_stats_kernel_combine"},
+          f"K3 cases ran {sorted(routes)}, not every kernel of flash_stats.cu")
+    # the prefix engine's layout, read where it lies: (B, T, H, D) queries
+    # and a (B, M, Hkv, D) cache through transposes, as bytes of a copy
+    qr = torch.randn(1, 128, 16, 128, generator=g, device=dev).to(torch.bfloat16)
+    kr, vr = (torch.randn(1, 512, 8, 128, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    views = (qr.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2))
+    got = flash_block_stats(*views, 300, 0)
+    want = flash_block_stats(*(t.contiguous() for t in views), 300, 0)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "K3 on transposed views differs from K3 on their contiguous copies")
+    log("K3 on the prefix engine's transposed views: identical bytes to contiguous copies")
     return worst
 
 
@@ -772,9 +884,9 @@ def phase_prefix_engine(dev, params, cfg):
         return call
 
     # spread the samples over both waves (~400 K3 and ~3300 K2 calls)
+    # clone() keeps the strides: K3 is timed on the path's transposed views
     k3_sampler = CallSampler(lambda q, k, v, q_off, k_off, causal=True: (
-        q.contiguous().clone(), k.contiguous().clone(), v.contiguous().clone(),
-        int(q_off), int(k_off), causal), every=67)
+        q.clone(), k.clone(), v.clone(), int(q_off), int(k_off), causal), every=67)
     k2i_sampler = k2_sampler(every=499, keep=6)
     real = (serving._paged_prefill, serving._paged_prefill_prefixed,
             generate.flash_block_stats, serving._paged_attn_call)
@@ -1546,7 +1658,9 @@ def kernel_train_rows(dev, launches, k4_err) -> list[dict]:
 
 
 # the PR that last rebuilt each kernel's bf16 path for Hopper
-REDESIGNED = {"flash_fwd": "PR 4", "flash_bwd_dq": "PR 4", "flash_bwd_dkv": "PR 4"}
+REDESIGNED = {"flash_fwd": "PR 4", "flash_bwd_dq": "PR 4", "flash_bwd_dkv": "PR 4",
+              "paged_attention": "PR 5", "paged_attention_int8": "PR 5",
+              "flash_block_stats": "PR 5"}
 
 
 def main() -> int:

@@ -3,9 +3,10 @@
 // Conversions between the storage types and fp32 and the warp reductions
 // (K2, K3, and the fp32 paths of K1 and K4), the finite NEG_INF of the
 // masked logit (all four), 128-byte shared-memory alignment, the
-// synchronous 64-row tile load (K3 and the fp32 paths of K1 and K4), and
-// the shared-memory plan of K3 and of K1's fp32 path (FwdLayout).  The
-// bf16 paths of K1 and K4 build on warp_mma.cuh instead.
+// synchronous 64-row tile load (the fp32 paths of K1, K3 and K4), the fold
+// of split partials (K2 and K3), and the shared-memory plan of the fp32
+// paths of K3 and K1 (FwdLayout).  The bf16 paths of K1, K3 and K4 build
+// on warp_mma.cuh instead.
 // ops/_build.py digests this header with the sources, so an edit here
 // rebuilds every kernel.
 
@@ -43,12 +44,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// rows [row0, row0 + TILE) of a (rows_total, D) row-major matrix into a
-// shared tile of stride ld, 16 bytes a thread a step, by a block of
-// TILE_THREADS threads; rows past the end are zeros
+// rows [row0, row0 + TILE) of a (rows_total, D) matrix whose rows lie
+// src_ld elements apart (16-byte aligned) into a shared tile of stride ld,
+// 16 bytes a thread a step, by a block of TILE_THREADS threads; rows past
+// the end are zeros
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0,
-                                          int rows_total, int ld) {
+                                          int rows_total, int ld, size_t src_ld = D) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS = D / VEC;
   for (int i = threadIdx.x; i < TILE * CHUNKS; i += TILE_THREADS) {
@@ -56,9 +58,22 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
     const int c = (i % CHUNKS) * VEC;
     const int gr = row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < rows_total) val = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + c);
+    if (gr < rows_total) val = *reinterpret_cast<const uint4*>(src + (size_t)gr * src_ld + c);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
   }
+}
+
+// fold the statistics (m_b, l_b) and accumulator a_b of a later run of
+// keys into the running (m, l, a), as ring attention merges its hops:
+// m = max(m, m_b), each side scaled by exp(m_old - m) (K2's and K3's
+// merges; all-NEG_INF sides weigh exp(0) = 1)
+__device__ __forceinline__ void fold_stats(float& m, float& l, float& a, float mb, float lb,
+                                           float ab) {
+  const float mn = fmaxf(m, mb);
+  const float x = expf(m - mn), y = expf(mb - mn);
+  a = a * x + ab * y;
+  l = l * x + lb * y;
+  m = mn;
 }
 
 // Shared-memory plan of K3 and of K1's fp32 path: a query tile, a K

@@ -14,126 +14,415 @@
 //   - masked logits are the finite NEG_INF (-1e30), and they take part in
 //     the max and the sums: a row that keeps no key at all ends with
 //     m = -1e30, l = Sk and pv = sum_j v_j (each masked p is exp(0) = 1);
+//   - a key past Sk is no key at all;
 //   - p is rounded to V's dtype before the P V product, while l sums the
 //     unrounded p; products take native-dtype operands, sums are fp32.
 //
-// What bounds it on this card: bytes, at the engine's shapes (T <= 128
+// What bounds it on this card: bytes, at the engine's shapes (T <= 256
 // new queries against a bucketed page span of M <= 1024 keys, Dh 128,
 // bf16, 16 query heads on 8 kv-heads): a key's K and V rows (4 Dh bytes)
-// serve at most T (H / Hkv) kept pairs of 4 Dh FLOPs, i.e. <= 256 FLOPs a
-// byte, under the H100's ridge of ~295, and the fp32 pv output adds
-// bytes.  This first version is right and simple, in the style of K1
-// (csrc/flash_fwd.cu, whose tile plan and helpers it shares through
-// attn_common.cuh):
-//   - one block per (64-row query tile, head, batch), four warps, each
-//     owning 16 query rows; the block loops over 64-row K/V tiles in
-//     shared memory (Hopper blocks run in no order, so nothing carries
-//     between blocks; the TPU kernel's all-heads program is split here);
-//   - GQA by index: query head h reads kv-head h / (H / Hkv), the cache is
-//     never expanded;
-//   - bf16: Q K^T and P V through WMMA (16x16x16, fp32 accumulate); fp32:
-//     plain FMA (TF32 would not keep the reference's precision);
-//   - any Sq and Sk: rows past Sq and keys past Sk are masked out of every
-//     sum (keys past Sk are not keys; they are not NEG_INF logits);
-//   - tiles wholly above the diagonal are skipped only when every row of
-//     the query tile keeps key 0 (then such tiles add exp(-1e30 - m) = 0);
-//     a tile with a row that keeps no key runs every key tile, so such rows
-//     come out as the TPU kernel's.
-// A later PR can group the n_rep query heads of one kv-head in a block
-// (one K/V load for all of them) and move to wgmma + TMA.
+// serve at most T (H / Hkv) kept pairs of 4 Dh FLOPs, and the fp32 pv
+// output adds bytes.  At those shapes one block a (64-row query tile,
+// head) gave 16-64 blocks on 132 SMs, each reading its kv-head's K/V once
+// a query head, synchronously, with S, P and the output accumulator in
+// shared memory: 82x its bound and 3.7x SDPA.  The bf16 path is now
+// register-resident, after K1's mma.sync kernel (csrc/flash_fwd.cu):
+//   - one K/V read for the whole GQA group: a block's 64 rows are the
+//     n_rep query heads of one kv-head over 64 / n_rep query positions
+//     (32 x 2 at 16q/8kv), four warps of 16 rows;
+//   - 64-key K/V tiles stream through a 2-stage cp.async ring in
+//     XOR-swizzled shared memory; Q K^T and P V run on mma.sync.m16n8k16
+//     from ldmatrix fragments; S, P (packed to bf16 as the A operand), the
+//     fp32 pv accumulator, m and l stay in registers, row reductions over
+//     the 4 lanes of a quad;
+//   - the keys are split across blocks when the query tiles x kv-heads x
+//     batch give fewer than ~2 blocks an SM: a block takes a contiguous
+//     run of key tiles and writes a partial (pv, m, l) to fp32 scratch, and
+//     flash_stats_kernel_combine folds the partials in split order, as ring
+//     attention merges its hops (m = max, each side scaled by
+//     exp(m_old - m)), so rows that keep no key still end with l = Sk and
+//     pv = sum v.  The split count comes from the shapes and offsets
+//     (flash_stats_plan), so the host reads nothing from the device;
+//   - q, k and v are read where they lie, through their batch, head and
+//     row strides (the last dimension contiguous), so the prefix engine's
+//     transposed views need no copy;
+//   - the running max starts at NEG_INF and a masked logit IS NEG_INF (not
+//     -inf, as in K1): a masked p is exp(NEG_INF - m), 1 while the row has
+//     seen no kept key and 0 after; a key past Sk is -inf, p = 0.  Only
+//     tiles on a warp's diagonal or the ragged end are masked element by
+//     element.  Tiles wholly above the diagonal are skipped (by a block or
+//     a warp) only when every row in question keeps key 0, since then they
+//     add exp(NEG_INF - m) = 0.
+// No atomics and every sum in a fixed order: bitwise repeatable.
+//
+// float32 keeps the first version (plain FMA; TF32 would not keep the
+// reference's precision): one block per (64-row query tile, head, batch),
+// K/V tiles looped in shared memory, kv-head by index, with the strides.
 
+#include <limits.h>
 #include <math.h>
-#include <mma.h>
+
+#include <algorithm>
 
 #include "attn_common.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using namespace egs;
 
-constexpr int BQ = TILE;  // query rows per block
-constexpr int BK = TILE;  // key rows per streamed tile
-constexpr int NTHREADS = TILE_THREADS;  // four warps, each owning 16 query rows
-template <typename T, int D>
-using Layout = FwdLayout<T, D>;
+constexpr int TARGET_BLOCKS = 2 * 132;  // two blocks an SM of an H100
+constexpr int MIN_SPLIT_TILES = 2;      // key tiles a split takes at least
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   float* __restrict__ pv, float* __restrict__ m_out, float* __restrict__ l_out,
-                   int H, int Hkv, int Sq, int Sk, int causal, int q_offset, int k_offset,
+// Strides, in elements, of q (B, H, Sq, D), k and v (B, Hkv, Sk, D): the
+// last dimension is contiguous.
+struct Strides {
+  long long qs, qh, qb, ks, kh, kb, vs, vh, vb;
+};
+
+// -- bf16: GQA-packed rows, registers, cp.async, mma.sync, split keys ---------
+
+constexpr int BQ = 64;   // rows a block: n_rep heads x 64 / n_rep query positions
+constexpr int BK = 64;   // keys a streamed tile
+constexpr int NT = 128;  // four warps, each owning 16 rows
+
+template <int D>
+constexpr size_t bf16_smem_bytes() {
+  return sizeof(bf16) * (BQ * D + 4 * BK * D);  // Q, then 2 stages of K and of V
+}
+
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// The launch plan of the bf16 path, stated once: query positions a block
+// (QT), query tiles, key tiles a split (tps) and splits.
+struct Plan {
+  int QT, n_qt, tps, splits;
+};
+
+Plan flash_stats_plan(int B, int H, int Hkv, int Sq, int Sk, int causal, int q_offset,
+                      int k_offset) {
+  Plan p;
+  const int n_rep = H / Hkv;
+  p.QT = BQ / n_rep;
+  p.n_qt = ceil_div(Sq, p.QT);
+  const int n_kt = ceil_div(Sk, BK);
+  const int diag = q_offset - k_offset;
+  // key tiles of the block that runs the most: all when a row keeps no key
+  int kt_max = n_kt;
+  if (causal && diag >= 0) kt_max = std::min(n_kt, (Sq - 1 + diag) / BK + 1);
+  const int blocks = p.n_qt * Hkv * B;
+  int splits = 1;
+  if (blocks < TARGET_BLOCKS && kt_max >= 2 * MIN_SPLIT_TILES)
+    splits = std::min(ceil_div(TARGET_BLOCKS, blocks), kt_max / MIN_SPLIT_TILES);
+  p.tps = splits > 1 ? ceil_div(kt_max, splits) : (kt_max > 0 ? kt_max : 1);
+  p.splits = splits > 1 ? ceil_div(kt_max, p.tps) : 1;
+  return p;
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_stats_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, float* __restrict__ pv,
+                        float* __restrict__ m_out, float* __restrict__ l_out, Strides st, int H,
+                        int Hkv, int Sq, int Sk, int causal, int q_offset, int k_offset,
+                        float scale, int tps, int splits) {
+  constexpr int CH = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + BQ * D;      // stage s at sK + s * BK * D
+  bf16* sV = sK + 2 * BK * D;  // stage s at sV + s * BK * D
+
+  const int n_rep = H / Hkv, QT = BQ / n_rep;
+  const int q0 = blockIdx.x * QT, hk = blockIdx.y;
+  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int diag = q_offset - k_offset;  // key j is kept by query i iff j <= i + diag
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wrow = warp * 16;
+  const bf16* kg = k + b * st.kb + hk * st.kh;
+  const bf16* vg = v + b * st.vb + hk * st.vh;
+
+  // this lane's rows g and g + 8: (query head rep, query index qi)
+  int rep[2], qi[2];
+  bool valid[2];
+  int lo = INT_MAX, hi = -1;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = wrow + g + 8 * e;
+    rep[e] = r / QT;
+    qi[e] = q0 + r % QT;
+    valid[e] = rep[e] < n_rep && qi[e] < Sq;
+    if (valid[e]) {
+      lo = min(lo, qi[e]);
+      hi = max(hi, qi[e]);
+    }
+  }
+  const int wlo = __reduce_min_sync(0xffffffffu, lo);  // the warp's query range
+  const int whi = __reduce_max_sync(0xffffffffu, hi);
+
+  // key tiles: above the diagonal skipped only when every row keeps key 0
+  const int n_kt = ceil_div(Sk, BK);
+  int kt_end = n_kt;
+  if (causal && q0 + diag >= 0) kt_end = min(n_kt, (min(q0 + QT, Sq) - 1 + diag) / BK + 1);
+  const int kt_begin = split * tps;
+  kt_end = min(kt_end, kt_begin + tps);
+
+  // the Q rows (gathered across the group's heads) and the first K/V tile
+  for (int i = threadIdx.x; i < BQ * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    const int rp = r / QT, qq = q0 + r % QT;
+    const bool ok = rp < n_rep && qq < Sq;
+    const bf16* src = ok ? q + b * st.qb + (hk * n_rep + rp) * st.qh + qq * st.qs + c * 8 : q;
+    cp_async16(sQ + tile_off<CH>(r, c), src, ok);
+  }
+  if (kt_begin < kt_end) {
+    cp_tile<BK, D, NT>(sK, kg, kt_begin * BK, Sk, st.ks);
+    cp_tile<BK, D, NT>(sV, vg, kt_begin * BK, Sk, st.vs);
+  }
+  cp_async_commit();
+
+  uint32_t qf[D / 16][4];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // running max of rows g and g + 8
+  float l[2] = {0.f, 0.f};          // this lane's share of their running sums
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stg = (kt - kt_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
+    if (kt + 1 < kt_end) {
+      cp_tile<BK, D, NT>(sK + (stg ^ 1) * BK * D, kg, (kt + 1) * BK, Sk, st.ks);
+      cp_tile<BK, D, NT>(sV + (stg ^ 1) * BK * D, vg, (kt + 1) * BK, Sk, st.vs);
+    }
+    cp_async_commit();
+    if (kt == kt_begin) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) load_a<CH>(qf[kk], sQ, wrow, kk, lane);
+    }
+    const int k0 = kt * BK;
+    if (whi < 0 || (causal && wlo + diag >= 0 && k0 > whi + diag))
+      continue;  // no row of the warp, or a tile that adds exp(NEG_INF - m) = 0 to each
+    const bf16* cK = sK + stg * BK * D;
+    const bf16* cV = sV + stg * BK * D;
+
+    // S = Q K^T for this warp's 16 rows, fp32
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; j += 2) {
+        uint32_t bb[4];
+        load_b<CH>(bb, cK, j * 8, kk, lane);
+        mma16816(s[j], qf[kk], bb[0], bb[1]);
+        mma16816(s[j + 1], qf[kk], bb[2], bb[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+    if (k0 + BK > Sk || (causal && k0 + BK - 1 > wlo + diag)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + 2 * t + (e & 1);
+          if (key >= Sk)
+            s[j][e] = -INFINITY;  // not a key
+          else if (causal && key > qi[e >> 1] + diag)
+            s[j][e] = NEG_INF;  // a masked logit
+        }
+    }
+
+    // online softmax of rows g and g + 8, in registers
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      alpha[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - mx[e >> 1]);
+      rs[0] += s[j][0] + s[j][1];
+      rs[1] += s[j][2] + s[j][3];
+    }
+    uint32_t pf[BK / 16][4];  // P in V's dtype: the A operand of P V
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) pack_a(pf[kk], s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // pv += P V
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < D / 8; j += 2) {
+        uint32_t bb[4];
+        load_b_trans<CH>(bb, cV, kk * 16, j, lane);
+        mma16816(acc[j], pf[kk], bb[0], bb[1]);
+        mma16816(acc[j + 1], pf[kk], bb[2], bb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  // this split's (pv, m, l): the output itself with one split, else its
+  // partial in the scratch, split-major
+  const size_t rows = (size_t)(gridDim.z / splits) * H * Sq;
+  float* pvs = pv + split * rows * D;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float ls = quad_sum(l[e]);
+    if (!valid[e]) continue;
+    const size_t row = ((size_t)b * H + hk * n_rep + rep[e]) * Sq + qi[e];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(pvs + row * D + j * 8 + 2 * t) =
+          make_float2(acc[j][2 * e], acc[j][2 * e + 1]);
+    if (t == 0) {
+      m_out[split * rows + row] = m[e];
+      l_out[split * rows + row] = ls;
+    }
+  }
+}
+
+// (pv, m, l) = the splits' partials folded in split order
+__global__ void __launch_bounds__(256)
+flash_stats_kernel_combine(const float* __restrict__ part, float* __restrict__ pv,
+                           float* __restrict__ m, float* __restrict__ l, int rows, int D,
+                           int splits) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)rows * D) return;
+  const size_t row = i / D;
+  const float* pm = part + (size_t)splits * rows * D;
+  const float* pl = pm + (size_t)splits * rows;
+  float mm = pm[row], ll = pl[row], aa = part[i];
+  for (int s = 1; s < splits; ++s)
+    fold_stats(mm, ll, aa, pm[(size_t)s * rows + row], pl[(size_t)s * rows + row],
+               part[(size_t)s * rows * D + i]);
+  pv[i] = aa;
+  if (i % D == 0) {
+    m[row] = mm;
+    l[row] = ll;
+  }
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* pv, void* m, void* l,
+                void* part, int B, int H, int Hkv, int Sq, int Sk, const Strides& st,
+                int causal, int q_offset, int k_offset, float scale, cudaStream_t stream) {
+  constexpr size_t smem = bf16_smem_bytes<D>();
+  if (H / Hkv > BQ) return (int)cudaErrorInvalidValue;
+  const Plan p = flash_stats_plan(B, H, Hkv, Sq, Sk, causal, q_offset, k_offset);
+  if (p.splits > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  auto kern = flash_stats_kernel_bf16<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const size_t rows = (size_t)B * H * Sq;
+  float* out_pv = static_cast<float*>(p.splits > 1 ? part : pv);
+  float* out_m = p.splits > 1 ? out_pv + p.splits * rows * D : static_cast<float*>(m);
+  float* out_l = p.splits > 1 ? out_m + p.splits * rows : static_cast<float*>(l);
+  dim3 grid(p.n_qt, Hkv, B * p.splits);
+  kern<<<grid, NT, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                   static_cast<const bf16*>(v), out_pv, out_m, out_l, st, H,
+                                   Hkv, Sq, Sk, causal, q_offset, k_offset, scale, p.tps,
+                                   p.splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return (int)err;
+  flash_stats_kernel_combine<<<(unsigned)((rows * D + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(pv), static_cast<float*>(m),
+      static_cast<float*>(l), (int)rows, D, p.splits);
+  return (int)cudaGetLastError();
+}
+
+// -- float32: the first version -------------------------------------------------
+
+constexpr int NTHREADS = TILE_THREADS;  // four warps, each owning 16 query rows
+template <int D>
+using Layout = FwdLayout<float, D>;
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)  // (, 1): ptxas spilled at 40 registers
+flash_stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ pv,
+                   float* __restrict__ m_out, float* __restrict__ l_out, Strides st, int H,
+                   int Hkv, int Sq, int Sk, int causal, int q_offset, int k_offset,
                    float scale) {
-  using Lay = Layout<T, D>;
+  using Lay = Layout<D>;
   constexpr int LD = Lay::LD, LDS = Lay::LDS, LDP = Lay::LDP, LDO = Lay::LDO;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + Lay::Q_OFF);
-  T* sK = reinterpret_cast<T*>(smem + Lay::K_OFF);
-  T* sV = reinterpret_cast<T*>(smem + Lay::V_OFF);
+  float* sQ = reinterpret_cast<float*>(smem + Lay::Q_OFF);
+  float* sK = reinterpret_cast<float*>(smem + Lay::K_OFF);
+  float* sV = reinterpret_cast<float*>(smem + Lay::V_OFF);
   float* sS = reinterpret_cast<float*>(smem + Lay::S_OFF);
-  T* sP = reinterpret_cast<T*>(smem + Lay::P_OFF);
+  float* sP = reinterpret_cast<float*>(smem + Lay::P_OFF);
   float* sO = reinterpret_cast<float*>(smem + Lay::O_OFF);
   float* sM = reinterpret_cast<float*>(smem + Lay::M_OFF);
   float* sL = reinterpret_cast<float*>(smem + Lay::L_OFF);
   float* sA = reinterpret_cast<float*>(smem + Lay::A_OFF);
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * TILE;
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  const size_t bhk = (size_t)b * Hkv + h / (H / Hkv);  // this head's kv-head
-  const T* qg = q + bh * Sq * D;
-  const T* kg = k + bhk * Sk * D;
-  const T* vg = v + bhk * Sk * D;
-  // key index j is kept by query row i iff j <= i + diag
+  const int hk = h / (H / Hkv);  // this head's kv-head
+  const float* qg = q + b * st.qb + h * st.qh;
+  const float* kg = k + b * st.kb + hk * st.kh;
+  const float* vg = v + b * st.vb + hk * st.vh;
   const int diag = q_offset - k_offset;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wrow = warp * 16;  // this warp's first row in the tile
+  const int wrow = warp * 16;
 
-  load_tile<T, D>(sQ, qg, q0, Sq, LD);
-  for (int i = tid; i < BQ * LDO; i += NTHREADS) sO[i] = 0.f;
-  if (tid < BQ) {
+  load_tile<float, D>(sQ, qg, q0, Sq, LD, st.qs);
+  for (int i = tid; i < TILE * LDO; i += NTHREADS) sO[i] = 0.f;
+  if (tid < TILE) {
     sM[tid] = NEG_INF;
     sL[tid] = 0.f;
   }
 
-  const int n_kt = (Sk + BK - 1) / BK;
+  const int n_kt = (Sk + TILE - 1) / TILE;
   int kt_end = n_kt;
-  if (causal && q0 + diag >= 0) {
-    // every row keeps key 0: tiles wholly above the last row's diagonal
-    // add nothing (exp(-1e30 - m) = 0) and are skipped
-    kt_end = min(n_kt, (q0 + BQ - 1 + diag) / BK + 1);
-  }
+  if (causal && q0 + diag >= 0) kt_end = min(n_kt, (q0 + TILE - 1 + diag) / TILE + 1);
 
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * TILE;
     __syncthreads();  // the previous tile's K/V are no longer read
-    load_tile<T, D>(sK, kg, k0, Sk, LD);
-    load_tile<T, D>(sV, vg, k0, Sk, LD);
+    load_tile<float, D>(sK, kg, k0, Sk, LD, st.ks);
+    load_tile<float, D>(sV, vg, k0, Sk, LD, st.vs);
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows (raw dot products, fp32)
-    if constexpr (Lay::kBf16) {
-      for (int j = 0; j < BK / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-          wmma::load_matrix_sync(a, sQ + wrow * LD + kk * 16, LD);
-          wmma::load_matrix_sync(bf, sK + (j * 16) * LD + kk * 16, LD);
-          wmma::mma_sync(acc, a, bf, acc);
-        }
-        wmma::store_matrix_sync(sS + wrow * LDS + j * 16, acc, LDS, wmma::mem_row_major);
-      }
-    } else {
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = wrow + rr;
-        for (int c = lane; c < BK; c += 32) {
-          float acc = 0.f;
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = wrow + rr;
+      for (int c = lane; c < TILE; c += 32) {
+        float acc = 0.f;
 #pragma unroll 8
-          for (int d = 0; d < D; ++d) acc += to_float(sQ[r * LD + d]) * to_float(sK[c * LD + d]);
-          sS[r * LDS + c] = acc;
-        }
+        for (int d = 0; d < D; ++d) acc += sQ[r * LD + d] * sK[c * LD + d];
+        sS[r * LDS + c] = acc;
       }
     }
     __syncwarp();
@@ -159,7 +448,7 @@ flash_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       for (int u = 0; u < 2; ++u) p[u] = real[u] ? expf(x[u] - m_new) : 0.f;
       const float sum = warp_sum(p[0] + p[1]);
 #pragma unroll
-      for (int u = 0; u < 2; ++u) sP[r * LDP + lane + 32 * u] = from_float<T>(p[u]);
+      for (int u = 0; u < 2; ++u) sP[r * LDP + lane + 32 * u] = p[u];
       __syncwarp();  // every lane has read sM[r]
       if (lane == 0) {
         const float alpha = expf(m_old - m_new);
@@ -171,34 +460,14 @@ flash_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     __syncwarp();
 
     // PV = PV * alpha + P V for this warp's rows
-    if constexpr (Lay::kBf16) {
-      for (int rr = 0; rr < 16; ++rr) {
-        const float a = sA[wrow + rr];
-        for (int c = lane; c < D; c += 32) sO[(wrow + rr) * LDO + c] *= a;
-      }
-      __syncwarp();
-      for (int j = 0; j < D / 16; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::load_matrix_sync(acc, sO + wrow * LDO + j * 16, LDO, wmma::mem_row_major);
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-          wmma::load_matrix_sync(a, sP + wrow * LDP + kk * 16, LDP);
-          wmma::load_matrix_sync(bf, sV + (kk * 16) * LD + j * 16, LD);
-          wmma::mma_sync(acc, a, bf, acc);
-        }
-        wmma::store_matrix_sync(sO + wrow * LDO + j * 16, acc, LDO, wmma::mem_row_major);
-      }
-    } else {
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = wrow + rr;
-        const float a = sA[r];
-        for (int c = lane; c < D; c += 32) {
-          float acc = 0.f;
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = wrow + rr;
+      const float a = sA[r];
+      for (int c = lane; c < D; c += 32) {
+        float acc = 0.f;
 #pragma unroll 8
-          for (int kk = 0; kk < BK; ++kk) acc += to_float(sP[r * LDP + kk]) * to_float(sV[kk * LD + c]);
-          sO[r * LDO + c] = sO[r * LDO + c] * a + acc;
-        }
+        for (int kk = 0; kk < TILE; ++kk) acc += sP[r * LDP + kk] * sV[kk * LD + c];
+        sO[r * LDO + c] = sO[r * LDO + c] * a + acc;
       }
     }
     __syncwarp();
@@ -218,56 +487,74 @@ flash_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* pv, void* m, void* l, int B,
-           int H, int Hkv, int Sq, int Sk, int causal, int q_offset, int k_offset, float scale,
-           cudaStream_t stream) {
-  constexpr size_t smem = Layout<T, D>::BYTES;
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v, void* pv, void* m, void* l, int B,
+                int H, int Hkv, int Sq, int Sk, const Strides& st, int causal, int q_offset,
+                int k_offset, float scale, cudaStream_t stream) {
+  constexpr size_t smem = Layout<D>::BYTES;
   static_assert(smem <= 232448, "K3 tile layout exceeds a block's shared memory");
-  auto kern = flash_stats_kernel<T, D>;
+  auto kern = flash_stats_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  dim3 grid((Sq + TILE - 1) / TILE, H, B);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<float*>(pv), static_cast<float*>(m), static_cast<float*>(l), H, Hkv, Sq, Sk,
-      causal, q_offset, k_offset, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(pv), static_cast<float*>(m), static_cast<float*>(l), st, H, Hkv, Sq,
+      Sk, causal, q_offset, k_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* pv, void* m, void* l,
-               int B, int H, int Hkv, int Sq, int Sk, int causal, int q_offset, int k_offset,
-               float scale, cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, pv, m, l, B, H, Hkv, Sq, Sk, causal, q_offset, k_offset, scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, pv, m, l, B, H, Hkv, Sq, Sk, causal, q_offset, k_offset, scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, pv, m, l, B, H, Hkv, Sq, Sk, causal, q_offset, k_offset, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+template <int D>
+int dispatch(int dtype, const void* q, const void* k, const void* v, void* pv, void* m,
+             void* l, void* part, int B, int H, int Hkv, int Sq, int Sk, const Strides& st,
+             int causal, int q_offset, int k_offset, float scale, cudaStream_t s) {
+  if (dtype == 1)
+    return launch_bf16<D>(q, k, v, pv, m, l, part, B, H, Hkv, Sq, Sk, st, causal, q_offset,
+                          k_offset, scale, s);
+  if (dtype == 0)
+    return launch_fp32<D>(q, k, v, pv, m, l, B, H, Hkv, Sq, Sk, st, causal, q_offset, k_offset,
+                          scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B,H,Sq,D), k/v (B,Hkv,Sk,D) contiguous, Hkv dividing H; pv (B,H,Sq,D)
-// fp32; m, l (B,H,Sq) fp32.  dtype: 0 = float32, 1 = bfloat16.  Returns
-// cudaGetLastError().
+// Splits of the keys one call takes (1: no scratch, no combine kernel);
+// the wrapper allocates splits x B x H x Sq x (D + 2) fp32 words of
+// scratch when more.  dtype: 0 = float32 (never split), 1 = bfloat16.
+extern "C" int egs_flash_block_stats_splits(int B, int H, int Hkv, int Sq, int Sk, int dtype,
+                                            int causal, int q_offset, int k_offset) {
+  if (dtype != 1 || Hkv <= 0 || H % Hkv || Sq <= 0) return 1;
+  return flash_stats_plan(B, H, Hkv, Sq, Sk, causal, q_offset, k_offset).splits;
+}
+
+// q (B,H,Sq,D), k/v (B,Hkv,Sk,D) with Hkv dividing H, each with its row,
+// head and batch strides in elements (last dimension contiguous, 16-byte
+// aligned rows); pv (B,H,Sq,D) fp32; m, l (B,H,Sq) fp32; part: the
+// scratch of egs_flash_block_stats_splits (null with one split).  dtype:
+// 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
 extern "C" int egs_flash_block_stats(const void* q, const void* k, const void* v, void* pv,
-                                     void* m, void* l, int B, int H, int Hkv, int Sq, int Sk,
-                                     int D, int dtype, int causal, int q_offset, int k_offset,
-                                     float scale, void* stream) {
+                                     void* m, void* l, void* part, int B, int H, int Hkv,
+                                     int Sq, int Sk, int D, long long q_row, long long q_head,
+                                     long long q_batch, long long k_row, long long k_head,
+                                     long long k_batch, long long v_row, long long v_head,
+                                     long long v_batch, int dtype, int causal, int q_offset,
+                                     int k_offset, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Hkv <= 0 || H % Hkv) return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, pv, m, l, B, H, Hkv, Sq, Sk, causal, q_offset,
-                                     k_offset, scale, s);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, pv, m, l, B, H, Hkv, Sq, Sk, causal, q_offset,
-                             k_offset, scale, s);
-  return (int)cudaErrorInvalidValue;
+  const Strides st{q_row, q_head, q_batch, k_row, k_head, k_batch, v_row, v_head, v_batch};
+  switch (D) {
+    case 32:
+      return dispatch<32>(dtype, q, k, v, pv, m, l, part, B, H, Hkv, Sq, Sk, st, causal,
+                          q_offset, k_offset, scale, s);
+    case 64:
+      return dispatch<64>(dtype, q, k, v, pv, m, l, part, B, H, Hkv, Sq, Sk, st, causal,
+                          q_offset, k_offset, scale, s);
+    case 128:
+      return dispatch<128>(dtype, q, k, v, pv, m, l, part, B, H, Hkv, Sq, Sk, st, causal,
+                           q_offset, k_offset, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

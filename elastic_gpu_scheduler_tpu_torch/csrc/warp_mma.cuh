@@ -1,6 +1,7 @@
-// Warp-level building blocks of the bf16 paths of K1 (flash_fwd.cu) and K4
-// (flash_bwd.cu): 16-byte cp.async copies into XOR-swizzled shared tiles,
-// ldmatrix fragment loads, and mma.sync.m16n8k16 (bf16 in, fp32
+// Warp-level building blocks of the bf16 paths of K1 (flash_fwd.cu), K3
+// (flash_stats.cu) and K4 (flash_bwd.cu), and the copies of K2
+// (paged_attention.cu): 16-byte cp.async copies into XOR-swizzled shared
+// tiles, ldmatrix fragment loads, and mma.sync.m16n8k16 (bf16 in, fp32
 // accumulate), all as inline PTX for sm_90a.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
@@ -66,12 +67,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// rows [row0, row0 + ROWS) of a (rows_total, D) row-major bf16 matrix into
-// a swizzled shared tile, by a block of NT threads; rows past the end are
-// zeros.  The caller commits the group.
+// rows [row0, row0 + ROWS) of a (rows_total, D) bf16 matrix whose rows lie
+// ld elements apart (16-byte aligned) into a swizzled shared tile, by a
+// block of NT threads; rows past the end are zeros.  The caller commits
+// the group.
 template <int ROWS, int D, int NT>
 __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* __restrict__ src, int row0,
-                                        int rows_total) {
+                                        int rows_total, size_t ld = D) {
   constexpr int CH = D / 8;
   static_assert(ROWS * CH % NT == 0, "whole copy rounds");
 #pragma unroll
@@ -79,7 +81,7 @@ __device__ __forceinline__ void cp_tile(bf16* dst, const bf16* __restrict__ src,
     const int i = threadIdx.x + n * NT;
     const int r = i / CH, c = i % CH;
     const bool ok = row0 + r < rows_total;
-    cp_async16(dst + tile_off<CH>(r, c), src + (size_t)(ok ? row0 + r : 0) * D + c * 8, ok);
+    cp_async16(dst + tile_off<CH>(r, c), src + (size_t)(ok ? row0 + r : 0) * ld + c * 8, ok);
   }
 }
 

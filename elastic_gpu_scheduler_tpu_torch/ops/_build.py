@@ -54,19 +54,27 @@ _lib: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, o, lse, B, H, Sq, Sk, D, dtype, causal, window, scale, stream
     "egs_flash_fwd": ([_P] * 5 + [_I] * 8 + [_F, _P], ctypes.c_int),
-    # q, pool_k, pool_v, tables, lengths, out, B, W, Hn, Hkv, Dh, ps, NB,
-    # dtype, window, scale, stream
-    "egs_paged_attention": ([_P] * 6 + [_I] * 9 + [_F, _P], ctypes.c_int),
+    # q, pool_k, pool_v, tables, lengths, out, part, B, W, Hn, Hkv, Dh, ps,
+    # NB, dtype, window, scale, stream
+    "egs_paged_attention": ([_P] * 7 + [_I] * 9 + [_F, _P], ctypes.c_int),
     # q, pool_k, pool_v (int8), scales_k, scales_v, tables, lengths, out,
-    # then as egs_paged_attention
-    "egs_paged_attention_int8": ([_P] * 8 + [_I] * 9 + [_F, _P], ctypes.c_int),
-    "egs_paged_attention_smem": ([_I, _I, _I], ctypes.c_longlong),
-    # q, k, v, pv, m, l, B, H, Hkv, Sq, Sk, D, dtype, causal, q_offset,
-    # k_offset, scale, stream
-    "egs_flash_block_stats": ([_P] * 6 + [_I] * 10 + [_F, _P], ctypes.c_int),
+    # part, then as egs_paged_attention
+    "egs_paged_attention_int8": ([_P] * 9 + [_I] * 9 + [_F, _P], ctypes.c_int),
+    # Dh, pool element bytes
+    "egs_paged_attention_smem": ([_I] * 2, ctypes.c_longlong),
+    # B, W, Hn, Hkv, Dh, NB
+    "egs_paged_attention_workspace": ([_I] * 6, ctypes.c_longlong),
+    # q, k, v, pv, m, l, part, B, H, Hkv, Sq, Sk, D, the row and head
+    # strides of q, k and v (elements), the batch strides, dtype, causal,
+    # q_offset, k_offset, scale, stream
+    "egs_flash_block_stats": ([_P] * 7 + [_I] * 6 + [_LL] * 9 + [_I] * 4 + [_F, _P],
+                              ctypes.c_int),
+    # B, H, Hkv, Sq, Sk, dtype, causal, q_offset, k_offset
+    "egs_flash_block_stats_splits": ([_I] * 9, ctypes.c_int),
     # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, dtype, causal, window,
     # scale, stream
     "egs_flash_bwd_dq": ([_P] * 7 + [_I] * 8 + [_F, _P], ctypes.c_int),

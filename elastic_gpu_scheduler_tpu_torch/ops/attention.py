@@ -303,6 +303,23 @@ def flash_block_stats_reference(q, k, v, q_offset, k_offset, causal=True, sm_sca
     return pv.reshape(B, H, Sq, D), m.reshape(B, H, Sq), l.reshape(B, H, Sq)
 
 
+def merge_block_stats(parts):
+    """Fold (pv, m, l) partials over disjoint runs of keys, in the order
+    given, as ring attention merges its hops: m = max(m_i, m_s), and each
+    side is scaled by exp(m_old - m) before adding.  Runs where a row keeps
+    no key (m = NEG_INF) weigh exp(0) = 1 against each other, so such a row
+    still ends with l = Sk and pv = the sum of v.  The plain version of the
+    merge kernels of K2 and K3."""
+    pv, m, l = parts[0]
+    for pv_s, m_s, l_s in parts[1:]:
+        m_new = torch.maximum(m, m_s)
+        a, b = torch.exp(m - m_new), torch.exp(m_s - m_new)
+        pv = pv * a[..., None] + pv_s * b[..., None]
+        l = l * a + l_s * b
+        m = m_new
+    return pv, m, l
+
+
 def block_stats_tolerance_used(got, ref, dtype) -> dict:
     """K3's tolerance against ``flash_block_stats_reference(...,
     round_like_kernel=True)`` on q/k/v of ``dtype``, as the largest share
@@ -355,7 +372,9 @@ def flash_block_stats(q, k, v, q_offset, k_offset, causal: bool = True,
 
 
 def _flash_stats_cuda(q, k, v, q_offset, k_offset, causal, scale):
-    """Launch K3 (csrc/flash_stats.cu); raises on anything it does not take."""
+    """Launch K3 (csrc/flash_stats.cu); raises on anything it does not take.
+    q, k and v are read where they lie (their strides go to the kernel)
+    unless a row is strided or misaligned, when a contiguous copy goes."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"flash_block_stats: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -372,21 +391,41 @@ def _flash_stats_cuda(q, k, v, q_offset, k_offset, causal, scale):
         )
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_block_stats kernel takes head_dim in {HEAD_DIMS}, got {D}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and H // Hkv > 64:
+        raise ValueError(f"flash_block_stats kernel takes at most 64 query heads a "
+                         f"kv-head, got {H // Hkv}")
+    q, k, v = (_rows_in_place(t) for t in (q, k, v))
     pv = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if pv.numel() == 0:
         return pv, m, l
-    _check_aligned((q, k, v), "flash_block_stats")
-    err = _build.lib().egs_flash_block_stats(
+    lib = _build.lib()
+    dtype = _DTYPE_CODES[q.dtype]
+    splits = lib.egs_flash_block_stats_splits(B, H, Hkv, Sq, Sk, dtype, int(causal),
+                                              q_offset, k_offset)
+    part = (torch.empty(splits * B * H * Sq * (D + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    strides = [s for t in (q, k, v) for s in (t.stride(2), t.stride(1), t.stride(0))]
+    err = lib.egs_flash_block_stats(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pv.data_ptr(), m.data_ptr(), l.data_ptr(),
-        B, H, Hkv, Sq, Sk, D, _DTYPE_CODES[q.dtype], int(causal), q_offset, k_offset,
-        scale, _build.stream_ptr(q.device),
+        part.data_ptr() if part is not None else None, B, H, Hkv, Sq, Sk, D, *strides, dtype,
+        int(causal), q_offset, k_offset, scale, _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_block_stats launch")
     _build.LAUNCHES["flash_block_stats"] += 1
     return pv, m, l
+
+
+def _rows_in_place(t):
+    """``t`` itself when the kernel can read it where it lies (last
+    dimension contiguous, every other stride a whole number of 16-byte
+    chunks, 16-byte aligned), else a contiguous copy."""
+    vec = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in t.stride()[:-1])):
+        return t
+    return t.contiguous()
 
 
 def _flash_fwd_cuda(q, k, v, causal, scale, window):

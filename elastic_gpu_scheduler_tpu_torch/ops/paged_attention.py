@@ -3,10 +3,12 @@ its plain PyTorch version.
 
 Counterpart of ``elastic_gpu_scheduler_tpu/ops/paged_attention.py``.  On a
 CUDA tensor ``paged_attention`` launches ``csrc/paged_attention.cu``, which
-reads the serving engine's page pool in place (one block per (kv-head,
-batch row), each live page loaded once into shared memory, GQA grouped,
-never expanded); on a CPU tensor it computes
-``paged_attention_reference``, the gather-then-attend version.
+reads the serving engine's page pool in place (the pages split across
+blocks, each warp on its own 16-key chunks, GQA grouped, never expanded;
+a second kernel folds the splits' partials in order); on a CPU tensor it
+computes ``paged_attention_reference``, the gather-then-attend version.
+``paged_attention_split_reference`` is the plain version of the split and
+the fold.
 
 An int8 pool comes with per-(token, kv-head) fp32 scales
 (``scales_k``/``scales_v``, shape (n_pages, page_size, Hkv)).  Both
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .attention import HEAD_DIMS, NEG_INF, _DTYPE_CODES
+from .attention import HEAD_DIMS, NEG_INF, _DTYPE_CODES, merge_block_stats
 
 # dynamic shared memory one block may take on an H100 (227 KB)
 MAX_SMEM_BYTES = 232448
@@ -46,13 +48,48 @@ def paged_attention_reference(
     anything outside the sliding ``window`` when > 0.  Returns q's rank.
     ``scales_k/v``: (n_pages, page_size, Hkv) scales of an int8 pool,
     dequantised through ``dtype`` (q's dtype when None)."""
-    squeeze = q.ndim == 3
-    if squeeze:
+    qg, k, v, keep = _gathered(q, pool_k, pool_v, tables, lengths, scales_k, scales_v,
+                               window, dtype)
+    s = torch.einsum("bwhrd,bthd->bwhrt", qg, k) * (q.shape[-1] ** -0.5)
+    s = torch.where(keep[:, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bwhrt,bthd->bwhrd", p, v)
+    return _out_like(o, q)
+
+
+def paged_attention_split_reference(
+    q, pool_k, pool_v, tables, lengths, pages_per_split: int, *, scales_k=None,
+    scales_v=None, window: int = 0, dtype=None,
+):
+    """The plain version of K2's split and fold, with the semantics of
+    ``paged_attention_reference``: each run of ``pages_per_split`` table
+    pages gives (acc, m, l) over the keys the queries keep in it (a run
+    that keeps none gives acc 0, m NEG_INF, l 0), ``merge_block_stats``
+    folds the runs in order, and out = acc / max(l, 1e-30)."""
+    qg, k, v, keep = _gathered(q, pool_k, pool_v, tables, lengths, scales_k, scales_v,
+                               window, dtype)
+    run = pages_per_split * pool_k.shape[1]
+    parts = []
+    for t0 in range(0, k.shape[1], run):
+        kk = keep[:, :, None, None, t0:t0 + run]
+        s = torch.einsum("bwhrd,bthd->bwhrt", qg, k[:, t0:t0 + run]) * (q.shape[-1] ** -0.5)
+        m = torch.where(kk, s, -torch.inf).amax(dim=-1).clamp(min=NEG_INF)
+        p = torch.where(kk, torch.exp(s - m[..., None]), 0.0)
+        parts.append((torch.einsum("bwhrt,bthd->bwhrd", p, v[:, t0:t0 + run]), m,
+                      p.sum(dim=-1)))
+    acc, _, l = merge_block_stats(parts)
+    return _out_like(acc / l.clamp(min=1e-30)[..., None], q)
+
+
+def _gathered(q, pool_k, pool_v, tables, lengths, scales_k, scales_v, window, dtype):
+    """q grouped by kv-head (B, W, Hkv, n_rep, Dh) fp32, the rows' keys and
+    values (B, NB * ps, Hkv, Dh) fp32 (dequantised through ``dtype`` from
+    an int8 pool) and the keep mask (B, W, NB * ps)."""
+    if q.ndim == 3:
         q = q[:, None]
     B, W, Hn, Dh = q.shape
     NB = tables.shape[1]
     ps, Hkv = pool_k.shape[1], pool_k.shape[2]
-    n_rep = Hn // Hkv
     dtype = dtype or q.dtype
     tl = tables.long()
     k = pool_k[tl].reshape(B, NB * ps, Hkv, Dh)
@@ -60,19 +97,19 @@ def paged_attention_reference(
     if scales_k is not None:
         k = dequant(k, scales_k[tl].reshape(B, NB * ps, Hkv), dtype)
         v = dequant(v, scales_v[tl].reshape(B, NB * ps, Hkv), dtype)
-    k, v = k.float(), v.float()
-    qg = q.reshape(B, W, Hkv, n_rep, Dh).float()
-    s = torch.einsum("bwhrd,bthd->bwhrt", qg, k) * (Dh ** -0.5)
+    qg = q.reshape(B, W, Hkv, Hn // Hkv, Dh).float()
     kpos = torch.arange(NB * ps, device=q.device)[None, None, :]
     qpos = lengths.long()[:, None, None] + torch.arange(W, device=q.device)[None, :, None]
     keep = kpos <= qpos
     if window > 0:
         keep = keep & ((qpos - kpos) < window)
-    s = torch.where(keep[:, :, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bwhrt,bthd->bwhrd", p, v)
-    o = o.reshape(B, W, Hn, Dh).to(q.dtype)
-    return o[:, 0] if squeeze else o
+    return qg, k.float(), v.float(), keep
+
+
+def _out_like(o, q):
+    """(B, W, Hkv, n_rep, Dh) fp32 attention output in q's dtype and rank."""
+    o = o.reshape(o.shape[0], o.shape[1], -1, o.shape[-1]).to(q.dtype)
+    return o[:, 0] if q.ndim == 3 else o
 
 
 def paged_attention(
@@ -156,12 +193,11 @@ def _paged_cuda(q, pool_k, pool_v, tables, lengths, window, scales=(), dtype=Non
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     lib = _build.lib()
-    R = (Hn // Hkv) * W
-    smem = lib.egs_paged_attention_smem(R, ps, Dh)
-    if smem > MAX_SMEM_BYTES:
+    smem = lib.egs_paged_attention_smem(Dh, pool_k.element_size())
+    if not 0 < smem <= MAX_SMEM_BYTES:
         raise ValueError(
-            f"paged_attention kernel: {R} query rows per kv-head at page "
-            f"size {ps} need {smem} bytes of shared memory (> {MAX_SMEM_BYTES})"
+            f"paged_attention kernel: head_dim {Dh} over a {pool_k.dtype} pool needs "
+            f"{smem} bytes of shared memory (> {MAX_SMEM_BYTES})"
         )
     q4 = q4.contiguous()
     pool_k, pool_v = pool_k.contiguous(), pool_v.contiguous()
@@ -169,8 +205,13 @@ def _paged_cuda(q, pool_k, pool_v, tables, lengths, window, scales=(), dtype=Non
     out = torch.empty_like(q4)
     if out.numel() == 0:
         return out[:, 0] if squeeze else out
-    tail = (out.data_ptr(), B, W, Hn, Hkv, Dh, ps, tables.shape[1], _DTYPE_CODES[q.dtype],
-            int(window), Dh ** -0.5, _build.stream_ptr(q.device))
+    NB = tables.shape[1]
+    # the splits' partials: their count comes from the shapes, never from
+    # the lengths, which stay on the device
+    n_part = lib.egs_paged_attention_workspace(B, W, Hn, Hkv, Dh, NB)
+    part = torch.empty(n_part, dtype=torch.float32, device=q.device) if n_part else None
+    tail = (out.data_ptr(), part.data_ptr() if n_part else None, B, W, Hn, Hkv, Dh, ps, NB,
+            _DTYPE_CODES[q.dtype], int(window), Dh ** -0.5, _build.stream_ptr(q.device))
     if int8:
         sk, sv = (sc.contiguous() for sc in scales)
         err = lib.egs_paged_attention_int8(

@@ -115,21 +115,27 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     assert _err(lse, ref_lse) <= 1e-4
 
 
-def _k1_kernels(q, k, v, window) -> set:
-    """Names of the K1 kernels one causal call launched, from torch.profiler
-    (which now and then sees no device event, so up to three tries)."""
+def _kernel_names(fn, pattern) -> set:
+    """Names matching ``pattern`` of the kernels one call of ``fn``
+    launched, from torch.profiler (which now and then sees no device
+    event, so up to three tries)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            flash_attention(q, k, v, True, None, window)
+            fn()
             torch.cuda.synchronize()
-        names = {m.group(0) for e in prof.key_averages()
-                 if (m := re.search(r"flash_fwd_\w+?_kernel", e.key))}
+        names = {m.group(0) for e in prof.key_averages() if (m := re.search(pattern, e.key))}
         if names:
             return names
     return set()
+
+
+def _k1_kernels(q, k, v, window) -> set:
+    """Names of the K1 kernels one causal call launched."""
+    return _kernel_names(lambda: flash_attention(q, k, v, True, None, window),
+                         r"flash_fwd_\w+?_kernel")
 
 
 # (B, H, S, D, window, dtype) -> the kernel that runs there on an H100
@@ -156,18 +162,29 @@ def test_flash_kernel_route(cuda, case, kernel):
 
 @pytest.mark.gpu
 def test_flash_kernels_bitwise_repeatable(cuda):
-    """K1 and K4 (no atomics, fixed summation order) give identical bytes
-    when called twice on the same bf16 inputs."""
+    """K1 and K4, K3 with its keys split, and K2 over dense and int8 pools
+    with its pages split (no atomics, fixed summation and merge orders)
+    give identical bytes when called twice on the same bf16 inputs."""
     B, H, S, D = 2, 4, 1000, 128
     g = torch.Generator(device=cuda).manual_seed(7)
     q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=cuda).to(torch.bfloat16)
                    for _ in range(4))
+    kv = k[:, :2].contiguous(), v[:, :2].contiguous()
+    pq, pools, tables, lengths = _paged_case(cuda, 8, 8, 4, 40, torch.bfloat16, False, seed=7)
+    pq8, pools8, tables8, lengths8 = _paged_case(cuda, 8, 8, 4, 40, torch.bfloat16, True,
+                                                 seed=8)
+    assert _k2_splits(pq, 40) > 1 and _k3_splits(q[:1, :, :64], kv[0][:1], 900, 0) > 1
     runs = []
     for _ in range(2):
         out, lse = flash_attention(q, k, v, True, None, 0, return_lse=True)
-        runs.append((out, lse) + flash_backward(q, k, v, out, lse, do, True, None, 0))
+        runs.append((out, lse) + flash_backward(q, k, v, out, lse, do, True, None, 0)
+                    + flash_block_stats(q[:1, :, :64], kv[0][:1], kv[1][:1], 900, 0)
+                    + (paged_attention(pq, *pools, tables, lengths),
+                       paged_attention(pq8, *pools8[:2], tables8, lengths8,
+                                       scales_k=pools8[2], scales_v=pools8[3])))
     torch.cuda.synchronize()
-    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+    names = ("out", "lse", "dq", "dk", "dv", "k3 pv", "k3 m", "k3 l", "k2", "k2 int8")
+    for name, a, b in zip(names, *runs):
         assert torch.equal(a, b), name
 
 
@@ -285,6 +302,81 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
         paged_attention(q, pool, pool, t.long(), n)
 
 
+def _paged_case(cuda, B, Hn, W, NB, dtype, int8, seed=0, ps=16, Dh=128, Hkv=8):
+    """q (rank 3 for W == 1), the pools (with scales when int8), tables
+    and lengths: row 0 at 0, rows ending on a page, on the split edges of
+    128 and 256 keys (either side), mid-page, and the last row at
+    NB * ps - W (a verify window reaching the table's last slot)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    NP = B * NB + 1
+    qs = (B, Hn, Dh) if W == 1 else (B, W, Hn, Dh)
+    q = torch.randn(qs, generator=g, device=cuda).to(dtype)
+    if int8:
+        pk, pv = (torch.randint(-127, 128, (NP, ps, Hkv, Dh), generator=g, device=cuda,
+                                dtype=torch.int8) for _ in range(2))
+        sk, sv = (torch.rand(NP, ps, Hkv, generator=g, device=cuda) * 0.02 for _ in range(2))
+        pools = (pk, pv, sk, sv)
+    else:
+        pools = tuple(torch.randn(NP, ps, Hkv, Dh, generator=g, device=cuda).to(dtype)
+                      for _ in range(2))
+    tables = (torch.randperm(NP - 1, generator=g, device=cuda)[: B * NB] + 1)
+    tables = tables.reshape(B, NB).to(torch.int32)
+    cand = [0, 15, 127, 128, 255, 256, 300, NB * ps - W]
+    lengths = torch.tensor([min(x, NB * ps - W) for x in cand[:B - 1]] + [NB * ps - W],
+                           dtype=torch.int32, device=cuda)
+    return q, pools, tables, lengths
+
+
+def _k2_splits(q, NB) -> int:
+    """Splits K2 takes for q against a table of width NB (from the C plan)."""
+    W = 1 if q.ndim == 3 else q.shape[1]
+    B, Hn, Dh = q.shape[0], q.shape[-2], q.shape[-1]
+    words = _build.lib().egs_paged_attention_workspace(B, W, Hn, 8, Dh, NB)
+    return words // (B * W * Hn * (Dh + 2)) if words else 1
+
+
+# (B, Hn, W, NB, window): the engines' widths (NB 40 dense, 64 int8) split,
+# NB 41 (a last split of one page), NB 4 (one split: no combine kernel),
+# B 1 (many splits), 16 query rows a kv-head (W 4 x n_rep 4: two row groups)
+K2_SPLIT_CASES = [
+    (8, 16, 1, 40, 0), (8, 16, 4, 40, 256), (8, 16, 1, 64, 256), (8, 16, 4, 64, 0),
+    (4, 16, 1, 41, 0), (4, 16, 4, 4, 0), (1, 16, 1, 64, 100), (4, 32, 4, 40, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8-float32", "int8-bfloat16"])
+@pytest.mark.parametrize("case", K2_SPLIT_CASES, ids=str)
+def test_paged_kernel_splits_match_plain(cuda, case, pool):
+    """K2 with its pages split across blocks (and not): the plain version
+    and the split reference agree with it; the combine kernel runs exactly
+    when there is more than one split."""
+    from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import (
+        paged_attention_split_reference,
+    )
+
+    B, Hn, W, NB, window = case
+    int8 = pool.startswith("int8")
+    dtype = torch.float32 if pool.endswith("float32") else torch.bfloat16
+    q, pools, tables, lengths = _paged_case(cuda, B, Hn, W, NB, dtype, int8, seed=NB + W)
+    kw = dict(window=window)
+    if int8:
+        kw.update(scales_k=pools[2], scales_v=pools[3])
+    res = []
+    names = _kernel_names(lambda: res.append(paged_attention(q, *pools[:2], tables, lengths,
+                                                             **kw)),
+                          r"paged_attn_\w*kernel")
+    out = res[-1]
+    ref = paged_attention_reference(q, *pools[:2], tables, lengths, **kw)
+    assert out.shape == q.shape and _close(out, ref)
+    splits = _k2_splits(q, NB)
+    assert names == ({"paged_attn_kernel", "paged_attn_combine_kernel"} if splits > 1
+                     else {"paged_attn_kernel"}), (splits, names)
+    for pps in (4, NB):
+        assert _close(out, paged_attention_split_reference(q, *pools[:2], tables, lengths, pps,
+                                                           **kw))
+
+
 @pytest.mark.gpu
 def test_engine_on_card_matches_cpu_float32(cuda):
     """Small float32 model: greedy tokens on the card (both kernels) equal
@@ -311,7 +403,8 @@ def test_engine_on_card_matches_cpu_float32(cuda):
     assert outs["cpu"] == outs[str(cuda)]
 
 
-# (B, H, Hkv, Sq, Sk, D, q_offset, k_offset, causal)
+# (B, H, Hkv, Sq, Sk, D, q_offset, k_offset, causal).  bf16 splits the keys
+# across blocks where the grid is small (most cases here)
 K3_CASES = [
     (1, 16, 8, 128, 512, 128, 384, 0, True),  # a prefix-cached chunk (GQA)
     (1, 16, 8, 200, 640, 128, 440, 0, True),  # ragged Sq and Sk
@@ -319,6 +412,13 @@ K3_CASES = [
     (1, 4, 2, 64, 128, 64, 0, 40, True),  # rows 0..39 keep no key
     (1, 2, 1, 64, 128, 32, 0, 200, True),  # no row keeps a key
     (1, 4, 2, 70, 90, 32, 7, 3, False),  # not causal
+    (1, 16, 8, 8, 1024, 128, 896, 0, True),  # 8 queries, 1024 keys: many splits
+    (1, 16, 8, 256, 512, 128, 256, 0, True),  # the path's longest chunk
+    (1, 4, 2, 64, 1000, 64, 0, 300, True),  # no-key rows over several splits, ragged Sk
+    (1, 16, 8, 33, 700, 128, 600, 0, True),  # the diagonal mid-tile, a 1-row last tile
+    (1, 32, 4, 40, 600, 64, 500, 0, True),  # n_rep 8: a warp spans two heads
+    (1, 6, 2, 50, 300, 32, 200, 0, True),  # n_rep 3: 21 positions a block, a padding row
+    (1, 16, 8, 64, 64, 128, 0, 0, True),  # one key tile: no split
 ]
 
 
@@ -360,6 +460,48 @@ def test_block_stats_kernel_matches_plain(cuda, case, dtype):
     ref = _kept_keys_reference(q, k, v, q_off, k_off, causal)
     if ref is not None:
         assert _close((pv / l[..., None]).to(dtype), ref)
+
+
+def _k3_splits(q, k, q_off, k_off, causal=True) -> int:
+    B, H, Sq, D = q.shape
+    return _build.lib().egs_flash_block_stats_splits(B, H, k.shape[1], Sq, k.shape[2], 1,
+                                                     int(causal), q_off, k_off)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K3_CASES, ids=str)
+def test_block_stats_kernel_route(cuda, case):
+    """bf16 K3 runs the register kernel, plus the combine kernel exactly
+    when its plan splits the keys; float32 the first version."""
+    B, H, Hkv, Sq, Sk, D, q_off, k_off, causal = case
+    q = torch.randn(B, H, Sq, D, device=cuda).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, Sk, D, device=cuda).to(torch.bfloat16)
+    names = _kernel_names(lambda: flash_block_stats(q, k, k, q_off, k_off, causal),
+                          r"flash_stats_kernel\w*")
+    want = {"flash_stats_kernel_bf16"}
+    if _k3_splits(q, k, q_off, k_off, causal) > 1:
+        want.add("flash_stats_kernel_combine")
+    assert names == want
+    names = _kernel_names(lambda: flash_block_stats(q.float(), k.float(), k.float(), q_off,
+                                                    k_off, causal), r"flash_stats_kernel\w*")
+    assert names == {"flash_stats_kernel"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_block_stats_kernel_reads_strided_views(cuda, dtype):
+    """The prefix engine's layout: (B, T, H, D) queries and a (B, M, Hkv, D)
+    cache seen through transposes go to K3 where they lie (no copy) and give
+    the bytes a contiguous copy gives."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(1, 128, 16, 128, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(1, 512, 8, 128, generator=g, device=cuda).to(dtype) for _ in range(2))
+    qT, kT, vT = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    got = flash_block_stats(qT, kT, vT, 300, 0)
+    want = flash_block_stats(qT.contiguous(), kT.contiguous(), vT.contiguous(), 300, 0)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
