@@ -49,6 +49,26 @@ Phases, each failing the run (non-zero exit) on any fault:
    gather paths, and with and without the prefix cache; the bf16
    agreement with a cache-less engine and the device memory against
    ``estimate_hbm_bytes`` are reported;
+6c. the overlapped engine (``overlap=True``, the default: each decode
+   chunk a CUDA graph replay) on the same weights and prompts: a warm-up
+   batch that captures the graphs, then the timed batch beside phase 6's
+   sequential engine (pinned to ``overlap=False``, as phase 6b is) driven
+   the same way (tokens per second, wall ms a chunk, host gap, graphs and
+   capture seconds, uploads a chunk); K2's replay-counted launches must
+   equal L x fused_steps x (chunks + captures' warm-ups); first tokens
+   must equal phase 6's; the device's idle share over a profiled window of
+   consecutive chunks; one replay against one eager chunk from cloned
+   state (identical tokens, carry and pool bytes); float32 tokens with
+   overlap on the card equal to the sequential CPU run's;
+6d. speculative decoding (``spec_k=4``: K2's W = 5 window) on the same
+   weights: the serve prompts (W = 5 calls = L x verify passes, sampled
+   and held to ``paged_attention_reference``) and bench.py's repetitive
+   prompts (tokens per second, passes, accepted drafts a pass); an int8,
+   prefix-cached, chunked run whose W = 5 calls go through K2-int8 beside
+   K3; a small random-init draft model (D 512, L 4) at the full
+   vocabulary (first tokens equal to the target's); on a small float32
+   model, spec_k 4 equal to spec_k 0 on the card and the CPU (dense and
+   int8) and the model as its own draft accepting most of its window;
 7. HTTP: ``serve_inference`` on the card-resident engine, one blocking
    and one SSE completion against the engine's own tokens, /healthz and
    /v1/stats;
@@ -64,7 +84,8 @@ Phases, each failing the run (non-zero exit) on any fault:
    torch.profiler;
 10. K1 and K4 at the train shape, K3 and K2 (dense and int8) with split
    keys, called twice, must give identical bytes;
-   a ``{"kernels": [...]}`` line with each kernel's launches on its main
+   a ``{"kernels": [...]}`` line (K2 twice: decode, and the W = 5
+   verify window of phase 6d) with each kernel's launches on its main
    path, error against its plain version, time, plain time, library
    time and lower bound, its share of the bound (``of_bound``) and its
    factor over the library call (``vs_library``), then the card line and
@@ -738,7 +759,8 @@ def phase_engine(dev):
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
 
-    eng = InferenceEngine(params, cfg, paged_kernel=True, device=dev, **ENGINE)
+    # the sequential loop, as in every run before phase 6c existed
+    eng = InferenceEngine(params, cfg, paged_kernel=True, overlap=False, device=dev, **ENGINE)
     sampler = k2_sampler(every=211, keep=12)
     real_call = serving._paged_attn_call
     serving._paged_attn_call = sampler.wrap(real_call)
@@ -776,7 +798,8 @@ def phase_engine(dev):
     log("engine perf: " + json.dumps(perf))
 
     # the gather path on the same weights
-    geng = InferenceEngine(params, cfg, paged_kernel=False, device=dev, **ENGINE)
+    geng = InferenceEngine(params, cfg, paged_kernel=False, overlap=False, device=dev,
+                           **ENGINE)
     greqs, _, _ = drive(geng, prompts, NEW_TOKENS)
     firsts = [r.output[0] for r in reqs]
     check(firsts == [r.output[0] for r in greqs], "kernel and gather engines differ in first tokens")
@@ -810,20 +833,9 @@ def phase_engine(dev):
     del geng, greqs
 
     # small float32 model: the card's greedy tokens equal the CPU's
-    small = TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
-                              n_kv_heads=2, d_ff=512, dtype="float32")
-    sp = init_params(small, torch.Generator().manual_seed(3), "cpu")
-    srng = np.random.default_rng(5)
-    sprompts = [srng.integers(0, 512, n).tolist() for n in (1, 5, 17, 40, 9, 64)]
-    outs = {}
-    for where in ("cpu", dev):
-        se = InferenceEngine(sp, small, max_batch=4, max_len=128, page_size=16,
-                             fused_steps=8, paged_kernel=True, device=where)
-        rs = [se.submit(serving.Request(prompt=q, max_new_tokens=24)) for q in sprompts]
-        se.run_until_idle()
-        for r in rs:
-            check(r.done.is_set() and not r.error, f"small engine request failed: {r.error}")
-        outs[str(where)] = [r.output for r in rs]
+    small, sp = small_fp32()
+    outs = {str(where): small_tokens(sp, small, where, SMALL_PROMPTS, overlap=False)[0]
+            for where in ("cpu", dev)}
     check(outs["cpu"] == outs[str(dev)], "float32 greedy tokens differ between card and CPU")
     log(f"small float32 engine: greedy tokens identical on card and CPU "
         f"({sum(map(len, outs['cpu']))} tokens)")
@@ -834,7 +846,7 @@ def phase_engine(dev):
 
 
 PREFIX_ENGINE = dict(kv_int8=True, prefix_cache=True, prefill_chunk=128, paged_kernel=True,
-                     max_batch=8, max_len=1024, page_size=16, fused_steps=16)
+                     max_batch=8, max_len=1024, page_size=16, fused_steps=16, overlap=False)
 SHARED_PREFIX = 256
 WAVE1_LENS = (64, 700, 900)  # the primer's tail, then two unshared prompts
 WAVE2_TAILS = (16, 48, 80, 112, 129, 176, 208, 256)
@@ -1019,7 +1031,7 @@ def phase_prefix_small_fp32(dev) -> None:
     wave1, wave2 = prefix_traffic(np.random.default_rng(13), 512, 64, (16, 100, 150),
                                   (5, 20, 40, 70))
     kw = dict(kv_int8=True, prefill_chunk=32, max_batch=4, max_len=256, page_size=16,
-              fused_steps=8)
+              fused_steps=8, overlap=False)
     outs = {}
     for where, paged, cache in (("cpu", True, True), (dev, True, True),
                                 (dev, False, True), (dev, True, False)):
@@ -1050,6 +1062,546 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
     return [tree]
+
+
+# -- phase 6c: the overlapped engine ------------------------------------------
+
+
+# consecutive chunks in the profiled window of the overlapped engine (one
+# chunk cannot show overlap)
+OVERLAP_WINDOW = 6
+
+
+def drive_wall(eng, prompts, max_new):
+    """The engine's own loop (``run_until_idle``: no host timer and no
+    synchronise between steps, so an overlapped engine keeps a chunk in
+    flight): (requests, wall s, chunks run)."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import Request
+
+    torch.cuda.synchronize()
+    steps0 = eng.steps_run
+    t0 = time.perf_counter()
+    reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=max_new)) for p in prompts]
+    eng.run_until_idle(max_steps=100_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        check(r.done.is_set() and not r.error, f"request failed: {r.error!r}")
+        check(len(r.output) == max_new, f"request gave {len(r.output)} tokens, not {max_new}")
+    return reqs, wall, eng.steps_run - steps0
+
+
+def agreement(reqs, ref_reqs) -> dict:
+    """First tokens equal (a count) and tokens equal at equal positions."""
+    return {"first_tokens_equal": sum(a.output[0] == b.output[0]
+                                      for a, b in zip(reqs, ref_reqs)),
+            "tokens_equal": sum(x == y for a, b in zip(reqs, ref_reqs)
+                                for x, y in zip(a.output, b.output)),
+            "tokens": sum(len(a.output) for a in reqs),
+            "common_prefix": [common_prefix(a.output, b.output)
+                              for a, b in zip(reqs, ref_reqs)]}
+
+
+def phase_overlap_engine(dev, seq_eng, prompts, seq_reqs) -> dict:
+    """The overlapped engine (``overlap=True``, each decode chunk a CUDA
+    graph replay) on phase 6's weights and prompts: a warm-up batch that
+    captures the graphs, then the timed batch, beside phase 6's sequential
+    engine driven the same way; exact launch counts; tokens against phase
+    6's; a profiled window of consecutive chunks; one replay against one
+    eager chunk from cloned state; float32 tokens against the CPU's."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    params, cfg = seq_eng.params, seq_eng.cfg
+    L, K = cfg.n_layers, ENGINE["fused_steps"]
+    eng = InferenceEngine(params, cfg, paged_kernel=True, device=dev, **ENGINE)
+    check(eng.overlap, "the engine's default should be overlap=True")
+    _, warm_s, warm_chunks = drive_wall(eng, prompts, NEW_TOKENS)
+    captured, capture_s = eng.graphs_captured, eng.graph_capture_s
+    check(captured > 0, "the warm-up batch captured no CUDA graph")
+    log(f"overlap warm-up batch: {warm_chunks} chunks in {warm_s:.2f} s, {captured} graphs "
+        f"captured in {capture_s:.2f} s (keys {sorted(eng._graphs)})")
+    base = dict(warmups=eng.graph_warmups, replays=eng.graph_replays,
+                uploads=eng.device_uploads, prefills=eng.prefills_run,
+                discarded=eng.chunks_discarded, gaps=(eng.host_gap_ns, eng.host_gap_chunks))
+    eng.drain_host_gaps()
+    torch.cuda.synchronize()
+    # the main path: counts at 0 just before, read just after
+    _build.reset_launches()
+    reqs, wall, chunks = drive_wall(eng, prompts, NEW_TOKENS)
+    launches = dict(_build.LAUNCHES)
+    warmups = eng.graph_warmups - base["warmups"]
+    replays = eng.graph_replays - base["replays"]
+    prefills = eng.prefills_run - base["prefills"]
+    want_k2 = L * K * (chunks + warmups)
+    log(f"overlap engine main path: {chunks} chunks ({replays} graph replays, {warmups} "
+        f"captures), {prefills} prefills, launches {launches} (want paged_attention="
+        f"{want_k2}, flash_fwd={L * prefills})")
+    check(replays == chunks, "a decode chunk of the overlapped engine was not a graph replay")
+    check(launches["paged_attention"] == want_k2 > 0,
+          "K2 launches != layers x fused_steps x (chunks + captures' warm-ups)")
+    check(launches["flash_fwd"] == L * prefills > 0, "K1 launches != layers x prefills")
+    check(launches["paged_attention_int8"] == launches["flash_block_stats"] == 0,
+          "the dense overlapped engine launched the int8 K2 or K3")
+    gaps = eng.drain_host_gaps()
+    gen = sum(len(r.output) for r in reqs)
+    # phase 6's sequential engine, the same prompts, the same loop
+    seq_gap0 = (seq_eng.host_gap_ns, seq_eng.host_gap_chunks)
+    sreqs, swall, schunks = drive_wall(seq_eng, prompts, NEW_TOKENS)
+    seq_gap_ms = ((seq_eng.host_gap_ns - seq_gap0[0]) / 1e6
+                  / max(1, seq_eng.host_gap_chunks - seq_gap0[1]))
+    agree = agreement(reqs, seq_reqs)
+    check(agree["first_tokens_equal"] == len(prompts),
+          "overlapped and sequential engines differ in first tokens")
+    repeat = agreement(sreqs, seq_reqs)
+    perf = {
+        "overlap": {"wall_s": wall, "generated_tokens": gen, "tokens_per_s": gen / wall,
+                    "chunks": chunks, "wall_ms_per_chunk": wall / chunks * 1e3,
+                    "host_gap": eng.host_gap_stats(),
+                    "host_gap_samples": {"n": len(gaps), "zero": sum(g == 0.0 for g in gaps),
+                                         "mean_ms": float(np.mean(gaps)) if gaps else 0.0,
+                                         "max_ms": max(gaps) if gaps else 0.0},
+                    "device_uploads_per_chunk": (eng.device_uploads - base["uploads"]) / chunks,
+                    "chunks_discarded": eng.chunks_discarded - base["discarded"],
+                    "graphs_captured": captured, "graph_capture_s": capture_s},
+        "sequential": {"wall_s": swall, "tokens_per_s": gen / swall, "chunks": schunks,
+                       "wall_ms_per_chunk": swall / schunks * 1e3,
+                       "host_gap_mean_ms": seq_gap_ms},
+        "vs_phase6_tokens": agree,
+        "sequential_rerun_vs_phase6_tokens": repeat,
+    }
+    log("overlap engine perf: " + json.dumps(perf))
+    log(f"overlap vs sequential (same prompts, same loop): {gen / wall:.1f} vs "
+        f"{gen / swall:.1f} tokens/s, {wall / chunks * 1e3:.2f} vs {swall / schunks * 1e3:.2f} "
+        f"wall ms a chunk; tokens equal to phase 6's: {agree['tokens_equal']}/{agree['tokens']}")
+    perf["profile"] = phase_overlap_profile(eng, prompts)
+    phase_graph_vs_eager(eng, prompts)
+    phase_overlap_small_fp32(dev)
+    del eng
+    return perf
+
+
+def overlap_batch(eng, prompts, window) -> None:
+    """A full batch on the overlapped engine: prefills, two steps (so a
+    chunk is in flight), then ``window()``, then the rest of the batch."""
+    from elastic_gpu_scheduler_tpu_torch.models.serving import Request
+
+    n = OVERLAP_WINDOW + 2
+    reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=n * eng.fused_steps))
+            for p in prompts[: eng.max_batch]]
+    eng._admit()  # the prefills, outside the window
+    eng.step()
+    eng.step()
+    cap0 = eng.graphs_captured
+    window()
+    check(eng.graphs_captured == cap0, "a graph was captured inside the measured window")
+    eng.run_until_idle()
+    check(all(r.done.is_set() and not r.error for r in reqs), "window requests failed")
+
+
+def phase_overlap_profile(eng, prompts) -> dict:
+    """OVERLAP_WINDOW consecutive steps of the overlapped engine with a
+    full batch, twice: unprofiled, with host timers around the graph
+    launches (``graph.replay``) and the drains (the wait for the previous
+    chunk's tokens, then their emission); then under torch.profiler: the
+    device's idle share over the window, device time by kernel, and the
+    uploads the window made."""
+    import torch
+
+    host = {"replay": [], "drain": []}
+
+    def timed(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            host[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def steps():
+        for _ in range(OVERLAP_WINDOW):
+            eng.step()
+
+    span = {}
+
+    def timed_steps():
+        eng._replay_chunk = timed("replay", eng._replay_chunk)
+        eng._drain_chunk = timed("drain", eng._drain_chunk)
+        try:
+            t0 = time.perf_counter()
+            steps()
+            torch.cuda.synchronize()
+            span["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            del eng._replay_chunk, eng._drain_chunk
+
+    overlap_batch(eng, prompts, timed_steps)
+    unprofiled = {"wall_ms_per_chunk": span["wall_ms"] / OVERLAP_WINDOW,
+                  "replay_host_ms": float(np.mean(host["replay"])),
+                  "drain_host_ms": float(np.mean(host["drain"]))}
+    unprofiled["other_host_ms"] = (unprofiled["wall_ms_per_chunk"] - unprofiled["replay_host_ms"]
+                                   - unprofiled["drain_host_ms"])
+    res = {}
+
+    def profiled_steps():
+        up0 = eng.device_uploads
+        res["wall_ms"], res["kernels"] = profiled(steps, f"{OVERLAP_WINDOW} overlapped chunks",
+                                                  cpu=True)
+        res["uploads"] = eng.device_uploads - up0
+
+    overlap_batch(eng, prompts, profiled_steps)
+    wall_ms, kernels = res["wall_ms"], res["kernels"]
+    busy = sum(k["ms"] for k in kernels)
+    out = {"window": f"{OVERLAP_WINDOW} consecutive overlapped steps ({eng.fused_steps} decode "
+                     f"iterations each, batch {eng.max_batch})",
+           "wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+           "wall_ms_per_chunk": wall_ms / OVERLAP_WINDOW,
+           "busy_ms_per_chunk": busy / OVERLAP_WINDOW,
+           "launches": sum(k["count"] for k in kernels), "uploads": res["uploads"],
+           "unprofiled": unprofiled, "top": kernels[:25]}
+    log(json.dumps({"overlap_profile": out}))
+    log(f"overlap profile: {OVERLAP_WINDOW} chunks, wall {wall_ms:.2f} ms, device busy "
+        f"{busy:.2f} ms (idle share {out['idle_share']:.3f}), {res['uploads']} uploads, "
+        f"{out['launches']} kernel launches; unprofiled: {unprofiled['wall_ms_per_chunk']:.2f} "
+        f"wall ms a chunk, of which {unprofiled['replay_host_ms']:.2f} in the graph launch, "
+        f"{unprofiled['drain_host_ms']:.2f} in the drain, {unprofiled['other_host_ms']:.2f} "
+        f"elsewhere on the host")
+    for k in kernels[:12]:
+        log(f"  {k['ms']:9.3f} ms  x{k['count']:5d}  {k['kernel']}")
+    return out
+
+
+def phase_graph_vs_eager(eng, prompts) -> None:
+    """One graph replay of the decode chunk and one eager
+    ``_chunk_in_place`` on the same inputs, from cloned identical state
+    (pool and carry): identical sampled tokens, carry and pool bytes."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models import serving
+
+    reqs = [eng.submit(serving.Request(prompt=list(p), max_new_tokens=4 * eng.fused_steps))
+            for p in prompts[: eng.max_batch]]
+    eng._admit()
+    eng.step()
+    eng._drain_pending()
+    seen = []
+    real = eng._replay_chunk
+
+    def spy(key, args, static):
+        seen.append((args, static, {k: v.clone() for k, v in args[1].items()},
+                     args[3].clone(), args[4].clone()))
+        return real(key, args, static)
+
+    eng._replay_chunk = spy
+    captured = eng.graphs_captured
+    try:
+        pending = eng._dispatch_chunk()
+    finally:
+        del eng._replay_chunk
+    torch.cuda.synchronize()
+    check(len(seen) == 1 and eng.graphs_captured == captured,
+          "the compared dispatch was not a replay of a captured graph")
+    args, static, kv0, tok0, len0 = seen[0]
+    eager = list(args)
+    eager[1], eager[3], eager[4] = kv0, tok0, len0
+    out = serving._chunk_in_place(*eager, **static)
+    torch.cuda.synchronize()
+    same_pool = all(torch.equal(kv0[n], eng.kv[n]) for n in eng.kv)
+    log(f"graph replay vs eager chunk (bf16, {static['n_steps']} steps, batch "
+        f"{out.shape[0]}): tokens identical {torch.equal(out, pending.out)}, carry identical "
+        f"{torch.equal(tok0, args[3]) and torch.equal(len0, args[4])}, pool bytes identical "
+        f"{same_pool}")
+    check(torch.equal(out, pending.out), "graph replay and eager chunk sampled differently")
+    check(torch.equal(tok0, args[3]) and torch.equal(len0, args[4]),
+          "graph replay and eager chunk left different carries")
+    check(same_pool, "graph replay and eager chunk wrote different pool bytes")
+    eng._drain_chunk(pending)
+    eng.run_until_idle()
+    check(all(r.done.is_set() and not r.error for r in reqs), "compared requests failed")
+
+
+_SMALL_RNG = np.random.default_rng(5)
+SMALL_PROMPTS = [_SMALL_RNG.integers(0, 512, n).tolist() for n in (1, 5, 17, 40, 9, 64)]
+
+
+def small_fp32():
+    """The small float32 model of the card-against-CPU checks."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+
+    small = TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                              n_kv_heads=2, d_ff=512, dtype="float32")
+    return small, init_params(small, torch.Generator().manual_seed(3), "cpu")
+
+
+def small_tokens(sp, small, where, prompts, max_new=24, **kw):
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
+
+    se = InferenceEngine(sp, small, max_batch=4, max_len=128, page_size=16, fused_steps=8,
+                         paged_kernel=True, device=where, **kw)
+    rs = [se.submit(Request(prompt=list(q), max_new_tokens=max_new)) for q in prompts]
+    se.run_until_idle()
+    for r in rs:
+        check(r.done.is_set() and not r.error, f"small engine request failed: {r.error}")
+    return [r.output for r in rs], se
+
+
+def phase_overlap_small_fp32(dev) -> None:
+    """Small float32 model: ``overlap=True`` on the card (graph replays)
+    gives the tokens of ``overlap=False`` on the CPU."""
+    small, sp = small_fp32()
+    cpu, _ = small_tokens(sp, small, "cpu", SMALL_PROMPTS, overlap=False)
+    card, se = small_tokens(sp, small, dev, SMALL_PROMPTS, overlap=True)
+    check(se.graph_replays == se.steps_run > 0, "the small overlapped engine replayed no graph")
+    check(card == cpu, "float32 greedy tokens: overlap on the card differ from sequential CPU")
+    log(f"small float32 engine: overlap=True on the card equals overlap=False on the CPU "
+        f"({sum(map(len, cpu))} tokens, {se.graphs_captured} graphs)")
+
+
+# -- phase 6d: speculative decoding -------------------------------------------
+
+
+SPEC_K = 4  # bench.py's spec engine: W = 5
+SPEC_PATH = "serve: spec_k 4 verify (W 5)"
+
+
+def repetitive_prompts():
+    """bench.py's acceptance prompts: the pattern cut to L % 48 + 16 over
+    the serve prompts' lengths, where prompt lookup lands."""
+    rep = [7, 3, 11, 5] * 16
+    return [list(rep[: n % 48 + 16]) for n in PROMPT_LENS]
+
+
+class VerifyCalls:
+    """Wraps ``serving._paged_attn_call``: counts the calls with a W-query
+    window (q of rank 4) and samples some of them."""
+
+    def __init__(self, real, every: int, keep: int):
+        self.real, self.n = real, 0
+        self.sampler = k2_sampler(every=every, keep=keep)
+        self._sampled = self.sampler.wrap(real)
+
+    def __call__(self, q, *args):
+        if q.ndim == 4:
+            self.n += 1
+            return self._sampled(q, *args)
+        return self.real(q, *args)
+
+
+def check_verify_samples(calls, name, label) -> float:
+    """The sampled W-query K2 calls against ``paged_attention_reference``."""
+    from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_reference,
+    )
+
+    check(calls, f"no {label} call was sampled")
+    worst = 0.0
+    for q, lkv, tables, lengths, cfg in calls:
+        kw = dict(window=cfg.window_size, scales_k=lkv.get("ks"), scales_v=lkv.get("vs"))
+        out = paged_attention(q, lkv["k"], lkv["v"], tables, lengths, **kw)
+        ref = paged_attention_reference(q, lkv["k"], lkv["v"], tables, lengths, **kw)
+        e = maxerr(out, ref)
+        worst = max(worst, e)
+        check(q.shape[1] == SPEC_K + 1, f"{label}: a sampled window of width {q.shape[1]}")
+        check(close(out, ref, "bfloat16"), f"{label}: K2 W={q.shape[1]} disagrees with "
+              f"paged_attention_reference (max err {e:.3g})")
+    log(f"{label}: {len(calls)} sampled W={SPEC_K + 1} calls within tolerance of "
+        f"paged_attention_reference (max err {worst:.3g}, tol {TOL['bfloat16']} + "
+        f"{RTOL['bfloat16']}|ref|)")
+    return worst
+
+
+def spec_counts(eng, prev) -> dict:
+    return {"passes": eng.spec_passes - prev["passes"],
+            "accepted": eng.spec_accepted - prev["accepted"],
+            "steps": eng.steps_run - prev["steps"],
+            "warmups": eng.graph_warmups - prev["warmups"]}
+
+
+def spec_marks(eng) -> dict:
+    return {"passes": eng.spec_passes, "accepted": eng.spec_accepted,
+            "steps": eng.steps_run, "warmups": eng.graph_warmups}
+
+
+def phase_spec_engine(dev, params, cfg, prompts, seq_reqs):
+    """Speculative decoding (``spec_k=4``, prompt lookup, paged kernel) on
+    the full-width weights: the serve prompts (the main path: exact K2
+    launches, W = 5 calls sampled and held to the plain version) and
+    bench.py's repetitive prompts; an int8-KV, prefix-cached, chunked run
+    whose W = 5 calls go through K2-int8 beside K3; a small random-init
+    draft model at full vocabulary; and the small float32 identities."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models import serving
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    L, K = cfg.n_layers, ENGINE["fused_steps"]
+    eng = InferenceEngine(params, cfg, paged_kernel=True, spec_k=SPEC_K, device=dev, **ENGINE)
+    real = serving._paged_attn_call
+    verify = VerifyCalls(real, every=97, keep=8)
+    serving._paged_attn_call = verify
+    torch.cuda.synchronize()
+    # the main path: counts at 0 just before, read just after
+    _build.reset_launches()
+    marks = spec_marks(eng)
+    try:
+        reqs, wall, _ = drive_wall(eng, prompts, NEW_TOKENS)
+    finally:
+        serving._paged_attn_call = real
+    launches = dict(_build.LAUNCHES)
+    c = spec_counts(eng, marks)
+    chunks = c["steps"] - c["passes"]
+    want = L * (c["passes"] + K * (chunks + c["warmups"]))
+    log(f"spec engine main path: {c['passes']} verify passes, {chunks} decode chunks, "
+        f"{verify.n} W={SPEC_K + 1} calls, launches {launches} (want paged_attention={want})")
+    check(c["passes"] > 0 and verify.n == L * c["passes"],
+          "W-query K2 calls != layers x verify passes")
+    check(launches["paged_attention"] == want, "spec engine K2 launches differ from the path")
+    gen = sum(len(r.output) for r in reqs)
+    agree = agreement(reqs, seq_reqs)
+    check(agree["first_tokens_equal"] == len(prompts),
+          "speculative and sequential engines differ in first tokens")
+    perf = {"random_prompts": {"wall_s": wall, "generated_tokens": gen,
+                               "tokens_per_s": gen / wall, **c,
+                               "accepted_per_pass": c["accepted"] / c["passes"],
+                               "tokens_per_pass": gen / c["passes"],
+                               "vs_phase6_tokens": agree}}
+    err = check_verify_samples(verify.sampler.calls, "paged_attention", "spec engine")
+    row = kernel_k2(verify.sampler, {"paged_attention": verify.n}, err)
+    row["path"] = SPEC_PATH
+
+    marks = spec_marks(eng)
+    rreqs, rwall, _ = drive_wall(eng, repetitive_prompts(), NEW_TOKENS)
+    c = spec_counts(eng, marks)
+    rgen = sum(len(r.output) for r in rreqs)
+    perf["repetitive_prompts"] = {"wall_s": rwall, "generated_tokens": rgen,
+                                  "tokens_per_s": rgen / rwall, **c,
+                                  "accepted_per_pass": c["accepted"] / max(1, c["passes"]),
+                                  "tokens_per_pass": rgen / max(1, c["passes"])}
+    for kind in ("random_prompts", "repetitive_prompts"):
+        r = perf[kind]
+        log(f"spec engine, {kind.replace('_', ' ')}: {r['tokens_per_s']:.1f} tokens/s, "
+            f"spec_passes {r['passes']}, spec_accepted {r['accepted']}, "
+            f"{r['accepted_per_pass']:.3f} accepted drafts and {r['tokens_per_pass']:.3f} "
+            f"tokens a pass")
+    del eng
+
+    perf["int8_prefix_chunked"] = phase_spec_int8(dev, params, cfg)
+
+    # a small random-init draft model at the full vocabulary
+    dcfg = TransformerConfig(vocab_size=cfg.vocab_size, d_model=512, n_layers=4, n_heads=8,
+                             d_ff=1376, dtype="bfloat16")
+    dparams = init_params(dcfg, torch.Generator(device=dev).manual_seed(1), dev)
+    deng = InferenceEngine(params, cfg, paged_kernel=True, spec_k=SPEC_K, draft=(dparams, dcfg),
+                           device=dev, **ENGINE)
+    marks = spec_marks(deng)
+    dreqs, dwall, _ = drive_wall(deng, prompts, NEW_TOKENS)
+    c = spec_counts(deng, marks)
+    dagree = agreement(dreqs, seq_reqs)
+    check(dagree["first_tokens_equal"] == len(prompts),
+          "the draft-model engine differs from the target's first tokens")
+    dgen = sum(len(r.output) for r in dreqs)
+    perf["draft_model"] = {"draft": "D 512, L 4, 8 heads, V 32000, bf16, random init",
+                           "wall_s": dwall, "tokens_per_s": dgen / dwall, **c,
+                           "accepted_per_pass": c["accepted"] / max(1, c["passes"]),
+                           "vs_phase6_tokens": dagree}
+    log(f"draft-model engine: {dgen / dwall:.1f} tokens/s, spec_passes {c['passes']}, "
+        f"spec_accepted {c['accepted']} ({perf['draft_model']['accepted_per_pass']:.3f} a "
+        f"pass); first tokens equal to the target's")
+    del deng, dparams
+    phase_spec_small_fp32(dev)
+    log("spec engine perf: " + json.dumps(perf))
+    return perf, row
+
+
+def phase_spec_int8(dev, params, cfg) -> dict:
+    """spec_k 4 with int8 KV, the prefix cache and chunked prefill: the
+    verify windows read the int8 pool through K2-int8 (W = 5, sampled and
+    held to the plain version) and prefixed passes run K3."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models import serving
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    L, K = cfg.n_layers, PREFIX_ENGINE["fused_steps"]
+    kw = dict(PREFIX_ENGINE, overlap=True)
+    eng = InferenceEngine(params, cfg, spec_k=SPEC_K, device=dev, **kw)
+    wave1, wave2 = prefix_traffic(np.random.default_rng(12), cfg.vocab_size, SHARED_PREFIX,
+                                  WAVE1_LENS, WAVE2_TAILS)
+    real = serving._paged_attn_call
+    verify = VerifyCalls(real, every=89, keep=6)
+    serving._paged_attn_call = verify
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    marks = spec_marks(eng)
+    t0 = time.perf_counter()
+    try:
+        reqs = [r for wave in (wave1, wave2) for r in drive_wall(eng, wave, NEW_TOKENS)[0]]
+    finally:
+        serving._paged_attn_call = real
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    c = spec_counts(eng, marks)
+    chunks = c["steps"] - c["passes"]
+    want = L * (c["passes"] + K * (chunks + c["warmups"]))
+    log(f"int8 prefix chunked spec engine: {c['passes']} verify passes, {chunks} chunks, "
+        f"{verify.n} W={SPEC_K + 1} calls, launches {launches} (want paged_attention_int8="
+        f"{want}), prefix hits {eng.prefix_admission_hits}")
+    check(verify.n == L * c["passes"] > 0, "int8 W-query K2 calls != layers x verify passes")
+    check(launches["paged_attention_int8"] == want and launches["paged_attention"] == 0,
+          "int8 spec engine K2 launches differ from the path")
+    check(launches["flash_block_stats"] > 0 and eng.prefix_admission_hits == len(wave2),
+          "the int8 spec engine ran no prefixed pass (K3) or missed the cache")
+    err = check_verify_samples(verify.sampler.calls, "paged_attention_int8",
+                               "int8 prefix chunked spec engine")
+    gen = sum(len(r.output) for r in reqs)
+    del eng
+    return {"wall_s": wall, "generated_tokens": gen, "tokens_per_s": gen / wall, **c,
+            "accepted_per_pass": c["accepted"] / max(1, c["passes"]),
+            "k3_launches": launches["flash_block_stats"], "w5_max_abs_err": err}
+
+
+def phase_spec_small_fp32(dev) -> None:
+    """Small float32 model: spec_k 4 gives the greedy tokens of spec_k 0, on
+    the card and against the CPU, dense and int8; the model as its own
+    draft accepts (nearly) the full window."""
+    small, sp = small_fp32()
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (2, 5, 17, 40)] + [[7, 3, 11, 5] * 8]
+    for kv_int8 in (False, True):
+        outs = {}
+        for name, where, kw in (("cpu", "cpu", dict(spec_k=SPEC_K)),
+                                ("card", dev, dict(spec_k=SPEC_K)),
+                                ("plain", dev, {})):
+            outs[name], se = small_tokens(sp, small, where, prompts, kv_int8=kv_int8, **kw)
+            if name == "card":
+                check(se.spec_passes > 0, "the small spec engine ran no verify pass")
+        check(outs["card"] == outs["plain"] == outs["cpu"],
+              f"float32 spec_k {SPEC_K} tokens differ (kv_int8={kv_int8})")
+    plain, _ = small_tokens(sp, small, dev, prompts)
+    self_draft, se = small_tokens(sp, small, dev, prompts, spec_k=SPEC_K, draft=(sp, small))
+    check(self_draft == plain, "float32 self-draft tokens differ from the plain engine's")
+    check(se.spec_accepted >= 1.5 * se.spec_passes,
+          f"the self-draft accepted {se.spec_accepted} drafts in {se.spec_passes} passes")
+    log(f"small float32 spec engine: spec_k {SPEC_K} equals spec_k 0 on the card and the CPU, "
+        f"dense and int8; self-draft {se.spec_accepted} accepted in {se.spec_passes} passes "
+        f"({se.spec_accepted / se.spec_passes:.2f} a pass; {len(prompts)} rows, "
+        f"{SPEC_K} at most)")
 
 
 # -- phase 7: HTTP ---------------------------------------------------------
@@ -1149,8 +1701,9 @@ def kernel_k1(eng, prompts, launches, worst):
 
 
 def kernel_k2(sampler, launches, worst, name="paged_attention"):
-    """K2 on inputs the main path gave it (sampled calls); ``name`` is
-    ``paged_attention_int8`` for the int8-pool variant."""
+    """K2 on inputs the main path gave it (sampled calls, plain decode or
+    a W-query verify window); ``name`` is ``paged_attention_int8`` for the
+    int8-pool variant."""
     from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import (
         paged_attention,
         paged_attention_reference,
@@ -1174,15 +1727,16 @@ def kernel_k2(sampler, launches, worst, name="paged_attention"):
         ms_l.append(device_ms(kern, 50))
         plain_l.append(device_ms(plain, 10))
         # bytes this call must move: q, out, tables, lengths, and each
-        # distinct live (page, kv-head) K and V tile once
-        B, Hn, Dh = q.shape
+        # distinct live (page, kv-head) K and V tile once (up to the last
+        # query's position: lengths + W - 1)
+        B, W, Dh = q.shape[0], 1 if q.ndim == 3 else q.shape[1], q.shape[-1]
         ps, Hkv = pk.shape[1], pk.shape[2]
         NB = tables.shape[1]
         ln = lengths.cpu().numpy()
         tb = tables.cpu().numpy()
         live = set()
         for b in range(B):
-            for j in range(min(NB, int(ln[b]) // ps + 1)):
+            for j in range(min(NB, (int(ln[b]) + W - 1) // ps + 1)):
                 live.add(int(tb[b, j]))
         # an int8 page also carries its fp32 scales, one a (token, kv-head)
         page_bytes = ps * Hkv * (Dh * pk.element_size() + (4 if kw["scales_k"] is not None
@@ -1711,6 +2265,15 @@ def main() -> int:
     kernels = [kernel_k1(eng, prompts, launches, k1_err), kernel_k2(sampler, launches, k2_err)]
     kernels[0]["path"] = kernels[1]["path"] = "serve"
 
+    # 6c. the overlapped engine, 6d. speculative decoding, on the same weights
+    operf = phase_overlap_engine(dev, eng, prompts, reqs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sperf, verify_row = phase_spec_engine(dev, eng.params, eng.cfg, prompts, reqs)
+    kernels.append(verify_row)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 6b. the prefix-cached, chunked, int8-KV engine on the same weights
     peng, plaunches, k3_sampler, k2i_sampler, pperf = phase_prefix_engine(
         dev, eng.params, eng.cfg)
@@ -1741,6 +2304,8 @@ def main() -> int:
         if k["name"] in REDESIGNED:
             k["redesigned"] = REDESIGNED[k["name"]]
     log(json.dumps({"engine": perf}))
+    log(json.dumps({"overlap_engine": operf}))
+    log(json.dumps({"spec_engine": sperf}))
     log(json.dumps({"prefix_engine": pperf}))
     log(json.dumps({"train": train_perf, "train_profile_idle_share": train_prof["idle_share"],
                     "launcher": launcher_res}))

@@ -1,8 +1,7 @@
 """Continuous-batching inference engine: paged KV cache + fused decode.
 
-Counterpart of ``elastic_gpu_scheduler_tpu/models/serving.py``, the
-sequential engine (the reference's ``overlap=False``).  Requests join and
-leave a fixed-shape batch between fused decode chunks:
+Counterpart of ``elastic_gpu_scheduler_tpu/models/serving.py``.  Requests
+join and leave a fixed-shape batch between fused decode chunks:
 
 - **Paged KV cache**: one pool (L, P, page_size, Hkv, Dh) shared by all
   slots plus a host block table (B, max_pages) of page ids per slot.
@@ -36,6 +35,24 @@ leave a fixed-shape batch between fused decode chunks:
   ``paged_kernel=True`` decode attention reads the pool in place
   (kernel K2 on CUDA); otherwise it gathers each slot's pages into a
   contiguous view and attends with ``cached_attention``.
+- **Overlapped pipeline** (``overlap``, the default): chunk N+1 is
+  dispatched off device-resident batch state (``_DeviceBatchState``) and
+  the chunk-to-chunk carry before chunk N's tokens drain, so host
+  bookkeeping runs while the device computes.  On CUDA each dispatch
+  replays a CUDA graph of ``_fused_serve_chunk`` (the counterpart of the
+  reference's one jitted executable per chunk), host-to-device refreshes
+  go through pinned staging buffers, and a drain waits on its own
+  chunk's event only.  Every pool write (prefill, chunks, verify passes,
+  carry patches) goes on one stream, so a page that the drain of chunk N
+  frees and a new prefill reuses is written after chunk N+1's overshoot.
+  ``overlap=False`` is the exact sequential loop (eager on CUDA).
+- **Speculative decoding** (``spec_k`` > 0): steps where some greedy
+  slot generates run one wide verify pass (``_fused_verify_chunk``: the
+  W = spec_k + 1 query form of kernel K2 on CUDA) over drafts from
+  prompt lookup (``models/speculative.propose_ngram``) or from a small
+  draft model (``draft``), accepting per slot the longest prefix the
+  model itself would have produced plus its own next token: greedy
+  output equals the non-speculative engine's.
 
 The step functions run under ``torch.inference_mode()``: serving
 parameters that require grad (a model fresh from ``models/train.py``)
@@ -46,12 +63,12 @@ some; a higher-priority stalled slot spills a lower-priority one (its
 request requeues and resumes exactly); if every slot is stalled the engine
 raises "page pool exhausted".
 
-Not ported yet, and rejected by name: LoRA adapters, speculative
-decoding, a mesh, the overlapped pipeline, the bounded queue and the
-compile cache (engine options), the per-request logprobs, penalties,
-logit bias, allowed tokens, min_tokens and seeds (``Request`` has no
-such fields), and the disaggregated KV export / import / migration
-verbs.
+Not ported yet, and rejected by name: LoRA adapters, a mesh, the bounded
+queue and the compile cache (engine options), the per-request logprobs,
+penalties, logit bias, allowed tokens, min_tokens and seeds (``Request``
+has no such fields; ``logprobs_k`` is stored and changes nothing until a
+request may ask for logprobs), and the disaggregated KV export / import /
+migration verbs.
 """
 
 from __future__ import annotations
@@ -68,7 +85,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import flash_attention
+from ..ops import _build
+from ..ops.attention import NEG_INF, flash_attention
 from ..ops.paged_attention import dequant, paged_attention
 from ..utils import prefixdigest
 from .generate import cached_attention, cached_attention_multi
@@ -94,9 +112,7 @@ log = logging.getLogger("tpu-scheduler")
 SCRATCH_PAGE = 0  # reserved; inactive slots write here, nobody reads it
 
 # reference engine options this slice does not serve (a truthy value raises)
-_UNPORTED_OPTIONS = (
-    "adapters", "spec_k", "draft", "mesh", "max_queue", "overlap", "compile_cache",
-)
+_UNPORTED_OPTIONS = ("adapters", "mesh", "max_queue", "compile_cache")
 
 
 # -- paged KV pool -----------------------------------------------------------
@@ -206,12 +222,17 @@ class Request:
 # -- step functions ------------------------------------------------------------
 
 
-def _rope_rows(x, positions, theta):
-    """rope with PER-ROW positions: x (B, T, H, Dh), positions (B, T)."""
-    half = x.shape[-1] // 2
-    cos, sin = _rope_tables(positions, half, theta)  # (B, T, half)
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    x1, x2 = x.float().split(half, dim=-1)
+def _rope_cs(positions, cfg):
+    """rope's (cos, sin) for PER-ROW positions (B, T), each (B, T, 1,
+    Dh / 2): computed once a step and shared by every layer's q and k."""
+    cos, sin = _rope_tables(positions, cfg.head_dim // 2, cfg.rope_theta)
+    return cos[:, :, None, :], sin[:, :, None, :]
+
+
+def _rope_rows(x, cs):
+    """rope with per-row tables ``cs`` (``_rope_cs``): x (B, T, H, Dh)."""
+    cos, sin = cs
+    x1, x2 = x.float().split(x.shape[-1] // 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
@@ -220,18 +241,19 @@ def _sproj(x, p, name, dtype):
     return x @ wmat(p[name], dtype)
 
 
-def _paged_layer(x, p, lkv, positions, pidx, off, attn, cfg, dtype):
-    """ONE transformer layer shared by the paged paths (decode step and
-    prefill); they differ only in positions (B, T), the scatter targets
-    (B·T,) and ``attn(q, k, v, lkv)`` → (B, T, Hn·Dh)."""
+def _paged_layer(x, p, lkv, cs, pidx, off, attn, cfg, dtype):
+    """ONE transformer layer shared by the paged paths (decode step,
+    prefill and verify); they differ only in the rope tables ``cs`` of
+    their positions (B, T) (``_rope_cs``), the scatter targets (B·T,) and
+    ``attn(q, k, v, lkv)`` → (B, T, Hn·Dh)."""
     B, T, _ = x.shape
     Hn, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     h = rms_norm(x, p["attn_norm"])
     q = _sproj(h, p, "wq", dtype).reshape(B, T, Hn, Dh)
     k = _sproj(h, p, "wk", dtype).reshape(B, T, Hkv, Dh)
     v = _sproj(h, p, "wv", dtype).reshape(B, T, Hkv, Dh)
-    q = _rope_rows(q, positions, cfg.rope_theta)
-    k = _rope_rows(k, positions, cfg.rope_theta)
+    q = _rope_rows(q, cs)
+    k = _rope_rows(k, cs)
     # inactive/padding rows target the scratch page
     _kv_write_rows(lkv, pidx, off, k.reshape(B * T, Hkv, Dh), v.reshape(B * T, Hkv, Dh))
     o = attn(q, k, v, lkv)
@@ -282,10 +304,11 @@ def _paged_decode_step(params, tokens, kv, tables, lengths, cfg, page_size,
             q, k_all, v_all, lengths, window=cfg.window_size
         ).reshape(B, 1, Hn * Dh)
 
+    cs = _rope_cs(ln[:, None], cfg)
     for i in range(cfg.n_layers):
         x = _paged_layer(
-            x, layer_slice(params["layers"], i), _layer_kv(kv, i), ln[:, None],
-            page_idx, offset, attn, cfg, dtype,
+            x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, page_idx, offset,
+            attn, cfg, dtype,
         )
     x = rms_norm(x, params["final_norm"])
     logits = (x @ wmat(params["unembed"], dtype))[:, 0, :]
@@ -323,10 +346,11 @@ def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size):
             True, None, cfg.window_size,
         ).transpose(1, 2).reshape(1, Tpad, Hn * Dh)
 
+    cs = _rope_cs(positions[None, :], cfg)
     for i in range(cfg.n_layers):
         x = _paged_layer(
-            x, layer_slice(params["layers"], i), _layer_kv(kv, i), positions[None, :],
-            pidx, off, attn, cfg, dtype,
+            x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, pidx, off, attn,
+            cfg, dtype,
         )
     x = x[:, t_real - 1:t_real]  # (1, 1, D)
     x = rms_norm(x, params["final_norm"])
@@ -367,10 +391,11 @@ def _paged_prefill_prefixed(params, tokens, kv, pages, t0: int, t_real: int, *, 
             q, k_all, v_all, t0, window=cfg.window_size
         ).reshape(1, Tpad, Hn * Dh)
 
+    cs = _rope_cs(positions[None, :], cfg)
     for i in range(cfg.n_layers):
         x = _paged_layer(
-            x, layer_slice(params["layers"], i), _layer_kv(kv, i), positions[None, :],
-            pidx, off, attn, cfg, dtype,
+            x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, pidx, off, attn,
+            cfg, dtype,
         )
     x = x[:, t_real - 1:t_real]  # (1, 1, D)
     x = rms_norm(x, params["final_norm"])
@@ -414,6 +439,261 @@ def _fused_serve_chunk(
         lengths = new_len
         outs.append(sampled)
     return torch.stack(outs, dim=1), kv, tokens, lengths
+
+
+@torch.inference_mode()
+def _chunk_in_place(params, kv, tables, tokens, lengths, *args, **static):
+    """``_fused_serve_chunk`` with the carry written back IN PLACE: the
+    chunk's final (tokens, lengths) land in the tensors it read, so the
+    next chunk (or the next replay of a CUDA graph captured around this
+    call) starts from them.  Returns the sampled (B, n_steps)."""
+    sampled, _, new_tok, new_len = _fused_serve_chunk(
+        params, kv, tables, tokens, lengths, *args, **static
+    )
+    tokens.copy_(new_tok)
+    lengths.copy_(new_len)
+    return sampled
+
+
+def _cached_attention_rows(q, cache_k, cache_v, starts, window: int = 0):
+    """W-position attention against gathered pages with PER-ROW start
+    positions (the batched form of ``generate.cached_attention_multi``).
+
+    q: (B, W, Hn, Dh), row b's queries at global positions
+    starts[b]..starts[b]+W-1; cache: (B, M, Hkv, Dh) with the W new K/V
+    rows already written at those positions.  Causal: query t of row b
+    sees key m iff m <= starts[b] + t; ``window`` > 0 adds sliding-window
+    masking.  GQA by a grouped einsum (the cache is never expanded)."""
+    B, W, Hn, Dh = q.shape
+    M, Hkv = cache_k.shape[1], cache_k.shape[2]
+    n_rep = Hn // Hkv
+    qg = q.reshape(B, W, Hkv, n_rep, Dh).permute(0, 2, 3, 1, 4).float()  # (B,Hkv,r,W,Dh)
+    kT = cache_k.transpose(1, 2).float()  # (B, Hkv, M, Dh)
+    vT = cache_v.transpose(1, 2).float()
+    s = torch.einsum("bgrtd,bgkd->bgrtk", qg, kT) * (Dh ** -0.5)
+    qpos = starts.long()[:, None] + torch.arange(W, device=q.device)  # (B, W)
+    kpos = torch.arange(M, device=q.device)
+    keep = kpos[None, None, :] <= qpos[:, :, None]  # (B, W, M)
+    if window > 0:
+        keep = keep & ((qpos[:, :, None] - kpos[None, None, :]) < window)
+    s = torch.where(keep[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrtk,bgkd->bgrtd", p, vT)  # (B, Hkv, r, W, Dh)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, W, Hn, Dh).to(q.dtype)
+
+
+@torch.inference_mode()
+def _verify_logits(params, kv, tables, feed, lengths, active, *, cfg, page_size,
+                   paged_kernel=False):
+    """The verify pass's forward: every slot's W fed tokens at positions
+    lengths..lengths+W-1 through the model, their K/V rows written into
+    the pool (IN PLACE).  Returns logits (B, W, V) float32.
+
+    Positions past the table view's end, and inactive rows, write to the
+    scratch page (their outputs are never consumed: the host caps
+    acceptance)."""
+    dtype = torch_dtype(cfg.dtype)
+    B, W = feed.shape
+    Hn, Dh = cfg.n_heads, cfg.head_dim
+    max_len = tables.shape[1] * page_size
+    x = _embed_lookup(params["embed"], feed, dtype)  # (B, W, D)
+    positions = lengths.long()[:, None] + torch.arange(W, device=feed.device)  # (B, W)
+    in_range = (positions < max_len) & active[:, None]
+    page_of = torch.clamp(positions // page_size, 0, tables.shape[1] - 1)
+    pidx = torch.where(
+        in_range, torch.gather(tables.long(), 1, page_of),
+        torch.full_like(positions, SCRATCH_PAGE),
+    ).reshape(B * W)
+    off = (positions % page_size).reshape(B * W)
+
+    def attn(q, k, v, lkv):
+        if paged_kernel:
+            # the W-query form of K2: verify and decode share one attention
+            # implementation, so a mixed greedy batch never mixes two
+            return _paged_attn_call(q, lkv, tables, lengths, cfg, dtype).reshape(B, W, Hn * Dh)
+        k_all, v_all = _kv_gather(lkv, tables, page_size, dtype)
+        return _cached_attention_rows(
+            q, k_all, v_all, lengths, window=cfg.window_size
+        ).reshape(B, W, Hn * Dh)
+
+    cs = _rope_cs(positions, cfg)
+    for i in range(cfg.n_layers):
+        x = _paged_layer(
+            x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, pidx, off, attn,
+            cfg, dtype,
+        )
+    x = rms_norm(x, params["final_norm"])
+    return (x @ wmat(params["unembed"], dtype)).float()
+
+
+@torch.inference_mode()
+def _fused_verify_chunk(
+    params, kv, tables, feed, lengths, active, temps, top_ks, top_ps, generator,
+    *, cfg, page_size, use_filters, use_temp, paged_kernel=False,
+):
+    """ONE wide pass over every slot's verify window (speculative decoding
+    inside the paged engine).
+
+    feed: (B, W), row b holding the tokens at global positions
+    lengths[b]..lengths[b]+W-1: the confirmed next token, then prompt
+    tokens (while a prompt is fed incrementally) and/or drafts.  Returns
+    (picked (B, W), kv): position j's greedy argmax (or sample, for rows
+    with temperature > 0) over the logits AT fed position j, the model's
+    own choice for position lengths+j+1.  The host accepts the longest fed
+    prefix the model would itself have produced; rejected rows are
+    rewritten by a later pass before any query attends to them, so
+    rollback is free.  ``use_filters``: some row asks for top-k / top-p;
+    ``use_temp``: some row samples."""
+    logits = _verify_logits(params, kv, tables, feed, lengths, active, cfg=cfg,
+                            page_size=page_size, paged_kernel=paged_kernel)
+    picked = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, W)
+    if use_filters or use_temp:
+        cols = []
+        for j in range(feed.shape[1]):
+            lg = logits[:, j]
+            if use_filters:
+                cols.append(sample_batched(lg, generator, temps, top_ks, top_ps))
+            else:
+                scaled = lg / torch.clamp(temps, min=1e-6)[:, None]
+                cols.append(categorical(scaled, generator).to(torch.int32))
+        picked = torch.where((temps > 0)[:, None], torch.stack(cols, dim=1), picked)
+    return picked, kv
+
+
+@torch.inference_mode()
+def _draft_forward(dparams, dkv, feed, starts, *, dcfg):
+    """Contiguous-cache forward for the DRAFT model: W tokens per row at
+    PER-ROW start positions against a dense (L, B, M, Hkv, Dh) cache (the
+    draft is small, so it skips the paged pool and all page bookkeeping),
+    written IN PLACE.  Rollback is free as in the verify window: rows past
+    a row's valid count hold garbage only at positions a later call
+    rewrites before they become valid.  Positions past M - 1 write to the
+    last row, a scratch row.  Returns (logits (B, W, V) float32, dkv)."""
+    dtype = torch_dtype(dcfg.dtype)
+    B, W = feed.shape
+    Hn, Dh, Hkv = dcfg.n_heads, dcfg.head_dim, dcfg.kv_heads
+    M = dkv["k"].shape[2]  # max_len + 1: index M - 1 is the overflow scratch
+    x = _embed_lookup(dparams["embed"], feed, dtype)  # (B, W, D)
+    positions = starts.long()[:, None] + torch.arange(W, device=feed.device)  # (B, W)
+    pos_w = torch.clamp(positions, max=M - 1)
+    rows = torch.arange(B, device=feed.device)[:, None].expand(B, W)
+    cs = _rope_cs(positions, dcfg)
+    for i in range(dcfg.n_layers):
+        p = layer_slice(dparams["layers"], i)
+        lk, lv = dkv["k"][i], dkv["v"][i]
+        h = rms_norm(x, p["attn_norm"])
+        q = (h @ wmat(p["wq"], dtype)).reshape(B, W, Hn, Dh)
+        k = (h @ wmat(p["wk"], dtype)).reshape(B, W, Hkv, Dh)
+        v = (h @ wmat(p["wv"], dtype)).reshape(B, W, Hkv, Dh)
+        q = _rope_rows(q, cs)
+        k = _rope_rows(k, cs)
+        lk.index_put_((rows, pos_w), k.to(lk.dtype))
+        lv.index_put_((rows, pos_w), v.to(lv.dtype))
+        o = _cached_attention_rows(q, lk, lv, starts, window=dcfg.window_size)
+        x = x + o.reshape(B, W, Hn * Dh) @ wmat(p["wo"], dtype)
+        h2 = rms_norm(x, p["mlp_norm"])
+        gate = F.silu(h2 @ wmat(p["w_gate"], dtype))
+        up = h2 @ wmat(p["w_in"], dtype)
+        x = x + (gate * up) @ wmat(p["w_out"], dtype)
+    x = rms_norm(x, dparams["final_norm"])
+    return (x @ wmat(dparams["unembed"], dtype)).float(), dkv
+
+
+@torch.inference_mode()
+def _draft_ingest_propose(dparams, dkv, feed, starts, counts, *, dcfg, k):
+    """One fused draft pass: ingest each row's ``counts`` new context
+    tokens (window-padded), then roll the draft model ``k`` greedy steps
+    from the last real position.  Returns (drafts (B, k), dkv)."""
+    logits, dkv = _draft_forward(dparams, dkv, feed, starts, dcfg=dcfg)
+    idx = torch.clamp(counts.long() - 1, min=0)[:, None, None].expand(-1, 1, logits.shape[-1])
+    tok = torch.argmax(torch.gather(logits, 1, idx)[:, 0], dim=-1).to(torch.int32)
+    pos = starts + counts
+    toks = []
+    for _ in range(k):
+        toks.append(tok)
+        lg, dkv = _draft_forward(dparams, dkv, tok[:, None], pos, dcfg=dcfg)
+        tok = torch.argmax(lg[:, 0], dim=-1).to(torch.int32)
+        pos = pos + 1
+    return torch.stack(toks, dim=1), dkv
+
+
+class _DeviceBatchState:
+    """Persistent device mirrors of the host batch-state arrays.
+
+    The fused chunks read ~10 per-slot arrays (the table view, the active
+    mask, temperatures, ...) that change only when admission, release or
+    page growth touches the batch.  One persistent device tensor per
+    (field, shape) is refreshed IN PLACE, and only when the host copy
+    changed, so a captured CUDA graph keeps reading the same tensors.
+
+    Dirtiness is detected by content (``np.array_equal`` against the
+    snapshot the device copy was built from): a missed flag would serve
+    stale state, a comparison is self-correcting and costs nanoseconds on
+    (B,)-sized arrays.  The (B, max_len) prompt buffer uses an explicit
+    version counter instead (``get_versioned``), bumped where it is
+    written.  ``uploads`` counts refreshes (the transfer-count probe).
+
+    On CUDA a refresh copies the host array into a pinned staging buffer
+    of its own and from there to the device without blocking; the host
+    writes that staging buffer again only after the event recorded behind
+    the previous copy out of it has completed, so a later host mutation
+    can never reach a copy still in flight."""
+
+    def __init__(self, device):
+        self.device = device
+        self._dev: dict = {}
+        self._src: dict = {}
+        self._ver: dict = {}
+        self._stage: dict = {}  # key → [pinned buffer, event of its last copy]
+        self.uploads = 0
+
+    def put(self, name: str, host_arr: np.ndarray) -> torch.Tensor:
+        """Refresh (uncounted, unconditional) and return the persistent
+        device tensor for ``name`` at ``host_arr``'s shape."""
+        host = torch.from_numpy(np.ascontiguousarray(host_arr))
+        key = (name, host_arr.shape)
+        dev = self._dev.get(key)
+        if dev is None:
+            # a normal tensor even when first met inside inference mode, so
+            # in-place refreshes work from any caller
+            with torch.inference_mode(False):
+                dev = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+            self._dev[key] = dev
+        if self.device.type != "cuda":
+            dev.copy_(host)
+            return dev
+        stage = self._stage.get(key)
+        if stage is None:
+            stage = self._stage[key] = [
+                torch.empty(host.shape, dtype=host.dtype, pin_memory=True), None,
+            ]
+        elif stage[1] is not None:
+            stage[1].synchronize()  # the previous copy out of it is done
+        stage[0].copy_(host)
+        dev.copy_(stage[0], non_blocking=True)
+        stage[1] = torch.cuda.Event()
+        stage[1].record()
+        return dev
+
+    def get(self, name: str, host_arr: np.ndarray) -> torch.Tensor:
+        """Device tensor for ``host_arr``, refreshed only on change."""
+        key = (name, host_arr.shape)
+        src = self._src.get(key)
+        if src is None or not np.array_equal(src, host_arr):
+            self.put(name, host_arr)
+            self._src[key] = host_arr.copy()
+            self.uploads += 1
+        return self._dev[key]
+
+    def get_versioned(self, name: str, host_arr: np.ndarray, version: int) -> torch.Tensor:
+        """Like ``get`` but keyed by an explicit version counter, for
+        arrays too big to compare every dispatch."""
+        key = (name, host_arr.shape)
+        if self._ver.get(key) != version:
+            self.put(name, host_arr)
+            self._ver[key] = version
+            self.uploads += 1
+        return self._dev[key]
 
 
 def default_n_pages(max_batch: int, max_len: int, page_size: int) -> int:
@@ -480,13 +760,21 @@ def _prefix_seed(adapter_id: int) -> bytes:
 
 @dataclass
 class _PendingChunk:
-    """A dispatched fused chunk and the host snapshot needed to drain it;
-    ``pairs`` pins the (slot, request) identity at dispatch time."""
+    """A dispatched fused chunk and the host snapshot needed to drain it.
+    ``pairs`` pins the (slot, request) identity at dispatch time: a slot
+    released or re-tenanted before the drain is skipped, which is what
+    makes the overlapped pipeline's one-chunk overshoot safe to discard.
+    On CUDA the sampled tokens travel to ``host`` (a pinned buffer of the
+    engine's two, which alternate) by a copy queued right behind the
+    chunk, and ``ready`` is the event recorded after that copy: the drain
+    waits on it alone, never on work queued later."""
 
-    out: torch.Tensor  # sampled (B, n_steps)
+    out: torch.Tensor  # sampled (B, n_steps), on the engine's device
     n_steps: int
     pos0: np.ndarray  # per-slot lengths BEFORE the chunk ran
-    pairs: list
+    pairs: list  # [(slot index, Request at dispatch time), ...]
+    host: Optional[torch.Tensor] = None
+    ready: Optional[object] = None  # torch.cuda.Event
 
 
 def _tree_to(tree, device):
@@ -511,6 +799,11 @@ class InferenceEngine:
         prefix_cache: bool = False,
         paged_kernel: bool = False,
         prefill_chunk: int = 0,
+        overlap: bool = True,
+        spec_k: int = 0,
+        spec_ngram: int = 3,
+        draft: Optional[tuple] = None,
+        logprobs_k: int = 5,
         device=None,
         **unported,
     ):
@@ -521,7 +814,35 @@ class InferenceEngine:
         after a request and later prompts with the same leading pages
         attach them.  ``prefill_chunk`` > 0: prompts longer than that
         ingest that many tokens per engine step.  ``device``: ``cuda``
-        unless asked otherwise; the weights move there."""
+        unless asked otherwise; the weights move there.
+
+        ``overlap``: chunk N+1 is dispatched off device-resident state
+        before chunk N's tokens drain; host stop / cancel / max-token
+        detection lags one chunk, and the engine over-runs a finishing
+        slot by at most one chunk, whose tokens the drain discards.  Greedy
+        output is identical to ``overlap=False`` (the exact sequential
+        loop); sampled requests may draw other numbers after another
+        request completes, since overshoot chunks advance the generator.
+        On CUDA each chunk replays a CUDA graph captured per static shape
+        (table-view bucket, ``use_filters``, ``use_temp``); a capture that
+        fails raises.
+
+        ``spec_k`` > 0: steps where some slot still feeds its prompt or a
+        greedy slot generates run one verify pass over a spec_k + 1 window
+        per slot (drafts from prompt lookup over ``spec_ngram``-grams, or
+        from ``draft``) instead of sequential decode steps; greedy output
+        is exactly the non-speculative engine's.  Sampled slots advance one
+        token a pass; steps where only sampled slots generate take the
+        decode chunk.
+
+        ``draft``: (draft_params, draft_cfg) in the port's types, a small
+        dense model with the target's vocabulary that proposes the drafts
+        (needs ``spec_k`` > 0).  It keeps a dense per-slot cache of its
+        own.
+
+        ``logprobs_k``: the top-k width of per-token logprobs, stored as
+        the reference stores it; no request asks for logprobs in this
+        slice of the port."""
         unknown = sorted(set(unported) - set(_UNPORTED_OPTIONS))
         if unknown:
             raise TypeError(f"unknown engine options {unknown}")
@@ -532,6 +853,16 @@ class InferenceEngine:
                 "of the port serve them)"
             )
         check_dense(cfg, params)
+        spec_k = max(0, spec_k)
+        if draft is not None:
+            dparams, dcfg = draft
+            if spec_k <= 0:
+                raise ValueError("draft model needs spec_k > 0")
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(f"draft vocab {dcfg.vocab_size} != target {cfg.vocab_size}")
+            if dcfg.n_experts > 0:
+                raise ValueError("draft model must be dense (n_experts=0)")
+            check_dense(dcfg, dparams)
         self.device = resolve_device(device)
         self.params = _tree_to(params, self.device)
         self.cfg = cfg
@@ -590,6 +921,72 @@ class InferenceEngine:
         # admission outcomes (a hit attaches at least one full page)
         self.prefix_lookups = 0
         self.prefix_admission_hits = 0
+        self.logprobs_k = max(0, logprobs_k)
+        # -- the overlapped pipeline ------------------------------------------
+        self.overlap = overlap
+        self._ds = _DeviceBatchState(self.device)
+        self._prompts_version = 0  # bumped where admission writes prompts
+        # the chunk-to-chunk carry: persistent (next tokens, lengths) device
+        # tensors that every chunk reads and writes back in place.  None →
+        # rebuilt from the host at the next dispatch (engine start, after a
+        # verify pass); ``_carry_dirty`` lists slots whose host lengths /
+        # next_token changed outside a chunk (admission, prefill), patched
+        # at the next dispatch
+        with torch.inference_mode(False):
+            self._carry_bufs = (
+                torch.zeros(max_batch, dtype=torch.int32, device=self.device),
+                torch.zeros(max_batch, dtype=torch.int32, device=self.device),
+            )
+        self._carry = None
+        self._carry_dirty: set[int] = set()
+        self._pending: Optional[_PendingChunk] = None  # dispatched, not drained
+        self.chunks_discarded = 0  # in-flight rows of released slots dropped
+        # host-gap telemetry: wall time from a chunk's tokens reaching the
+        # host to the next chunk's dispatch (zero when the next chunk was
+        # queued before the drain: the device never waited)
+        self.host_gap_ns = 0
+        self.host_gap_chunks = 0
+        self.last_host_gap_ms = 0.0
+        self._last_drain_done: Optional[int] = None
+        self._gap_buf: list[float] = []
+        self._gap_buf_cap = 8192
+        # CUDA: pinned landing buffers for the drains (two, alternating),
+        # and the decode chunk as CUDA graphs, one per static shape, all in
+        # one memory pool, captured on a stream of their own
+        self._out_bufs: list = []
+        self._out_next = 0
+        self._graphs: dict = {}
+        self.graphs_captured = 0
+        self.graph_capture_s = 0.0
+        self.graph_warmups = 0  # eager chunks run on scratch before a capture
+        self.graph_replays = 0
+        if self.device.type == "cuda":
+            self._out_bufs = [
+                torch.empty((max_batch, self.fused_steps), dtype=torch.int32, pin_memory=True)
+                for _ in range(2)
+            ]
+            if overlap:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(self.device)
+        # -- speculative decoding ---------------------------------------------
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
+        self.spec_passes = 0  # verify passes run
+        self.spec_accepted = 0  # accepted draft tokens (beyond the bonus)
+        self.draft = draft
+        if draft is not None:
+            self.draft_cfg = dcfg
+            self.draft_params = _tree_to(dparams, self.device)
+            # max_len + 1: the last index is a scratch row for rollout
+            # positions past max_len (the pool's scratch page, for the draft)
+            dshape = (dcfg.n_layers, max_batch, max_len + 1, dcfg.kv_heads, dcfg.head_dim)
+            ddtype = torch_dtype(dcfg.dtype)
+            self.dkv = {
+                "k": torch.zeros(dshape, dtype=ddtype, device=self.device),
+                "v": torch.zeros(dshape, dtype=ddtype, device=self.device),
+            }
+            self.draft_len = np.zeros(max_batch, np.int32)
+            self._draft_chunk = 64  # pre-ingest width for long prompts
 
     # -- public API ----------------------------------------------------------
 
@@ -638,12 +1035,51 @@ class InferenceEngine:
             out[r.priority] = out.get(r.priority, 0) + 1
         return out
 
+    @property
+    def device_uploads(self) -> int:
+        """Host→device refreshes of batch state (mirror refreshes plus
+        carry rebuilds and patches), the transfer-count probe: flat across
+        steady-state decode chunks."""
+        return self._ds.uploads
+
+    def _gap_sample(self, gap_ms: float) -> None:
+        """Buffer one per-chunk host-gap sample (the newest half is kept
+        when nothing reads them)."""
+        buf = self._gap_buf
+        buf.append(gap_ms)
+        if len(buf) > self._gap_buf_cap:
+            del buf[: self._gap_buf_cap // 2]
+
+    def drain_host_gaps(self) -> list[float]:
+        """Move the buffered per-chunk host-gap samples (ms) out; safe
+        against the engine thread appending at the tail meanwhile."""
+        buf = self._gap_buf
+        n = len(buf)
+        vals = buf[:n]
+        del buf[:n]
+        return vals
+
+    def host_gap_stats(self) -> dict:
+        """Host-gap telemetry: wall time between a decode chunk's tokens
+        reaching the host and the next chunk's dispatch, the window in
+        which the device can starve on host bookkeeping.  ``mean_ms`` is
+        the running mean since the engine started."""
+        n = self.host_gap_chunks
+        return {
+            "chunks": n,
+            "mean_ms": (self.host_gap_ns / 1e6 / n) if n else 0.0,
+            "last_ms": self.last_host_gap_ms,
+            "overlap": self.overlap,
+        }
+
     def run_until_idle(self, max_steps: int = 10_000) -> None:
-        """Drive fused chunks until no request is active or queued."""
+        """Drive fused chunks until no request is active or queued, then
+        drain the chunk still in flight (if any)."""
         for _ in range(max_steps):
             self._admit()
             if not any(s is not None for s in self.slots):
                 if self.queue.empty():
+                    self._drain_pending()
                     return
                 continue
             self.step()
@@ -651,12 +1087,26 @@ class InferenceEngine:
 
     def step(self) -> None:
         """One engine step: every mid-chunked-prefill slot ingests one
-        chunk, then one fused decode chunk runs for every other runnable
-        slot, dispatched and then drained (the sequential loop)."""
+        chunk, then one fused decode chunk (or, speculative, one verify
+        pass) runs for every other runnable slot.
+
+        With ``overlap`` the decode chunk is double-buffered: this call
+        dispatches chunk N+1 first and only then drains chunk N, so host
+        bookkeeping runs while the device computes.  A verify pass drains
+        first: its windows are built from current host state."""
         self._continue_prefills()
-        pending = self._dispatch_chunk()
-        if pending is not None:
-            self._drain_chunk(pending)
+        if self.spec_k > 0 and self._spec_useful():
+            self._drain_pending()
+            self._step_verify()
+            # acceptance is data-dependent and recomputed on the host: the
+            # chunk carry is stale, rebuild it at the next decode dispatch
+            self._carry = None
+            return
+        if self.overlap:
+            self._step_chunk_overlapped()
+            return
+        self._drain_pending()
+        self._step_chunk()
 
     # -- engine internals ----------------------------------------------------
 
@@ -705,9 +1155,13 @@ class InferenceEngine:
             if req.t_admit == 0.0:
                 req.t_admit = time.monotonic()
             self.slots[i] = req
+            # gap metric: only back-to-back decode chunks count
+            self._last_drain_done = None
             self.prompts[i, : len(fed)] = fed
+            self._prompts_version += 1  # the device prompt mirror refreshes
             self.prompt_lens[i] = len(fed)
             self.next_token[i] = fed[0]
+            self._carry_dirty.add(i)  # the host rewrote this slot's feed row
             self.gen_before[i] = len(req.output)
             self.priorities[i] = req.priority
             self.temps[i] = req.temperature
@@ -811,6 +1265,7 @@ class InferenceEngine:
                 page_size=self.page_size,
             )
         self.prefills_run += 1
+        self._last_drain_done = None  # gap metric: decode chunks only
         return logits
 
     def _try_prefill(self, i: int, req: Request) -> None:
@@ -830,6 +1285,7 @@ class InferenceEngine:
                 return  # pool pressure: retried next engine step
             self._prefill_dispatch(i, t0, C)  # logits discarded
             self.lengths[i] = t0 + C
+            self._carry_dirty.add(i)
             return
         if rem < 2 or not self._ensure_pages(i, plen):
             return
@@ -846,6 +1302,7 @@ class InferenceEngine:
         self.emitted[i] = int(self.gen_before[i]) + 1
         self.lengths[i] = plen
         self.next_token[i] = tok
+        self._carry_dirty.add(i)
         if self._stops(req, tok) or self.emitted[i] >= req.max_new_tokens or req.cancelled:
             req.done.set()
             self._release_slot(i)
@@ -896,6 +1353,8 @@ class InferenceEngine:
         self.prefilling[i] = False
         self.gen_before[i] = 0
         self.priorities[i] = 0
+        if self.draft is not None:
+            self.draft_len[i] = 0  # its rows are rewritten lazily
 
     def _release_slot(self, i: int) -> None:
         req = self.slots[i]
@@ -1025,43 +1484,391 @@ class InferenceEngine:
                 self.stalled[i] = True  # pool-pressure stall; retried
         return progressed
 
-    def _dispatch_chunk(self) -> Optional[_PendingChunk]:
-        """Prepare and run one fused decode chunk; returns the record to
-        drain, or None when nothing is runnable.  Host ``lengths`` advance
-        by K for active slots (data-independent)."""
+    def _sampling_variant(self, active) -> tuple[bool, bool]:
+        """(use_filters, use_temp) of a pass over the ``active`` slots: some
+        row asks for top-k / top-p; some row samples.  Static in the step
+        functions, so greedy batches never pay for sampling."""
+        use_filters = bool(
+            (self.top_ks[active] > 0).any() or (self.top_ps[active] < 1.0).any()
+        )
+        return use_filters, bool((self.temps[active] > 0).any())
+
+    def _spec_useful(self) -> bool:
+        """The verify pass beats sequential chunks only when some slot can
+        use the window: a slot still feeding its prompt (W tokens a pass
+        instead of one a step) or a greedy slot generating (drafts)."""
+        for i, req in enumerate(self.slots):
+            if req is None or req.cancelled or self.prefilling[i]:
+                continue  # mid-chunked-prefill slots sit out verify passes
+            if self.lengths[i] < self.prompt_lens[i] - 1:
+                return True
+            if self.temps[i] == 0:
+                return True
+        return False
+
+    def _drain_pending(self) -> None:
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._drain_chunk(pending)
+
+    def _step_chunk(self) -> None:
+        """One fused chunk, dispatched then drained at once (the exact
+        sequential loop)."""
+        pending = self._dispatch_chunk()
+        if pending is not None:
+            self._drain_chunk(pending)
+
+    def _step_chunk_overlapped(self) -> None:
+        """Double-buffered decode step: dispatch the next chunk off the
+        device carry, THEN drain the previous chunk while the new one
+        runs.  When the dispatch finds the page pool exhausted it first
+        drains the pending chunk (its completions may free pages) and
+        retries once; a second exhaustion is real overload."""
+        pending, self._pending = self._pending, None
+        try:
+            new = self._dispatch_chunk(pipelined=pending is not None)
+        except RuntimeError as e:
+            if pending is None or "page pool exhausted" not in str(e):
+                raise
+            self._drain_chunk(pending)
+            pending = None
+            new = self._dispatch_chunk()
+        if pending is not None:
+            self._drain_chunk(pending)
+        self._pending = new
+
+    def _step_verify(self) -> None:
+        """Speculative engine step: build each active slot's verify window
+        on the host (the confirmed token, then prompt tokens and/or
+        drafts), run ONE wide pass, and accept per slot the longest fed
+        prefix the model itself would have produced, plus the model's own
+        "bonus" token after it.  Greedy slots emit 1..W tokens a pass,
+        token-identical to the sequential engine; sampled slots emit one."""
+        from .speculative import propose_ngram
+
+        W = self.spec_k + 1
+        B = self.max_batch
+        prepared = self._prepare_step(W)
+        if prepared is None:
+            return
+        self.steps_run += 1
+        active, view = prepared
+        draft_rows = self._propose_draft_model(active) if self.draft is not None else None
+        feed = np.zeros((B, W), np.int32)
+        for i, req in enumerate(self.slots):
+            if req is None or not active[i]:
+                continue
+            p = int(self.lengths[i])
+            plen = int(self.prompt_lens[i])
+            feed[i, 0] = self.next_token[i]
+            j = 1
+            while j < W and p + j < plen:  # prompt feeding: always valid
+                feed[i, j] = self.prompts[i, p + j]
+                j += 1
+            if j < W and self.temps[i] == 0:
+                if draft_rows is not None:
+                    # the draft's continuation starts right after the last
+                    # known position, which is the window's first free slot
+                    drafts = [int(t) for t in draft_rows[i, : W - j]]
+                else:
+                    # prompt + output is exactly the tokens at positions
+                    # 0..p, so the proposal lands at the first free slot
+                    drafts = propose_ngram(list(req.prompt) + req.output, self.spec_ngram,
+                                           W - j)
+                for d in drafts:
+                    feed[i, j] = d
+                    j += 1
+        use_filters, use_temp = self._sampling_variant(active)
+        ds = self._ds
+        self._last_drain_done = None  # gap metric: decode chunks only
+        picked, self.kv = _fused_verify_chunk(
+            self.params, self.kv, ds.get("view", view), ds.put("feed", feed),
+            ds.get("lengths", self.lengths), ds.get("active", active),
+            ds.get("temps", self.temps), ds.get("top_ks", self.top_ks),
+            ds.get("top_ps", self.top_ps), self.generator,
+            cfg=self.cfg, page_size=self.page_size, use_filters=use_filters,
+            use_temp=use_temp, paged_kernel=self.paged_kernel,
+        )
+        picked = picked.cpu().numpy()  # (B, W)
+        self.spec_passes += 1
+        for i, req in enumerate(self.slots):
+            if req is None or not active[i]:
+                continue
+            p = int(self.lengths[i])
+            plen = int(self.prompt_lens[i])
+            greedy = self.temps[i] == 0
+            # longest valid fed prefix: prompt positions are valid by
+            # definition; a greedy draft is valid iff it equals the model's
+            # own choice at the previous position
+            A = 1
+            while A < W:
+                if p + A < plen:
+                    A += 1
+                elif greedy and feed[i, A] == picked[i, A - 1]:
+                    A += 1
+                else:
+                    break
+            stopped = exhausted = False
+            for j in range(1, A):
+                if p + j < plen:
+                    continue  # a prompt position: nothing to emit
+                tok = int(feed[i, j])
+                self._emit(req, tok)
+                self.emitted[i] += 1
+                self.spec_accepted += 1
+                if self._stops(req, tok):
+                    stopped = True
+                    A = j + 1  # the confirmed rows end at the stop token
+                    break
+                if self.emitted[i] >= req.max_new_tokens:
+                    exhausted = True
+                    A = j + 1
+                    break
+            if not stopped and not exhausted and p + A >= plen:
+                # the model's own token after the last valid fed position
+                tok = int(picked[i, A - 1])
+                self._emit(req, tok)
+                self.emitted[i] += 1
+                if self._stops(req, tok):
+                    stopped = True
+            # rows p..p+A-1 hold confirmed K/V; the bonus token (position
+            # p+A) is fed, and its row written, by the next pass
+            self.lengths[i] = p + A
+            if stopped or self.emitted[i] >= req.max_new_tokens or req.cancelled:
+                req.done.set()
+                self._release_slot(i)
+            else:
+                self.next_token[i] = (
+                    self.prompts[i, p + A] if p + A < plen else int(picked[i, A - 1])
+                )
+
+    def _draft_context_token(self, i: int, q: int) -> int:
+        """Slot i's token at position q of its fed prompt + output."""
+        plen = int(self.prompt_lens[i])
+        if q < plen:
+            return int(self.prompts[i, q])
+        return self.slots[i].output[int(self.gen_before[i]) + q - plen]
+
+    def _propose_draft_model(self, active) -> np.ndarray:
+        """Catch the draft cache up on newly confirmed context, then roll
+        the draft model spec_k greedy steps: drafts (B, spec_k).
+
+        Slot i's context is positions 0..max(lengths, plen - 1): prompt
+        tokens are known before the target sees them, so the draft may read
+        ahead of the paged cache.  Long backlogs pre-ingest in
+        ``_draft_chunk``-wide passes; the last pass ingests at most W new
+        tokens and proposes in the same call."""
+        B, W = self.max_batch, self.spec_k + 1
+        # a pass where no greedy row reads drafts skips all draft work: the
+        # backlog accumulates and a later consuming pass catches up
+        consumer = any(
+            req is not None and active[i] and self.temps[i] == 0
+            and int(self.lengths[i]) + W > int(self.prompt_lens[i])
+            for i, req in enumerate(self.slots)
+        )
+        if not consumer:
+            return np.zeros((B, self.spec_k), np.int32)
+        pend: list[list[int]] = [[] for _ in range(B)]
+        for i, req in enumerate(self.slots):
+            if req is None or not active[i]:
+                continue
+            q_end = max(int(self.lengths[i]), int(self.prompt_lens[i]) - 1)
+            pend[i] = [self._draft_context_token(i, q)
+                       for q in range(int(self.draft_len[i]), q_end + 1)]
+        dev = self.device
+        CH = self._draft_chunk
+        while max((len(t) for t in pend), default=0) > W:
+            feed = np.zeros((B, CH), np.int32)
+            counts = np.zeros(B, np.int32)
+            for i, toks in enumerate(pend):
+                if len(toks) <= W:
+                    continue  # small backlogs wait for the propose pass, which
+                    # must not start its rollout from a pad token's logits
+                take = toks[:CH]
+                feed[i, : len(take)] = take
+                counts[i] = len(take)
+                pend[i] = toks[CH:]
+            _draft_forward(self.draft_params, self.dkv, torch.tensor(feed, device=dev),
+                           torch.tensor(self.draft_len, device=dev), dcfg=self.draft_cfg)
+            self.draft_len += counts
+        feed = np.zeros((B, W), np.int32)
+        counts = np.zeros(B, np.int32)
+        starts = self.draft_len.copy()
+        advance = np.zeros(B, np.int32)
+        for i, toks in enumerate(pend):
+            if not toks and self.draft_len[i] > 0 and active[i]:
+                # caught up already: feed the last context token again one
+                # position back, so the rollout starts from real logits
+                # (rewriting that position's K/V is idempotent)
+                q = int(self.draft_len[i]) - 1
+                feed[i, 0] = self._draft_context_token(i, q) if self.slots[i] is not None else 0
+                counts[i] = 1
+                starts[i] = q
+            else:
+                feed[i, : len(toks)] = toks
+                counts[i] = len(toks)
+                advance[i] = len(toks)
+        drafts, _ = _draft_ingest_propose(
+            self.draft_params, self.dkv, torch.tensor(feed, device=dev),
+            torch.tensor(starts, device=dev), torch.tensor(counts, device=dev),
+            dcfg=self.draft_cfg, k=self.spec_k,
+        )
+        self.draft_len += advance
+        return drafts.cpu().numpy()
+
+    def _carry_feed(self):
+        """(next tokens, lengths) device tensors for the next chunk: the
+        previous chunk's carry, with host-mutated slots patched in; a full
+        upload from the host only after a mode switch (engine start, a
+        verify pass).  Every update is in place: captured graphs read and
+        write these two tensors."""
+        ds = self._ds
+        if self._carry is None:
+            self._carry_dirty.clear()
+            tok, ln = self._carry_bufs
+            with torch.inference_mode():
+                tok.copy_(ds.put("carry_tok", self.next_token))
+                ln.copy_(ds.put("carry_len", self.lengths))
+            ds.uploads += 2
+            self._carry = self._carry_bufs
+            return self._carry
+        if self._carry_dirty:
+            mask = np.zeros(self.max_batch, bool)
+            mask[sorted(self._carry_dirty)] = True
+            self._carry_dirty.clear()
+            tok, ln = self._carry
+            with torch.inference_mode():
+                m = ds.put("carry_mask", mask)
+                tok.copy_(torch.where(m, ds.put("carry_tok", self.next_token), tok))
+                ln.copy_(torch.where(m, ds.put("carry_len", self.lengths), ln))
+            ds.uploads += 1
+        return self._carry
+
+    def _dispatch_chunk(self, pipelined: bool = False) -> Optional[_PendingChunk]:
+        """Prepare and dispatch one fused decode chunk; returns the record
+        to drain, or None when nothing is runnable.  Batch state rides the
+        device mirrors (``_ds``) and the carry, so a steady-state dispatch
+        uploads nothing.  Host ``lengths`` advance at once by K for active
+        slots (data-independent), so page growth and admission stay exact
+        while the tokens are in flight.
+
+        ``pipelined``: the previous chunk was still undrained when this one
+        was queued, so the device never waited and the gap sample is 0."""
         K = self.fused_steps
         prepared = self._prepare_step(K)
         if prepared is None:
             return None
         self.steps_run += 1
         active, view = prepared
-        use_filters = bool(
-            (self.top_ks[active] > 0).any() or (self.top_ps[active] < 1.0).any()
+        use_filters, use_temp = self._sampling_variant(active)
+        ds = self._ds
+        tok_dev, len_dev = self._carry_feed()
+        if pipelined:
+            self.host_gap_chunks += 1
+            self.last_host_gap_ms = 0.0
+            self._gap_sample(0.0)
+        elif self._last_drain_done is not None:
+            gap = time.perf_counter_ns() - self._last_drain_done
+            self.host_gap_ns += gap
+            self.host_gap_chunks += 1
+            self.last_host_gap_ms = gap / 1e6
+            self._gap_sample(self.last_host_gap_ms)
+        args = (
+            self.params, self.kv, ds.get("view", view), tok_dev, len_dev,
+            ds.get("active", active),
+            ds.get_versioned("prompts", self.prompts, self._prompts_version),
+            ds.get("prompt_lens", self.prompt_lens), ds.get("temps", self.temps),
+            ds.get("top_ks", self.top_ks), ds.get("top_ps", self.top_ps), self.generator,
         )
-        use_temp = bool((self.temps[active] > 0).any())
-
-        def dev(a):
-            return torch.tensor(a, device=self.device)
-
-        sampled, self.kv, _, _ = _fused_serve_chunk(
-            self.params, self.kv, dev(view), dev(self.next_token), dev(self.lengths),
-            dev(active), dev(self.prompts), dev(self.prompt_lens), dev(self.temps),
-            dev(self.top_ks), dev(self.top_ps), self.generator,
-            cfg=self.cfg, page_size=self.page_size, n_steps=K,
-            use_filters=use_filters, use_temp=use_temp, paged_kernel=self.paged_kernel,
-        )
+        static = dict(cfg=self.cfg, page_size=self.page_size, n_steps=K,
+                      use_filters=use_filters, use_temp=use_temp,
+                      paged_kernel=self.paged_kernel)
+        if self.overlap and self.device.type == "cuda":
+            out = self._replay_chunk((view.shape[1], use_filters, use_temp), args, static)
+        else:
+            out = _chunk_in_place(*args, **static)
+        host = ready = None
+        if self._out_bufs:
+            # the tokens' way to the host, queued right behind the chunk
+            host = self._out_bufs[self._out_next]
+            self._out_next ^= 1
+            host.copy_(out, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
         pos0 = self.lengths.copy()
         idx = np.nonzero(active)[0]
         self.lengths[idx] += K
         pairs = [(int(i), self.slots[int(i)]) for i in idx]
-        return _PendingChunk(out=sampled, n_steps=K, pos0=pos0, pairs=pairs)
+        return _PendingChunk(out=out, n_steps=K, pos0=pos0, pairs=pairs, host=host,
+                             ready=ready)
+
+    def _replay_chunk(self, key, args, static) -> torch.Tensor:
+        """One decode chunk as a CUDA graph replay (captured at the first
+        dispatch of its static shape).  The wrappers counted the graph's
+        kernel launches once, at capture; every replay adds them to
+        ``_build.LAUNCHES``, as eager calls would."""
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture_chunk(args, static)
+        graph, out, launches = entry
+        graph.replay()
+        self.graph_replays += 1
+        for name, n in launches.items():
+            _build.LAUNCHES[name] += n
+        return out
+
+    def _capture_chunk(self, args, static):
+        """Capture ``_chunk_in_place`` on ``args`` (the persistent device
+        tensors every replay reads) into a CUDA graph in the engine's shared
+        pool.  One eager warm-up runs first, on the capture stream and off
+        the engine's state (every row inactive on the scratch page, a copy
+        of the carry, a generator of its own), so first-use work happens
+        outside the capture.  No fallback: a failed capture raises."""
+        t0 = time.perf_counter()
+        stream = self._capture_stream
+        view, tok, ln, active = args[2], args[3], args[4], args[5]
+        with torch.inference_mode():
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                warm = list(args)
+                warm[2], warm[3], warm[4] = torch.zeros_like(view), tok.clone(), ln.clone()
+                warm[5] = torch.zeros_like(active)
+                warm[-1] = torch.Generator(device=self.device)
+                _chunk_in_place(*warm, **static)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            self.graph_warmups += 1
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.generator)
+            before = dict(_build.LAUNCHES)
+            with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+                out = _chunk_in_place(*args, **static)
+        # the capture launched nothing: its counts move to the replays
+        launches = {}
+        for name, n in _build.LAUNCHES.items():
+            if n != before[name]:
+                launches[name] = n - before[name]
+                _build.LAUNCHES[name] = before[name]
+        self.graphs_captured += 1
+        self.graph_capture_s += time.perf_counter() - t0
+        return graph, out, launches
 
     def _drain_chunk(self, pending: _PendingChunk) -> None:
-        """Bring a chunk's sampled tokens to the host and emit them."""
-        sampled = pending.out.cpu().numpy()  # (B, K)
+        """Bring a chunk's sampled tokens to the host and emit them.  Slots
+        released or re-tenanted since the dispatch (a stop or cancel seen
+        one chunk late under overlap, a spill) are skipped: their in-flight
+        tokens are the bounded overshoot and are discarded."""
+        if pending.ready is not None:
+            pending.ready.synchronize()  # this chunk's copy only
+            sampled = pending.host.numpy()  # (B, K)
+        else:
+            sampled = pending.out.numpy()
+        # from here to the next dispatch the device idles unless a later
+        # chunk is already queued: the window the host-gap metric measures
+        self._last_drain_done = time.perf_counter_ns()
         K = pending.n_steps
         for i, req in pending.pairs:
             if self.slots[i] is not req or req.done.is_set():
+                self.chunks_discarded += 1
                 continue  # released since dispatch
             pos = int(pending.pos0[i])
             plen = int(self.prompt_lens[i])
@@ -1076,6 +1883,8 @@ class InferenceEngine:
                     if self._stops(req, tok):
                         stopped = True  # samples past the stop are dropped
                         break
+            # the host mirror of the device carry (same selection), so it
+            # does not dirty the carry: it feeds verify windows
             self.next_token[i] = (
                 self.prompts[i, pos + K] if pos + K < plen else sampled[i, K - 1]
             )

@@ -4,7 +4,9 @@ inference HTTP server around the port's paged serving engine.
 Counterpart of ``elastic_gpu_scheduler_tpu/serve.py`` with the flags this
 slice serves, under the reference's names.  ``--init`` builds random
 weights from the model flags (seed 0); the HF checkpoint
-import (``--hf``) waits for the port of ``models/convert.py``.  The
+imports (``--hf``, and ``--draft-hf`` for a draft model) wait for the
+port of ``models/convert.py``.  ``--serve-overlap`` (default ``on``) and
+``--spec-k`` (prompt-lookup drafts) select the engine's modes.  The
 engine runs on the CUDA device unless ``--cpu`` is given.
 """
 
@@ -48,6 +50,14 @@ def build_args(argv=None):
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help="ingest long prompts this many tokens per engine "
                         "step, between decode chunks (0 = one pass)")
+    p.add_argument("--spec-k", type=int, default=0,
+                   help=">0 enables speculative decoding (this many draft "
+                        "tokens per verify pass, prompt-lookup drafting)")
+    p.add_argument("--serve-overlap", choices=["on", "off"], default="on",
+                   help="double-buffered decode dispatch: the next fused "
+                        "chunk is dispatched off device-resident state (a "
+                        "CUDA graph replay) before the previous one's tokens "
+                        "drain; 'off' is the exact sequential loop")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU with the plain PyTorch paths (tests/dev)")
     p.add_argument("--drain-timeout", type=float, default=30.0,
@@ -81,7 +91,8 @@ def main(argv=None) -> int:
         page_size=args.page_size, n_pages=args.n_pages,
         fused_steps=args.fused_steps, kv_int8=args.kv_int8,
         prefix_cache=args.prefix_cache, paged_kernel=args.paged_kernel,
-        prefill_chunk=args.prefill_chunk, device=device,
+        prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
+        overlap=args.serve_overlap == "on", device=device,
     )
     server, loop = serve_inference(engine, port=args.port, host=args.host)
     log.info(

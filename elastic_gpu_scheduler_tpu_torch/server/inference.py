@@ -57,7 +57,9 @@ def choose_kv_victim(eng: InferenceEngine) -> int:
 
 class EngineLoop:
     """Single thread that owns the engine: admit + step while work exists,
-    park on the engine's work event when idle."""
+    park on the engine's work event when idle.  Before it parks (and so
+    before a drain can complete) it drains the overlapped engine's chunk
+    still in flight, so no dispatched work outlives the requests."""
 
     def __init__(self, engine: InferenceEngine):
         self.engine = engine
@@ -102,6 +104,7 @@ class EngineLoop:
                 if any(s is not None for s in eng.slots):
                     eng.step()
                 else:
+                    eng._drain_pending()
                     if eng.draining and eng.queue.empty():
                         self.drained.set()
                     # clear → re-check → wait: a submit after the clear
@@ -249,6 +252,22 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                     "steps_run": int(eng.steps_run),
                     "prefills_run": int(eng.prefills_run),
                     "tokens_emitted": int(eng.tokens_emitted),
+                    # speculation: spec_accepted / spec_passes is the mean
+                    # count of extra tokens a verify pass bought
+                    "spec_k": eng.spec_k,
+                    "spec_passes": int(eng.spec_passes),
+                    "spec_accepted": int(eng.spec_accepted),
+                    "draft_model": eng.draft is not None,
+                    "logprobs_k": eng.logprobs_k,
+                    # the overlapped pipeline: its mode, the host gap it
+                    # exists to shrink, and the transfer-count probe
+                    "overlap": eng.overlap,
+                    "host_gap": {
+                        k: round(v, 4) if isinstance(v, float) else v
+                        for k, v in eng.host_gap_stats().items()
+                    },
+                    "device_uploads": int(eng.device_uploads),
+                    "chunks_discarded": int(eng.chunks_discarded),
                     # the prefix-cache counters, under the reference's names
                     "kv": {
                         "prefix_lookups": int(eng.prefix_lookups),

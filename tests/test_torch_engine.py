@@ -93,6 +93,8 @@ def _jax_tokens(jcfg, jp, prompts, max_new, **kw):
 
 
 def _port_tokens(params, prompts, max_new, **kw):
+    # the sequential mode, as the JAX engine it is compared with runs
+    kw.setdefault("overlap", False)
     eng = InferenceEngine(params, TransformerConfig(**CFG), device="cpu", **kw)
     reqs = [eng.submit(Request(prompt=p, max_new_tokens=n)) for p, n in zip(prompts, max_new)]
     eng.run_until_idle()
@@ -125,7 +127,8 @@ def test_engine_sliding_window_matches_jax():
     for paged_kernel in (False, True):
         kw = dict(max_batch=4, max_len=64, page_size=8, paged_kernel=paged_kernel)
         want = _jax_tokens(jcfg, jp, prompts, new, **kw)
-        eng = InferenceEngine(params, TransformerConfig(**cfg), device="cpu", **kw)
+        eng = InferenceEngine(params, TransformerConfig(**cfg), device="cpu", overlap=False,
+                              **kw)
         reqs = [eng.submit(Request(prompt=p, max_new_tokens=n)) for p, n in zip(prompts, new)]
         eng.run_until_idle()
         assert [r.output for r in reqs] == want, f"paged_kernel={paged_kernel}"
@@ -170,7 +173,7 @@ def test_engine_stop_tokens_and_sampling(weights):
 def test_engine_rejects_unported_options_and_fields(weights):
     _, _, params = weights
     cfg = TransformerConfig(**CFG)
-    for opt in ("spec_k", "adapters", "overlap", "max_queue", "compile_cache"):
+    for opt in ("adapters", "max_queue", "compile_cache"):
         with pytest.raises(NotImplementedError, match=opt):
             InferenceEngine(params, cfg, device="cpu", **{opt: 1})
     with pytest.raises(TypeError, match="seed"):

@@ -50,6 +50,7 @@ def test_port_imports_no_jax_and_no_jax_package():
             "elastic_gpu_scheduler_tpu_torch.models.train",
             "elastic_gpu_scheduler_tpu_torch.models.data",
             "elastic_gpu_scheduler_tpu_torch.models.generate",
+            "elastic_gpu_scheduler_tpu_torch.models.speculative",
             "elastic_gpu_scheduler_tpu_torch.utils.prefixdigest",
             "elastic_gpu_scheduler_tpu_torch.launcher"} <= expected
     bad = [m for m in res["modules"] if _is_jax_package(m)]

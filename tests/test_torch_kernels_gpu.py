@@ -396,11 +396,163 @@ def test_engine_on_card_matches_cpu_float32(cuda):
         assert all(r.done.is_set() and not r.error for r in reqs)
         outs[str(dev)] = [r.output for r in reqs]
         if dev is cuda:
+            # the overlapped default replays CUDA graphs: each capture's
+            # warm-up is one more eager chunk
+            assert eng.graphs_captured > 0
             assert _build.LAUNCHES["flash_fwd"] == cfg.n_layers * eng.prefills_run
             assert _build.LAUNCHES["paged_attention"] == (
-                cfg.n_layers * eng.fused_steps * eng.steps_run
+                cfg.n_layers * eng.fused_steps * (eng.steps_run + eng.graph_warmups)
             )
     assert outs["cpu"] == outs[str(cuda)]
+
+
+# the verify window of speculative decoding: W = spec_k + 1 queries a row,
+# W x n_rep query rows a kv-head, more than a block's 4 (row groups, the
+# last one partial at W 5 x n_rep 2); tables that split (NB 40) and one
+# that does not (NB 4)
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8-float32", "int8-bfloat16"])
+@pytest.mark.parametrize("NB", [40, 4])
+@pytest.mark.parametrize("Hn", [16, 64], ids=["n_rep2", "n_rep8"])
+@pytest.mark.parametrize("W", [5, 8])
+def test_paged_kernel_verify_window_matches_plain(cuda, W, Hn, NB, pool):
+    int8 = pool.startswith("int8")
+    dtype = torch.float32 if pool.endswith("float32") else torch.bfloat16
+    q, pools, tables, lengths = _paged_case(cuda, 4, Hn, W, NB, dtype, int8, seed=W * NB)
+    kw = dict(scales_k=pools[2], scales_v=pools[3]) if int8 else {}
+    out = paged_attention(q, *pools[:2], tables, lengths, **kw)
+    ref = paged_attention_reference(q, *pools[:2], tables, lengths, **kw)
+    assert out.shape == q.shape and _close(out, ref), _err(out, ref)
+
+
+def _small_engine(cuda, **kw):
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, dtype=kw.pop("dtype", "float32"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    return cfg, params, serving.InferenceEngine(params, cfg, max_batch=4, max_len=96,
+                                                page_size=16, fused_steps=4,
+                                                paged_kernel=True, device=cuda, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_replay_matches_eager_chunk(cuda, dtype):
+    """One CUDA-graph replay of the decode chunk and one eager
+    ``_chunk_in_place`` from cloned identical state give identical sampled
+    tokens, carry and pool bytes."""
+    _, _, eng = _small_engine(cuda, dtype=dtype)
+    rng = np.random.default_rng(2)
+    for n in (3, 17, 40):
+        eng.submit(serving.Request(prompt=rng.integers(0, 256, n).tolist(),
+                                   max_new_tokens=30))
+    eng._admit()
+    eng.step()  # captures this shape's graph
+    eng._drain_pending()
+    seen = []
+    real = eng._replay_chunk
+
+    def spy(key, args, static):
+        seen.append((args, static, {k: v.clone() for k, v in args[1].items()},
+                     args[3].clone(), args[4].clone()))
+        return real(key, args, static)
+
+    eng._replay_chunk = spy
+    captured = eng.graphs_captured
+    pending = eng._dispatch_chunk()
+    torch.cuda.synchronize()
+    # a replay of the graph the first step captured (no warm-up in between)
+    assert eng.graphs_captured == captured and eng.graph_replays == 2 and len(seen) == 1
+    args, static, kv0, tok0, len0 = seen[0]
+    eager_args = list(args)
+    eager_args[1], eager_args[3], eager_args[4] = kv0, tok0, len0
+    out = serving._chunk_in_place(*eager_args, **static)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pending.out)
+    assert torch.equal(tok0, args[3]) and torch.equal(len0, args[4])
+    for name in eng.kv:
+        assert torch.equal(kv0[name], eng.kv[name]), name
+    eng._drain_chunk(pending)
+    eng.run_until_idle()
+
+
+@pytest.mark.gpu
+def test_overlapped_engine_on_card_matches_sequential_float32(cuda):
+    """The overlapped engine (graph replays) gives the sequential engine's
+    greedy tokens on the card and the CPU's, with exact launch counts."""
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (1, 3, 17, 40, 9, 60)]
+    outs = {}
+    for name, dev, overlap in (("cpu", "cpu", True), ("seq", cuda, False),
+                               ("overlap", cuda, True)):
+        cfg, _, eng = _small_engine(dev, overlap=overlap)
+        reqs = [eng.submit(serving.Request(prompt=p, max_new_tokens=14)) for p in prompts]
+        _build.reset_launches()
+        eng.run_until_idle()
+        assert all(r.done.is_set() and not r.error for r in reqs)
+        outs[name] = [r.output for r in reqs]
+        if name == "overlap":
+            assert eng.graphs_captured >= 1 and eng.graph_replays == eng.steps_run
+            assert _build.LAUNCHES["paged_attention"] == (
+                cfg.n_layers * eng.fused_steps * (eng.steps_run + eng.graph_warmups)
+            )
+            assert eng.host_gap_stats()["chunks"] > 0
+    assert outs["overlap"] == outs["seq"] == outs["cpu"]
+
+
+@pytest.mark.gpu
+def test_overlapped_engine_samples_through_graphs(cuda):
+    """Sampled rows under overlap replay the filtered and temperature
+    graph variants, which draw from the engine's registered generator:
+    the same seed gives the same stream, and each replay draws fresh
+    numbers.  With the unembedding zeroed every logit is equal, so a
+    sampled token is the noise's argmax alone: noise repeated replay
+    after replay would give the same fused_steps tokens chunk after chunk."""
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=256, dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params["unembed"].zero_()
+    outs = []
+    for _ in range(2):
+        eng = serving.InferenceEngine(params, cfg, max_batch=4, max_len=96, page_size=16,
+                                      fused_steps=4, paged_kernel=True, device=cuda)
+        reqs = [eng.submit(serving.Request(prompt=[5, 17, 3], max_new_tokens=40,
+                                           temperature=1.0)),
+                eng.submit(serving.Request(prompt=[9, 9], max_new_tokens=40, temperature=0.9,
+                                           top_k=200, top_p=0.99)),
+                eng.submit(serving.Request(prompt=[1, 2, 3, 4], max_new_tokens=40))]
+        eng.run_until_idle()
+        assert all(r.done.is_set() and not r.error for r in reqs)
+        assert eng.graph_replays == eng.steps_run > 0
+        assert any(use_filters for _, use_filters, _ in eng._graphs)
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+    assert outs[0][2] == [0] * 40  # greedy over equal logits
+    for out in outs[0][:2]:
+        assert len(set(out)) > 3 * eng.fused_steps, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_speculative_engine_on_card_matches_cpu_float32(cuda, kv_int8):
+    """spec_k 4 through K2's W = 5 window: greedy tokens equal the plain
+    engine's and the CPU's, and every verify pass launched K2 once a layer."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (2, 5, 30)] + [[7, 3, 11, 5] * 6]
+    outs = {}
+    for name, dev, spec_k in (("cpu", "cpu", 4), ("card", cuda, 4), ("plain", cuda, 0)):
+        cfg, _, eng = _small_engine(dev, spec_k=spec_k, kv_int8=kv_int8)
+        reqs = [eng.submit(serving.Request(prompt=p, max_new_tokens=16)) for p in prompts]
+        _build.reset_launches()
+        eng.run_until_idle()
+        assert all(r.done.is_set() and not r.error for r in reqs)
+        outs[name] = [r.output for r in reqs]
+        if name == "card":
+            k2 = "paged_attention_int8" if kv_int8 else "paged_attention"
+            chunks = eng.steps_run - eng.spec_passes
+            assert eng.spec_passes > 0
+            assert _build.LAUNCHES[k2] == cfg.n_layers * (
+                eng.spec_passes + eng.fused_steps * (chunks + eng.graph_warmups))
+    assert outs["card"] == outs["plain"] == outs["cpu"]
 
 
 # (B, H, Hkv, Sq, Sk, D, q_offset, k_offset, causal).  bf16 splits the keys

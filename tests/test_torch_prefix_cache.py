@@ -54,7 +54,7 @@ def _serve(eng, request_cls, waves, max_new=6):
 def _both(weights, waves, **kw):
     jcfg, jp, params = weights
     want = _serve(JaxEngine(jp, jcfg, overlap=False, **kw), JaxRequest, waves)
-    eng = InferenceEngine(params, TransformerConfig(**CFG), device="cpu", **kw)
+    eng = InferenceEngine(params, TransformerConfig(**CFG), device="cpu", overlap=False, **kw)
     got = _serve(eng, Request, waves)
     return want, got, eng
 
@@ -173,7 +173,8 @@ def test_chunked_prefill_interleaves_with_decoding(weights):
     short = [3, 9, 14]
     ref, _ = _serve(InferenceEngine(params, cfg, device="cpu", **BASE), Request,
                     [[short, long_p]], max_new=20)
-    eng = InferenceEngine(params, cfg, device="cpu", prefill_chunk=8, **BASE)
+    # the sequential loop: a step's decode chunk drains within the step
+    eng = InferenceEngine(params, cfg, device="cpu", prefill_chunk=8, overlap=False, **BASE)
     a = eng.submit(Request(prompt=short, max_new_tokens=20))
     b = eng.submit(Request(prompt=long_p, max_new_tokens=20))
     eng._admit()
