@@ -69,6 +69,22 @@ Phases, each failing the run (non-zero exit) on any fault:
    vocabulary (first tokens equal to the target's); on a small float32
    model, spec_k 4 equal to spec_k 0 on the card and the CPU (dense and
    int8) and the model as its own draft accepting most of its window;
+6e. per-request controls on the same weights and prompts: the overlapped
+   engine serves the plain batch and a batch where every request asks for
+   logprobs 5 with a logit_bias and min_tokens (stop ids its phase 6
+   stream emits), two add allowed_tokens and the sampled half a seed
+   (tokens per second and wall ms a chunk for both; exact K1 / K2
+   launches and every chunk a replay on the controls batch); the same
+   batch with both penalties (the sequential loop) and under spec_k 4;
+   every token held to its constraints, every logprob row to sanity, the
+   seeded requests identical when run twice in one mode; device ms and
+   kernels a chunk, plain against controls (torch.profiler); graphs and
+   capture seconds per variant; HTTP ``n`` = 2 with a seed and logprobs
+   in JSON and SSE, a flood against ``max_queue=1`` meeting a 429, and
+   /v1/stats; on the small float32 model, each control's greedy tokens
+   and logprobs on the card equal to the CPU's in four modes, and a
+   seeded request identical alone, batched, overlapped, under spec_k 4
+   and across a spill;
 7. HTTP: ``serve_inference`` on the card-resident engine, one blocking
    and one SSE completion against the engine's own tokens, /healthz and
    /v1/stats;
@@ -1604,6 +1620,485 @@ def phase_spec_small_fp32(dev) -> None:
         f"{SPEC_K} at most)")
 
 
+# -- phase 6e: per-request controls -------------------------------------------
+
+
+CONTROL_BIAS = {17: 4.0, 4242: -5.0, 31999: 2.0}
+CONTROL_ALLOWED = tuple(range(1000, 1064))
+CONTROL_MIN = 40  # the timed batches' floor: through the first 3 of 4 chunks
+CONTROL_PENALTIES = dict(frequency_penalty=0.5, presence_penalty=0.3)
+CONTROL_WINDOW = 3  # consecutive overlapped chunks in each profiled window
+
+
+def control_specs(prompts, ref_reqs, min_tokens=CONTROL_MIN, penalties=False):
+    """Phase 6e's batch over the serve prompts: every request asks for
+    logprobs 5 and carries a logit_bias and min_tokens with two stop ids
+    that its phase 6 greedy stream emits (its first and sixth tokens); the
+    odd half samples (temperature 0.8) with a seed of its own; two greedy
+    requests add allowed_tokens; ``penalties`` adds both penalties."""
+    specs = []
+    for i, (p, ref) in enumerate(zip(prompts, ref_reqs)):
+        kw = dict(logprobs=5, logit_bias=CONTROL_BIAS, min_tokens=min_tokens,
+                  stop_tokens=(ref.output[0], ref.output[5]))
+        if i % 2:
+            kw.update(temperature=0.8, seed=1000 + i)
+        elif i in (0, 6):
+            kw["allowed_tokens"] = CONTROL_ALLOWED
+        if penalties:
+            kw.update(CONTROL_PENALTIES)
+        specs.append((p, kw))
+    return specs
+
+
+def drive_specs(eng, specs, max_new):
+    """``drive_wall`` for requests with their own fields: (requests, wall
+    s, chunks run).  A stream may end at a stop id past its floor."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import Request
+
+    torch.cuda.synchronize()
+    steps0 = eng.steps_run
+    t0 = time.perf_counter()
+    reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=max_new, **kw))
+            for p, kw in specs]
+    eng.run_until_idle(max_steps=100_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        check(r.done.is_set() and not r.error, f"request failed: {r.error!r}")
+        check(min(max_new, r.min_tokens) <= len(r.output) <= max_new,
+              f"request gave {len(r.output)} tokens (floor {r.min_tokens}, cap {max_new})")
+    return reqs, wall, eng.steps_run - steps0
+
+
+def check_controls(reqs, label) -> dict:
+    """Every emitted token against its request's constraints, and every
+    logprob row for sanity: only allowed ids; no stop id before the floor,
+    and a stream that ended early ends on one; a chosen logprob <= 0 (to
+    1e-6 of float32 rounding); top lists of the asked width, sorted; a
+    greedy token's logprob equal to its list's first entry (ids may differ
+    only where bf16 logits tie)."""
+    top_id_ties = 0
+    for r in reqs:
+        out = r.output
+        if r.allowed_tokens:
+            check(set(out) <= set(r.allowed_tokens), f"{label}: a token outside allowed_tokens")
+        check(not set(out[: r.min_tokens - 1]) & set(r.stop_tokens),
+              f"{label}: a stop id before min_tokens")
+        if len(out) < r.max_new_tokens:
+            check(out[-1] in r.stop_tokens, f"{label}: a stream ended early without a stop id")
+        check(len(r.token_logprobs) == len(r.top_logprobs) == len(out),
+              f"{label}: logprobs not one a token")
+        for tok, lp, top in zip(out, r.token_logprobs, r.top_logprobs):
+            vals = [v for _, v in top]
+            check(lp <= 1e-6 and len(top) == r.logprobs, f"{label}: chosen {lp} or width")
+            check(all(a >= b for a, b in zip(vals, vals[1:])), f"{label}: top list not sorted")
+            if r.temperature == 0:
+                check(abs(lp - vals[0]) <= 1e-6, f"{label}: greedy {lp} != top {vals[0]}")
+                top_id_ties += top[0][0] != tok
+    return {"tokens": sum(len(r.output) for r in reqs), "greedy_top_id_ties": top_id_ties,
+            "stopped_early": sum(len(r.output) < r.max_new_tokens for r in reqs)}
+
+
+def run_perf(reqs, wall, chunks) -> dict:
+    gen = sum(len(r.output) for r in reqs)
+    return {"wall_s": wall, "generated_tokens": gen, "tokens_per_s": gen / wall,
+            "chunks": chunks, "wall_ms_per_chunk": wall / chunks * 1e3 if chunks else None}
+
+
+def graph_marks(eng) -> dict:
+    return {"captured": eng.graphs_captured, "capture_s": eng.graph_capture_s,
+            "keys": set(eng._graphs)}
+
+
+def graph_delta(eng, marks) -> dict:
+    return {"captured": eng.graphs_captured - marks["captured"],
+            "capture_s": eng.graph_capture_s - marks["capture_s"],
+            "keys": [list(k) for k in sorted(set(eng._graphs) - marks["keys"])]}
+
+
+def seeded_agreement(reqs, ref_reqs) -> dict:
+    rows = [(a, b) for a, b in zip(reqs, ref_reqs) if a.seed is not None]
+    return {"seeded_requests": len(rows),
+            "identical": sum(a.output == b.output for a, b in rows),
+            "tokens_equal": sum(x == y for a, b in rows for x, y in zip(a.output, b.output)),
+            "tokens": sum(len(b.output) for _, b in rows)}
+
+
+def phase_controls_engine(dev, params, cfg, prompts, seq_reqs) -> dict:
+    """Per-request controls on phase 6's weights and prompts (64 new
+    tokens).  The overlapped engine serves the plain batch (warm-up, then
+    timed) and the controls batch (logprobs 5, a logit_bias, allowed_tokens
+    on two requests, min_tokens with stop ids, a seed on the sampled half;
+    warm-up, then timed: the main path, exact K1 / K2 launches, every chunk
+    a replay); the same batch with both penalties takes the sequential loop;
+    spec_k 4 with the controls; constraints and logprob sanity on every
+    token; the same seeded requests twice in one mode; device time a chunk,
+    plain against controls; HTTP; the small float32 identities."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    L, K = cfg.n_layers, ENGINE["fused_steps"]
+    eng = InferenceEngine(params, cfg, paged_kernel=True, device=dev, **ENGINE)
+    perf = {}
+    marks = graph_marks(eng)
+    drive_wall(eng, prompts, NEW_TOKENS)
+    plain_graphs = graph_delta(eng, marks)
+    check(all(not any(k[3:]) for k in eng._graphs), "a plain batch captured a controls graph")
+    perf["plain"] = dict(run_perf(*drive_wall(eng, prompts, NEW_TOKENS)), graphs=plain_graphs)
+
+    specs = control_specs(prompts, seq_reqs)
+    marks = graph_marks(eng)
+    warm, _, _ = drive_specs(eng, specs, NEW_TOKENS)
+    graphs = graph_delta(eng, marks)
+    check(graphs["captured"] > 0 and all(any(k[3:]) for k in graphs["keys"]),
+          "the controls batch captured no controls graph")
+    base = dict(warmups=eng.graph_warmups, replays=eng.graph_replays, prefills=eng.prefills_run)
+    torch.cuda.synchronize()
+    # the main path: counts at 0 just before, read just after
+    _build.reset_launches()
+    creqs, cwall, cchunks = drive_specs(eng, specs, NEW_TOKENS)
+    launches = dict(_build.LAUNCHES)
+    warmups = eng.graph_warmups - base["warmups"]
+    replays = eng.graph_replays - base["replays"]
+    prefills = eng.prefills_run - base["prefills"]
+    log(f"controls engine main path: {cchunks} chunks ({replays} graph replays, {warmups} "
+        f"captures), {prefills} prefills, launches {launches} (want paged_attention="
+        f"{L * K * (cchunks + warmups)}, flash_fwd={L * prefills})")
+    check(replays == cchunks, "a controls chunk of the overlapped engine was not a replay")
+    check(launches["paged_attention"] == L * K * (cchunks + warmups) > 0,
+          "controls: K2 launches != layers x fused_steps x (chunks + captures' warm-ups)")
+    check(launches["flash_fwd"] == L * prefills > 0, "controls: K1 launches != layers x prefills")
+    check(launches["paged_attention_int8"] == launches["flash_block_stats"] == 0,
+          "the dense controls engine launched the int8 K2 or K3")
+    check_controls(warm, "controls warm-up batch")
+    cons = check_controls(creqs, "controls batch")
+    twice = seeded_agreement(creqs, warm)
+    check(twice["identical"] == twice["seeded_requests"] > 0,
+          "a seeded request gave other tokens run twice in the same mode and batch")
+    perf["controls"] = dict(run_perf(creqs, cwall, cchunks), graphs=graphs, constraints=cons,
+                            seeded_twice=twice,
+                            all_tokens_equal_twice=sum(a.output == b.output
+                                                       for a, b in zip(creqs, warm)))
+    log("controls engine, plain and controls batches: "
+        + json.dumps({k: perf[k] for k in ("plain", "controls")}))
+
+    # both penalties: _overlap_blocked forces the sequential loop
+    pspecs = control_specs(prompts, seq_reqs, penalties=True)
+    overlapped_steps = []
+    real_overlapped = eng._step_chunk_overlapped
+    eng._step_chunk_overlapped = lambda: overlapped_steps.append(1) or real_overlapped()
+    try:
+        marks = graph_marks(eng)
+        pwarm, _, _ = drive_specs(eng, pspecs, NEW_TOKENS)
+        pgraphs = graph_delta(eng, marks)
+        preqs, pwall, pchunks = drive_specs(eng, pspecs, NEW_TOKENS)
+    finally:
+        del eng._step_chunk_overlapped
+    check(not overlapped_steps, "a penalised batch took the overlapped step")
+    check_controls(preqs, "penalised batch")
+    perf["penalties_sequential"] = dict(run_perf(preqs, pwall, pchunks), graphs=pgraphs,
+                                        seeded_twice=seeded_agreement(preqs, pwarm))
+    log("controls engine, penalised batch: " + json.dumps(perf["penalties_sequential"]))
+
+    # spec_k 4 with the controls
+    seng = InferenceEngine(params, cfg, paged_kernel=True, spec_k=SPEC_K, device=dev, **ENGINE)
+    swarm, _, _ = drive_specs(seng, specs, NEW_TOKENS)
+    marks = spec_marks(seng)
+    _build.reset_launches()
+    sreqs, swall, _ = drive_specs(seng, specs, NEW_TOKENS)
+    launches = dict(_build.LAUNCHES)
+    c = spec_counts(seng, marks)
+    chunks = c["steps"] - c["passes"]
+    want = L * (c["passes"] + K * (chunks + c["warmups"]))
+    check(c["passes"] > 0 and launches["paged_attention"] == want,
+          f"spec controls: K2 launches {launches['paged_attention']} != {want}")
+    check_controls(sreqs, "spec_k 4 controls batch")
+    perf["spec_k4"] = dict(run_perf(sreqs, swall, chunks), **c,
+                           seeded_twice=seeded_agreement(sreqs, swarm),
+                           seeded_vs_overlapped=seeded_agreement(sreqs, creqs))
+    del seng
+    log("controls engine, spec_k 4: " + json.dumps(perf["spec_k4"]))
+
+    plain_prof = chunk_profile(eng, [(p, {}) for p in prompts], "plain")
+    ctl_prof = chunk_profile(eng, control_specs(prompts, seq_reqs, min_tokens=6 * K),
+                             "all non-penalty controls")
+    perf["profile"] = {"plain": plain_prof, "controls": ctl_prof,
+                       "added_device_ms_per_chunk": ctl_prof["device_ms_per_chunk"]
+                       - plain_prof["device_ms_per_chunk"],
+                       "added_kernels_per_chunk": ctl_prof["kernels_per_chunk"]
+                       - plain_prof["kernels_per_chunk"]}
+    p, ctl = perf["plain"], perf["controls"]
+    log(f"controls (overlapped, same engine, same prompts): {ctl['tokens_per_s']:.1f} against "
+        f"{p['tokens_per_s']:.1f} tokens/s plain, {ctl['wall_ms_per_chunk']:.2f} against "
+        f"{p['wall_ms_per_chunk']:.2f} wall ms a chunk; penalised (sequential loop) "
+        f"{perf['penalties_sequential']['tokens_per_s']:.1f} tokens/s; spec_k 4 with controls "
+        f"{perf['spec_k4']['tokens_per_s']:.1f} tokens/s; device ms a chunk "
+        f"{ctl_prof['device_ms_per_chunk']:.3f} against {plain_prof['device_ms_per_chunk']:.3f} "
+        f"plain (+{perf['profile']['added_kernels_per_chunk']:.0f} kernels a chunk)")
+    perf["http"] = phase_controls_http(eng, params, cfg, prompts, dev)
+    del eng
+    perf["small_float32"] = phase_controls_small_fp32(dev)
+    return perf
+
+
+def chunk_profile(eng, specs, label) -> dict:
+    """CONTROL_WINDOW consecutive overlapped steps of a full batch under
+    torch.profiler: device ms and kernels a chunk, and the graph keys the
+    window replayed (none captured inside it)."""
+    from elastic_gpu_scheduler_tpu_torch.models.serving import Request
+
+    K = eng.fused_steps
+    reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=6 * K, **kw))
+            for p, kw in specs[: eng.max_batch]]
+    eng._admit()  # the prefills, outside the window
+    eng.step()
+    eng.step()
+    keys = []
+    real = eng._replay_chunk
+
+    def spy(key, args, static):
+        keys.append(list(key))
+        return real(key, args, static)
+
+    def window():
+        for _ in range(CONTROL_WINDOW):
+            eng.step()
+
+    eng._replay_chunk = spy
+    cap0 = eng.graphs_captured
+    try:
+        wall_ms, kernels = profiled(window, f"{CONTROL_WINDOW} {label} chunks", cpu=True)
+    finally:
+        del eng._replay_chunk
+    check(eng.graphs_captured == cap0, f"{label}: a graph was captured inside the window")
+    eng.run_until_idle()
+    check(all(r.done.is_set() and not r.error for r in reqs), f"{label}: window requests failed")
+    busy = sum(k["ms"] for k in kernels)
+    out = {"keys": keys, "wall_ms_per_chunk": wall_ms / CONTROL_WINDOW,
+           "device_ms_per_chunk": busy / CONTROL_WINDOW,
+           "kernels_per_chunk": sum(k["count"] for k in kernels) / CONTROL_WINDOW,
+           "idle_share": 1 - busy / wall_ms, "top": kernels[:10]}
+    log(f"{label} chunk profile: {out['device_ms_per_chunk']:.3f} device ms and "
+        f"{out['kernels_per_chunk']:.0f} kernels a chunk, keys {keys}")
+    return out
+
+
+def post_json(addr, body, timeout=300):
+    conn = http.client.HTTPConnection(*addr, timeout=timeout)
+    conn.request("POST", "/v1/completions", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, resp.getheader("Content-Type"), data
+
+
+def get_json(addr, path):
+    conn = http.client.HTTPConnection(*addr, timeout=30)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    return resp.status, body
+
+
+def phase_controls_http(eng, params, cfg, prompts, dev) -> dict:
+    """``n`` = 2 with a seed and logprobs in JSON and SSE on the
+    card-resident engine (the same choices both ways: one mode, one
+    batch); a flood of 16 concurrent completions against ``max_queue=1``
+    must meet at least one 429; /v1/stats reports ``max_queue``."""
+    import threading
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.server.inference import serve_inference
+
+    body = {"prompt": prompts[0], "max_tokens": 16, "n": 2, "seed": 7, "temperature": 0.8,
+            "logprobs": 3}
+    server, loop = serve_inference(eng, port=0, host="127.0.0.1")
+    addr = server.server_address
+    try:
+        code, _, data = post_json(addr, body)
+        check(code == 200, f"n=2 completion answered {code}")
+        choices = json.loads(data)["choices"]
+        check([c["index"] for c in choices] == [0, 1], "n=2: choices not indexed 0, 1")
+        for c in choices:
+            lp = c["logprobs"]
+            check(len(c["tokens"]) == len(lp["token_logprobs"]) == 16
+                  and all(len(t) == 3 for t in lp["top_logprobs"]), "n=2: logprobs malformed")
+        code, ctype, data = post_json(addr, dict(body, stream=True))
+        check(code == 200 and ctype == "text/event-stream", f"SSE answered {code} {ctype}")
+        events = [e[len("data: "):] for e in data.decode().split("\n\n")
+                  if e.startswith("data: ")]
+        check(events and events[-1] == "[DONE]", "SSE stream did not end with [DONE]")
+        events = [json.loads(e) for e in events[:-1]]
+        check(all(len(e["top_logprobs"]) == 3 and "logprob" in e for e in events),
+              "SSE events carry no logprobs")
+        streamed = [[e["token"] for e in events if e["index"] == k] for k in (0, 1)]
+        check([len(t) for t in streamed] == [16, 16], "SSE: not 16 tokens a choice")
+        same = streamed == [c["tokens"] for c in choices]
+        code, stats = get_json(addr, "/v1/stats")
+        check(code == 200 and stats["max_queue"] == 0 and stats["logprobs_k"] == 5,
+              "stats: max_queue / logprobs_k")
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+
+    qeng = InferenceEngine(params, cfg, paged_kernel=True, device=dev, max_queue=1, **ENGINE)
+    server, loop = serve_inference(qeng, port=0, host="127.0.0.1")
+    addr = server.server_address
+    codes = []
+    try:
+        def one(i):
+            codes.append(post_json(addr, {"prompt": prompts[i % len(prompts)][:256],
+                                          "max_tokens": 16})[0])
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        check(not any(t.is_alive() for t in threads), "flood requests did not finish")
+        code, stats = get_json(addr, "/v1/stats")
+        check(code == 200 and stats["max_queue"] == 1, "stats: max_queue")
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+    del qeng
+    res = {"n2_json_sse_equal": same, "flood": {"200": codes.count(200),
+                                                "429": codes.count(429)}}
+    check(codes.count(429) >= 1 and codes.count(200) + codes.count(429) == 16,
+          f"flood against max_queue=1 answered {sorted(codes)}")
+    log(f"controls HTTP: n=2 with seed and logprobs in JSON and SSE (choices equal both "
+        f"ways: {same}); a flood of 16 "
+        f"against max_queue=1: {codes.count(200)} answered 200, {codes.count(429)} 429; "
+        f"/v1/stats reports max_queue")
+    return res
+
+
+def small_engine(sp, small, where, **kw):
+    """The small float32 engine of phase 6e (``small_tokens``' geometry)."""
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+
+    kw = dict(dict(max_batch=4, max_len=128, page_size=16, fused_steps=8, paged_kernel=True),
+              **kw)
+    return InferenceEngine(sp, small, device=where, **kw)
+
+
+def drive_small(se, specs, max_new=24):
+    """(prompt, fields) requests through ``se`` until idle."""
+    from elastic_gpu_scheduler_tpu_torch.models.serving import Request
+
+    rs = [se.submit(Request(prompt=list(q), max_new_tokens=max_new, **extra))
+          for q, extra in specs]
+    se.run_until_idle()
+    for r in rs:
+        check(r.done.is_set() and not r.error, f"small engine request failed: {r.error}")
+    return rs
+
+
+def small_controls(sp, small, where, specs, max_new=24, **kw):
+    return drive_small(small_engine(sp, small, where, **kw), specs, max_new)
+
+
+def small_spill(sp, small, where, victim):
+    """``victim`` (prompt, fields) driven into page pressure, then a
+    higher-priority request: it spills and resumes."""
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
+
+    se = InferenceEngine(sp, small, device=where, max_batch=2, max_len=64, page_size=8,
+                         n_pages=6, fused_steps=2, paged_kernel=True)
+    v = se.submit(Request(prompt=list(victim[0]), max_new_tokens=30, **victim[1]))
+    for _ in range(40):
+        se._admit()
+        se.step()
+        if not se.free_pages:
+            break
+    se.submit(Request(prompt=[2, 4, 6, 8, 10, 12, 1, 7], max_new_tokens=8, priority=5))
+    se.run_until_idle()
+    check(se.spills >= 1 and v.done.is_set() and not v.error, "the small spill did not spill")
+    return v
+
+
+def phase_controls_small_fp32(dev) -> dict:
+    """Small float32 model: greedy requests carrying each control give the
+    port's CPU tokens on the card, with equal top ids and logprobs within
+    1e-4, sequential, overlapped, spec_k 4 and int8 + prefix + chunked
+    (there within 1e-2: the int8 pool's rounding is a step function, and a
+    K/V value within float32 rounding of a half step lands on neighbouring
+    int8 values on the card and the CPU; the error is reported); a
+    seeded sampled request gives the same tokens alone, batched, under
+    overlap, under spec_k 4 and after a spill and resume."""
+    small, sp = small_fp32()
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (3, 5, 17, 40, 9)]
+    plain = small_controls(sp, small, "cpu", [(prompts[3], {})], overlap=False)
+    stops = (plain[0].output[0], plain[0].output[3])
+    mix = [dict(logit_bias={3: 2.0, 40: -4.0, 100: 1.5}, logprobs=5),
+           dict(allowed_tokens=tuple(range(200, 264)), logprobs=3),
+           dict(frequency_penalty=0.7, presence_penalty=0.4, logprobs=2),
+           dict(min_tokens=12, stop_tokens=stops),
+           dict(logprobs=5)]
+    specs = list(zip(prompts, mix))
+    modes = {"sequential": dict(overlap=False), "overlapped": dict(overlap=True),
+             f"spec_k {SPEC_K}": dict(spec_k=SPEC_K),
+             "int8 prefix chunked": dict(kv_int8=True, prefix_cache=True, prefill_chunk=16)}
+    worst = {}
+    for name, kw in modes.items():
+        tol = 1e-2 if kw.get("kv_int8") else 1e-4
+        waves = [specs, specs[2:4]] if kw.get("prefix_cache") else [specs]
+        outs = {}
+        for where in ("cpu", dev):
+            se = small_engine(sp, small, where, **kw)
+            got = []
+            for wave in waves:
+                got += drive_small(se, wave)
+            outs[str(where)] = got
+            if kw.get("prefix_cache"):
+                check(se.prefix_admission_hits >= 2, "small int8 prefix run missed the cache")
+        cpu, card = outs["cpu"], outs[str(dev)]
+        check([r.output for r in card] == [r.output for r in cpu],
+              f"float32 controls: card tokens differ from the CPU's ({name})")
+        for a, b in zip(card, cpu):
+            if b.logprobs:
+                check([[t for t, _ in x] for x in a.top_logprobs]
+                      == [[t for t, _ in x] for x in b.top_logprobs],
+                      f"float32 controls: top ids differ ({name})")
+                err = max(abs(x - y) for x, y in zip(a.token_logprobs, b.token_logprobs))
+                err = max([err] + [abs(u[1] - v[1]) for x, y in
+                                   zip(a.top_logprobs, b.top_logprobs) for u, v in zip(x, y)])
+                worst[name] = max(worst.get(name, 0.0), err)
+                check(err <= tol, f"float32 controls: logprobs {err:.3g} apart ({name}, "
+                      f"tol {tol})")
+    seeded = ([3, 9, 14, 27, 5, 1, 2, 6], dict(temperature=0.9, seed=77, logprobs=2))
+    runs = {
+        "alone": small_controls(sp, small, dev, [seeded], max_new=30, overlap=False)[-1],
+        "batched": small_controls(sp, small, dev, specs + [seeded], max_new=30,
+                                  overlap=False)[-1],
+        "overlap": small_controls(sp, small, dev, specs + [seeded], max_new=30)[-1],
+        f"spec_k {SPEC_K}": small_controls(sp, small, dev, specs + [seeded], max_new=30,
+                                           spec_k=SPEC_K)[-1],
+        "spill and resume": small_spill(sp, small, dev, seeded),
+    }
+    want = runs["alone"].output
+    check(len(want) == 30 and all(r.output == want for r in runs.values()),
+          "float32: a seeded request's tokens differ across runs "
+          + json.dumps({k: r.output for k, r in runs.items()}))
+    cpu_seeded = small_controls(sp, small, "cpu", [seeded], max_new=30, overlap=False)[-1]
+    log(f"small float32 controls: card tokens and top ids equal the CPU's in {len(modes)} "
+        f"modes; logprob max abs error by mode {json.dumps(worst)} (tol 1e-4, int8 1e-2); "
+        f"a seeded request identical in "
+        f"{len(runs)} card runs ({', '.join(runs)}); card vs CPU seeded tokens equal: "
+        f"{cpu_seeded.output == want}")
+    return {"modes": list(modes), "logprob_max_abs_err": worst, "seeded_runs": list(runs),
+            "seeded_card_equals_cpu": cpu_seeded.output == want}
+
+
 # -- phase 7: HTTP ---------------------------------------------------------
 
 
@@ -2274,6 +2769,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 6e. per-request controls on the same weights
+    cperf = phase_controls_engine(dev, eng.params, eng.cfg, prompts, reqs)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 6b. the prefix-cached, chunked, int8-KV engine on the same weights
     peng, plaunches, k3_sampler, k2i_sampler, pperf = phase_prefix_engine(
         dev, eng.params, eng.cfg)
@@ -2306,6 +2806,7 @@ def main() -> int:
     log(json.dumps({"engine": perf}))
     log(json.dumps({"overlap_engine": operf}))
     log(json.dumps({"spec_engine": sperf}))
+    log(json.dumps({"controls_engine": cperf}))
     log(json.dumps({"prefix_engine": pperf}))
     log(json.dumps({"train": train_perf, "train_profile_idle_share": train_prof["idle_share"],
                     "launcher": launcher_res}))

@@ -53,6 +53,18 @@ join and leave a fixed-shape batch between fused decode chunks:
   draft model (``draft``), accepting per slot the longest prefix the
   model itself would have produced plus its own next token: greedy
   output equals the non-speculative engine's.
+- **Per-request controls**, applied as the reference applies them in
+  every sampling distribution (the decode chunk, the verify pass and the
+  admission prefill): ``logit_bias`` and ``allowed_tokens`` through
+  per-slot device-resident bias rows (``_bias_row``), ``min_tokens``
+  through a stop-id suppression row gated per step (``_stop_row``), the
+  frequency and presence penalties through a count carry started from the
+  host's counts (``_host_counts``; a batch holding a penalised request
+  takes the sequential loop), per-request ``seed`` draws keyed by (seed,
+  position) (``sampling.seeded_uniforms``), and ``logprobs``: the chosen
+  token's log-probability and the top ``logprobs_k`` of every step's
+  distribution.  ``max_queue`` bounds the admission queue
+  (``QUEUE_FULL_ERROR``).
 
 The step functions run under ``torch.inference_mode()``: serving
 parameters that require grad (a model fresh from ``models/train.py``)
@@ -63,11 +75,8 @@ some; a higher-priority stalled slot spills a lower-priority one (its
 request requeues and resumes exactly); if every slot is stalled the engine
 raises "page pool exhausted".
 
-Not ported yet, and rejected by name: LoRA adapters, a mesh, the bounded
-queue and the compile cache (engine options), the per-request logprobs,
-penalties, logit bias, allowed tokens, min_tokens and seeds (``Request``
-has no such fields; ``logprobs_k`` is stored and changes nothing until a
-request may ask for logprobs), and the disaggregated KV export / import /
+Not ported yet, and rejected by name: LoRA adapters, a mesh and the
+compile cache (engine options), and the disaggregated KV export / import /
 migration verbs.
 """
 
@@ -104,15 +113,16 @@ from .transformer import (
     torch_dtype,
 )
 
-# structured rejection sentinel: the HTTP layer maps it to a 503
+# structured rejection sentinels: the HTTP layer maps them to 503 / 429
 DRAINING_ERROR = "server draining"
+QUEUE_FULL_ERROR = "admission queue full"
 
 log = logging.getLogger("tpu-scheduler")
 
 SCRATCH_PAGE = 0  # reserved; inactive slots write here, nobody reads it
 
 # reference engine options this slice does not serve (a truthy value raises)
-_UNPORTED_OPTIONS = ("adapters", "mesh", "max_queue", "compile_cache")
+_UNPORTED_OPTIONS = ("adapters", "mesh", "compile_cache")
 
 
 # -- paged KV pool -----------------------------------------------------------
@@ -199,14 +209,35 @@ class Request:
     stop_tokens: tuple = ()
     # streaming: called from the engine thread with each emitted token id
     on_token: Optional[object] = None
+    # > 0: per emitted token, its logprob in ``token_logprobs`` and this
+    # many top alternatives (id, logprob) in ``top_logprobs``, from the
+    # distribution sampled from (after bias and penalties); clamped to the
+    # engine's ``logprobs_k``
+    logprobs: int = 0
+    # OpenAI repetition penalties: logits -= frequency_penalty x count +
+    # presence_penalty x (count > 0), counting GENERATED tokens only
+    frequency_penalty: float = 0.0
+    presence_penalty: float = 0.0
+    # stop ids cannot be sampled (their logits sit at -1e9) until this many
+    # tokens have been emitted; max_new_tokens still caps the total
+    min_tokens: int = 0
+    # sampling seed: draws keyed by (seed, position), the same whatever
+    # the batch, slot, engine mode, restart or spill; None → engine stream
+    seed: Optional[int] = None
+    # non-empty: only these ids can be sampled (every other id at -1e9)
+    allowed_tokens: tuple = ()
     # admission class (higher first, FIFO within a class); under page
     # pressure a stalled slot spills a strictly lower-priority one
     priority: int = 0
     # internal: times the serving loop evicted this request because every
     # slot stalled (a second eviction fails it)
     pool_spills: int = 0
+    # token id → additive logit bias, in every sampling distribution
+    logit_bias: dict = field(default_factory=dict)
     done: threading.Event = field(default_factory=threading.Event)
     output: list[int] = field(default_factory=list)
+    token_logprobs: list = field(default_factory=list)
+    top_logprobs: list = field(default_factory=list)
     error: str = ""
     # the engine thread owns output/error/done; other threads read output
     # after done, and may only set ``cancelled`` (checked every chunk)
@@ -403,32 +434,123 @@ def _paged_prefill_prefixed(params, tokens, kv, pages, t0: int, t_real: int, *, 
     return logits.float(), kv
 
 
+def _bias_row(req: Request, vocab_size: int) -> np.ndarray:
+    """The additive logit row of a request's allowed_tokens + logit_bias:
+    ONE construction for the admission prefill (added on the host) and
+    the device-resident per-slot rows, so the two cannot part."""
+    row = np.zeros(vocab_size, np.float32)
+    for t, b in req.logit_bias.items():
+        row[t] += b
+    if req.allowed_tokens:
+        # the whitelist dominates both ways: banned ids sit at a flat -1e9
+        # whatever their bias, and an allowed id's bias is clamped above
+        # -1e8, so no bias can push it beneath the banned set
+        allowed_idx = np.asarray(req.allowed_tokens, np.int64)
+        row[allowed_idx] = np.maximum(row[allowed_idx], -1e8)
+        banned = np.ones(vocab_size, bool)
+        banned[allowed_idx] = False
+        row[banned] = -1e9
+    return row
+
+
+def _stop_row(req: Request, vocab_size: int) -> np.ndarray:
+    """The min_tokens suppression row: -1e9 at the request's stop ids,
+    added while the emitted count is below the floor.  Out-of-range ids
+    are skipped: they can never be sampled, and ``_stops`` still honours
+    them."""
+    row = np.zeros(vocab_size, np.float32)
+    ids = [t for t in req.stop_tokens if 0 <= t < vocab_size]
+    if ids:
+        row[np.asarray(ids, np.int64)] = -1e9
+    return row
+
+
+def _bias_row_cached(req: Request, vocab_size: int) -> np.ndarray:
+    """``_bias_row`` memoised on the request: admission needs it twice
+    (the slot's device row and the prefill's host add), and a spilled
+    request re-admits with the same row."""
+    row = getattr(req, "_bias_row_memo", None)
+    if row is None or row.shape[0] != vocab_size:
+        row = _bias_row(req, vocab_size)
+        req._bias_row_memo = row
+    return row
+
+
+def _stop_row_cached(req: Request, vocab_size: int) -> np.ndarray:
+    """``_stop_row`` memoised on the request (the same double use)."""
+    row = getattr(req, "_stop_row_memo", None)
+    if row is None or row.shape[0] != vocab_size:
+        row = _stop_row(req, vocab_size)
+        req._stop_row_memo = row
+    return row
+
+
+def _logprob_rows(logits, chosen, k: int):
+    """(chosen_lp, top_ids int32, top_lps) of one step's logits (..., V)
+    float32 and chosen ids (...): the log-softmax through one logsumexp,
+    the top-k alternatives sharing its normaliser."""
+    lse = torch.logsumexp(logits, dim=-1)
+    chosen_lp = torch.gather(logits, -1, chosen.long()[..., None])[..., 0] - lse
+    top = torch.topk(logits, k, dim=-1)
+    return chosen_lp, top.indices.to(torch.int32), top.values - lse[..., None]
+
+
+def _penalise(logits, cnt, fpens, ppens):
+    """logits - fpen·cnt - ppen·(cnt > 0), per row (B, V)."""
+    return logits - fpens[:, None] * cnt - ppens[:, None] * (cnt > 0)
+
+
 @torch.inference_mode()
 def _fused_serve_chunk(
     params, kv, tables, tokens, lengths, active, prompts, prompt_lens,
-    temps, top_ks, top_ps, generator,
+    temps, top_ks, top_ps, generator, bias=None, fpens=None, ppens=None, counts=None,
+    seeds=None, seeded=None, stop_rows=None, min_toks=None,
     *, cfg, page_size, n_steps, use_filters, use_temp, paged_kernel=False,
+    logprobs_k=0, use_pen=False, use_seed=False, use_min=False,
 ):
     """``n_steps`` decode iterations with sampling and prompt feeding on
-    the device.  Returns (sampled (B, n_steps), kv, next_tokens (B,),
-    new_lengths (B,)).
+    the device.  Returns (out, kv, next_tokens (B,), new_lengths (B,)):
+    ``out`` is the sampled (B, n_steps), or with ``logprobs_k`` > 0 the
+    tuple (sampled, chosen_lp (B, n_steps), top_ids (B, n_steps, k),
+    top_lps (B, n_steps, k)).
 
     Step s feeds the token at position lengths+s and samples from its
     logits; the host decides afterwards which samples are real emissions
     (position >= prompt_len-1).  ``use_filters``: some row asks for
-    top-k/top-p; ``use_temp``: some row samples (temperature > 0)."""
+    top-k/top-p; ``use_temp``: some row samples (temperature > 0).
+
+    The per-request controls, in the reference's order: ``bias`` (B, V)
+    is added to every step's logits (a zero row is a bitwise no-op);
+    ``use_min`` adds ``stop_rows`` at the steps whose emitted index
+    lengths+1-prompt_lens is below ``min_toks``; ``use_pen`` counts the
+    fed token when it is a generated one (on top of the host's
+    ``counts``) and subtracts the penalties; ``use_seed`` draws the rows
+    with ``seeded`` from (``seeds``, position lengths)."""
     outs = []
+    if use_pen:
+        bidx = torch.arange(tokens.shape[0], device=tokens.device)
+        cnt = counts.float()
     for _ in range(n_steps):
         logits, kv = _paged_decode_step(
             params, tokens, kv, tables, lengths, cfg, page_size, paged_kernel
         )
+        if bias is not None:
+            logits = logits + bias
+        if use_min:
+            pre = (lengths + 1 - prompt_lens) < min_toks
+            logits = logits + torch.where(pre[:, None], stop_rows, 0.0)
+        if use_pen:
+            gen = active & (lengths >= prompt_lens)
+            cnt = cnt.index_put((bidx, tokens.long()), gen.float(), accumulate=True)
+            logits = _penalise(logits, cnt, fpens, ppens)
+        row_seeds = (seeds, seeded, lengths) if use_seed else None
         if use_filters:
-            sampled = sample_batched(logits, generator, temps, top_ks, top_ps)
+            sampled = sample_batched(logits, generator, temps, top_ks, top_ps, row_seeds)
         else:
             sampled = torch.argmax(logits, dim=-1).to(torch.int32)
             if use_temp:
                 scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
-                temped = categorical(scaled, generator).to(torch.int32)
+                temped = categorical(scaled, generator, row_seeds).to(torch.int32)
                 sampled = torch.where(temps > 0, temped, sampled)
         new_len = lengths + active.to(torch.int32)
         in_prompt = new_len < prompt_lens
@@ -437,8 +559,10 @@ def _fused_serve_chunk(
         next_tok = torch.where(in_prompt, prompt_next, sampled)
         tokens = torch.where(active, next_tok, tokens)
         lengths = new_len
-        outs.append(sampled)
-    return torch.stack(outs, dim=1), kv, tokens, lengths
+        outs.append((sampled, *_logprob_rows(logits, sampled, logprobs_k))
+                    if logprobs_k > 0 else (sampled,))
+    out = tuple(torch.stack(col, dim=1) for col in zip(*outs))
+    return (out if logprobs_k > 0 else out[0]), kv, tokens, lengths
 
 
 @torch.inference_mode()
@@ -446,13 +570,13 @@ def _chunk_in_place(params, kv, tables, tokens, lengths, *args, **static):
     """``_fused_serve_chunk`` with the carry written back IN PLACE: the
     chunk's final (tokens, lengths) land in the tensors it read, so the
     next chunk (or the next replay of a CUDA graph captured around this
-    call) starts from them.  Returns the sampled (B, n_steps)."""
-    sampled, _, new_tok, new_len = _fused_serve_chunk(
+    call) starts from them.  Returns the chunk's ``out``."""
+    out, _, new_tok, new_len = _fused_serve_chunk(
         params, kv, tables, tokens, lengths, *args, **static
     )
     tokens.copy_(new_tok)
     lengths.copy_(new_len)
-    return sampled
+    return out
 
 
 def _cached_attention_rows(q, cache_k, cache_v, starts, window: int = 0):
@@ -529,7 +653,10 @@ def _verify_logits(params, kv, tables, feed, lengths, active, *, cfg, page_size,
 @torch.inference_mode()
 def _fused_verify_chunk(
     params, kv, tables, feed, lengths, active, temps, top_ks, top_ps, generator,
+    bias=None, fpens=None, ppens=None, counts=None, plens=None, seeds=None, seeded=None,
+    stop_rows=None, min_toks=None,
     *, cfg, page_size, use_filters, use_temp, paged_kernel=False,
+    logprobs_k=0, use_pen=False, use_seed=False, use_min=False,
 ):
     """ONE wide pass over every slot's verify window (speculative decoding
     inside the paged engine).
@@ -543,20 +670,50 @@ def _fused_verify_chunk(
     prefix the model would itself have produced; rejected rows are
     rewritten by a later pass before any query attends to them, so
     rollback is free.  ``use_filters``: some row asks for top-k / top-p;
-    ``use_temp``: some row samples."""
+    ``use_temp``: some row samples.
+
+    The per-request controls follow the decode chunk's, by window
+    position: window position j's pick is the token for global position
+    lengths+j+1, so ``use_min`` suppresses stop ids where its emitted
+    index lengths+j+1-plens is below ``min_toks``; ``use_pen`` carries
+    one running (B, V) count across the window (the fed token j counts
+    when generated), exact for every accepted position; ``use_seed``
+    keys window position j by position lengths+j, the decode chunk's key
+    for the same position.  With ``logprobs_k`` > 0 ``picked`` becomes
+    (picked, chosen_lp, top_ids, top_lps), position j's rows those of
+    the distribution at fed position j."""
     logits = _verify_logits(params, kv, tables, feed, lengths, active, cfg=cfg,
                             page_size=page_size, paged_kernel=paged_kernel)
+    B, W = feed.shape
+    positions = lengths[:, None] + torch.arange(W, device=feed.device, dtype=lengths.dtype)
+    if bias is not None:
+        logits = logits + bias[:, None, :]
+    if use_min:
+        pre = (positions + 1 - plens[:, None]) < min_toks[:, None]
+        logits = logits + torch.where(pre[..., None], stop_rows[:, None, :], 0.0)
+    if use_pen:
+        bidx = torch.arange(B, device=feed.device)
+        gen = (positions >= plens[:, None]).float()
+        cnt = counts.float()
+        cols = []
+        for j in range(W):
+            cnt = cnt.index_put((bidx, feed[:, j].long()), gen[:, j], accumulate=True)
+            cols.append(_penalise(logits[:, j], cnt, fpens, ppens))
+        logits = torch.stack(cols, dim=1)
     picked = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, W)
     if use_filters or use_temp:
         cols = []
-        for j in range(feed.shape[1]):
+        for j in range(W):
             lg = logits[:, j]
+            row_seeds = (seeds, seeded, positions[:, j]) if use_seed else None
             if use_filters:
-                cols.append(sample_batched(lg, generator, temps, top_ks, top_ps))
+                cols.append(sample_batched(lg, generator, temps, top_ks, top_ps, row_seeds))
             else:
                 scaled = lg / torch.clamp(temps, min=1e-6)[:, None]
-                cols.append(categorical(scaled, generator).to(torch.int32))
+                cols.append(categorical(scaled, generator, row_seeds).to(torch.int32))
         picked = torch.where((temps > 0)[:, None], torch.stack(cols, dim=1), picked)
+    if logprobs_k > 0:
+        return (picked, *_logprob_rows(logits, picked, logprobs_k)), kv
     return picked, kv
 
 
@@ -764,17 +921,26 @@ class _PendingChunk:
     ``pairs`` pins the (slot, request) identity at dispatch time: a slot
     released or re-tenanted before the drain is skipped, which is what
     makes the overlapped pipeline's one-chunk overshoot safe to discard.
-    On CUDA the sampled tokens travel to ``host`` (a pinned buffer of the
-    engine's two, which alternate) by a copy queued right behind the
-    chunk, and ``ready`` is the event recorded after that copy: the drain
-    waits on it alone, never on work queued later."""
+    On CUDA the chunk's outputs travel to ``host`` (pinned buffers of one
+    of the engine's two sets, which alternate) by copies queued right
+    behind the chunk, and ``ready`` is the event recorded after them: the
+    drain waits on it alone, never on work queued later."""
 
-    out: torch.Tensor  # sampled (B, n_steps), on the engine's device
+    out: object  # sampled (B, n_steps), + the logprob triplet when want_lp
+    want_lp: bool
     n_steps: int
     pos0: np.ndarray  # per-slot lengths BEFORE the chunk ran
     pairs: list  # [(slot index, Request at dispatch time), ...]
-    host: Optional[torch.Tensor] = None
+    host: Optional[list] = None  # pinned copies of ``out``'s tensors
     ready: Optional[object] = None  # torch.cuda.Event
+
+    def arrays(self) -> list:
+        """``out``'s tensors as numpy arrays, once the chunk is done."""
+        if self.ready is not None:
+            self.ready.synchronize()  # this chunk's copies only
+            return [h.numpy() for h in self.host]
+        outs = self.out if self.want_lp else (self.out,)
+        return [t.numpy() for t in outs]
 
 
 def _tree_to(tree, device):
@@ -804,6 +970,7 @@ class InferenceEngine:
         spec_ngram: int = 3,
         draft: Optional[tuple] = None,
         logprobs_k: int = 5,
+        max_queue: int = 0,
         device=None,
         **unported,
     ):
@@ -840,9 +1007,12 @@ class InferenceEngine:
         (needs ``spec_k`` > 0).  It keeps a dense per-slot cache of its
         own.
 
-        ``logprobs_k``: the top-k width of per-token logprobs, stored as
-        the reference stores it; no request asks for logprobs in this
-        slice of the port."""
+        ``logprobs_k``: the top-k width of per-token logprobs (0 turns
+        logprobs off; a request asking more is clamped to it).
+
+        ``max_queue`` > 0: ``submit`` fails a request with
+        ``QUEUE_FULL_ERROR`` (HTTP 429) while that many wait; spill
+        requeues bypass the cap."""
         unknown = sorted(set(unported) - set(_UNPORTED_OPTIONS))
         if unknown:
             raise TypeError(f"unknown engine options {unknown}")
@@ -906,6 +1076,27 @@ class InferenceEngine:
         self._work = threading.Event()  # set on enqueue: wakes an idle loop
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(0)
+        # bounded admission (0 = unbounded); the cap-check and the enqueue
+        # are one step under the lock, against a burst of handler threads
+        self.max_queue = max(0, max_queue)
+        self._cap_lock = threading.Lock()
+        # per-request controls: per-slot bias rows (allowed_tokens and
+        # logit_bias) and min_tokens stop rows, DEVICE-resident and
+        # persistent (captured graphs read them; zero rows change nothing),
+        # cleared at release only where set; the stop rows are made at the
+        # first request that needs them
+        V = cfg.vocab_size
+        with torch.inference_mode(False):
+            self._bias_dev = torch.zeros((max_batch, V), dtype=torch.float32,
+                                         device=self.device)
+        self._bias_set = np.zeros(max_batch, bool)
+        self._stop_dev: Optional[torch.Tensor] = None
+        self._stop_set = np.zeros(max_batch, bool)
+        self.min_toks = np.zeros(max_batch, np.int32)  # REMAINING floor
+        self.freq_pens = np.zeros(max_batch, np.float32)
+        self.pres_pens = np.zeros(max_batch, np.float32)
+        self.seeds = np.zeros(max_batch, np.int64)  # uint32 values
+        self._seeded = np.zeros(max_batch, bool)
         self.steps_run = 0  # fused decode chunks dispatched
         self.prefills_run = 0  # prompt-ingest dispatches
         self.tokens_emitted = 0
@@ -953,7 +1144,7 @@ class InferenceEngine:
         # CUDA: pinned landing buffers for the drains (two, alternating),
         # and the decode chunk as CUDA graphs, one per static shape, all in
         # one memory pool, captured on a stream of their own
-        self._out_bufs: list = []
+        self._out_bufs: list = []  # two sets of {output index: pinned buffer}
         self._out_next = 0
         self._graphs: dict = {}
         self.graphs_captured = 0
@@ -961,10 +1152,7 @@ class InferenceEngine:
         self.graph_warmups = 0  # eager chunks run on scratch before a capture
         self.graph_replays = 0
         if self.device.type == "cuda":
-            self._out_bufs = [
-                torch.empty((max_batch, self.fused_steps), dtype=torch.int32, pin_memory=True)
-                for _ in range(2)
-            ]
+            self._out_bufs = [{}, {}]
             if overlap:
                 self._graph_pool = torch.cuda.graph_pool_handle()
                 self._capture_stream = torch.cuda.Stream(self.device)
@@ -992,7 +1180,8 @@ class InferenceEngine:
 
     def submit(self, req: Request) -> Request:
         """Validate and enqueue; an invalid request is failed at once
-        (req.error set, done signalled)."""
+        (req.error set, done signalled), and so is one that finds the
+        bounded queue full (``QUEUE_FULL_ERROR``)."""
         if self.draining:
             req.error = DRAINING_ERROR
             req.done.set()
@@ -1005,10 +1194,25 @@ class InferenceEngine:
         if req.max_new_tokens <= 0:
             req.done.set()  # nothing to generate
             return req
+        if self.max_queue:
+            # cancelled entries (clients gone) are purged before they can
+            # count against live traffic
+            with self._cap_lock:
+                if self.queue.qsize() >= self.max_queue:
+                    self._purge_cancelled_queued()
+                    if self.queue.qsize() >= self.max_queue:
+                        req.error = QUEUE_FULL_ERROR
+                        req.done.set()
+                        return req
+                self._enqueue(req)
+            return req
         self._enqueue(req)
         return req
 
     def _invalid_reason(self, req: Request) -> Optional[str]:
+        """The reference's validation and normalisation: mutates ``req``
+        (the seed dropped for greedy and masked to uint32, logprobs
+        clamped to ``logprobs_k``), so call it once."""
         if len(req.prompt) < 1:
             return "empty prompt"
         if len(req.prompt) + req.max_new_tokens > self.max_len:
@@ -1016,9 +1220,50 @@ class InferenceEngine:
                 f"prompt {len(req.prompt)} + max_new_tokens "
                 f"{req.max_new_tokens} exceeds max_len {self.max_len}"
             )
+        if req.seed is not None:
+            if isinstance(req.seed, bool) or not isinstance(req.seed, int):
+                return "seed must be an integer"
+            if req.temperature <= 0:
+                req.seed = None  # greedy draws nothing
+            else:
+                req.seed &= 0xFFFFFFFF
+        for pen in (req.frequency_penalty, req.presence_penalty):
+            if not np.isfinite(pen):
+                return "penalties must be finite"
+        V = self.cfg.vocab_size
+        if req.allowed_tokens and not all(
+            isinstance(k, int) and not isinstance(k, bool) and 0 <= k < V
+            for k in req.allowed_tokens
+        ):
+            return f"allowed_tokens must be token ids in [0, {V})"
+        if req.logit_bias and not all(
+            isinstance(k, int) and not isinstance(k, bool) and 0 <= k < V
+            and isinstance(v, (int, float)) and np.isfinite(v)
+            for k, v in req.logit_bias.items()
+        ):
+            return f"logit_bias keys must be token ids in [0, {V}) with finite values"
+        if req.logprobs > 0 and self.logprobs_k <= 0:
+            return "engine built with logprobs_k=0 (logprobs off)"
         if isinstance(req.priority, bool) or not isinstance(req.priority, int):
             return "priority must be an integer"
+        req.logprobs = min(max(0, req.logprobs), self.logprobs_k)
         return None
+
+    def _purge_cancelled_queued(self) -> None:
+        """Drop queued requests cancelled while waiting, so the admission
+        cap does not count them; the list surgery holds the queue's own
+        mutex, safe against the engine thread."""
+        import heapq
+
+        with self.queue.mutex:
+            q = self.queue.queue
+            dead = [e for e in q if e[2].cancelled]
+            for e in dead:
+                q.remove(e)
+            if dead:
+                heapq.heapify(q)
+        for e in dead:
+            e[2].done.set()
 
     def _enqueue(self, req: Request) -> None:
         """Priority-ordered admission (also the spill-requeue path)."""
@@ -1102,22 +1347,36 @@ class InferenceEngine:
             # chunk carry is stale, rebuild it at the next decode dispatch
             self._carry = None
             return
-        if self.overlap:
+        if self.overlap and not self._overlap_blocked():
             self._step_chunk_overlapped()
             return
         self._drain_pending()
         self._step_chunk()
 
+    def _overlap_blocked(self) -> bool:
+        """Penalised requests need counts rebuilt from the host's output
+        lists (``_host_counts``), which lag while a chunk is in flight: a
+        batch holding one takes the exact sequential loop."""
+        return any(req is not None and (req.frequency_penalty or req.presence_penalty)
+                   for req in self.slots)
+
     # -- engine internals ----------------------------------------------------
 
-    def _stops(self, req: Request, tok: int) -> bool:
-        return tok in req.stop_tokens
+    def _stops(self, i: int, req: Request, tok: int) -> bool:
+        """The stop check, honouring min_tokens (``emitted`` already
+        counts ``tok`` at every call site)."""
+        return tok in req.stop_tokens and self.emitted[i] >= req.min_tokens
 
-    def _emit(self, req: Request, tok: int) -> None:
+    def _emit(self, req: Request, tok: int, lp=None, top=None) -> None:
         """Deliver one token.  A raising user callback must never unwind
-        into the engine loop: log it and stop streaming that request."""
+        into the engine loop: log it and stop streaming that request.
+        ``lp`` / ``top``: the token's logprob and its [(id, logprob), ...]
+        alternatives, appended in step with ``output``."""
         self.tokens_emitted += 1
         req.output.append(tok)
+        if req.logprobs > 0:
+            req.token_logprobs.append(None if lp is None else float(lp))
+            req.top_logprobs.append([] if top is None else top)
         if req.on_token is not None:
             try:
                 req.on_token(tok)
@@ -1127,6 +1386,27 @@ class InferenceEngine:
                     "request", exc_info=True,
                 )
                 req.on_token = None
+
+    def _set_row(self, rows: torch.Tensor, i: int, row: np.ndarray) -> None:
+        """Write one slot's (V,) row of a device-resident row set in place
+        (on the engine's stream, so behind any chunk still reading it)."""
+        with torch.inference_mode():
+            rows[i].copy_(torch.from_numpy(row))
+
+    def _clear_bias(self, i: int) -> None:
+        """Zero a released slot's bias row, only if it was set."""
+        if self._bias_set[i]:
+            with torch.inference_mode():
+                self._bias_dev[i].zero_()
+            self._bias_set[i] = False
+
+    def _clear_stop(self, i: int) -> None:
+        """Zero a released slot's min_tokens row, only if it was set."""
+        self.min_toks[i] = 0
+        if self._stop_set[i]:
+            with torch.inference_mode():
+                self._stop_dev[i].zero_()
+            self._stop_set[i] = False
 
     def _admit(self) -> None:
         # while a stalled slot outranks the queue's best, admitting lower
@@ -1139,13 +1419,16 @@ class InferenceEngine:
         for i in range(self.max_batch):
             if self.slots[i] is not None:
                 continue
-            try:
-                neg, seq, req = self.queue.get_nowait()
-            except queue.Empty:
-                return
-            if stall_floor is not None and req.priority < stall_floor:
-                self.queue.put((neg, seq, req))  # keeps its FIFO position
-                return
+            # pop-or-put-back under the cap lock: a submit between the two
+            # would see a queue one short and overshoot max_queue
+            with self._cap_lock:
+                try:
+                    neg, seq, req = self.queue.get_nowait()
+                except queue.Empty:
+                    return
+                if stall_floor is not None and req.priority < stall_floor:
+                    self.queue.put((neg, seq, req))  # keeps its FIFO position
+                    return
             if req.cancelled:
                 req.done.set()
                 continue
@@ -1167,6 +1450,23 @@ class InferenceEngine:
             self.temps[i] = req.temperature
             self.top_ks[i] = req.top_k
             self.top_ps[i] = req.top_p
+            self.freq_pens[i] = req.frequency_penalty
+            self.pres_pens[i] = req.presence_penalty
+            if req.seed is not None:
+                self.seeds[i] = req.seed
+                self._seeded[i] = True
+            if req.logit_bias or req.allowed_tokens:
+                self._set_row(self._bias_dev, i, _bias_row_cached(req, self.cfg.vocab_size))
+                self._bias_set[i] = True
+            # the REMAINING floor: tokens generated before a spill count
+            floor = max(0, req.min_tokens - int(self.gen_before[i]))
+            self.min_toks[i] = floor
+            if floor > 0 and req.stop_tokens:
+                if self._stop_dev is None:
+                    with torch.inference_mode(False):
+                        self._stop_dev = torch.zeros_like(self._bias_dev)
+                self._set_row(self._stop_dev, i, _stop_row_cached(req, self.cfg.vocab_size))
+                self._stop_set[i] = True
             self.emitted[i] = int(self.gen_before[i])
             self.stalled[i] = False
             # no page zeroing: the position mask only exposes positions
@@ -1291,19 +1591,54 @@ class InferenceEngine:
             return
         self.prefilling[i] = False  # the final (or only) pass emits below
         logits = self._prefill_dispatch(i, t0, rem)
+        V = self.cfg.vocab_size
+        host_rows = []  # the rows the decode chunk would add, in its order
+        if req.logit_bias or req.allowed_tokens:
+            host_rows.append(_bias_row_cached(req, V))
+        if self.min_toks[i] > 0 and req.stop_tokens:
+            # this emission's index is gen_before, below the remaining floor
+            host_rows.append(_stop_row_cached(req, V))
+        if host_rows:
+            lg = logits.cpu().numpy()
+            for row in host_rows:
+                lg = lg + row
+            logits = torch.from_numpy(lg).to(self.device)
+        if (req.frequency_penalty or req.presence_penalty) and self.gen_before[i] > 0:
+            # a resumed request's prior output counts from its first emission
+            cnt = np.zeros(V, np.float32)
+            np.add.at(cnt, np.asarray(req.output, np.int64), 1.0)
+            lg = logits.cpu().numpy()
+            lg = lg - req.frequency_penalty * cnt - req.presence_penalty * (cnt > 0)
+            logits = torch.from_numpy(lg.astype(np.float32)).to(self.device)
         if req.temperature > 0:
+            row_seeds = None
+            if req.seed is not None:
+                # keyed like the chunks: the distribution sits at the
+                # prompt's last position
+                dev = self.device
+                row_seeds = (torch.tensor([req.seed], dtype=torch.int64, device=dev),
+                             torch.ones(1, dtype=torch.bool, device=dev),
+                             torch.tensor([plen - 1], dtype=torch.int64, device=dev))
             tok = int(sample_static(
                 logits[None], self.generator, temperature=req.temperature,
-                top_k=req.top_k, top_p=req.top_p,
+                top_k=req.top_k, top_p=req.top_p, row_seeds=row_seeds,
             )[0])
         else:
             tok = int(torch.argmax(logits))
-        self._emit(req, tok)
+        if req.logprobs > 0:
+            # the first emission's logprobs, from the (V,) row on the host
+            lg = logits.cpu().numpy().astype(np.float32)
+            lse = float(np.logaddexp.reduce(lg))
+            top = np.argsort(-lg, kind="stable")[: req.logprobs]
+            self._emit(req, tok, lg[tok] - lse,
+                       [(int(t), float(lg[t] - lse)) for t in top])
+        else:
+            self._emit(req, tok)
         self.emitted[i] = int(self.gen_before[i]) + 1
         self.lengths[i] = plen
         self.next_token[i] = tok
         self._carry_dirty.add(i)
-        if self._stops(req, tok) or self.emitted[i] >= req.max_new_tokens or req.cancelled:
+        if self._stops(i, req, tok) or self.emitted[i] >= req.max_new_tokens or req.cancelled:
             req.done.set()
             self._release_slot(i)
 
@@ -1353,6 +1688,9 @@ class InferenceEngine:
         self.prefilling[i] = False
         self.gen_before[i] = 0
         self.priorities[i] = 0
+        self._seeded[i] = False
+        self._clear_bias(i)
+        self._clear_stop(i)
         if self.draft is not None:
             self.draft_len[i] = 0  # its rows are rewritten lazily
 
@@ -1484,14 +1822,90 @@ class InferenceEngine:
                 self.stalled[i] = True  # pool-pressure stall; retried
         return progressed
 
-    def _sampling_variant(self, active) -> tuple[bool, bool]:
-        """(use_filters, use_temp) of a pass over the ``active`` slots: some
-        row asks for top-k / top-p; some row samples.  Static in the step
-        functions, so greedy batches never pay for sampling."""
-        use_filters = bool(
-            (self.top_ks[active] > 0).any() or (self.top_ps[active] < 1.0).any()
-        )
-        return use_filters, bool((self.temps[active] > 0).any())
+    def _filters_requested(self, active) -> bool:
+        return bool((self.top_ks[active] > 0).any() or (self.top_ps[active] < 1.0).any())
+
+    def _pens_requested(self, active) -> bool:
+        return bool((self.freq_pens[active] != 0).any() or (self.pres_pens[active] != 0).any())
+
+    def _seeds_requested(self, active) -> bool:
+        return bool(self._seeded[active].any())
+
+    def _logprobs_requested(self, active) -> bool:
+        """The logprob-emitting variant only when some active request
+        asked: the default path never pays the top-k."""
+        return any(req is not None and active[i] and req.logprobs > 0
+                   for i, req in enumerate(self.slots))
+
+    def _min_requested(self, active) -> bool:
+        """The stop-suppressing variant only while some active request
+        with stop ids is below its min_tokens floor."""
+        return any(req is not None and active[i] and req.stop_tokens
+                   and self.emitted[i] < req.min_tokens
+                   for i, req in enumerate(self.slots))
+
+    def _variant(self, active) -> dict:
+        """The static flags of a pass over the ``active`` slots, so a batch
+        never pays for a control none of its rows asked for: some row asks
+        for top-k / top-p (``use_filters``), samples (``use_temp``), wants
+        logprobs (``want_lp``), is penalised (``use_pen``), seeded
+        (``use_seed``) or below its min_tokens floor (``use_min``)."""
+        return dict(use_filters=self._filters_requested(active),
+                    use_temp=bool((self.temps[active] > 0).any()),
+                    want_lp=self._logprobs_requested(active),
+                    use_pen=self._pens_requested(active),
+                    use_seed=self._seeds_requested(active),
+                    use_min=self._min_requested(active))
+
+    def _host_counts(self) -> np.ndarray:
+        """(B, V) counts of every GENERATED token at positions below
+        ``lengths``: the penalty state, rebuilt from the output lists at
+        each dispatch so nothing can drift.  A resumed request's output
+        holds its pre-spill tokens, and all of them count."""
+        out = np.zeros((self.max_batch, self.cfg.vocab_size), np.int32)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            n_gen = (int(self.lengths[i]) - int(self.prompt_lens[i])
+                     + int(self.gen_before[i]))
+            if n_gen > 0:
+                np.add.at(out[i], np.asarray(req.output[:n_gen], np.int64), 1)
+        return out
+
+    def _control_args(self, v: dict, *, plens: bool = False) -> list:
+        """The control tensors of a pass of variant ``v``, in the step
+        functions' order (bias, fpens, ppens, counts, [plens,] seeds,
+        seeded, stop_rows, min_toks); a control the variant does not use
+        is None.  The bias rows always ride (zero rows are a no-op)."""
+        ds = self._ds
+        pen, seed, mn = v["use_pen"], v["use_seed"], v["use_min"]
+        out = [
+            self._bias_dev,
+            ds.get("freq_pens", self.freq_pens) if pen else None,
+            ds.get("pres_pens", self.pres_pens) if pen else None,
+            ds.get("counts", self._host_counts()) if pen else None,
+        ]
+        if plens:
+            out.append(ds.get("prompt_lens", self.prompt_lens) if pen or mn else None)
+        return out + [
+            ds.get("seeds", self.seeds) if seed else None,
+            ds.get("seeded", self._seeded) if seed else None,
+            self._stop_dev if mn else None,
+            ds.get("min_toks", self.min_toks) if mn else None,
+        ]
+
+    def _static(self, v: dict, **kw) -> dict:
+        """The step functions' keyword flags for variant ``v``."""
+        return dict(cfg=self.cfg, page_size=self.page_size, paged_kernel=self.paged_kernel,
+                    use_filters=v["use_filters"], use_temp=v["use_temp"],
+                    logprobs_k=self.logprobs_k if v["want_lp"] else 0,
+                    use_pen=v["use_pen"], use_seed=v["use_seed"], use_min=v["use_min"], **kw)
+
+    @staticmethod
+    def _top_list(ids_row, lps_row, n: int) -> list:
+        """[(token id, logprob), ...] of one emission, cut to the asked
+        width."""
+        return [(int(t), float(lp)) for t, lp in zip(ids_row[:n], lps_row[:n])]
 
     def _spec_useful(self) -> bool:
         """The verify pass beats sequential chunks only when some slot can
@@ -1578,19 +1992,32 @@ class InferenceEngine:
                 for d in drafts:
                     feed[i, j] = d
                     j += 1
-        use_filters, use_temp = self._sampling_variant(active)
+        v = self._variant(active)
+        want_lp = v["want_lp"]
         ds = self._ds
         self._last_drain_done = None  # gap metric: decode chunks only
-        picked, self.kv = _fused_verify_chunk(
+        out, self.kv = _fused_verify_chunk(
             self.params, self.kv, ds.get("view", view), ds.put("feed", feed),
             ds.get("lengths", self.lengths), ds.get("active", active),
             ds.get("temps", self.temps), ds.get("top_ks", self.top_ks),
             ds.get("top_ps", self.top_ps), self.generator,
-            cfg=self.cfg, page_size=self.page_size, use_filters=use_filters,
-            use_temp=use_temp, paged_kernel=self.paged_kernel,
+            *self._control_args(v, plens=True), **self._static(v),
         )
-        picked = picked.cpu().numpy()  # (B, W)
+        if want_lp:
+            picked, chosen_lp, top_ids, top_lps = (t.cpu().numpy() for t in out)
+        else:
+            picked = out.cpu().numpy()  # (B, W)
         self.spec_passes += 1
+
+        def emit_at(req, i, tok, w):
+            """Emit with the logprobs of window position w's distribution,
+            the one the token at fed position w + 1 was drawn from."""
+            if want_lp and req.logprobs > 0:
+                self._emit(req, tok, chosen_lp[i, w],
+                           self._top_list(top_ids[i, w], top_lps[i, w], req.logprobs))
+            else:
+                self._emit(req, tok)
+
         for i, req in enumerate(self.slots):
             if req is None or not active[i]:
                 continue
@@ -1613,10 +2040,11 @@ class InferenceEngine:
                 if p + j < plen:
                     continue  # a prompt position: nothing to emit
                 tok = int(feed[i, j])
-                self._emit(req, tok)
+                # accepted: feed[i, j] == picked[i, j - 1], drawn at j - 1
+                emit_at(req, i, tok, j - 1)
                 self.emitted[i] += 1
                 self.spec_accepted += 1
-                if self._stops(req, tok):
+                if self._stops(i, req, tok):
                     stopped = True
                     A = j + 1  # the confirmed rows end at the stop token
                     break
@@ -1627,9 +2055,9 @@ class InferenceEngine:
             if not stopped and not exhausted and p + A >= plen:
                 # the model's own token after the last valid fed position
                 tok = int(picked[i, A - 1])
-                self._emit(req, tok)
+                emit_at(req, i, tok, A - 1)
                 self.emitted[i] += 1
-                if self._stops(req, tok):
+                if self._stops(i, req, tok):
                     stopped = True
             # rows p..p+A-1 hold confirmed K/V; the bonus token (position
             # p+A) is fed, and its row written, by the next pass
@@ -1760,7 +2188,7 @@ class InferenceEngine:
             return None
         self.steps_run += 1
         active, view = prepared
-        use_filters, use_temp = self._sampling_variant(active)
+        v = self._variant(active)
         ds = self._ds
         tok_dev, len_dev = self._carry_feed()
         if pipelined:
@@ -1779,32 +2207,43 @@ class InferenceEngine:
             ds.get_versioned("prompts", self.prompts, self._prompts_version),
             ds.get("prompt_lens", self.prompt_lens), ds.get("temps", self.temps),
             ds.get("top_ks", self.top_ks), ds.get("top_ps", self.top_ps), self.generator,
+            # before the lengths advance below: the counts cover positions
+            # below the chunk's first
+            *self._control_args(v),
         )
-        static = dict(cfg=self.cfg, page_size=self.page_size, n_steps=K,
-                      use_filters=use_filters, use_temp=use_temp,
-                      paged_kernel=self.paged_kernel)
+        static = self._static(v, n_steps=K)
         if self.overlap and self.device.type == "cuda":
-            out = self._replay_chunk((view.shape[1], use_filters, use_temp), args, static)
+            key = (view.shape[1], v["use_filters"], v["use_temp"], v["want_lp"],
+                   v["use_pen"], v["use_seed"], v["use_min"])
+            out = self._replay_chunk(key, args, static)
         else:
             out = _chunk_in_place(*args, **static)
         host = ready = None
         if self._out_bufs:
-            # the tokens' way to the host, queued right behind the chunk
-            host = self._out_bufs[self._out_next]
+            # the outputs' way to the host, queued right behind the chunk,
+            # into pinned buffers made once per (output, shape, dtype)
+            bufs = self._out_bufs[self._out_next]
             self._out_next ^= 1
-            host.copy_(out, non_blocking=True)
+            host = []
+            for j, t in enumerate(out if v["want_lp"] else (out,)):
+                buf = bufs.get(j)
+                if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                    buf = bufs[j] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                buf.copy_(t, non_blocking=True)
+                host.append(buf)
             ready = torch.cuda.Event()
             ready.record()
         pos0 = self.lengths.copy()
         idx = np.nonzero(active)[0]
         self.lengths[idx] += K
         pairs = [(int(i), self.slots[int(i)]) for i in idx]
-        return _PendingChunk(out=out, n_steps=K, pos0=pos0, pairs=pairs, host=host,
-                             ready=ready)
+        return _PendingChunk(out=out, want_lp=v["want_lp"], n_steps=K, pos0=pos0,
+                             pairs=pairs, host=host, ready=ready)
 
-    def _replay_chunk(self, key, args, static) -> torch.Tensor:
+    def _replay_chunk(self, key, args, static):
         """One decode chunk as a CUDA graph replay (captured at the first
-        dispatch of its static shape).  The wrappers counted the graph's
+        dispatch of its static shape and controls variant: the table-view
+        bucket and the six flags of ``_variant``).  The wrappers counted the graph's
         kernel launches once, at capture; every replay adds them to
         ``_build.LAUNCHES``, as eager calls would."""
         entry = self._graphs.get(key)
@@ -1833,7 +2272,7 @@ class InferenceEngine:
                 warm = list(args)
                 warm[2], warm[3], warm[4] = torch.zeros_like(view), tok.clone(), ln.clone()
                 warm[5] = torch.zeros_like(active)
-                warm[-1] = torch.Generator(device=self.device)
+                warm[11] = torch.Generator(device=self.device)
                 _chunk_in_place(*warm, **static)
             torch.cuda.current_stream(self.device).wait_stream(stream)
             self.graph_warmups += 1
@@ -1857,11 +2296,10 @@ class InferenceEngine:
         released or re-tenanted since the dispatch (a stop or cancel seen
         one chunk late under overlap, a spill) are skipped: their in-flight
         tokens are the bounded overshoot and are discarded."""
-        if pending.ready is not None:
-            pending.ready.synchronize()  # this chunk's copy only
-            sampled = pending.host.numpy()  # (B, K)
-        else:
-            sampled = pending.out.numpy()
+        arrs = pending.arrays()
+        sampled = arrs[0]  # (B, K)
+        if pending.want_lp:
+            chosen_lp, top_ids, top_lps = arrs[1:]
         # from here to the next dispatch the device idles unless a later
         # chunk is already queued: the window the host-gap metric measures
         self._last_drain_done = time.perf_counter_ns()
@@ -1878,9 +2316,13 @@ class InferenceEngine:
                 # or past the last prompt token
                 if pos + s >= plen - 1 and self.emitted[i] < req.max_new_tokens:
                     tok = int(sampled[i, s])
-                    self._emit(req, tok)
+                    if pending.want_lp and req.logprobs > 0:
+                        self._emit(req, tok, chosen_lp[i, s],
+                                   self._top_list(top_ids[i, s], top_lps[i, s], req.logprobs))
+                    else:
+                        self._emit(req, tok)
                     self.emitted[i] += 1
-                    if self._stops(req, tok):
+                    if self._stops(i, req, tok):
                         stopped = True  # samples past the stop are dropped
                         break
             # the host mirror of the device carry (same selection), so it

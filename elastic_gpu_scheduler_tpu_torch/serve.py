@@ -6,8 +6,10 @@ slice serves, under the reference's names.  ``--init`` builds random
 weights from the model flags (seed 0); the HF checkpoint
 imports (``--hf``, and ``--draft-hf`` for a draft model) wait for the
 port of ``models/convert.py``.  ``--serve-overlap`` (default ``on``) and
-``--spec-k`` (prompt-lookup drafts) select the engine's modes.  The
-engine runs on the CUDA device unless ``--cpu`` is given.
+``--spec-k`` (prompt-lookup drafts) select the engine's modes;
+``--logprobs-k`` sets the top-k width of per-token logprobs and
+``--max-queue`` bounds the admission queue (429 beyond it).  The engine
+runs on the CUDA device unless ``--cpu`` is given.
 """
 
 from __future__ import annotations
@@ -53,6 +55,12 @@ def build_args(argv=None):
     p.add_argument("--spec-k", type=int, default=0,
                    help=">0 enables speculative decoding (this many draft "
                         "tokens per verify pass, prompt-lookup drafting)")
+    p.add_argument("--logprobs-k", type=int, default=5,
+                   help="top-k width for per-token logprobs (0 disables; "
+                        "requests asking more are clamped)")
+    p.add_argument("--max-queue", type=int, default=0,
+                   help=">0: bound the admission queue; excess requests get "
+                        "429 instead of unbounded tail latency")
     p.add_argument("--serve-overlap", choices=["on", "off"], default="on",
                    help="double-buffered decode dispatch: the next fused "
                         "chunk is dispatched off device-resident state (a "
@@ -92,7 +100,8 @@ def main(argv=None) -> int:
         fused_steps=args.fused_steps, kv_int8=args.kv_int8,
         prefix_cache=args.prefix_cache, paged_kernel=args.paged_kernel,
         prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
-        overlap=args.serve_overlap == "on", device=device,
+        overlap=args.serve_overlap == "on", logprobs_k=args.logprobs_k,
+        max_queue=args.max_queue, device=device,
     )
     server, loop = serve_inference(engine, port=args.port, host=args.host)
     log.info(

@@ -6,16 +6,19 @@ routes this slice serves (stdlib HTTP only):
     POST /v1/completions   → {"prompt": [ids], "max_tokens": N, ...}
                              blocking JSON, or Server-Sent Events with
                              {"stream": true} (``data: {"token": t}`` …
-                             ``data: [DONE]``)
+                             ``data: [DONE]``); the reference's request
+                             controls (logprobs, logit_bias,
+                             allowed_tokens, the penalties, min_tokens,
+                             seed) and ``n`` parallel choices
     GET  /v1/stats         → engine state (slots, pages, queue, prefix cache)
     GET  /healthz          → liveness (503 while draining)
     GET  /version          → build version
 
 ONE engine thread (``EngineLoop``) owns all engine state and drives fused
 chunks; HTTP handler threads only submit requests and wait on them.  A
-body field the slice has not ported (logprobs, penalties, logit bias,
-seeds, adapters, n > 1, ...) is a 400 that names it, never ignored.  The
-reference's disaggregated-serving verbs (``/v1/kv/*``, ``/v1/prefill``,
+body field the port does not serve yet (``adapter``) is a 400 that names
+it, never ignored; a full bounded queue is a 429.  The reference's
+disaggregated-serving verbs (``/v1/kv/*``, ``/v1/prefill``,
 ``/v1/migrate/*``) are not ported and answer 404.
 """
 
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import json
 import logging
+import math
 import queue
 import threading
 import time
@@ -32,18 +36,15 @@ from typing import Optional
 import torch
 
 from .. import __version__
-from ..models.serving import DRAINING_ERROR, InferenceEngine, Request
+from ..models.serving import DRAINING_ERROR, QUEUE_FULL_ERROR, InferenceEngine, Request
 
 log = logging.getLogger("tpu-scheduler")
 
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
+_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found", 429: "Too Many Requests",
             503: "Service Unavailable", 504: "Gateway Timeout"}
 
-# request fields of the reference's API that this slice does not serve
-_UNPORTED_FIELDS = (
-    "logprobs", "logit_bias", "allowed_tokens", "frequency_penalty",
-    "presence_penalty", "min_tokens", "seed", "adapter",
-)
+# request fields of the reference's API that the port does not serve yet
+_UNPORTED_FIELDS = ("adapter",)
 
 
 def choose_kv_victim(eng: InferenceEngine) -> int:
@@ -176,20 +177,54 @@ def _token_ids(x, vocab_size: int, what: str) -> list:
     return x
 
 
+def _strict_seed(v):
+    """None, or an int: a float, bool or string is a 400 (coercing it would
+    hand two different client values the same completion)."""
+    if v is None:
+        return None
+    if isinstance(v, bool) or not isinstance(v, int):
+        raise ValueError("'seed' must be an integer")
+    return v
+
+
+def _strict_nonneg_int(body: dict, name: str, default: int = 0) -> int:
+    """A non-negative JSON integer (a bool or a float is a 400)."""
+    v = body.get(name, default)
+    if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+        raise ValueError(f"'{name}' must be a non-negative integer")
+    return v
+
+
+def _strict_finite_number(body: dict, name: str) -> float:
+    """A finite JSON number: not a bool, not NaN or infinite."""
+    v = body.get(name, 0.0)
+    if isinstance(v, bool) or not isinstance(v, (int, float)) or not math.isfinite(v):
+        raise ValueError(f"'{name}' must be a finite number")
+    return float(v)
+
+
 def _request_from_body(body: dict, vocab_size: int) -> Request:
-    if not isinstance(body, dict):
-        raise ValueError("body must be a JSON object")
     asked = [f for f in _UNPORTED_FIELDS if f in body]
     if asked:
         raise ValueError(f"request fields {asked} are not served by this port yet")
-    n = body.get("n", 1)
-    if n != 1 or isinstance(n, bool):
-        raise ValueError("'n' other than 1 is not served by this port yet")
     prompt = _token_ids(body.get("prompt"), vocab_size, "prompt")
     priority = body.get("priority", 0)
     if isinstance(priority, bool) or not isinstance(priority, int):
         raise ValueError("'priority' must be an integer")
     stop = _token_ids(body.get("stop", []), vocab_size, "stop")
+    logprobs = _strict_nonneg_int(body, "logprobs")
+    bias_raw = body.get("logit_bias", {})
+    if not isinstance(bias_raw, dict):
+        raise ValueError("'logit_bias' must be an object of id -> bias")
+    bias = {}
+    for k, v in bias_raw.items():
+        try:
+            tid = int(k)  # JSON object keys are strings
+        except (TypeError, ValueError):
+            raise ValueError(f"logit_bias key {k!r} is not a token id") from None
+        if not isinstance(v, (int, float)) or isinstance(v, bool):
+            raise ValueError(f"logit_bias value for {k!r} must be a number")
+        bias[tid] = float(v)
     return Request(
         prompt=prompt,
         max_new_tokens=int(body.get("max_tokens", 16)),
@@ -197,13 +232,52 @@ def _request_from_body(body: dict, vocab_size: int) -> Request:
         top_k=int(body.get("top_k", 0)),
         top_p=float(body.get("top_p", 1.0)),
         stop_tokens=tuple(stop),
+        logprobs=logprobs,
+        logit_bias=bias,
+        frequency_penalty=_strict_finite_number(body, "frequency_penalty"),
+        presence_penalty=_strict_finite_number(body, "presence_penalty"),
+        min_tokens=_strict_nonneg_int(body, "min_tokens"),
         priority=priority,
+        seed=_strict_seed(body.get("seed")),
+        allowed_tokens=tuple(
+            _token_ids(body.get("allowed_tokens", []), vocab_size, "allowed_tokens")
+        ),
     )
 
 
+def _requests_from_body(body: dict, vocab_size: int, max_batch: int) -> list:
+    """The ``n`` choices of one completion body (``n`` in [1, max_batch]);
+    with a seed, choice k draws with seed + k."""
+    if not isinstance(body, dict):
+        raise ValueError("body must be a JSON object")
+    n = body.get("n", 1)
+    if not isinstance(n, int) or isinstance(n, bool) or not 1 <= n <= max_batch:
+        raise ValueError(f"'n' must be an integer in [1, {max_batch}]")
+    reqs = []
+    for k in range(n):
+        req = _request_from_body(body, vocab_size)
+        if n > 1 and req.seed is not None:
+            req.seed = req.seed + k
+        reqs.append(req)
+    return reqs
+
+
+def _logprobs_payload(req: Request) -> dict:
+    return {
+        "token_logprobs": req.token_logprobs,
+        "top_logprobs": [[{"id": t, "logprob": lp} for t, lp in top]
+                         for top in req.top_logprobs],
+    }
+
+
 def _reject_code(error: str) -> int:
-    """draining → 503 (retry elsewhere); everything else → 400."""
-    return 503 if error == DRAINING_ERROR else 400
+    """draining → 503 (retry elsewhere); queue full → 429 (back off);
+    everything else → 400."""
+    if error == DRAINING_ERROR:
+        return 503
+    if error == QUEUE_FULL_ERROR:
+        return 429
+    return 400
 
 
 def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
@@ -259,6 +333,7 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                     "spec_accepted": int(eng.spec_accepted),
                     "draft_model": eng.draft is not None,
                     "logprobs_k": eng.logprobs_k,
+                    "max_queue": eng.max_queue,
                     # the overlapped pipeline: its mode, the host gap it
                     # exists to shrink, and the transfer-count probe
                     "overlap": eng.overlap,
@@ -296,12 +371,14 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(length) or b"{}")
-                req = _request_from_body(body, engine.cfg.vocab_size)
+                reqs = _requests_from_body(body, engine.cfg.vocab_size, engine.max_batch)
             except (ValueError, TypeError, OverflowError, json.JSONDecodeError) as e:
                 return self._json(400, {"error": str(e)})
             if body.get("stream"):
-                return self._stream(req)
-            return self._single(req)
+                return self._stream(reqs)
+            if len(reqs) > 1:
+                return self._multi(reqs)
+            return self._single(reqs[0])
 
         def _single(self, req: Request):
             engine.submit(req)
@@ -311,21 +388,78 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 return self._json(504, {
                     "error": "generation timed out",
                     "tokens": list(req.output) if acked else [],
+                    **({"logprobs": _logprobs_payload(req)}
+                       if acked and req.logprobs > 0 else {}),
                 })
             if req.error:
                 return self._json(_reject_code(req.error), {"error": req.error})
-            return self._json(200, {"tokens": req.output})
+            resp = {"tokens": req.output}
+            if req.logprobs > 0:
+                resp["logprobs"] = _logprobs_payload(req)
+            return self._json(200, resp)
 
-        def _stream(self, req: Request):
-            # tokens go from the ENGINE thread into a queue sized for the
-            # whole response; this handler thread writes them out, so a
-            # slow client never blocks generation
-            q: "queue.Queue" = queue.Queue(maxsize=req.max_new_tokens + 2)
-            req.on_token = q.put
-            engine.submit(req)
-            if req.done.is_set() and req.error:
-                # rejected at submit: the same 400 as the blocking path
-                return self._json(_reject_code(req.error), {"error": req.error})
+        def _multi(self, reqs: list):
+            """``n`` parallel choices: submit all, wait for all, answer the
+            indexed choices; one choice's error cancels its siblings and
+            answers for the request."""
+            deadline = time.monotonic() + request_timeout
+            for r in reqs:
+                engine.submit(r)
+            timed_out = cancelled_for_err = False
+            for r in reqs:
+                if not cancelled_for_err and any(x.error for x in reqs):
+                    cancelled_for_err = True
+                    for x in reqs:
+                        x.cancel()
+                if not r.done.wait(max(0.0, deadline - time.monotonic())):
+                    timed_out = True
+                    r.cancel()
+            # only read a choice's output once the engine acknowledged it
+            acked = {id(r): r.done.wait(10.0) if timed_out or cancelled_for_err else True
+                     for r in reqs}
+            errs = [r.error for r in reqs if r.error]
+            if errs:
+                return self._json(_reject_code(errs[0]), {"error": errs[0]})
+            choices = []
+            for k, r in enumerate(reqs):
+                ok = acked[id(r)]
+                c = {"index": k, "tokens": list(r.output) if ok else []}
+                if ok and r.logprobs > 0:
+                    c["logprobs"] = _logprobs_payload(r)
+                choices.append(c)
+            out = {"choices": choices}
+            if timed_out:
+                out["error"] = "generation timed out"
+            return self._json(504 if timed_out else 200, out)
+
+        def _stream(self, reqs: list):
+            # tokens go from the ENGINE thread into a queue sized for every
+            # choice's whole response; this handler thread writes them out,
+            # so a slow client never blocks generation.  Events carry
+            # "index" when n > 1.
+            n = len(reqs)
+            q: "queue.Queue" = queue.Queue(maxsize=sum(r.max_new_tokens for r in reqs) + 2 * n)
+
+            def make_on_token(k, r):
+                def on_token(tok):
+                    # the engine thread, after _emit appended this token's
+                    # logprobs: reading [-1] here is safe
+                    if r.logprobs > 0:
+                        q.put((k, tok, r.token_logprobs[-1], r.top_logprobs[-1]))
+                    else:
+                        q.put((k, tok, None, None))
+                return on_token
+
+            for k, r in enumerate(reqs):
+                r.on_token = make_on_token(k, r)
+            for r in reqs:
+                engine.submit(r)
+            bad = [r for r in reqs if r.done.is_set() and r.error]
+            if bad:
+                # rejected at submit: the same answer as the blocking path
+                for r in reqs:
+                    r.cancel()
+                return self._json(_reject_code(bad[0].error), {"error": bad[0].error})
             self.send_response(200, "OK")
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
@@ -337,6 +471,16 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
                 self.wfile.flush()
 
+            def event_json(item) -> str:
+                k, tok, lp, top = item
+                ev = {"token": tok}
+                if n > 1:
+                    ev["index"] = k
+                if lp is not None:
+                    ev["logprob"] = lp
+                    ev["top_logprobs"] = [{"id": t, "logprob": v} for t, v in top]
+                return json.dumps(ev)
+
             sent = 0
             deadline = time.monotonic() + request_timeout
             try:
@@ -344,27 +488,32 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                     try:
                         first = q.get(timeout=0.1)
                     except queue.Empty:
-                        if req.done.is_set() and q.empty():
+                        if all(r.done.is_set() for r in reqs) and q.empty():
                             break
                         continue
-                    toks = [first]
+                    items = [first]
                     while True:  # one HTTP chunk per burst of tokens
                         try:
-                            toks.append(q.get_nowait())
+                            items.append(q.get_nowait())
                         except queue.Empty:
                             break
-                    chunk([json.dumps({"token": t}) for t in toks])
-                    sent += len(toks)
-                if not req.done.is_set():
-                    req.cancel()
+                    chunk([event_json(e) for e in items])
+                    sent += len(items)
+                if not all(r.done.is_set() for r in reqs):
+                    for r in reqs:
+                        r.cancel()
                     chunk([json.dumps({"error": "generation timed out"})])
-                elif req.error:
-                    chunk([json.dumps({"error": req.error})])
+                else:
+                    for k, r in enumerate(reqs):
+                        if r.error:
+                            ev = {"error": r.error, **({"index": k} if n > 1 else {})}
+                            chunk([json.dumps(ev)])
                 chunk(["[DONE]"])
                 self.wfile.write(b"0\r\n\r\n")
                 self.wfile.flush()
             except (BrokenPipeError, ConnectionResetError):
-                req.cancel()  # dead client: stop generating for it
+                for r in reqs:
+                    r.cancel()  # dead client: stop generating for it
                 log.info("stream client disconnected after %d tokens", sent)
 
     return InferenceHandler

@@ -33,7 +33,11 @@ from elastic_gpu_scheduler_tpu.models.transformer import (
     init_params as jax_init_params,
 )
 from elastic_gpu_scheduler_tpu_torch.models.bridge import params_from_jax
-from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
+from elastic_gpu_scheduler_tpu_torch.models.serving import (
+    QUEUE_FULL_ERROR,
+    InferenceEngine,
+    Request,
+)
 from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig
 
 # the suite runs in parallel worker processes: one intra-op thread keeps
@@ -173,11 +177,11 @@ def test_engine_stop_tokens_and_sampling(weights):
 def test_engine_rejects_unported_options_and_fields(weights):
     _, _, params = weights
     cfg = TransformerConfig(**CFG)
-    for opt in ("adapters", "max_queue", "compile_cache"):
+    for opt in ("adapters", "compile_cache"):
         with pytest.raises(NotImplementedError, match=opt):
             InferenceEngine(params, cfg, device="cpu", **{opt: 1})
-    with pytest.raises(TypeError, match="seed"):
-        Request(prompt=[1], max_new_tokens=2, seed=3)
+    with pytest.raises(TypeError, match="adapter"):
+        Request(prompt=[1], max_new_tokens=2, adapter="a")
     eng = InferenceEngine(params, cfg, max_len=16, device="cpu")
     bad = eng.submit(Request(prompt=[1] * 10, max_new_tokens=10))
     assert bad.done.is_set() and "max_len" in bad.error
@@ -188,3 +192,26 @@ def test_engine_without_cuda_raises_unless_cpu_requested(weights, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine(params, TransformerConfig(**CFG))
+
+
+def test_engine_bounded_queue_429s_and_purges_cancelled(weights):
+    """``max_queue``: a full queue fails a submit with QUEUE_FULL_ERROR (the
+    HTTP layer's 429); a request cancelled while queued is purged before
+    it counts; spill requeues bypass the cap."""
+    _, _, params = weights
+    eng = InferenceEngine(params, TransformerConfig(**CFG), max_batch=4, max_len=64,
+                          page_size=8, max_queue=2, device="cpu")
+    a = eng.submit(Request(prompt=[1, 2], max_new_tokens=3))
+    b = eng.submit(Request(prompt=[3, 4], max_new_tokens=3))
+    c = eng.submit(Request(prompt=[5, 6], max_new_tokens=3))
+    assert not a.done.is_set() and not b.done.is_set()
+    assert c.done.is_set() and c.error == QUEUE_FULL_ERROR
+    b.cancel()
+    d = eng.submit(Request(prompt=[7, 8], max_new_tokens=3))
+    assert b.done.is_set() and not b.output  # purged, never admitted
+    assert not d.done.is_set() and eng.queue.qsize() == 2
+    eng.run_until_idle()
+    assert len(a.output) == len(d.output) == 3 and not a.error and not d.error
+    for p in ([1], [2], [3]):
+        eng._enqueue(Request(prompt=p, max_new_tokens=1))  # the spill requeue path
+    assert eng.queue.qsize() == 3

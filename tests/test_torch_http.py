@@ -100,11 +100,113 @@ def test_stats_health_version_and_validation(served):
     assert code == 400 and "token ids" in body["error"]
     code, body = _post(addr, {"prompt": [1], "max_tokens": 999})
     assert code == 400 and "max_len" in body["error"]
-    code, body = _post(addr, {"prompt": [1], "seed": 3, "logprobs": 2})
-    assert code == 400 and "seed" in body["error"] and "logprobs" in body["error"]
-    code, body = _post(addr, {"prompt": [1], "n": 2})
-    assert code == 400 and "'n'" in body["error"]
+    # the request controls and n are served; adapter is still a 400
+    code, body = _post(addr, {"prompt": [1], "seed": 3, "logprobs": 2, "max_tokens": 3})
+    assert code == 200 and len(body["tokens"]) == 3
+    assert len(body["logprobs"]["token_logprobs"]) == 3
+    code, body = _post(addr, {"prompt": [1], "n": 2, "max_tokens": 3})
+    assert code == 200 and [c["index"] for c in body["choices"]] == [0, 1]
+    code, body = _post(addr, {"prompt": [1], "adapter": "a"})
+    assert code == 400 and "adapter" in body["error"]
+    # the strict validators: a bool, a float, a NaN, a negative are 400s
+    for field, value in (("seed", True), ("seed", 1.5), ("logprobs", True),
+                         ("logprobs", 2.0), ("min_tokens", -1), ("frequency_penalty", True),
+                         ("presence_penalty", float("nan")), ("n", 3), ("n", True)):
+        code, body = _post(addr, {"prompt": [1], field: value})
+        assert code == 400 and f"'{field}'" in body["error"], (field, value, body)
+    code, body = _post(addr, {"prompt": [1], "logit_bias": {"x": 1}})
+    assert code == 400 and "logit_bias" in body["error"]
+    code, body = _post(addr, {"prompt": [1], "allowed_tokens": [64]})
+    assert code == 400 and "allowed_tokens" in body["error"]
     assert _post(addr, {}, path="/v1/nope")[0] == 404
+
+
+def _sse(addr, body):
+    conn = http.client.HTTPConnection(*addr, timeout=60)
+    conn.request("POST", "/v1/completions", json.dumps(dict(body, stream=True)),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200
+    events = [raw[len("data: "):] for raw in resp.read().decode().split("\n\n")
+              if raw.startswith("data: ")]
+    conn.close()
+    assert events[-1] == "[DONE]"
+    return [json.loads(e) for e in events[:-1]]
+
+
+def test_logprobs_and_n_in_json_and_sse(served):
+    """``n`` = 2 with a seed and logprobs: JSON choices carry indexed
+    tokens and logprobs; the SSE events carry the same per choice, with
+    ``index``, ``logprob`` and ``top_logprobs``; each choice equals the
+    engine's own run with seed + k."""
+    addr, engine = served
+    body = {"prompt": [3, 9, 14], "max_tokens": 6, "n": 2, "seed": 11, "temperature": 0.8,
+            "logprobs": 2, "logit_bias": {"5": 1.5}, "min_tokens": 2}
+    code, out = _post(addr, body)
+    assert code == 200 and len(out["choices"]) == 2
+    events = _sse(addr, body)
+    for k, choice in enumerate(out["choices"]):
+        r = engine.submit(Request(prompt=[3, 9, 14], max_new_tokens=6, seed=11 + k,
+                                  temperature=0.8, logprobs=2, logit_bias={5: 1.5},
+                                  min_tokens=2))
+        assert r.done.wait(60) and not r.error
+        assert choice["index"] == k and choice["tokens"] == r.output
+        lp = choice["logprobs"]
+        assert lp["token_logprobs"] == r.token_logprobs
+        assert lp["top_logprobs"] == [[{"id": t, "logprob": v} for t, v in top]
+                                      for top in r.top_logprobs]
+        mine = [e for e in events if e["index"] == k]
+        assert [e["token"] for e in mine] == r.output
+        assert [e["logprob"] for e in mine] == r.token_logprobs
+        assert all(len(e["top_logprobs"]) == 2 for e in mine)
+    # a single-choice stream keeps the flat shape, with logprobs
+    flat = _sse(addr, {"prompt": [3, 9, 14], "max_tokens": 4, "logprobs": 1})
+    assert all("index" not in e and len(e["top_logprobs"]) == 1 for e in flat)
+
+
+def test_full_queue_answers_429_and_stats_report_max_queue():
+    """``max_queue`` = 1 with the engine loop held: the first request
+    waits in the queue, the next answers 429 (JSON, SSE and an ``n``
+    request alike); /v1/stats reports the cap."""
+    engine = InferenceEngine(_params(), CFG, max_batch=2, max_len=64, page_size=8,
+                             device="cpu", max_queue=1)
+    server, loop = serve_inference(engine, port=0, host="127.0.0.1")
+    addr = server.server_address
+    try:
+        loop.stop()  # nothing is admitted: the queue only fills
+        waiting = engine.submit(Request(prompt=[1, 2], max_new_tokens=2))
+        assert not waiting.done.is_set()
+        code, body = _post(addr, {"prompt": [3, 4], "max_tokens": 2})
+        assert code == 429 and body["error"] == "admission queue full"
+        code, _ = _post(addr, {"prompt": [3, 4], "max_tokens": 2, "n": 2})
+        assert code == 429
+        conn = http.client.HTTPConnection(*addr, timeout=60)
+        conn.request("POST", "/v1/completions",
+                     json.dumps({"prompt": [3, 4], "max_tokens": 2, "stream": True}),
+                     {"Content-Type": "application/json"})
+        assert conn.getresponse().status == 429
+        conn.close()
+        code, stats = _get(addr, "/v1/stats")
+        assert code == 200 and stats["max_queue"] == 1 and stats["queued"] == 1
+        # a cancelled waiter is purged: the next request fits
+        waiting.cancel()
+        ok = engine.submit(Request(prompt=[5, 6], max_new_tokens=1))
+        assert not ok.error and waiting.done.is_set()
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+
+
+def test_serve_flags_logprobs_k_and_max_queue():
+    """``serve``'s --logprobs-k and --max-queue, under the reference's
+    names and defaults."""
+    from elastic_gpu_scheduler_tpu_torch.serve import build_args
+
+    args = build_args(["--init"])
+    assert (args.logprobs_k, args.max_queue) == (5, 0)
+    args = build_args(["--init", "--logprobs-k", "0", "--max-queue", "16"])
+    assert (args.logprobs_k, args.max_queue) == (0, 16)
 
 
 def test_pool_exhaustion_preempts_one_victim_not_all():

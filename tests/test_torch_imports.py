@@ -7,6 +7,7 @@ never as bare prefixes.  The same run checks that importing starts no
 kernel build (a CPU-only machine has no nvcc).
 """
 
+import ast
 import json
 import os
 import pkgutil
@@ -51,6 +52,8 @@ def test_port_imports_no_jax_and_no_jax_package():
             "elastic_gpu_scheduler_tpu_torch.models.data",
             "elastic_gpu_scheduler_tpu_torch.models.generate",
             "elastic_gpu_scheduler_tpu_torch.models.speculative",
+            "elastic_gpu_scheduler_tpu_torch.models.sampling",
+            "elastic_gpu_scheduler_tpu_torch.serve",
             "elastic_gpu_scheduler_tpu_torch.utils.prefixdigest",
             "elastic_gpu_scheduler_tpu_torch.launcher"} <= expected
     bad = [m for m in res["modules"] if _is_jax_package(m)]
@@ -64,3 +67,17 @@ def test_whole_name_check_tells_the_packages_apart():
     assert _is_jax_package("jax.numpy")
     assert not _is_jax_package("elastic_gpu_scheduler_tpu_torch.models.serving")
     assert not _is_jax_package("jaxtyping")
+
+
+def test_chip_smoke_imports_no_jax():
+    """``chip_smoke.py`` (every phase, request controls included) names
+    no JAX module and no module of the JAX package in any import."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    assert "elastic_gpu_scheduler_tpu_torch.server.inference" in names
+    assert not [m for m in names if _is_jax_package(m)]

@@ -523,7 +523,7 @@ def test_overlapped_engine_samples_through_graphs(cuda):
         eng.run_until_idle()
         assert all(r.done.is_set() and not r.error for r in reqs)
         assert eng.graph_replays == eng.steps_run > 0
-        assert any(use_filters for _, use_filters, _ in eng._graphs)
+        assert any(key[1] for key in eng._graphs)  # (bucket, use_filters, ...)
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
     assert outs[0][2] == [0] * 40  # greedy over equal logits
@@ -742,3 +742,120 @@ def test_prefix_chunked_int8_engine_on_card_matches_cpu_float32(cuda):
                 assert _build.LAUNCHES[name] > 0, name
             assert _build.LAUNCHES["paged_attention"] == 0
     assert outs["cpu"] == outs[str(cuda)]
+
+
+# per-request controls: request mixes whose decode chunks take each graph
+# variant of chip_smoke.py's phase 6e (every sampled row seeded, so the
+# chunk's draws do not depend on the generator's state)
+CONTROL_MIXES = {
+    "logprobs, bias, allowed, seed, min_tokens": [
+        dict(logprobs=5, logit_bias={3: 2.0, 40: -4.0}, min_tokens=12, stop_tokens=(7, 9)),
+        dict(logprobs=2, allowed_tokens=tuple(range(100, 164))),
+        dict(temperature=0.8, seed=11, logprobs=3, logit_bias={5: 1.0}),
+    ],
+    "penalties, logprobs": [
+        dict(frequency_penalty=0.6, presence_penalty=0.4, logprobs=4),
+        dict(frequency_penalty=1.2),
+        dict(temperature=0.9, seed=3, presence_penalty=0.5),
+    ],
+    "filters, seed": [
+        dict(temperature=0.7, top_k=20, top_p=0.9, seed=5),
+        dict(),
+    ],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mix", list(CONTROL_MIXES))
+def test_controls_graph_replay_matches_eager_chunk(cuda, dtype, mix):
+    """A graph replay of a controls chunk (bias rows, min_tokens rows,
+    penalty counts, seeds, logprob rows) and one eager ``_chunk_in_place``
+    from cloned identical state give identical outputs (tokens and the
+    logprob triplet), carry and pool bytes."""
+    _, _, eng = _small_engine(cuda, dtype=dtype)
+    rng = np.random.default_rng(7)
+    for n, kw in zip((3, 17, 40), CONTROL_MIXES[mix]):
+        eng.submit(serving.Request(prompt=rng.integers(0, 256, n).tolist(),
+                                   max_new_tokens=30, **kw))
+    eng._admit()
+    eng.step()  # captures this variant's graph
+    eng._drain_pending()
+    seen = []
+    real = eng._replay_chunk
+
+    def spy(key, args, static):
+        seen.append((key, args, static, {k: v.clone() for k, v in args[1].items()},
+                     args[3].clone(), args[4].clone()))
+        return real(key, args, static)
+
+    eng._replay_chunk = spy
+    captured = eng.graphs_captured
+    pending = eng._dispatch_chunk()
+    torch.cuda.synchronize()
+    assert eng.graphs_captured == captured and len(seen) == 1
+    key, args, static, kv0, tok0, len0 = seen[0]
+    assert any(key[3:]), key  # a controls variant: logprobs, penalties, seeds or min
+    eager_args = list(args)
+    eager_args[1], eager_args[3], eager_args[4] = kv0, tok0, len0
+    out = serving._chunk_in_place(*eager_args, **static)
+    torch.cuda.synchronize()
+    outs = out if isinstance(out, tuple) else (out,)
+    replayed = pending.out if isinstance(pending.out, tuple) else (pending.out,)
+    assert len(outs) == len(replayed) == (4 if key[3] else 1)
+    for a, b in zip(outs, replayed):
+        assert torch.equal(a, b)
+    assert torch.equal(tok0, args[3]) and torch.equal(len0, args[4])
+    for name in eng.kv:
+        assert torch.equal(kv0[name], eng.kv[name]), name
+    eng._drain_chunk(pending)
+    eng.run_until_idle()
+
+
+@pytest.mark.gpu
+def test_seeded_uniforms_on_card_equal_golden_vector(cuda):
+    """The counter-based draw gives the CPU's golden bits and uniforms on
+    the card (int64 arithmetic, exact in float32)."""
+    from elastic_gpu_scheduler_tpu_torch.models import sampling
+
+    from test_torch_seeded import GOLDEN_BITS, GOLDEN_ROWS
+
+    seeds = torch.tensor([s for s, _ in GOLDEN_ROWS], device=cuda)
+    positions = torch.tensor([p for _, p in GOLDEN_ROWS], device=cuda, dtype=torch.int32)
+    assert sampling.seeded_bits(seeds, positions, 5).cpu().tolist() == GOLDEN_BITS
+    card = sampling.seeded_uniforms(seeds, positions, 32000).cpu()
+    cpu = sampling.seeded_uniforms(seeds.cpu(), positions.cpu(), 32000)
+    assert torch.equal(card, cpu)
+
+
+@pytest.mark.gpu
+def test_controls_engine_on_card_matches_cpu_float32(cuda):
+    """Greedy requests carrying each control, sequential and overlapped on
+    the card, give the sequential CPU run's tokens, and their logprobs
+    within 1e-4 with equal top ids; a seeded sampled request gives the
+    same tokens in both card modes."""
+    rng = np.random.default_rng(8)
+    mix = [dict(logprobs=5, logit_bias={3: 2.0, 40: -4.0}),
+           dict(logprobs=2, allowed_tokens=tuple(range(100, 164))),
+           dict(frequency_penalty=0.7, presence_penalty=0.4, logprobs=3),
+           dict(min_tokens=10, stop_tokens=(7, 9, 11)),
+           dict(temperature=0.9, seed=21, logprobs=2)]
+    prompts = [rng.integers(0, 256, n).tolist() for n in (1, 5, 17, 40, 9)]
+    outs = {}
+    for name, dev, overlap in (("cpu", "cpu", False), ("seq", cuda, False),
+                               ("overlap", cuda, True)):
+        _, _, eng = _small_engine(dev, overlap=overlap)
+        reqs = [eng.submit(serving.Request(prompt=p, max_new_tokens=16, **kw))
+                for p, kw in zip(prompts, mix)]
+        eng.run_until_idle()
+        assert all(r.done.is_set() and not r.error for r in reqs)
+        outs[name] = reqs
+    for name in ("seq", "overlap"):
+        assert [r.output for r in outs[name][:4]] == [r.output for r in outs["cpu"][:4]]
+        for got, want in zip(outs[name][:4], outs["cpu"][:4]):
+            if want.logprobs:
+                np.testing.assert_allclose(got.token_logprobs, want.token_logprobs,
+                                           atol=1e-4, rtol=0)
+                assert ([[t for t, _ in top] for top in got.top_logprobs]
+                        == [[t for t, _ in top] for top in want.top_logprobs])
+    assert outs["seq"][4].output == outs["overlap"][4].output
