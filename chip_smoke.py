@@ -85,6 +85,21 @@ Phases, each failing the run (non-zero exit) on any fault:
    and logprobs on the card equal to the CPU's in four modes, and a
    seeded request identical alone, batched, overlapped, under spec_k 4
    and across a spill;
+6f. multi-LoRA serving on the same weights and prompts with four adapters
+   (r 16 on every family, r 8 on wq/wv, r 16 on attention, r 4 on the
+   MLP; B drawn from a seed at a printed scale): the bank engine with
+   every request on "" gives the bank-less engine's tokens and graph keys;
+   the mixed batch (round-robin over "" and the adapters) captures no
+   graph, launches K1 / K2 exactly, and some adapter changes some tokens;
+   each request against its adapter's batch alone (reported); tokens per
+   second, wall ms and (torch.profiler) device ms and kernels a chunk for
+   the bank-less, all-"" and mixed batches; spec_k 4 with the mixed
+   batch; the int8 + prefix + chunked engine with adapters (hit counters:
+   pages shared only under one adapter; wave-2 prefill ms); HTTP (an
+   adapter 200, an unknown one 400, n = 2 on an adapter, /v1/stats); on a
+   small float32 model, card = CPU in four modes, each adapter = its
+   merged engine, prefix hits 0, 0, 16, and 3 LoRA train steps within
+   1e-4 of the CPU;
 7. HTTP: ``serve_inference`` on the card-resident engine, one blocking
    and one SSE completion against the engine's own tokens, /healthz and
    /v1/stats;
@@ -98,6 +113,10 @@ Phases, each failing the run (non-zero exit) on any fault:
    losses and parameters on the card and on the CPU; ``launcher.run_job``
    with the reference's default ``JobSpec``; one train step under
    torch.profiler;
+9b. LoRA fine-tuning at the same shape: rank 16 on every family over the
+   frozen bf16 base, one warm-up and 5 timed steps on one batch; the loss
+   must fall, the base keep its bits, K1 / K4 launch 2L / L a step; step
+   ms, tokens per second, memory and trainable parameters beside phase 9;
 10. K1 and K4 at the train shape, K3 and K2 (dense and int8) with split
    keys, called twice, must give identical bytes;
    a ``{"kernels": [...]}`` line (K2 twice: decode, and the W = 5
@@ -704,13 +723,15 @@ NEW_TOKENS = 64
 ENGINE = dict(max_batch=8, max_len=640, page_size=16, fused_steps=16)
 
 
-def drive(eng, prompts, max_new):
-    """run_until_idle with host timers: (requests, prefill s, step s)."""
+def drive(eng, prompts, max_new, fields=None):
+    """run_until_idle with host timers: (requests, prefill s, step s).
+    ``fields``: each request's extra ``Request`` fields."""
     import torch
 
     from elastic_gpu_scheduler_tpu_torch.models.serving import Request
 
-    reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=max_new)) for p in prompts]
+    reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=max_new, **kw))
+            for p, kw in zip(prompts, fields or [{}] * len(prompts))]
     t_admit = t_step = 0.0
     for _ in range(100_000):
         t0 = time.perf_counter()
@@ -2099,6 +2120,334 @@ def phase_controls_small_fp32(dev) -> dict:
             "seeded_card_equals_cpu": cpu_seeded.output == want}
 
 
+# -- phase 6f: multi-LoRA serving ----------------------------------------------
+
+
+ALL_FAMILIES = ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out")
+# (name, rank, targets) of the full-width adapters, B ~ N(0, 1) x LORA_B_SCALE
+LORA_ADAPTERS = (("r16-all", 16, ALL_FAMILIES), ("r8-qv", 8, ("wq", "wv")),
+                 ("r16-attn", 16, ("wq", "wk", "wv", "wo")),
+                 ("r4-mlp", 4, ("w_gate", "w_in", "w_out")))
+LORA_B_SCALE = 0.05
+LORA_NAMES = ("",) + tuple(n for n, _, _ in LORA_ADAPTERS)
+# the small float32 adapters, as tests/test_multilora.py builds them
+SMALL_LORA = (("styleA", 4, ("wq", "wv")), ("styleB", 2, ("wq", "wk", "w_out")))
+
+
+def make_adapters(params, specs, b_scale, seed, device) -> dict:
+    """{name: lora_init tree} on ``params`` (A from the port's init, B
+    drawn N(0, 1) x ``b_scale``: a trained look), all from ``seed``."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.lora import lora_init
+
+    out = {}
+    for n, (name, rank, targets) in enumerate(specs):
+        g = torch.Generator(device=device).manual_seed(seed + n)
+        lo = lora_init(params, rank=rank, targets=targets, generator=g)
+        for ab in lo["adapters"].values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=g, device=device) * b_scale
+        out[name] = lo
+    return out
+
+
+def phase_lora_engine(dev, params, cfg, prompts) -> dict:
+    """Multi-LoRA serving on phase 6's weights and prompts (64 new tokens)
+    with four adapters: the bank-less overlapped engine and the bank
+    engine with every request on "" (warm-up, then timed: identical
+    tokens, the same graph keys), then the mixed batch (the 12 prompts
+    round-robin over "" and the adapters; the main path: no capture, exact
+    K1 / K2 launches, every chunk a replay; some adapter changes some
+    prompt's tokens); each request against its adapter's batch alone
+    (reported); device ms and kernels a chunk, plain / bank on "" / mixed;
+    spec_k 4 and int8 + prefix + chunked with adapters; HTTP; the small
+    float32 identities."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    L, K = cfg.n_layers, ENGINE["fused_steps"]
+    adapters = make_adapters(params, LORA_ADAPTERS, LORA_B_SCALE, seed=40, device=dev)
+    log(f"multi-LoRA: adapters {[(n, r, list(t)) for n, r, t in LORA_ADAPTERS]}, "
+        f"B ~ N(0, 1) x {LORA_B_SCALE}, A ~ N(0, 1/d_in), alpha = rank")
+    base_specs = [(p, {}) for p in prompts]
+    mixed = [(p, {"adapter": LORA_NAMES[i % len(LORA_NAMES)]}) for i, p in enumerate(prompts)]
+    perf = {"b_scale": LORA_B_SCALE,
+            "adapters": {n: {"rank": r, "targets": list(t)} for n, r, t in LORA_ADAPTERS}}
+
+    plain = InferenceEngine(params, cfg, paged_kernel=True, device=dev, **ENGINE)
+    drive_specs(plain, base_specs, NEW_TOKENS)
+    preqs, pwall, pchunks = drive_specs(plain, base_specs, NEW_TOKENS)
+    plain_keys = set(plain._graphs)
+    perf["bankless"] = dict(run_perf(preqs, pwall, pchunks), graphs=len(plain_keys))
+
+    beng = InferenceEngine(params, cfg, paged_kernel=True, device=dev, adapters=adapters,
+                           **ENGINE)
+    check(sorted(beng.adapter_index) == sorted(LORA_NAMES), "bank ids")
+    bank_mb = sum(t.numel() * t.element_size() for t in _leaves(beng.lora_bank)) / 1e6
+    drive_specs(beng, base_specs, NEW_TOKENS)
+    breqs, bwall, bchunks = drive_specs(beng, base_specs, NEW_TOKENS)
+    check(all(a.output == b.output for a, b in zip(breqs, preqs)),
+          "base rows: the bank engine's tokens on \"\" differ from the bank-less engine's")
+    check(set(beng._graphs) == plain_keys, "the bank engine captured other graph keys")
+    perf["bank_on_base"] = dict(run_perf(breqs, bwall, bchunks), graphs=len(beng._graphs),
+                                tokens_equal_bankless=True, bank_mb=bank_mb)
+    marks = graph_marks(beng)
+    mwarm, _, _ = drive_specs(beng, mixed, NEW_TOKENS)
+    check(graph_delta(beng, marks)["captured"] == 0, "the mixed-adapter batch captured a graph")
+    base = dict(warmups=beng.graph_warmups, replays=beng.graph_replays,
+                prefills=beng.prefills_run)
+    torch.cuda.synchronize()
+    # the main path: counts at 0 just before, read just after
+    _build.reset_launches()
+    mreqs, mwall, mchunks = drive_specs(beng, mixed, NEW_TOKENS)
+    launches = dict(_build.LAUNCHES)
+    warmups = beng.graph_warmups - base["warmups"]
+    replays = beng.graph_replays - base["replays"]
+    prefills = beng.prefills_run - base["prefills"]
+    log(f"multi-LoRA main path (mixed batch): {mchunks} chunks ({replays} graph replays, "
+        f"{warmups} captures), {prefills} prefills, launches {launches} (want paged_attention="
+        f"{L * K * (mchunks + warmups)}, flash_fwd={L * prefills})")
+    check(warmups == 0 and replays == mchunks, "a mixed-adapter chunk was not a replay")
+    check(launches["paged_attention"] == L * K * mchunks > 0,
+          "multi-LoRA: K2 launches != layers x fused_steps x chunks")
+    check(launches["flash_fwd"] == L * prefills > 0, "multi-LoRA: K1 launches != layers x prefills")
+    check(launches["paged_attention_int8"] == launches["flash_block_stats"] == 0,
+          "the dense multi-LoRA engine launched the int8 K2 or K3")
+    changed = [i for i, (a, b, (_, kw)) in enumerate(zip(mreqs, preqs, mixed))
+               if kw["adapter"] and a.output != b.output]
+    check(changed, "no adapter changed any prompt's tokens")
+    base_rows = [i for i, (_, kw) in enumerate(mixed) if not kw["adapter"]]
+    iso = {}
+    for name in LORA_NAMES:
+        idx = [i for i, (_, kw) in enumerate(mixed) if kw["adapter"] == name]
+        for i, r in zip(idx, drive_specs(beng, [mixed[i] for i in idx], NEW_TOKENS)[0]):
+            iso[i] = r
+    vs_iso = agreement(mreqs, [iso[i] for i in range(len(mixed))])
+    perf["mixed"] = dict(run_perf(mreqs, mwall, mchunks), launches=launches,
+                         adapter_requests_changed=len(changed),
+                         base_rows_equal_bankless=sum(mreqs[i].output == preqs[i].output
+                                                      for i in base_rows),
+                         base_rows=len(base_rows), vs_isolated=vs_iso,
+                         twice_equal=sum(a.output == b.output for a, b in zip(mreqs, mwarm)))
+    log("multi-LoRA engine: " + json.dumps({k: perf[k] for k in
+                                            ("bankless", "bank_on_base", "mixed")}))
+
+    profs = {"bankless": chunk_profile(plain, base_specs, "bank-less"),
+             "bank_on_base": chunk_profile(beng, base_specs, "bank, every request on \"\""),
+             "mixed": chunk_profile(beng, mixed, "bank, mixed adapters")}
+    check(profs["mixed"]["keys"] == profs["bank_on_base"]["keys"],
+          "the mixed window replayed other graphs than the base window")
+    perf["profile"] = dict(profs, added_device_ms_per_chunk=profs["mixed"]["device_ms_per_chunk"]
+                           - profs["bankless"]["device_ms_per_chunk"],
+                           added_kernels_per_chunk=profs["mixed"]["kernels_per_chunk"]
+                           - profs["bankless"]["kernels_per_chunk"])
+    del plain
+
+    # spec_k 4 with the mixed batch
+    seng = InferenceEngine(params, cfg, paged_kernel=True, spec_k=SPEC_K, device=dev,
+                           adapters=adapters, **ENGINE)
+    drive_specs(seng, mixed, NEW_TOKENS)
+    smarks = spec_marks(seng)
+    _build.reset_launches()
+    sreqs, swall, _ = drive_specs(seng, mixed, NEW_TOKENS)
+    slaunch = dict(_build.LAUNCHES)
+    c = spec_counts(seng, smarks)
+    chunks = c["steps"] - c["passes"]
+    want = L * (c["passes"] + K * (chunks + c["warmups"]))
+    check(c["passes"] > 0 and slaunch["paged_attention"] == want,
+          f"multi-LoRA spec: K2 launches {slaunch['paged_attention']} != {want}")
+    perf["spec_k4"] = dict(run_perf(sreqs, swall, chunks), **c,
+                           vs_overlapped=agreement(sreqs, mreqs))
+    del seng
+    perf["prefix"] = phase_lora_prefix(dev, params, cfg, adapters)
+    perf["http"] = phase_lora_http(beng, prompts)
+    del beng
+    perf["small_float32"] = phase_lora_small_fp32(dev)
+    pr = perf["profile"]
+    log(f"multi-LoRA (overlapped, same prompts, one call): bank-less "
+        f"{perf['bankless']['tokens_per_s']:.1f} tokens/s, bank on \"\" "
+        f"{perf['bank_on_base']['tokens_per_s']:.1f}, mixed {perf['mixed']['tokens_per_s']:.1f}; "
+        f"wall ms a chunk {perf['bankless']['wall_ms_per_chunk']:.2f} / "
+        f"{perf['bank_on_base']['wall_ms_per_chunk']:.2f} / "
+        f"{perf['mixed']['wall_ms_per_chunk']:.2f}; device ms a chunk "
+        f"{pr['bankless']['device_ms_per_chunk']:.3f} / "
+        f"{pr['bank_on_base']['device_ms_per_chunk']:.3f} / "
+        f"{pr['mixed']['device_ms_per_chunk']:.3f}, kernels a chunk "
+        f"{pr['bankless']['kernels_per_chunk']:.0f} / {pr['bank_on_base']['kernels_per_chunk']:.0f}"
+        f" / {pr['mixed']['kernels_per_chunk']:.0f}; spec_k 4 mixed "
+        f"{perf['spec_k4']['tokens_per_s']:.1f} tokens/s; prefix wave-2 prefill "
+        f"{perf['prefix']['wave2_prefill_ms_per_request']:.2f} ms a request; {card_line()}")
+    return perf
+
+
+def phase_lora_prefix(dev, params, cfg, adapters) -> dict:
+    """The int8 + prefix + chunked engine with adapters: phase 6b's traffic,
+    the primer on one adapter and wave 2 alternating between it (hits) and
+    another (no hit: pages are never shared across adapters)."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    wave1, wave2 = prefix_traffic(np.random.default_rng(12), cfg.vocab_size, SHARED_PREFIX,
+                                  WAVE1_LENS, WAVE2_TAILS)
+    eng = InferenceEngine(params, cfg, device=dev, adapters=adapters, **PREFIX_ENGINE)
+    w1 = [{"adapter": "r16-all"}, {"adapter": "r8-qv"}, {}]
+    w2 = [{"adapter": "r16-all" if i % 2 == 0 else "r4-mlp"} for i in range(len(wave2))]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    reqs1, ta1, _ = drive(eng, wave1, NEW_TOKENS, w1)
+    t1 = time.perf_counter()
+    reqs2, ta2, _ = drive(eng, wave2, NEW_TOKENS, w2)
+    wall2 = time.perf_counter() - t1
+    launches = dict(_build.LAUNCHES)
+    counters = {"prefix_lookups": eng.prefix_lookups,
+                "prefix_admission_hits": eng.prefix_admission_hits,
+                "prefix_hit_tokens": eng.prefix_hit_tokens}
+    hits = sum(1 for kw in w2 if kw["adapter"] == w1[0]["adapter"])
+    want = {"prefix_lookups": len(wave1) + len(wave2), "prefix_admission_hits": hits,
+            "prefix_hit_tokens": hits * SHARED_PREFIX}
+    log(f"multi-LoRA prefix engine: counters {counters} (want {want}), launches {launches}")
+    check(counters == want, "multi-LoRA prefix counters differ from the traffic")
+    check(min(launches["flash_fwd"], launches["flash_block_stats"],
+              launches["paged_attention_int8"]) > 0, "multi-LoRA prefix engine: K1, K3 or "
+          "K2-int8 not launched")
+    gen2 = sum(len(r.output) for r in reqs2)
+    return {"counters": counters, "launches": launches,
+            "wave1_prefill_ms_per_request": ta1 / len(wave1) * 1e3,
+            "wave2_prefill_ms_per_request": ta2 / len(wave2) * 1e3,
+            "wave2_tokens_per_s": gen2 / wall2}
+
+
+def phase_lora_http(eng, prompts) -> dict:
+    """HTTP on the card-resident bank engine: an adapter request answers
+    200, an unknown adapter 400, ``n`` = 2 with an adapter is served (both
+    greedy choices equal), /v1/stats lists the adapters."""
+    from elastic_gpu_scheduler_tpu_torch.server.inference import serve_inference
+
+    server, loop = serve_inference(eng, port=0, host="127.0.0.1")
+    addr = server.server_address
+    try:
+        code, _, data = post_json(addr, {"prompt": prompts[1], "max_tokens": 16,
+                                         "adapter": "r16-all"})
+        check(code == 200 and len(json.loads(data)["tokens"]) == 16,
+              f"adapter completion answered {code}")
+        code, _, data = post_json(addr, {"prompt": prompts[1], "max_tokens": 4,
+                                         "adapter": "no-such"})
+        err = json.loads(data)["error"]
+        check(code == 400 and "no-such" in err and "r4-mlp" in err,
+              f"unknown adapter answered {code} {err!r}")
+        code, _, data = post_json(addr, {"prompt": prompts[2], "max_tokens": 16, "n": 2,
+                                         "adapter": "r8-qv"})
+        choices = json.loads(data).get("choices", [])
+        check(code == 200 and len(choices) == 2
+              and all(len(c["tokens"]) == 16 for c in choices), f"n=2 adapter answered {code}")
+        code, stats = get_json(addr, "/v1/stats")
+        check(code == 200 and stats["adapters"] == sorted(LORA_NAMES[1:]),
+              f"stats adapters {stats.get('adapters')}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+    res = {"adapter_200": True, "unknown_400": err, "n2_choices_equal":
+           choices[0]["tokens"] == choices[1]["tokens"], "stats_adapters": stats["adapters"]}
+    log("multi-LoRA HTTP: " + json.dumps(res))
+    return res
+
+
+def _tree_to(tree, where):
+    """A copy of a nested dict of tensors on ``where``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, where) for k, v in tree.items()}
+    return tree.detach().clone().to(where)
+
+
+def phase_lora_small_fp32(dev) -> dict:
+    """Small float32 model with two adapters: greedy tokens of a mixed
+    batch on the card equal the port's CPU run, sequential, overlapped,
+    spec_k 4 and int8 + prefix + chunked; each adapter equals an engine on
+    its merged weights; prefix hits 0, 0, 16 (A, B, A); 3 LoRA train steps
+    on the card within 1e-4 of the CPU on every adapter leaf."""
+    from elastic_gpu_scheduler_tpu_torch.models.lora import merge_lora
+
+    small, sp = small_fp32()
+    ads = make_adapters(sp, SMALL_LORA, 0.08, seed=50, device="cpu")
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (3, 5, 17, 40, 9, 1)]
+    names = ("",) + tuple(n for n, _, _ in SMALL_LORA)
+    specs = [(p, {"adapter": names[i % len(names)]}) for i, p in enumerate(prompts)]
+    modes = {"sequential": dict(overlap=False), "overlapped": dict(overlap=True),
+             f"spec_k {SPEC_K}": dict(spec_k=SPEC_K),
+             "int8 prefix chunked": dict(kv_int8=True, prefix_cache=True, prefill_chunk=16)}
+    for name, kw in modes.items():
+        outs = {str(where): [r.output for r in drive_small(
+            small_engine(sp, small, where, adapters=ads, **kw), specs)] for where in ("cpu", dev)}
+        check(outs["cpu"] == outs[str(dev)], f"float32 multi-LoRA: card differs from CPU ({name})")
+    merged = {}
+    for name in names[1:]:
+        got = drive_small(small_engine(sp, small, dev, adapters=ads), [(prompts[3],
+                                                                       {"adapter": name})])
+        want = drive_small(small_engine(merge_lora(sp, ads[name]), small, dev), [(prompts[3], {})])
+        merged[name] = got[0].output == want[0].output
+        check(merged[name], f"float32: adapter {name} differs from its merged engine")
+    se = small_engine(sp, small, dev, adapters=ads, max_batch=2, max_len=64, page_size=8,
+                      prefix_cache=True)
+    prompt = list(range(2, 20))
+    hits = []
+    for name in ("styleA", "styleB", "styleA"):
+        drive_small(se, [(prompt, {"adapter": name})], max_new=6)
+        hits.append(int(se.prefix_hit_tokens))
+    check(hits == [0, 0, 16], f"float32 prefix isolation: hit tokens {hits}, want [0, 0, 16]")
+    train = lora_train_cpu_vs_card(dev)
+    log(f"small float32 multi-LoRA: card = CPU in {len(modes)} modes, each adapter = its "
+        f"merged engine, prefix hit tokens {hits}; LoRA train " + json.dumps(train))
+    return {"modes": list(modes), "merged_equal": merged, "prefix_hit_tokens": hits,
+            "train_cpu_vs_card": train}
+
+
+def lora_train_cpu_vs_card(dev) -> dict:
+    """3 LoRA steps (rank 4 on every family, B non-zero, remat, 4 vocab
+    chunks, AdamW with warmup and clipping) of a small float32 model on
+    the card and on the CPU from the same weights and tokens: every
+    adapter leaf within 1e-4 absolute, the base unchanged."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.data import SyntheticTokenDataset, batches
+    from elastic_gpu_scheduler_tpu_torch.models.lora import make_lora_train_step
+    from elastic_gpu_scheduler_tpu_torch.models.train import make_optimizer
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+
+    small = TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                              n_kv_heads=2, d_ff=512, dtype="float32", remat=True,
+                              xent_chunks=4)
+    base = init_params(small, torch.Generator().manual_seed(3), "cpu")
+    lo0 = make_adapters(base, (("t", 4, ALL_FAMILIES),), 0.02, seed=60, device="cpu")["t"]
+    stream = batches(SyntheticTokenDataset(512, seed=4), 4, 128, seed=5)
+    toks = [torch.from_numpy(next(stream)) for _ in range(3)]
+    out = {}
+    for where in ("cpu", dev):
+        params = _tree_to(base, where)
+        lo = dict(lo0, adapters=_tree_to(lo0["adapters"], where))
+        opt = make_optimizer(lr=1e-3, warmup_steps=1, total_steps=4, grad_clip=1.0)
+        state = opt.init(lo["adapters"])
+        step = make_lora_train_step(small, opt)
+        losses = [float(step(lo, state, params, t.to(where))[2]) for t in toks]
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(_leaves(params), _leaves(base)))
+        check(same, f"LoRA training changed the base ({where})")
+        out[str(where)] = (losses, [p.detach().cpu() for p in _leaves(lo["adapters"])])
+    (lc, ac), (lg, ag) = out["cpu"], out[str(dev)]
+    err = max(float((a - b).abs().max()) for a, b in zip(ac, ag))
+    rel = max(float((a - b).abs().max() / a.abs().max()) for a, b in zip(ac, ag))
+    check(err <= 1e-4, f"LoRA train: card adapters {err:.3g} from the CPU's (tol 1e-4)")
+    return {"losses_card": lg, "losses_cpu": lc, "adapter_max_abs_err": err,
+            "adapter_max_err_over_leaf_max": rel}
+
+
 # -- phase 7: HTTP ---------------------------------------------------------
 
 
@@ -2525,23 +2874,23 @@ def phase_train(dev):
     return cfg, params, state, step, toks[0], launches, perf
 
 
-def phase_train_profile(step, params, state, tokens) -> dict:
+def phase_train_profile(step, params, state, tokens, label="train") -> dict:
     """One full-width train step under torch.profiler: device busy time,
     idle share, top kernels and K4's share."""
     wall_ms, kernels = profiled(lambda: float(step(params, state, tokens)[2]),
-                                "a train step", cpu=True)
+                                f"a {label} step", cpu=True)
     busy = sum(k["ms"] for k in kernels)
 
     def share(sub):
         return sum(k["ms"] for k in kernels if sub in k["kernel"]) / busy
 
-    res = {"window": "one full-width train step", "wall_ms": wall_ms,
+    res = {"window": f"one full-width {label} step", "wall_ms": wall_ms,
            "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
            "launches": sum(k["count"] for k in kernels),
            "k4_share": share("flash_bwd"), "k1_share": share("flash_fwd"),
            "top": kernels[:25]}
-    log(json.dumps({"train_profile": res}))
-    log(f"train profile: step wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+    log(json.dumps({f"{label}_profile": res}))
+    log(f"{label} profile: step wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
         f"(idle share {res['idle_share']:.3f}), K4 {res['k4_share']:.3f} and K1 "
         f"{res['k1_share']:.3f} of device time, {res['launches']} kernel launches")
     for k in kernels[:12]:
@@ -2589,6 +2938,82 @@ def phase_train_cpu_vs_card(dev) -> None:
     log(f"small float32 train, card vs CPU: losses {lg} vs {lc}; max loss rel diff "
         f"{loss_rel:.3g}, max param diff / leaf max {param_rel:.3g} (tol 1e-4)")
     check(loss_rel <= 1e-4 and param_rel <= 1e-4, "float32 training differs between card and CPU")
+
+
+LORA_TRAIN_RANK, LORA_TRAIN_LR = 16, 1e-3
+
+
+def phase_lora_train(dev, full) -> dict:
+    """LoRA fine-tuning at phase 9's shape (B 8, S 1024, remat, 8 vocab
+    chunks): rank 16 on all 7 families over the bf16 base, frozen; AdamW
+    over the adapters.  One warm-up step and TRAIN_STEPS timed steps on
+    one batch: the loss falls, the base keeps its bits, K1 launches 2L
+    and K4 L times a step.  ``full``: phase 9's figures, printed beside."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.data import SyntheticTokenDataset, batches
+    from elastic_gpu_scheduler_tpu_torch.models.lora import (
+        lora_init,
+        lora_param_count,
+        make_lora_train_step,
+    )
+    from elastic_gpu_scheduler_tpu_torch.models.train import make_optimizer
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    cfg = TransformerConfig(**TRAIN)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    frozen = [p.cpu() for p in _leaves(params)]
+    lo = lora_init(params, rank=LORA_TRAIN_RANK, targets=ALL_FAMILIES,
+                   generator=torch.Generator(device=dev).manual_seed(7))
+    opt = make_optimizer(lr=LORA_TRAIN_LR)
+    state = opt.init(lo["adapters"])
+    step = make_lora_train_step(cfg, opt)
+    batch = next(batches(SyntheticTokenDataset(cfg.vocab_size, seed=0), TRAIN_B, TRAIN_S, seed=1))
+    toks = torch.from_numpy(batch).to(dev)
+    n_train = lora_param_count(lo)
+    log(f"LoRA train: rank {LORA_TRAIN_RANK} on {list(ALL_FAMILIES)}, {n_train / 1e6:.2f}M "
+        f"trainable over a frozen bf16 base, B={TRAIN_B} S={TRAIN_S}, remat, "
+        f"xent_chunks={cfg.xent_chunks}, AdamW lr {LORA_TRAIN_LR}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path: counts at 0 just before, read just after
+    _build.reset_launches()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        _, _, loss = step(lo, state, params, toks)
+        losses.append(float(loss))  # synchronizes
+        times.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    n_steps, L = len(times), cfg.n_layers
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=2 * L * n_steps, flash_bwd_dq=L * n_steps, flash_bwd_dkv=L * n_steps)
+    log(f"LoRA train main path: {n_steps} steps, losses {[round(x, 4) for x in losses]}, "
+        f"launches {launches} (want {want})")
+    check(all(np.isfinite(losses)), "LoRA train loss not finite")
+    check(losses[-1] < losses[0], "LoRA train loss did not fall")
+    check(launches == want, "LoRA train-path launches differ from 2L / L per step")
+    check(all(torch.equal(p.cpu(), f) for p, f in zip(_leaves(params), frozen)),
+          "LoRA training changed the base")
+    step_ms = float(np.mean(times[1:])) * 1e3
+    mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prof = phase_train_profile(lambda p, s, t: step(lo, s, p, t), params, state, toks,
+                               label="lora_train")
+    perf = {"step_ms": step_ms, "step_ms_each": [x * 1e3 for x in times],
+            "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
+            "max_memory_allocated_gb": mem_gb, "trainable_params": n_train, "losses": losses,
+            "profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                             "launches", "k4_share", "k1_share")},
+            "full_finetune": {k: full[k] for k in ("step_ms", "tokens_per_s",
+                                                   "max_memory_allocated_gb", "params_b")}}
+    log("LoRA train perf: " + json.dumps(perf))
+    log(f"LoRA vs full fine-tune (one call): step {step_ms:.2f} vs {full['step_ms']:.2f} ms, "
+        f"{perf['tokens_per_s']:.0f} vs {full['tokens_per_s']:.0f} tokens/s, "
+        f"max_memory_allocated {perf['max_memory_allocated_gb']:.2f} vs "
+        f"{full['max_memory_allocated_gb']:.2f} GB, trainable {n_train / 1e6:.2f}M vs "
+        f"{full['params_b'] * 1e3:.0f}M parameters; {card_line()}")
+    return perf
 
 
 def phase_launcher(dev) -> dict:
@@ -2774,6 +3199,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 6f. multi-LoRA serving on the same weights
+    lperf = phase_lora_engine(dev, eng.params, eng.cfg, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 6b. the prefix-cached, chunked, int8-KV engine on the same weights
     peng, plaunches, k3_sampler, k2i_sampler, pperf = phase_prefix_engine(
         dev, eng.params, eng.cfg)
@@ -2792,6 +3222,10 @@ def main() -> int:
     del cfg, params, state, step, tokens
     gc.collect()
     torch.cuda.empty_cache()
+    # 9b. LoRA fine-tuning at the same shape
+    lora_train = phase_lora_train(dev, train_perf)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_train_cpu_vs_card(dev)
     launcher_res = phase_launcher(dev)
 
@@ -2807,9 +3241,10 @@ def main() -> int:
     log(json.dumps({"overlap_engine": operf}))
     log(json.dumps({"spec_engine": sperf}))
     log(json.dumps({"controls_engine": cperf}))
+    log(json.dumps({"lora_engine": lperf}))
     log(json.dumps({"prefix_engine": pperf}))
     log(json.dumps({"train": train_perf, "train_profile_idle_share": train_prof["idle_share"],
-                    "launcher": launcher_res}))
+                    "launcher": launcher_res, "lora_train": lora_train}))
     log(card)
     print(json.dumps({"kernels": kernels}))
     # the one card this script drives (cuda:0)

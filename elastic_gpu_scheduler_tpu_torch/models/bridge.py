@@ -11,7 +11,8 @@ bfloat16 arrives as an ``ml_dtypes`` bfloat16 array, which
 (``view(np.uint16)`` → ``view(torch.bfloat16)``): the conversion is
 bit-exact.  ``params_to_numpy`` is the way back, with bfloat16 leaves as
 their raw bits in uint16 arrays (view them as ``ml_dtypes.bfloat16`` to
-compare).
+compare).  ``lora_from_jax`` / ``lora_to_numpy`` carry a LoRA adapter
+tree (``{"adapters", "alpha", "rank"}``) the same way.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .train import AdamWState, MasterState
+from .train import AdamWState, MasterState, _map
 from .transformer import resolve_device
 
 _NP_TO_TORCH = {
@@ -61,6 +62,23 @@ def params_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tensor_to_numpy(tree)
+
+
+def lora_from_jax(lora_np: dict, device=None) -> dict:
+    """The reference's ``lora_init`` tree with numpy leaves → the port's:
+    the same nesting, ``alpha`` and ``rank``, fp32 tensors on ``device``."""
+    dev = resolve_device(device)
+    adapters = _map(lambda a: tensor_from_numpy(np.asarray(a, np.float32), dev),
+                    lora_np["adapters"])
+    return {"adapters": adapters, "alpha": float(lora_np["alpha"]),
+            "rank": int(lora_np["rank"])}
+
+
+def lora_to_numpy(lora: dict) -> dict:
+    """The port's adapter tree → the reference's layout with numpy
+    leaves (``jax.tree.map(jnp.asarray, ...)`` makes it the reference's)."""
+    return {"adapters": params_to_numpy(lora["adapters"]), "alpha": float(lora["alpha"]),
+            "rank": int(lora["rank"])}
 
 
 def _adam_states(tree, found: list) -> None:

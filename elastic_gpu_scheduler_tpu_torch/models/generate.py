@@ -132,7 +132,7 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: KVCache, cfg: Tran
     """Multi-token cached forward: T tokens from position ``cache.length``
     in one pass.  tokens: (B, T) → (logits (B, T, V) float32, cache at
     length + T).  The new K/V rows are written into ``cache`` in place."""
-    check_dense(cfg, params)
+    check_dense(cfg)
     dtype = torch_dtype(cfg.dtype)
     B, T = tokens.shape
     Hn, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads

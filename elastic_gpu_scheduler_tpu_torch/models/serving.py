@@ -65,6 +65,14 @@ join and leave a fixed-shape batch between fused decode chunks:
   token's log-probability and the top ``logprobs_k`` of every step's
   distribution.  ``max_queue`` bounds the admission queue
   (``QUEUE_FULL_ERROR``).
+- **Multi-LoRA serving** (``adapters``): named adapters stacked into one
+  bank per weight family (``build_lora_bank``, id 0 the all-zero base
+  adapter); ``Request.adapter`` picks one, and every projection of every
+  paged path adds its own row's delta (``_sproj``), so requests on
+  different adapters share one batch and one graph.  Each chunk or pass
+  gathers its rows' factors once (``adapter_rows``).  The prefix cache's
+  digest chain is seeded with the adapter id, so pages cached under one
+  adapter never match another's prompts.
 
 The step functions run under ``torch.inference_mode()``: serving
 parameters that require grad (a model fresh from ``models/train.py``)
@@ -75,9 +83,9 @@ some; a higher-priority stalled slot spills a lower-priority one (its
 request requeues and resumes exactly); if every slot is stalled the engine
 raises "page pool exhausted".
 
-Not ported yet, and rejected by name: LoRA adapters, a mesh and the
-compile cache (engine options), and the disaggregated KV export / import /
-migration verbs.
+Not ported yet, and rejected by name: a mesh and the compile cache
+(engine options), and the disaggregated KV export / import / migration
+verbs.
 """
 
 from __future__ import annotations
@@ -122,7 +130,7 @@ log = logging.getLogger("tpu-scheduler")
 SCRATCH_PAGE = 0  # reserved; inactive slots write here, nobody reads it
 
 # reference engine options this slice does not serve (a truthy value raises)
-_UNPORTED_OPTIONS = ("adapters", "mesh", "compile_cache")
+_UNPORTED_OPTIONS = ("mesh", "compile_cache")
 
 
 # -- paged KV pool -----------------------------------------------------------
@@ -204,6 +212,7 @@ class Request:
     temperature: float = 0.0
     top_k: int = 0  # 0 → disabled
     top_p: float = 1.0  # >= 1 → disabled
+    adapter: str = ""  # "" → base model; else a name registered at init
     # generation stops when any of these ids is emitted (the stop token IS
     # included in the output); () → run to max_new_tokens
     stop_tokens: tuple = ()
@@ -267,32 +276,117 @@ def _rope_rows(x, cs):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
-def _sproj(x, p, name, dtype):
-    """``x @ p[name]`` (LoRA deltas are a later slice)."""
-    return x @ wmat(p[name], dtype)
+def build_lora_bank(adapters: dict, dtype: torch.dtype, base_layers: Optional[dict] = None,
+                    device=None) -> tuple[dict, dict]:
+    """Stack named adapters (``models/lora.lora_init`` trees) into one
+    gatherable bank per weight family, as the reference does:
+
+        {family: {"a": (L, n_ids, d_in, r_max), "b": (L, n_ids, r_max, d_out)}}
+
+    in ``dtype`` on ``device``.  Id 0 is the all-zero adapter (the base
+    model; "" requests), ids 1.. follow the dict order.  Ranks are
+    zero-padded to the family's maximum (padded rank columns contribute
+    exact zeros) and each adapter's alpha/rank is folded into its b, as
+    ``lora.inject_lora`` does.  ``base_layers`` (the model's layer tree)
+    checks the shapes here, so an adapter trained against another base
+    fails by name.  Returns (bank, name → id)."""
+
+    def _base_shape(t):
+        W = base_layers.get(t)
+        if W is None:
+            raise ValueError(f"adapter target {t!r} not in model layers")
+        return tuple((W["q8"] if isinstance(W, dict) else W).shape)
+
+    index = {"": 0}
+    targets: dict[str, tuple] = {}
+    for name, lo in adapters.items():
+        if name == "" or name in index:
+            raise ValueError(f"bad/duplicate adapter name {name!r}")
+        index[name] = len(index)
+        for t, ab in lo["adapters"].items():
+            L, d_in, r = ab["a"].shape
+            d_out = ab["b"].shape[-1]
+            if base_layers is not None and _base_shape(t) != (L, d_in, d_out):
+                raise ValueError(
+                    f"adapter {name!r} target {t!r} has dims "
+                    f"(L={L}, d_in={d_in}, d_out={d_out}) but the model's "
+                    f"{t!r} is {_base_shape(t)} — this adapter was "
+                    "trained against a different base"
+                )
+            prev = targets.get(t)
+            if prev is not None and prev[:3] != (L, d_in, d_out):
+                raise ValueError(
+                    f"adapter {name!r} target {t!r} has dims "
+                    f"(L={L}, d_in={d_in}, d_out={d_out}) but another "
+                    f"adapter uses (L={prev[0]}, d_in={prev[1]}, "
+                    f"d_out={prev[2]}) — all adapters must share one base"
+                )
+            targets[t] = (L, d_in, d_out, max(r, prev[3] if prev else 0))
+    n = len(index)
+    bank: dict = {}
+    for t, (L, d_in, d_out, rmax) in targets.items():
+        a = torch.zeros((L, n, d_in, rmax), dtype=torch.float32)
+        b = torch.zeros((L, n, rmax, d_out), dtype=torch.float32)
+        for name, lo in adapters.items():
+            ab = lo["adapters"].get(t)
+            if ab is None:
+                continue
+            r = ab["a"].shape[-1]
+            scale = lo["alpha"] / lo["rank"]
+            a[:, index[name], :, :r] = ab["a"].detach().float().cpu()
+            b[:, index[name], :r, :] = ab["b"].detach().float().cpu() * scale
+        bank[t] = {"a": a.to(device=device, dtype=dtype), "b": b.to(device=device, dtype=dtype)}
+    return bank, index
 
 
-def _paged_layer(x, p, lkv, cs, pidx, off, attn, cfg, dtype):
+def adapter_rows(bank: Optional[dict], aids) -> Optional[dict]:
+    """Each batch row's adapter factors, gathered from ``bank`` by the
+    adapter ids ``aids`` (B,) and widened to fp32: {family: {"a": (L, B,
+    d_in, r), "b": (L, B, r, d_out)}}.  The ids do not change within a
+    chunk or a pass, so its step functions gather once, not once a step
+    and a layer.  None without a bank."""
+    if not bank:
+        return None
+    return {t: {n: f.index_select(1, aids).float() for n, f in ab.items()}
+            for t, ab in bank.items()}
+
+
+def _sproj(x, p, name, dtype, ad=None):
+    """``x @ p[name]``, plus the per-row LoRA delta when ``ad`` (this
+    layer's ``adapter_rows``) carries the family (reference ``_sproj``):
+    ``t = x·a`` and ``t·b`` in fp32 (the reference's fp32-output products
+    of the same operands), cast to y's dtype and added.  Every row applies
+    its own request's adapter, so the batch never splits; a zero row (id
+    0) adds exact zeros."""
+    y = x @ wmat(p[name], dtype)
+    if ad and name in ad:
+        t = torch.bmm(x.float(), ad[name]["a"])  # (B, T, r)
+        y = y + torch.bmm(t, ad[name]["b"]).to(y.dtype)
+    return y
+
+
+def _paged_layer(x, p, lkv, cs, pidx, off, attn, cfg, dtype, ad=None):
     """ONE transformer layer shared by the paged paths (decode step,
     prefill and verify); they differ only in the rope tables ``cs`` of
     their positions (B, T) (``_rope_cs``), the scatter targets (B·T,) and
-    ``attn(q, k, v, lkv)`` → (B, T, Hn·Dh)."""
+    ``attn(q, k, v, lkv)`` → (B, T, Hn·Dh).  ``ad``: this layer's slice
+    of ``adapter_rows`` (None: the plain computation)."""
     B, T, _ = x.shape
     Hn, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     h = rms_norm(x, p["attn_norm"])
-    q = _sproj(h, p, "wq", dtype).reshape(B, T, Hn, Dh)
-    k = _sproj(h, p, "wk", dtype).reshape(B, T, Hkv, Dh)
-    v = _sproj(h, p, "wv", dtype).reshape(B, T, Hkv, Dh)
+    q = _sproj(h, p, "wq", dtype, ad).reshape(B, T, Hn, Dh)
+    k = _sproj(h, p, "wk", dtype, ad).reshape(B, T, Hkv, Dh)
+    v = _sproj(h, p, "wv", dtype, ad).reshape(B, T, Hkv, Dh)
     q = _rope_rows(q, cs)
     k = _rope_rows(k, cs)
     # inactive/padding rows target the scratch page
     _kv_write_rows(lkv, pidx, off, k.reshape(B * T, Hkv, Dh), v.reshape(B * T, Hkv, Dh))
     o = attn(q, k, v, lkv)
-    x = x + _sproj(o, p, "wo", dtype)
+    x = x + _sproj(o, p, "wo", dtype, ad)
     h = rms_norm(x, p["mlp_norm"])
-    gate = F.silu(_sproj(h, p, "w_gate", dtype))
-    up = _sproj(h, p, "w_in", dtype)
-    return x + _sproj(gate * up, p, "w_out", dtype)
+    gate = F.silu(_sproj(h, p, "w_gate", dtype, ad))
+    up = _sproj(h, p, "w_in", dtype, ad)
+    return x + _sproj(gate * up, p, "w_out", dtype, ad)
 
 
 def _paged_attn_call(q, lkv, tables, lengths, cfg, dtype):
@@ -307,11 +401,12 @@ def _paged_attn_call(q, lkv, tables, lengths, cfg, dtype):
 
 @torch.inference_mode()
 def _paged_decode_step(params, tokens, kv, tables, lengths, cfg, page_size,
-                       paged_kernel=False):
+                       paged_kernel=False, ad=None):
     """One decode step for every slot at its own position.
 
     tokens: (B,) int32; kv: pool (``make_kv_pool``), updated in place;
-    tables: (B, NB) int32 page ids; lengths: (B,) int32 write positions.
+    tables: (B, NB) int32 page ids; lengths: (B,) int32 write positions;
+    ad: the rows' gathered adapter factors (``adapter_rows``) or None.
     Returns (logits (B, V) float32, kv)."""
     dtype = torch_dtype(cfg.dtype)
     B = tokens.shape[0]
@@ -339,7 +434,7 @@ def _paged_decode_step(params, tokens, kv, tables, lengths, cfg, page_size,
     for i in range(cfg.n_layers):
         x = _paged_layer(
             x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, page_idx, offset,
-            attn, cfg, dtype,
+            attn, cfg, dtype, ad and layer_slice(ad, i),
         )
     x = rms_norm(x, params["final_norm"])
     logits = (x @ wmat(params["unembed"], dtype))[:, 0, :]
@@ -347,12 +442,14 @@ def _paged_decode_step(params, tokens, kv, tables, lengths, cfg, page_size,
 
 
 @torch.inference_mode()
-def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size):
+def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size, bank=None,
+                   aids=None):
     """One-pass prompt ingestion for ONE slot: causal self-attention over
     the whole (padded) prompt block, K/V scattered into the slot's pages.
 
     tokens: (1, Tpad); pages: (n,) the slot's table row; t_real: count of
-    real tokens (padding K/V goes to the scratch page).  Returns (logits
+    real tokens (padding K/V goes to the scratch page); bank / aids: the
+    engine's adapter bank and the slot's adapter id (1,).  Returns (logits
     (V,) of the last real position, kv) — only that row is unembedded."""
     dtype = torch_dtype(cfg.dtype)
     Tpad = tokens.shape[1]
@@ -378,10 +475,11 @@ def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size):
         ).transpose(1, 2).reshape(1, Tpad, Hn * Dh)
 
     cs = _rope_cs(positions[None, :], cfg)
+    ad = adapter_rows(bank, aids)
     for i in range(cfg.n_layers):
         x = _paged_layer(
             x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, pidx, off, attn,
-            cfg, dtype,
+            cfg, dtype, ad and layer_slice(ad, i),
         )
     x = x[:, t_real - 1:t_real]  # (1, 1, D)
     x = rms_norm(x, params["final_norm"])
@@ -391,14 +489,14 @@ def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size):
 
 @torch.inference_mode()
 def _paged_prefill_prefixed(params, tokens, kv, pages, t0: int, t_real: int, *, cfg,
-                            page_size):
+                            page_size, bank=None, aids=None):
     """One-pass prompt ingestion BEHIND pages already written (a
     prefix-cache hit, or a later chunk of a chunked prefill).
 
-    Same contract as ``_paged_prefill`` except the slot's pages already
-    hold K/V for positions < t0: the new tokens sit at positions
-    t0..t0+t_real-1, and attention gathers the slot's pages (dequantised
-    when int8) so the queries see the cached prefix
+    Same contract as ``_paged_prefill`` (the adapter too) except the
+    slot's pages already hold K/V for positions < t0: the new tokens sit
+    at positions t0..t0+t_real-1, and attention gathers the slot's pages
+    (dequantised when int8) so the queries see the cached prefix
     (``generate.cached_attention_multi``: kernel K3 on CUDA).  Padding
     rows write to the scratch page; their outputs are never consumed."""
     dtype = torch_dtype(cfg.dtype)
@@ -423,10 +521,11 @@ def _paged_prefill_prefixed(params, tokens, kv, pages, t0: int, t_real: int, *, 
         ).reshape(1, Tpad, Hn * Dh)
 
     cs = _rope_cs(positions[None, :], cfg)
+    ad = adapter_rows(bank, aids)
     for i in range(cfg.n_layers):
         x = _paged_layer(
             x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, pidx, off, attn,
-            cfg, dtype,
+            cfg, dtype, ad and layer_slice(ad, i),
         )
     x = x[:, t_real - 1:t_real]  # (1, 1, D)
     x = rms_norm(x, params["final_norm"])
@@ -504,7 +603,7 @@ def _penalise(logits, cnt, fpens, ppens):
 def _fused_serve_chunk(
     params, kv, tables, tokens, lengths, active, prompts, prompt_lens,
     temps, top_ks, top_ps, generator, bias=None, fpens=None, ppens=None, counts=None,
-    seeds=None, seeded=None, stop_rows=None, min_toks=None,
+    seeds=None, seeded=None, stop_rows=None, min_toks=None, bank=None, aids=None,
     *, cfg, page_size, n_steps, use_filters, use_temp, paged_kernel=False,
     logprobs_k=0, use_pen=False, use_seed=False, use_min=False,
 ):
@@ -525,14 +624,18 @@ def _fused_serve_chunk(
     lengths+1-prompt_lens is below ``min_toks``; ``use_pen`` counts the
     fed token when it is a generated one (on top of the host's
     ``counts``) and subtracts the penalties; ``use_seed`` draws the rows
-    with ``seeded`` from (``seeds``, position lengths)."""
+    with ``seeded`` from (``seeds``, position lengths).
+
+    ``bank`` / ``aids`` (B,): the adapter bank and each slot's adapter id,
+    gathered once for the chunk's steps."""
     outs = []
+    ad = adapter_rows(bank, aids)
     if use_pen:
         bidx = torch.arange(tokens.shape[0], device=tokens.device)
         cnt = counts.float()
     for _ in range(n_steps):
         logits, kv = _paged_decode_step(
-            params, tokens, kv, tables, lengths, cfg, page_size, paged_kernel
+            params, tokens, kv, tables, lengths, cfg, page_size, paged_kernel, ad
         )
         if bias is not None:
             logits = logits + bias
@@ -607,11 +710,12 @@ def _cached_attention_rows(q, cache_k, cache_v, starts, window: int = 0):
 
 
 @torch.inference_mode()
-def _verify_logits(params, kv, tables, feed, lengths, active, *, cfg, page_size,
-                   paged_kernel=False):
+def _verify_logits(params, kv, tables, feed, lengths, active, bank=None, aids=None, *, cfg,
+                   page_size, paged_kernel=False):
     """The verify pass's forward: every slot's W fed tokens at positions
-    lengths..lengths+W-1 through the model, their K/V rows written into
-    the pool (IN PLACE).  Returns logits (B, W, V) float32.
+    lengths..lengths+W-1 through the model (each row under its adapter,
+    ``bank`` / ``aids``), their K/V rows written into the pool (IN PLACE).
+    Returns logits (B, W, V) float32.
 
     Positions past the table view's end, and inactive rows, write to the
     scratch page (their outputs are never consumed: the host caps
@@ -641,10 +745,11 @@ def _verify_logits(params, kv, tables, feed, lengths, active, *, cfg, page_size,
         ).reshape(B, W, Hn * Dh)
 
     cs = _rope_cs(positions, cfg)
+    ad = adapter_rows(bank, aids)
     for i in range(cfg.n_layers):
         x = _paged_layer(
             x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, pidx, off, attn,
-            cfg, dtype,
+            cfg, dtype, ad and layer_slice(ad, i),
         )
     x = rms_norm(x, params["final_norm"])
     return (x @ wmat(params["unembed"], dtype)).float()
@@ -654,7 +759,7 @@ def _verify_logits(params, kv, tables, feed, lengths, active, *, cfg, page_size,
 def _fused_verify_chunk(
     params, kv, tables, feed, lengths, active, temps, top_ks, top_ps, generator,
     bias=None, fpens=None, ppens=None, counts=None, plens=None, seeds=None, seeded=None,
-    stop_rows=None, min_toks=None,
+    stop_rows=None, min_toks=None, bank=None, aids=None,
     *, cfg, page_size, use_filters, use_temp, paged_kernel=False,
     logprobs_k=0, use_pen=False, use_seed=False, use_min=False,
 ):
@@ -681,8 +786,9 @@ def _fused_verify_chunk(
     keys window position j by position lengths+j, the decode chunk's key
     for the same position.  With ``logprobs_k`` > 0 ``picked`` becomes
     (picked, chosen_lp, top_ids, top_lps), position j's rows those of
-    the distribution at fed position j."""
-    logits = _verify_logits(params, kv, tables, feed, lengths, active, cfg=cfg,
+    the distribution at fed position j.  ``bank`` / ``aids``: the
+    adapters, as in the decode chunk."""
+    logits = _verify_logits(params, kv, tables, feed, lengths, active, bank, aids, cfg=cfg,
                             page_size=page_size, paged_kernel=paged_kernel)
     B, W = feed.shape
     positions = lengths[:, None] + torch.arange(W, device=feed.device, dtype=lengths.dtype)
@@ -909,9 +1015,9 @@ def _prefix_page_key(prev: bytes, toks: np.ndarray) -> bytes:
 
 
 def _prefix_seed(adapter_id: int) -> bytes:
-    """Chain seed: cached K/V depends on the adapter, so pages cached
-    under one must never match another's prompts (the port serves the
-    base model only: adapter id 0)."""
+    """Chain seed: cached K/V depends on the adapter (the wk / wv
+    deltas), so pages cached under one must never match another's
+    prompts."""
     return prefixdigest.prefix_seed(adapter_id)
 
 
@@ -971,6 +1077,7 @@ class InferenceEngine:
         draft: Optional[tuple] = None,
         logprobs_k: int = 5,
         max_queue: int = 0,
+        adapters: Optional[dict] = None,
         device=None,
         **unported,
     ):
@@ -1012,7 +1119,13 @@ class InferenceEngine:
 
         ``max_queue`` > 0: ``submit`` fails a request with
         ``QUEUE_FULL_ERROR`` (HTTP 429) while that many wait; spill
-        requeues bypass the cap."""
+        requeues bypass the cap.
+
+        ``adapters``: {name: ``lora_init`` tree} served on this base
+        (``build_lora_bank``); a request names one in ``Request.adapter``
+        ("" is the base model) and requests on different adapters share
+        the batch, its graphs and the verify pass.  The draft model runs
+        without them."""
         unknown = sorted(set(unported) - set(_UNPORTED_OPTIONS))
         if unknown:
             raise TypeError(f"unknown engine options {unknown}")
@@ -1022,7 +1135,7 @@ class InferenceEngine:
                 f"engine options {asked} are not ported yet (later slices "
                 "of the port serve them)"
             )
-        check_dense(cfg, params)
+        check_dense(cfg)
         spec_k = max(0, spec_k)
         if draft is not None:
             dparams, dcfg = draft
@@ -1032,10 +1145,20 @@ class InferenceEngine:
                 raise ValueError(f"draft vocab {dcfg.vocab_size} != target {cfg.vocab_size}")
             if dcfg.n_experts > 0:
                 raise ValueError("draft model must be dense (n_experts=0)")
-            check_dense(dcfg, dparams)
+            check_dense(dcfg)
         self.device = resolve_device(device)
         self.params = _tree_to(params, self.device)
         self.cfg = cfg
+        # multi-LoRA: the bank (fixed for the engine's life) and each slot's
+        # adapter id (0 = the base model, an all-zero bank row)
+        if adapters:
+            self.lora_bank, self.adapter_index = build_lora_bank(
+                adapters, torch_dtype(cfg.dtype), base_layers=self.params["layers"],
+                device=self.device,
+            )
+        else:
+            self.lora_bank, self.adapter_index = {}, {"": 0}
+        self.adapter_ids = np.zeros(max_batch, np.int32)
         self.max_batch = max_batch
         self.max_len = max_len
         self.page_size = page_size
@@ -1219,6 +1342,11 @@ class InferenceEngine:
             return (
                 f"prompt {len(req.prompt)} + max_new_tokens "
                 f"{req.max_new_tokens} exceeds max_len {self.max_len}"
+            )
+        if req.adapter not in self.adapter_index:
+            return (
+                f"unknown adapter {req.adapter!r} "
+                f"(registered: {sorted(self.adapter_index)})"
             )
         if req.seed is not None:
             if isinstance(req.seed, bool) or not isinstance(req.seed, int):
@@ -1450,6 +1578,7 @@ class InferenceEngine:
             self.temps[i] = req.temperature
             self.top_ks[i] = req.top_k
             self.top_ps[i] = req.top_p
+            self.adapter_ids[i] = self.adapter_index[req.adapter]
             self.freq_pens[i] = req.frequency_penalty
             self.pres_pens[i] = req.presence_penalty
             if req.seed is not None:
@@ -1487,7 +1616,9 @@ class InferenceEngine:
         the model for the first logits).  Returns the tokens matched."""
         ps = self.page_size
         plen = int(self.prompt_lens[i])
-        key = _prefix_seed(0)
+        # the slot's adapter seeds the chain: its pages match only prompts
+        # under the same adapter
+        key = _prefix_seed(int(self.adapter_ids[i]))
         row = self.prompts[i]
         matched_pages = 0
         for j in range(self.max_pages_per_slot):
@@ -1518,7 +1649,7 @@ class InferenceEngine:
         freed normally."""
         ps = self.page_size
         plen = min(len(req.prompt), int(self.lengths[i]))
-        key = _prefix_seed(0)
+        key = _prefix_seed(int(self.adapter_ids[i]))  # as in _match_prefix
         # the same int32 byte layout _match_prefix hashes
         ptoks = np.asarray(req.prompt[:plen], np.int32)
         for j, pg in enumerate(self.slot_pages[i]):
@@ -1555,14 +1686,20 @@ class InferenceEngine:
         toks = np.zeros((1, tpad), np.int32)
         toks[0, :n] = self.prompts[i, t0:t0 + n]
         toks = torch.tensor(toks, device=self.device)
+        # the slot's adapter (1,), passed only by an engine with a bank
+        ad = {}
+        if self.lora_bank:
+            ad = dict(bank=self.lora_bank,
+                      aids=torch.tensor(self.adapter_ids[i:i + 1], device=self.device))
         if t0 == 0:
             logits, self.kv = _paged_prefill(
                 self.params, toks, self.kv, row, n, cfg=self.cfg, page_size=self.page_size,
+                **ad,
             )
         else:
             logits, self.kv = _paged_prefill_prefixed(
                 self.params, toks, self.kv, row, t0, n, cfg=self.cfg,
-                page_size=self.page_size,
+                page_size=self.page_size, **ad,
             )
         self.prefills_run += 1
         self._last_drain_done = None  # gap metric: decode chunks only
@@ -1688,6 +1825,7 @@ class InferenceEngine:
         self.prefilling[i] = False
         self.gen_before[i] = 0
         self.priorities[i] = 0
+        self.adapter_ids[i] = 0
         self._seeded[i] = False
         self._clear_bias(i)
         self._clear_stop(i)
@@ -1894,6 +2032,14 @@ class InferenceEngine:
             ds.get("min_toks", self.min_toks) if mn else None,
         ]
 
+    def _adapter_args(self) -> list:
+        """(bank, adapter ids) of a pass: the ids a device mirror refreshed
+        in place, so a graph replay reads the batch's current adapters and a
+        new mix is a refresh, not a capture; (None, None) without a bank."""
+        if not self.lora_bank:
+            return [None, None]
+        return [self.lora_bank, self._ds.get("adapter_ids", self.adapter_ids)]
+
     def _static(self, v: dict, **kw) -> dict:
         """The step functions' keyword flags for variant ``v``."""
         return dict(cfg=self.cfg, page_size=self.page_size, paged_kernel=self.paged_kernel,
@@ -2001,7 +2147,7 @@ class InferenceEngine:
             ds.get("lengths", self.lengths), ds.get("active", active),
             ds.get("temps", self.temps), ds.get("top_ks", self.top_ks),
             ds.get("top_ps", self.top_ps), self.generator,
-            *self._control_args(v, plens=True), **self._static(v),
+            *self._control_args(v, plens=True), *self._adapter_args(), **self._static(v),
         )
         if want_lp:
             picked, chosen_lp, top_ids, top_lps = (t.cpu().numpy() for t in out)
@@ -2210,6 +2356,7 @@ class InferenceEngine:
             # before the lengths advance below: the counts cover positions
             # below the chunk's first
             *self._control_args(v),
+            *self._adapter_args(),
         )
         static = self._static(v, n_steps=K)
         if self.overlap and self.device.type == "cuda":

@@ -10,21 +10,23 @@ backward (``torch.utils.checkpoint``, the counterpart of
 ``jax.checkpoint``); ``cfg.xent_chunks`` selects the vocab-chunked loss in
 ``models/train.py``.
 
-Not ported yet, and rejected by name where a config or a parameter tree
-asks for them: ring attention, pipeline parallelism, MoE, LoRA adapters
+A layer tree may carry LoRA leaves (``<family>_lora`` = {"a", "b"},
+``models/lora.inject_lora``): ``_proj`` adds their term in the activation
+domain.  Not ported yet, and rejected by name where a config or a
+parameter tree asks for them: ring attention, pipeline parallelism, MoE
 and int8 weights.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import flash_attention
+from ..ops.xent import mm_f32
 from .quantize import wmat
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -84,9 +86,9 @@ class TransformerConfig:
         return torch_dtype(self.params_dtype or self.dtype)
 
 
-def check_dense(cfg: TransformerConfig, params: Optional[dict] = None) -> None:
-    """Raise, by name, on the config fields and parameter leaves this slice
-    of the port does not serve."""
+def check_dense(cfg: TransformerConfig) -> None:
+    """Raise, by name, on the config fields this slice of the port does
+    not serve."""
     unported = {
         "use_ring_attention": cfg.use_ring_attention,
         "n_microbatches": cfg.n_microbatches > 0,
@@ -98,12 +100,6 @@ def check_dense(cfg: TransformerConfig, params: Optional[dict] = None) -> None:
             f"config fields {bad} are not ported yet (ring attention, "
             "pipeline and MoE are later slices of the port)"
         )
-    if params is not None:
-        lora = sorted(k for k in params.get("layers", {}) if k.endswith("_lora"))
-        if lora:
-            raise NotImplementedError(
-                f"LoRA leaves {lora} are not ported yet (a later slice)"
-            )
 
 
 # -- init --------------------------------------------------------------------
@@ -182,8 +178,16 @@ def param_count(params: dict) -> int:
 
 
 def layer_slice(layers: dict, i: int) -> dict:
-    """Layer ``i`` of the L-stacked leaves (views, no copy)."""
-    return {k: v[i] for k, v in layers.items()}
+    """Layer ``i`` of the L-stacked leaves, nested ones (LoRA's {"a",
+    "b"}) included (views, no copy)."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
+
+
+def _unbind_layers(layers: dict) -> dict:
+    """The L-stacked leaves unbound once into per-layer tuples, nested
+    ones included, so gradients gather by one stack per leaf."""
+    return {k: _unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in layers.items()}
 
 
 # -- building blocks ---------------------------------------------------------
@@ -237,23 +241,55 @@ def _attention(q, k, v, cfg: TransformerConfig):
     return o.transpose(1, 2)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``h @ w`` with an fp32 output (``mm_f32``), for a frozen ``w``:
+    the gradient reaches ``h`` only, as ``g @ wᵀ`` in h's dtype (the
+    cotangent of a compute-dtype cast holds that dtype's values, so
+    casting it down first is exact)."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(w)
+        return mm_f32(h.reshape(-1, h.shape[-1]), w).reshape(*h.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return g.to(w.dtype) @ w.t(), None
+
+
+def _proj(h, p, name, dtype):
+    """``h @ p[name]``, plus the LoRA term when the layer carries a
+    ``<name>_lora`` leaf (reference ``transformer._proj``): the base
+    product with an fp32 output, ``(h·A)·B`` in fp32 added to it, and only
+    the sum cast to ``dtype``, so an adapter below the base's ulp is not
+    rounded away.  Without the leaf it is the plain product."""
+    ad = p.get(name + "_lora")
+    w = wmat(p[name], dtype)
+    if ad is None:
+        return h @ w
+    y = h @ w if dtype == torch.float32 else _MatmulF32.apply(h, w)
+    t = (h.float() @ ad["a"]) @ ad["b"]
+    return (y + t).to(dtype)
+
+
 def _layer(x, p, cfg: TransformerConfig):
     B, S, _ = x.shape
     Hn, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     dtype = torch_dtype(cfg.dtype)
     h = rms_norm(x, p["attn_norm"])
-    q = (h @ wmat(p["wq"], dtype)).reshape(B, S, Hn, Dh)
-    k = (h @ wmat(p["wk"], dtype)).reshape(B, S, Hkv, Dh)
-    v = (h @ wmat(p["wv"], dtype)).reshape(B, S, Hkv, Dh)
+    q = _proj(h, p, "wq", dtype).reshape(B, S, Hn, Dh)
+    k = _proj(h, p, "wk", dtype).reshape(B, S, Hkv, Dh)
+    v = _proj(h, p, "wv", dtype).reshape(B, S, Hkv, Dh)
     positions = torch.arange(S, device=x.device)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     o = _attention(q, k, v, cfg).reshape(B, S, Hn * Dh)
-    x = x + o @ wmat(p["wo"], dtype)
+    x = x + _proj(o, p, "wo", dtype)
     h = rms_norm(x, p["mlp_norm"])
-    gate = F.silu(h @ wmat(p["w_gate"], dtype))
-    up = h @ wmat(p["w_in"], dtype)
-    return x + (gate * up) @ wmat(p["w_out"], dtype)
+    gate = F.silu(_proj(h, p, "w_gate", dtype))
+    up = _proj(h, p, "w_in", dtype)
+    return x + _proj(gate * up, p, "w_out", dtype)
 
 
 def hidden_with_aux(
@@ -268,13 +304,13 @@ def hidden_with_aux(
     ``cfg.remat`` each layer is checkpointed: only its input is kept and
     its forward (K1 included) runs again in the backward."""
     check_no_mesh(mesh, "hidden_with_aux")
-    check_dense(cfg, params)
+    check_dense(cfg)
     dtype = torch_dtype(cfg.dtype)
     x = _embed_lookup(params["embed"], tokens, dtype)
-    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    per_layer = _unbind_layers(params["layers"])
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in per_layer.items()}
+        lp = layer_slice(per_layer, i)
         if remat:
             x = checkpoint(_layer, x, lp, cfg, use_reentrant=False)
         else:

@@ -9,15 +9,18 @@ routes this slice serves (stdlib HTTP only):
                              ``data: [DONE]``); the reference's request
                              controls (logprobs, logit_bias,
                              allowed_tokens, the penalties, min_tokens,
-                             seed) and ``n`` parallel choices
-    GET  /v1/stats         → engine state (slots, pages, queue, prefix cache)
+                             seed), ``adapter`` (a name registered with
+                             the engine; "" the base model) and ``n``
+                             parallel choices
+    GET  /v1/stats         → engine state (slots, pages, queue, prefix cache,
+                             registered adapters)
     GET  /healthz          → liveness (503 while draining)
     GET  /version          → build version
 
 ONE engine thread (``EngineLoop``) owns all engine state and drives fused
-chunks; HTTP handler threads only submit requests and wait on them.  A
-body field the port does not serve yet (``adapter``) is a 400 that names
-it, never ignored; a full bounded queue is a 429.  The reference's
+chunks; HTTP handler threads only submit requests and wait on them.  An
+unknown adapter is a 400 naming the registered ones; a full bounded queue
+is a 429.  The reference's
 disaggregated-serving verbs (``/v1/kv/*``, ``/v1/prefill``,
 ``/v1/migrate/*``) are not ported and answer 404.
 """
@@ -42,10 +45,6 @@ log = logging.getLogger("tpu-scheduler")
 
 _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found", 429: "Too Many Requests",
             503: "Service Unavailable", 504: "Gateway Timeout"}
-
-# request fields of the reference's API that the port does not serve yet
-_UNPORTED_FIELDS = ("adapter",)
-
 
 def choose_kv_victim(eng: InferenceEngine) -> int:
     """The slot to preempt when every slot stalls for pages: the lowest
@@ -204,9 +203,6 @@ def _strict_finite_number(body: dict, name: str) -> float:
 
 
 def _request_from_body(body: dict, vocab_size: int) -> Request:
-    asked = [f for f in _UNPORTED_FIELDS if f in body]
-    if asked:
-        raise ValueError(f"request fields {asked} are not served by this port yet")
     prompt = _token_ids(body.get("prompt"), vocab_size, "prompt")
     priority = body.get("priority", 0)
     if isinstance(priority, bool) or not isinstance(priority, int):
@@ -231,6 +227,7 @@ def _request_from_body(body: dict, vocab_size: int) -> Request:
         temperature=float(body.get("temperature", 0.0)),
         top_k=int(body.get("top_k", 0)),
         top_p=float(body.get("top_p", 1.0)),
+        adapter=str(body.get("adapter", "")),
         stop_tokens=tuple(stop),
         logprobs=logprobs,
         logit_bias=bias,
@@ -318,6 +315,7 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                     "free_pages": len(eng.free_pages),
                     "total_pages": eng.n_pages - 1,
                     "prefix_hit_tokens": int(eng.prefix_hit_tokens),
+                    "adapters": sorted(a for a in eng.adapter_index if a),
                     "page_size": eng.page_size,
                     "prefill_chunk": eng.prefill_chunk,
                     "paged_kernel": eng.paged_kernel,

@@ -175,14 +175,16 @@ def test_engine_stop_tokens_and_sampling(weights):
 
 
 def test_engine_rejects_unported_options_and_fields(weights):
+    """``compile_cache`` still raises by name; ``adapters`` is served (an
+    engine without them knows only the base model, "")."""
     _, _, params = weights
     cfg = TransformerConfig(**CFG)
-    for opt in ("adapters", "compile_cache"):
-        with pytest.raises(NotImplementedError, match=opt):
-            InferenceEngine(params, cfg, device="cpu", **{opt: 1})
-    with pytest.raises(TypeError, match="adapter"):
-        Request(prompt=[1], max_new_tokens=2, adapter="a")
+    with pytest.raises(NotImplementedError, match="compile_cache"):
+        InferenceEngine(params, cfg, device="cpu", compile_cache=1)
     eng = InferenceEngine(params, cfg, max_len=16, device="cpu")
+    assert eng.adapter_index == {"": 0} and eng.lora_bank == {}
+    unknown = eng.submit(Request(prompt=[1], max_new_tokens=2, adapter="a"))
+    assert unknown.done.is_set() and unknown.error == "unknown adapter 'a' (registered: [''])"
     bad = eng.submit(Request(prompt=[1] * 10, max_new_tokens=10))
     assert bad.done.is_set() and "max_len" in bad.error
 

@@ -14,6 +14,7 @@ import time
 import pytest
 import torch
 
+from elastic_gpu_scheduler_tpu_torch.models.lora import ALL_TARGETS, lora_init
 from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
 from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
 from elastic_gpu_scheduler_tpu_torch.server.inference import (
@@ -34,10 +35,24 @@ def _params():
     return init_params(CFG, torch.Generator().manual_seed(0), "cpu")
 
 
+def _adapters(params):
+    """Two registered adapters, B non-zero so they change the tokens."""
+    out = {}
+    for n, name in enumerate(("style-a", "style-b")):
+        lo = lora_init(params, rank=2, targets=ALL_TARGETS,
+                       generator=torch.Generator().manual_seed(10 + n))
+        for ab in lo["adapters"].values():
+            ab["b"] = torch.randn(ab["b"].shape,
+                                  generator=torch.Generator().manual_seed(20 + n)) * 0.5
+        out[name] = lo
+    return out
+
+
 @pytest.fixture(scope="module")
 def served():
-    engine = InferenceEngine(_params(), CFG, max_batch=2, max_len=64, page_size=8,
-                             device="cpu")
+    params = _params()
+    engine = InferenceEngine(params, CFG, max_batch=2, max_len=64, page_size=8,
+                             device="cpu", adapters=_adapters(params))
     server, loop = serve_inference(engine, port=0, host="127.0.0.1")
     yield server.server_address, engine
     server.shutdown()
@@ -100,14 +115,21 @@ def test_stats_health_version_and_validation(served):
     assert code == 400 and "token ids" in body["error"]
     code, body = _post(addr, {"prompt": [1], "max_tokens": 999})
     assert code == 400 and "max_len" in body["error"]
-    # the request controls and n are served; adapter is still a 400
+    # the request controls, n and adapter are served: no field is refused by name
     code, body = _post(addr, {"prompt": [1], "seed": 3, "logprobs": 2, "max_tokens": 3})
     assert code == 200 and len(body["tokens"]) == 3
     assert len(body["logprobs"]["token_logprobs"]) == 3
     code, body = _post(addr, {"prompt": [1], "n": 2, "max_tokens": 3})
     assert code == 200 and [c["index"] for c in body["choices"]] == [0, 1]
+    assert stats["adapters"] == ["style-a", "style-b"]
+    code, base = _post(addr, {"prompt": [5, 9, 2], "max_tokens": 6})
+    code, body = _post(addr, {"prompt": [5, 9, 2], "max_tokens": 6, "adapter": "style-a"})
+    assert code == 200 and len(body["tokens"]) == 6 and body["tokens"] != base["tokens"]
+    r = engine.submit(Request(prompt=[5, 9, 2], max_new_tokens=6, adapter="style-a"))
+    assert r.done.wait(60) and r.output == body["tokens"]
     code, body = _post(addr, {"prompt": [1], "adapter": "a"})
-    assert code == 400 and "adapter" in body["error"]
+    assert code == 400
+    assert body["error"] == "unknown adapter 'a' (registered: ['', 'style-a', 'style-b'])"
     # the strict validators: a bool, a float, a NaN, a negative are 400s
     for field, value in (("seed", True), ("seed", 1.5), ("logprobs", True),
                          ("logprobs", 2.0), ("min_tokens", -1), ("frequency_penalty", True),
@@ -162,6 +184,21 @@ def test_logprobs_and_n_in_json_and_sse(served):
     # a single-choice stream keeps the flat shape, with logprobs
     flat = _sse(addr, {"prompt": [3, 9, 14], "max_tokens": 4, "logprobs": 1})
     assert all("index" not in e and len(e["top_logprobs"]) == 1 for e in flat)
+
+
+def test_adapter_with_n_in_json_and_sse(served):
+    """``n`` = 2 on an adapter: each choice is served under it, in JSON and
+    in SSE, and equals the engine's own run on that adapter."""
+    addr, engine = served
+    body = {"prompt": [7, 1, 30], "max_tokens": 5, "n": 2, "adapter": "style-b"}
+    code, out = _post(addr, body)
+    assert code == 200 and len(out["choices"]) == 2
+    events = _sse(addr, body)
+    r = engine.submit(Request(prompt=[7, 1, 30], max_new_tokens=5, adapter="style-b"))
+    assert r.done.wait(60) and not r.error
+    for k, choice in enumerate(out["choices"]):
+        assert choice["index"] == k and choice["tokens"] == r.output
+        assert [e["token"] for e in events if e["index"] == k] == r.output
 
 
 def test_full_queue_answers_429_and_stats_report_max_queue():

@@ -53,6 +53,7 @@ def test_port_imports_no_jax_and_no_jax_package():
             "elastic_gpu_scheduler_tpu_torch.models.generate",
             "elastic_gpu_scheduler_tpu_torch.models.speculative",
             "elastic_gpu_scheduler_tpu_torch.models.sampling",
+            "elastic_gpu_scheduler_tpu_torch.models.lora",
             "elastic_gpu_scheduler_tpu_torch.serve",
             "elastic_gpu_scheduler_tpu_torch.utils.prefixdigest",
             "elastic_gpu_scheduler_tpu_torch.launcher"} <= expected

@@ -425,10 +425,14 @@ def test_paged_kernel_verify_window_matches_plain(cuda, W, Hn, NB, pool):
     assert out.shape == q.shape and _close(out, ref), _err(out, ref)
 
 
-def _small_engine(cuda, **kw):
+def _small_model(dtype="float32"):
     cfg = TransformerConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
-                            n_kv_heads=2, d_ff=256, dtype=kw.pop("dtype", "float32"))
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+                            n_kv_heads=2, d_ff=256, dtype=dtype)
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+def _small_engine(cuda, **kw):
+    cfg, params = _small_model(kw.pop("dtype", "float32"))
     return cfg, params, serving.InferenceEngine(params, cfg, max_batch=4, max_len=96,
                                                 page_size=16, fused_steps=4,
                                                 paged_kernel=True, device=cuda, **kw)
@@ -859,3 +863,106 @@ def test_controls_engine_on_card_matches_cpu_float32(cuda):
                 assert ([[t for t, _ in top] for top in got.top_logprobs]
                         == [[t for t, _ in top] for top in want.top_logprobs])
     assert outs["seq"][4].output == outs["overlap"][4].output
+
+
+# multi-LoRA: two adapters on the small engine's base, B non-zero
+def _small_lora_engine(cuda, dtype, adapters=True, **kw):
+    from elastic_gpu_scheduler_tpu_torch.models.lora import ALL_TARGETS, lora_init
+
+    cfg, params = _small_model(dtype)
+    ads = {}
+    for n, (name, rank, targets) in enumerate((("a1", 4, ("wq", "wv")),
+                                               ("a2", 8, ALL_TARGETS))):
+        lo = lora_init(params, rank=rank, targets=targets,
+                       generator=torch.Generator().manual_seed(20 + n))
+        for ab in lo["adapters"].values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=torch.Generator().manual_seed(30 + n))
+        ads[name] = lo
+    return serving.InferenceEngine(params, cfg, max_batch=4, max_len=96, page_size=16,
+                                   fused_steps=4, paged_kernel=True, device=cuda,
+                                   adapters=ads if adapters else None, **kw)
+
+
+LORA_MIX = ("", "a1", "", "a2")
+
+
+def _lora_requests(eng, mix, max_new=30):
+    rng = np.random.default_rng(4)
+    return [eng.submit(serving.Request(prompt=rng.integers(0, 256, n).tolist(),
+                                       max_new_tokens=max_new, adapter=a))
+            for n, a in zip((3, 17, 40, 9), mix)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lora_graph_replay_matches_eager_chunk(cuda, dtype):
+    """A graph replay of a mixed-adapter decode chunk and one eager
+    ``_chunk_in_place`` from cloned identical state give identical tokens,
+    carry and pool bytes; a new adapter mix replays the same graph."""
+    eng = _small_lora_engine(cuda, dtype, overlap=True)
+    reqs = _lora_requests(eng, LORA_MIX)
+    eng._admit()
+    eng.step()  # captures this shape's graph
+    eng._drain_pending()
+    seen = []
+    real = eng._replay_chunk
+
+    def spy(key, args, static):
+        seen.append((args, static, {k: v.clone() for k, v in args[1].items()},
+                     args[3].clone(), args[4].clone()))
+        return real(key, args, static)
+
+    eng._replay_chunk = spy
+    captured = eng.graphs_captured
+    pending = eng._dispatch_chunk()
+    torch.cuda.synchronize()
+    assert eng.graphs_captured == captured and len(seen) == 1
+    args, static, kv0, tok0, len0 = seen[0]
+    assert args[-2] is eng.lora_bank and args[-1].tolist() == [0, 1, 0, 2]
+    eager_args = list(args)
+    eager_args[1], eager_args[3], eager_args[4] = kv0, tok0, len0
+    out = serving._chunk_in_place(*eager_args, **static)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pending.out)
+    assert torch.equal(tok0, args[3]) and torch.equal(len0, args[4])
+    for name in eng.kv:
+        assert torch.equal(kv0[name], eng.kv[name]), name
+    eng._drain_chunk(pending)
+    eng.run_until_idle()
+    assert all(r.done.is_set() and not r.error for r in reqs)
+    # the same prompts on another mix of adapters walk the same table-view
+    # buckets: a mirror refresh, no capture
+    captured = eng.graphs_captured
+    _lora_requests(eng, ("a2", "a2", "a1", ""))
+    eng.run_until_idle()
+    assert eng.graphs_captured == captured
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lora_base_rows_equal_bankless_chunks(cuda, dtype):
+    """The id-0 rows of every decode chunk of a mixed-adapter batch are
+    bitwise the chunks of an engine without adapters on the same batch
+    (a zero delta is an exact no-op); both capture the same graph keys."""
+    outs = {}
+    for bank in (False, True):
+        eng = _small_lora_engine(cuda, dtype, adapters=bank, overlap=True)
+        chunks = []
+        real = eng._drain_chunk
+
+        def spy(p, real=real, chunks=chunks):
+            chunks.append([a.copy() for a in p.arrays()][0])
+            return real(p)
+
+        eng._drain_chunk = spy
+        reqs = _lora_requests(eng, LORA_MIX if bank else ("",) * 4)
+        eng.run_until_idle()
+        assert all(r.done.is_set() and not r.error for r in reqs)
+        outs[bank] = (chunks, [r.output for r in reqs], set(eng._graphs))
+    (plain, plain_toks, plain_keys), (mixed, mixed_toks, mixed_keys) = outs[False], outs[True]
+    assert len(plain) == len(mixed) and mixed_keys == plain_keys
+    base_rows = [i for i, a in enumerate(LORA_MIX) if a == ""]
+    for a, b in zip(plain, mixed):
+        assert np.array_equal(a[base_rows], b[base_rows])
+    assert [plain_toks[i] for i in base_rows] == [mixed_toks[i] for i in base_rows]
+    assert plain_toks != mixed_toks  # the adapters act
