@@ -31,6 +31,13 @@ Phases, each failing the run (non-zero exit) on any fault:
    faults planted in the training-shape result, which the tolerance must
    refuse; gradients through ``FlashAttention`` (K1 + K4) against
    autograd of ``mha_reference``;
+KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
+   against ``expert_matmul_reference`` at the main paths' shapes (MoE
+   decode w_gate and w_out, the grouped prefill at T 512, MoE + int8
+   decode, int8 wq and unembed at M 8): tolerance, bitwise repeatable,
+   ms against the plain version, a library call and the bound; a graph
+   captured on one routing replays three others equal to eager; ptxas
+   registers and spills;
 6. the port's serving engine at the full width of the repo's largest LM
    config (~1.01B parameters, GQA 16q/8kv, bf16, random weights from a
    seed, 16 layers): 12 mixed-length greedy prompts, 64 new tokens each,
@@ -100,6 +107,20 @@ Phases, each failing the run (non-zero exit) on any fault:
    small float32 model, card = CPU in four modes, each adapter = its
    merged engine, prefix hits 0, 0, 16, and 3 LoRA train steps within
    1e-4 of the CPU;
+6g. MoE serving at the same width with 8 experts (Switch top-1, ~5.8B
+   parameters, bf16, not cut): the overlapped engine on the 12 prompts
+   (every chunk a replay; K1, K2 and KE launches exact: KE 3L a decode
+   step and a prefill), a new routing mix that captures nothing, the
+   sequential engine beside it (first tokens equal), device ms and
+   kernels a chunk, the int8 + prefix + chunked engine (launches and
+   prefix counters exact), spec_k 4 (KE 3L a verify pass) and one HTTP
+   completion;
+6h. int8 weights: the dense flagship after ``quantize_params``, overlapped,
+   beside the bf16 engine in the same call (tokens/s, device ms a chunk,
+   weight bytes; KE 7L + 1 a pass exactly; first tokens against bf16
+   reported), then the MoE weights quantized;
+6i. small float32 MoE, int8 and MoE + int8 engines: card = CPU,
+   sequential, overlapped, int8 KV + prefix + chunked and spec_k 4;
 7. HTTP: ``serve_inference`` on the card-resident engine, one blocking
    and one SSE completion against the engine's own tokens, /healthz and
    /v1/stats;
@@ -117,10 +138,16 @@ Phases, each failing the run (non-zero exit) on any fault:
    frozen bf16 base, one warm-up and 5 timed steps on one batch; the loss
    must fall, the base keep its bits, K1 / K4 launch 2L / L a step; step
    ms, tokens per second, memory and trainable parameters beside phase 9;
+9c. MoE training at the same width with 8 experts, depth cut to 4
+   layers (fp32 masters and AdamW moments), B 8, S 1024: the loss falls,
+   the aux is finite and in the loss, K1 / K4 2L / L a step and no KE;
+   one step profiled; a small float32 MoE model card vs CPU;
+   ``launcher.run_job`` with a MoE JobSpec beside the default one;
 10. K1 and K4 at the train shape, K3 and K2 (dense and int8) with split
    keys, called twice, must give identical bytes;
    a ``{"kernels": [...]}`` line (K2 twice: decode, and the W = 5
-   verify window of phase 6d) with each kernel's launches on its main
+   verify window of phase 6d; KE once a shape of its phase, its launches
+   those of the path the shape belongs to) with each kernel's launches on its main
    path, error against its plain version, time, plain time, library
    time and lower bound, its share of the bound (``of_bound``) and its
    factor over the library call (``vs_library``), then the card line and
@@ -2448,6 +2475,529 @@ def lora_train_cpu_vs_card(dev) -> dict:
             "adapter_max_err_over_leaf_max": rel}
 
 
+# -- phase KE: the expert-indexed / int8 weight product -----------------------
+
+
+KE_SRC = "elastic_gpu_scheduler_tpu_torch/csrc/expert_matmul.cu"
+# KE replaces no Pallas kernel: the reference's work here is XLA's, in
+# _moe_ffn_serve's gather / ragged_dot forms and in the wmat fusion
+KE_REPLACES = {"moe": "elastic_gpu_scheduler_tpu/models/serving.py:358",
+               "int8": "elastic_gpu_scheduler_tpu/models/quantize.py:62"}
+# (label, T, E, K, N, int8, fp32 output, the path whose launches it reports)
+KE_SHAPES = [
+    ("MoE decode, w_gate / w_in", 8, 8, 2048, 6912, False, False, "moe"),
+    ("MoE decode, w_out", 8, 8, 6912, 2048, False, True, "moe"),
+    ("MoE grouped prefill, w_gate / w_in", 512, 8, 2048, 6912, False, False, "moe"),
+    ("MoE + int8 decode, w_gate / w_in", 8, 8, 2048, 6912, True, False, "moe_int8"),
+    ("int8 dense decode, wq", 8, 1, 2048, 2048, True, False, "int8"),
+    ("int8 dense decode, unembed", 8, 1, 2048, 32000, True, False, "int8"),
+]
+
+
+def ke_bound_ms(T, K, N, touched, x_bytes, w_bytes, out_bytes, int8) -> tuple[float, str]:
+    """x, ids and the touched experts' weights (and scales) read once, y
+    written once; 2 FLOPs a product at the bf16 peak."""
+    byts = T * K * x_bytes + T * 4 + touched * K * N * w_bytes + T * N * out_bytes
+    byts += touched * N * 4 if int8 else 0
+    t_ops = 2 * T * K * N / PEAK_BF16_FLOPS * 1e3
+    t_bytes = byts / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ke_registers() -> dict:
+    """ptxas's registers and spill bytes of KE's kernels, from the build log."""
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    lines = _build.build_log_path().read_text().splitlines()
+    regs, spills, inside = [], [], False
+    for line in lines:
+        if "Compiling entry" in line:
+            inside = "expert_matmul" in line
+        elif inside and "registers" in line:
+            regs.append(int(re.search(r"Used (\d+) registers", line).group(1)))
+        elif inside and "spill" in line:
+            spills += [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+    check(regs, "no ptxas line for KE in the build log")
+    return {"kernels": len(regs), "max_registers": max(regs),
+            "spill_bytes": max(spills, default=0)}
+
+
+def phase_ke(dev) -> list[dict]:
+    """KE against its plain version at the main paths' shapes (bf16 and
+    int8): tolerance, bitwise repeatable, a graph replay on a new routing
+    equal to the eager call; ms, plain ms, library ms and bound.  The rows'
+    launches come from phases 6g and 6h."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.quantize import quantize_tensor
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import (
+        dequantize,
+        expert_matmul,
+        expert_matmul_plan,
+        expert_matmul_reference,
+    )
+
+    rows = []
+    for label, T, E, K, N, int8, f32, path in KE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(T + K)
+        x = torch.randn(T, K, generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn(E, K, N, generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+        sc = None
+        if int8:
+            qt = quantize_tensor(w)
+            w, sc = qt["q8"], qt["scale"]
+        ids = (torch.randint(0, E, (T,), generator=g, device=dev, dtype=torch.int32)
+               if E > 1 else None)
+        out_dtype = torch.float32 if f32 else torch.bfloat16
+
+        def kern():
+            return expert_matmul(x, w, ids, scale=sc, out_dtype=out_dtype)
+
+        def plain():
+            return expert_matmul_reference(x, w, ids, sc, out_dtype)
+
+        got, want = kern(), plain()
+        err = maxerr(got, want)
+        name = "float32" if f32 else "bfloat16"
+        ok = (err <= 1e-3) if f32 else close(got, want, name)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"KE {label}: disagrees with expert_matmul_reference (max err {err:.3g})")
+        check(torch.equal(got, kern()), f"KE {label}: not bitwise repeatable")
+        ms = device_ms(kern, 20, match="expert_matmul")
+        plain_ms = device_ms(plain, 3)
+        wd = dequantize(w, sc, torch.bfloat16)
+        if E == 1:
+            w0 = wd[0].contiguous()
+            lib_ms = device_ms(lambda: torch.matmul(x, w0), 20)
+            lib = "torch.matmul on the dequantised bf16 weight"
+        else:
+            wg = wd[ids.long()]  # the gather itself is not timed
+            x3 = x[:, None, :]
+            lib_ms = device_ms(lambda: torch.bmm(x3, wg), 5)
+            lib = "torch.bmm on the pre-gathered (T, K, N) weights"
+            del wg
+        touched = len(set(ids.tolist())) if ids is not None else 1
+        bound, by = ke_bound_ms(T, K, N, touched, 2, 1 if int8 else 2, 4 if f32 else 2, int8)
+        plan = expert_matmul_plan(x, w, ids)
+        route = "tensor cores" if plan["tensor_cores"] else "CUDA cores"
+        log(f"KE {label} (T {T}, E {E}, K {K}, N {N}, {touched} experts touched, {route}, "
+            f"{plan['splits']} K splits): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by}), of_bound {bound / ms:.3f}, "
+            f"max err {err:.3g}")
+        rows.append({
+            "name": "expert_matmul", "path": label, "route": "cuda", "source": KE_SRC,
+            "replaces": KE_REPLACES["int8" if path == "int8" else "moe"],
+            "launches": 0, "_launch_path": path, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "note": f"no Pallas kernel: XLA's work in the reference; library: {lib}; "
+                    f"{touched} experts touched, {route}, {plan['splits']} K splits",
+        })
+        del wd
+    # a graph captured on one routing replays any other, equal to eager
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(8, 2048, generator=g, device=dev).to(torch.bfloat16)
+    qt = quantize_tensor((torch.randn(8, 2048, 6912, generator=g, device=dev) * 0.02)
+                         .to(torch.bfloat16))
+    ids = torch.zeros(8, dtype=torch.int32, device=dev)
+    expert_matmul(x, qt["q8"], ids, scale=qt["scale"])
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = expert_matmul(x, qt["q8"], ids, scale=qt["scale"])
+    for routing in ([3] * 8, [7, 1, 1, 3, 0, 7, 2, 2], list(range(8))):
+        ids.copy_(torch.tensor(routing, dtype=torch.int32))
+        graph.replay()
+        eager = expert_matmul(x, qt["q8"], ids, scale=qt["scale"])
+        torch.cuda.synchronize()
+        check(torch.equal(out, eager), f"KE graph replay != eager on routing {routing}")
+    regs = ke_registers()
+    log(f"KE: bitwise repeatable at every shape; a graph captured on one routing replays "
+        f"three others bitwise equal to eager; ptxas {json.dumps(regs)}")
+    rows[0]["ptxas"] = regs
+    return rows
+
+
+# -- phase 6g: MoE serving at full width ----------------------------------------
+
+
+MOE_FULL = dict(FULL, n_experts=8)
+
+
+def ke_per_pass(cfg, int8: bool) -> int:
+    """KE launches in one forward pass of the engine (a decode step, a
+    prefill or a verify pass): the 3 expert products a MoE layer; with
+    int8 weights also wq, wk, wv, wo (and the dense FFN's 3) a layer and
+    the unembed."""
+    L = cfg.n_layers
+    return (3 * L if cfg.n_experts else 0) + (int8 * (4 * L + (0 if cfg.n_experts else 3 * L) + 1))
+
+
+def overlapped_run(eng, prompts, label, int8=False) -> dict:
+    """A warm-up batch (captures), then the main path with exact counts:
+    every chunk a replay, K1 L a prefill, K2 L x K a step, KE per pass."""
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    cfg, L, K = eng.cfg, eng.cfg.n_layers, eng.fused_steps
+    _, warm_s, _ = drive_wall(eng, prompts, NEW_TOKENS)
+    captured, capture_s = eng.graphs_captured, eng.graph_capture_s
+    base = (eng.graph_warmups, eng.graph_replays, eng.prefills_run)
+    _build.reset_launches()
+    reqs, wall, chunks = drive_wall(eng, prompts, NEW_TOKENS)
+    launches = dict(_build.LAUNCHES)
+    warmups, replays, prefills = (eng.graph_warmups - base[0], eng.graph_replays - base[1],
+                                  eng.prefills_run - base[2])
+    passes = K * (chunks + warmups) + prefills
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=L * prefills, paged_attention=L * K * (chunks + warmups),
+                expert_matmul=ke_per_pass(cfg, int8) * passes)
+    log(f"{label} main path: {chunks} chunks ({replays} replays, {warmups} captures), "
+        f"{prefills} prefills, launches {launches} (want {want})")
+    check(replays == chunks, f"{label}: a decode chunk was not a graph replay")
+    check(launches == want and (want["expert_matmul"] > 0) == (ke_per_pass(cfg, int8) > 0),
+          f"{label}: launches differ from the path (KE per pass x passes, K1, K2)")
+    gen = sum(len(r.output) for r in reqs)
+    return {"reqs": reqs, "launches": launches,
+            "perf": {"wall_s": wall, "generated_tokens": gen, "tokens_per_s": gen / wall,
+                     "chunks": chunks, "wall_ms_per_chunk": wall / chunks * 1e3,
+                     "prefills": prefills, "graphs_captured": captured,
+                     "graph_capture_s": capture_s, "warmup_batch_s": warm_s}}
+
+
+def profile_chunks(eng, prompts, label) -> dict:
+    """Device ms, kernels and KE's share of CONTROL_WINDOW overlapped chunks."""
+    out = chunk_profile(eng, [(p, {}) for p in prompts], label)
+    ke_ms = sum(k["ms"] for k in out["top"] if "expert_matmul" in k["kernel"])
+    out["ke_ms_per_chunk_top10"] = ke_ms / CONTROL_WINDOW
+    return out
+
+
+def phase_moe_engine(dev, prompts) -> tuple:
+    """The flagship width with E 8 (Switch top-1, ~5.8B parameters, bf16,
+    not cut): the overlapped engine (main path, exact counts), a new
+    routing mix replaying without a capture, the sequential engine beside
+    it, device ms a chunk, the int8 + prefix + chunked engine, spec_k 4 and
+    one HTTP completion, all on the same weights."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+        param_count,
+    )
+
+    cfg = TransformerConfig(**MOE_FULL)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n = param_count(params)
+    log(f"MoE engine: {n / 1e9:.3f}B parameters ({cfg.n_experts} experts, {cfg.n_layers} "
+        f"layers, d={cfg.d_model}, F={cfg.d_ff}), {cfg.dtype}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng = InferenceEngine(params, cfg, paged_kernel=True, device=dev, **ENGINE)
+    run = overlapped_run(eng, prompts, "MoE overlapped")
+    perf = {"params_b": n / 1e9, "overlap": run["perf"]}
+    # another routing mix on the same table-view buckets: a replay
+    rng = np.random.default_rng(21)
+    other = [rng.integers(0, cfg.vocab_size, len(p)).tolist() for p in prompts]
+    cap0 = eng.graphs_captured
+    drive_wall(eng, other, NEW_TOKENS)
+    check(eng.graphs_captured == cap0, "MoE: a new routing mix captured a graph")
+    seng = InferenceEngine(params, cfg, paged_kernel=True, overlap=False, device=dev, **ENGINE)
+    sreqs, swall, schunks = drive_wall(seng, prompts, NEW_TOKENS)
+    del seng
+    gen = perf["overlap"]["generated_tokens"]
+    agree = agreement(run["reqs"], sreqs)
+    check(agree["first_tokens_equal"] == len(prompts),
+          "MoE: overlapped and sequential engines differ in first tokens")
+    perf["sequential"] = {"wall_s": swall, "tokens_per_s": gen / swall, "chunks": schunks,
+                          "wall_ms_per_chunk": swall / schunks * 1e3}
+    perf["overlap_vs_sequential_tokens"] = agree
+    perf["new_routing_mix_captures"] = eng.graphs_captured - cap0
+    log(f"MoE overlapped vs sequential: {perf['overlap']['tokens_per_s']:.1f} vs "
+        f"{gen / swall:.1f} tokens/s; tokens equal {agree['tokens_equal']}/{agree['tokens']}")
+    perf["profile"] = profile_chunks(eng, prompts, "MoE")
+    perf["http"] = phase_moe_http(eng, prompts[1])
+    del eng
+    perf["prefix"] = phase_moe_prefix(dev, params, cfg)
+    perf["spec"] = phase_moe_spec(dev, params, cfg, prompts, sreqs)
+    log("MoE engine perf: " + json.dumps(perf))
+    return perf, run["launches"], params, cfg, run["reqs"]
+
+
+def phase_moe_http(eng, prompt) -> dict:
+    """One /v1/completions through ``serve_inference`` on the MoE engine,
+    against the engine's own tokens."""
+    from elastic_gpu_scheduler_tpu_torch.models.serving import Request
+    from elastic_gpu_scheduler_tpu_torch.server.inference import serve_inference
+
+    server, loop = serve_inference(eng, port=0, host="127.0.0.1")
+    addr = server.server_address
+    try:
+        code, _, data = post_json(addr, {"prompt": prompt, "max_tokens": 16})
+        check(code == 200, f"MoE completion answered {code}")
+        tokens = json.loads(data)["tokens"]
+        direct = eng.submit(Request(prompt=list(prompt), max_new_tokens=16))
+        check(direct.done.wait(300) and not direct.error, "MoE direct request failed")
+        check(tokens == direct.output, "MoE HTTP tokens differ from the engine's own")
+        code, stats = get_json(addr, "/v1/stats")
+        check(code == 200, f"MoE /v1/stats answered {code}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+    log("MoE HTTP: a blocking completion equals the engine's 16 tokens; /v1/stats answers")
+    return {"completion_tokens": len(tokens), "stats_steps_run": stats["steps_run"]}
+
+
+def phase_moe_prefix(dev, params, cfg) -> dict:
+    """Phase 6b's traffic on the MoE weights through the int8-KV, prefix,
+    chunked engine: exact launches (K1 / K3 per pass, K2-int8 per step, KE
+    3L per pass and step) and the prefix counters the traffic gives."""
+    from elastic_gpu_scheduler_tpu_torch.models import serving
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    rng = np.random.default_rng(12)
+    wave1, wave2 = prefix_traffic(rng, cfg.vocab_size, SHARED_PREFIX, WAVE1_LENS, WAVE2_TAILS)
+    eng = InferenceEngine(params, cfg, device=dev, **PREFIX_ENGINE)
+    passes = {"plain": 0, "prefixed": 0}
+
+    def counted(fn, kind):
+        def call(*args, **kw):
+            passes[kind] += 1
+            return fn(*args, **kw)
+        return call
+
+    real = (serving._paged_prefill, serving._paged_prefill_prefixed)
+    serving._paged_prefill = counted(real[0], "plain")
+    serving._paged_prefill_prefixed = counted(real[1], "prefixed")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        reqs1, _, _ = drive(eng, wave1, NEW_TOKENS)
+        t1 = time.perf_counter()
+        reqs2, ta2, _ = drive(eng, wave2, NEW_TOKENS)
+    finally:
+        serving._paged_prefill, serving._paged_prefill_prefixed = real
+    t2 = time.perf_counter()
+    launches = dict(_build.LAUNCHES)
+    L, K = cfg.n_layers, eng.fused_steps
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=L * passes["plain"], flash_block_stats=L * passes["prefixed"],
+                paged_attention_int8=L * K * eng.steps_run,
+                expert_matmul=3 * L * (passes["plain"] + passes["prefixed"] + K * eng.steps_run))
+    counters = {"prefix_lookups": eng.prefix_lookups,
+                "prefix_admission_hits": eng.prefix_admission_hits,
+                "prefix_hit_tokens": eng.prefix_hit_tokens}
+    want_c = {"prefix_lookups": len(wave1) + len(wave2), "prefix_admission_hits": len(wave2),
+              "prefix_hit_tokens": len(wave2) * SHARED_PREFIX}
+    log(f"MoE prefix engine: passes {passes}, chunks {eng.steps_run}, launches {launches} "
+        f"(want {want}); counters {counters} (want {want_c})")
+    check(launches == want, "MoE prefix engine launches differ from the path")
+    check(counters == want_c, "MoE prefix counters differ from the traffic")
+    gen = sum(len(r.output) for r in reqs1 + reqs2)
+    return {"wall_s": t2 - t0, "tokens_per_s": gen / (t2 - t0), "passes": passes,
+            "chunks": eng.steps_run, "counters": counters,
+            "wave2_prefill_ms_per_request": ta2 / len(wave2) * 1e3,
+            "wave1_s": t1 - t0}
+
+
+def phase_moe_spec(dev, params, cfg, prompts, seq_reqs) -> dict:
+    """spec_k 4 (prompt lookup) on the MoE weights: a verify pass is 8 x 5
+    tokens through KE's grouped form; greedy first tokens equal the
+    sequential engine's; KE 3L per pass and decode step."""
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    eng = InferenceEngine(params, cfg, paged_kernel=True, spec_k=SPEC_K, device=dev, **ENGINE)
+    marks = spec_marks(eng)
+    p0 = eng.prefills_run
+    _build.reset_launches()
+    reqs, wall, _ = drive_wall(eng, prompts, NEW_TOKENS)
+    ke = _build.LAUNCHES["expert_matmul"]
+    c = spec_counts(eng, marks)
+    chunks = c["steps"] - c["passes"]
+    want = 3 * cfg.n_layers * (c["passes"] + eng.fused_steps * (chunks + c["warmups"])
+                               + eng.prefills_run - p0)
+    check(c["passes"] > 0 and ke == want, f"MoE spec: KE launches {ke} != {want}")
+    agree = agreement(reqs, seq_reqs)
+    check(agree["first_tokens_equal"] == len(prompts),
+          "MoE spec_k 4 differs from the sequential engine in first tokens")
+    gen = sum(len(r.output) for r in reqs)
+    log(f"MoE spec_k {SPEC_K}: {gen / wall:.1f} tokens/s, {c['passes']} passes, "
+        f"{c['accepted']} accepted; tokens equal {agree['tokens_equal']}/{agree['tokens']}")
+    return {"wall_s": wall, "tokens_per_s": gen / wall, **c, "vs_sequential": agree}
+
+
+# -- phase 6h: int8 weights ---------------------------------------------------------
+
+
+def phase_int8_engine(dev, params, cfg, prompts, moe_params, moe_cfg,
+                      moe_reqs) -> tuple[dict, dict, dict]:
+    """The dense flagship after ``quantize_params``, overlapped, beside the
+    bf16 engine in the same call (tokens/s, device ms a chunk, weight
+    bytes); first tokens against bf16 (reported); then the MoE weights
+    quantized (E 8)."""
+    from elastic_gpu_scheduler_tpu_torch.models.quantize import quantize_params, quantized_bytes
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+
+    beng = InferenceEngine(params, cfg, paged_kernel=True, device=dev, **ENGINE)
+    brun = overlapped_run(beng, prompts, "bf16 overlapped (beside int8)")
+    bprof = profile_chunks(beng, prompts, "bf16")
+    del beng
+    qparams = quantize_params(params)
+    qeng = InferenceEngine(qparams, cfg, paged_kernel=True, device=dev, **ENGINE)
+    qrun = overlapped_run(qeng, prompts, "int8 overlapped", int8=True)
+    prof = profile_chunks(qeng, prompts, "int8")
+    del qeng
+    first = sum(a.output[0] == b.output[0] for a, b in zip(qrun["reqs"], brun["reqs"]))
+    perf = {"bf16": brun["perf"], "int8": qrun["perf"], "int8_profile": prof,
+            "bf16_profile": bprof,
+            "weight_bytes": {"int8": quantized_bytes(qparams), "bf16": quantized_bytes(params)},
+            "first_tokens_equal_to_bf16": first}
+    log(f"int8 weights: {qrun['perf']['tokens_per_s']:.1f} vs bf16 "
+        f"{brun['perf']['tokens_per_s']:.1f} tokens/s; device ms a chunk "
+        f"{prof['device_ms_per_chunk']:.2f} vs bf16 {bprof['device_ms_per_chunk']:.2f}; "
+        f"weight bytes "
+        f"{perf['weight_bytes']['int8'] / 1e9:.3f} GB vs {perf['weight_bytes']['bf16'] / 1e9:.3f}"
+        f" GB; first tokens equal to bf16 {first}/{len(prompts)} (int8 changes the model)")
+    del qparams
+    qmoe = quantize_params(moe_params)
+    meng = InferenceEngine(qmoe, moe_cfg, paged_kernel=True, device=dev, **ENGINE)
+    mrun = overlapped_run(meng, prompts, "MoE + int8 overlapped", int8=True)
+    mprof = profile_chunks(meng, prompts, "MoE + int8")
+    del meng
+    mfirst = sum(a.output[0] == b.output[0] for a, b in zip(mrun["reqs"], moe_reqs))
+    perf["moe_int8"] = {**mrun["perf"], "profile": mprof,
+                        "weight_bytes": quantized_bytes(qmoe),
+                        "first_tokens_equal_to_moe_bf16": mfirst}
+    log(f"MoE + int8: {mrun['perf']['tokens_per_s']:.1f} tokens/s, device ms a chunk "
+        f"{mprof['device_ms_per_chunk']:.2f}, weight bytes {quantized_bytes(qmoe) / 1e9:.3f} GB; "
+        f"first tokens equal to MoE bf16 {mfirst}/{len(prompts)}")
+    del qmoe
+    log("int8 engine perf: " + json.dumps(perf))
+    return perf, qrun["launches"], mrun["launches"]
+
+
+# -- phase 6i: small float32 MoE and int8 engines, card against CPU -----------
+
+
+def phase_moe_int8_small_fp32(dev) -> dict:
+    """Small float32 MoE (E 4, router sharpened so tokens spread), int8
+    dense and MoE + int8 engines: greedy tokens on the card equal the
+    port's CPU run, sequential, overlapped, int8 KV + prefix + chunked and
+    spec_k 4."""
+    from elastic_gpu_scheduler_tpu_torch.models.quantize import quantize_params
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
+    import torch
+
+    small_moe = TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                                  n_kv_heads=2, d_ff=512, dtype="float32", n_experts=4)
+    mp = init_params(small_moe, torch.Generator().manual_seed(3), "cpu")
+    mp["layers"]["moe_gate"] = mp["layers"]["moe_gate"] * 8.0
+    small, sp = small_fp32()
+    models = {"MoE": (small_moe, mp), "int8": (small, quantize_params(sp)),
+              "MoE + int8": (small_moe, quantize_params(mp))}
+    modes = {"sequential": dict(overlap=False), "overlapped": dict(overlap=True),
+             "int8 KV prefix chunked": dict(kv_int8=True, prefix_cache=True, prefill_chunk=16),
+             f"spec_k {SPEC_K}": dict(spec_k=SPEC_K)}
+    rng = np.random.default_rng(16)
+    specs = [(rng.integers(0, 512, n).tolist(), {}) for n in (3, 5, 17, 40, 9, 1)]
+    for name, (c, p) in models.items():
+        for mode, kw in modes.items():
+            outs = {str(where): [r.output for r in drive_small(small_engine(p, c, where, **kw),
+                                                                  specs)]
+                    for where in ("cpu", dev)}
+            check(outs["cpu"] == outs[str(dev)], f"float32 {name}: card differs from CPU ({mode})")
+    log(f"small float32 MoE / int8 / MoE + int8 engines: card = CPU in {len(modes)} modes each")
+    return {"models": list(models), "modes": list(modes)}
+
+
+# -- phase 9c: MoE training ----------------------------------------------------------
+
+
+MOE_TRAIN_LAYERS = 4  # the depth cut: fp32 masters and AdamW moments
+
+
+def phase_moe_train(dev) -> dict:
+    """MoE training at the flagship width with E 8 (depth cut to 4 layers:
+    fp32 masters and AdamW moments of ~1.5B parameters), B 8, S 1024,
+    remat, 8 vocab chunks: 1 warm-up and TRAIN_STEPS timed steps on one
+    batch.  The loss falls, the aux is finite and in the loss, K1 2L and
+    K4 L a step, no KE; then a small float32 MoE model card vs CPU."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.data import SyntheticTokenDataset, batches
+    from elastic_gpu_scheduler_tpu_torch.models.train import (
+        init_state,
+        loss_fn,
+        make_optimizer,
+        make_train_step,
+    )
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import (
+        TransformerConfig,
+        hidden_with_aux,
+        param_count,
+        torch_dtype,
+    )
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+    from elastic_gpu_scheduler_tpu_torch.ops.xent import chunked_softmax_xent
+    from elastic_gpu_scheduler_tpu_torch.models.quantize import wmat
+
+    cfg = TransformerConfig(**dict(TRAIN, n_experts=8, n_layers=MOE_TRAIN_LAYERS))
+    opt = make_optimizer(mu_dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, state = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = param_count(params)
+    step = make_train_step(cfg, opt)
+    batch = next(batches(SyntheticTokenDataset(cfg.vocab_size, seed=0), TRAIN_B, TRAIN_S, seed=1))
+    tok = torch.from_numpy(batch).to(dev)
+    log(f"MoE train: {n_params / 1e9:.3f}B parameters (E {cfg.n_experts}, L {cfg.n_layers}), "
+        f"B={TRAIN_B} S={TRAIN_S}, remat, xent_chunks={cfg.xent_chunks}")
+    _build.reset_launches()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        _, _, loss = step(params, state, tok)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    n = TRAIN_STEPS + 1
+    L = cfg.n_layers
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=2 * L * n, flash_bwd_dq=L * n, flash_bwd_dkv=L * n)
+    log(f"MoE train main path: losses {[round(x, 4) for x in losses]}, launches {launches} "
+        f"(want {want})")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], "MoE train loss did not fall")
+    check(launches == want, "MoE train launches differ from 2L / L a step")
+    with torch.no_grad():
+        inputs, targets = tok[:, :-1], tok[:, 1:]
+        hidden, aux = hidden_with_aux(params, inputs, cfg)
+        ce = chunked_softmax_xent(hidden, wmat(params["unembed"], torch_dtype(cfg.dtype)),
+                                  targets, cfg.xent_chunks)
+        whole = loss_fn(params, tok, cfg)
+    aux_v, ce_v, whole_v = float(aux), float(ce), float(whole)
+    gap = abs(whole_v - (ce_v + cfg.aux_loss_weight * aux_v))
+    log(f"MoE train loss parts: cross-entropy {ce_v:.6f} + {cfg.aux_loss_weight} x aux "
+        f"{aux_v:.6f} vs loss {whole_v:.6f} (gap {gap:.3g})")
+    check(np.isfinite(aux_v) and aux_v > 0 and gap <= 1e-4 * abs(whole_v),
+          "MoE train: the aux is not finite or not in the loss")
+    step_ms = float(np.mean(times[1:])) * 1e3
+    perf = {"step_ms": step_ms, "step_ms_each": [x * 1e3 for x in times],
+            "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "params_b": n_params / 1e9, "losses": losses, "aux": aux_v,
+            "depth_cut": f"L {cfg.n_layers} of 16 (fp32 masters and AdamW moments)"}
+    perf["profile"] = phase_train_profile(step, params, state, tok, label="MoE train")
+    del params, state, step
+    perf["cpu_vs_card"] = phase_train_cpu_vs_card(dev, n_experts=4)
+    log("MoE train perf: " + json.dumps({k: v for k, v in perf.items() if k != "profile"}))
+    return perf
+
+
 # -- phase 7: HTTP ---------------------------------------------------------
 
 
@@ -2898,10 +3448,11 @@ def phase_train_profile(step, params, state, tokens, label="train") -> dict:
     return res
 
 
-def phase_train_cpu_vs_card(dev) -> None:
-    """A small float32 model, 3 steps on the card and 3 on the CPU from
-    the same weights and tokens: losses and final parameters within 1e-4
-    relative (of the loss; of each leaf's largest magnitude)."""
+def phase_train_cpu_vs_card(dev, **over) -> dict:
+    """A small float32 model (``over``: config fields, e.g. n_experts), 3
+    steps on the card and 3 on the CPU from the same weights and tokens:
+    losses and final parameters within 1e-4 relative (of the loss; of each
+    leaf's largest magnitude)."""
     import torch
 
     from elastic_gpu_scheduler_tpu_torch.models.data import SyntheticTokenDataset, batches
@@ -2916,9 +3467,9 @@ def phase_train_cpu_vs_card(dev) -> None:
         init_params,
     )
 
-    small = TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
-                              n_kv_heads=2, d_ff=512, dtype="float32", remat=True,
-                              xent_chunks=4)
+    small = TransformerConfig(**dict(dict(
+        vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,
+        dtype="float32", remat=True, xent_chunks=4), **over))
     base = init_params(small, torch.Generator().manual_seed(3), "cpu")
     stream = batches(SyntheticTokenDataset(512, seed=4), 4, 128, seed=5)
     toks = [torch.from_numpy(next(stream)) for _ in range(3)]
@@ -2935,9 +3486,11 @@ def phase_train_cpu_vs_card(dev) -> None:
     (lc, pc), (lg, pg) = out["cpu"], out[str(dev)]
     loss_rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
     param_rel = max(float((a - b).abs().max() / a.abs().max()) for a, b in zip(pc, pg))
-    log(f"small float32 train, card vs CPU: losses {lg} vs {lc}; max loss rel diff "
-        f"{loss_rel:.3g}, max param diff / leaf max {param_rel:.3g} (tol 1e-4)")
+    label = f" {over}" if over else ""
+    log(f"small float32 train{label}, card vs CPU: losses {lg} vs {lc}; max loss rel "
+        f"diff {loss_rel:.3g}, max param diff / leaf max {param_rel:.3g} (tol 1e-4)")
     check(loss_rel <= 1e-4 and param_rel <= 1e-4, "float32 training differs between card and CPU")
+    return {"losses_card": lg, "losses_cpu": lc, "loss_rel": loss_rel, "param_rel": param_rel}
 
 
 LORA_TRAIN_RANK, LORA_TRAIN_LR = 16, 1e-3
@@ -3033,7 +3586,14 @@ def phase_launcher(dev) -> dict:
     check(len(losses) == 3 and all(np.isfinite(losses)), "run_job losses")
     check(launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == L * 3
           and launches["flash_fwd"] == L * 3, "run_job did not run K1/K4 once a layer a step")
-    return {"losses": losses, "wall_s": wall}
+    # the same job with the reference's model on 4 experts
+    moe = launcher.JobSpec(steps=3, model=launcher.TransformerConfig(n_experts=4))
+    t0 = time.perf_counter()
+    moe_losses = launcher.run_job(moe, device=dev)
+    moe_wall = time.perf_counter() - t0
+    log(f"launcher.run_job MoE JobSpec (E 4): losses {moe_losses} in {moe_wall:.2f} s")
+    check(len(moe_losses) == 3 and all(np.isfinite(moe_losses)), "MoE run_job losses")
+    return {"losses": losses, "wall_s": wall, "moe_losses": moe_losses, "moe_wall_s": moe_wall}
 
 
 def k4_bound_ms(B, H, sq, sk, D, causal, window, itemsize) -> tuple[float, str]:
@@ -3169,12 +3729,15 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
 
-    # 3. to 5. the kernels against their plain versions
+    # 3. to 5. the kernels against their plain versions; KE
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
     k2i_err = phase_k2_int8(dev)
     k3_err = phase_k3(dev)
     k4_err = phase_k4(dev)
+    ke_rows = phase_ke(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 6. the engine, 7. HTTP
     eng, prompts, reqs, launches, sampler, perf = phase_engine(dev)
@@ -3212,9 +3775,25 @@ def main() -> int:
     for r in prefix_rows:
         r["path"] = "serve: prefix cache, prefill_chunk 128, int8 KV"
     kernels += prefix_rows
-    del eng, prompts, reqs, sampler, peng, k3_sampler, k2i_sampler
+    dense_params, dense_cfg = eng.params, eng.cfg
+    del eng, reqs, sampler, peng, k3_sampler, k2i_sampler
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 6g. MoE serving at full width, 6h. int8 weights, 6i. small float32
+    mperf, moe_launches, moe_params, moe_cfg, moe_reqs = phase_moe_engine(dev, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    iperf, int8_launches, moe_int8_launches = phase_int8_engine(
+        dev, dense_params, dense_cfg, prompts, moe_params, moe_cfg, moe_reqs)
+    del dense_params, moe_params, moe_reqs, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_perf = phase_moe_int8_small_fp32(dev)
+    path_launches = {"moe": moe_launches, "int8": int8_launches, "moe_int8": moe_int8_launches}
+    for r in ke_rows:
+        r["launches"] = path_launches[r.pop("_launch_path")]["expert_matmul"]
+    kernels += ke_rows
 
     # 9. the training path, card against CPU, the launcher, a profiled step
     cfg, params, state, step, tokens, train_launches, train_perf = phase_train(dev)
@@ -3227,6 +3806,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_cpu_vs_card(dev)
+    # 9c. MoE training
+    moe_train = phase_moe_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     launcher_res = phase_launcher(dev)
 
     # 10. the kernels line
@@ -3243,6 +3826,10 @@ def main() -> int:
     log(json.dumps({"controls_engine": cperf}))
     log(json.dumps({"lora_engine": lperf}))
     log(json.dumps({"prefix_engine": pperf}))
+    log(json.dumps({"moe_engine": mperf}))
+    log(json.dumps({"int8_engine": iperf, "small_float32": small_perf}))
+    log(json.dumps({"moe_train": {k: v for k, v in moe_train.items() if k != "profile"},
+                    "moe_train_profile_idle_share": moe_train["profile"]["idle_share"]}))
     log(json.dumps({"train": train_perf, "train_profile_idle_share": train_prof["idle_share"],
                     "launcher": launcher_res, "lora_train": lora_train}))
     log(card)

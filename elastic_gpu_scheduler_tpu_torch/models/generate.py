@@ -17,6 +17,10 @@ token at a time.  Differences from the reference, all of form:
   counterpart on the H100; the function computed is the same either way.
   On the CPU, as in the reference off a TPU, it takes the einsum path.
 
+A MoE layer runs training's ``moe_ffn`` with the config's capacity
+factor (drops included), as the reference's does; int8 weights go
+through ``quantize.wmatmul`` (kernel KE on CUDA).
+
 ``cached_attention`` is the serving engine's gather-path decode attention
 and ``cached_attention_multi`` its prefix-cached prefill's.
 """
@@ -29,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF, flash_block_stats
-from .quantize import wmat
+from .moe import moe_ffn
+from .quantize import wmatmul
 from .sampling import sample_static
 from .transformer import (
     TransformerConfig,
@@ -147,21 +152,27 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: KVCache, cfg: Tran
         p = layer_slice(params["layers"], i)
         ck, cv = cache.k[i], cache.v[i]  # (B, M, Hkv, Dh) views
         h = rms_norm(x, p["attn_norm"])
-        q = (h @ wmat(p["wq"], dtype)).reshape(B, T, Hn, Dh)
-        k = (h @ wmat(p["wk"], dtype)).reshape(B, T, Hkv, Dh)
-        v = (h @ wmat(p["wv"], dtype)).reshape(B, T, Hkv, Dh)
+        q = wmatmul(h, p["wq"], dtype).reshape(B, T, Hn, Dh)
+        k = wmatmul(h, p["wk"], dtype).reshape(B, T, Hkv, Dh)
+        v = wmatmul(h, p["wv"], dtype).reshape(B, T, Hkv, Dh)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         ck[:, pos0:pos0 + T] = k.to(ck.dtype)
         cv[:, pos0:pos0 + T] = v.to(cv.dtype)
         o = cached_attention_multi(q, ck, cv, pos0, window=cfg.window_size)
-        x = x + o.reshape(B, T, Hn * Dh) @ wmat(p["wo"], dtype)
+        x = x + wmatmul(o.reshape(B, T, Hn * Dh), p["wo"], dtype)
         h = rms_norm(x, p["mlp_norm"])
-        gate = F.silu(h @ wmat(p["w_gate"], dtype))
-        up = h @ wmat(p["w_in"], dtype)
-        x = x + (gate * up) @ wmat(p["w_out"], dtype)
+        if cfg.n_experts > 0:
+            # training's capacity-factor MoE, drops included, as the reference
+            ffn, _ = moe_ffn(h, p["moe_gate"], p["w_in"], p["w_gate"], p["w_out"],
+                             capacity_factor=cfg.capacity_factor, dtype=dtype)
+            x = x + ffn
+        else:
+            gate = F.silu(wmatmul(h, p["w_gate"], dtype))
+            up = wmatmul(h, p["w_in"], dtype)
+            x = x + wmatmul(gate * up, p["w_out"], dtype)
     x = rms_norm(x, params["final_norm"])
-    logits = x @ wmat(params["unembed"], dtype)  # (B, T, V)
+    logits = wmatmul(x, params["unembed"], dtype)  # (B, T, V)
     return logits.float(), KVCache(cache.k, cache.v, pos0 + T)
 
 

@@ -65,6 +65,15 @@ join and leave a fixed-shape batch between fused decode chunks:
   token's log-probability and the top ``logprobs_k`` of every step's
   distribution.  ``max_queue`` bounds the admission queue
   (``QUEUE_FULL_ERROR``).
+- **MoE** (``cfg.n_experts`` > 0): every paged path runs the drop-free
+  top-1 expert FFN (``_moe_ffn_serve``), its three expert products
+  through kernel KE on CUDA (``ops/expert_matmul``), which finds each
+  expert's tokens on the device, so a captured decode chunk replays for
+  any routing.
+- **int8 weights** (a tree from ``quantize.quantize_params``): every
+  product with an int8 weight goes through ``quantize.wmatmul`` (kernel
+  KE on CUDA, the weight read as int8 and dequantised in registers); an
+  int8 embedding table is gathered, then dequantised.
 - **Multi-LoRA serving** (``adapters``): named adapters stacked into one
   bank per weight family (``build_lora_bank``, id 0 the all-zero base
   adapter); ``Request.adapter`` picks one, and every projection of every
@@ -104,10 +113,11 @@ import torch.nn.functional as F
 
 from ..ops import _build
 from ..ops.attention import NEG_INF, flash_attention
+from ..ops.expert_matmul import expert_matmul
 from ..ops.paged_attention import dequant, paged_attention
 from ..utils import prefixdigest
 from .generate import cached_attention, cached_attention_multi
-from .quantize import wmat
+from .quantize import is_qtensor, wmat, wmatmul
 from .sampling import categorical, sample_batched, sample_static
 from .transformer import (
     TransformerConfig,
@@ -352,17 +362,54 @@ def adapter_rows(bank: Optional[dict], aids) -> Optional[dict]:
 
 
 def _sproj(x, p, name, dtype, ad=None):
-    """``x @ p[name]``, plus the per-row LoRA delta when ``ad`` (this
+    """``x @ p[name]`` (``quantize.wmatmul``: kernel KE for an int8 weight
+    on CUDA), plus the per-row LoRA delta when ``ad`` (this
     layer's ``adapter_rows``) carries the family (reference ``_sproj``):
     ``t = x·a`` and ``t·b`` in fp32 (the reference's fp32-output products
     of the same operands), cast to y's dtype and added.  Every row applies
     its own request's adapter, so the batch never splits; a zero row (id
     0) adds exact zeros."""
-    y = x @ wmat(p[name], dtype)
+    y = wmatmul(x, p[name], dtype)
     if ad and name in ad:
         t = torch.bmm(x.float(), ad[name]["a"])  # (B, T, r)
         y = y + torch.bmm(t, ad[name]["b"]).to(y.dtype)
     return y
+
+
+def _experts(w, dtype) -> tuple:
+    """An expert stack (E, K, N), dense (cast to ``dtype`` if it rests in
+    another) or int8, as ``expert_matmul``'s (w, scale)."""
+    return (w["q8"], w["scale"]) if is_qtensor(w) else (w.to(dtype), None)
+
+
+def _moe_ffn_serve(h, p, dtype):
+    """Drop-free top-1 MoE FFN for every paged path (reference
+    ``_moe_ffn_serve``): a token's output never depends on which other
+    requests share the batch, so engine outputs equal solo runs.
+
+    The router ``xf @ wmat(moe_gate)`` in h's dtype, an fp32 softmax, the
+    first maximum's expert and its probability; then the three expert
+    products through ``expert_matmul`` (kernel KE on CUDA: each expert's
+    tokens found on the device, the chosen experts' weights read in place,
+    int8 ones as int8), ``w_out``'s with an fp32 output as the reference
+    asks, times the probability in fp32, cast to h's dtype.  One form for
+    every T: the reference's gather (T <= E) and ``ragged_dot`` forms
+    compute the same function, and KE reads no host value, so a captured
+    decode chunk replays for any routing.  On the CPU the plain version."""
+    B, T, D = h.shape
+    xf = h.reshape(B * T, D)
+    glog = (xf @ wmat(p["moe_gate"], h.dtype)).float()
+    probs = torch.softmax(glog, dim=-1)  # (T, E)
+    idx = torch.argmax(probs, dim=-1)  # first max
+    prob = probs.gather(-1, idx[:, None])  # (T, 1) fp32
+    ids = idx.to(torch.int32)
+    wg, sg = _experts(p["w_gate"], dtype)
+    wi, si = _experts(p["w_in"], dtype)
+    wo, so = _experts(p["w_out"], dtype)
+    gate = F.silu(expert_matmul(xf, wg, ids, scale=sg, out_dtype=dtype))
+    up = expert_matmul(xf, wi, ids, scale=si, out_dtype=dtype)
+    out = expert_matmul(gate * up, wo, ids, scale=so, out_dtype=torch.float32)
+    return (out * prob).to(h.dtype).reshape(B, T, D)
 
 
 def _paged_layer(x, p, lkv, cs, pidx, off, attn, cfg, dtype, ad=None):
@@ -384,6 +431,10 @@ def _paged_layer(x, p, lkv, cs, pidx, off, attn, cfg, dtype, ad=None):
     o = attn(q, k, v, lkv)
     x = x + _sproj(o, p, "wo", dtype, ad)
     h = rms_norm(x, p["mlp_norm"])
+    if cfg.n_experts > 0:
+        # expert-stacked FFN weights take no adapter (build_lora_bank
+        # refuses adapters against (E, D, F) shapes)
+        return x + _moe_ffn_serve(h, p, dtype)
     gate = F.silu(_sproj(h, p, "w_gate", dtype, ad))
     up = _sproj(h, p, "w_in", dtype, ad)
     return x + _sproj(gate * up, p, "w_out", dtype, ad)
@@ -437,7 +488,7 @@ def _paged_decode_step(params, tokens, kv, tables, lengths, cfg, page_size,
             attn, cfg, dtype, ad and layer_slice(ad, i),
         )
     x = rms_norm(x, params["final_norm"])
-    logits = (x @ wmat(params["unembed"], dtype))[:, 0, :]
+    logits = wmatmul(x, params["unembed"], dtype)[:, 0, :]
     return logits.float(), kv
 
 
@@ -483,7 +534,7 @@ def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size, ba
         )
     x = x[:, t_real - 1:t_real]  # (1, 1, D)
     x = rms_norm(x, params["final_norm"])
-    logits = (x @ wmat(params["unembed"], dtype))[0, 0]
+    logits = wmatmul(x, params["unembed"], dtype)[0, 0]
     return logits.float(), kv
 
 
@@ -529,7 +580,7 @@ def _paged_prefill_prefixed(params, tokens, kv, pages, t0: int, t_real: int, *, 
         )
     x = x[:, t_real - 1:t_real]  # (1, 1, D)
     x = rms_norm(x, params["final_norm"])
-    logits = (x @ wmat(params["unembed"], dtype))[0, 0]
+    logits = wmatmul(x, params["unembed"], dtype)[0, 0]
     return logits.float(), kv
 
 
@@ -752,7 +803,7 @@ def _verify_logits(params, kv, tables, feed, lengths, active, bank=None, aids=No
             cfg, dtype, ad and layer_slice(ad, i),
         )
     x = rms_norm(x, params["final_norm"])
-    return (x @ wmat(params["unembed"], dtype)).float()
+    return wmatmul(x, params["unembed"], dtype).float()
 
 
 @torch.inference_mode()
@@ -845,21 +896,21 @@ def _draft_forward(dparams, dkv, feed, starts, *, dcfg):
         p = layer_slice(dparams["layers"], i)
         lk, lv = dkv["k"][i], dkv["v"][i]
         h = rms_norm(x, p["attn_norm"])
-        q = (h @ wmat(p["wq"], dtype)).reshape(B, W, Hn, Dh)
-        k = (h @ wmat(p["wk"], dtype)).reshape(B, W, Hkv, Dh)
-        v = (h @ wmat(p["wv"], dtype)).reshape(B, W, Hkv, Dh)
+        q = wmatmul(h, p["wq"], dtype).reshape(B, W, Hn, Dh)
+        k = wmatmul(h, p["wk"], dtype).reshape(B, W, Hkv, Dh)
+        v = wmatmul(h, p["wv"], dtype).reshape(B, W, Hkv, Dh)
         q = _rope_rows(q, cs)
         k = _rope_rows(k, cs)
         lk.index_put_((rows, pos_w), k.to(lk.dtype))
         lv.index_put_((rows, pos_w), v.to(lv.dtype))
         o = _cached_attention_rows(q, lk, lv, starts, window=dcfg.window_size)
-        x = x + o.reshape(B, W, Hn * Dh) @ wmat(p["wo"], dtype)
+        x = x + wmatmul(o.reshape(B, W, Hn * Dh), p["wo"], dtype)
         h2 = rms_norm(x, p["mlp_norm"])
-        gate = F.silu(h2 @ wmat(p["w_gate"], dtype))
-        up = h2 @ wmat(p["w_in"], dtype)
-        x = x + (gate * up) @ wmat(p["w_out"], dtype)
+        gate = F.silu(wmatmul(h2, p["w_gate"], dtype))
+        up = wmatmul(h2, p["w_in"], dtype)
+        x = x + wmatmul(gate * up, p["w_out"], dtype)
     x = rms_norm(x, dparams["final_norm"])
-    return (x @ wmat(dparams["unembed"], dtype)).float(), dkv
+    return wmatmul(x, dparams["unembed"], dtype).float(), dkv
 
 
 @torch.inference_mode()
@@ -971,12 +1022,14 @@ def estimate_hbm_bytes(
     page_size: int,
     n_pages: int = 0,
     kv_int8: bool = False,
+    param_bytes_per: float = 2.0,
 ) -> dict:
     """Static device-memory accounting for an engine configuration (no
-    allocation), as the reference counts it by default: the KV pool (int8
-    K/V plus fp32 scales when ``kv_int8``) and the weights at 2 bytes a
-    parameter (the norm scales, kept in fp32, take 2 bytes more each).
-    Returns byte counts plus ``total``."""
+    allocation), as the reference counts it: the KV pool (int8 K/V plus
+    fp32 scales when ``kv_int8``) and the weights at ``param_bytes_per``
+    bytes a parameter (2 = bf16, 1 ≈ int8 weights with their fp32 scales
+    amortised; MoE experts and the router included).  Returns byte counts
+    plus ``total``."""
     n_pages = n_pages or default_n_pages(max_batch, max_len, page_size)
     page_elems = page_size * cfg.kv_heads * cfg.head_dim
     per_tensor = cfg.n_layers * n_pages * page_elems
@@ -987,7 +1040,7 @@ def estimate_hbm_bytes(
         pool = 2 * per_tensor * torch_dtype(cfg.dtype).itemsize
     out = {
         "kv_pool_bytes": int(pool),
-        "target_param_bytes": int(_cfg_param_count(cfg) * 2),
+        "target_param_bytes": int(_cfg_param_count(cfg) * param_bytes_per),
     }
     out["total"] = sum(out.values())
     return out

@@ -82,11 +82,15 @@ def loss_fn(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None) -> 
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if cfg.xent_chunks > 0:
         # vocab-chunked CE: the (B, S, V) logits never materialize
-        hidden, _ = hidden_with_aux(params, inputs, cfg)
+        hidden, aux = hidden_with_aux(params, inputs, cfg)
         w = wmat(params["unembed"], torch_dtype(cfg.dtype))
-        return chunked_softmax_xent(hidden, w, targets, cfg.xent_chunks)
-    logits, _ = forward_with_aux(params, inputs, cfg)
-    return cross_entropy_loss(logits, targets)
+        loss = chunked_softmax_xent(hidden, w, targets, cfg.xent_chunks)
+    else:
+        logits, aux = forward_with_aux(params, inputs, cfg)
+        loss = cross_entropy_loss(logits, targets)
+    if cfg.n_experts > 0:
+        loss = loss + cfg.aux_loss_weight * aux
+    return loss
 
 
 # -- optimizer ---------------------------------------------------------------

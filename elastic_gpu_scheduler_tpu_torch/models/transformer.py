@@ -12,9 +12,13 @@ backward (``torch.utils.checkpoint``, the counterpart of
 
 A layer tree may carry LoRA leaves (``<family>_lora`` = {"a", "b"},
 ``models/lora.inject_lora``): ``_proj`` adds their term in the activation
-domain.  Not ported yet, and rejected by name where a config or a
-parameter tree asks for them: ring attention, pipeline parallelism, MoE
-and int8 weights.
+domain.  ``cfg.n_experts`` > 0 replaces each layer's FFN by the Switch
+MoE FFN (``models/moe.moe_ffn``), whose auxiliary loss ``hidden_with_aux``
+sums over the layers.  A tree from ``quantize.quantize_params`` (int8
+weights) runs the forward through ``quantize.wmatmul`` (kernel KE on
+CUDA) and its embedding table is gathered before it is dequantised.  Not
+ported yet, and rejected by name where a config asks for them: ring
+attention and pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import flash_attention
 from ..ops.xent import mm_f32
-from .quantize import wmat
+from .moe import moe_ffn
+from .quantize import is_qtensor, wmat, wmatmul
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -87,18 +92,17 @@ class TransformerConfig:
 
 
 def check_dense(cfg: TransformerConfig) -> None:
-    """Raise, by name, on the config fields this slice of the port does
-    not serve."""
+    """Raise, by name, on the config fields the port does not serve yet:
+    ring attention and the pipeline schedule wait for ``parallel/``."""
     unported = {
         "use_ring_attention": cfg.use_ring_attention,
         "n_microbatches": cfg.n_microbatches > 0,
-        "n_experts": cfg.n_experts > 0,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"config fields {bad} are not ported yet (ring attention, "
-            "pipeline and MoE are later slices of the port)"
+            f"config fields {bad} are not ported yet (ring attention and "
+            "the pipeline schedule need parallel/, a later slice of the port)"
         )
 
 
@@ -113,27 +117,6 @@ def check_no_mesh(mesh, what: str) -> None:
         )
 
 
-# norm scales (and the reference's MoE router) stay fp32 at rest
-_FP32_AT_REST = ("attn_norm", "mlp_norm", "final_norm", "moe_gate")
-
-
-def cast_params_to_rest(params: dict, cfg: TransformerConfig) -> dict:
-    """Cast fp32 matmul weights to the at-rest dtype (no-op for float32);
-    ``wmat`` casts to the compute dtype per use either way."""
-    pd = cfg.rest_dtype
-    if pd == torch.float32:
-        return params
-
-    def walk(tree, name=""):
-        if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
-        if name in _FP32_AT_REST or tree.dtype != torch.float32:
-            return tree
-        return tree.to(pd)
-
-    return walk(params)
-
-
 def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None) -> dict:
     """Random weights with the reference's shapes, scales and at-rest
     dtypes (normal / sqrt(fan_in); fp32 norms).  The values come from
@@ -145,10 +128,13 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None)
         cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff, cfg.n_layers, cfg.vocab_size
     )
     KV = cfg.kv_heads * cfg.head_dim
+    pd = cfg.rest_dtype
 
-    def dense(shape, fan_in):
+    def dense(shape, fan_in, rest=True):
+        # cast leaf by leaf: the fp32 peak stays one leaf, not one model
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
-        return w * fan_in ** -0.5
+        w.mul_(fan_in ** -0.5)
+        return w.to(pd) if rest else w
 
     layers = {
         "attn_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
@@ -157,17 +143,27 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None)
         "wv": dense((L, D, KV), D),
         "wo": dense((L, H, D), H),
         "mlp_norm": torch.ones((L, D), dtype=torch.float32, device=dev),
-        "w_in": dense((L, D, F_), D),
-        "w_gate": dense((L, D, F_), D),
-        "w_out": dense((L, F_, D), F_),
     }
-    params = {
+    if cfg.n_experts > 0:
+        E = cfg.n_experts
+        layers.update({
+            "moe_gate": dense((L, D, E), D, rest=False),  # fp32 at rest
+            "w_in": dense((L, E, D, F_), D),
+            "w_gate": dense((L, E, D, F_), D),
+            "w_out": dense((L, E, F_, D), F_),
+        })
+    else:
+        layers.update({
+            "w_in": dense((L, D, F_), D),
+            "w_gate": dense((L, D, F_), D),
+            "w_out": dense((L, F_, D), F_),
+        })
+    return {
         "embed": dense((V, D), 1.0),
         "layers": layers,
         "final_norm": torch.ones((D,), dtype=torch.float32, device=dev),
         "unembed": dense((D, V), D),
     }
-    return cast_params_to_rest(params, cfg)
 
 
 def param_count(params: dict) -> int:
@@ -194,7 +190,12 @@ def _unbind_layers(layers: dict) -> dict:
 
 
 def _embed_lookup(embed, tokens, dtype):
-    return wmat(embed, dtype)[tokens.long()]
+    """Embedding gather; an int8 table is gathered, THEN dequantised (its
+    rows as ``wmat`` would give them, without the dense (V, D) table)."""
+    if is_qtensor(embed):
+        rows = embed["q8"][tokens.long()].to(dtype)
+        return rows * embed["scale"][0].to(dtype)
+    return embed.to(dtype)[tokens.long()]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -265,9 +266,9 @@ def _proj(h, p, name, dtype):
     the sum cast to ``dtype``, so an adapter below the base's ulp is not
     rounded away.  Without the leaf it is the plain product."""
     ad = p.get(name + "_lora")
-    w = wmat(p[name], dtype)
     if ad is None:
-        return h @ w
+        return wmatmul(h, p[name], dtype)
+    w = wmat(p[name], dtype)
     y = h @ w if dtype == torch.float32 else _MatmulF32.apply(h, w)
     t = (h.float() @ ad["a"]) @ ad["b"]
     return (y + t).to(dtype)
@@ -287,15 +288,20 @@ def _layer(x, p, cfg: TransformerConfig):
     o = _attention(q, k, v, cfg).reshape(B, S, Hn * Dh)
     x = x + _proj(o, p, "wo", dtype)
     h = rms_norm(x, p["mlp_norm"])
+    if cfg.n_experts > 0:
+        ffn, aux = moe_ffn(h, p["moe_gate"], p["w_in"], p["w_gate"], p["w_out"],
+                           capacity_factor=cfg.capacity_factor, dtype=dtype)
+        return x + ffn, aux
     gate = F.silu(_proj(h, p, "w_gate", dtype))
     up = _proj(h, p, "w_in", dtype)
-    return x + _proj(gate * up, p, "w_out", dtype)
+    return x + _proj(gate * up, p, "w_out", dtype), None
 
 
 def hidden_with_aux(
     params: dict, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) int → (final-norm hidden (B, S, D), aux scalar 0).
+    """tokens: (B, S) int → (final-norm hidden (B, S, D), aux scalar: the
+    MoE layers' load-balancing losses summed, 0 for a dense model).
 
     The pre-unembed trunk, so the chunked loss (ops/xent.py) can take
     hidden states without the logits ever existing.  The stacked layer
@@ -309,14 +315,17 @@ def hidden_with_aux(
     x = _embed_lookup(params["embed"], tokens, dtype)
     per_layer = _unbind_layers(params["layers"])
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = layer_slice(per_layer, i)
         if remat:
-            x = checkpoint(_layer, x, lp, cfg, use_reentrant=False)
+            x, a = checkpoint(_layer, x, lp, cfg, use_reentrant=False)
         else:
-            x = _layer(x, lp, cfg)
+            x, a = _layer(x, lp, cfg)
+        if a is not None:  # a MoE layer's load-balancing loss
+            aux = aux + a
     x = rms_norm(x, params["final_norm"])
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward_with_aux(
@@ -324,7 +333,7 @@ def forward_with_aux(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) int → (logits (B, S, V) float32, aux scalar)."""
     x, aux = hidden_with_aux(params, tokens, cfg, mesh)
-    logits = x @ wmat(params["unembed"], torch_dtype(cfg.dtype))
+    logits = wmatmul(x, params["unembed"], torch_dtype(cfg.dtype))
     return logits.float(), aux
 
 

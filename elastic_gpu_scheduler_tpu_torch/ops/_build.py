@@ -45,7 +45,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "paged_attention": 0, "paged_attention_int8": 0,
-    "flash_block_stats": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "flash_block_stats": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "expert_matmul": 0,
 }
 
 _lock = threading.Lock()
@@ -80,6 +80,11 @@ _SIGNATURES = {
     "egs_flash_bwd_dq": ([_P] * 7 + [_I] * 8 + [_F, _P], ctypes.c_int),
     # q, k, v, dout, lse, delta, dk, dv, then as egs_flash_bwd_dq
     "egs_flash_bwd_dkv": ([_P] * 8 + [_I] * 8 + [_F, _P], ctypes.c_int),
+    # x, w, scale, ids, out, part, T, K, N, E, dtype, w_int8, out_f32, aligned, stream
+    "egs_expert_matmul": ([_P] * 6 + [_I] * 8 + [_P], ctypes.c_int),
+    # T, K, N, E, dense, dtype, aligned
+    "egs_expert_matmul_workspace": ([_I] * 7, ctypes.c_longlong),
+    "egs_expert_matmul_plan": ([_I] * 7, ctypes.c_int),
     "egs_error_string": ([_I], ctypes.c_char_p),
 }
 

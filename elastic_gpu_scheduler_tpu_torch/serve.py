@@ -1,11 +1,13 @@
 """``python -m elastic_gpu_scheduler_tpu_torch.serve --init`` — the
 inference HTTP server around the port's paged serving engine.
 
-Counterpart of ``elastic_gpu_scheduler_tpu/serve.py`` with the flags this
-slice serves, under the reference's names.  ``--init`` builds random
+Counterpart of ``elastic_gpu_scheduler_tpu/serve.py`` with the flags the
+port serves, under the reference's names.  ``--init`` builds random
 weights from the model flags (seed 0); the HF checkpoint
 imports (``--hf``, and ``--draft-hf`` for a draft model) wait for the
-port of ``models/convert.py``.  ``--serve-overlap`` (default ``on``) and
+port of ``models/convert.py``.  ``--int8`` quantizes the weights after
+they are built (weight-only int8, ``models/quantize``), as the
+reference quantizes whichever base it loaded.  ``--serve-overlap`` (default ``on``) and
 ``--spec-k`` (prompt-lookup drafts) select the engine's modes;
 ``--logprobs-k`` sets the top-k width of per-token logprobs and
 ``--max-queue`` bounds the admission queue (429 beyond it).  The engine
@@ -35,6 +37,8 @@ def build_args(argv=None):
     p.add_argument("--n-heads", type=int, default=8)
     p.add_argument("--d-ff", type=int, default=1376)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    p.add_argument("--int8", action="store_true",
+                   help="weight-only int8 quantization after load")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-len", type=int, default=2048)
     p.add_argument("--page-size", type=int, default=16)
@@ -94,6 +98,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = init_params(cfg, gen, device)
+    if args.int8:
+        from .models.quantize import quantize_params
+
+        params = quantize_params(params)
     engine = InferenceEngine(
         params, cfg, max_batch=args.max_batch, max_len=args.max_len,
         page_size=args.page_size, n_pages=args.n_pages,

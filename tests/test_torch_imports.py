@@ -54,6 +54,9 @@ def test_port_imports_no_jax_and_no_jax_package():
             "elastic_gpu_scheduler_tpu_torch.models.speculative",
             "elastic_gpu_scheduler_tpu_torch.models.sampling",
             "elastic_gpu_scheduler_tpu_torch.models.lora",
+            "elastic_gpu_scheduler_tpu_torch.models.moe",
+            "elastic_gpu_scheduler_tpu_torch.models.quantize",
+            "elastic_gpu_scheduler_tpu_torch.ops.expert_matmul",
             "elastic_gpu_scheduler_tpu_torch.serve",
             "elastic_gpu_scheduler_tpu_torch.utils.prefixdigest",
             "elastic_gpu_scheduler_tpu_torch.launcher"} <= expected

@@ -966,3 +966,222 @@ def test_lora_base_rows_equal_bankless_chunks(cuda, dtype):
         assert np.array_equal(a[base_rows], b[base_rows])
     assert [plain_toks[i] for i in base_rows] == [mixed_toks[i] for i in base_rows]
     assert plain_toks != mixed_toks  # the adapters act
+
+
+# -- KE: the expert-indexed / int8 weight product --------------------------------
+
+# (T, E, K, N, ids): one token; T < E; T > E with idle experts; N neither a
+# multiple of the 64-column tile nor of 8 (the column-by-column loads); the
+# decode and w_out shapes of the flagship MoE (K 2048 / 6912); a K the plan
+# splits (few tokens over a narrow N); the dense int8 case (ids None).  A
+# bf16 call takes the tensor-core kernel unless N is not a multiple of 16
+# (97, 200); float32 the CUDA-core kernel.  Then runs of 64 tokens over
+# several chunks, a ragged last K step (K 200), a ragged last column tile
+# (N 208), an int8 decode whose K splits
+KE_CASES = [
+    (1, 8, 2048, 6912, [5]),
+    (3, 8, 256, 200, [7, 0, 7]),
+    (37, 6, 128, 97, "idle"),
+    (8, 8, 2048, 6912, "spread"),
+    (8, 8, 6912, 2048, "spread"),
+    (24, 4, 2048, 256, "spread"),
+    (5, 1, 2048, 2048, None),
+    (19, 1, 6912, 320, None),
+    (150, 2, 200, 208, "spread"),
+    (300, 4, 512, 384, "spread"),
+    (512, 8, 2048, 6912, "spread"),
+    (8, 1, 6912, 2048, None),
+    (40, 1, 2048, 32000, None),
+]
+
+
+def _ke_ids(T, E, ids, cuda):
+    if ids is None:
+        return None
+    if ids == "idle":  # experts 1 and 4 get no token
+        ids = [(0, 2, 3, 5)[t % 4] for t in range(T)]
+    elif ids == "spread":
+        ids = np.random.default_rng(T).integers(0, E, T).tolist()
+    return torch.tensor(ids, dtype=torch.int32, device=cuda)
+
+
+def _ke_inputs(cuda, T, E, K, N, dtype, int8, seed=0):
+    from elastic_gpu_scheduler_tpu_torch.models.quantize import quantize_tensor
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(T, K, generator=g, device=cuda).to(dtype)
+    w = torch.randn(E, K, N, generator=g, device=cuda) * K ** -0.5
+    if int8:
+        qt = quantize_tensor(w.to(dtype))
+        return x, qt["q8"], qt["scale"]
+    return x, w.to(dtype), None
+
+
+# sums of up to 6912 products in another order: fp32 1e-4 absolute; a bf16
+# output one rounding step either side (2^-8 relative) of the plain one's
+KE_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 1e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8,case", [(q, c) for q in (False, True) for c in KE_CASES
+                                       if q or c[-1] is not None], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_expert_matmul_kernel_matches_plain(cuda, dtype, int8, case):
+    """A dense weight with one expert and no ids is torch.matmul's, never
+    KE's: the cases without ids are int8 only."""
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import (
+        expert_matmul,
+        expert_matmul_reference,
+    )
+
+    T, E, K, N, ids = case
+    x, w, sc = _ke_inputs(cuda, T, E, K, N, dtype, int8)
+    ids = _ke_ids(T, E, ids, cuda)
+    for out_dtype in (dtype, torch.float32):
+        before = _build.LAUNCHES["expert_matmul"]
+        got = expert_matmul(x, w, ids, scale=sc, out_dtype=out_dtype)
+        assert _build.LAUNCHES["expert_matmul"] == before + 1
+        want = expert_matmul_reference(x, w, ids, sc, out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (T, N)
+        atol, rtol = KE_TOL[dtype]
+        d = (got.float() - want.float()).abs()
+        assert bool((d <= atol + rtol * want.float().abs()).all()), float(d.max())
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("K", [64, 2048])
+def test_expert_matmul_int8_dequantisation_bit_exact(cuda, dtype, K):
+    """x = rows of the identity picks weight rows one by one (one product
+    1·w, the rest exact zeros), so an fp32 output is the dequantised
+    weight itself: bf16(bf16(q)·bf16(scale)) or float(q)·scale, bit for
+    bit, 16 rows a call and all K at once: through the CUDA-core kernel
+    (float32, and bf16 at N 136, not a multiple of 16; its K split at K
+    2048) and the tensor-core kernel (bf16 at N 144)."""
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import (
+        dequantize,
+        expert_matmul,
+        expert_matmul_plan,
+    )
+
+    E = 3
+    eye = torch.eye(K, device=cuda, dtype=dtype)
+    seen = set()
+    for N in (136, 144):
+        _, w, sc = _ke_inputs(cuda, 1, E, K, N, dtype, True, seed=1)
+        for e in range(E):
+            want = dequantize(w[e:e + 1], sc[e:e + 1], dtype)[0].float()
+            for r0, n in [(r, 16) for r in range(0, K, 16)] + [(0, K)]:
+                x = eye[r0:r0 + n]
+                ids = torch.full((n,), e, dtype=torch.int32, device=cuda)
+                got = expert_matmul(x, w, ids, scale=sc, out_dtype=torch.float32)
+                assert torch.equal(got, want[r0:r0 + n]), (N, e, r0, n)
+                seen.add(expert_matmul_plan(x, w, ids)["tensor_cores"])
+    assert seen == ({False, True} if dtype == torch.bfloat16 else {False})
+
+
+@pytest.mark.gpu
+def test_expert_matmul_bitwise_repeatable_and_graph_replay_equals_eager(cuda):
+    """Twice on the same inputs: identical bytes (no atomics; the K splits
+    fold in order).  A CUDA graph captured on one routing replays another
+    written into the same ids tensor, equal to the eager call on it."""
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import expert_matmul
+
+    for T, E, K, N in ((8, 8, 2048, 6912), (6, 1, 2048, 2048), (8, 1, 2048, 2048),
+                       (512, 8, 2048, 512)):
+        for int8 in (False, True):
+            x, w, sc = _ke_inputs(cuda, T, E, K, N, torch.bfloat16, int8, seed=2)
+            ids = _ke_ids(T, E, "spread" if E > 1 else None, cuda)
+            a = expert_matmul(x, w, ids, scale=sc)
+            b = expert_matmul(x, w, ids, scale=sc)
+            assert torch.equal(a, b), (T, E, K, N, int8)
+    x, w, sc = _ke_inputs(cuda, 8, 8, 2048, 6912, torch.bfloat16, True, seed=3)
+    ids = torch.zeros(8, dtype=torch.int32, device=cuda)
+    expert_matmul(x, w, ids, scale=sc)  # first use outside the capture
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = expert_matmul(x, w, ids, scale=sc)
+    for routing in ([0] * 8, [7, 1, 1, 3, 0, 7, 2, 2], list(range(8))):
+        ids.copy_(torch.tensor(routing, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, expert_matmul(x, w, ids, scale=sc)), routing
+
+
+@pytest.mark.gpu
+def test_expert_matmul_kernel_route(cuda):
+    """The profiler sees the kernel the plan names (tensor cores for bf16
+    at N a multiple of 16), and the combine kernel exactly when the plan
+    splits K (a few rows over a narrow N)."""
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import (
+        expert_matmul,
+        expert_matmul_plan,
+    )
+
+    # (T, E, K, N, dtype) -> (tensor cores, K split): the MoE decode, the
+    # int8 wq of a decode step, the grouped prefill, a float32 int8 decode,
+    # a bf16 N that is not a multiple of 16
+    routes = {(8, 8, 2048, 6912, torch.bfloat16): (True, False),
+              (8, 1, 2048, 2048, torch.bfloat16): (True, True),
+              (512, 8, 2048, 6912, torch.bfloat16): (True, False),
+              (8, 1, 2048, 2048, torch.float32): (False, True),
+              (8, 8, 256, 200, torch.bfloat16): (False, False)}
+    for (T, E, K, N, dtype), (tc, split) in routes.items():
+        x, w, sc = _ke_inputs(cuda, T, E, K, N, dtype, True)
+        ids = _ke_ids(T, E, "spread" if E > 1 else None, cuda)
+        plan = expert_matmul_plan(x, w, ids)
+        assert (plan["tensor_cores"], plan["splits"] > 1) == (tc, split), (T, E, K, N, plan)
+        names = _kernel_names(lambda: expert_matmul(x, w, ids, scale=sc),
+                              r"expert_matmul_\w*?kernel")
+        want = {"expert_matmul_mma_kernel" if tc else "expert_matmul_kernel"}
+        want |= {"expert_matmul_combine_kernel"} if split else set()
+        assert names == want, (T, E, K, N, names)
+
+
+def _small_moe_engine(device, dtype, int8, **kw):
+    from elastic_gpu_scheduler_tpu_torch.models.quantize import quantize_params
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                            d_ff=256, dtype=dtype, n_experts=4)
+    params = init_params(cfg, torch.Generator(device="cpu").manual_seed(0), "cpu")
+    params["layers"]["moe_gate"] = params["layers"]["moe_gate"] * 8.0
+    if int8:
+        params = quantize_params(params)
+    return cfg, serving.InferenceEngine(params, cfg, max_batch=4, max_len=96, page_size=16,
+                                        fused_steps=4, paged_kernel=True, device=device, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["moe", "moe + int8"])
+def test_moe_engine_on_card_matches_cpu_float32(cuda, int8):
+    """Float32 MoE (and MoE + int8) greedy tokens on the card, overlapped
+    (each decode chunk a graph replay), equal the CPU's sequential run; KE
+    launches 3 x L a decode step and a prefill (7 x L + 1 with int8
+    weights); a second batch with other routing captures no graph."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (3, 17, 40, 9)]
+    outs = {}
+    for where in ("cpu", cuda):
+        cfg, eng = _small_moe_engine(where, "float32", int8, overlap=where != "cpu")
+        _build.reset_launches()
+        reqs = [eng.submit(serving.Request(prompt=p, max_new_tokens=20)) for p in prompts]
+        eng.run_until_idle()
+        assert all(r.done.is_set() and not r.error for r in reqs)
+        outs[str(where)] = [r.output for r in reqs]
+        if where != "cpu":
+            # a pass: 3 expert products a layer; with int8 weights also
+            # wq, wk, wv, wo and the unembed
+            per_pass = 3 * cfg.n_layers + int8 * (4 * cfg.n_layers + 1)
+            passes = eng.fused_steps * (eng.steps_run + eng.graph_warmups) + eng.prefills_run
+            assert _build.LAUNCHES["expert_matmul"] == per_pass * passes
+            captured = eng.graphs_captured
+            more = [eng.submit(serving.Request(prompt=p[::-1], max_new_tokens=20))
+                    for p in prompts]
+            eng.run_until_idle()
+            assert all(r.done.is_set() and not r.error for r in more)
+            assert eng.graphs_captured == captured
+    assert outs["cpu"] == outs[str(cuda)]

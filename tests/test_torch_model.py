@@ -111,8 +111,8 @@ def test_forward_matches_jax(dtype, window):
 
 
 def test_forward_rejects_unported_config():
-    _, cfg = _cfgs(n_experts=4, dtype="float32")
-    with pytest.raises(NotImplementedError, match="n_experts"):
+    _, cfg = _cfgs(use_ring_attention=True, dtype="float32")
+    with pytest.raises(NotImplementedError, match="use_ring_attention"):
         forward({}, torch.zeros(1, 4, dtype=torch.int32), cfg)
 
 

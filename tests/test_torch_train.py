@@ -250,9 +250,9 @@ def test_mesh_and_unported_configs_refused():
                lambda: train.init_state(cfg, opt, torch.Generator(), "cpu", mesh=object())):
         with pytest.raises(NotImplementedError, match="parallel/"):
             fn()
-    _, moe = _cfgs(dtype="float32", n_experts=2)
-    with pytest.raises(NotImplementedError, match="n_experts"):
-        train.init_state(moe, opt, torch.Generator(), "cpu")
+    _, piped = _cfgs(dtype="float32", n_microbatches=2)
+    with pytest.raises(NotImplementedError, match="n_microbatches"):
+        train.init_state(piped, opt, torch.Generator(), "cpu")
 
 
 # -- data -----------------------------------------------------------------------
