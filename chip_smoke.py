@@ -121,6 +121,23 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    reported), then the MoE weights quantized;
 6i. small float32 MoE, int8 and MoE + int8 engines: card = CPU,
    sequential, overlapped, int8 KV + prefix + chunked and spec_k 4;
+6j. disaggregated serving at the same width on 6b's options, once with a
+   bf16 pool and once with an int8 pool: a prefill-role and a decode-role
+   ``serve_inference`` server in this process, sharing the weights; 6b's
+   256-token shared prefix and its 700- and 900-token prompts through
+   ``/v1/prefill`` on one and ``X-KV-Source`` adoption on the other
+   (imported pages and prefix hits equal the traffic; the decode side's
+   launches exact: K1 none, K3 L x passes, K2 or K2-int8 L x fused_steps
+   x chunks; its tokens equal a single engine's local warm hit, its first
+   tokens the single engine's cold run); a stream on an overlapped engine
+   moved by ``/v1/migrate/out`` after one chunk (at most one chunk
+   discarded, agreement with the unmigrated stream reported), a refused
+   handoff resumed locally, and a captured decode graph replayed over
+   freshly imported pages equal to the eager chunk with no new capture;
+   bundle bytes, export and import ms as engine tasks, ``/v1/prefill`` +
+   adoption against a cold prefill, the migration's wall to its first
+   relayed token; a small float32 model's split and migration equal on
+   the card, the CPU and an engine that ships nothing;
 7. HTTP: ``serve_inference`` on the card-resident engine, one blocking
    and one SSE completion against the engine's own tokens, /healthz and
    /v1/stats;
@@ -1460,8 +1477,9 @@ class VerifyCalls:
         return self.real(q, *args)
 
 
-def check_verify_samples(calls, name, label) -> float:
-    """The sampled W-query K2 calls against ``paged_attention_reference``."""
+def check_verify_samples(calls, name, label, width=SPEC_K + 1) -> float:
+    """Sampled K2 calls (``name``'s pool; a W-query window, or width 1
+    for plain decode) against ``paged_attention_reference``."""
     from elastic_gpu_scheduler_tpu_torch.ops.paged_attention import (
         paged_attention,
         paged_attention_reference,
@@ -1475,10 +1493,11 @@ def check_verify_samples(calls, name, label) -> float:
         ref = paged_attention_reference(q, lkv["k"], lkv["v"], tables, lengths, **kw)
         e = maxerr(out, ref)
         worst = max(worst, e)
-        check(q.shape[1] == SPEC_K + 1, f"{label}: a sampled window of width {q.shape[1]}")
-        check(close(out, ref, "bfloat16"), f"{label}: K2 W={q.shape[1]} disagrees with "
+        w = 1 if q.ndim == 3 else q.shape[1]
+        check(w == width, f"{label}: a sampled window of width {w}, not {width}")
+        check(close(out, ref, "bfloat16"), f"{label}: {name} W={w} disagrees with "
               f"paged_attention_reference (max err {e:.3g})")
-    log(f"{label}: {len(calls)} sampled W={SPEC_K + 1} calls within tolerance of "
+    log(f"{label}: {len(calls)} sampled W={width} {name} calls within tolerance of "
         f"paged_attention_reference (max err {worst:.3g}, tol {TOL['bfloat16']} + "
         f"{RTOL['bfloat16']}|ref|)")
     return worst
@@ -1935,10 +1954,10 @@ def chunk_profile(eng, specs, label) -> dict:
     return out
 
 
-def post_json(addr, body, timeout=300):
+def post_json(addr, body, path="/v1/completions", headers=None, timeout=300):
     conn = http.client.HTTPConnection(*addr, timeout=timeout)
-    conn.request("POST", "/v1/completions", json.dumps(body),
-                 {"Content-Type": "application/json"})
+    conn.request("POST", path, json.dumps(body),
+                 {"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
     data = resp.read()
     conn.close()
@@ -2915,6 +2934,527 @@ def phase_moe_int8_small_fp32(dev) -> dict:
     return {"models": list(models), "modes": list(modes)}
 
 
+# -- phase 6j: disaggregated serving ---------------------------------------------
+
+
+DISAGG_NEW = 32  # tokens each adopted (and each single-engine) completion generates
+MIGRATE_NEW = 128  # tokens of a migrated stream
+# client tokens before the move: the prefill's and one decode chunk's
+MIGRATE_AFTER = 1 + PREFIX_ENGINE["fused_steps"]
+
+
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sse(addr, path, body, headers=None, on_token=None):
+    """One streamed POST: (tokens, each token's arrival time, error events);
+    ``on_token(count)`` runs after each token event."""
+    conn = http.client.HTTPConnection(*addr, timeout=300)
+    conn.request("POST", path, json.dumps(dict(body, stream=True)),
+                 {"Content-Type": "application/json", **(headers or {})})
+    resp = conn.getresponse()
+    check(resp.status == 200, f"{path} stream answered {resp.status}")
+    toks, times, errors = [], [], []
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        line = line.strip()
+        if not line.startswith(b"data: "):
+            continue
+        if line[6:] == b"[DONE]":
+            resp.read()  # the chunked body's end: the connection closes clean
+            break
+        ev = json.loads(line[6:])
+        if "error" in ev:
+            errors.append(ev)
+        if "token" in ev:
+            toks.append(ev["token"])
+            times.append(time.perf_counter())
+            if on_token is not None:
+                on_token(len(toks))
+    conn.close()
+    return toks, times, errors
+
+
+def closed_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def timed_calls(eng, name: str, dev, record: list) -> None:
+    """Time each call of ``eng.<name>`` (on the engine thread, through
+    ``run_task``) to the end of its device work; record (ms, result), the
+    result kept only when it is a bundle or a dict."""
+    real = getattr(eng, name)
+
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        sync(dev)
+        record.append(((time.perf_counter() - t0) * 1e3,
+                       out if isinstance(out, (bytes, dict)) else None))
+        return out
+
+    setattr(eng, name, call)
+
+
+def migrate_stream(addr_src, dest, prompt, max_new):
+    """Stream ``prompt`` from the source and move it to ``dest`` once
+    MIGRATE_AFTER tokens reached the client: (tokens, arrival times,
+    errors, migrate status, migrate body, migrate start time)."""
+    import threading
+
+    box = {}
+
+    def move():
+        box["t0"] = time.perf_counter()
+        box["status"], _, data = post_json(addr_src, {"dest": dest}, path="/v1/migrate/out")
+        box["body"] = json.loads(data)
+
+    mover = threading.Thread(target=move, daemon=True)
+    toks, times, errors = sse(addr_src, "/v1/completions", {"prompt": prompt, "max_tokens": max_new},
+                              on_token=lambda n: n == MIGRATE_AFTER and mover.start())
+    mover.join(timeout=120)
+    check(not mover.is_alive() and "status" in box, "the migration request did not finish")
+    return toks, times, errors, box["status"], box["body"], box["t0"]
+
+
+SPLIT_REPEATS = 5  # timed rounds of the split and the cold run, fresh prompts each
+MIGRATE_REPEATS = 4  # timed migrations after the checked one, fresh prompts each
+
+
+def spread(xs) -> dict:
+    """The median and the range of repeated readings."""
+    return {"median": float(np.median(xs)), "min": float(min(xs)), "max": float(max(xs)),
+            "n": len(xs)}
+
+
+def decode_bundles(record, decode_ms) -> None:
+    """Time each recorded bundle's decode (on the host, between rounds)
+    and keep only its size."""
+    from elastic_gpu_scheduler_tpu_torch.utils import kvwire
+
+    for n, (ms, out) in enumerate(record):
+        if isinstance(out, bytes):
+            t0 = time.perf_counter()
+            kvwire.decode_bundle(out)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            record[n] = (ms, len(out))
+
+
+def phase_disagg(dev, params, cfg, kv_int8: bool) -> dict:
+    """The disaggregated data plane at full width, on 6b's options with a
+    bf16 or an int8 pool.  Two ``serve_inference`` servers on one card, P
+    (role prefill) and D (role decode), sharing the weight tensors: 6b's
+    shared prefix and its 700- and 900-token prompts go to P's
+    /v1/prefill, then to D's /v1/completions with ``X-KV-Source: P``.
+    Checked: D's imported pages and prefix hits equal the traffic; D's
+    launches are exact (K1 none, K3 L x passes, K2 L x fused_steps x
+    chunks); sampled K2 and K3 calls of D's path agree with their plain
+    versions; D's tokens equal a single engine's local warm hit on every
+    token and its cold run on the first.  Then a stream on an overlapped
+    engine A moved to B by /v1/migrate/out after one chunk (at most one
+    chunk discarded), a refused handoff resumed locally, and a captured
+    decode graph on B replayed over freshly imported pages equal to the
+    eager chunk, with no new capture.  Numbers, each the median and range
+    of repeats on fresh prompts after a warm-up of every shape: bundle
+    bytes and pages, export and import ms as engine tasks, /v1/prefill +
+    adoption against a cold prefill, the migration's wall to its first
+    relayed token."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models import generate, serving
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+    from elastic_gpu_scheduler_tpu_torch.server.inference import serve_inference
+    from elastic_gpu_scheduler_tpu_torch.utils import kvwire
+
+    label = "int8 KV" if kv_int8 else "bf16 KV"
+    opts = dict(PREFIX_ENGINE, kv_int8=kv_int8)
+    ps, L = opts["page_size"], cfg.n_layers
+    wave1, _ = prefix_traffic(np.random.default_rng(12), cfg.vocab_size, SHARED_PREFIX,
+                              WAVE1_LENS, WAVE2_TAILS)
+    prompts = [wave1[0][:SHARED_PREFIX], wave1[1], wave1[2]]  # 256, 700 and 900 tokens
+    shapes = [len(p) for p in prompts]
+    mrng = np.random.default_rng(16)
+    moved, refused = (mrng.integers(0, cfg.vocab_size, WAVE1_LENS[1]).tolist() for _ in range(2))
+
+    def fresh(n):
+        return mrng.integers(0, cfg.vocab_size, n).tolist()
+
+    engines = {
+        "P": InferenceEngine(params, cfg, device=dev, **opts),
+        "D": InferenceEngine(params, cfg, device=dev, **opts),
+        "C": InferenceEngine(params, cfg, device=dev, **opts),  # one engine: no shipping
+        "A": InferenceEngine(params, cfg, device=dev, **dict(opts, overlap=True)),
+        "B": InferenceEngine(params, cfg, device=dev, **dict(opts, overlap=True)),
+    }
+    check(all(e.params["embed"] is engines["P"].params["embed"] for e in engines.values()),
+          "the engines do not share the weight tensors")
+    P, D, C, A, B = (engines[n] for n in "PDCAB")
+    P.replica_name, P.fleet_role = "P", "prefill"
+    D.replica_name, D.fleet_role = "D", "decode"
+    t_start = time.perf_counter()
+    # first use outside the measurements: one prompt of each shape through
+    # the split and a cold run; the counters checked below are deltas past it
+    with torch.inference_mode():
+        for n in shapes:
+            first_use = fresh(n)
+            for e in (P, C):
+                e.submit(Request(prompt=first_use, max_new_tokens=2))
+                e.run_until_idle()
+            D.import_pages(*kvwire.decode_bundle(P.export_prefix_pages(first_use)))
+            D.submit(Request(prompt=first_use, max_new_tokens=2))
+            D.run_until_idle()
+    names = ("kv_pages_exported", "kv_exports", "kv_pages_imported", "kv_imports",
+             "prefix_lookups", "prefix_admission_hits", "prefix_hit_tokens")
+    base = {e: {n: getattr(e, n) for n in names} for e in (P, D)}
+
+    def delta(e):
+        return {n: getattr(e, n) - base[e][n] for n in names}
+
+    servers = {n: serve_inference(e, port=0, host="127.0.0.1") for n, e in engines.items()}
+    addr = {n: s[0].server_address for n, s in servers.items()}
+    source = {kvwire.KV_SOURCE_HEADER: "%s:%d" % addr["P"]}
+    exports, payloads, imports = [], [], []
+    timed_calls(P, "export_prefix_pages", dev, exports)
+    timed_calls(P, "_page_payloads", dev, payloads)  # the gather and copy out, within export
+    timed_calls(D, "import_pages", dev, imports)
+    passes = {"plain": 0, "prefixed": 0}
+    real = (serving._paged_prefill, serving._paged_prefill_prefixed,
+            generate.flash_block_stats, serving._paged_attn_call)
+
+    def counted(fn, kind):
+        def call(*args, **kw):
+            passes[kind] += 1
+            return fn(*args, **kw)
+        return call
+
+    serving._paged_prefill = counted(real[0], "plain")
+    serving._paged_prefill_prefixed = counted(real[1], "prefixed")
+    res = {"pool": label}
+    try:
+        # the split's first half: P prefills (its own launches exact)
+        _build.reset_launches()
+        for p in prompts:
+            code, _, data = post_json(addr["P"], {"prompt": p}, path="/v1/prefill")
+            check(code == 200 and json.loads(data)["pages"] == (len(p) - 1) // ps,
+                  f"/v1/prefill answered {code}: {data[:200]!r}")
+        sync(dev)
+        lp = dict(_build.LAUNCHES)
+        want = dict.fromkeys(lp, 0)
+        want.update(flash_fwd=L * passes["plain"], flash_block_stats=L * passes["prefixed"])
+        check(lp == want, f"{label}: P's prefill launches {lp} differ from {want}")
+        p_passes = dict(passes)
+
+        # the split's second half: D adopts from P, then decodes; the main
+        # path of this phase, its counts at 0 just before.  K3 and K2 calls
+        # are sampled (K2's split plan follows the table view: 32 and 64
+        # pages here, the 900-token prompt's 64 beyond 6's 40)
+        k3s = CallSampler(lambda q, k, v, q_off, k_off, causal=True: (
+            q.clone(), k.clone(), v.clone(), int(q_off), int(k_off), causal), every=13, keep=4)
+        k2s = k2_sampler(every=193, keep=8)
+        generate.flash_block_stats = k3s.wrap(real[2])
+        serving._paged_attn_call = k2s.wrap(real[3])
+        passes.update(plain=0, prefixed=0)
+        steps0 = D.steps_run
+        sync(dev)
+        _build.reset_launches()
+        adopted = []
+        for p in prompts:
+            toks, _, errors = sse(addr["D"], "/v1/completions",
+                                  {"prompt": p, "max_tokens": DISAGG_NEW}, headers=source)
+            check(len(toks) == DISAGG_NEW and not errors, f"{label}: D's stream {errors}")
+            adopted.append(toks)
+        sync(dev)
+        launches = dict(_build.LAUNCHES)
+        generate.flash_block_stats, serving._paged_attn_call = real[2], real[3]
+        chunks = D.steps_run - steps0
+        k2 = "paged_attention_int8" if kv_int8 else "paged_attention"
+        want = dict.fromkeys(launches, 0)
+        want.update({"flash_block_stats": L * passes["prefixed"], k2: L * D.fused_steps * chunks})
+        log(f"{label}: D's main path: passes {passes}, chunks {chunks}, launches {launches} "
+            f"(want {want})")
+        check(launches == want and passes == {"plain": 0, "prefixed": len(prompts)} and chunks > 0,
+              f"{label}: D's launches differ from K1 0, K3 L x passes, K2 L x fused_steps x chunks")
+        # D's path's kernels against their plain versions, on the sampled inputs
+        k2_err = check_verify_samples(k2s.calls, k2, f"{label} D's adopted decode", width=1)
+        plans = sorted({(int(c[2].shape[1]), k2_splits(c[0], c[1]["k"].shape[2], c[2].shape[1]))
+                        for c in k2s.calls})
+        log(f"{label}: D's sampled {k2} calls: (table pages, splits) {plans}")
+        check(k3s.calls, f"{label}: no K3 call of D's adopted prefill was sampled")
+        k3_err = max(check_k3(*c, label=f"{label} D's adopted prefill (t0 {c[3]}, "
+                              f"{c[0].shape[2]} rows)") for c in k3s.calls)
+        res["kernels_checked"] = {
+            k2: {"calls": len(k2s.calls), "max_abs_err": k2_err,
+                 "table_pages_and_splits": plans},
+            "flash_block_stats": {"calls": len(k3s.calls), "max_abs_err": k3_err}}
+        n_pages = sum((len(p) - 1) // ps for p in prompts)
+        dp, dd = delta(P), delta(D)
+        check(dd["kv_pages_imported"] == dp["kv_pages_exported"] == n_pages
+              and dd["kv_imports"] == dp["kv_exports"] == len(prompts),
+              f"{label}: pages shipped {dp} / imported {dd}, not {n_pages}")
+        check(dd["prefix_lookups"] == dd["prefix_admission_hits"] == len(prompts)
+              and dd["prefix_hit_tokens"] == n_pages * ps,
+              f"{label}: D's prefix counters {dd} differ from the traffic")
+        _, stats = get_json(addr["D"], "/v1/stats")
+        check(stats["role"] == "decode" and stats["replica"] == "D"
+              and stats["kv"]["pages_imported"] == D.kv_pages_imported,
+              f"{label}: D's /v1/stats off")
+        bundle_bytes = [len(out) for _, out in exports]
+
+        # the single engine: cold, then its own warm hit
+        cold, warm = [], []
+        for p in prompts:
+            cold.append(sse(addr["C"], "/v1/completions", {"prompt": p, "max_tokens": DISAGG_NEW})[0])
+        for p in prompts:
+            warm.append(sse(addr["C"], "/v1/completions", {"prompt": p, "max_tokens": DISAGG_NEW})[0])
+        check(adopted == warm, f"{label}: adopted tokens differ from the single engine's warm hit")
+        firsts = sum(a[0] == c[0] for a, c in zip(adopted, cold))
+        check(firsts == len(prompts), f"{label}: first tokens after adoption differ from the "
+              f"single engine's cold run ({firsts}/{len(prompts)})")
+        # P's bundle of the 700-token prompt, for the graph check below
+        code, _, graph_bundle = post_json(addr["P"], {"tokens": prompts[1]}, path="/v1/kv/export")
+        check(code == 200, f"{label}: /v1/kv/export answered {code}")
+        t_split = time.perf_counter()
+
+        # the timed rounds: each shape's fresh prompt through the split
+        # (P's /v1/prefill, then D's first token with adoption) and cold on C
+        for record in (exports, payloads, imports):
+            record.clear()
+        decode_ms = []
+        rounds = {k: [[] for _ in shapes] for k in ("prefill", "adopt", "split", "cold")}
+        for _ in range(SPLIT_REPEATS):
+            for s, n in enumerate(shapes):
+                p = fresh(n)
+                t0 = time.perf_counter()
+                code, _, data = post_json(addr["P"], {"prompt": p}, path="/v1/prefill")
+                t1 = time.perf_counter()
+                check(code == 200, f"/v1/prefill answered {code}: {data[:200]!r}")
+                toks, times, errors = sse(addr["D"], "/v1/completions",
+                                          {"prompt": p, "max_tokens": 1}, headers=source)
+                check(len(toks) == 1 and not errors, f"{label}: D's stream {errors}")
+                rounds["prefill"][s].append((t1 - t0) * 1e3)
+                rounds["adopt"][s].append((times[0] - t1) * 1e3)
+                rounds["split"][s].append((times[0] - t0) * 1e3)
+                t0 = time.perf_counter()
+                toks, times, _ = sse(addr["C"], "/v1/completions", {"prompt": p, "max_tokens": 1})
+                rounds["cold"][s].append((times[0] - t0) * 1e3)
+            decode_bundles(exports, decode_ms)
+        check(len(exports) == len(imports) == len(payloads) == SPLIT_REPEATS * len(shapes),
+              f"{label}: {len(exports)} exports and {len(imports)} imports in the timed rounds")
+        check(all(r["imported"] == (n - 1) // ps
+                  for (_, r), n in zip(imports, shapes * SPLIT_REPEATS)),
+              f"{label}: a timed round did not adopt every page")
+
+        def per_shape(values):
+            return [spread(values[s::len(shapes)]) for s in range(len(shapes))]
+
+        sizes = [b for _, b in exports]
+        res.update({
+            "prompts": shapes, "pages": [(n - 1) // ps for n in shapes],
+            "bundle_bytes": bundle_bytes,
+            "bytes_per_page": bundle_bytes[-1] / ((shapes[-1] - 1) // ps),
+            "repeats": SPLIT_REPEATS,
+            "export_ms": per_shape([ms for ms, _ in exports]),
+            "export_gather_copy_ms": per_shape([ms for ms, _ in payloads]),
+            "decode_ms": per_shape(decode_ms),
+            "import_ms": per_shape([ms for ms, _ in imports]),
+            "export_gb_s": per_shape([b / ms / 1e6 for b, (ms, _) in zip(sizes, exports)]),
+            "import_gb_s": per_shape([b / ms / 1e6 for b, (ms, _) in zip(sizes, imports)]),
+            "prefill_route_ms": [spread(x) for x in rounds["prefill"]],
+            "adopt_ttft_ms": [spread(x) for x in rounds["adopt"]],
+            "split_ttft_ms": [spread(x) for x in rounds["split"]],
+            "cold_ttft_ms": [spread(x) for x in rounds["cold"]],
+            # each round's split over the same round's cold first token
+            "split_over_cold": [spread([a / b for a, b in zip(x, y)])
+                                for x, y in zip(rounds["split"], rounds["cold"])],
+            "p_passes": p_passes, "d_launches": {k: v for k, v in launches.items() if v},
+            "d_chunks": chunks, "first_tokens_vs_cold": firsts,
+            "common_prefix_vs_cold": [common_prefix(a, c) for a, c in zip(adopted, cold)],
+        })
+
+        # live migration: A's stream moves to B after one chunk (checked
+        # once, then timed on fresh prompts)
+        ref_moved = sse(addr["C"], "/v1/completions", {"prompt": moved, "max_tokens": MIGRATE_NEW})[0]
+        ref_refused = sse(addr["C"], "/v1/completions",
+                          {"prompt": refused, "max_tokens": MIGRATE_NEW})[0]
+        walls, dones, lost_l, shipped = [], [], [], []
+        for r in range(1 + MIGRATE_REPEATS):
+            prompt = moved if r == 0 else fresh(len(moved))
+            lost0 = A.chunks_discarded
+            toks, times, errors, code, body, t_move = migrate_stream(
+                addr["A"], "%s:%d" % addr["B"], prompt, MIGRATE_NEW)
+            check(code == 200 and body["ok"], f"{label}: /v1/migrate/out answered {code} {body}")
+            lost = A.chunks_discarded - lost0
+            done = body["tokens_done"]
+            check(len(toks) == MIGRATE_NEW and not errors and done >= MIGRATE_AFTER,
+                  f"{label}: the migrated stream gave {len(toks)} tokens, errors {errors}")
+            check(lost <= 1, f"{label}: the migration discarded {lost} chunks")
+            check(A.sessions_migrated_out == B.sessions_migrated_in == r + 1,
+                  f"{label}: migration counters off")
+            if r == 0:
+                first = toks
+            walls.append((times[done] - t_move) * 1e3)
+            dones.append(done)
+            lost_l.append(lost)
+            shipped.append(body["pages_shipped"])
+        res["migration"] = {
+            "tokens_before_move": dones, "pages_shipped": shipped, "chunks_discarded": lost_l,
+            "wall_ms_to_first_relayed_token": {"first": walls[0], **spread(walls[1:])},
+            "tokens_equal_unmigrated": sum(a == b for a, b in zip(first, ref_moved)),
+            "common_prefix_unmigrated": common_prefix(first, ref_moved),
+            "a_graphs": A.graphs_captured, "b_graphs": B.graphs_captured,
+        }
+        migrated = A.sessions_migrated_out
+        toks, _, errors, code, body, _ = migrate_stream(
+            addr["A"], "127.0.0.1:%d" % closed_port(), refused, MIGRATE_NEW)
+        check(code == 502 and body.get("resumed_local") is True,
+              f"{label}: a refused handoff answered {code} {body}")
+        check(len(toks) == MIGRATE_NEW and not errors, f"{label}: the resumed stream {errors}")
+        check(A.sessions_migrated_out == migrated, f"{label}: the refused hop was not rolled back")
+        res["refused"] = {"tokens_equal_unmigrated": sum(a == b for a, b in zip(toks, ref_refused)),
+                          "common_prefix_unmigrated": common_prefix(toks, ref_refused)}
+        mig = res["migration"]
+        log(f"{label}: migrations after {dones} tokens ({shipped} pages, {lost_l} chunks "
+            f"discarded): first relayed token {walls[0]:.1f} ms after /v1/migrate/out the "
+            f"first time, then median {mig['wall_ms_to_first_relayed_token']['median']:.1f} "
+            f"ms (range {min(walls[1:]):.1f}-{max(walls[1:]):.1f}, {MIGRATE_REPEATS} runs); "
+            f"{mig['tokens_equal_unmigrated']}/{MIGRATE_NEW} tokens equal the "
+            f"unmigrated stream; refused handoff resumed locally "
+            f"({res['refused']['tokens_equal_unmigrated']}/{MIGRATE_NEW} equal)")
+    finally:
+        (serving._paged_prefill, serving._paged_prefill_prefixed,
+         generate.flash_block_stats, serving._paged_attn_call) = real
+        for server, loop in servers.values():
+            server.shutdown()
+            server.server_close()
+            loop.stop()
+
+    # a captured decode graph across an import, driven here (B's loop is
+    # stopped): the replay reads the new pages, equal to the eager chunk
+    check(B.graphs_captured > 0, f"{label}: B captured no graph")
+    captured = B.graphs_captured
+    hdr, pages = kvwire.decode_bundle(graph_bundle)
+    ptrs = {k: t.data_ptr() for k, t in B.kv.items()}
+    got = B.import_pages(hdr, pages)
+    check(got["imported"] == len(pages) and ptrs == {k: t.data_ptr() for k, t in B.kv.items()},
+          f"{label}: the import into B did not land in place ({got})")
+    seen = []
+    replay = B._replay_chunk
+
+    def spy(key, args, static):
+        seen.append((args, static, {k: v.clone() for k, v in args[1].items()},
+                     args[3].clone(), args[4].clone()))
+        return replay(key, args, static)
+
+    # the engine's state was made under inference mode, as its loop runs
+    with torch.inference_mode():
+        req = B.submit(Request(prompt=list(prompts[1]), max_new_tokens=DISAGG_NEW))
+        B._admit()
+        check(B.matched_toks[0] == len(pages) * ps, f"{label}: B did not match the imported pages")
+        B._replay_chunk = spy
+        pending = B._dispatch_chunk()
+        B._replay_chunk = replay
+        args, static, kv0, tok0, len0 = seen[0]
+        eager_args = list(args)
+        eager_args[1], eager_args[3], eager_args[4] = kv0, tok0, len0
+        out = serving._chunk_in_place(*eager_args, **static)
+        sync(dev)
+        same = torch.equal(out, pending.out) and all(torch.equal(kv0[k], B.kv[k]) for k in B.kv)
+        check(same, f"{label}: the replay over imported pages differs from the eager chunk")
+        B._drain_chunk(pending)
+        B.run_until_idle()
+    check(B.graphs_captured == captured, f"{label}: the import cost a graph capture")
+    check(req.output == adopted[1], f"{label}: B's replayed tokens over the imported pages "
+          "differ from D's eager ones")
+    res["graph_across_import"] = {"graphs": captured, "replay_equals_eager": same}
+    res["phase_s"] = {"split": t_split - t_start, "all": time.perf_counter() - t_start}
+
+    def med(key):
+        return [round(x["median"], 2) for x in res[key]]
+
+    def rng(key):
+        return [f"{x['min']:.1f}-{x['max']:.1f}" for x in res[key]]
+
+    log(f"{label}: split of {shapes} tokens: pages {res['pages']}, bundles {bundle_bytes} B "
+        f"({res['bytes_per_page']:.0f} B a page); medians of {SPLIT_REPEATS} rounds on fresh "
+        f"prompts: export {med('export_ms')} ms, import {med('import_ms')} ms; /v1/prefill "
+        f"{med('prefill_route_ms')} + adopted first token {med('adopt_ttft_ms')} = split "
+        f"{med('split_ttft_ms')} ms (ranges {rng('split_ttft_ms')}) against a cold first token "
+        f"{med('cold_ttft_ms')} ms (ranges {rng('cold_ttft_ms')}); split / cold "
+        f"{med('split_over_cold')} (ranges {rng('split_over_cold')}); D launches "
+        f"{res['d_launches']} exact; tokens equal the local warm hit; a graph replayed over "
+        f"imported pages = eager")
+    del engines, P, D, C, A, B, kv0, out, pending, seen, k2s, k3s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_disagg_small_fp32(dev) -> dict:
+    """A small float32 model through the split (export, import, adopted
+    admission) and a migration (overlapped source and destination): greedy
+    tokens identical on the card and the CPU, and to an engine that
+    neither ships nor migrates."""
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
+    from elastic_gpu_scheduler_tpu_torch.utils import kvwire
+
+    small, sp = small_fp32()
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (40, 70, 100)]
+    kw = dict(prefix_cache=True, prefill_chunk=32, max_batch=4, max_len=256, page_size=16,
+              fused_steps=8, paged_kernel=True)
+    outs = {}
+    for where in ("cpu", dev):
+        def engine(**more):
+            return InferenceEngine(sp, small, device=where, **dict(kw, **more))
+
+        plain = []
+        for p in prompts:
+            e = engine(overlap=False)
+            r = e.submit(Request(prompt=p, max_new_tokens=24))
+            e.run_until_idle()
+            plain.append(r.output)
+        pe, de = engine(overlap=False), engine(overlap=where != "cpu")
+        split = []
+        for p in prompts:
+            r = pe.submit(Request(prompt=p, max_new_tokens=1))
+            pe.run_until_idle()
+            de.import_pages(*kvwire.decode_bundle(pe.export_prefix_pages(p)))
+            r = de.submit(Request(prompt=p, max_new_tokens=24))
+            de.run_until_idle()
+            split.append(r.output)
+        check(de.prefix_admission_hits == len(prompts), "small split: no adoption hit")
+        moved = []
+        for p in prompts:
+            src, dst = engine(overlap=where != "cpu"), engine(overlap=where != "cpu")
+            src.submit(Request(prompt=p, max_new_tokens=24))
+            src._admit()
+            src.step()
+            src.step()
+            hdr, pages = kvwire.decode_bundle(src.migrate_out_bundle(0))
+            dst.import_pages(hdr, pages)
+            r = dst.resume_session(hdr["request"])
+            dst.run_until_idle()
+            moved.append(r.output)
+        check(split == plain and moved == plain,
+              f"small float32 on {where}: shipped or migrated tokens differ from the plain engine's")
+        outs[str(where)] = plain
+    check(outs["cpu"] == outs[str(dev)], "small float32 disagg: card tokens differ from the CPU's")
+    log(f"small float32 split and migration: card = CPU = plain engine "
+        f"({sum(map(len, outs['cpu']))} tokens a path)")
+    return {"tokens": sum(map(len, outs["cpu"]))}
+
+
 # -- phase 9c: MoE training ----------------------------------------------------------
 
 
@@ -3780,6 +4320,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 6j. disaggregated serving on the same weights: a bf16 and an int8 pool
+    dperf = {"bf16": phase_disagg(dev, dense_params, dense_cfg, kv_int8=False),
+             "int8": phase_disagg(dev, dense_params, dense_cfg, kv_int8=True),
+             "small_float32": phase_disagg_small_fp32(dev)}
+
     # 6g. MoE serving at full width, 6h. int8 weights, 6i. small float32
     mperf, moe_launches, moe_params, moe_cfg, moe_reqs = phase_moe_engine(dev, prompts)
     gc.collect()
@@ -3826,6 +4371,7 @@ def main() -> int:
     log(json.dumps({"controls_engine": cperf}))
     log(json.dumps({"lora_engine": lperf}))
     log(json.dumps({"prefix_engine": pperf}))
+    log(json.dumps({"disagg_engine": dperf}))
     log(json.dumps({"moe_engine": mperf}))
     log(json.dumps({"int8_engine": iperf, "small_float32": small_perf}))
     log(json.dumps({"moe_train": {k: v for k, v in moe_train.items() if k != "profile"},

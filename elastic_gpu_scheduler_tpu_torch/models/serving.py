@@ -82,6 +82,23 @@ join and leave a fixed-shape batch between fused decode chunks:
   gathers its rows' factors once (``adapter_rows``).  The prefix cache's
   digest chain is seeded with the adapter id, so pages cached under one
   adapter never match another's prompts.
+- **Disaggregated serving data plane** (``utils/kvwire``): four
+  engine-thread primitives, reached from other threads through
+  ``run_task`` (a queue of thunks drained at the top of every
+  ``_admit``): ``export_prefix_pages`` (cached prefix pages as a wire
+  bundle: one ``index_select`` and one device-to-host copy per pool key,
+  on the engine's stream, so behind any chunk in flight),
+  ``import_pages`` (a bundle's pages into free pool pages, written in
+  place with ``index_copy_`` from one host-to-device copy per pool key,
+  so captured decode graphs keep reading the same storage; registered in
+  the prefix cache under this engine's chain), ``migrate_out_bundle``
+  (a live slot detached into a ``kind="session"`` bundle through
+  ``evict_slot``) and ``resume_session`` (the shipped request requeued;
+  admission matches the imported pages and re-prefills only the tail).
+  The payload is the reference's: per page, each pool key's
+  (L, page_size, Hkv, Dh) (scales: (L, page_size, Hkv)) bytes, keys in
+  ``_pool_keys()`` order, so bundles cross between the two
+  implementations.
 
 The step functions run under ``torch.inference_mode()``: serving
 parameters that require grad (a model fresh from ``models/train.py``)
@@ -93,12 +110,12 @@ request requeues and resumes exactly); if every slot is stalled the engine
 raises "page pool exhausted".
 
 Not ported yet, and rejected by name: a mesh and the compile cache
-(engine options), and the disaggregated KV export / import / migration
-verbs.
+(engine options).
 """
 
 from __future__ import annotations
 
+import gc
 import itertools
 import logging
 import queue
@@ -115,7 +132,7 @@ from ..ops import _build
 from ..ops.attention import NEG_INF, flash_attention
 from ..ops.expert_matmul import expert_matmul
 from ..ops.paged_attention import dequant, paged_attention
-from ..utils import prefixdigest
+from ..utils import kvwire, prefixdigest
 from .generate import cached_attention, cached_attention_multi
 from .quantize import is_qtensor, wmat, wmatmul
 from .sampling import categorical, sample_batched, sample_static
@@ -1288,6 +1305,28 @@ class InferenceEngine:
         # admission outcomes (a hit attaches at least one full page)
         self.prefix_lookups = 0
         self.prefix_admission_hits = 0
+        # tokens each live slot got from the prefix cache at admission: a
+        # slot riding a large cached or adopted prefix is the cheapest to
+        # evict or migrate (re-admission matches the pages again)
+        self.matched_toks = np.zeros(max_batch, np.int32)
+        # -- the disaggregated serving data plane -------------------------------
+        # thunks other threads (the HTTP handlers) queue for the engine
+        # thread, the sole owner of slot, page and pool state; drained at
+        # the top of every _admit, and part of the loop's idle re-check
+        self._tasks: "queue.Queue" = queue.Queue()
+        # shipping counters (/v1/stats "kv"); a refused migrate-out handoff
+        # rolls its bumps back, so fleet-wide sum(migrated_out) equals
+        # sum(migrated_in)
+        self.kv_pages_exported = 0
+        self.kv_pages_imported = 0
+        self.kv_exports = 0  # export bundles served
+        self.kv_imports = 0  # import bundles applied
+        self.sessions_migrated_out = 0
+        self.sessions_migrated_in = 0
+        # fleet identity and prefill/decode role, reported on /v1/stats
+        # (``serve --replica-name / --fleet-role`` set them)
+        self.replica_name = ""
+        self.fleet_role = "both"
         self.logprobs_k = max(0, logprobs_k)
         # -- the overlapped pipeline ------------------------------------------
         self.overlap = overlap
@@ -1590,6 +1629,8 @@ class InferenceEngine:
             self._stop_set[i] = False
 
     def _admit(self) -> None:
+        # cross-thread engine tasks first (KV export / import, migration)
+        self._run_tasks()
         # while a stalled slot outranks the queue's best, admitting lower
         # classes would re-trigger the spill they were evicted by
         stalled_pris = [
@@ -1658,6 +1699,7 @@ class InferenceEngine:
                 self.prefix_lookups += 1
                 if matched:
                     self.prefix_admission_hits += 1
+            self.matched_toks[i] = matched
             self.lengths[i] = matched
             if matched:
                 self.next_token[i] = int(self.prompts[i, matched])
@@ -1879,6 +1921,7 @@ class InferenceEngine:
         self.gen_before[i] = 0
         self.priorities[i] = 0
         self.adapter_ids[i] = 0
+        self.matched_toks[i] = 0
         self._seeded[i] = False
         self._clear_bias(i)
         self._clear_stop(i)
@@ -1901,6 +1944,344 @@ class InferenceEngine:
         except Exception:
             log.exception("page cleanup for slot %d failed; pages leak", i)
         self._clear_slot(i)
+
+    def evict_slot(self, i: int, requeue: bool = True) -> None:
+        """Evict a live slot (a spill, a pool-exhaustion preemption, a
+        migration): free its pages and, with ``requeue``, requeue the
+        request for an exact resume.  An eviction from outside the step can race an overlapped
+        chunk in flight, so this slot's stake in it is dropped FIRST: the
+        drain pins a row by (slot, request) identity, and a request
+        re-admitted into the same slot index would pass that pin and take
+        the stale chunk's tokens on top of its re-prefilled stream.  The
+        dropped chunk is the bounded loss, at most one per eviction,
+        counted in ``chunks_discarded``."""
+        req = self.slots[i]
+        if req is None:
+            return
+        if self._pending is not None:
+            kept = [(s, r) for (s, r) in self._pending.pairs if s != i]
+            if len(kept) != len(self._pending.pairs):
+                self.chunks_discarded += 1
+                self._pending.pairs = kept
+        self._release_slot(i)
+        if requeue and not req.done.is_set():
+            self._enqueue(req)
+
+    # -- the disaggregated serving data plane (utils/kvwire) ----------------
+
+    def run_task(self, fn, timeout: float = 30.0, abandon_on_timeout: bool = True):
+        """Run ``fn()`` on the engine thread (drained at the top of every
+        ``_admit``) and return its result, re-raising what it raised.  The
+        caller must be another thread than the one driving the engine
+        (the ``EngineLoop`` case); with no loop running this times out.
+
+        A timeout ABANDONS the thunk: the engine thread skips it if it has
+        not started, so a timed-out caller may treat the task as never run
+        (a late migrate-in import would otherwise resurrect the session on
+        a second replica).  Who wins is decided under one lock: a thunk
+        that started before the caller gave up runs to its end, and the
+        caller waits for its result.  ``abandon_on_timeout=False`` keeps
+        it runnable, for a thunk that must happen (the refused
+        migrate-out's local requeue: losing it loses the session)."""
+        done = threading.Event()
+        lock = threading.Lock()
+        box: dict = {"state": "queued"}
+
+        def thunk():
+            with lock:
+                if box["state"] == "abandoned":  # the caller gave up first
+                    return
+                box["state"] = "started"
+            try:
+                box["result"] = fn()
+            except BaseException as e:  # re-raised on the caller's thread
+                box["error"] = e
+            finally:
+                done.set()
+
+        self._tasks.put(thunk)
+        self._work.set()  # wake a parked EngineLoop
+        if not done.wait(timeout):
+            with lock:
+                started = box["state"] == "started"
+                if not started and abandon_on_timeout:
+                    box["state"] = "abandoned"
+            if not started:
+                raise TimeoutError("engine task timed out (no engine loop?)")
+            done.wait()  # its effects land: its result is the answer
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def _run_tasks(self) -> None:
+        while True:
+            try:
+                thunk = self._tasks.get_nowait()
+            except queue.Empty:
+                return
+            thunk()  # never raises: errors park in the caller's box
+
+    def _chain_seed(self, adapter: str) -> bytes:
+        if adapter not in self.adapter_index:
+            raise ValueError(
+                f"unknown adapter {adapter!r} (registered: {sorted(self.adapter_index)})"
+            )
+        return _prefix_seed(int(self.adapter_index[adapter]))
+
+    def _pool_keys(self) -> tuple:
+        return ("k", "v", "ks", "vs") if self.kv_int8 else ("k", "v")
+
+    def _wire_header(self, adapter: str, kind: str) -> dict:
+        """The geometry an importer checks before any page lands; ``dtype``
+        is numpy's name ("float32", "bfloat16", "int8"), as the
+        reference writes it."""
+        return {
+            "kind": kind,
+            "page_size": self.page_size,
+            "n_layers": self.cfg.n_layers,
+            "kv_heads": self.cfg.kv_heads,
+            "head_dim": self.cfg.head_dim,
+            "dtype": str(self.kv["k"].dtype).removeprefix("torch."),
+            "kv_int8": self.kv_int8,
+            "adapter": adapter,
+        }
+
+    def cached_prefix_pages(self, tokens, adapter: str = "") -> list[int]:
+        """Page ids of the longest cached run of ``tokens``' leading full
+        pages, capped at len - 1 as ``_match_prefix`` is (a page the
+        receiver's admission can never attach is not worth shipping).
+        Read-only: no reference taken, no LRU touch."""
+        ps = self.page_size
+        toks = np.asarray(list(tokens), np.int32)
+        key = self._chain_seed(adapter)
+        out: list[int] = []
+        for j in range(max(0, len(toks) - 1) // ps):
+            key = _prefix_page_key(key, toks[j * ps:(j + 1) * ps])
+            pg = self.prefix_entries.get(key)
+            if pg is None:
+                break
+            out.append(pg)
+        return out
+
+    def _page_payloads(self, pgs: list[int]) -> list[bytes]:
+        """Pool pages ``pgs`` → each page's payload bytes (the pool keys'
+        (L, page_size, ...) slices, concatenated).  One ``index_select``
+        and one device-to-host copy per pool key, on the engine's stream:
+        the read is ordered after any chunk in flight, which writes only
+        positions past the ones exported, so the bytes are confirmed."""
+        with torch.inference_mode():
+            idx = torch.tensor(pgs, dtype=torch.long, device=self.device)
+            per_key = {}
+            for k in self._pool_keys():
+                t = self.kv[k].index_select(1, idx).cpu()
+                if t.dtype == torch.bfloat16:  # numpy has no bfloat16: its bits
+                    t = t.view(torch.int16)
+                per_key[k] = t.numpy()
+        return [
+            b"".join(np.ascontiguousarray(per_key[k][:, j]).tobytes()
+                     for k in self._pool_keys())
+            for j in range(len(pgs))
+        ]
+
+    def export_prefix_pages(self, tokens, adapter: str = "",
+                            max_pages: int = 0) -> Optional[bytes]:
+        """A wire bundle of the cached pages covering ``tokens``' leading
+        full pages, or None when none is cached.  The receiver re-derives
+        registration keys from the shipped tokens under its own adapter
+        seed, so bank-index skew between replicas cannot alias pages."""
+        toks = [int(t) for t in tokens]
+        pgs = self.cached_prefix_pages(toks, adapter)
+        if max_pages > 0:
+            pgs = pgs[:max_pages]
+        if not pgs:
+            return None
+        ps = self.page_size
+        payloads = self._page_payloads(pgs)
+        pages = [(toks[j * ps:(j + 1) * ps], payloads[j]) for j in range(len(pgs))]
+        for pg in pgs:
+            self._touch(pg)  # shipped = used: kept under LRU pressure
+        self.kv_exports += 1
+        self.kv_pages_exported += len(pgs)
+        return kvwire.encode_bundle(
+            self._wire_header(adapter, "prefix"), pages, self._chain_seed(adapter)
+        )
+
+    def import_pages(self, header: dict, pages: list) -> dict:
+        """Land a decoded bundle's pages in free pool pages and register
+        them in the prefix cache, keyed under THIS engine's chain.  The
+        geometry and every page's size are checked before anything is
+        allocated or registered (a rejection lands nothing); pool
+        pressure stops the import cleanly with a leading run landed
+        (later pages are useless without their predecessors).  Pages are
+        written in place (``index_copy_``): the pool keeps its storage,
+        which captured decode graphs read by address.  Returns
+        {"imported", "already", "tokens", "stopped"}."""
+        if not self.prefix_cache:
+            raise ValueError("prefix cache disabled (--prefix-cache)")
+        adapter = str(header.get("adapter", ""))
+        mine = self._wire_header(adapter, "")
+        for f in ("page_size", "n_layers", "kv_heads", "head_dim", "dtype", "kv_int8"):
+            if header.get(f) != mine[f]:
+                raise ValueError(
+                    f"incompatible KV geometry: {f} {header.get(f)!r} != {mine[f]!r}"
+                )
+        key = self._chain_seed(adapter)  # raises on an unknown adapter
+        ps = self.page_size
+        L, hkv, hd = self.cfg.n_layers, self.cfg.kv_heads, self.cfg.head_dim
+        shapes = {k: (L, ps, hkv, hd) if k in ("k", "v") else (L, ps, hkv)
+                  for k in self._pool_keys()}
+        sizes = {k: int(np.prod(shapes[k])) * self.kv[k].dtype.itemsize
+                 for k in self._pool_keys()}
+        payload_size = sum(sizes.values())
+        for toks, payload in pages:
+            if len(toks) != ps:
+                raise ValueError("partial page in bundle")
+            if len(payload) != payload_size:
+                raise ValueError("payload size does not match geometry")
+        staged: list[tuple[int, bytes]] = []
+        pinned: list[int] = []  # referenced while the import runs
+        imported = already = covered = 0
+        stopped = None
+        try:
+            for toks, payload in pages:
+                key = _prefix_page_key(key, np.asarray(toks, np.int32))
+                existing = self.prefix_entries.get(key)
+                if existing is not None:
+                    already += 1
+                    covered += ps
+                    self._touch(existing)
+                    # pinned: a later page's allocation must not evict an
+                    # earlier link of the same chain
+                    self.page_ref[existing] += 1
+                    pinned.append(existing)
+                    continue
+                pg = self._alloc_page()
+                if pg is None:
+                    stopped = "page pool exhausted"
+                    break
+                self.page_ref[pg] = 1
+                pinned.append(pg)
+                self.prefix_entries[key] = pg
+                self.page_key[pg] = key
+                self._touch(pg)
+                staged.append((pg, payload))
+                imported += 1
+                covered += ps
+        finally:
+            for pg in pinned:
+                self.page_ref[pg] -= 1  # cached, unreferenced: LRU-evictable
+        if staged:
+            n = len(staged)
+            with torch.inference_mode():
+                idx = torch.tensor([pg for pg, _ in staged], dtype=torch.long,
+                                   device=self.device)
+                off = 0
+                for k in self._pool_keys():
+                    rows = np.stack([np.frombuffer(p, np.uint8, sizes[k], off)
+                                     for _, p in staged])
+                    src = (torch.from_numpy(rows).view(self.kv[k].dtype)
+                           .reshape((n,) + shapes[k]).transpose(0, 1))
+                    self.kv[k].index_copy_(1, idx, src.to(self.device))
+                    off += sizes[k]
+            self.kv_imports += 1
+            self.kv_pages_imported += imported
+        return {"imported": imported, "already": already, "tokens": covered,
+                "stopped": stopped}
+
+    def migrate_out_bundle(self, slot: int) -> Optional[bytes]:
+        """Detach live slot ``slot`` into a ``kind="session"`` bundle (the
+        request's state and the pages covering its confirmed sequence),
+        then evict it WITHOUT a local requeue: the caller owns the request
+        from here and requeues it only if the destination refuses.  The
+        eviction drops at most the one chunk in flight; the bundle holds
+        confirmed state only, so the destination resumes exactly."""
+        req = self.slots[slot]
+        if req is None or req.done.is_set():
+            return None
+        seq = list(req.prompt) + list(req.output)
+        ps = self.page_size
+        # confirmed written positions only: lengths may run ahead for a
+        # chunk in flight, but positions < len(seq) - 1 are written
+        end = min(int(self.lengths[slot]), len(seq) - 1)
+        n = max(0, min(end // ps, len(self.slot_pages[slot])))
+        pages = []
+        if n > 0:
+            payloads = self._page_payloads(self.slot_pages[slot][:n])
+            pages = [(seq[j * ps:(j + 1) * ps], payloads[j]) for j in range(n)]
+        header = self._wire_header(req.adapter, "session")
+        header["request"] = {
+            "prompt": [int(t) for t in req.prompt],
+            "output": [int(t) for t in req.output],
+            "max_new_tokens": int(req.max_new_tokens),
+            "temperature": float(req.temperature),
+            "top_k": int(req.top_k),
+            "top_p": float(req.top_p),
+            "adapter": req.adapter,
+            "stop_tokens": [int(t) for t in req.stop_tokens],
+            "logprobs": int(req.logprobs),
+            "token_logprobs": list(req.token_logprobs),
+            "top_logprobs": [[[int(t), float(lp)] for t, lp in top]
+                             for top in req.top_logprobs],
+            "logit_bias": {str(k): float(v) for k, v in req.logit_bias.items()},
+            "frequency_penalty": float(req.frequency_penalty),
+            "presence_penalty": float(req.presence_penalty),
+            "min_tokens": int(req.min_tokens),
+            "priority": int(req.priority),
+            "seed": req.seed,
+            "allowed_tokens": [int(t) for t in req.allowed_tokens],
+            "pool_spills": int(req.pool_spills),
+        }
+        data = kvwire.encode_bundle(header, pages, self._chain_seed(req.adapter))
+        self.sessions_migrated_out += 1
+        self.kv_pages_exported += n
+        self.evict_slot(slot, requeue=False)
+        return data
+
+    def resume_session(self, state: dict, on_token=None) -> Request:
+        """Re-create a migrated session's Request and enqueue it: admission
+        feeds prompt + output and matches the imported pages, so only the
+        unshipped tail is prefilled again.  Bypasses the queue cap (a
+        migrated session is work in flight, not new traffic) and holds the
+        state to ``submit``'s rules (``_invalid_reason``).  Raises on
+        invalid state; returns the live Request."""
+        if self.draining:
+            raise RuntimeError(DRAINING_ERROR)
+        prompt = [int(t) for t in (state.get("prompt") or [])]
+        if not prompt:
+            raise ValueError("session has an empty prompt")
+        req = Request(
+            prompt=prompt,
+            max_new_tokens=int(state.get("max_new_tokens", 16)),
+            temperature=float(state.get("temperature", 0.0)),
+            top_k=int(state.get("top_k", 0)),
+            top_p=float(state.get("top_p", 1.0)),
+            adapter=str(state.get("adapter", "")),
+            stop_tokens=tuple(int(t) for t in (state.get("stop_tokens") or ())),
+            logprobs=int(state.get("logprobs", 0)),
+            logit_bias={int(k): float(v) for k, v in (state.get("logit_bias") or {}).items()},
+            frequency_penalty=float(state.get("frequency_penalty", 0.0)),
+            presence_penalty=float(state.get("presence_penalty", 0.0)),
+            min_tokens=int(state.get("min_tokens", 0)),
+            priority=int(state.get("priority", 0)),
+            seed=state.get("seed"),
+            allowed_tokens=tuple(int(t) for t in (state.get("allowed_tokens") or ())),
+        )
+        err = self._invalid_reason(req)  # submit's rule set
+        if err is not None:
+            raise ValueError(err)
+        req.output = [int(t) for t in (state.get("output") or [])]
+        req.token_logprobs = [None if lp is None else float(lp)
+                              for lp in (state.get("token_logprobs") or [])]
+        req.top_logprobs = [[(int(t), float(lp)) for t, lp in top]
+                            for top in (state.get("top_logprobs") or [])]
+        req.pool_spills = int(state.get("pool_spills", 0))
+        req.on_token = on_token
+        self.sessions_migrated_in += 1
+        if len(req.output) >= req.max_new_tokens:
+            req.done.set()  # arrived complete: nothing left to generate
+            return req
+        self._enqueue(req)
+        return req
 
     def _prepare_step(self, lookahead: int):
         """Release cancelled slots, grow live slots' pages to cover
@@ -1981,15 +2362,13 @@ class InferenceEngine:
         if not victims:
             return False
         v = min(victims, key=lambda i: (int(self.priorities[i]), -len(self.slot_pages[i])))
-        req = self.slots[v]
         log.info(
             "page pressure: spilling priority-%d slot %d (%d pages) for a "
             "priority-%d request", int(self.priorities[v]), v,
             len(self.slot_pages[v]), need,
         )
         self.spills += 1
-        self._release_slot(v)
-        self._enqueue(req)
+        self.evict_slot(v)
         return True
 
     def _continue_prefills(self) -> bool:
@@ -2462,7 +2841,10 @@ class InferenceEngine:
         pool.  One eager warm-up runs first, on the capture stream and off
         the engine's state (every row inactive on the scratch page, a copy
         of the carry, a generator of its own), so first-use work happens
-        outside the capture.  No fallback: a failed capture raises."""
+        outside the capture.  The cyclic garbage collector is held off
+        during the capture: an unreachable engine freed mid-capture (its
+        graphs, pool memory, events) would make CUDA calls that invalidate
+        it.  No fallback: a failed capture raises."""
         t0 = time.perf_counter()
         stream = self._capture_stream
         view, tok, ln, active = args[2], args[3], args[4], args[5]
@@ -2479,8 +2861,14 @@ class InferenceEngine:
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(self.generator)
             before = dict(_build.LAUNCHES)
-            with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
-                out = _chunk_in_place(*args, **static)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+                    out = _chunk_in_place(*args, **static)
+            finally:
+                if collecting:
+                    gc.enable()
         # the capture launched nothing: its counts move to the replays
         launches = {}
         for name, n in _build.LAUNCHES.items():

@@ -10,14 +10,19 @@ they are built (weight-only int8, ``models/quantize``), as the
 reference quantizes whichever base it loaded.  ``--serve-overlap`` (default ``on``) and
 ``--spec-k`` (prompt-lookup drafts) select the engine's modes;
 ``--logprobs-k`` sets the top-k width of per-token logprobs and
-``--max-queue`` bounds the admission queue (429 beyond it).  The engine
-runs on the CUDA device unless ``--cpu`` is given.
+``--max-queue`` bounds the admission queue (429 beyond it).
+``--fleet-role`` (``TPU_FLEET_ROLE``) and ``--replica-name`` (``POD_NAME``)
+place the replica in a disaggregated fleet: a ``prefill`` replica serves
+``/v1/prefill`` and ``/v1/kv/export`` for ``decode`` replicas that adopt
+its pages (both need ``--prefix-cache``).  The engine runs on the CUDA
+device unless ``--cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import signal
 import threading
 
@@ -70,6 +75,15 @@ def build_args(argv=None):
                         "chunk is dispatched off device-resident state (a "
                         "CUDA graph replay) before the previous one's tokens "
                         "drain; 'off' is the exact sequential loop")
+    p.add_argument("--fleet-role", choices=["both", "prefill", "decode"], default="",
+                   help="disaggregated-serving role (default from TPU_FLEET_ROLE, else "
+                        "'both'): 'prefill' replicas prefill long prompts and export "
+                        "the pages (/v1/prefill, /v1/kv/export; the fleet router "
+                        "keeps them out of completion rotation), 'decode' replicas "
+                        "adopt shipped pages and run the token loop, 'both' serves "
+                        "everything.  A role other than 'both' needs --prefix-cache")
+    p.add_argument("--replica-name", default="",
+                   help="fleet identity reported on /v1/stats (default from POD_NAME)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU with the plain PyTorch paths (tests/dev)")
     p.add_argument("--drain-timeout", type=float, default=30.0,
@@ -78,8 +92,24 @@ def build_args(argv=None):
     return p.parse_args(argv)
 
 
+def fleet_role(args) -> str:
+    """The flag, else ``TPU_FLEET_ROLE``, else "both".  An invalid role
+    from the environment exits (the flag's choices guard only the flag),
+    and so does a role other than "both" without the prefix cache: the
+    pages a replica ships or adopts are cached prefix pages."""
+    role = args.fleet_role or os.environ.get("TPU_FLEET_ROLE", "").strip().lower() or "both"
+    if role not in ("both", "prefill", "decode"):
+        raise SystemExit(f"TPU_FLEET_ROLE={role!r} invalid (want both|prefill|decode)")
+    if role != "both" and not args.prefix_cache:
+        raise SystemExit(
+            f"--fleet-role {role} requires --prefix-cache (KV pages are cached prefix pages)"
+        )
+    return role
+
+
 def main(argv=None) -> int:
     args = build_args(argv)
+    role = fleet_role(args)
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
     )
@@ -111,6 +141,8 @@ def main(argv=None) -> int:
         overlap=args.serve_overlap == "on", logprobs_k=args.logprobs_k,
         max_queue=args.max_queue, device=device,
     )
+    engine.replica_name = args.replica_name or os.environ.get("POD_NAME", "")
+    engine.fleet_role = role
     server, loop = serve_inference(engine, port=args.port, host=args.host)
     log.info(
         "serving random-init model (%d layers, d=%d) on %s, %s:%d",

@@ -12,21 +12,40 @@ routes this slice serves (stdlib HTTP only):
                              seed), ``adapter`` (a name registered with
                              the engine; "" the base model) and ``n``
                              parallel choices
-    GET  /v1/stats         → engine state (slots, pages, queue, prefix cache,
-                             registered adapters)
+                             (with an ``X-KV-Source: host:port``
+                             header: first pull the prompt's cached
+                             prefix pages from that replica, best-effort)
+    POST /v1/prefill       → {"prompt": [ids]}: prefill only, so the pages
+                             land in this replica's prefix cache for export
+    POST /v1/kv/export     → {"tokens": [ids]}: the cached prefix pages as
+                             a binary ``utils/kvwire`` bundle
+    POST /v1/kv/adopt      → {"source": "host:port", "tokens": [ids]}: pull
+                             and import a peer's pages
+    POST /v1/migrate/out   → {"dest": "host:port"[, "slot": i]}: move a live
+                             session to a peer and relay its continuation
+                             into the original client stream
+    POST /v1/migrate/in    → a session bundle: import, resume, and stream
+                             the continuation back as SSE
+    GET  /v1/stats         → engine state (slots, pages, queue, prefix cache
+                             and KV shipping counters, registered adapters,
+                             replica name and fleet role)
     GET  /healthz          → liveness (503 while draining)
     GET  /version          → build version
 
-ONE engine thread (``EngineLoop``) owns all engine state and drives fused
-chunks; HTTP handler threads only submit requests and wait on them.  An
+ONE engine thread (``EngineLoop``) owns all engine state and drives
+fused chunks; HTTP handler threads only submit requests and wait on them,
+and reach the data plane's primitives through ``engine.run_task``.  An
 unknown adapter is a 400 naming the registered ones; a full bounded queue
-is a 429.  The reference's
-disaggregated-serving verbs (``/v1/kv/*``, ``/v1/prefill``,
-``/v1/migrate/*``) are not ported and answer 404.
+is a 429.  The data-plane routes answer with the reference's codes: 409
+without the prefix cache (or with no live session to migrate), 404 when
+no page is cached, 400 for a bad bundle or body, 502 for a failed pull or
+a refused handoff (the session then resumes here), 503 when the engine
+task times out.
 """
 
 from __future__ import annotations
 
+import http.client
 import json
 import logging
 import math
@@ -40,19 +59,26 @@ import torch
 
 from .. import __version__
 from ..models.serving import DRAINING_ERROR, QUEUE_FULL_ERROR, InferenceEngine, Request
+from ..utils import kvwire
+from ..utils.kvwire import KV_SOURCE_HEADER
 
 log = logging.getLogger("tpu-scheduler")
 
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found", 429: "Too Many Requests",
-            503: "Service Unavailable", 504: "Gateway Timeout"}
+_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found", 409: "Conflict",
+            429: "Too Many Requests", 502: "Bad Gateway", 503: "Service Unavailable",
+            504: "Gateway Timeout"}
+
 
 def choose_kv_victim(eng: InferenceEngine) -> int:
-    """The slot to preempt when every slot stalls for pages: the lowest
-    priority, most pages held as the tie-break."""
+    """The slot to preempt when every slot stalls for pages, and the
+    session ``/v1/migrate/out`` moves when no slot is named: the policy
+    registry's built-in ranking, the lowest priority, then most pages
+    held, then the lowest slot.  Done-but-unreleased slots are not
+    candidates."""
     live = [
         i for i, s in enumerate(eng.slots) if s is not None and not s.done.is_set()
     ]
-    return min(live, key=lambda i: (int(eng.priorities[i]), -len(eng.slot_pages[i])))
+    return min(live, key=lambda i: (int(eng.priorities[i]), -len(eng.slot_pages[i]), i))
 
 
 class EngineLoop:
@@ -112,6 +138,7 @@ class EngineLoop:
                     eng._work.clear()
                     if (
                         eng.queue.empty()
+                        and eng._tasks.empty()
                         and not any(s is not None for s in eng.slots)
                         and not self._stop.is_set()
                     ):
@@ -136,8 +163,7 @@ class EngineLoop:
                 if req.pool_spills < 1:
                     req.pool_spills += 1
                     eng.spills += 1
-                    eng._release_slot(victim)
-                    eng._enqueue(req)
+                    eng.evict_slot(victim)
                 else:
                     req.error = "preempted: KV page pool exhausted"
                     req.done.set()
@@ -259,6 +285,98 @@ def _requests_from_body(body: dict, vocab_size: int, max_batch: int) -> list:
     return reqs
 
 
+def _split_hostport(addr: str) -> tuple[str, int]:
+    host, _, port = addr.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"bad replica address {addr!r} (want host:port)")
+    return host, int(port)
+
+
+# ceiling on the adoption pull (X-KV-Source, /v1/kv/adopt → the donor's
+# /v1/kv/export): adoption only saves a prefill, so a stalled donor must
+# cost less than the prefill it was meant to save
+ADOPT_PULL_TIMEOUT_S = 5.0
+
+
+def _backend_post(addr: str, path: str, body: bytes, ctype: str,
+                  timeout: float = 30.0) -> tuple[int, bytes]:
+    """One replica-to-replica POST, its response read whole."""
+    host, port = _split_hostport(addr)
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request("POST", path, body, {"Content-Type": ctype})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _backend_stream(addr: str, path: str, body: bytes, timeout: float = 300.0):
+    """A streaming POST to a peer: (response, connection, error), the
+    connection left open for the migration relay's incremental reads."""
+    try:
+        host, port = _split_hostport(addr)
+        conn = http.client.HTTPConnection(host, port, timeout=timeout)
+        conn.request("POST", path, body, {"Content-Type": "application/octet-stream"})
+        return conn.getresponse(), conn, None
+    except (OSError, ValueError) as e:
+        return None, None, str(e)
+
+
+def _relay_migrated(req: Request, resp, conn) -> None:
+    """Source side of a migrated session: feed the destination's SSE
+    continuation into the ORIGINAL request (output, logprobs, on_token,
+    done), as the engine thread would have.  The request passed from the
+    engine to this thread at eviction, so nothing else mutates it; the
+    client's connection never moves.  A client cancel drops the relay
+    connection, and the destination cancels at its next write."""
+    try:
+        while True:
+            if req.cancelled:
+                break  # closing conn below cancels the destination too
+            line = resp.readline()
+            if not line:
+                if not req.cancelled and not req.error:
+                    req.error = "migrated session relay closed early"
+                break
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            payload = line[6:]
+            if payload == b"[DONE]":
+                resp.read()  # the chunked body's end, so the connection closes clean
+                break
+            ev = json.loads(payload)
+            if "error" in ev:
+                req.error = str(ev["error"])
+                continue  # the [DONE] terminator follows
+            tok = ev.get("token")
+            if tok is None:
+                continue
+            if req.logprobs > 0:
+                req.token_logprobs.append(ev.get("logprob"))
+                req.top_logprobs.append([(int(d["id"]), float(d["logprob"]))
+                                         for d in ev.get("top_logprobs") or []])
+            req.output.append(int(tok))
+            cb = req.on_token
+            if cb is not None:
+                try:
+                    cb(int(tok))
+                except Exception:
+                    log.warning("on_token raised during migration relay; streaming "
+                                "disabled", exc_info=True)
+                    req.on_token = None
+    except (OSError, ValueError) as e:
+        if not req.error:
+            req.error = f"migration relay broke: {e}"
+    finally:
+        try:
+            conn.close()
+        except OSError:
+            pass
+        req.done.set()
+
+
 def _logprobs_payload(req: Request) -> dict:
     return {
         "token_logprobs": req.token_logprobs,
@@ -341,8 +459,19 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                     },
                     "device_uploads": int(eng.device_uploads),
                     "chunks_discarded": int(eng.chunks_discarded),
-                    # the prefix-cache counters, under the reference's names
+                    # the fleet's view: the router keeps prefill-role
+                    # replicas out of completion rotation
+                    "replica": eng.replica_name,
+                    "role": eng.fleet_role,
+                    # KV shipping and prefix-cache counters, under the
+                    # reference's names
                     "kv": {
+                        "pages_exported": int(eng.kv_pages_exported),
+                        "pages_imported": int(eng.kv_pages_imported),
+                        "export_bundles": int(eng.kv_exports),
+                        "import_bundles": int(eng.kv_imports),
+                        "migrated_out": int(eng.sessions_migrated_out),
+                        "migrated_in": int(eng.sessions_migrated_in),
                         "prefix_lookups": int(eng.prefix_lookups),
                         "prefix_hits": int(eng.prefix_admission_hits),
                         "prefix_misses": int(
@@ -364,6 +493,13 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 loop.inflight_exit()
 
         def _do_post(self):
+            # the disaggregated data plane: engine state is touched only
+            # through engine.run_task (the engine thread owns it)
+            route = {"/v1/prefill": self._prefill_only, "/v1/kv/export": self._kv_export,
+                     "/v1/kv/adopt": self._kv_adopt, "/v1/migrate/out": self._migrate_out,
+                     "/v1/migrate/in": self._migrate_in}.get(self.path)
+            if route is not None:
+                return route()
             if self.path != "/v1/completions":
                 return self._json(404, {"error": f"no route {self.path}"})
             try:
@@ -372,11 +508,250 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 reqs = _requests_from_body(body, engine.cfg.vocab_size, engine.max_batch)
             except (ValueError, TypeError, OverflowError, json.JSONDecodeError) as e:
                 return self._json(400, {"error": str(e)})
+            kv_src = self.headers.get(KV_SOURCE_HEADER)
+            if kv_src and engine.prefix_cache:
+                # the router knows another replica holds this prompt's
+                # pages: pull them before admission, so _match_prefix
+                # skips their prefill.  Best-effort: any failure just
+                # prefills here
+                try:
+                    self._adopt_from(kv_src, body.get("prompt"), str(body.get("adapter", "")))
+                except Exception:
+                    log.warning("KV adoption from %s failed; prefilling here", kv_src,
+                                exc_info=True)
             if body.get("stream"):
                 return self._stream(reqs)
             if len(reqs) > 1:
                 return self._multi(reqs)
             return self._single(reqs[0])
+
+        # -- the disaggregated serving data plane -------------------------
+
+        def _read_json(self) -> dict:
+            length = int(self.headers.get("Content-Length", 0))
+            body = json.loads(self.rfile.read(length) or b"{}")
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+            return body
+
+        def _bytes_resp(self, code: int, data: bytes) -> None:
+            self.send_response(code, _REASONS.get(code, ""))
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def _adopt_from(self, source: str, tokens, adapter: str, max_pages: int = 0) -> dict:
+            """Pull the prefix's cached pages from ``source`` and land them
+            here; skipped when the local cache already covers every page
+            admission could attach."""
+            if not isinstance(tokens, list) or not all(
+                isinstance(t, int) and not isinstance(t, bool) for t in tokens
+            ):
+                return {"imported": 0, "reason": "no adoptable prompt"}
+            want = max(0, (len(tokens) - 1) // engine.page_size)
+            if max_pages > 0:
+                want = min(want, max_pages)
+            if want == 0:
+                return {"imported": 0, "reason": "prompt shorter than one full page"}
+            have = engine.run_task(lambda: len(engine.cached_prefix_pages(tokens, adapter)))
+            if have >= want:
+                return {"imported": 0, "already": have,
+                        "reason": "local cache already covers the prefix"}
+            status, data = _backend_post(
+                source, "/v1/kv/export",
+                json.dumps({"tokens": tokens, "adapter": adapter,
+                            "max_pages": max_pages}).encode(),
+                "application/json", timeout=ADOPT_PULL_TIMEOUT_S,
+            )
+            if status != 200:
+                return {"imported": 0, "reason": f"source answered {status}"}
+            hdr, pages = kvwire.decode_bundle(data)
+            return engine.run_task(lambda: engine.import_pages(hdr, pages))
+
+        def _prefill_only(self):
+            """Prefill-role admission, the split's first half: the prompt
+            runs through (chunked) prefill, so its pages land in this
+            replica's prefix cache, ready for export.  It costs one
+            emitted and discarded token: the completion path exactly."""
+            if not engine.prefix_cache:
+                return self._json(409, {"error": "prefix cache disabled (--prefix-cache)"})
+            try:
+                body = self._read_json()
+                prompt = _token_ids(body.get("prompt"), engine.cfg.vocab_size, "prompt")
+                adapter = str(body.get("adapter", ""))
+            except (ValueError, TypeError, json.JSONDecodeError) as e:
+                return self._json(400, {"error": str(e)})
+            t0 = time.monotonic()
+            req = Request(prompt=list(prompt), max_new_tokens=1, adapter=adapter)
+            engine.submit(req)
+            if not req.done.wait(request_timeout):
+                req.cancel()
+                req.done.wait(10.0)
+                return self._json(504, {"error": "prefill timed out"})
+            if req.error:
+                return self._json(_reject_code(req.error), {"error": req.error})
+            return self._json(200, {
+                "ok": True,
+                "tokens": len(prompt),
+                # the pages a later admission or export can use (len - 1)
+                "pages": max(0, (len(prompt) - 1) // engine.page_size),
+                "replica": engine.replica_name,
+                "wall_ms": round((time.monotonic() - t0) * 1000, 3),
+            })
+
+        def _kv_export(self):
+            if not engine.prefix_cache:
+                return self._json(409, {"error": "prefix cache disabled (--prefix-cache)"})
+            try:
+                body = self._read_json()
+                tokens = _token_ids(body.get("tokens"), engine.cfg.vocab_size, "tokens")
+                adapter = str(body.get("adapter", ""))
+                max_pages = int(body.get("max_pages", 0))
+            except (ValueError, TypeError, json.JSONDecodeError) as e:
+                return self._json(400, {"error": str(e)})
+            try:
+                data = engine.run_task(
+                    lambda: engine.export_prefix_pages(tokens, adapter, max_pages))
+            except TimeoutError as e:
+                return self._json(503, {"error": str(e)})
+            except ValueError as e:
+                return self._json(400, {"error": str(e)})
+            if data is None:
+                return self._json(404, {"error": "no cached pages for this prefix"})
+            return self._bytes_resp(200, data)
+
+        def _kv_adopt(self):
+            if not engine.prefix_cache:
+                return self._json(409, {"error": "prefix cache disabled (--prefix-cache)"})
+            try:
+                body = self._read_json()
+                source = str(body.get("source", ""))
+                if not source:
+                    raise ValueError("'source' (host:port) is required")
+                res = self._adopt_from(source, body.get("tokens"),
+                                       str(body.get("adapter", "")),
+                                       int(body.get("max_pages", 0)))
+            except kvwire.WireError as e:
+                return self._json(502, {"error": f"corrupt bundle: {e}"})
+            except OSError as e:  # TimeoutError included, as the reference answers
+                return self._json(502, {"error": f"source pull failed: {e}"})
+            except (ValueError, TypeError, json.JSONDecodeError) as e:
+                return self._json(400, {"error": str(e)})
+            return self._json(200, res)
+
+        def _migrate_out(self):
+            """Live migration, source side: detach a session (the
+            ``choose_kv_victim`` ranking unless a slot is named), ship it
+            to ``dest``, then relay the destination's continuation into
+            the original request.  A refused handoff requeues the session
+            here (an exact resume), so it is never lost."""
+            try:
+                body = self._read_json()
+                dest = str(body.get("dest", ""))
+                if not dest:
+                    raise ValueError("'dest' (host:port) is required")
+                slot = body.get("slot")
+                if slot is not None and (isinstance(slot, bool) or not isinstance(slot, int)):
+                    raise ValueError("'slot' must be an integer")
+            except (ValueError, TypeError, json.JSONDecodeError) as e:
+                return self._json(400, {"error": str(e)})
+
+            def grab():
+                i = slot
+                if i is None:
+                    if not any(s is not None and not s.done.is_set() for s in engine.slots):
+                        return None
+                    i = choose_kv_victim(engine)
+                elif not 0 <= i < engine.max_batch:
+                    return None
+                r = engine.slots[i]
+                if r is None or r.done.is_set():
+                    return None
+                before = engine.kv_pages_exported
+                data = engine.migrate_out_bundle(i)
+                return i, r, data, engine.kv_pages_exported - before
+
+            try:
+                got = engine.run_task(grab)
+            except TimeoutError as e:
+                # abandoned: nothing was detached
+                return self._json(503, {"error": str(e)})
+            if got is None:
+                return self._json(409, {"error": "no live session to migrate"})
+            i, req, data, n_pages = got
+            resp, conn, err = _backend_stream(dest, "/v1/migrate/in", data)
+            if resp is None or resp.status != 200:
+                if resp is not None:
+                    err = f"destination answered {resp.status}"
+                    try:
+                        conn.close()
+                    except OSError:
+                        pass
+
+                # the session is ours again: the exact local resume, with
+                # the migrate-out counters rolled back
+                def resume_local():
+                    engine._enqueue(req)
+                    engine.sessions_migrated_out -= 1
+                    engine.kv_pages_exported -= n_pages
+
+                try:
+                    # not abandonable: the requeue must run eventually
+                    engine.run_task(resume_local, abandon_on_timeout=False)
+                except TimeoutError:
+                    log.warning("local resume of a refused migration is queued behind a "
+                                "busy engine; it runs at the next admission pass")
+                return self._json(502, {"ok": False, "resumed_local": True, "error": err})
+            threading.Thread(target=_relay_migrated, args=(req, resp, conn),
+                             name="migrate-relay", daemon=True).start()
+            return self._json(200, {"ok": True, "slot": i, "dest": dest,
+                                    "pages_shipped": n_pages,
+                                    "tokens_done": len(req.output)})
+
+        def _migrate_in(self):
+            """Live migration, destination side: import the bundle's
+            pages, resume the session (matching what just landed) and
+            stream the continuation back as SSE; the source relays it
+            into the original client's stream."""
+            length = int(self.headers.get("Content-Length", 0))
+            raw = self.rfile.read(length)
+            try:
+                hdr, pages = kvwire.decode_bundle(raw)
+            except kvwire.WireError as e:
+                return self._json(400, {"error": str(e)})
+            if hdr.get("kind") != "session":
+                return self._json(400, {
+                    "error": f"expected a session bundle, got {hdr.get('kind')!r}"})
+            state = hdr.get("request") or {}
+            q: "queue.Queue" = queue.Queue()
+            box: dict = {}
+
+            def on_token(tok):
+                r = box["req"]
+                if r.logprobs > 0:
+                    q.put((0, tok, r.token_logprobs[-1], r.top_logprobs[-1]))
+                else:
+                    q.put((0, tok, None, None))
+
+            def setup():
+                if pages and engine.prefix_cache:
+                    engine.import_pages(hdr, pages)
+                r = engine.resume_session(state, on_token=on_token)
+                box["req"] = r
+                return r
+
+            try:
+                req = engine.run_task(setup)
+            except TimeoutError as e:
+                # abandoned (engine busy): nothing landed, the source keeps
+                # the session, so it never runs on two replicas
+                return self._json(503, {"error": str(e)})
+            except RuntimeError as e:
+                return self._json(503, {"error": str(e)})
+            except (ValueError, TypeError) as e:
+                return self._json(400, {"error": str(e)})
+            self._sse_reply([req], q, "migrated session timed out")
 
         def _single(self, req: Request):
             engine.submit(req)
@@ -458,6 +833,15 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 for r in reqs:
                     r.cancel()
                 return self._json(_reject_code(bad[0].error), {"error": bad[0].error})
+            self._sse_reply(reqs, q, "generation timed out")
+
+        def _sse_reply(self, reqs: list, q: "queue.Queue", timeout_error: str) -> None:
+            """Write (choice, token, logprob, top) items from ``q`` as SSE
+            events, one HTTP chunk per burst, until every request is done
+            or the deadline passes; then each error event and [DONE].
+            Events carry "index" when there are several choices; a dead
+            client cancels the requests."""
+            n = len(reqs)
             self.send_response(200, "OK")
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
@@ -500,7 +884,7 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 if not all(r.done.is_set() for r in reqs):
                     for r in reqs:
                         r.cancel()
-                    chunk([json.dumps({"error": "generation timed out"})])
+                    chunk([json.dumps({"error": timeout_error})])
                 else:
                     for k, r in enumerate(reqs):
                         if r.error:

@@ -285,16 +285,19 @@ def test_drain_rejects_new_and_finishes_inflight():
 
 
 def test_serve_cli_with_kv_int8_prefix_cache_and_chunked_prefill():
-    """``serve --init --cpu --kv-int8 --prefix-cache --prefill-chunk 8`` in
-    its own process: the same prompt twice answers the same tokens, the
-    second time through the prefix cache, and /v1/stats shows the
-    counters under the reference's names; SIGTERM drains and exits 0."""
+    """``serve --init --cpu --kv-int8 --prefix-cache --prefill-chunk 8
+    --fleet-role decode --replica-name rep-0`` in its own process: the
+    same prompt twice answers the same tokens, the second time through the
+    prefix cache, and /v1/stats shows the counters under the reference's
+    names and the fleet role; an export of a prompt with no cached page is
+    a 404; SIGTERM drains and exits 0."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cmd = [sys.executable, "-m", "elastic_gpu_scheduler_tpu_torch.serve", "--init", "--cpu",
            "--kv-int8", "--prefix-cache", "--prefill-chunk", "8", "--port", str(port),
+           "--fleet-role", "decode", "--replica-name", "rep-0",
            "--host", "127.0.0.1", "--vocab-size", "64", "--d-model", "64",
            "--n-layers", "2", "--n-heads", "2", "--d-ff", "64", "--dtype", "float32",
            "--max-batch", "2", "--max-len", "64", "--page-size", "8", "--fused-steps", "4"]
@@ -323,6 +326,7 @@ def test_serve_cli_with_kv_int8_prefix_cache_and_chunked_prefill():
         assert stats["kv"]["prefix_lookups"] == 2 and stats["kv"]["prefix_hits"] == 1
         assert stats["kv"]["prefix_misses"] == 1
         assert stats["prefix_hit_tokens"] == 24 and stats["kv"]["cached_pages"] >= 3
+        assert (stats["role"], stats["replica"]) == ("decode", "rep-0")
         assert _post(addr, {"tokens": [1]}, path="/v1/kv/export")[0] == 404
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0

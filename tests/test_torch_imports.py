@@ -59,6 +59,7 @@ def test_port_imports_no_jax_and_no_jax_package():
             "elastic_gpu_scheduler_tpu_torch.ops.expert_matmul",
             "elastic_gpu_scheduler_tpu_torch.serve",
             "elastic_gpu_scheduler_tpu_torch.utils.prefixdigest",
+            "elastic_gpu_scheduler_tpu_torch.utils.kvwire",
             "elastic_gpu_scheduler_tpu_torch.launcher"} <= expected
     bad = [m for m in res["modules"] if _is_jax_package(m)]
     assert not bad, bad

@@ -1185,3 +1185,44 @@ def test_moe_engine_on_card_matches_cpu_float32(cuda, int8):
             assert all(r.done.is_set() and not r.error for r in more)
             assert eng.graphs_captured == captured
     assert outs["cpu"] == outs[str(cuda)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["dense", "int8"])
+def test_import_into_a_captured_pool_replays_the_imported_pages(cuda, kv_int8):
+    """Pages imported into the pool of an overlapped engine whose decode
+    chunk is already captured land in place (every pool tensor keeps its
+    address): the next request adopts them, its chunks replay the graph
+    captured before the import (no new capture) and its tokens equal the
+    eager (sequential) engine's local warm hit and the CPU's."""
+    from elastic_gpu_scheduler_tpu_torch.utils import kvwire
+
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(0, 256, 33).tolist()  # two full pages of 16 adoptable
+    prompt = prefix + rng.integers(0, 256, 5).tolist()
+    warmup = rng.integers(0, 256, len(prompt)).tolist()  # the same table bucket
+    outs = {}
+    for where, overlap in (("cpu", False), (cuda, False), (cuda, True)):
+        _, _, src = _small_engine(where, prefix_cache=True, overlap=False, kv_int8=kv_int8)
+        for p in (prefix, prompt):
+            r = src.submit(serving.Request(prompt=p, max_new_tokens=20))
+            src.run_until_idle()
+        warm_hit = r.output
+        hdr, pages = kvwire.decode_bundle(src.export_prefix_pages(prefix))
+        _, _, dst = _small_engine(where, prefix_cache=True, overlap=overlap, kv_int8=kv_int8)
+        w = dst.submit(serving.Request(prompt=warmup, max_new_tokens=20))
+        dst.run_until_idle()
+        assert w.done.is_set() and not w.error
+        captured, replays = dst.graphs_captured, dst.graph_replays
+        ptrs = {k: t.data_ptr() for k, t in dst.kv.items()}
+        assert dst.import_pages(hdr, pages)["imported"] == 2
+        assert ptrs == {k: t.data_ptr() for k, t in dst.kv.items()}
+        r = dst.submit(serving.Request(prompt=prompt, max_new_tokens=20))
+        dst.run_until_idle()
+        assert r.done.is_set() and not r.error
+        assert dst.prefix_hit_tokens == 32 and r.output == warm_hit
+        if overlap:
+            assert captured >= 1 and dst.graphs_captured == captured
+            assert dst.graph_replays > replays
+        outs[(str(where), overlap)] = r.output
+    assert len(set(map(tuple, outs.values()))) == 1
