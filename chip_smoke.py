@@ -32,12 +32,18 @@ Phases, each failing the run (non-zero exit) on any fault:
    refuse; gradients through ``FlashAttention`` (K1 + K4) against
    autograd of ``mha_reference``;
 KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
-   against ``expert_matmul_reference`` at the main paths' shapes (MoE
-   decode w_gate and w_out, the grouped prefill at T 512, MoE + int8
-   decode, int8 wq and unembed at M 8): tolerance, bitwise repeatable,
-   ms against the plain version, a library call and the bound; a graph
-   captured on one routing replays three others equal to eager; ptxas
-   registers and spills;
+   against ``expert_matmul_reference`` at every shape the main paths
+   give it (MoE decode w_gate / w_in and w_out, the grouped prefill at T
+   512, MoE + int8 decode, the int8 projections and unembed at M 8, the
+   int8 prefill at T 512): tolerance, bitwise repeatable, the plan's
+   kernel alone and once a call (the ring kernel, its K splits one
+   cluster with no combine kernel, or the wgmma kernel), both readings
+   over calls that find their weight cold in L2, against the plain
+   version, a library call and the bound; each row's launch (kernel,
+   grid, block, shared memory) counted in phases 6g and 6h's profiled
+   windows, a chunk or a prefill, every KE launch of a chunk some row's;
+   a graph captured on one routing replays three others equal to eager;
+   ptxas registers and spills by kernel;
 6. the port's serving engine at the full width of the repo's largest LM
    config (~1.01B parameters, GQA 16q/8kv, bf16, random weights from a
    seed, 16 layers): 12 mixed-length greedy prompts, 64 new tokens each,
@@ -167,8 +173,14 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    those of the path the shape belongs to) with each kernel's launches on its main
    path, error against its plain version, time, plain time, library
    time and lower bound, its share of the bound (``of_bound``) and its
-   factor over the library call (``vs_library``), then the card line and
-   the final ``{"ok": ...}``.
+   factor over the library call (``vs_library``).  Every row's calls
+   are captured as one CUDA graph of back-to-back calls, read two ways,
+   READINGS times each in turn: the replay between two CUDA events
+   (``ms``, the reading of record) and torch.profiler over the same
+   replay (``profiler_ms``, which also names the kernels and counts their
+   launches); the run fails when either reading is below the bound or
+   the two disagree beyond the limit ``check_readings`` states.  Then the
+   card line and the final ``{"ok": ...}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -235,14 +247,42 @@ def device_kernels(prof) -> list[dict]:
     return sorted(out, key=lambda k: -k["ms"])
 
 
+def trace_kernels(prof) -> list[dict]:
+    """Every device kernel of a torch.profiler run in start order: its
+    name, start and duration (ms), its launch (name, grid, block and
+    shared memory), its threads, shared memory and registers a thread, and
+    whether it is ``replay``'s spin kernel; from the run's Chrome trace."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    out = []
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        a = e.get("args", {})
+        out.append({"kernel": e["name"], "start": e["ts"] / 1e3, "ms": e["dur"] / 1e3,
+                    "launch": f"{e['name']} grid {a.get('grid')} block {a.get('block')} "
+                              f"smem {a.get('shared memory')}",
+                    "threads": int(np.prod(a.get("block") or [0])),
+                    "smem": a.get("shared memory"), "registers": a.get("registers per thread"),
+                    "spin": "spin_kernel" in e["name"]})
+    return sorted(out, key=lambda k: k["start"])
+
+
 # Now and then torch.profiler hands back no device events for a window
 # (one window in ~50 of one run on the card, cause not known); such a
 # window runs again, up to this many times in all
 PROFILE_TRIES = 3
 
 
-def profiled(fn, what: str, cpu: bool = False) -> tuple[float, list[dict]]:
-    """Run ``fn`` once under torch.profiler: (wall ms, device kernels).
+def profiled(fn, what: str, cpu: bool = False, trace: list | None = None
+             ) -> tuple[float, list[dict]]:
+    """Run ``fn`` once under torch.profiler: (wall ms, device kernels);
+    ``trace``, when given, receives the run's kernels (``trace_kernels``).
     The run fails if no try of PROFILE_TRIES saw the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -257,6 +297,8 @@ def profiled(fn, what: str, cpu: bool = False) -> tuple[float, list[dict]]:
             wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = device_kernels(prof)
         if kernels:
+            if trace is not None:
+                trace.extend(trace_kernels(prof))
             return wall_ms, kernels
         log(f"the profiler saw no device time in {what} (attempt {attempt} of {PROFILE_TRIES})")
     fail(f"the profiler saw no device time in {what} in {PROFILE_TRIES} attempts")
@@ -265,17 +307,189 @@ def profiled(fn, what: str, cpu: bool = False) -> tuple[float, list[dict]]:
 def device_ms(fn, reps: int, match: str = "") -> float:
     """Device time of one call (every kernel it launches whose name holds
     ``match``, summed; host launch overhead excluded), from torch.profiler
-    over ``reps`` calls."""
+    over ``reps`` eager calls: the fuller of two windows, since a window
+    now and then misses device time and never adds any.  For the plain
+    versions and for library calls a graph cannot capture."""
     fn()
 
     def run():
         for _ in range(reps):
             fn()
 
-    _, kernels = profiled(run, f"{reps} calls ({match or 'all kernels'})")
-    total = sum(k["ms"] for k in kernels if match in k["kernel"])
-    check(total > 0, f"no kernel named {match!r} ran")
-    return total / reps
+    best = 0.0
+    for _ in range(2):
+        _, kernels = profiled(run, f"{reps} calls ({match or 'all kernels'})")
+        best = max(best, sum(k["ms"] for k in kernels if match in k["kernel"]))
+    check(best > 0, f"no kernel named {match!r} ran")
+    return best / reps
+
+
+def capture(fn, reps: int):
+    """``reps`` back-to-back calls of ``fn`` captured as one CUDA graph,
+    after an eager call, and replayed once to warm it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+# A timed replay starts behind a spin kernel of this many cycles (about
+# 5 ms on the H100), which outlasts the host's launch of the graph (under
+# 1 ms for 200 nodes with the profiler on, on the H100): the graph's first
+# kernel then starts as the start event completes, and its kernels run
+# back to back, as a decode chunk's replay runs them
+SPIN_CYCLES = 10_000_000
+
+
+def replay(graph) -> float:
+    """One replay of ``graph`` behind the spin kernel, timed between two
+    CUDA events (ms)."""
+    import torch
+
+    torch.cuda._sleep(SPIN_CYCLES)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def graph_ms(fn, reps: int) -> float:
+    """A call's share of one replay of ``reps`` back-to-back calls: the
+    library calls' time, read as the kernels' is."""
+    graph = capture(fn, reps)
+    ms = replay(graph) / reps
+    del graph
+    return ms
+
+
+# Each kernel row is read READINGS times by each method, in turns; the
+# spread of a method is (max - min) / median of its readings
+READINGS = 3
+
+
+def spread_of(xs) -> float:
+    return (max(xs) - min(xs)) / float(np.median(xs))
+
+
+# On the H100 a profiler window loses the records of the kernels that
+# start in its first milliseconds, more of them the later in the process
+# (up to 13 of a replay's 100 behind a 5 ms spin, in every window alike;
+# the spin itself in another run).  So a window opens with a spin of this
+# many SPIN_CYCLES, replays the graph twice, each behind its own spin, and
+# ends with a short spin; the profiler reads the last replay that spins
+# bracket on both sides (the second, unless a spin's record was lost).
+LEAD_SPINS = 4
+
+
+def bracketed(trace: list[dict]) -> list[list[dict]]:
+    """The kernels between each two consecutive spin kernels of a
+    profiled trace."""
+    segs, cur = [], None
+    for k in trace:
+        if k["spin"]:
+            if cur is not None:
+                segs.append(cur)
+            cur = []
+        elif cur is not None:
+            cur.append(k)
+    return segs
+
+
+def profiled_replay(graph) -> None:
+    """A profiler window's work: the lead spin, two replays, a short spin."""
+    import torch
+
+    torch.cuda._sleep(LEAD_SPINS * SPIN_CYCLES)
+    replay(graph)
+    replay(graph)
+    torch.cuda._sleep(SPIN_CYCLES // 10)
+
+
+def replay_readings(fn, reps: int, matches: tuple[str, ...] = ("",), bound: float = 0.0,
+                    call_bound: float = 0.0) -> dict:
+    """A row's two readings of one CUDA graph of ``reps`` back-to-back
+    calls, READINGS times each, in turns: the replay between CUDA events
+    (``call_ms``, the reading of record), and torch.profiler over the
+    same replay (``profiler_call_ms``: its kernels' span, first start to
+    last end, in the last replay of a window that spins bracket; the
+    kernels' names and launches).  A window whose replay holds a count of
+    kernels that is not a whole number a call, or fewer than the fullest
+    window's, is short: counted, and left out of the profiler's median;
+    the run fails when most are short.
+    ``ms[m]`` is a call's time times the share of the call's device time
+    the kernels named ``m`` take (1 where the call is that kernel alone).
+    ``bound`` is the row's kernel's and ``call_bound`` the whole call's
+    (``bound`` when 0)."""
+    graph = capture(fn, reps)
+    events, windows, counts = [], [], []
+    for _ in range(READINGS):
+        events.append(replay(graph) / reps)
+        trace = []
+        profiled(lambda: profiled_replay(graph), f"2 replays of {reps} calls", trace=trace)
+        segs = bracketed(trace)
+        counts.append([len(sg) for sg in segs])
+        windows.append(segs[-1] if segs else [])
+    del graph
+    whole = [w for w in windows if w and len(w) % reps == 0]
+    full = max((len(w) for w in whole), default=0)
+    kept = [w for w in whole if len(w) == full]
+    if any(len(c) != 3 or c[1] != c[2] for c in counts):
+        log(f"profiler: kernels between spins in each window of {reps} calls: {counts}")
+    check(len(kept) > READINGS // 2, f"the profiler saw short replays in "
+          f"{READINGS - len(kept)} of {READINGS} windows (kernels a replay {counts})")
+    span = [(max(k["start"] + k["ms"] for k in w) - min(k["start"] for k in w)) / reps
+            for w in kept]
+    busy = [sum(k["ms"] for k in w) for w in kept]
+    share = {m: float(np.median([sum(k["ms"] for k in w if m in k["kernel"]) / b
+                                 for w, b in zip(kept, busy)])) for m in matches}
+    g, s = float(np.median(events)), float(np.median(span))
+    names, launches, attrs = {}, {m: set() for m in matches}, {}
+    for k in kept[0]:
+        names[k["kernel"]] = names.get(k["kernel"], 0) + 1
+        for m in matches:
+            if m in k["kernel"]:
+                launches[m].add(k["launch"])
+                attrs.setdefault(m, {a: k[a] for a in ("threads", "smem", "registers")})
+    return {"call_ms": g, "profiler_call_ms": s, "bound_ms": bound,
+            "call_bound_ms": call_bound or bound,
+            "ms": {m: g * share[m] for m in matches},
+            "profiler_ms": {m: s * share[m] for m in matches},
+            "graph_spread": spread_of(events), "profiler_spread": spread_of(span),
+            "kernels_a_call": full / reps, "short_windows": READINGS - len(kept),
+            "kernels": names, "launches": launches, "attrs": attrs, "reps": reps}
+
+
+# the per-call fields of a reading that the kernels line keeps
+CALL_FIELDS = ("call_ms", "profiler_call_ms", "bound_ms", "call_bound_ms", "graph_spread",
+               "profiler_spread", "kernels_a_call", "short_windows", "reps")
+
+
+def reading_fields(pairs, match: str = "", bound: float | None = None) -> dict:
+    """The kernels line's reading fields of a row made of one or more
+    calls, as (weight, reading) pairs: ``ms`` the replay's (the kernels
+    named ``match``: their share of the call), ``profiler_ms`` the
+    profiler's beside it (weighted means), and each call's readings
+    (``calls``, with the row's kernel ``bound`` where given), which
+    ``check_readings`` holds."""
+    tot = sum(w for w, _ in pairs)
+    calls = [{**{k: r[k] for k in CALL_FIELDS}, "ms": r["ms"][match],
+              "profiler_ms": r["profiler_ms"][match], "weight": w} for w, r in pairs]
+    for c in calls:
+        c["bound_ms"] = c["bound_ms"] if bound is None else bound
+    return {"ms": sum(w * r["ms"][match] for w, r in pairs) / tot,
+            "profiler_ms": sum(w * r["profiler_ms"][match] for w, r in pairs) / tot,
+            "calls": calls}
 
 
 def maxerr(a, b) -> float:
@@ -1912,16 +2126,41 @@ def phase_controls_engine(dev, params, cfg, prompts, seq_reqs) -> dict:
     return perf
 
 
-def chunk_profile(eng, specs, label) -> dict:
+def prefill_tpad(n: int, max_len: int) -> int:
+    """The length the engine pads an n-token prompt's prefill to: a power
+    of two from 8, at most max_len."""
+    t = 8
+    while t < n:
+        t *= 2
+    return min(t, max_len)
+
+
+def count_launches(trace: list[dict], match: str, per: int) -> dict:
+    """Launches of the kernels named ``match`` in a profiled run's trace,
+    by launch (name, grid, block, shared memory), over ``per``."""
+    out = {}
+    for k in trace:
+        if match in k["kernel"]:
+            out[k["launch"]] = out.get(k["launch"], 0) + 1
+    return {s: n / per for s, n in out.items()}
+
+
+def chunk_profile(eng, specs, label, ke: bool = False) -> dict:
     """CONTROL_WINDOW consecutive overlapped steps of a full batch under
     torch.profiler: device ms and kernels a chunk, and the graph keys the
-    window replayed (none captured inside it)."""
+    window replayed (none captured inside it).  With ``ke``, also KE's
+    launches a chunk and in the batch's prefills (profiled apart), by
+    launch."""
     from elastic_gpu_scheduler_tpu_torch.models.serving import Request
 
     K = eng.fused_steps
     reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=6 * K, **kw))
             for p, kw in specs[: eng.max_batch]]
-    eng._admit()  # the prefills, outside the window
+    trace, pre = [], []
+    if ke:
+        profiled(eng._admit, f"{label} prefills", trace=pre)
+    else:
+        eng._admit()  # the prefills, outside the window
     eng.step()
     eng.step()
     keys = []
@@ -1938,17 +2177,26 @@ def chunk_profile(eng, specs, label) -> dict:
     eng._replay_chunk = spy
     cap0 = eng.graphs_captured
     try:
-        wall_ms, kernels = profiled(window, f"{CONTROL_WINDOW} {label} chunks", cpu=True)
+        wall_ms, kernels = profiled(window, f"{CONTROL_WINDOW} {label} chunks", cpu=True,
+                                    trace=trace if ke else None)
     finally:
         del eng._replay_chunk
     check(eng.graphs_captured == cap0, f"{label}: a graph was captured inside the window")
     eng.run_until_idle()
     check(all(r.done.is_set() and not r.error for r in reqs), f"{label}: window requests failed")
     busy = sum(k["ms"] for k in kernels)
+    ke = [k for k in kernels if "expert_matmul" in k["kernel"]]
     out = {"keys": keys, "wall_ms_per_chunk": wall_ms / CONTROL_WINDOW,
            "device_ms_per_chunk": busy / CONTROL_WINDOW,
+           "ke_ms_per_chunk": sum(k["ms"] for k in ke) / CONTROL_WINDOW,
+           "ke_launches_per_chunk": sum(k["count"] for k in ke) / CONTROL_WINDOW,
            "kernels_per_chunk": sum(k["count"] for k in kernels) / CONTROL_WINDOW,
            "idle_share": 1 - busy / wall_ms, "top": kernels[:10]}
+    if ke:
+        out.update(ke_launches=count_launches(trace, "expert_matmul", CONTROL_WINDOW),
+                   ke_prefill_launches=count_launches(pre, "expert_matmul", 1),
+                   prefill_tpads=[prefill_tpad(len(p), eng.max_len)
+                                  for p, _ in specs[: eng.max_batch]])
     log(f"{label} chunk profile: {out['device_ms_per_chunk']:.3f} device ms and "
         f"{out['kernels_per_chunk']:.0f} kernels a chunk, keys {keys}")
     return out
@@ -2502,15 +2750,28 @@ KE_SRC = "elastic_gpu_scheduler_tpu_torch/csrc/expert_matmul.cu"
 # _moe_ffn_serve's gather / ragged_dot forms and in the wmat fusion
 KE_REPLACES = {"moe": "elastic_gpu_scheduler_tpu/models/serving.py:358",
                "int8": "elastic_gpu_scheduler_tpu/models/quantize.py:62"}
-# (label, T, E, K, N, int8, fp32 output, the path whose launches it reports)
+# (label, T, E, K, N, int8, fp32 output, the path whose launches it reports,
+# (projections the row stands for in a layer, or 0 for the unembed; "decode"
+# or "prefill")); no two rows launch alike (kernel, grid, block, shared memory)
 KE_SHAPES = [
-    ("MoE decode, w_gate / w_in", 8, 8, 2048, 6912, False, False, "moe"),
-    ("MoE decode, w_out", 8, 8, 6912, 2048, False, True, "moe"),
-    ("MoE grouped prefill, w_gate / w_in", 512, 8, 2048, 6912, False, False, "moe"),
-    ("MoE + int8 decode, w_gate / w_in", 8, 8, 2048, 6912, True, False, "moe_int8"),
-    ("int8 dense decode, wq", 8, 1, 2048, 2048, True, False, "int8"),
-    ("int8 dense decode, unembed", 8, 1, 2048, 32000, True, False, "int8"),
+    ("MoE decode, w_gate / w_in", 8, 8, 2048, 6912, False, False, "moe", (2, "decode")),
+    ("MoE decode, w_out", 8, 8, 6912, 2048, False, True, "moe", (1, "decode")),
+    ("MoE grouped prefill, w_gate / w_in", 512, 8, 2048, 6912, False, False, "moe",
+     (2, "prefill")),
+    ("MoE + int8 decode, w_gate / w_in", 8, 8, 2048, 6912, True, False, "moe_int8",
+     (2, "decode")),
+    ("MoE + int8 decode, w_out", 8, 8, 6912, 2048, True, True, "moe_int8", (1, "decode")),
+    ("int8 dense decode, wq / wo", 8, 1, 2048, 2048, True, False, "int8", (2, "decode")),
+    ("int8 dense decode, wk / wv", 8, 1, 2048, 1024, True, False, "int8", (2, "decode")),
+    ("int8 dense decode, w_gate / w_in", 8, 1, 2048, 6912, True, False, "int8", (2, "decode")),
+    ("int8 dense decode, w_out", 8, 1, 6912, 2048, True, False, "int8", (1, "decode")),
+    ("int8 dense decode, unembed", 8, 1, 2048, 32000, True, False, "int8", (0, "decode")),
+    ("int8 dense prefill, w_gate / w_in", 512, 1, 2048, 6912, True, False, "int8",
+     (2, "prefill")),
 ]
+# the weights a timed sequence cycles through: more than the 50 MB L2 holds,
+# so each call finds its weight cold, as a decode step's layers do
+KE_COLD_BYTES = 128 << 20
 
 
 def ke_bound_ms(T, K, N, touched, x_bytes, w_bytes, out_bytes, int8) -> tuple[float, str]:
@@ -2523,29 +2784,102 @@ def ke_bound_ms(T, K, N, touched, x_bytes, w_bytes, out_bytes, int8) -> tuple[fl
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# an H100 SM: shared memory (bytes, and 1 KB the card keeps a block),
+# registers (allocated 256 a warp), threads and blocks
+SM_SMEM, BLOCK_SMEM_RESERVED, SM_REGISTERS, SM_THREADS, SM_BLOCKS = 233472, 1024, 65536, 2048, 32
+
+
+def resident_blocks(threads: int, smem: int, registers: int) -> dict:
+    """Blocks of one launch an SM can hold at once, from the launch's
+    threads, shared memory and registers a thread (the profiler's), and
+    the resource that sets it."""
+    warps = -(-threads // 32)
+    limits = {"shared memory": SM_SMEM // (smem + BLOCK_SMEM_RESERVED),
+              "registers": SM_REGISTERS // (warps * -(-registers * 32 // 256) * 256),
+              "threads": SM_THREADS // threads, "blocks": SM_BLOCKS}
+    by = min(limits, key=limits.get)
+    return {"blocks": limits[by], "limited_by": by}
+
+
+def ke_row_launches(rows, profiles: dict, path_launches: dict) -> None:
+    """Each KE row's launches: on its path's main path (``launches``) and,
+    measured by kernel launch (name, grid, block, shared memory) in the
+    profiled windows of phases 6g and 6h, in one fused chunk
+    (``launches_a_chunk``) or in one prefill of its T
+    (``launches_a_prefill``).  Fails unless every KE launch of a chunk
+    window is some decode row's, and each row's count is what its
+    projections need: L layers x fused_steps steps each (the unembed once
+    a step), or L layers a prefill."""
+    L, K = FULL["n_layers"], ENGINE["fused_steps"]
+    sigs = [r["launch"] for r in rows]
+    check(len(set(sigs)) == len(sigs), f"two KE rows launch alike: {sigs}")
+    decode = {r["launch"] for r in rows if r["_per"][1] == "decode"}
+    for path, prof in profiles.items():
+        stray = {s: n for s, n in prof["ke_launches"].items() if s not in decode}
+        check(not stray, f"{path}: KE launches in a chunk that no KE row holds: {stray}")
+    for r in rows:
+        path, (n, kind), T = r.pop("_launch_path"), r.pop("_per"), r.pop("_T")
+        prof = profiles[path]
+        r["launches"] = path_launches[path]["expert_matmul"]
+        if kind == "decode":
+            got, want, key = prof["ke_launches"].get(r["launch"], 0), n * L * K if n else K, \
+                "launches_a_chunk"
+        else:
+            prefills = prof["prefill_tpads"].count(T)
+            check(prefills > 0, f"KE {r['path']}: the {path} window ran no prefill of T {T}")
+            got = prof["ke_prefill_launches"].get(r["launch"], 0) / prefills
+            want, key = n * L, "launches_a_prefill"
+        r[key] = got
+        log(f"KE {r['path']}: {got:g} launches a {key.rsplit('_', 1)[1]} on the {path} path "
+            f"({r['launch'][:60]}...)")
+        check(got == want, f"KE {r['path']}: {got} launches measured in a "
+              f"{key.rsplit('_', 1)[1]} of the {path} path, {want} expected")
+
+
 def ke_registers() -> dict:
-    """ptxas's registers and spill bytes of KE's kernels, from the build log."""
+    """ptxas's registers and spill bytes of KE's kernels, from the build
+    log, by kernel (its name and template arguments as ptxas mangles them)."""
     from elastic_gpu_scheduler_tpu_torch.ops import _build
 
+    types = {"a": "int8", "f": "float", "13__nv_bfloat16": "bf16", "S1_": "bf16",
+             "S0_": "float", "Lb0E": "false", "Lb1E": "true"}
     lines = _build.build_log_path().read_text().splitlines()
-    regs, spills, inside = [], [], False
+    out, name = {}, None
     for line in lines:
         if "Compiling entry" in line:
-            inside = "expert_matmul" in line
-        elif inside and "registers" in line:
-            regs.append(int(re.search(r"Used (\d+) registers", line).group(1)))
-        elif inside and "spill" in line:
-            spills += [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
-    check(regs, "no ptxas line for KE in the build log")
-    return {"kernels": len(regs), "max_registers": max(regs),
-            "spill_bytes": max(spills, default=0)}
+            m = re.search(r"\d(expert_matmul_(?:ring_|wgmma_|combine_)?kernel)I(\w+?)EEv", line)
+            args = re.findall("|".join(map(re.escape, types)), m.group(2)) if m else []
+            name = f"{m.group(1)}<{', '.join(types[a] for a in args)}>" if m else None
+        elif name and "registers" in line:
+            out.setdefault(name, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+        elif name and "spill" in line:
+            out.setdefault(name, {})["spill_bytes"] = max(
+                int(n) for n in re.findall(r"(\d+) bytes spill", line))
+    check(out, "no ptxas line for KE in the build log")
+    return out
+
+
+class Cycle:
+    """Calls each of ``fns`` in turn (one weight copy a call)."""
+
+    def __init__(self, fns):
+        self.fns, self.i = fns, 0
+
+    def __call__(self):
+        fn = self.fns[self.i % len(self.fns)]
+        self.i += 1
+        return fn()
 
 
 def phase_ke(dev) -> list[dict]:
     """KE against its plain version at the main paths' shapes (bf16 and
-    int8): tolerance, bitwise repeatable, a graph replay on a new routing
-    equal to the eager call; ms, plain ms, library ms and bound.  The rows'
-    launches come from phases 6g and 6h."""
+    int8): tolerance, bitwise repeatable, the plan's kernel alone and once
+    a call (no combine kernel after a split: the cluster adds the splits),
+    a graph replay on a new routing equal to the eager call; the two
+    readings (profiler and graph replay) over calls that each find their
+    weight cold in L2, plain ms, library ms and bound.  The rows' launches
+    come from phases 6g and 6h."""
     import torch
 
     from elastic_gpu_scheduler_tpu_torch.models.quantize import quantize_tensor
@@ -2557,8 +2891,8 @@ def phase_ke(dev) -> list[dict]:
     )
 
     rows = []
-    for label, T, E, K, N, int8, f32, path in KE_SHAPES:
-        g = torch.Generator(device=dev).manual_seed(T + K)
+    for label, T, E, K, N, int8, f32, path, per in KE_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(T + K)  # each row's data as before
         x = torch.randn(T, K, generator=g, device=dev).to(torch.bfloat16)
         w = (torch.randn(E, K, N, generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
         sc = None
@@ -2568,9 +2902,12 @@ def phase_ke(dev) -> list[dict]:
         ids = (torch.randint(0, E, (T,), generator=g, device=dev, dtype=torch.int32)
                if E > 1 else None)
         out_dtype = torch.float32 if f32 else torch.bfloat16
+        wbytes = w.numel() * w.element_size()
+        copies = [(w, sc)] + [(w.clone(), None if sc is None else sc.clone())
+                              for _ in range(-(-KE_COLD_BYTES // wbytes) - 1)]
 
-        def kern():
-            return expert_matmul(x, w, ids, scale=sc, out_dtype=out_dtype)
+        def kern(wi=w, si=sc):
+            return expert_matmul(x, wi, ids, scale=si, out_dtype=out_dtype)
 
         def plain():
             return expert_matmul_reference(x, w, ids, sc, out_dtype)
@@ -2582,36 +2919,57 @@ def phase_ke(dev) -> list[dict]:
         check(ok and bool(torch.isfinite(got).all()),
               f"KE {label}: disagrees with expert_matmul_reference (max err {err:.3g})")
         check(torch.equal(got, kern()), f"KE {label}: not bitwise repeatable")
-        ms = device_ms(kern, 20, match="expert_matmul")
+        plan = expert_matmul_plan(x, w, ids)
+        check(plan["tensor_cores"] and not plan["combine"],
+              f"KE {label}: a bf16 row off the tensor-core kernels ({plan})")
+        touched = len(set(ids.tolist())) if ids is not None else 1
+        bound, by = ke_bound_ms(T, K, N, touched, 2, 1 if int8 else 2, 4 if f32 else 2, int8)
+        cold = Cycle([lambda wi=wi, si=si: kern(wi, si) for wi, si in copies])
+        reps = max(20, 2 * len(copies))
+        rd = replay_readings(cold, reps, ("expert_matmul",), bound=bound)
+        seen = {n: c for n, c in rd["kernels"].items() if "expert_matmul" in n}
+        launch = rd["launches"]["expert_matmul"]
+        check(len(seen) == 1 and plan["route"] in next(iter(seen))
+              and next(iter(seen.values())) == reps and len(launch) == 1,
+              f"KE {label}: the calls launched {seen} ({launch}), not {plan['route']} once "
+              f"a call")
         plain_ms = device_ms(plain, 3)
         wd = dequantize(w, sc, torch.bfloat16)
         if E == 1:
-            w0 = wd[0].contiguous()
-            lib_ms = device_ms(lambda: torch.matmul(x, w0), 20)
-            lib = "torch.matmul on the dequantised bf16 weight"
+            dense = [wd[0].contiguous()] + [wd[0].clone() for _ in
+                                            range(-(-KE_COLD_BYTES // (2 * K * N)) - 1)]
+            lib_ms = graph_ms(Cycle([lambda d=d: torch.matmul(x, d) for d in dense]),
+                              max(20, 2 * len(dense)))
+            lib = "torch.matmul on the dequantised bf16 weight (cold in L2)"
+            del dense
         else:
             wg = wd[ids.long()]  # the gather itself is not timed
             x3 = x[:, None, :]
-            lib_ms = device_ms(lambda: torch.bmm(x3, wg), 5)
+            lib_ms = graph_ms(lambda: torch.bmm(x3, wg), 5)
             lib = "torch.bmm on the pre-gathered (T, K, N) weights"
             del wg
-        touched = len(set(ids.tolist())) if ids is not None else 1
-        bound, by = ke_bound_ms(T, K, N, touched, 2, 1 if int8 else 2, 4 if f32 else 2, int8)
-        plan = expert_matmul_plan(x, w, ids)
-        route = "tensor cores" if plan["tensor_cores"] else "CUDA cores"
-        log(f"KE {label} (T {T}, E {E}, K {K}, N {N}, {touched} experts touched, {route}, "
-            f"{plan['splits']} K splits): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({by}), of_bound {bound / ms:.3f}, "
-            f"max err {err:.3g}")
-        rows.append({
+        row = {
             "name": "expert_matmul", "path": label, "route": "cuda", "source": KE_SRC,
-            "replaces": KE_REPLACES["int8" if path == "int8" else "moe"],
-            "launches": 0, "_launch_path": path, "max_abs_err": err, "ms": ms,
+            "replaces": KE_REPLACES["int8" if path.startswith("int8") else "moe"],
+            "launches": 0, "_launch_path": path, "_per": per, "_T": T,
+            "launch": launch.pop(), "resident_blocks_a_sm": resident_blocks(
+                **rd["attrs"]["expert_matmul"]), "max_abs_err": err,
+            **reading_fields([(1, rd)], "expert_matmul"),
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "kernel": plan["route"], "cluster": plan["cluster"],
+            "ring_depth": plan["ring_depth"], "weight_copies": len(copies),
             "note": f"no Pallas kernel: XLA's work in the reference; library: {lib}; "
-                    f"{touched} experts touched, {route}, {plan['splits']} K splits",
-        })
-        del wd
+                    f"{touched} experts touched; {plan['route']}, {plan['splits']} K splits "
+                    f"(cluster {plan['cluster']}), ring depth {plan['ring_depth']}",
+        }
+        log(f"KE {label} (T {T}, E {E}, K {K}, N {N}, {touched} experts touched, "
+            f"{plan['route']}, cluster {plan['cluster']}): graph {row['ms']:.5f} ms, profiler "
+            f"{row['profiler_ms']:.5f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.5f} ms, "
+            f"bound {bound:.5f} ms ({by}), of_bound {bound / row['ms']:.3f}, spreads "
+            f"{rd['graph_spread']:.4f} / {rd['profiler_spread']:.4f}, resident "
+            f"{row['resident_blocks_a_sm']}, max err {err:.3g}")
+        rows.append(row)
+        del wd, copies
     # a graph captured on one routing replays any other, equal to eager
     g = torch.Generator(device=dev).manual_seed(9)
     x = torch.randn(8, 2048, generator=g, device=dev).to(torch.bfloat16)
@@ -2631,8 +2989,9 @@ def phase_ke(dev) -> list[dict]:
         torch.cuda.synchronize()
         check(torch.equal(out, eager), f"KE graph replay != eager on routing {routing}")
     regs = ke_registers()
-    log(f"KE: bitwise repeatable at every shape; a graph captured on one routing replays "
-        f"three others bitwise equal to eager; ptxas {json.dumps(regs)}")
+    log(f"KE: bitwise repeatable at every shape; every row on its tensor-core kernel alone, "
+        f"once a call; a graph captured on one routing replays three others bitwise equal "
+        f"to eager; ptxas {json.dumps(regs)}")
     rows[0]["ptxas"] = regs
     return rows
 
@@ -2685,9 +3044,10 @@ def overlapped_run(eng, prompts, label, int8=False) -> dict:
 
 def profile_chunks(eng, prompts, label) -> dict:
     """Device ms, kernels and KE's share of CONTROL_WINDOW overlapped chunks."""
-    out = chunk_profile(eng, [(p, {}) for p in prompts], label)
-    ke_ms = sum(k["ms"] for k in out["top"] if "expert_matmul" in k["kernel"])
-    out["ke_ms_per_chunk_top10"] = ke_ms / CONTROL_WINDOW
+    out = chunk_profile(eng, [(p, {}) for p in prompts], label, ke=True)
+    out["ke_share"] = out["ke_ms_per_chunk"] / out["device_ms_per_chunk"]
+    log(f"{label}: KE {out['ke_ms_per_chunk']:.3f} device ms a chunk "
+        f"({out['ke_share']:.3f} of the chunk), {out['ke_launches_per_chunk']:.0f} launches")
     return out
 
 
@@ -3601,36 +3961,33 @@ def kernel_k1(eng, prompts, launches, worst):
     cfg = eng.cfg
     g = torch.Generator(device=dev).manual_seed(4)
     rows, err = [], worst
-    tpads = []
-    for p in prompts:
-        t = 8
-        while t < len(p):
-            t *= 2
-        tpads.append(min(t, eng.max_len))
+    tpads = [prefill_tpad(len(p), eng.max_len) for p in prompts]
     for t in sorted(set(tpads)):
         q, k, v = (torch.randn(1, cfg.n_heads, t, cfg.head_dim, generator=g, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         out = flash_attention(q, k, v, True, None, 0)
         ref = mha_reference(q, k, v, True, None, 0)[0]
         err = max(err, maxerr(out, ref))
-        ms = device_ms(lambda: flash_attention(q, k, v, True, None, 0), 100)
-        plain = device_ms(lambda: mha_reference(q, k, v, True, None, 0), 20)
-        lib = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 100)
         bound, by = k1_bound_ms(1, cfg.n_heads, t, t, cfg.head_dim, True, 0, 2)
+        rd = replay_readings(lambda: flash_attention(q, k, v, True, None, 0), 100, bound=bound)
+        ms = rd["ms"][""]
+        plain = device_ms(lambda: mha_reference(q, k, v, True, None, 0), 20)
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 100)
         n = tpads.count(t)
-        rows.append((n, ms, plain, lib, bound, by))
-        log(f"K1 timing Tpad={t} (x{n} prompts): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"sdpa {lib:.4f} ms, bound {bound:.5f} ms ({by})")
+        rows.append((n, ms, plain, lib, bound, by, rd))
+        log(f"K1 timing Tpad={t} (x{n} prompts): kernel {ms:.4f} ms (profiler "
+            f"{rd['profiler_ms']['']:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+            f"{bound:.5f} ms ({by})")
     tot = sum(r[0] for r in rows)
-    mean = [sum(r[0] * r[i] for r in rows) / tot for i in (1, 2, 3, 4)]
-    return {
+    mean = [sum(r[0] * r[i] for r in rows) / tot for i in (2, 3, 4)]
+    return {**reading_fields([(r[0], r[6]) for r in rows]),
         "name": "flash_fwd", "route": "cuda",
         "source": "elastic_gpu_scheduler_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:290",
         "launches": launches["flash_fwd"], "max_abs_err": err,
-        "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
+        "plain_ms": mean[0], "bound_ms": mean[2],
         "bound_by": max(rows, key=lambda r: r[0] * r[4])[5],
-        "library_ms": mean[2],
+        "library_ms": mean[1],
     }
 
 
@@ -3644,7 +4001,7 @@ def kernel_k2(sampler, launches, worst, name="paged_attention"):
     )
 
     check(sampler.calls, f"no {name} call was sampled on the main path")
-    ms_l, plain_l, bound_l, err = [], [], [], worst
+    plain_l, bound_l, rds, err = [], [], [], worst
     for q, lkv, tables, lengths, cfg in sampler.calls:
         pk, pv = lkv["k"], lkv["v"]
         kw = dict(window=cfg.window_size, scales_k=lkv.get("ks"), scales_v=lkv.get("vs"))
@@ -3658,8 +4015,6 @@ def kernel_k2(sampler, launches, worst, name="paged_attention"):
             return paged_attention_reference(q, pk, pv, tables, lengths, **kw)
 
         err = max(err, maxerr(kern(), plain()))
-        ms_l.append(device_ms(kern, 50))
-        plain_l.append(device_ms(plain, 10))
         # bytes this call must move: q, out, tables, lengths, and each
         # distinct live (page, kv-head) K and V tile once (up to the last
         # query's position: lengths + W - 1)
@@ -3678,16 +4033,21 @@ def kernel_k2(sampler, launches, worst, name="paged_attention"):
         byts = (len(live) * page_bytes * 2 + 2 * q.numel() * q.element_size()
                 + tables.numel() * 4 + lengths.numel() * 4)
         bound_l.append(byts / PEAK_BYTES * 1e3)
-    log(f"{name} timing over {len(ms_l)} main-path calls: kernel {np.mean(ms_l):.4f} ms, "
-        f"plain {np.mean(plain_l):.4f} ms, bound {np.mean(bound_l):.5f} ms (bytes)")
-    return {
+        rds.append((1, replay_readings(kern, 50, bound=bound_l[-1])))
+        plain_l.append(device_ms(plain, 10))
+    row = {
+        **reading_fields(rds),
         "name": name, "route": "cuda",
         "source": "elastic_gpu_scheduler_tpu_torch/csrc/paged_attention.cu",
         "replaces": "elastic_gpu_scheduler_tpu/ops/paged_attention.py:204",
         "launches": launches[name], "max_abs_err": err,
-        "ms": float(np.mean(ms_l)), "plain_ms": float(np.mean(plain_l)),
+        "plain_ms": float(np.mean(plain_l)),
         "bound_ms": float(np.mean(bound_l)), "bound_by": "bytes", "library_ms": None,
     }
+    log(f"{name} timing over {len(rds)} main-path calls: kernel {row['ms']:.4f} ms (profiler "
+        f"{row['profiler_ms']:.4f}), plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.5f} ms (bytes)")
+    return row
 
 
 def kernel_k3(sampler, launches, worst):
@@ -3712,26 +4072,31 @@ def kernel_k3(sampler, launches, worst):
         qpos = q_off + torch.arange(sq, device=q.device)
         kpos = k_off + torch.arange(sk, device=q.device)
         mask = kpos[None, :] <= qpos[:, None]
-        ms = device_ms(lambda: flash_block_stats(q, k, v, q_off, k_off, causal), 50,
-                       match="flash_stats_kernel")
-        plain = device_ms(lambda: flash_block_stats_reference(q, k, v, q_off, k_off, causal), 10)
-        lib = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                               enable_gqa=True), 50)
         bound, by = k3_bound_ms(B, H, Hkv, sq, sk, D, q_off, k_off, causal, q.element_size())
-        rows.append((ms, plain, lib, bound, by))
-        log(f"K3 timing T={sq} M={sk} start={q_off}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"sdpa {lib:.4f} ms, bound {bound:.5f} ms ({by})")
+        rd = replay_readings(lambda: flash_block_stats(q, k, v, q_off, k_off, causal), 50,
+                             matches=("flash_stats_kernel",), bound=bound)
+        ms = rd["ms"]["flash_stats_kernel"]
+        plain = device_ms(lambda: flash_block_stats_reference(q, k, v, q_off, k_off, causal), 10)
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                              enable_gqa=True), 50)
+        rows.append((ms, plain, lib, bound, by, rd))
+        log(f"K3 timing T={sq} M={sk} start={q_off}: kernel {ms:.4f} ms (call "
+            f"{rd['call_ms']:.4f}), plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+            f"{bound:.5f} ms ({by})")
     mean = [float(np.mean([r[i] for r in rows])) for i in range(4)]
     return {
+        **reading_fields([(1, r[5]) for r in rows], "flash_stats_kernel"),
         "name": "flash_block_stats", "route": "cuda",
         "source": "elastic_gpu_scheduler_tpu_torch/csrc/flash_stats.cu",
         "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:902",
         "launches": launches["flash_block_stats"], "max_abs_err": err,
-        "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
+        "plain_ms": mean[1], "bound_ms": mean[3],
         "bound_by": max(set(r[4] for r in rows), key=[r[4] for r in rows].count),
         "library_ms": mean[2],
         "note": "max_abs_err is on pv / l; library_ms is SDPA (enable_gqa, the same "
-                "causal offsets as a mask), which returns normalised output",
+                "causal offsets as a mask), which returns normalised output; ms is "
+                "flash_stats_kernel's share of its call's replay (the call adds a combine "
+                "where it splits)",
     }
 
 
@@ -4156,8 +4521,9 @@ def k4_bound_ms(B, H, sq, sk, D, causal, window, itemsize) -> tuple[float, str]:
 K4_SHARE = {"dq": 1 / 5, "dkv": 4 / 5}
 
 
-def kernel_train_rows(dev, launches, k4_err) -> list[dict]:
-    """K1 and K4 at the train path's attention shape (bf16, causal)."""
+def kernel_train_rows(dev, k4_err) -> list[dict]:
+    """K1 and K4 at the train path's attention shape (bf16, causal); the
+    rows' launches are the training path's, filled in after phase 9."""
     import torch
     import torch.nn.functional as F
 
@@ -4180,16 +4546,21 @@ def kernel_train_rows(dev, launches, k4_err) -> list[dict]:
     log(f"K1 at the train shape: max|out-ref|={k1_err:.3g} max|lse-ref|={k1_lse_err:.3g}")
     check(close(out, ref, "bfloat16") and k1_lse_err <= 1e-4,
           "K1 disagrees with mha_reference at the train shape")
-    k1_ms = device_ms(lambda: flash_attention(q, k, v, True, None, 0), 20)
-    k1_plain = device_ms(lambda: mha_reference(q, k, v, True, None, 0), 5)
-    k1_lib = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
     k1_bound, k1_by = k1_bound_ms(B, H, S, S, D, True, 0, 2)
-    # K4: each kernel's own device time, from the same calls
+    k1_rd = replay_readings(lambda: flash_attention(q, k, v, True, None, 0), 20, bound=k1_bound)
+    k1_ms = k1_rd["ms"][""]
+    k1_plain = device_ms(lambda: mha_reference(q, k, v, True, None, 0), 5)
+    k1_lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
+    k4_bound, k4_by = k4_bound_ms(B, H, S, S, D, True, 0, 2)
+
+    # K4: one replay of the whole backward (delta, dq and dkv), each
+    # kernel's time its share of the call
     def bwd():
         return flash_backward(q, k, v, out, lse, do, True, None, 0)
 
-    dq_ms = device_ms(bwd, 10, match="flash_bwd_dq")
-    dkv_ms = device_ms(bwd, 10, match="flash_bwd_dkv")
+    bwd_rd = replay_readings(bwd, 10, matches=("flash_bwd_dq", "flash_bwd_dkv"),
+                             call_bound=k4_bound)
+    dq_ms, dkv_ms = bwd_rd["ms"]["flash_bwd_dq"], bwd_rd["ms"]["flash_bwd_dkv"]
     plain_ms = device_ms(lambda: flash_backward_reference(q, k, v, ref, ref_lse, do, True,
                                                           None, 0), 3)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -4198,35 +4569,44 @@ def kernel_train_rows(dev, launches, k4_err) -> list[dict]:
         o = F.scaled_dot_product_attention(*leaves, is_causal=True)
         return torch.autograd.grad(o, leaves, do)
 
-    lib_bwd = device_ms(sdpa_fwd_bwd, 10) - k1_lib
+    # autograd's calls stay eager: the profiler reads both
+    lib_bwd = device_ms(sdpa_fwd_bwd, 10) - device_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
+    log(f"K1 at the train shape, both readings: graph replay {k1_ms:.5f} ms, profiler "
+        f"{k1_rd['profiler_ms']['']:.5f} ms; the backward call: graph {bwd_rd['call_ms']:.5f} "
+        f"ms, profiler {bwd_rd['profiler_call_ms']:.5f} ms, kernels a call "
+        f"{json.dumps(bwd_rd['kernels'])}")
     log(f"train-shape timing (B={B} H={H} S={S} D={D} bf16 causal): K1 {k1_ms:.4f} ms "
         f"(plain {k1_plain:.4f}, sdpa {k1_lib:.4f}, bound {k1_bound:.5f} {k1_by}); "
         f"K4 dq {dq_ms:.4f} ms + dkv {dkv_ms:.4f} ms (plain backward {plain_ms:.4f}, "
         f"sdpa backward {lib_bwd:.4f})")
     rows = [{
+        **reading_fields([(1, k1_rd)]),
         "name": "flash_fwd", "path": "train", "route": "cuda",
         "source": "elastic_gpu_scheduler_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:290",
-        "launches": launches["flash_fwd"], "max_abs_err": k1_err,
-        "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
+        "launches": 0, "max_abs_err": k1_err,
+        "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
         "library_ms": k1_lib,
     }]
-    k4_bound, k4_by = k4_bound_ms(B, H, S, S, D, True, 0, 2)
     log(f"K4 bound (the whole backward): {k4_bound:.5f} ms ({k4_by}); dq + dkv "
         f"{dq_ms + dkv_ms:.4f} ms, {(dq_ms + dkv_ms) / k4_bound:.1f}x")
-    for which, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+    for which in ("dq", "dkv"):
         bound, by = K4_SHARE[which] * k4_bound, k4_by
         rows.append({
+            **reading_fields([(1, bwd_rd)], f"flash_bwd_{which}", bound),
             "name": f"flash_bwd_{which}", "path": "train", "route": "cuda",
             "source": "elastic_gpu_scheduler_tpu_torch/csrc/flash_bwd.cu",
             "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:633",
-            "launches": launches[f"flash_bwd_{which}"], "max_abs_err": k4_err[which],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "launches": 0, "max_abs_err": k4_err[which],
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_bwd,
             "note": "plain_ms and library_ms are the whole backward (dq, dk and dv): "
-                    "flash_backward_reference, and SDPA forward+backward minus forward; "
-                    "bound_ms is this kernel's share (dq 1/5, dkv 4/5) of the whole "
-                    "backward's bound",
+                    "flash_backward_reference, and SDPA forward+backward minus forward "
+                    "(both profiler, eager); bound_ms is this kernel's share (dq 1/5, dkv "
+                    "4/5) of the whole backward's bound; ms is this kernel's share of the "
+                    "whole backward call's replay (delta, dq and dkv), which calls[0] holds "
+                    "against the whole backward's bound (call_bound_ms)",
         })
     return rows
 
@@ -4235,6 +4615,67 @@ def kernel_train_rows(dev, launches, k4_err) -> list[dict]:
 REDESIGNED = {"flash_fwd": "PR 4", "flash_bwd_dq": "PR 4", "flash_bwd_dkv": "PR 4",
               "paged_attention": "PR 5", "paged_attention_int8": "PR 5",
               "flash_block_stats": "PR 5"}
+
+# The two readings of a call time the same replay of the same graph, so
+# they differ by noise and by what the profiler adds to each kernel it
+# traces.  That cost is measured in the run (``profiler_cost``), and a
+# call's limit is its kernels' share of it plus three times the sum of the
+# two readings' own spreads over their READINGS repeats, or AGREE_FLOOR
+# where that is more: on the H100 every call read within 0.028 of its
+# replay (K3's calls the most), where that sum came to 0.013-0.037, so the
+# floor keeps a call whose spreads happen to be tiny from failing on a
+# difference that small (PERF.md §6).
+AGREE_FLOOR = 0.05
+
+
+def profiler_cost() -> dict:
+    """What torch.profiler adds to one kernel in a replay: a graph of 200
+    one-element additions read both ways (profiled span less the replay's
+    time, a kernel's share)."""
+    import torch
+
+    t = torch.zeros(1, device="cuda")
+    rd = replay_readings(lambda: t.add_(1), 200)
+    out = {"ms": abs(rd["profiler_call_ms"] - rd["call_ms"]), "kernel_ms": rd["call_ms"],
+           "graph_spread": rd["graph_spread"], "profiler_spread": rd["profiler_spread"],
+           "short_windows": rd["short_windows"]}
+    log("the profiler's cost a kernel in a replay: " + json.dumps(out))
+    return out
+
+
+def check_readings(kernels: list[dict], cost: dict) -> dict:
+    """Fail when either reading of a call puts its kernel below the row's
+    bound or the whole call below the call's, or the two disagree beyond
+    the call's limit: its kernels x the profiler's cost a kernel over its
+    time, plus 3 x (replay spread + profiler spread), at least
+    AGREE_FLOOR.  Each call's disagreement and limit go into its row's
+    ``calls``."""
+    worst, short = None, 0
+    for k in kernels:
+        what = f"{k['name']} ({k.get('path', '')})"
+        for c in k["calls"]:
+            d = abs(c["call_ms"] - c["profiler_call_ms"]) / c["call_ms"]
+            lim = max(AGREE_FLOOR, c["kernels_a_call"] * cost["ms"] / c["call_ms"]
+                      + 3 * (c["graph_spread"] + c["profiler_spread"]))
+            c["disagreement"], c["limit"] = d, lim
+            short += c["short_windows"]
+            check(c["bound_ms"] <= min(c["ms"], c["profiler_ms"]),
+                  f"{what} reads below its bound: graph {c['ms']:.5f}, profiler "
+                  f"{c['profiler_ms']:.5f}, bound {c['bound_ms']:.5f} ms")
+            check(c["call_bound_ms"] <= min(c["call_ms"], c["profiler_call_ms"]),
+                  f"{what}: its call reads below the call's bound: graph {c['call_ms']:.5f}, "
+                  f"profiler {c['profiler_call_ms']:.5f}, bound {c['call_bound_ms']:.5f} ms")
+            check(d <= lim, f"{what}: the readings disagree by {d:.4f} (graph "
+                  f"{c['call_ms']:.5f}, profiler {c['profiler_call_ms']:.5f} ms), limit {lim:.4f}")
+            if worst is None or d / lim > worst[0]:
+                worst = (d / lim, d, lim, what)
+    res = {"readings": READINGS, "profiler_cost_ms": cost["ms"], "agree_floor": AGREE_FLOOR,
+           "largest_disagreement": max(c["disagreement"] for k in kernels for c in k["calls"]),
+           "worst_disagreement_over_limit": worst[0], "worst_disagreement": worst[1],
+           "its_limit": worst[2], "worst_row": worst[3], "short_windows": short,
+           "calls": sum(len(k["calls"]) for k in kernels)}
+    log("kernel readings: " + json.dumps(res))
+    return res
 
 
 def main() -> int:
@@ -4270,12 +4711,15 @@ def main() -> int:
             log("  ptxas: " + line.strip())
 
     # 3. to 5. the kernels against their plain versions; KE
+    cost = profiler_cost()
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
     k2i_err = phase_k2_int8(dev)
     k3_err = phase_k3(dev)
     k4_err = phase_k4(dev)
     ke_rows = phase_ke(dev)
+    # the train-shape rows early, before the run's many profiler sessions
+    train_rows = kernel_train_rows(dev, k4_err)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4335,9 +4779,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     small_perf = phase_moe_int8_small_fp32(dev)
-    path_launches = {"moe": moe_launches, "int8": int8_launches, "moe_int8": moe_int8_launches}
-    for r in ke_rows:
-        r["launches"] = path_launches[r.pop("_launch_path")]["expert_matmul"]
+    ke_row_launches(ke_rows, {"moe": mperf["profile"], "int8": iperf["int8_profile"],
+                              "moe_int8": iperf["moe_int8"]["profile"]},
+                    {"moe": moe_launches, "int8": int8_launches, "moe_int8": moe_int8_launches})
     kernels += ke_rows
 
     # 9. the training path, card against CPU, the launcher, a profiled step
@@ -4358,13 +4802,16 @@ def main() -> int:
     launcher_res = phase_launcher(dev)
 
     # 10. the kernels line
-    kernels += kernel_train_rows(dev, train_launches, k4_err)
+    for r in train_rows:
+        r["launches"] = train_launches[r["name"]]
+    kernels += train_rows
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
         k["of_bound"] = k["bound_ms"] / k["ms"]
         k["vs_library"] = k["ms"] / k["library_ms"] if k["library_ms"] else None
         if k["name"] in REDESIGNED:
             k["redesigned"] = REDESIGNED[k["name"]]
+    readings = check_readings(kernels, cost)
     log(json.dumps({"engine": perf}))
     log(json.dumps({"overlap_engine": operf}))
     log(json.dumps({"spec_engine": sperf}))
@@ -4378,6 +4825,7 @@ def main() -> int:
                     "moe_train_profile_idle_share": moe_train["profile"]["idle_share"]}))
     log(json.dumps({"train": train_perf, "train_profile_idle_share": train_prof["idle_share"],
                     "launcher": launcher_res, "lora_train": lora_train}))
+    log(json.dumps({"kernel_readings": readings}))
     log(card)
     print(json.dumps({"kernels": kernels}))
     # the one card this script drives (cuda:0)

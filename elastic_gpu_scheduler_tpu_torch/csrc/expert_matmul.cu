@@ -20,54 +20,80 @@
 // kernel reads each weight in place, as int8 where it is int8, and touches
 // only the experts some token chose.
 //
-// Dequantisation gives the reference's values bit for bit, in registers:
-//   bf16:  bf16(float(q) * float(bf16(scale)))   (q and the scale cast to
-//          bf16, the product rounded to bf16 once: the product of two bf16
-//          values is exact in fp32);
+// Dequantisation gives the reference's values bit for bit:
+//   bf16:  bf16(float(q) * float(bf16(scale)))   (q and the scale as bf16,
+//          their product rounded to bf16 once: mul.rn.bf16x2);
 //   fp32:  float(q) * scale.
 //
 // What bounds it on this card: weight bytes at decode size (a few tokens
-// an expert, ~2 FLOPs a weight byte, far below the ridge), operations at
-// prefill size (T in the hundreds).  This first design is simple and
-// right; what it does about the bound:
-//   - the grid is (N tiles of 64 columns, expert x token run, K splits).
-//     A block finds its expert's tokens itself: it scans `ids` in order
-//     (ballots and a block prefix) for its run of them (find_tokens).
-//     Nothing is read on the host, so a captured CUDA graph replays it for
-//     any routing; a block whose expert has no token in its run exits
-//     after the scan, so an expert no token chose costs no weight read.
-//     Each weight element is read once a block and used for all of the
-//     block's tokens;
-//   - bf16 x (every bf16 model's product) takes tensor cores,
-//     expert_matmul_mma_kernel: 4 warps, runs of 16 tokens (64 where an
-//     expert averages more than 16), double-buffered swizzled tiles of 64
-//     K rows, an int8 weight dequantised once a block on its way to shared
-//     memory, mma.sync.m16n8k16 with fp32 sums.  At decode a run holds one
-//     or two real tokens: the tiles' spare rows cost nothing the bytes
-//     do not already bound;
-//   - float32 x, or a shape the tensor-core tiles do not take (N not a
-//     multiple of 16, unaligned rows), takes CUDA cores,
-//     expert_matmul_kernel: fp32 FMAs (exact products, as float32 models
-//     need), runs of 8 tokens staged in shared memory, 8 columns x 32 K
-//     slices of threads, each keeping 64 bytes of weight rows in flight,
-//     the slices folded by shuffles and then by warp in a fixed order;
-//   - K is split across blocks when the grid would hold fewer than two
-//     blocks an SM (a few tokens over a narrow N: the int8 dense
-//     projections at decode) or when a CUDA-core block could not stage its
-//     K range; each split writes an fp32 partial and
-//     expert_matmul_combine_kernel adds them in order.
-// The plan (kernel, runs, splits) comes from the shapes only (make_plan,
-// egs_expert_matmul_plan).  No atomics, every sum in a fixed order:
-// bitwise repeatable, and a token's row never depends on which other
-// tokens share the call.  wgmma, TMA and a deeper weight pipeline are
-// later work.
+// an expert, ~2 FLOPs a weight byte, far below the ridge), and at prefill
+// size weight bytes (MoE, 64 tokens an expert) or operations (a dense
+// int8 product at T 512).  Weight bytes run at the memory's rate only with
+// ~32 KB in flight on every SM (3.35 TB/s at ~1 us of latency).  The
+// design, for bf16 x (every bf16 model's product):
+//   - decode runs, an expert averaging <= 16 tokens (the int8 dense
+//     projections, MoE decode, MoE + int8 decode): expert_matmul_ring_kernel.
+//     One producer warp keeps a ring of 4 stages of raw weight tiles in
+//     flight with TMA (64 K rows x 128 bytes, 8 KB a stage: 128 int8 or 64
+//     bf16 columns; mbarriers), so a block alone has 32 KB of weight bytes
+//     in flight.  int8 stays int8 in shared memory.  The block's x rows (a
+//     run of 8 tokens, or 16 where an expert averages more than 8, over its
+//     K range) are staged once.  Four consumer warps take the products with
+//     mma.sync.m16n8k16 with A and B swapped: W^T is the m16 side,
+//     dequantised from shared memory into A fragments in registers, and the
+//     tokens the n8 side, so 8 decode tokens fill the instruction.  The K
+//     index within an instruction is permuted (slots 2t, 2t+1, 8+2t, 9+2t of
+//     thread t hold K rows 4t..4t+3) so that each thread reads 4 whole rows
+//     of 8 columns and one 8-byte x word a k-step.  A warp releases a stage
+//     after a proxy fence: its reads are generic, the next TMA write into the
+//     stage is not, and without the fence that write can land first;
+//   - K split without a combine pass: when the tiles alone give fewer blocks
+//     than SMs (a few tokens over a narrow N), or K passes 2048 rows, the K
+//     splits of one output tile form a thread-block cluster (at most 8, the
+//     portable size).  Each block folds its warps' partials in shared
+//     memory; then each adds a share of the tile over the cluster's partials
+//     read from distributed shared memory (16 bytes a read), in split order,
+//     and writes y.  One launch, no fp32 partial in device memory; an
+//     unsplit call is launched without a cluster and skips this step;
+//   - grouped runs, an expert averaging more than 16 tokens (MoE prefill,
+//     int8 dense prefill): expert_matmul_wgmma_kernel.  The same producer
+//     warp and ring bring 64 K rows x 128 columns a stage: bf16 by two TMA
+//     boxes straight into the 128-byte-swizzled layout wgmma reads B from,
+//     int8 as raw bytes that the consumers dequantise into such a tile (the
+//     next stage's while the current products run).  Two consumer
+//     warpgroups take runs of 128 tokens (64 rows each) with
+//     wgmma.m64n128k16, A (x) in registers, loaded by ldmatrix from each
+//     warp's own cp.async ring of its 16 token rows;
+//   - float32 x, or a shape the tiles do not take (N not a multiple of 16,
+//     K not a multiple of 8, unaligned rows, K over 8 x 2048), takes CUDA
+//     cores, expert_matmul_kernel: fp32 FMAs (exact products, as float32
+//     models need), runs of 8 tokens staged in shared memory, 8 columns x
+//     32 K slices of threads, each keeping 64 bytes of weight rows in
+//     flight, the slices folded by shuffles and then by warp in a fixed
+//     order; its K splits write fp32 partials that
+//     expert_matmul_combine_kernel adds in order.
+// A block finds its expert's tokens itself: it scans `ids` in order
+// (ballots and a block prefix) for its run of them (find_tokens).  Nothing
+// is read on the host, so a captured CUDA graph replays it for any
+// routing; a block whose expert has no token in its run (and so its whole
+// cluster) exits after the scan, so an expert no token chose costs no
+// weight read (one scan of the ids a block: 8 to 512 ids, next to a
+// weight stream of 0.2 to 28 MB).  The plan (route, runs, splits, cluster) comes from the
+// shapes only (make_plan, egs_expert_matmul_plan).  The weight's tensor map
+// is encoded on the host at every call and passed by value
+// (__grid_constant__), so a captured graph keeps it.  No atomics, every sum
+// in a fixed order: bitwise repeatable, and a token's row never depends on
+// which other tokens share the call.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <type_traits>
 
 #include "warp_mma.cuh"
+#include "warpgroup.cuh"
 
 namespace {
 
@@ -78,7 +104,7 @@ constexpr int NCG = NT / 8;     // column groups (8 columns a thread)
 constexpr int NKS = NTHREADS / NCG;  // K slices: 32
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int SMEM = 32768;     // x rows staged, then the fold's partials
-constexpr int TARGET_BLOCKS = 2 * 132;  // two blocks an SM of an H100
+constexpr int TARGET_BLOCKS = 2 * 132;  // two blocks an SM of an H100 (CUDA cores)
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
@@ -339,247 +365,733 @@ __global__ void expert_matmul_combine_kernel(const float* __restrict__ part,
   }
 }
 
-// -- the tensor-core path: bf16 x --------------------------------------------
-//
-// A block of 4 warps takes 64 columns of a run of up to 16 x MTI tokens:
-// each step the block copies the run's x (cp.async) and 64 K rows of the
-// weight into double-buffered swizzled shared tiles, an int8 weight dequantised
-// on the way (the reference's bf16(bf16(q) * bf16(scale)), two values a
-// rounding: the product is exact in fp32), and each warp runs
-// mma.sync.m16n8k16 (bf16 in, fp32 sums) for its 16 columns over the
-// token tiles that hold tokens.  The next step's weight rows are in
-// registers, and its x rows in flight, while this step's products run (a
-// second step ahead, in a second register set, gained little at decode
-// and lost more at prefill to the registers it takes).
+// -- Hopper pieces: clusters, proxies, int8 to bf16 -----------------------------
 
-constexpr int MM_THREADS = 128;
-constexpr int MM_KS = 64;       // K rows a step
-constexpr int MM_CH = 8;        // 16-byte chunks of a 64-wide bf16 tile row
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
 
-template <typename TW> struct MmRows;  // a thread's weight segments a step
-template <> struct MmRows<int8_t> {
-  // 64 rows x 64 int8 columns = 256 segments of 16 columns: 2 a thread
-  static constexpr int SEG = 2;
-  uint4 v[SEG];
-};
-template <> struct MmRows<__nv_bfloat16> {
-  // 64 rows x 64 bf16 columns = 512 segments of 8 columns: 4 a thread
-  static constexpr int SEG = 4;
-  uint4 v[SEG];
-};
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
 
-template <typename TW>
-__device__ __forceinline__ void mm_load_w(MmRows<TW>& r, const TW* __restrict__ w, int k0,
-                                          int nrows, int n0, int N) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < MmRows<TW>::SEG; ++i) {
-    const int seg = tid + i * MM_THREADS;
-    int row, col;
-    if constexpr (std::is_same<TW, int8_t>::value) {
-      row = seg >> 2, col = (seg & 3) * 16;
-    } else {
-      row = seg >> 3, col = (seg & 7) * 8;
-    }
-    const bool ok = k0 + row < nrows && n0 + col < N;
-    r.v[i] = ok ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)(k0 + row) * N + n0 + col))
-                : make_uint4(0u, 0u, 0u, 0u);
+// every thread of every block of the cluster; orders shared-memory writes
+// before it with reads after it, across the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// a shared-memory address of this block as block `rank` of the cluster
+// holds it, and an fp32 read of it there
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// barrier 1 over the n consumer threads (the producer warp never joins)
+__device__ __forceinline__ void consumers_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+// generic-proxy writes to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four int8 values biased to unsigned (the word ^ 0x80808080); value J as
+// an exact fp32: its byte as the low mantissa byte of 2^23, minus 2^23 + 128
+template <int J>
+__device__ __forceinline__ float q8f(uint32_t biased) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 | J)) - 8388736.0f;
+}
+
+// (lo, hi) as a bf16 pair, for fp32 values that bf16 holds exactly (|q|
+// <= 128): the high halves of their bits
+__device__ __forceinline__ uint32_t bf16_pair_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// a * b in bf16, each product rounded once to nearest even
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float s) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(s));
+}
+
+template <typename TO>
+__device__ __forceinline__ void store_pair(TO* p, float a, float b) {
+  if constexpr (std::is_same<TO, float>::value) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    *reinterpret_cast<uint32_t*>(p) = egs::pack_bf16(a, b);
   }
 }
 
-// the step's weight rows into the shared tile (k along rows, n along
-// chunks), an int8 row dequantised with the thread's 16 column scales
+// columns 4q % BN .. + 3 of token tok[4q / BN] of the tile at n0 (N a
+// multiple of 16: four columns are all in or all out)
+template <typename TO>
+__device__ __forceinline__ void store4(TO* __restrict__ out, const int* tok, float4 v, int q,
+                                       int BN, int n0, int N) {
+  const int o = 4 * q, n = n0 + o % BN;
+  if (n >= N) return;
+  TO* p = out + (size_t)tok[o / BN] * N + n;
+  if constexpr (std::is_same<TO, float>::value) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    *reinterpret_cast<uint2*>(p) = make_uint2(egs::pack_bf16(v.x, v.y), egs::pack_bf16(v.z, v.w));
+  }
+}
+
+// -- decode runs: the TMA weight ring, swapped mma.sync, split K in a cluster ---
+
+namespace ring {
+constexpr int ROWS = 64;         // K rows a stage
+constexpr int NS = 4;            // stages in the ring: 32 KB in flight a block
+constexpr int TOK = 16;          // tokens a run at most: two n8 tiles
+constexpr int CONSUMERS = 128;   // four consumer warps
+constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
+constexpr int MAX_ROWS = 2048;   // K rows a split: x staged once, <= 66 KB
+constexpr int SPLIT_ROWS = 1024; // K rows a split at most past MAX_ROWS: a long K
+                                 // over a narrow N needs more blocks
+constexpr int TARGET = 66;       // blocks that can hold tokens, the split aims at:
+                                 // half the SMs (timed on an H100: fewer splits
+                                 // leave too few SMs streaming, more cost more in
+                                 // the cluster than they gain)
+constexpr int XPAD = 16;         // bf16 padding an x row (32 bytes: no conflicts)
+
+// columns a block (128 bytes a stage row), and the consumer warps' layout
+template <typename TW> struct Tile {
+  static constexpr int BN = std::is_same<TW, int8_t>::value ? 128 : 64;
+  static constexpr int STAGE = ROWS * BN * (int)sizeof(TW);  // 8 KB
+  static constexpr int WC = BN / 64;                // warps across the columns (64 each)
+  static constexpr int WK = CONSUMERS / 32 / WC;    // and across a stage's k16 steps
+  static constexpr int KPW = ROWS / 16 / WK;        // k16 steps a warp takes of a stage
+  static_assert(WK * KPW * 16 == ROWS, "the warps split a stage's k16 steps evenly");
+  // after the loop the ring holds the warps' fp32 partials, [WK][TOK][BN],
+  // and then in their first slice the block's sums
+  static_assert(WK * TOK * BN * 4 <= NS * STAGE, "the partials fit the ring");
+};
+
 template <typename TW>
-__device__ __forceinline__ void mm_store_w(egs::bf16* ws, const MmRows<TW>& r,
-                                           const float (&sc)[16]) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < MmRows<TW>::SEG; ++i) {
-    const int seg = tid + i * MM_THREADS;
-    if constexpr (std::is_same<TW, int8_t>::value) {
-      const int row = seg >> 2, c0 = (seg & 3) * 2;
-      const int8_t* q = reinterpret_cast<const int8_t*>(&r.v[i]);
-      uint4 lo, hi;
-      uint32_t* l = reinterpret_cast<uint32_t*>(&lo);
-      uint32_t* h = reinterpret_cast<uint32_t*>(&hi);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        l[j] = egs::pack_bf16((float)q[2 * j] * sc[2 * j], (float)q[2 * j + 1] * sc[2 * j + 1]);
-        h[j] = egs::pack_bf16((float)q[8 + 2 * j] * sc[8 + 2 * j],
-                              (float)q[9 + 2 * j] * sc[9 + 2 * j]);
+inline size_t smem_bytes(int rows, int tok) {
+  return 1024 + (size_t)NS * Tile<TW>::STAGE + (size_t)tok * (rows + XPAD) * 2 + 16 * NS;
+}
+}  // namespace ring
+
+// NT8: n8 tiles of tokens a run (runs of 8 or 16 tokens)
+template <typename TW, typename TO, int NT8>
+__global__ void __launch_bounds__(ring::THREADS)
+expert_matmul_ring_kernel(const __grid_constant__ CUtensorMap tm_w, const egs::bf16* __restrict__ x,
+                          const float* __restrict__ scale, const int* __restrict__ ids,
+                          TO* __restrict__ out, int T, int K, int N, int chunks,
+                          int rows_per_split) {
+  using namespace ring;
+  constexpr bool INT8 = std::is_same<TW, int8_t>::value;
+  constexpr int BN = Tile<TW>::BN, WC = Tile<TW>::WC, WK = Tile<TW>::WK;
+  constexpr int KPW = Tile<TW>::KPW, STAGE = Tile<TW>::STAGE;
+  constexpr int RT = 8 * NT8;  // tokens a run
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int xstride = rows_per_split + XPAD;
+  egs::bf16* xs = reinterpret_cast<egs::bf16*>(smem + NS * STAGE);  // [RT][xstride]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NS * STAGE + RT * xstride * 2);
+  uint64_t* empty = full + NS;
+  __shared__ int tok[RT];
+  __shared__ int warp_cnt[THREADS / 32];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      egs::mbar_init(&full[s], 1);
+      egs::mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    egs::mbar_fence_init();
+  }
+  __syncthreads();
+  const int e = blockIdx.y / chunks, c = blockIdx.y % chunks;
+  const int cnt = find_tokens<RT, THREADS>(ids, T, e, c * RT, tok, warp_cnt);
+  if (cnt <= 0) return;  // uniform across the block and its cluster
+
+  const int n0 = blockIdx.x * BN;
+  const int kb = blockIdx.z * rows_per_split;
+  const int steps = ceil_div(min(K, kb + rows_per_split) - kb, ROWS);
+
+  if (warp == CONSUMERS / 32) {  // the producer: one thread issues every copy
+    if (lane == 0) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % NS;
+        if (i >= NS) egs::mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
+        egs::mbar_expect_tx(&full[s], STAGE);
+        egs::tma_load_3d(smem + s * STAGE, &tm_w, &full[s], n0, kb + i * ROWS, e);
       }
-      *reinterpret_cast<uint4*>(ws + egs::tile_off<MM_CH>(row, c0)) = lo;
-      *reinterpret_cast<uint4*>(ws + egs::tile_off<MM_CH>(row, c0 + 1)) = hi;
-    } else {
-      const int row = seg >> 3, c = seg & 7;
-      *reinterpret_cast<uint4*>(ws + egs::tile_off<MM_CH>(row, c)) = r.v[i];
+    }
+    __syncwarp();
+  } else {
+    // the run's x rows over the split's K range, once (zeros past K)
+    const int ch = rows_per_split / 8;
+    for (int i = tid; i < cnt * ch; i += CONSUMERS) {
+      const int m = i / ch, cc = i - m * ch;
+      const int k = kb + cc * 8;
+      const bool ok = k < K;
+      egs::cp_async16(xs + m * xstride + cc * 8, ok ? x + (size_t)tok[m] * K + k : x, ok);
+    }
+    egs::cp_async_commit();
+
+    const int wc = warp % WC, wk = warp / WC;
+    const int g = lane >> 2, t = lane & 3;
+    const int col0 = wc * 64 + 8 * g;  // the thread's 8 columns of the tile
+    // int8: their scales through bf16, each as a (s, s) pair
+    uint32_t sp[8];
+    if constexpr (INT8) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + col0 + j;
+        const uint32_t b = bf16_bits(n < N ? __ldg(scale + (size_t)e * N + n) : 0.0f);
+        sp[j] = b | (b << 16);
+      }
+    }
+    const bool two = NT8 == 2 && cnt > 8;  // the second n8 tile of tokens holds some
+    float acc[4][2][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+    egs::cp_async_wait<0>();
+    consumers_sync(CONSUMERS);
+
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % NS;
+      egs::mbar_wait(&full[s], (i / NS) & 1);
+      const unsigned char* st = smem + s * STAGE;
+#pragma unroll
+      for (int j = 0; j < KPW; ++j) {
+        const int r0 = (wk + j * WK) * 16 + 4 * t;  // the thread's 4 rows of the stage
+        // A fragments of 4 m16 tiles: tile i's row g is column col0 + 2i,
+        // its row g + 8 column col0 + 2i + 1; K slots (2t, 2t+1) are rows
+        // r0, r0 + 1 and slots (8+2t, 9+2t) rows r0 + 2, r0 + 3
+        uint32_t a[4][4];
+        if constexpr (INT8) {
+          float f[4][8];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const uint2 raw = *reinterpret_cast<const uint2*>(st + (r0 + r) * BN + col0);
+            const uint32_t lo = raw.x ^ 0x80808080u, hi = raw.y ^ 0x80808080u;
+            f[r][0] = q8f<0>(lo);
+            f[r][1] = q8f<1>(lo);
+            f[r][2] = q8f<2>(lo);
+            f[r][3] = q8f<3>(lo);
+            f[r][4] = q8f<0>(hi);
+            f[r][5] = q8f<1>(hi);
+            f[r][6] = q8f<2>(hi);
+            f[r][7] = q8f<3>(hi);
+          }
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            a[m][0] = bf16x2_mul(bf16_pair_exact(f[0][2 * m], f[1][2 * m]), sp[2 * m]);
+            a[m][1] = bf16x2_mul(bf16_pair_exact(f[0][2 * m + 1], f[1][2 * m + 1]), sp[2 * m + 1]);
+            a[m][2] = bf16x2_mul(bf16_pair_exact(f[2][2 * m], f[3][2 * m]), sp[2 * m]);
+            a[m][3] = bf16x2_mul(bf16_pair_exact(f[2][2 * m + 1], f[3][2 * m + 1]), sp[2 * m + 1]);
+          }
+        } else {
+          uint4 raw[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            raw[r] = *reinterpret_cast<const uint4*>(st + (r0 + r) * BN * 2 + col0 * 2);
+          const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&raw[0]);
+          const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&raw[1]);
+          const uint32_t* w2 = reinterpret_cast<const uint32_t*>(&raw[2]);
+          const uint32_t* w3 = reinterpret_cast<const uint32_t*>(&raw[3]);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            a[m][0] = __byte_perm(w0[m], w1[m], 0x5410);
+            a[m][1] = __byte_perm(w0[m], w1[m], 0x7632);
+            a[m][2] = __byte_perm(w2[m], w3[m], 0x5410);
+            a[m][3] = __byte_perm(w2[m], w3[m], 0x7632);
+          }
+        }
+        // B fragments: token g (and 8 + g), K rows r0 .. r0 + 3: one 8-byte word
+        const int kx = i * ROWS + r0;
+        const uint2 b0 = *reinterpret_cast<const uint2*>(xs + g * xstride + kx);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) egs::mma16816(acc[m][0], a[m], b0.x, b0.y);
+        if (two) {
+          const uint2 b1 = *reinterpret_cast<const uint2*>(xs + (8 + g) * xstride + kx);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) egs::mma16816(acc[m][1], a[m], b1.x, b1.y);
+        }
+      }
+      // the stage's reads (generic proxy) are ordered before the next TMA
+      // write into it (async proxy): without the fence, the write can land
+      // first on a busy card
+      fence_async_shared();
+      __syncwarp();
+      if (lane == 0) egs::mbar_arrive(&empty[s]);  // this warp is done with stage s
+    }
+
+    // the warps' partials into the ring's memory (every stage is consumed),
+    // [wk][token][column]; C (m, n): column col0 + 2i (+1 for m >= 8), token n
+    consumers_sync(CONSUMERS);
+    float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      if (nt == 1 && !two) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int tk = nt * 8 + 2 * t + h;
+        float4* p = reinterpret_cast<float4*>(red + (wk * TOK + tk) * BN + col0);
+        p[0] = make_float4(acc[0][nt][h], acc[0][nt][2 + h], acc[1][nt][h], acc[1][nt][2 + h]);
+        p[1] = make_float4(acc[2][nt][h], acc[2][nt][2 + h], acc[3][nt][h], acc[3][nt][2 + h]);
+      }
+    }
+    consumers_sync(CONSUMERS);
+    // the warps' partials added in order, 4 columns a thread: y when K is
+    // not split, else the block's sums, kept in the first slice
+    float4* red4 = reinterpret_cast<float4*>(red);
+    for (int q = tid; q < cnt * BN / 4; q += CONSUMERS) {
+      float4 v = red4[q];
+#pragma unroll
+      for (int z = 1; z < WK; ++z) v = add4(v, red4[z * TOK * BN / 4 + q]);
+      if (gridDim.z == 1)
+        store4<TO>(out, tok, v, q, BN, n0, N);
+      else
+        red4[q] = v;
     }
   }
+  if (gridDim.z == 1) return;  // one split: no cluster
+
+  // the cluster is this tile's K splits: each block adds a share of the
+  // tile over every split's sums, in split order, 4 columns a thread, and
+  // writes it
+  cluster_sync();
+  const int S = (int)cluster_size(), rank = (int)cluster_rank();
+  const int total = cnt * BN / 4;
+  const int share = ceil_div(total, S);
+  const int q_end = min(total, (rank + 1) * share);
+  const uint32_t base = egs::smem_u32(smem);
+  for (int q = rank * share + tid; q < q_end; q += THREADS) {
+    float4 p[8];
+#pragma unroll
+    for (int z = 0; z < 8; ++z)  // every load out before the first add
+      if (z < S) p[z] = ld_cluster4(cluster_map(base + 16u * q, (uint32_t)z));
+    float4 v = p[0];
+#pragma unroll
+    for (int z = 1; z < 8; ++z)
+      if (z < S) v = add4(v, p[z]);
+    store4<TO>(out, tok, v, q, BN, n0, N);
+  }
+  cluster_sync();  // no block leaves while another reads its sums
 }
 
-// the step's x rows (the block's tokens, K rows k0.. of its range) by
-// cp.async; rows past the tokens, or past the range, are zeros
-template <int MTI>
-__device__ __forceinline__ void mm_copy_x(egs::bf16* xs, const egs::bf16* __restrict__ x,
-                                          const int* tok, int cnt, int K, int kb, int k0,
-                                          int nrows) {
-  const int tid = threadIdx.x;
+// -- grouped runs: the TMA weight ring feeding wgmma ------------------------------
+
+namespace grp {
+constexpr int ROWS = 64;          // K rows a stage
+constexpr int BN = 128;           // columns a block
+constexpr int TOK = 128;          // tokens a run: two consumer warpgroups of 64
+constexpr int NS = 4;             // stages in the weight ring
+constexpr int XS = 2;             // stages in each warp's x ring
+constexpr int CONSUMERS = 256;
+constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
+constexpr uint32_t HALF = ROWS * 128;    // a 64-column half of a bf16 tile: 8 KB
+constexpr uint32_t TILE = 2 * HALF;      // a bf16 weight tile
+constexpr int XTILE = 16 * 64;           // a warp's 16 x rows of a stage (bf16 elements)
+
+template <typename TW> struct Stage {
+  static constexpr bool INT8 = std::is_same<TW, int8_t>::value;
+  static constexpr uint32_t BYTES = INT8 ? 8192 : TILE;  // raw int8, or the bf16 tile
+  static constexpr uint32_t DEQ = INT8 ? 2 * TILE : 0;   // two dequantised tiles
+  static constexpr size_t SMEM =
+      1024 + NS * BYTES + DEQ + (CONSUMERS / 32) * XS * XTILE * 2 + 16 * NS;
+};
+}  // namespace grp
+
+// A warp's 16 x rows of one stage (a null row: past the run's tokens,
+// zeros), 64 K columns from k0, into its swizzled tile by cp.async (one
+// group); lane copies rows lane / 8 + 4 j
+__device__ __forceinline__ void copy_x_rows(egs::bf16* tile, const egs::bf16* const (&src)[4],
+                                            const egs::bf16* any, int k0, int K, int lane) {
 #pragma unroll
-  for (int i = 0; i < MTI * 16 * MM_CH / MM_THREADS; ++i) {
-    const int idx = tid + i * MM_THREADS;
-    const int r = idx >> 3, c = idx & 7;
-    const bool ok = r < cnt && k0 + c * 8 < nrows;
-    const egs::bf16* src = ok ? x + (size_t)tok[r] * K + kb + k0 + c * 8 : x;
-    egs::cp_async16(xs + egs::tile_off<MM_CH>(r, c), src, ok);
+  for (int j = 0; j < 4; ++j) {
+    const int r = (lane >> 3) + 4 * j, c = lane & 7;
+    const int k = k0 + c * 8;
+    const bool ok = src[j] != nullptr && k < K;
+    egs::cp_async16(tile + egs::tile_off<8>(r, c), ok ? src[j] + k : any, ok);
   }
   egs::cp_async_commit();
 }
 
-// MTI: m16 token tiles a block (1 where an expert's tokens come in
-// units, at decode; 4 where they come in tens)
-template <typename TW, typename TO, int MTI>
-__global__ void __launch_bounds__(MM_THREADS)
-expert_matmul_mma_kernel(const egs::bf16* __restrict__ x, const TW* __restrict__ w,
-                         const float* __restrict__ scale, const int* __restrict__ ids,
-                         TO* __restrict__ out, float* __restrict__ part, int T, int K, int N,
-                         int chunks, int rows_per_split) {
-  constexpr int TOK = MTI * 16;
+template <int N>
+__device__ __forceinline__ void fence_regs_u(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(r[i][q])::"memory");
+}
+
+// Stage i of the grouped kernel's ring, raw int8 rows, dequantised into a
+// 128-byte-swizzled bf16 tile (16-byte chunk c of row r, in its 64-column
+// half, at chunk c ^ (r % 8), as TMA writes a bf16 tile), made visible to
+// wgmma.  The thread takes rows tid / 8 and 32 + tid / 8, columns dcol ..
+// dcol + 15, with their scale pairs sp.
+__device__ __forceinline__ void dequantise_stage(const unsigned char* ring, unsigned char* deq,
+                                                 uint64_t* full, const uint32_t (&sp)[8],
+                                                 int dcol, int tid, int i) {
+  const int s = i % grp::NS;
+  egs::mbar_wait(&full[s], (i / grp::NS) & 1);
+  const unsigned char* raw = ring + s * 8192;
+  unsigned char* dq = deq + (i & 1) * grp::TILE;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = (tid >> 3) + 32 * j;
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * 128 + dcol);
+    const uint32_t wv[4] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u,
+                            v.w ^ 0x80808080u};
+    uint32_t o[8];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      o[2 * p] = bf16x2_mul(bf16_pair_exact(q8f<0>(wv[p]), q8f<1>(wv[p])), sp[2 * p]);
+      o[2 * p + 1] = bf16x2_mul(bf16_pair_exact(q8f<2>(wv[p]), q8f<3>(wv[p])), sp[2 * p + 1]);
+    }
+    const int c0 = (dcol & 63) >> 3;
+    unsigned char* row = dq + (dcol >> 6) * grp::HALF + r * 128;
+    *reinterpret_cast<uint4*>(row + ((c0 ^ (r & 7)) << 4)) = make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(row + (((c0 + 1) ^ (r & 7)) << 4)) =
+        make_uint4(o[4], o[5], o[6], o[7]);
+  }
+  fence_async_shared();  // the tile is read by wgmma (the async proxy)
+}
+
+template <typename TW, typename TO>
+__global__ void __launch_bounds__(grp::THREADS, 1)
+expert_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
+                           const egs::bf16* __restrict__ x, const float* __restrict__ scale,
+                           const int* __restrict__ ids, TO* __restrict__ out, int T, int K,
+                           int N, int chunks) {
+  using namespace grp;
+  constexpr bool INT8 = Stage<TW>::INT8;
+  constexpr uint32_t SB = Stage<TW>::BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* deq = smem + NS * SB;  // int8: two dequantised bf16 tiles
+  egs::bf16* xring = reinterpret_cast<egs::bf16*>(deq + Stage<TW>::DEQ);
+  uint64_t* full = reinterpret_cast<uint64_t*>(xring + (CONSUMERS / 32) * XS * XTILE);
+  uint64_t* empty = full + NS;
   __shared__ int tok[TOK];
-  __shared__ int warp_cnt[MM_THREADS / 32];
-  __shared__ __align__(128) egs::bf16 xs[2][TOK * MM_KS];
-  __shared__ __align__(128) egs::bf16 ws[2][MM_KS * 64];
+  __shared__ int warp_cnt[THREADS / 32];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      egs::mbar_init(&full[s], 1);
+      egs::mbar_init(&empty[s], INT8 ? 1 : 2);  // int8: after the dequantisation
+    }
+    egs::mbar_fence_init();
+  }
+  __syncthreads();
   const int e = blockIdx.y / chunks, c = blockIdx.y % chunks;
-  const int cnt = find_tokens<TOK, MM_THREADS>(ids, T, e, c * TOK, tok, warp_cnt);
+  const int cnt = find_tokens<TOK, THREADS>(ids, T, e, c * TOK, tok, warp_cnt);
   if (cnt <= 0) return;  // uniform across the block
-  const int mtiles = (cnt + 15) / 16;
-  const int n0 = blockIdx.x * 64;
-  const int kb = blockIdx.z * rows_per_split;
-  const int nrows = min(K, kb + rows_per_split) - kb;
-  const TW* we = w + ((size_t)e * K + kb) * N;
+  const int n0 = blockIdx.x * BN;
+  const int steps = ceil_div(K, ROWS);
 
-  // this thread's 16 column scales, rounded through bf16 (int8 only)
-  float sc[16];
-  if constexpr (std::is_same<TW, int8_t>::value) {
-    const int col0 = (tid & 3) * 16;
+  if (warp == 8) {  // the producer: one thread issues every copy
+    if (lane == 0) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % NS;
+        if (i >= NS) egs::mbar_wait(&empty[s], ((i / NS) & 1) ^ 1);
+        egs::mbar_expect_tx(&full[s], SB);
+        if constexpr (INT8) {
+          egs::tma_load_3d(smem + s * SB, &tm_w, &full[s], n0, i * ROWS, e);
+        } else {
+          for (int h = 0; h < 2; ++h)
+            egs::tma_load_3d(smem + s * SB + h * HALF, &tm_w, &full[s], n0 + 64 * h, i * ROWS, e);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int wrow = wg * 64 + (warp & 3) * 16;  // the warp's 16 rows of the run
+  const bool live = wg * 64 < cnt;             // uniform in the warpgroup
+  const egs::bf16* src[4];                     // the x rows this lane copies
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = wrow + (lane >> 3) + 4 * j;
+    src[j] = r < cnt ? x + (size_t)tok[r] * K : nullptr;
+  }
+  egs::bf16* xw = xring + warp * XS * XTILE;  // the warp's x ring
+  // int8: the thread dequantises rows tid / 8 and 32 + tid / 8, columns
+  // 16 (tid % 8) .. + 15; their scales through bf16, in column pairs
+  const int dcol = 16 * (tid & 7);
+  uint32_t sp[8];
+  if constexpr (INT8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + dcol + 2 * j;
+      const float s0 = n < N ? __ldg(scale + (size_t)e * N + n) : 0.0f;
+      const float s1 = n + 1 < N ? __ldg(scale + (size_t)e * N + n + 1) : 0.0f;
+      sp[j] = bf16_bits(s0) | (bf16_bits(s1) << 16);
+    }
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  copy_x_rows(xw, src, x, 0, K, lane);
+  if constexpr (INT8) {
+    dequantise_stage(smem, deq, full, sp, dcol, tid, 0);
+    consumers_sync(CONSUMERS);
+    if (tid == 0) egs::mbar_arrive(&empty[0]);
+  }
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % NS;
+    // x: the next stage's copy goes out, this stage's is waited for
+    if (i + 1 < steps)
+      copy_x_rows(xw + ((i + 1) % XS) * XTILE, src, x, (i + 1) * ROWS, K, lane);
+    else
+      egs::cp_async_commit();  // an empty group keeps the count
+    egs::cp_async_wait<1>();
+    __syncwarp();
+    const egs::bf16* xt = xw + (i % XS) * XTILE;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) egs::load_a<8>(a[kk], xt, 0, kk, lane);
+    const unsigned char* b;
+    if constexpr (INT8) {
+      b = deq + (i & 1) * TILE;
+    } else {
+      egs::mbar_wait(&full[s], (i / NS) & 1);
+      b = smem + s * SB;
+    }
+    if (live) {
+      egs::fence_regs(acc);
+      egs::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        egs::wgmma_rs_m64n128k16(acc, a[kk], egs::sw128_desc(b + kk * 16 * 128, HALF, 1024));
+      egs::wg_commit();
+    }
+    // int8: the next stage is dequantised while the products run
+    if constexpr (INT8) {
+      if (i + 1 < steps) dequantise_stage(smem, deq, full, sp, dcol, tid, i + 1);
+    }
+    if (live) {
+      egs::wg_wait0();
+      egs::fence_regs(acc);
+      fence_regs_u(a);  // a stays untouched until the products have read it
+    }
+    __syncwarp();  // the warp's x tile of this stage is read: it may be refilled
+    if constexpr (INT8) {
+      // the next tile is whole, and every product has read this one
+      consumers_sync(CONSUMERS);
+      if (tid == 0 && i + 1 < steps) egs::mbar_arrive(&empty[(i + 1) % NS]);
+    } else {
+      if ((tid & 127) == 0) egs::mbar_arrive(&empty[s]);  // this warpgroup is done with s
+    }
+  }
+  if (!live) return;
+
+  // C (row, column): rows g (+8) of the warp's 16, columns 8j + 2t (+1)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wrow + g + 8 * h;
+    if (r >= cnt) continue;
+    TO* orow = out + (size_t)tok[r] * N;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const int n = n0 + col0 + j;
-      sc[j] = n < N ? bf16r(__ldg(scale + (size_t)e * N + n)) : 0.0f;
-    }
-  }
-
-  float acc[MTI][2][4];
-#pragma unroll
-  for (int mi = 0; mi < MTI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.0f;
-
-  const int steps = (nrows + MM_KS - 1) / MM_KS;
-  MmRows<TW> rows;
-  mm_load_w<TW>(rows, we, 0, nrows, n0, N);
-  mm_copy_x<MTI>(xs[0], x, tok, cnt, K, kb, 0, nrows);
-  mm_store_w<TW>(ws[0], rows, sc);
-  egs::cp_async_wait<0>();
-  __syncthreads();
-  for (int st = 0; st < steps; ++st) {
-    const int buf = st & 1;
-    const bool more = st + 1 < steps;
-    if (more) {
-      mm_load_w<TW>(rows, we, (st + 1) * MM_KS, nrows, n0, N);
-      mm_copy_x<MTI>(xs[buf ^ 1], x, tok, cnt, K, kb, (st + 1) * MM_KS, nrows);
-    }
-#pragma unroll
-    for (int kk = 0; kk < MM_KS / 16; ++kk) {
-      uint32_t b[4];
-      egs::load_b_trans<MM_CH>(b, ws[buf], kk * 16, 2 * warp, lane);
-#pragma unroll
-      for (int mi = 0; mi < MTI; ++mi) {
-        if (mi < mtiles) {
-          uint32_t a[4];
-          egs::load_a<MM_CH>(a, xs[buf], mi * 16, kk, lane);
-          egs::mma16816(acc[mi][0], a, b[0], b[1]);
-          egs::mma16816(acc[mi][1], a, b[2], b[3]);
-        }
-      }
-    }
-    if (more) {
-      mm_store_w<TW>(ws[buf ^ 1], rows, sc);
-      egs::cp_async_wait<0>();
-    }
-    __syncthreads();
-  }
-
-  // C tile (mi, ni): rows mi*16 + g (+8), columns n0 + (2 warp + ni) * 8 + 2t (+1)
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < MTI; ++mi) {
-    if (mi >= mtiles) continue;
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni) {
-      const int n = n0 + (2 * warp + ni) * 8 + 2 * t;
-      if (n >= N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = mi * 16 + g + 8 * h;
-        if (r >= cnt) continue;
-        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        if (part != nullptr) {
-          *reinterpret_cast<float2*>(part + ((size_t)blockIdx.z * T + tok[r]) * N + n) =
-              make_float2(v0, v1);
-        } else if constexpr (std::is_same<TO, float>::value) {
-          *reinterpret_cast<float2*>(out + (size_t)tok[r] * N + n) = make_float2(v0, v1);
-        } else {
-          *reinterpret_cast<uint32_t*>(out + (size_t)tok[r] * N + n) = egs::pack_bf16(v0, v1);
-        }
-      }
+      const int n = n0 + 8 * j + 2 * t;
+      if (n < N) store_pair<TO>(orow + n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
 }
 
-// The plan of a call, stated once and from the shapes only: the kernel
-// (tensor cores for bf16 x on aligned rows, CUDA cores for float32 x and
-// odd shapes), token runs a block, and the K split.  K is split so
-// that the grid's blocks that can hold tokens reach TARGET_BLOCKS, each
-// split at least 256 rows, and (CUDA cores) at most the rows a block
-// stages.
+// -- the plan and the launches -------------------------------------------------
+
+enum Route { CORES = 0, RING = 1, GROUPED = 2 };
+
+// The plan of a call, stated once and from the shapes only.  bf16 x on
+// aligned rows with N a multiple of 16 and K of 8 takes tensor cores:
+// the wgmma kernel where an expert averages more than a run of 16 tokens,
+// else the ring kernel, whose K is split (a cluster of at most 8, each
+// split at least 256 rows) so that the grid's blocks that can hold tokens
+// reach ring::TARGET, and past 2048 rows into splits of at most 1024.
+// Anything else takes CUDA cores, split toward TARGET_BLOCKS (each split at
+// most the rows a block stages).
 struct Plan {
-  bool mma;
-  int mti;     // m16 token tiles a block (tensor cores)
-  int chunks;  // token runs an expert
+  int route;
+  int tok;     // tokens a run
+  int chunks;  // runs an expert
   int rows;    // K rows a split
-  int splits;
+  int splits;  // ring: the cluster; CUDA cores: partials and the combine kernel
 };
 
-Plan make_plan(int T, int K, int N, int E, bool dense, int dtype, bool aligned) {
+Plan make_plan(int T, int K, int N, int E, bool dense, int dtype, bool w_int8, bool aligned) {
   Plan p;
-  p.mma = dtype == 1 && aligned && N % 16 == 0 && K % 8 == 0;
-  p.mti = T <= 16 * (dense ? 1 : E) ? 1 : 4;
-  p.chunks = ceil_div(T, p.mma ? 16 * p.mti : MT);
-  const int tiles = ceil_div(N, NT);
+  const bool tc = dtype == 1 && aligned && N % 16 == 0 && K % 8 == 0;
   const int used = T < E ? T : E;  // experts at most some token chose
-  const int live = tiles * (dense || p.chunks > used ? p.chunks : used);
-  int s = ceil_div(TARGET_BLOCKS, live > 0 ? live : 1);
+  if (tc && T > ring::TOK * (dense ? 1 : E)) {
+    p.route = GROUPED;
+    p.tok = grp::TOK;
+    p.chunks = ceil_div(T, p.tok);
+    p.rows = K;
+    p.splits = 1;
+    return p;
+  }
+  const bool ring_k = K <= 8 * ring::MAX_ROWS;
+  p.route = tc && ring_k ? RING : CORES;
+  // ring runs of 8 tokens where an expert averages at most 8, else 16
+  p.tok = p.route == RING ? (T <= 8 * (dense ? 1 : E) ? 8 : ring::TOK) : MT;
+  p.chunks = ceil_div(T, p.tok);
+  const int bn = p.route != RING ? NT
+                 : w_int8 ? ring::Tile<int8_t>::BN : ring::Tile<__nv_bfloat16>::BN;
+  const int live = ceil_div(N, bn) * (dense || p.chunks > used ? p.chunks : used);
+  int s = ceil_div(p.route == RING ? ring::TARGET : TARGET_BLOCKS, live > 0 ? live : 1);
   const int cap = K / 256 > 1 ? K / 256 : 1;
   if (s > cap) s = cap;
-  const int x_bytes = dtype == 1 ? 2 : 4;
-  if (!p.mma && s < ceil_div(K, max_rows(x_bytes))) s = ceil_div(K, max_rows(x_bytes));
-  const int unit = p.mma ? MM_KS : 32;
+  int unit;
+  if (p.route == RING) {
+    if (K > ring::MAX_ROWS && s < ceil_div(K, ring::SPLIT_ROWS)) s = ceil_div(K, ring::SPLIT_ROWS);
+    if (s > 8) s = 8;
+    if (s < ceil_div(K, ring::MAX_ROWS)) s = ceil_div(K, ring::MAX_ROWS);
+    unit = ring::ROWS;
+  } else {
+    const int x_bytes = dtype == 1 ? 2 : 4;
+    if (s < ceil_div(K, max_rows(x_bytes))) s = ceil_div(K, max_rows(x_bytes));
+    unit = 32;
+  }
   p.rows = ceil_div(ceil_div(K, s), unit) * unit;
   p.splits = ceil_div(K, p.rows);
   return p;
 }
 
+// W (E, K, N) as a 3-D tensor map (N, K, E) with boxes of box_rows K rows
+// x box_cols columns, rows and columns past the end read 0
+int weight_map(CUtensorMap* map, const void* w, bool int8, int K, int N, int E, int box_cols,
+               int box_rows, bool swizzle, CUtensorMapL2promotion l2) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &res);
+    if (err != cudaSuccess) return (int)err;
+    if (res != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t es = int8 ? 1 : 2;
+  cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
+  cuuint64_t strides[2] = {(cuuint64_t)N * es, (cuuint64_t)K * N * es};
+  cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = encode(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      3, const_cast<void*>(w), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                      l2, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <typename TW, typename TO, int NT8>
+int launch_ring(const Plan& pl, const void* x, const void* w, const void* scale, const void* ids,
+                void* out, int T, int K, int N, int E, unsigned gy, cudaStream_t stream) {
+  constexpr bool INT8 = std::is_same<TW, int8_t>::value;
+  constexpr int BN = ring::Tile<TW>::BN;
+  CUtensorMap tm;
+  int err = weight_map(&tm, w, INT8, K, N, E, BN, ring::ROWS, false,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+  if (err) return err;
+  const size_t smem = ring::smem_bytes<TW>(pl.rows, 8 * NT8);
+  auto kern = expert_matmul_ring_kernel<TW, TO, NT8>;
+  err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ceil_div(N, BN), gy, pl.splits);
+  cfg.blockDim = dim3(ring::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = pl.splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = pl.splits > 1 ? 1 : 0;  // one split: no cluster
+  const egs::bf16* xp = static_cast<const egs::bf16*>(x);
+  const float* sp = static_cast<const float*>(scale);
+  const int* ip = static_cast<const int*>(ids);
+  TO* op = static_cast<TO*>(out);
+  int chunks = pl.chunks, rows = pl.rows;
+  void* args[] = {&tm, &xp, &sp, &ip, &op, &T, &K, &N, &chunks, &rows};
+  err = (int)cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kern), args);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+template <typename TW, typename TO>
+int launch_grouped(const Plan& pl, const void* x, const void* w, const void* scale,
+                   const void* ids, void* out, int T, int K, int N, int E, unsigned gy,
+                   cudaStream_t stream) {
+  constexpr bool INT8 = std::is_same<TW, int8_t>::value;
+  CUtensorMap tm;
+  int err = weight_map(&tm, w, INT8, K, N, E, INT8 ? 128 : 64, grp::ROWS, !INT8,
+                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+  if (err) return err;
+  constexpr size_t smem = grp::Stage<TW>::SMEM;
+  auto kern = expert_matmul_wgmma_kernel<TW, TO>;
+  err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  const dim3 grid(ceil_div(N, grp::BN), gy, 1);
+  kern<<<grid, grp::THREADS, smem, stream>>>(
+      tm, static_cast<const egs::bf16*>(x), static_cast<const float*>(scale),
+      static_cast<const int*>(ids), static_cast<TO*>(out), T, K, N, pl.chunks);
+  return (int)cudaGetLastError();
+}
+
 template <typename TX, typename TW, typename TO>
 int launch(const void* x, const void* w, const void* scale, const void* ids, void* out,
            void* part, int T, int K, int N, int E, bool aligned, cudaStream_t stream) {
+  constexpr bool INT8 = std::is_same<TW, int8_t>::value;
   const bool dense = ids == nullptr;
-  const Plan pl = make_plan(T, K, N, E, dense, std::is_same<TX, float>::value ? 0 : 1, aligned);
+  const Plan pl = make_plan(T, K, N, E, dense, std::is_same<TX, float>::value ? 0 : 1, INT8,
+                            aligned);
   const long long gy = (long long)(dense ? 1 : E) * pl.chunks;
   if (gy > 65535) return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+    if (pl.route == RING && pl.tok == 8)
+      return launch_ring<TW, TO, 1>(pl, x, w, scale, ids, out, T, K, N, E, (unsigned)gy, stream);
+    if (pl.route == RING)
+      return launch_ring<TW, TO, 2>(pl, x, w, scale, ids, out, T, K, N, E, (unsigned)gy, stream);
+    if (pl.route == GROUPED)
+      return launch_grouped<TW, TO>(pl, x, w, scale, ids, out, T, K, N, E, (unsigned)gy,
+                                    stream);
+  }
   if (pl.splits > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
   const dim3 grid(ceil_div(N, NT), (unsigned)gy, pl.splits);
   float* p = pl.splits > 1 ? static_cast<float*>(part) : nullptr;
@@ -588,27 +1100,16 @@ int launch(const void* x, const void* w, const void* scale, const void* ids, voi
   const float* sp = static_cast<const float*>(scale);
   const int* ip = static_cast<const int*>(ids);
   TO* op = static_cast<TO*>(out);
-  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
-    if (pl.mma && pl.mti == 1)
-      expert_matmul_mma_kernel<TW, TO, 1><<<grid, MM_THREADS, 0, stream>>>(
-          xp, wp, sp, ip, op, p, T, K, N, pl.chunks, pl.rows);
-    else if (pl.mma)
-      expert_matmul_mma_kernel<TW, TO, 4><<<grid, MM_THREADS, 0, stream>>>(
-          xp, wp, sp, ip, op, p, T, K, N, pl.chunks, pl.rows);
-  }
-  if (!pl.mma) {
-    if (N % 8 == 0 && aligned)
-      expert_matmul_kernel<TX, TW, TO, true><<<grid, NTHREADS, 0, stream>>>(
-          xp, wp, sp, ip, op, p, T, K, N, pl.chunks, pl.rows);
-    else
-      expert_matmul_kernel<TX, TW, TO, false><<<grid, NTHREADS, 0, stream>>>(
-          xp, wp, sp, ip, op, p, T, K, N, pl.chunks, pl.rows);
-  }
+  if (N % 8 == 0 && aligned)
+    expert_matmul_kernel<TX, TW, TO, true><<<grid, NTHREADS, 0, stream>>>(
+        xp, wp, sp, ip, op, p, T, K, N, pl.chunks, pl.rows);
+  else
+    expert_matmul_kernel<TX, TW, TO, false><<<grid, NTHREADS, 0, stream>>>(
+        xp, wp, sp, ip, op, p, T, K, N, pl.chunks, pl.rows);
   if (pl.splits > 1) {
     const long long TN = (long long)T * N;
     const int blocks = (int)((TN + 255) / 256 < 4 * 132 ? (TN + 255) / 256 : 4 * 132);
-    expert_matmul_combine_kernel<TO><<<blocks, 256, 0, stream>>>(p, static_cast<TO*>(out), TN,
-                                                                 pl.splits);
+    expert_matmul_combine_kernel<TO><<<blocks, 256, 0, stream>>>(p, op, TN, pl.splits);
   }
   return (int)cudaGetLastError();
 }
@@ -624,23 +1125,26 @@ int launch_out(int out_f32, const void* x, const void* w, const void* scale, con
 
 }  // namespace
 
-// fp32 words of scratch the call needs for its K splits' partials (0 with
-// one split); the wrapper allocates them.  dense: no ids (E = 1); dtype:
-// x's (0 = float32, 1 = bfloat16); aligned: x and w start on 16 bytes.
+// fp32 words of scratch the call needs for its K splits' partials (0 unless
+// CUDA cores split K); the wrapper allocates them.  dense: no ids (E = 1);
+// dtype: x's (0 = float32, 1 = bfloat16); w_int8: an int8 weight; aligned:
+// x and w start on 16 bytes.
 extern "C" long long egs_expert_matmul_workspace(int T, int K, int N, int E, int dense,
-                                                int dtype, int aligned) {
+                                                int dtype, int w_int8, int aligned) {
   if (T <= 0 || K <= 0 || N <= 0 || E <= 0) return 0;
-  const Plan p = make_plan(T, K, N, E, dense != 0, dtype, aligned != 0);
-  return p.splits > 1 ? (long long)p.splits * T * N : 0;
+  const Plan p = make_plan(T, K, N, E, dense != 0, dtype, w_int8 != 0, aligned != 0);
+  return p.route == CORES && p.splits > 1 ? (long long)p.splits * T * N : 0;
 }
 
-// The plan of a call: K splits (1: no combine kernel runs) times 2 when
-// the tensor-core kernel runs.
+// The plan of a call: route (0 CUDA cores, 1 the ring kernel, 2 the wgmma
+// kernel) | K splits << 4 (the ring kernel's cluster; 1: one split) | the
+// weight ring's stages << 8 (0 on CUDA cores).
 extern "C" int egs_expert_matmul_plan(int T, int K, int N, int E, int dense, int dtype,
-                                      int aligned) {
-  if (T <= 0 || K <= 0 || N <= 0 || E <= 0) return 2;
-  const Plan p = make_plan(T, K, N, E, dense != 0, dtype, aligned != 0);
-  return p.splits * 2 + (p.mma ? 1 : 0);
+                                      int w_int8, int aligned) {
+  if (T <= 0 || K <= 0 || N <= 0 || E <= 0) return 1 << 4;
+  const Plan p = make_plan(T, K, N, E, dense != 0, dtype, w_int8 != 0, aligned != 0);
+  const int stages = p.route == RING ? ring::NS : p.route == GROUPED ? grp::NS : 0;
+  return p.route | (p.splits << 4) | (stages << 8);
 }
 
 // x (T, K) in the compute dtype (0 = float32, 1 = bfloat16); w (E, K, N)
@@ -648,7 +1152,7 @@ extern "C" int egs_expert_matmul_plan(int T, int K, int N, int E, int dense, int
 // int32 in [0, E), or null (every token on expert 0); out (T, N) in the
 // compute dtype, or fp32 (out_f32 = 1); part: egs_expert_matmul_workspace
 // fp32 words (null when 0).  All contiguous; aligned as the wrapper found
-// them (checked).  Returns cudaGetLastError().
+// them (checked).  Returns the launch's error, else cudaGetLastError().
 extern "C" int egs_expert_matmul(const void* x, const void* w, const void* scale,
                                  const void* ids, void* out, void* part, int T, int K, int N,
                                  int E, int dtype, int w_int8, int out_f32, int aligned,

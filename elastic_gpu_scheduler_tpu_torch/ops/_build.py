@@ -82,9 +82,9 @@ _SIGNATURES = {
     "egs_flash_bwd_dkv": ([_P] * 8 + [_I] * 8 + [_F, _P], ctypes.c_int),
     # x, w, scale, ids, out, part, T, K, N, E, dtype, w_int8, out_f32, aligned, stream
     "egs_expert_matmul": ([_P] * 6 + [_I] * 8 + [_P], ctypes.c_int),
-    # T, K, N, E, dense, dtype, aligned
-    "egs_expert_matmul_workspace": ([_I] * 7, ctypes.c_longlong),
-    "egs_expert_matmul_plan": ([_I] * 7, ctypes.c_int),
+    # T, K, N, E, dense, dtype, w_int8, aligned
+    "egs_expert_matmul_workspace": ([_I] * 8, ctypes.c_longlong),
+    "egs_expert_matmul_plan": ([_I] * 8, ctypes.c_int),
     "egs_error_string": ([_I], ctypes.c_char_p),
 }
 

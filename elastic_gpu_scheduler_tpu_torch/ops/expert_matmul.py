@@ -10,11 +10,11 @@ It replaces no Pallas kernel: in the reference this is XLA's fusion of
 ``wmat`` into the matmul's weight read (``models/quantize.py``) and the
 gather and ``lax.ragged_dot`` forms of ``_moe_ffn_serve``
 (``models/serving.py``).  On a CUDA tensor ``expert_matmul`` launches
-``csrc/expert_matmul.cu``, which reads the weights in place (int8 stays
-int8 until it is in registers), finds each expert's tokens on the device
-and touches only experts that some token chose; on a CPU tensor it
-computes ``expert_matmul_reference``.  Its launches count as
-``expert_matmul``.
+``csrc/expert_matmul.cu`` once, which reads the weights in place through a
+TMA ring (int8 stays int8 until it is in registers), finds each expert's
+tokens on the device and touches only experts that some token chose; on a
+CPU tensor it computes ``expert_matmul_reference``.  Its launches count as
+``expert_matmul``.  ``expert_matmul_plan`` names the kernel a call takes.
 
 Both dequantise as the reference's ``wmat``: for a bf16 x,
 ``bf16(bf16(q) * bf16(scale))``; for a float32 x, ``float(q) * scale``.
@@ -115,7 +115,8 @@ def _expert_matmul_cuda(x, w, ids, scale, out_dtype):
         return out
     lib = _build.lib()
     x = x.contiguous()
-    plan = (T, K, N, E, int(ids is None), _DTYPE_CODES[x.dtype], _aligned(x, w))
+    plan = (T, K, N, E, int(ids is None), _DTYPE_CODES[x.dtype], int(w.dtype == torch.int8),
+            _aligned(x, w))
     n_part = lib.egs_expert_matmul_workspace(*plan)
     part = torch.empty(n_part, dtype=torch.float32, device=x.device) if n_part else None
     sc = scale.contiguous() if scale is not None else None
@@ -135,11 +136,22 @@ def _aligned(x, w) -> int:
     return int(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
+# the kernels by route, as the plan's route code numbers them
+ROUTES = ("expert_matmul_kernel", "expert_matmul_ring_kernel", "expert_matmul_wgmma_kernel")
+
+
 def expert_matmul_plan(x: torch.Tensor, w: torch.Tensor, ids: Optional[torch.Tensor]) -> dict:
-    """The plan the kernel gives a call, from the shapes only: its K splits
-    (1: no combine kernel) and whether the tensor-core kernel runs."""
+    """The plan the kernel gives a call, from the shapes only: the kernel
+    (``route``: CUDA cores, the ring kernel for decode runs, the wgmma kernel
+    for grouped runs), its K splits (the ring kernel's thread-block
+    cluster; CUDA cores add theirs with the combine kernel), and the depth
+    of the TMA weight ring (0 on CUDA cores)."""
     T, K = x.shape
     E, _, N = w.shape
     code = _build.lib().egs_expert_matmul_plan(T, K, N, E, int(ids is None),
-                                                _DTYPE_CODES[x.dtype], _aligned(x, w))
-    return {"splits": code // 2, "tensor_cores": bool(code % 2)}
+                                                _DTYPE_CODES[x.dtype], int(w.dtype == torch.int8),
+                                                _aligned(x, w))
+    route, splits, stages = code & 15, (code >> 4) & 15, code >> 8
+    return {"route": ROUTES[route], "tensor_cores": route > 0, "splits": splits,
+            "cluster": splits if route == 1 else 1, "ring_depth": stages,
+            "combine": route == 0 and splits > 1}

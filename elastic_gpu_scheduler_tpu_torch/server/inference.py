@@ -50,6 +50,8 @@ import json
 import logging
 import math
 import queue
+import select
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -90,6 +92,9 @@ class EngineLoop:
     def __init__(self, engine: InferenceEngine):
         self.engine = engine
         self.idle_parks = 0
+        # set while the loop waits for work (so after its drain), cleared
+        # when it wakes: a park that follows a request's completion
+        self.parked = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # set by the LOOP thread when it observes draining + idle
@@ -143,7 +148,9 @@ class EngineLoop:
                         and not self._stop.is_set()
                     ):
                         self.idle_parks += 1
+                        self.parked.set()
                         eng._work.wait()
+                        self.parked.clear()
                 failures = 0
             except RuntimeError as e:
                 if "page pool exhausted" not in str(e):
@@ -839,8 +846,11 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
             """Write (choice, token, logprob, top) items from ``q`` as SSE
             events, one HTTP chunk per burst, until every request is done
             or the deadline passes; then each error event and [DONE].
-            Events carry "index" when there are several choices; a dead
-            client cancels the requests."""
+            Events carry "index" when there are several choices.  A dead
+            client cancels the requests: seen on a write, or while no token
+            is due (still queued, or between chunks) by a peek of the socket
+            and two SSE-comment pings, which a half-closed client that still
+            reads survives."""
             n = len(reqs)
             self.send_response(200, "OK")
             self.send_header("Content-Type", "text/event-stream")
@@ -863,7 +873,14 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                     ev["top_logprobs"] = [{"id": t, "logprob": v} for t, v in top]
                 return json.dumps(ev)
 
+            def ping() -> None:
+                # an SSE comment line, which clients ignore: a probe of the socket
+                data = b": ping\n\n"
+                self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+                self.wfile.flush()
+
             sent = 0
+            half_closed = False  # the client shut down its sending side: legal
             deadline = time.monotonic() + request_timeout
             try:
                 while time.monotonic() < deadline:
@@ -872,6 +889,19 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                     except queue.Empty:
                         if all(r.done.is_set() for r in reqs) and q.empty():
                             break
+                        if not half_closed and self._client_gone():
+                            # EOF while no token is due (queued, or between
+                            # chunks): a closed client, or a half-close that
+                            # still reads.  Two pings tell them apart: a closed
+                            # socket raises by the second write (the first may
+                            # sit in the send buffer until the reset comes back)
+                            try:
+                                ping()
+                                time.sleep(0.05)
+                                ping()
+                            except OSError:
+                                raise BrokenPipeError("client disconnected") from None
+                            half_closed = True  # EOF stays: stop peeking
                         continue
                     items = [first]
                     while True:  # one HTTP chunk per burst of tokens
@@ -895,8 +925,25 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 self.wfile.flush()
             except (BrokenPipeError, ConnectionResetError):
                 for r in reqs:
-                    r.cancel()  # dead client: stop generating for it
+                    r.cancel()  # dead client: a slot goes at the next chunk boundary
+                engine._purge_cancelled_queued()  # a queue entry goes now
                 log.info("stream client disconnected after %d tokens", sent)
+
+        def _client_gone(self) -> bool:
+            """True when a zero-timeout peek finds the client socket at EOF
+            or in error.  Completion clients send nothing mid-stream, so a
+            readable socket with no bytes is a close (or a half-close, which
+            the caller's ping tells apart).  ``poll``, not ``select``:
+            ``select`` raises for descriptors past FD_SETSIZE, which a busy
+            server would take for a disconnect."""
+            try:
+                p = select.poll()
+                p.register(self.connection, select.POLLIN | select.POLLHUP)
+                if not p.poll(0):
+                    return False
+                return self.connection.recv(1, socket.MSG_PEEK) == b""
+            except OSError:
+                return True
 
     return InferenceHandler
 

@@ -1,6 +1,7 @@
 """The port's HTTP front end on the CPU: completions as JSON and as SSE,
-stats, health, version, validation, and the pool-exhaustion preemption of
-the serving loop — over real sockets."""
+stats, health, version, validation, the pool-exhaustion preemption of
+the serving loop, and a streaming client that goes away (mid-stream,
+while queued) or half-closes — over real sockets."""
 
 import http.client
 import json
@@ -278,6 +279,115 @@ def test_drain_rejects_new_and_finishes_inflight():
         assert _get(server.server_address, "/healthz")[0] == 503
         code, body = _post(server.server_address, {"prompt": [1, 2], "max_tokens": 2})
         assert code == 503 and "draining" in body["error"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+
+
+# -- a streaming client that goes away (the reference's
+# tests/test_stop_stream.py holds its server to the same): a dead client
+# releases its slot or its queue entry at once, found on a write or, with no
+# token due, by the handler's peek of the socket; a half-close is no
+# disconnect
+
+
+def _poll(fn, timeout):
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if fn():
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def _stream_socket(port, body):
+    raw = json.dumps(body).encode()
+    s = socket.create_connection(("127.0.0.1", port), timeout=10)
+    s.sendall(f"POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+              f"Content-Length: {len(raw)}\r\n\r\n".encode() + raw)
+    return s
+
+
+def test_client_disconnect_mid_stream_releases_slot_promptly():
+    engine = InferenceEngine(_params(), CFG, max_batch=2, max_len=1024, page_size=16,
+                             device="cpu")
+    server, loop = serve_inference(engine, port=0, host="127.0.0.1")
+    try:
+        s = _stream_socket(server.server_address[1],
+                           {"prompt": [3, 9, 14], "max_tokens": 900, "stream": True})
+        buf = b""
+        while buf.count(b"data:") < 3:  # tokens flow; then vanish
+            buf += s.recv(4096)
+        s.close()
+        assert _poll(lambda: all(sl is None for sl in engine.slots), 20), \
+            "slot not released after the client disconnected"
+        assert engine.tokens_emitted < 900, "decoded to the end for a dead client"
+        r = engine.submit(Request(prompt=[2, 4, 6], max_new_tokens=5))
+        assert r.done.wait(60) and not r.error  # the slot takes a new request
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+
+
+def test_queued_request_disconnect_detected_without_any_token():
+    """The idle peek: a stream still queued (one slot, held) has no token
+    to write, so no broken pipe would show; the handler finds the EOF
+    itself and cancels, and the queue purges the entry before it ever
+    takes a slot.  A wider, deeper model than the module's keeps the one
+    slot streaming for seconds on the CPU, so the queued stream is still
+    queued when its client goes."""
+    cfg = TransformerConfig(vocab_size=64, d_model=512, n_layers=12, n_heads=8, d_ff=1024,
+                            dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    engine = InferenceEngine(params, cfg, max_batch=1, max_len=1024, page_size=16,
+                             device="cpu")
+    server, loop = serve_inference(engine, port=0, host="127.0.0.1")
+    try:
+        port = server.server_address[1]
+        s1 = _stream_socket(port, {"prompt": [3, 9, 14], "max_tokens": 1000, "stream": True})
+        buf = b""
+        while buf.count(b"data:") < 2:  # the slot is busy streaming
+            buf += s1.recv(4096)
+        s2 = _stream_socket(port, {"prompt": [2, 4, 6], "max_tokens": 1000, "stream": True})
+        assert _poll(lambda: engine.queue.qsize() >= 1, 10), "s2 never queued"
+        queued = engine.queue.qsize()
+        s2.close()  # gone while queued: not one token was written to it
+        assert _poll(lambda: engine.queue.qsize() < queued, 20), \
+            "the cancelled queued request was never purged"
+        assert engine.slots[0] is not None and not engine.slots[0].done.is_set(), \
+            "s1 finished before the check: no token-free window was tested"
+        before = engine.tokens_emitted
+        s1.close()
+        assert _poll(lambda: all(sl is None for sl in engine.slots), 20)
+        assert engine.tokens_emitted < before + 1000, "decoded for a dead client"
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+
+
+def test_half_closed_client_still_receives_full_stream():
+    """shutdown(SHUT_WR) after the request, still reading: the EOF alone is
+    no disconnect (the pings tell it apart), and the whole stream arrives."""
+    engine = InferenceEngine(_params(), CFG, max_batch=2, max_len=256, page_size=16,
+                             device="cpu")
+    server, loop = serve_inference(engine, port=0, host="127.0.0.1")
+    try:
+        s = _stream_socket(server.server_address[1],
+                           {"prompt": [3, 9, 14], "max_tokens": 24, "stream": True})
+        s.shutdown(socket.SHUT_WR)
+        s.settimeout(120)
+        buf = b""
+        while b"data: [DONE]" not in buf:
+            b = s.recv(4096)
+            if not b:
+                break
+            buf += b
+        s.close()
+        assert b"data: [DONE]" in buf, "the half-closed client lost its stream"
+        assert buf.count(b'"token"') == 24
     finally:
         server.shutdown()
         server.server_close()

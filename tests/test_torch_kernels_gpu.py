@@ -1114,32 +1114,172 @@ def test_expert_matmul_bitwise_repeatable_and_graph_replay_equals_eager(cuda):
 
 @pytest.mark.gpu
 def test_expert_matmul_kernel_route(cuda):
-    """The profiler sees the kernel the plan names (tensor cores for bf16
-    at N a multiple of 16), and the combine kernel exactly when the plan
-    splits K (a few rows over a narrow N)."""
+    """The profiler sees the kernel the plan names: the ring kernel for bf16
+    decode runs (its K splits one thread-block cluster, no combine kernel),
+    the wgmma kernel for grouped runs, CUDA cores for float32 and for a
+    bf16 N that is not a multiple of 16, and the combine kernel exactly when
+    CUDA cores split K."""
     from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import (
         expert_matmul,
         expert_matmul_plan,
     )
 
-    # (T, E, K, N, dtype) -> (tensor cores, K split): the MoE decode, the
-    # int8 wq of a decode step, the grouped prefill, a float32 int8 decode,
-    # a bf16 N that is not a multiple of 16
-    routes = {(8, 8, 2048, 6912, torch.bfloat16): (True, False),
-              (8, 1, 2048, 2048, torch.bfloat16): (True, True),
-              (512, 8, 2048, 6912, torch.bfloat16): (True, False),
-              (8, 1, 2048, 2048, torch.float32): (False, True),
-              (8, 8, 256, 200, torch.bfloat16): (False, False)}
-    for (T, E, K, N, dtype), (tc, split) in routes.items():
+    # (T, E, K, N, dtype) -> (kernel, K splits, ring depth): the MoE decode
+    # (w_gate unsplit, w_out in a cluster of 7), the int8 wq of a decode
+    # step (a cluster of 5), the grouped prefill, the int8 dense prefill, a
+    # float32 int8 decode, a bf16 N that is not a multiple of 16
+    routes = {(8, 8, 2048, 6912, torch.bfloat16): ("expert_matmul_ring_kernel", 1, 4),
+              (8, 8, 6912, 2048, torch.bfloat16): ("expert_matmul_ring_kernel", 7, 4),
+              (8, 1, 2048, 2048, torch.bfloat16): ("expert_matmul_ring_kernel", 5, 4),
+              (512, 8, 2048, 6912, torch.bfloat16): ("expert_matmul_wgmma_kernel", 1, 4),
+              (512, 1, 2048, 6912, torch.bfloat16): ("expert_matmul_wgmma_kernel", 1, 4),
+              (8, 1, 2048, 2048, torch.float32): ("expert_matmul_kernel", 8, 0),
+              (8, 8, 256, 200, torch.bfloat16): ("expert_matmul_kernel", 1, 0)}
+    for (T, E, K, N, dtype), (kernel, splits, depth) in routes.items():
         x, w, sc = _ke_inputs(cuda, T, E, K, N, dtype, True)
         ids = _ke_ids(T, E, "spread" if E > 1 else None, cuda)
         plan = expert_matmul_plan(x, w, ids)
-        assert (plan["tensor_cores"], plan["splits"] > 1) == (tc, split), (T, E, K, N, plan)
+        assert (plan["route"], plan["splits"], plan["ring_depth"]) == (kernel, splits, depth), (
+            T, E, K, N, plan)
+        ring = kernel == "expert_matmul_ring_kernel"
+        assert plan["cluster"] == (splits if ring else 1)
+        assert plan["tensor_cores"] == (kernel != "expert_matmul_kernel")
+        assert plan["combine"] == (not plan["tensor_cores"] and splits > 1)
         names = _kernel_names(lambda: expert_matmul(x, w, ids, scale=sc),
                               r"expert_matmul_\w*?kernel")
-        want = {"expert_matmul_mma_kernel" if tc else "expert_matmul_kernel"}
-        want |= {"expert_matmul_combine_kernel"} if split else set()
+        want = {kernel} | ({"expert_matmul_combine_kernel"} if plan["combine"] else set())
         assert names == want, (T, E, K, N, names)
+
+
+def _ke_check(cuda, T, E, K, N, int8, ids="spread", seed=0):
+    """One bf16 call at this shape (bf16 and fp32 out) against the plain
+    version, one launch each, its plan and the kernels the profiler saw."""
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import (
+        expert_matmul,
+        expert_matmul_plan,
+        expert_matmul_reference,
+    )
+
+    x, w, sc = _ke_inputs(cuda, T, E, K, N, torch.bfloat16, int8, seed=seed)
+    ids = _ke_ids(T, E, ids if E > 1 else None, cuda)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        before = _build.LAUNCHES["expert_matmul"]
+        got = expert_matmul(x, w, ids, scale=sc, out_dtype=out_dtype)
+        assert _build.LAUNCHES["expert_matmul"] == before + 1
+        want = expert_matmul_reference(x, w, ids, sc, out_dtype)
+        torch.cuda.synchronize()
+        atol, rtol = KE_TOL[torch.bfloat16]
+        d = (got.float() - want.float()).abs()
+        assert bool((d <= atol + rtol * want.float().abs()).all()), (T, E, K, N, float(d.max()))
+        assert bool(torch.isfinite(got).all())
+    names = _kernel_names(lambda: expert_matmul(x, w, ids, scale=sc), r"expert_matmul_\w*?kernel")
+    return x, w, sc, ids, expert_matmul_plan(x, w, ids), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", KE_CASES, ids=str)
+def test_expert_matmul_new_route_at_every_case(cuda, case, int8):
+    """Every KE_CASES shape in bf16 (a dense weight only as int8): N a
+    multiple of 16 takes the ring or the wgmma kernel, alone, within
+    tolerance; 97 and 200 stay on CUDA cores."""
+    T, E, K, N, ids = case
+    if ids is None and not int8:
+        pytest.skip("a dense bf16 weight is torch.matmul's, never KE's")
+    *_, plan, names = _ke_check(cuda, T, E, K, N, int8, ids=ids)
+    if N % 16:
+        assert plan["route"] == "expert_matmul_kernel"
+    else:
+        want = ("expert_matmul_wgmma_kernel" if T > 16 * E else "expert_matmul_ring_kernel")
+        assert plan["route"] == want and names == {want}, (plan, names)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster,shape", [
+    (2, (8, 1, 2048, 6912)),    # the int8 w_gate / w_in
+    (3, (8, 1, 1000, 208)),     # a ragged last split (232 rows)
+    (4, (8, 1, 2048, 2560)),
+    (5, (8, 1, 2048, 2048)),    # the int8 wq
+    (7, (8, 8, 6912, 2048)),    # the MoE + int8 w_out
+    (8, (8, 1, 2048, 1024)),    # the int8 wk / wv
+])
+def test_expert_matmul_cluster_split_bitwise_repeatable(cuda, cluster, shape):
+    """K split across a thread-block cluster, summed in split order from
+    distributed shared memory: the plan's cluster, within tolerance, equal
+    bytes twice, no combine kernel."""
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import expert_matmul
+
+    T, E, K, N = shape
+    x, w, sc, ids, plan, names = _ke_check(cuda, T, E, K, N, True, seed=4)
+    assert (plan["route"], plan["cluster"]) == ("expert_matmul_ring_kernel", cluster), plan
+    assert names == {"expert_matmul_ring_kernel"}
+    for out_dtype in (torch.bfloat16, torch.float32):
+        a = expert_matmul(x, w, ids, scale=sc, out_dtype=out_dtype)
+        b = expert_matmul(x, w, ids, scale=sc, out_dtype=out_dtype)
+        assert torch.equal(a, b), out_dtype
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", [(8, 4, 1000, 208), (5, 1, 1000, 208), (300, 2, 1000, 208),
+                                   (70, 1, 1000, 208)], ids=str)
+def test_expert_matmul_ragged_n_and_k(cuda, shape, int8):
+    """N 208 (not a multiple of either tile's 64 or 128 columns: TMA reads
+    zeros past it, the consumers mask the stores) and K 1000 (a ragged last
+    64-row stage: zeros from TMA and from the staged x) on both tensor-core
+    kernels."""
+    T, E, K, N = shape
+    if E == 1 and not int8:
+        pytest.skip("a dense bf16 weight is torch.matmul's, never KE's")
+    *_, plan, names = _ke_check(cuda, T, E, K, N, int8, seed=5)
+    want = "expert_matmul_wgmma_kernel" if T > 16 * E else "expert_matmul_ring_kernel"
+    assert plan["route"] == want and names == {want}, (plan, names)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("E", [1, 8])
+def test_expert_matmul_grouped_wgmma_t512(cuda, E, int8):
+    """T 512 grouped through wgmma: over 8 experts (the MoE prefill) and
+    dense (the int8 prefill), within tolerance and bitwise repeatable."""
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import expert_matmul
+
+    if E == 1 and not int8:
+        pytest.skip("a dense bf16 weight is torch.matmul's, never KE's")
+    x, w, sc, ids, plan, names = _ke_check(cuda, 512, E, 2048, 6912, int8, seed=6)
+    assert plan["route"] == "expert_matmul_wgmma_kernel" and names == {plan["route"]}
+    assert torch.equal(expert_matmul(x, w, ids, scale=sc), expert_matmul(x, w, ids, scale=sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 8, 6912, 2048, True), (512, 8, 2048, 512, False),
+                                   (512, 8, 2048, 512, True)], ids=str)
+def test_expert_matmul_graph_replay_new_routes(cuda, shape):
+    """A graph captured on one routing replays three others equal to the
+    eager call: the ring kernel with its K split in a cluster of 7 (the
+    tensor map and the cluster captured by value) and the wgmma kernel."""
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import (
+        expert_matmul,
+        expert_matmul_plan,
+    )
+
+    T, E, K, N, int8 = shape
+    x, w, sc = _ke_inputs(cuda, T, E, K, N, torch.bfloat16, int8, seed=7)
+    ids = torch.zeros(T, dtype=torch.int32, device=cuda)
+    plan = expert_matmul_plan(x, w, ids)
+    assert plan["cluster"] == (7 if T == 8 else 1) and plan["tensor_cores"], plan
+    expert_matmul(x, w, ids, scale=sc)  # first use outside the capture
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = expert_matmul(x, w, ids, scale=sc)
+    rng = np.random.default_rng(8)
+    for routing in ([3] * T, rng.integers(0, E, T).tolist(), [t % E for t in range(T)]):
+        ids.copy_(torch.tensor(routing, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, expert_matmul(x, w, ids, scale=sc)), routing[:8]
 
 
 def _small_moe_engine(device, dtype, int8, **kw):

@@ -265,9 +265,11 @@ def test_engine_loop_drains_in_flight_chunk_before_parking(weights):
     try:
         r1 = eng.submit(Request(prompt=[3, 9, 14], max_new_tokens=6))
         assert r1.done.wait(60) and not r1.error
-        deadline = time.monotonic() + 10
-        while loop.idle_parks == 0 and time.monotonic() < deadline:
-            time.sleep(0.01)
+        # the loop cleared `parked` when it woke for r1, before r1 finished:
+        # set now, it marks a park after r1 (a park counted before r1 was
+        # submitted would pass a wait on idle_parks with r1's last chunk
+        # still in flight)
+        assert loop.parked.wait(10)
         assert loop.idle_parks >= 1
         assert eng._pending is None  # drained before it parked
         parks = loop.idle_parks
