@@ -147,6 +147,26 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
 7. HTTP: ``serve_inference`` on the card-resident engine, one blocking
    and one SSE completion against the engine's own tokens, /healthz and
    /v1/stats;
+7b. (run last) the observability plane on the overlapped engine (the
+   default) at the same width, every plane on (tracing and profiling at 1.0, TTFT and e2e
+   objectives): a cold batch through the engine loop with the planes off
+   and on (uploads and graph captures equal); then the main path, phase
+   6's 12 prompts as 12 concurrent SSE streams into 8 slots, each with
+   its own traceparent: launches exact (K1 L x prefills, K2 L x K x
+   chunks); one ``: slo`` comment before each stream's first token;
+   ``/metrics`` counting 12 ok requests, 768 tokens and 12 latencies, the
+   resident page gauges adding up to the pool; every trace serve.request
+   -> engine.queued -> engine.admitted under the client's span (causal on
+   ``/debug/trace/<id>``); engine.step spans exactly where the pacing puts
+   them (steps 0, 32, ... of the traced steps the profiler counted), each
+   in a trace between its admission and its response; 12 replica
+   journeys on ``/debug/slo``; ``/debug/profiles`` with the card's
+   generation and the step-sampled tokens (all but each request's prefill
+   token); client TTFT, e2e, time a token and queue wait beside the
+   server's; tokens/s of the same batch in 10 pairs of rounds (3 batches
+   a round) with every plane on and off, the cost resolved against the
+   off rounds' spread, and the idle share under torch.profiler on 2
+   batches a side; the batch behind the stdlib's listen backlog of 5;
 8. one fused decode chunk of the full-width engine under torch.profiler:
    device time by kernel and the device's idle share;
 9. the training path at the same full width (``remat``, 8 vocab chunks,
@@ -1034,25 +1054,31 @@ def k2_sampler(every: int, keep: int) -> CallSampler:
         q.clone(), lkv, tables.clone(), lengths.clone(), cfg), every=every, keep=keep)
 
 
+def full_model(dev):
+    """The full-width dense model's weights (seed 0), config and the 12
+    serve-bench prompts (seed 11)."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
+
+    cfg = TransformerConfig(**FULL)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(11)
+    return params, cfg, [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
+
+
 def phase_engine(dev):
     import torch
 
     from elastic_gpu_scheduler_tpu_torch.models import serving
     from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
-    from elastic_gpu_scheduler_tpu_torch.models.transformer import (
-        TransformerConfig,
-        init_params,
-        param_count,
-    )
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import param_count
     from elastic_gpu_scheduler_tpu_torch.ops import _build
 
-    cfg = TransformerConfig(**FULL)
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params, cfg, prompts = full_model(dev)
     log(f"engine: {param_count(params) / 1e9:.3f}B parameters, "
         f"{cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads}q/{cfg.kv_heads}kv heads, "
         f"{cfg.dtype}")
-    rng = np.random.default_rng(11)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
 
     # the sequential loop, as in every run before phase 6c existed
     eng = InferenceEngine(params, cfg, paged_kernel=True, overlap=False, device=dev, **ENGINE)
@@ -3946,6 +3972,472 @@ def phase_http(eng, prompt):
         loop.stop()
 
 
+# -- phase 7b: the observability plane ---------------------------------------
+
+
+# objectives for the replica's own journeys; windows longer than the run,
+# so every journey of a batch stays in them
+OBS_SLO = {"classes": {"serve": {"ttft_p95_ms": 2000, "e2e_p99_ms": 10000}},
+           "window_short_s": 600, "window_long_s": 1800}
+# rounds of the same HTTP batch with every plane on and every plane off,
+# in pairs ordered off-on, on-off, off-on, ...; a round times OBS_BATCHES
+# batches back to back, so host noise averages within it
+OBS_PAIRS = 10
+OBS_BATCHES = 3
+OBS_ROUNDS = tuple(bool((i + i // 2) % 2) for i in range(2 * OBS_PAIRS))
+# the device's idle share is read under torch.profiler, on separate
+# batches in the order off, on, on, off
+OBS_PROFILED = (False, True, True, False)
+
+
+def set_planes(on: bool) -> None:
+    """Every observability plane of the port on (tracing and profiling at
+    1.0, the SLO objectives loaded) or off, and emptied."""
+    from elastic_gpu_scheduler_tpu_torch.profile import PROFILER
+    from elastic_gpu_scheduler_tpu_torch.slo import SLO
+    from elastic_gpu_scheduler_tpu_torch.tracing import TRACER
+
+    TRACER.configure(1.0 if on else 0.0)
+    TRACER.reset()
+    PROFILER.configure(sample=1.0 if on else 0.0)
+    PROFILER.reset()
+    SLO.reset()
+    if on:
+        SLO.load_config(OBS_SLO)
+        SLO.default_class = "serve"
+
+
+def nearest_rank(xs, q: float) -> float:
+    """The nearest-rank quantile, the rule the SLO plane's percentiles use."""
+    s = sorted(xs)
+    return s[min(len(s) - 1, max(0, int(q * len(s) + 0.5) - 1))]
+
+
+def sse_completion(addr, body, traceparent: str) -> dict:
+    """One streamed completion, read line by line on the client's clock:
+    its tokens, the ``: slo`` comments (and whether the first came before
+    the first token), and the times of the request, the first and last
+    token and the end."""
+    conn = http.client.HTTPConnection(*addr, timeout=300)
+    out = {"tokens": [], "slo": [], "slo_before_first": False, "t_first": None,
+           "t_last": None, "done": False, "errors": []}
+    out["t0"] = time.perf_counter()
+    conn.request("POST", "/v1/completions", json.dumps(dict(body, stream=True)),
+                  {"Content-Type": "application/json", "traceparent": traceparent})
+    resp = conn.getresponse()
+    out["status"] = resp.status
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        line = line.strip()
+        if line.startswith(b": slo "):
+            out["slo"].append(json.loads(line[len(b": slo "):])["queue_ms"])
+            out["slo_before_first"] = out["t_first"] is None and len(out["slo"]) == 1
+        elif line.startswith(b"data: "):
+            payload = line[len(b"data: "):]
+            if payload == b"[DONE]":
+                out["done"] = True
+                break
+            ev = json.loads(payload)
+            if "token" not in ev:
+                out["errors"].append(ev)
+                continue
+            now = time.perf_counter()
+            if out["t_first"] is None:
+                out["t_first"] = now
+            out["t_last"] = now
+            out["tokens"].append(ev["token"])
+    out["t_end"] = time.perf_counter()
+    resp.read()
+    conn.close()
+    return out
+
+
+def http_batch(addr, prompts, tps, max_new, resets_allowed: bool = False) -> dict:
+    """``len(prompts)`` concurrent streams, each with its traceparent,
+    released together.  Returns the streams and the wall from the release
+    to the last stream's end.  ``resets_allowed``: a connection the server
+    reset is recorded (``{"reset": ...}``) and left out, not a failure."""
+    import threading
+
+    n = len(prompts)
+    results = [None] * n
+    barrier = threading.Barrier(n + 1)
+
+    def client(i):
+        barrier.wait()
+        try:
+            results[i] = sse_completion(addr, {"prompt": list(prompts[i]),
+                                               "max_tokens": max_new}, tps[i])
+        except ConnectionResetError as e:
+            if not resets_allowed:
+                raise
+            results[i] = {"reset": str(e)}
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(n)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=300)
+        check(not t.is_alive(), "a streaming client did not finish")
+    resets = sum(1 for r in results if r is not None and "reset" in r)
+    results = [r for r in results if r is not None and "reset" not in r]
+    check(len(results) + resets == n, "a streaming client failed")
+    wall = max(r["t_end"] for r in results) - t0
+    for r in results:
+        check(r["status"] == 200 and r["done"] and not r["errors"]
+              and len(r["tokens"]) == max_new, f"a stream failed: {r['status']} {r['errors']}")
+    return {"streams": results, "wall_s": wall, "resets": resets}
+
+
+def wait_parked(loop) -> None:
+    """Until the engine loop has drained and parked (its last step's
+    profile sample and spans are then recorded)."""
+    eng = loop.engine
+    deadline = time.monotonic() + 60
+    while not (loop.parked.is_set() and eng.queue.empty()
+               and all(s is None for s in eng.slots)):
+        check(time.monotonic() < deadline, "the engine loop did not park")
+        time.sleep(0.005)
+
+
+def scrape(addr) -> dict:
+    """``/metrics`` as {(sample name, labels): value}."""
+    conn = http.client.HTTPConnection(*addr, timeout=30)
+    conn.request("GET", "/metrics")
+    resp = conn.getresponse()
+    text = resp.read().decode()
+    conn.close()
+    check(resp.status == 200, f"/metrics answered {resp.status}")
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def client_latency(streams) -> dict:
+    """Client-side p50 / p99 of TTFT, e2e and the time a token after the
+    first (a stream's mean), and the queue wait its ``: slo`` comment
+    reported (p50 and max), in ms."""
+    ttft = [(s["t_first"] - s["t0"]) * 1e3 for s in streams]
+    e2e = [(s["t_end"] - s["t0"]) * 1e3 for s in streams]
+    tpot = [(s["t_last"] - s["t_first"]) * 1e3 / (len(s["tokens"]) - 1) for s in streams]
+    queue = [s["slo"][0] for s in streams]
+    return {"ttft_ms": {"p50": nearest_rank(ttft, 0.5), "p99": nearest_rank(ttft, 0.99)},
+            "e2e_ms": {"p50": nearest_rank(e2e, 0.5), "p99": nearest_rank(e2e, 0.99)},
+            "tpot_ms": {"p50": nearest_rank(tpot, 0.5), "p99": nearest_rank(tpot, 0.99)},
+            "queue_ms": {"p50": nearest_rank(queue, 0.5), "max": max(queue)}}
+
+
+def device_busy(fn, what: str) -> tuple[float, float, int]:
+    """``fn()`` once under torch.profiler (device activity): (wall ms,
+    summed ms of the device's kernels and copies, their count), read from
+    the raw kineto events, which reads a run of ~10^5 kernels in seconds
+    where ``key_averages`` takes far longer.  Fails if no try of
+    PROFILE_TRIES saw the device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if "cuda" in str(e.device_type()).lower()]
+        if ns:
+            return wall_ms, sum(ns) / 1e6, len(ns)
+        log(f"the profiler saw no device time in {what} (attempt {attempt} of {PROFILE_TRIES})")
+    fail(f"the profiler saw no device time in {what} in {PROFILE_TRIES} attempts")
+
+
+def task_batch(loop, prompts, max_new, ctx) -> dict:
+    """The batch submitted by one engine task, so every run admits alike;
+    ``ctx`` (a span context or None) goes on each request.  Returns the
+    engine's upload, capture and chunk counts it took."""
+    from elastic_gpu_scheduler_tpu_torch.models.serving import Request
+
+    eng = loop.engine
+    base = (eng.device_uploads, eng.graphs_captured, eng.steps_run)
+    reqs = [Request(prompt=list(p), max_new_tokens=max_new, trace_ctx=ctx) for p in prompts]
+    eng.run_task(lambda: [eng.submit(r) for r in reqs], timeout=120)
+    for r in reqs:
+        check(r.done.wait(300) and not r.error and len(r.output) == max_new,
+              f"a task-batch request failed: {r.error!r}")
+    wait_parked(loop)
+    return {"uploads": eng.device_uploads - base[0], "graphs_captured": eng.graphs_captured
+            - base[1], "chunks": eng.steps_run - base[2]}
+
+
+def phase_observability(dev, params, cfg, prompts) -> dict:
+    """The observability plane on the overlapped full-width engine behind
+    HTTP (every plane on): 12 concurrent SSE streams, each with its own
+    traceparent, into 8 slots; then the same batch in rounds with the
+    planes on and off."""
+    import threading
+
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+    from elastic_gpu_scheduler_tpu_torch.profile import PROFILER
+    from elastic_gpu_scheduler_tpu_torch.serve import device_generation
+    from elastic_gpu_scheduler_tpu_torch.server.inference import STEP_SPAN_EVERY, serve_inference
+    from elastic_gpu_scheduler_tpu_torch.slo import SLO
+    from elastic_gpu_scheduler_tpu_torch.tracing import TRACER
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    generation = device_generation(dev)
+    PROFILER.set_identity(pod="chip-smoke/serve-0", wclass="serve", generation=generation,
+                          chips=1)
+    L, K = cfg.n_layers, ENGINE["fused_steps"]
+    rng = np.random.default_rng(17)
+    tps = [f"00-{rng.bytes(16).hex()}-{rng.bytes(8).hex()}-01" for _ in prompts]
+
+    # the planes add no upload and no capture: the same batch, one engine
+    # task each, on two fresh engines, planes off then on
+    fresh = {}
+    for on in (False, True):
+        set_planes(on)
+        eng = InferenceEngine(params, cfg, paged_kernel=True, device=dev, **ENGINE)
+        server, loop = serve_inference(eng, port=0, host="127.0.0.1")
+        # a root span's context (None with tracing off) on each request
+        ctx = TRACER.point("chip-smoke.task-batch").context()
+        fresh[on] = (eng, task_batch(loop, prompts, NEW_TOKENS, ctx))
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+    same = {k: (fresh[False][1][k], fresh[True][1][k]) for k in fresh[True][1]}
+    log(f"observability: a cold batch with the planes off / on: {same} "
+        f"({time.perf_counter() - t_phase:.1f} s into the phase)")
+    check(same["uploads"][0] == same["uploads"][1] > 0,
+          "the planes changed the engine's host-to-device uploads")
+    check(same["graphs_captured"][0] == same["graphs_captured"][1] > 0,
+          "the planes changed the CUDA graph captures")
+    # the warm planes-on engine behind a new loop: the engine.step pacing
+    # starts at 0 with the main path's first traced step
+    eng = fresh[True][0]
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    server, loop = serve_inference(eng, port=0, host="127.0.0.1")
+    addr = server.server_address
+    try:
+        # the main path: every plane on, counts at 0 just before, read after
+        set_planes(True)
+        m0 = scrape(addr)
+        wait_parked(loop)
+        torch.cuda.synchronize()
+        base = dict(emitted=eng.tokens_emitted, prefills=eng.prefills_run, chunks=eng.steps_run,
+                    warmups=eng.graph_warmups, captured=eng.graphs_captured)
+        _build.reset_launches()
+        main = http_batch(addr, prompts, tps, NEW_TOKENS)
+        wait_parked(loop)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        m1 = scrape(addr)
+        emitted = eng.tokens_emitted - base["emitted"]
+        prefills = eng.prefills_run - base["prefills"]
+        chunks = eng.steps_run - base["chunks"]
+        warmups = eng.graph_warmups - base["warmups"]
+        log(f"observability main path: 12 streams, {prefills} prefills, {chunks} chunks, "
+            f"{warmups} capture warm-ups, launches {launches}")
+        check(eng.graphs_captured == base["captured"], "the warm engine captured a graph")
+        check(launches["flash_fwd"] == L * prefills > 0, "K1 launches != layers x prefills")
+        check(launches["paged_attention"] == L * K * (chunks + warmups) > 0,
+              "K2 launches != layers x fused_steps x chunks")
+        check(launches["paged_attention_int8"] == launches["flash_block_stats"] == 0,
+              "the dense engine launched the int8 K2 or K3")
+        streams = main["streams"]
+        check(all(len(s["slo"]) == 1 and s["slo_before_first"] for s in streams),
+              "a stream did not carry exactly one ': slo' comment before its first token")
+
+        def delta(key):
+            return m1.get(key, 0.0) - m0.get(key, 0.0)
+
+        n_tokens = len(prompts) * NEW_TOKENS
+        counts = {"ok": delta('tpu_serve_requests_total{result="ok"}'),
+                  "tokens": delta("tpu_serve_tokens_total"),
+                  "latency_count": delta("tpu_serve_request_seconds_count")}
+        pages = {k: m1[f'tpu_kv_pages_resident{{kind="{k}"}}'] for k in ("active", "cached", "free")}
+        log(f"observability /metrics: {counts}, pages resident {pages}")
+        check(counts == {"ok": len(prompts), "tokens": n_tokens, "latency_count": len(prompts)},
+              "/metrics does not count the batch")
+        check(sum(pages.values()) == eng.n_pages - 1, "resident page gauges do not add up")
+
+        # traces: serve.request (the client's child) -> engine.queued ->
+        # engine.admitted, in causal order; engine.step spans paced one per
+        # 32 steps of the traced batch, each in a trace live at its step
+        steps, live = [], {}
+        for t in tps:
+            tid, client_span = t[3:35], t[36:52]
+            _, tr = get_json(addr, f"/traces?trace={tid}")
+            by = {}
+            for s in tr["spans"]:
+                by.setdefault(s["name"], []).append(s)
+            req = by.get("serve.request", [])
+            check(len(req) == 1 and req[0]["parent_id"] == client_span,
+                  f"trace {tid}: no serve.request under the client's span")
+            rid = req[0]["span_id"]
+            for name in ("engine.queued", "engine.admitted"):
+                check(len(by.get(name, [])) == 1 and by[name][0]["parent_id"] == rid,
+                      f"trace {tid}: no {name} under serve.request")
+            steps += [(rid, s) for s in by.get("engine.step", [])]
+            live[rid] = (by["engine.admitted"][0]["start_unix"],
+                         req[0]["start_unix"] + req[0]["duration_ms"] / 1e3)
+            check(all(s["parent_id"] == rid for s in by.get("engine.step", [])),
+                  f"trace {tid}: an engine.step outside serve.request")
+            _, causal = get_json(addr, f"/debug/trace/{tid}")
+            order = [s["name"] for s in causal["spans"]]
+            check(causal["processes"] == 1 and order[:3] == ["serve.request", "engine.queued",
+                                                             "engine.admitted"],
+                  f"trace {tid}: /debug/trace order {order}")
+        all_steps = sum(1 for s in TRACER.finished() if s.name == "engine.step")
+        check(len(steps) == all_steps,
+              f"engine.step spans: {len(steps)} in the batch's traces, {all_steps} in the ring")
+        check(all({"step", "slots", "host_gap_ms", "overlap", "tokens_per_sec"}
+                  <= set(s["attrs"]) and s["attrs"]["overlap"] for _, s in steps),
+              "an engine.step span lacks its attributes")
+        # every loop step of the batch was traced and profiled (the profiler
+        # samples each one at 1.0), so the pacing predicts the spans exactly
+        _, prof = get_json(addr, "/debug/profiles")
+        traced_steps = prof["folded"]["step"]
+        paced = list(range(0, traced_steps, STEP_SPAN_EVERY))
+        check(prof["pending"] == 0 and PROFILER.dropped_steps == 0,
+              "the profiler did not fold every step")
+        check(sorted(s["attrs"]["step"] for _, s in steps) == paced and paced,
+              f"engine.step spans at steps {sorted(s['attrs']['step'] for _, s in steps)}, "
+              f"the pacing over {traced_steps} traced steps gives {paced}")
+        check(all(live[rid][0] <= s["start_unix"] <= live[rid][1] for rid, s in steps),
+              "an engine.step span lies outside its trace's admission and response")
+        _, slo = get_json(addr, "/debug/slo")
+        check(slo["folded"]["replica"] == len(prompts)
+              and slo["windows"]["serve"]["samples"] == len(prompts),
+              f"/debug/slo holds {slo['folded']} journeys")
+        ptoks = prof["profiles"]["serve"]["tokens"]
+        check(prof["identity"]["generation"] == generation, "/debug/profiles lacks the card")
+        # each request's first token comes from its admission's prefill,
+        # outside the step bracket the profiler samples
+        check(ptoks == emitted - prefills and emitted == n_tokens,
+              f"profile tokens {ptoks}, tokens emitted {emitted}, prefills {prefills}")
+
+        client = client_latency(streams)
+        win = slo["windows"]["serve"]
+        server_side = {k: win[k] for k in ("ttft_ms", "e2e_ms", "tpot_ms", "queue_ms")}
+        log(f"observability latency, client: {json.dumps(client)}; server: "
+            f"{json.dumps(server_side)} ({time.perf_counter() - t_phase:.1f} s into the phase)")
+
+        # rounds of the same batch, planes on and off: tokens/s unprofiled
+        # (OBS_BATCHES batches a round), then the idle share on profiled
+        # batches of their own
+        rounds = {True: [], False: []}
+        t_rounds = time.perf_counter()
+        for on in OBS_ROUNDS:
+            set_planes(on)
+            wait_parked(loop)
+            # the last round's garbage is collected here, not in a timed batch
+            gc.collect()
+            walls = []
+            for _ in range(OBS_BATCHES):
+                walls.append(http_batch(addr, prompts, tps, NEW_TOKENS)["wall_s"])
+                wait_parked(loop)
+            rounds[on].append({"tokens_per_s": OBS_BATCHES * n_tokens / sum(walls),
+                               "walls_s": walls})
+            log(f"observability round, planes {'on' if on else 'off'}: {rounds[on][-1]} "
+                f"({time.perf_counter() - t_rounds:.1f} s into the rounds)")
+        profiled = {True: [], False: []}
+        for on in OBS_PROFILED:
+            set_planes(on)
+            wait_parked(loop)
+            gc.collect()
+
+            def profiled_batch():
+                http_batch(addr, prompts, tps, NEW_TOKENS)
+                wait_parked(loop)
+
+            wall_ms, busy, _ = device_busy(profiled_batch, f"the HTTP batch, planes {on}")
+            profiled[on].append({"idle_share_profiled": 1 - busy / wall_ms,
+                                 "profiled_wall_ms": wall_ms, "device_busy_ms": busy})
+            log(f"observability profiled batch, planes {'on' if on else 'off'}: "
+                f"{profiled[on][-1]}")
+        # the same batch behind the stdlib's server (its listen backlog of 5)
+        # around the same loop, planes on: what the port's backlog of 128 buys
+        from http.server import ThreadingHTTPServer
+
+        from elastic_gpu_scheduler_tpu_torch.server.inference import make_handler
+
+        set_planes(True)
+        wait_parked(loop)
+        stdlib = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(loop))
+        threading.Thread(target=stdlib.serve_forever, daemon=True).start()
+        try:
+            b5 = http_batch(stdlib.server_address, prompts, tps, NEW_TOKENS, resets_allowed=True)
+            backlog5 = {**client_latency(b5["streams"]), "streams": len(b5["streams"]),
+                        "connections_reset": b5["resets"]}
+        finally:
+            stdlib.shutdown()
+            stdlib.server_close()
+        wait_parked(loop)
+        log(f"observability latency behind a listen backlog of 5: {json.dumps(backlog5)}")
+        summary = {}
+        for on, rs in rounds.items():
+            tok = [r["tokens_per_s"] for r in rs]
+            idle = [r["idle_share_profiled"] for r in profiled[on]]
+            q1, med, q3 = (float(x) for x in np.percentile(tok, [25, 50, 75]))
+            summary["on" if on else "off"] = {
+                "tokens_per_s_median": med,
+                "tokens_per_s_spread": (max(tok) - min(tok)) / med,
+                "tokens_per_s_quartile_spread": (q3 - q1) / med,
+                "idle_share_profiled_median": float(np.median(idle)),
+                "idle_share_profiled_range": [min(idle), max(idle)], "rounds": rs,
+                "profiled": profiled[on]}
+        on_s, off_s = summary["on"], summary["off"]
+        # each pair's on round over its off round: the planes' cost with
+        # the drift between pairs taken out.  Resolved when the medians
+        # differ by more than the off rounds' quartile spread
+        ratios = [a["tokens_per_s"] / b["tokens_per_s"]
+                  for a, b in zip(rounds[True], rounds[False])]
+        cost = 1 - on_s["tokens_per_s_median"] / off_s["tokens_per_s_median"]
+        r1, rmed, r3 = (float(x) for x in np.percentile(ratios, [25, 50, 75]))
+        summary["cost"] = {"median_ratio": 1 - cost, "paired_ratio_median": rmed,
+                           "paired_ratio_quartiles": [r1, r3],
+                           "paired_ratio_range": [min(ratios), max(ratios)],
+                           "resolved": abs(cost) > off_s["tokens_per_s_quartile_spread"]}
+        log(f"observability planes on / off ({OBS_PAIRS} rounds each of {OBS_BATCHES} batches): "
+            f"{on_s['tokens_per_s_median']:.1f} / {off_s['tokens_per_s_median']:.1f} tokens/s "
+            f"(quartile spreads {on_s['tokens_per_s_quartile_spread']:.4f} / "
+            f"{off_s['tokens_per_s_quartile_spread']:.4f}, ranges "
+            f"{on_s['tokens_per_s_spread']:.4f} / {off_s['tokens_per_s_spread']:.4f}; paired "
+            f"on/off median {rmed:.4f}, quartiles {r1:.4f}-{r3:.4f}, range "
+            f"{min(ratios):.4f}-{max(ratios):.4f}; resolved {summary['cost']['resolved']}), "
+            f"idle share under the profiler {on_s['idle_share_profiled_median']:.3f} / "
+            f"{off_s['idle_share_profiled_median']:.3f}")
+        out = {"card": card, "generation": generation, "launches": launches,
+               "prefills": prefills, "chunks": chunks, "tokens_emitted": emitted,
+               "profile_tokens": ptoks, "engine_step_spans": len(steps),
+               "metrics": counts, "pages_resident": pages, "cold_batch_off_on": same,
+               "latency_client": client, "latency_server": server_side,
+               "latency_client_backlog_5": backlog5,
+               "main_wall_s": main["wall_s"], "main_tokens_per_s": n_tokens / main["wall_s"],
+               "planes": summary}
+        log(json.dumps({"observability": out}))
+        return out
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
+        set_planes(True)
+        SLO.reset()
+
+
 # -- phases 8 and 10: profile and the kernels line -------------------------
 
 
@@ -4800,6 +5292,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launcher_res = phase_launcher(dev)
+    # 7b. the observability plane on the overlapped engine behind HTTP, on
+    # the same weights made again; last, so every phase before it opens its
+    # profiler windows as early in the process as it did without 7b (a
+    # window loses more of its first records the later it opens)
+    obs = phase_observability(dev, *full_model(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 10. the kernels line
     for r in train_rows:
@@ -4826,6 +5325,7 @@ def main() -> int:
     log(json.dumps({"train": train_perf, "train_profile_idle_share": train_prof["idle_share"],
                     "launcher": launcher_res, "lora_train": lora_train}))
     log(json.dumps({"kernel_readings": readings}))
+    log(json.dumps({"observability": obs}))
     log(card)
     print(json.dumps({"kernels": kernels}))
     # the one card this script drives (cuda:0)

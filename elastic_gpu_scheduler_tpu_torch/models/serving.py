@@ -99,6 +99,12 @@ join and leave a fixed-shape batch between fused decode chunks:
   (L, page_size, Hkv, Dh) (scales: (L, page_size, Hkv)) bytes, keys in
   ``_pool_keys()`` order, so bundles cross between the two
   implementations.
+- **Tracing** (``tracing``): a request carrying a span context
+  (``Request.trace_ctx``, set by the HTTP front end) gets an
+  ``engine.queued`` point at every enqueue (``resumed`` after a spill) and
+  an ``engine.admitted`` point at every admission, from the engine
+  thread; ``t_submit`` / ``t_admit`` keep the first enqueue and the first
+  admission, so the queue wait a client saw survives a spill.
 
 The step functions run under ``torch.inference_mode()``: serving
 parameters that require grad (a model fresh from ``models/train.py``)
@@ -132,6 +138,7 @@ from ..ops import _build
 from ..ops.attention import NEG_INF, flash_attention
 from ..ops.expert_matmul import expert_matmul
 from ..ops.paged_attention import dequant, paged_attention
+from ..tracing import TRACER
 from ..utils import kvwire, prefixdigest
 from .generate import cached_attention, cached_attention_multi
 from .quantize import is_qtensor, wmat, wmatmul
@@ -268,6 +275,10 @@ class Request:
     # internal: times the serving loop evicted this request because every
     # slot stalled (a second eviction fails it)
     pool_spills: int = 0
+    # the request's span context (``tracing``), set by the HTTP front end
+    # from the client's traceparent: the engine thread drops its
+    # engine.queued / engine.admitted points into that trace
+    trace_ctx: Optional[object] = None
     # token id → additive logit bias, in every sampling distribution
     logit_bias: dict = field(default_factory=dict)
     done: threading.Event = field(default_factory=threading.Event)
@@ -1487,6 +1498,9 @@ class InferenceEngine:
 
     def _enqueue(self, req: Request) -> None:
         """Priority-ordered admission (also the spill-requeue path)."""
+        if req.trace_ctx is not None:
+            TRACER.point("engine.queued", parent=req.trace_ctx, priority=req.priority,
+                         resumed=bool(req.output))
         if req.t_submit == 0.0:
             req.t_submit = time.monotonic()
         self.queue.put((-req.priority, next(self._submit_seq), req))
@@ -1657,6 +1671,9 @@ class InferenceEngine:
             # fed prompt: the prompt plus, for a spilled request, its
             # output so far (positions unchanged: an exact resume)
             fed = list(req.prompt) + list(req.output)
+            if req.trace_ctx is not None:
+                TRACER.point("engine.admitted", parent=req.trace_ctx, slot=i,
+                             prefill_tokens=len(fed))
             if req.t_admit == 0.0:
                 req.t_admit = time.monotonic()
             self.slots[i] = req

@@ -14,7 +14,11 @@ reference quantizes whichever base it loaded.  ``--serve-overlap`` (default ``on
 ``--fleet-role`` (``TPU_FLEET_ROLE``) and ``--replica-name`` (``POD_NAME``)
 place the replica in a disaggregated fleet: a ``prefill`` replica serves
 ``/v1/prefill`` and ``/v1/kv/export`` for ``decode`` replicas that adopt
-its pages (both need ``--prefix-cache``).  The engine runs on the CUDA
+its pages (both need ``--prefix-cache``).  The observability plane takes
+the reference's knobs: ``--trace-sample`` (``TPU_TRACE_SAMPLE``),
+``--profile-sample`` (``TPU_PROFILE_SAMPLE``), ``--workload-class``
+(``TPU_WORKLOAD_CLASS``; co-tenants from ``TPU_COTENANT_CLASSES``) and
+``--slo-config`` (``TPU_SLO_CONFIG``).  The engine runs on the CUDA
 device unless ``--cpu`` is given.
 """
 
@@ -86,6 +90,32 @@ def build_args(argv=None):
                    help="fleet identity reported on /v1/stats (default from POD_NAME)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU with the plain PyTorch paths (tests/dev)")
+    p.add_argument("--trace-sample", type=float, default=None,
+                   help="request-trace sampling rate (1.0 = every request, "
+                        "0 = off; default from TPU_TRACE_SAMPLE, else 1.0); "
+                        "GET /traces serves the result")
+    p.add_argument("--profile-sample", type=float, default=None,
+                   help="workload-profile sampling rate (1.0 = every "
+                        "engine step, 0.25 = every 4th, 0 = off; default "
+                        "from TPU_PROFILE_SAMPLE, else 1.0).  GET "
+                        "/debug/profiles and the tpu_workload_* metrics "
+                        "serve the result; cost per sampled step is one "
+                        "ring-buffer append off the device path")
+    p.add_argument("--workload-class", default="",
+                   help="profile class this pod's measured behavior "
+                        "aggregates under (default from "
+                        "TPU_WORKLOAD_CLASS, else the "
+                        "elasticgpu.io/workload-class annotation's "
+                        "default class).  The scheduler keys interference "
+                        "and throughput tables by it")
+    p.add_argument("--slo-config", default="",
+                   help="replica-side SLO plane: per-class objectives "
+                        "as inline JSON or @file (default from "
+                        "TPU_SLO_CONFIG).  Enables this pod's own "
+                        "request-journey window (vantage=replica) at "
+                        "/debug/slo and the queue-wait/TTFT telemetry "
+                        "the fleet router folds into the client-"
+                        "perceived journey records")
     p.add_argument("--drain-timeout", type=float, default=30.0,
                    help="graceful-drain window on SIGTERM/SIGINT; a second "
                         "signal hard-stops")
@@ -107,6 +137,50 @@ def fleet_role(args) -> str:
     return role
 
 
+def device_generation(device) -> str:
+    """The profile plane's generation key: the accelerator's kind,
+    lowercased with spaces as hyphens (``nvidia-h100-80gb-hbm3``), or
+    ``cpu``."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    return torch.cuda.get_device_name(device).lower().replace(" ", "-")
+
+
+def configure_planes(args, device) -> None:
+    """Apply the observability flags: the trace and profile rates, the
+    profile identity (pod from ``POD_NAMESPACE`` / ``POD_NAME``, class,
+    generation, one chip, co-tenant classes) and the SLO objectives, whose
+    class defaults to the workload class.  A bad ``--slo-config`` exits."""
+    from .profile import DEFAULT_WORKLOAD_CLASS, PROFILER
+    from .slo import SLO, load_config_source
+    from .tracing import TRACER
+
+    if args.trace_sample is not None:
+        TRACER.configure(args.trace_sample)
+    if args.profile_sample is not None:
+        PROFILER.configure(sample=args.profile_sample)
+    wclass = (args.workload_class or os.environ.get("TPU_WORKLOAD_CLASS", "")
+              or DEFAULT_WORKLOAD_CLASS)
+    PROFILER.set_identity(
+        pod="/".join(p for p in (os.environ.get("POD_NAMESPACE", ""),
+                                 os.environ.get("POD_NAME", "")) if p),
+        wclass=wclass,
+        generation=device_generation(device),
+        chips=1,
+        neighbors=tuple(c for c in os.environ.get("TPU_COTENANT_CLASSES", "").split(",")
+                        if c),
+    )
+    if args.slo_config:
+        try:
+            SLO.load_config(load_config_source(args.slo_config))
+        except (ValueError, TypeError, OSError) as e:
+            raise SystemExit(f"--slo-config: {e}")
+    SLO.default_class = wclass
+
+
 def main(argv=None) -> int:
     args = build_args(argv)
     role = fleet_role(args)
@@ -120,6 +194,7 @@ def main(argv=None) -> int:
     from .server.inference import drain, serve_inference
 
     device = resolve_device("cpu" if args.cpu else None)
+    configure_planes(args, device)
     cfg = TransformerConfig(
         vocab_size=args.vocab_size, d_model=args.d_model, n_layers=args.n_layers,
         n_heads=args.n_heads, d_ff=args.d_ff,

@@ -26,9 +26,23 @@ routes this slice serves (stdlib HTTP only):
                              into the original client stream
     POST /v1/migrate/in    → a session bundle: import, resume, and stream
                              the continuation back as SSE
+    POST /policy/load      → {"name", "verb": "kv", "expr", "budget"?}: put
+                             a ``kv`` policy in force (the reference
+                             scheduler's body; 400 for a bad expression)
+    POST /policy/rollback  → {"verb"?, "reason"?}: back to the built-in
+                             victim ranking
     GET  /v1/stats         → engine state (slots, pages, queue, prefix cache
                              and KV shipping counters, registered adapters,
                              replica name and fleet role)
+    GET  /metrics          → Prometheus text: the ``tpu_serve_*`` series,
+                             the ``tpu_kv_*`` gauges set at scrape time,
+                             the SLO, profile and policy series
+    GET  /traces           → the span ring (``?trace=<id>``, ``?format=chrome``,
+                             ``?limit=N``)
+    GET  /debug/trace/<id> → one trace's spans in causal order
+    GET  /debug/slo        → this replica's journey windows and objectives
+    GET  /debug/profiles   → this replica's workload profiles
+    GET  /debug/policy     → the loaded ``kv`` policy, its counts, history
     GET  /healthz          → liveness (503 while draining)
     GET  /version          → build version
 
@@ -41,6 +55,16 @@ without the prefix cache (or with no live session to migrate), 404 when
 no page is cached, 400 for a bad bundle or body, 502 for a failed pull or
 a refused handoff (the session then resumes here), 503 when the engine
 task times out.
+
+The observability plane is the reference's, under its names: a client
+``traceparent`` header joins its trace (``serve.request``, then the
+engine's ``engine.queued`` / ``engine.admitted`` points and the loop's
+paced ``engine.step`` spans); a stream writes the SSE comment
+``: slo {"queue_ms": ...}`` once, before its first token, for the fleet
+router's journey record (a blocking answer carries the
+``X-TPU-Queue-Wait-Ms`` header); every completion records its replica
+journey when an SLO config is loaded; the loop records a profile sample a
+step.  None of it reads the device.
 """
 
 from __future__ import annotations
@@ -56,11 +80,28 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+from urllib.parse import parse_qsl
 
 import torch
 
 from .. import __version__
+from ..metrics import (
+    KV_MIGRATIONS,
+    KV_PAGES_RESIDENT,
+    KV_PAGES_SHIPPED,
+    KV_PREFIX_ADMISSIONS,
+    REGISTRY,
+    Counter,
+    Gauge,
+    Histogram,
+)
 from ..models.serving import DRAINING_ERROR, QUEUE_FULL_ERROR, InferenceEngine, Request
+from ..policy import POLICIES
+from ..policy.vm import DEFAULT_BUDGET
+from ..profile import PROFILER
+from ..slo import SLO
+from ..slo.assembly import local_trace_payload
+from ..tracing import TRACEPARENT_HEADER, TRACER, traces_response
 from ..utils import kvwire
 from ..utils.kvwire import KV_SOURCE_HEADER
 
@@ -71,16 +112,81 @@ _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found", 409: "Conflict",
             504: "Gateway Timeout"}
 
 
+SERVE_REQUESTS = REGISTRY.register(
+    Counter(
+        "tpu_serve_requests_total",
+        "Inference requests by result (ok/error/timeout/cancelled)",
+        ("result",),
+    )
+)
+SERVE_TOKENS = REGISTRY.register(
+    Counter(
+        "tpu_serve_tokens_total",
+        "Tokens emitted to clients",
+    )
+)
+SERVE_QUEUE_DEPTH = REGISTRY.register(
+    Gauge(
+        "tpu_serve_queue_depth",
+        "Queued requests per priority class (set at scrape time)",
+        ("priority",),
+    )
+)
+_SCRAPE_LOCK = threading.Lock()  # reset + set + expose of the scrape-time gauges
+SERVE_SPILLS = REGISTRY.register(
+    Gauge(
+        "tpu_serve_spills",
+        "Low-priority slots spilled (pages freed, request requeued for "
+        "exact resume) under page pressure — the serving-plane mirror of "
+        "the scheduler's preemption verb",
+    )
+)
+SERVE_LATENCY = REGISTRY.register(
+    Histogram(
+        "tpu_serve_request_seconds",
+        "End-to-end request latency (submit to done)",
+        buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                 60.0, 120.0),
+    )
+)
+SERVE_HOST_GAP = REGISTRY.register(
+    Histogram(
+        "tpu_serve_host_gap_ms",
+        "Wall time between consecutive fused decode chunk dispatches, in "
+        "ms (the window where the accelerator can starve on host "
+        "bookkeeping; the overlapped pipeline keeps it near zero).  A "
+        "HISTOGRAM of per-chunk samples folded at scrape time — p50/p99 "
+        "are real distribution tails, not whichever chunk scraped last "
+        "(the old last-value gauge's failure mode)",
+        buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,
+                 100.0, 500.0),
+    )
+)
+
+# a traced batch gets one engine.step span every this many loop steps, so
+# one long generation cannot flood the span ring
+STEP_SPAN_EVERY = 32
+
+
 def choose_kv_victim(eng: InferenceEngine) -> int:
     """The slot to preempt when every slot stalls for pages, and the
     session ``/v1/migrate/out`` moves when no slot is named: the policy
-    registry's built-in ranking, the lowest priority, then most pages
-    held, then the lowest slot.  Done-but-unreleased slots are not
-    candidates."""
-    live = [
-        i for i, s in enumerate(eng.slots) if s is not None and not s.done.is_set()
-    ]
-    return min(live, key=lambda i: (int(eng.priorities[i]), -len(eng.slot_pages[i]), i))
+    registry's ``kv`` verb over each live slot's priority, pages held,
+    tokens emitted, index and prefix-matched tokens (a loaded policy's
+    highest score), else the built-in ranking: the lowest priority, then
+    most pages held, then the lowest slot.  Done-but-unreleased slots are
+    not candidates."""
+    return POLICIES.select_kv_victim([
+        {
+            "slot": float(i),
+            "priority": float(eng.priorities[i]),
+            "pages": float(len(eng.slot_pages[i])),
+            "tokens": float(len(s.output)),
+            "matched": float(eng.matched_toks[i]),
+        }
+        for i, s in enumerate(eng.slots)
+        if s is not None and not s.done.is_set()
+    ])
 
 
 class EngineLoop:
@@ -129,11 +235,46 @@ class EngineLoop:
     def _serve(self) -> None:
         eng = self.engine
         failures = 0
+        step_seq = 0  # steps since a traced batch started (span pacing)
         while not self._stop.is_set():
             try:
                 eng._admit()
                 if any(s is not None for s in eng.slots):
-                    eng.step()
+                    traced = next((s.trace_ctx for s in eng.slots
+                                   if s is not None and s.trace_ctx is not None), None)
+                    # host counters only: a clock read and the token count
+                    # (which, overlapped, moves one chunk late), never the device
+                    prof = PROFILER.enabled
+                    if prof:
+                        prof_t0 = time.perf_counter()
+                        prof_tok0 = eng.tokens_emitted
+                    if traced is not None and step_seq % STEP_SPAN_EVERY == 0:
+                        # overlapped, the step returns once the next chunk is
+                        # dispatched: the span times the host's dispatch
+                        with TRACER.span("engine.step", parent=traced, step=step_seq,
+                                         slots=sum(1 for s in eng.slots if s is not None)
+                                         ) as sp:
+                            eng.step()
+                            sp.set_attr("host_gap_ms", round(eng.last_host_gap_ms, 3))
+                            sp.set_attr("overlap", eng.overlap)
+                            if prof:
+                                wall = time.perf_counter() - prof_t0
+                                sp.set_attr("tokens_per_sec",
+                                            round((eng.tokens_emitted - prof_tok0) / wall, 1)
+                                            if wall > 0 else 0.0)
+                    else:
+                        eng.step()
+                    if prof:
+                        PROFILER.record_step(
+                            tokens=eng.tokens_emitted - prof_tok0,
+                            wall_s=time.perf_counter() - prof_t0,
+                            slots_active=sum(1 for s in eng.slots if s is not None),
+                            slots_total=eng.max_batch,
+                            host_gap_ms=eng.last_host_gap_ms,
+                            queue_depth=eng.queue.qsize(),
+                            hbm_pages=eng.n_pages - 1 - len(eng.free_pages),
+                        )
+                    step_seq = step_seq + 1 if traced is not None else 0
                 else:
                     eng._drain_pending()
                     if eng.draining and eng.queue.empty():
@@ -196,6 +337,14 @@ class EngineLoop:
                 log.exception("cleanup of slot %d failed; force-dropping", i)
                 self.engine._force_drop_slot(i)
         self._stop.wait(min(1.0, 0.05 * (2 ** min(failures, 10))))
+
+
+def _queue_wait_ms(req: Request) -> Optional[float]:
+    """The queue wait the request saw (first enqueue to first admission:
+    a spill's requeue keeps the first stamps), or None before admission."""
+    if req.t_submit > 0.0 and req.t_admit > 0.0:
+        return max(0.0, (req.t_admit - req.t_submit) * 1000.0)
+    return None
 
 
 def _token_ids(x, vocab_size: int, what: str) -> list:
@@ -412,10 +561,43 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
         def log_message(self, fmt, *args):
             log.debug("inference http: " + fmt, *args)
 
-        def _json(self, code: int, obj: dict) -> None:
+        def _json(self, code: int, obj: dict, extra_headers: Optional[dict] = None) -> None:
             data = json.dumps(obj).encode()
             self.send_response(code, _REASONS.get(code, ""))
             self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            for k, v in (extra_headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(data)
+
+        def _metrics(self) -> None:
+            # scrape-time gauges from live engine state (reset first, so a
+            # drained priority class does not linger); the lock makes
+            # reset + set + expose atomic across concurrent scrapes
+            eng = engine
+            with _SCRAPE_LOCK:
+                SERVE_QUEUE_DEPTH.reset()
+                for pri, depth in eng.queue_depths().items():
+                    SERVE_QUEUE_DEPTH.set(str(pri), value=float(depth))
+                SERVE_SPILLS.set(value=float(eng.spills))
+                free = len(eng.free_pages)
+                cached = len(eng.page_key)
+                total = eng.n_pages - 1
+                KV_PAGES_RESIDENT.set("active", value=float(total - free - cached))
+                KV_PAGES_RESIDENT.set("cached", value=float(cached))
+                KV_PAGES_RESIDENT.set("free", value=float(free))
+                KV_PAGES_SHIPPED.set("exported", value=float(eng.kv_pages_exported))
+                KV_PAGES_SHIPPED.set("imported", value=float(eng.kv_pages_imported))
+                KV_PREFIX_ADMISSIONS.set("hit", value=float(eng.prefix_admission_hits))
+                KV_PREFIX_ADMISSIONS.set(
+                    "miss", value=float(eng.prefix_lookups - eng.prefix_admission_hits))
+                # the engine's buffered per-chunk gap samples: the scraper
+                # pays the bucketing, never the engine
+                SERVE_HOST_GAP.observe_batch(values=eng.drain_host_gaps())
+                data = REGISTRY.expose().encode()
+            self.send_response(200, "OK")
+            self.send_header("Content-Type", "text/plain; version=0.0.4")
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)
@@ -427,6 +609,21 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 return self._json(200, {"ok": True})
             if self.path == "/version":
                 return self._json(200, {"version": __version__})
+            if self.path == "/metrics":
+                return self._metrics()
+            if self.path == "/debug/profiles":
+                return self._json(200, PROFILER.debug_state())
+            if self.path == "/debug/slo":
+                return self._json(200, SLO.debug_state())
+            if self.path == "/debug/policy":
+                return self._json(200, POLICIES.debug_state())
+            if self.path.startswith("/debug/trace/"):
+                tid = self.path[len("/debug/trace/"):].split("?", 1)[0]
+                return self._json(200, local_trace_payload(tid))
+            if self.path.split("?", 1)[0] == "/traces":
+                _, _, query = self.path.partition("?")
+                return self._json(200, traces_response(
+                    dict(parse_qsl(query, keep_blank_values=True))))
             if self.path == "/v1/stats":
                 eng = engine
                 return self._json(200, {
@@ -504,7 +701,8 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
             # through engine.run_task (the engine thread owns it)
             route = {"/v1/prefill": self._prefill_only, "/v1/kv/export": self._kv_export,
                      "/v1/kv/adopt": self._kv_adopt, "/v1/migrate/out": self._migrate_out,
-                     "/v1/migrate/in": self._migrate_in}.get(self.path)
+                     "/v1/migrate/in": self._migrate_in, "/policy/load": self._policy,
+                     "/policy/rollback": self._policy}.get(self.path)
             if route is not None:
                 return route()
             if self.path != "/v1/completions":
@@ -526,11 +724,22 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 except Exception:
                     log.warning("KV adoption from %s failed; prefilling here", kv_src,
                                 exc_info=True)
-            if body.get("stream"):
-                return self._stream(reqs)
-            if len(reqs) > 1:
-                return self._multi(reqs)
-            return self._single(reqs[0])
+            # a client traceparent joins its trace, else the request roots
+            # one; the context rides on each Request so the engine thread
+            # drops its points into the same trace
+            with TRACER.span("serve.request",
+                             parent=self.headers.get(TRACEPARENT_HEADER) or None,
+                             n=len(reqs), stream=bool(body.get("stream")),
+                             prompt_tokens=len(reqs[0].prompt),
+                             max_tokens=reqs[0].max_new_tokens) as sp:
+                ctx = sp.context() if sp else None
+                for r in reqs:
+                    r.trace_ctx = ctx
+                if body.get("stream"):
+                    return self._stream(reqs)
+                if len(reqs) > 1:
+                    return self._multi(reqs)
+                return self._single(reqs[0], sp)
 
         # -- the disaggregated serving data plane -------------------------
 
@@ -575,6 +784,26 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 return {"imported": 0, "reason": f"source answered {status}"}
             hdr, pages = kvwire.decode_bundle(data)
             return engine.run_task(lambda: engine.import_pages(hdr, pages))
+
+        def _policy(self):
+            """The ``kv`` verb's control surface, on the reference
+            scheduler's bodies (its gate and canary fields are ignored: a
+            ``kv`` policy decides every eviction once loaded)."""
+            try:
+                body = self._read_json()
+                if self.path == "/policy/load":
+                    for name in ("name", "verb", "expr"):
+                        if not body.get(name):
+                            raise ValueError(f"missing field {name!r}")
+                    out = POLICIES.load(str(body["name"]), str(body["verb"]), str(body["expr"]),
+                                        budget=int(body.get("budget", DEFAULT_BUDGET)))
+                else:
+                    out = POLICIES.rollback(str(body.get("verb", "kv")),
+                                            reason=str(body.get("reason", "operator")))
+            except (ValueError, TypeError) as e:
+                # a bad expression, verb or field is the client's, never a 500
+                return self._json(400, {"Error": str(e)})
+            return self._json(200, out)
 
         def _prefill_only(self):
             """Prefill-role admission, the split's first half: the prompt
@@ -709,9 +938,11 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 except TimeoutError:
                     log.warning("local resume of a refused migration is queued behind a "
                                 "busy engine; it runs at the next admission pass")
+                KV_MIGRATIONS.inc("out_refused")
                 return self._json(502, {"ok": False, "resumed_local": True, "error": err})
             threading.Thread(target=_relay_migrated, args=(req, resp, conn),
                              name="migrate-relay", daemon=True).start()
+            KV_MIGRATIONS.inc("out")
             return self._json(200, {"ok": True, "slot": i, "dest": dest,
                                     "pages_shipped": n_pages,
                                     "tokens_done": len(req.output)})
@@ -758,31 +989,70 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 return self._json(503, {"error": str(e)})
             except (ValueError, TypeError) as e:
                 return self._json(400, {"error": str(e)})
+            KV_MIGRATIONS.inc("in")
             self._sse_reply([req], q, "migrated session timed out")
 
-        def _single(self, req: Request):
+        def _replica_journey(self, sp, ok: bool, e2e_ms: float, queue_ms, tokens: int,
+                             ttft_ms=None, tpot_ms=None) -> None:
+            """This replica's own vantage on the journey (the router
+            records the client's): one append when the SLO plane is on."""
+            if not SLO.enabled:
+                return
+            SLO.record_journey(
+                vantage="replica", ok=ok, ttft_ms=ttft_ms, tpot_ms=tpot_ms,
+                e2e_ms=round(e2e_ms, 3), queue_ms=queue_ms, tokens=tokens,
+                trace_id=sp.trace_id if sp else "", replica=engine.replica_name,
+            )
+
+        def _single(self, req: Request, sp):
+            t0 = time.monotonic()
             engine.submit(req)
             if not req.done.wait(request_timeout):
                 req.cancel()  # the engine frees the slot at the next boundary
                 acked = req.done.wait(10.0)
+                SERVE_REQUESTS.inc("timeout")
+                e2e = time.monotonic() - t0
+                SERVE_LATENCY.observe(value=e2e)
+                if acked:  # tokens handed over are emitted work
+                    SERVE_TOKENS.inc(value=len(req.output))
+                self._replica_journey(sp, ok=False, e2e_ms=e2e * 1000,
+                                      queue_ms=_queue_wait_ms(req),
+                                      tokens=len(req.output) if acked else 0)
                 return self._json(504, {
                     "error": "generation timed out",
                     "tokens": list(req.output) if acked else [],
                     **({"logprobs": _logprobs_payload(req)}
                        if acked and req.logprobs > 0 else {}),
                 })
+            e2e = time.monotonic() - t0
+            SERVE_LATENCY.observe(value=e2e)
+            queue_ms = _queue_wait_ms(req)
             if req.error:
+                SERVE_REQUESTS.inc("error")
+                sp.set_attr("error", req.error)
+                self._replica_journey(sp, ok=False, e2e_ms=e2e * 1000, queue_ms=queue_ms,
+                                      tokens=0)
                 return self._json(_reject_code(req.error), {"error": req.error})
+            SERVE_REQUESTS.inc("ok")
+            SERVE_TOKENS.inc(value=len(req.output))
+            sp.set_attr("tokens", len(req.output))
             resp = {"tokens": req.output}
             if req.logprobs > 0:
                 resp["logprobs"] = _logprobs_payload(req)
-            return self._json(200, resp)
+            self._replica_journey(sp, ok=True, e2e_ms=e2e * 1000, queue_ms=queue_ms,
+                                  tokens=len(req.output))
+            # a blocking answer's headers go out after generation, so the
+            # queue wait rides a header (a stream's, an SSE comment)
+            extra = ({"X-TPU-Queue-Wait-Ms": f"{queue_ms:.3f}"}
+                     if queue_ms is not None else None)
+            return self._json(200, resp, extra_headers=extra)
 
         def _multi(self, reqs: list):
             """``n`` parallel choices: submit all, wait for all, answer the
             indexed choices; one choice's error cancels its siblings and
             answers for the request."""
-            deadline = time.monotonic() + request_timeout
+            t0 = time.monotonic()
+            deadline = t0 + request_timeout
             for r in reqs:
                 engine.submit(r)
             timed_out = cancelled_for_err = False
@@ -797,13 +1067,22 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
             # only read a choice's output once the engine acknowledged it
             acked = {id(r): r.done.wait(10.0) if timed_out or cancelled_for_err else True
                      for r in reqs}
+            SERVE_LATENCY.observe(value=time.monotonic() - t0)
             errs = [r.error for r in reqs if r.error]
             if errs:
+                # only the errored choices are errors; their siblings were
+                # cancelled
+                SERVE_REQUESTS.inc("error", value=float(len(errs)))
+                if len(errs) < len(reqs):
+                    SERVE_REQUESTS.inc("cancelled", value=float(len(reqs) - len(errs)))
                 return self._json(_reject_code(errs[0]), {"error": errs[0]})
+            SERVE_REQUESTS.inc("timeout" if timed_out else "ok", value=float(len(reqs)))
             choices = []
             for k, r in enumerate(reqs):
                 ok = acked[id(r)]
                 c = {"index": k, "tokens": list(r.output) if ok else []}
+                if ok:
+                    SERVE_TOKENS.inc(value=len(r.output))
                 if ok and r.logprobs > 0:
                     c["logprobs"] = _logprobs_payload(r)
                 choices.append(c)
@@ -832,6 +1111,7 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
 
             for k, r in enumerate(reqs):
                 r.on_token = make_on_token(k, r)
+            t0 = time.monotonic()
             for r in reqs:
                 engine.submit(r)
             bad = [r for r in reqs if r.done.is_set() and r.error]
@@ -840,9 +1120,10 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 for r in reqs:
                     r.cancel()
                 return self._json(_reject_code(bad[0].error), {"error": bad[0].error})
-            self._sse_reply(reqs, q, "generation timed out")
+            self._sse_reply(reqs, q, "generation timed out", t0=t0)
 
-        def _sse_reply(self, reqs: list, q: "queue.Queue", timeout_error: str) -> None:
+        def _sse_reply(self, reqs: list, q: "queue.Queue", timeout_error: str,
+                       t0: Optional[float] = None) -> None:
             """Write (choice, token, logprob, top) items from ``q`` as SSE
             events, one HTTP chunk per burst, until every request is done
             or the deadline passes; then each error event and [DONE].
@@ -850,18 +1131,33 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
             client cancels the requests: seen on a write, or while no token
             is due (still queued, or between chunks) by a peek of the socket
             and two SSE-comment pings, which a half-closed client that still
-            reads survives."""
+            reads survives.
+
+            ``t0`` (a completion's submit time; None for a migrated
+            session's continuation, whose source counts it) turns on the
+            completion's instruments: the ``: slo`` comment before the first
+            token, the serving series, the request span's trace pinned
+            while the stream runs, and the replica journey."""
             n = len(reqs)
+            completion = t0 is not None
+            # the serve.request span is on this thread's stack
+            sp = (TRACER.current() or None) if completion else None
             self.send_response(200, "OK")
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
             self.send_header("Transfer-Encoding", "chunked")
             self.end_headers()
 
+            flushes = 0
+
             def chunk(payloads: list) -> None:
+                nonlocal flushes
                 data = b"".join(f"data: {p}\n\n".encode() for p in payloads)
                 self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
                 self.wfile.flush()
+                flushes += 1
+                if flushes == 1 and sp is not None:
+                    sp.event("sse_first_flush")
 
             def event_json(item) -> str:
                 k, tok, lp, top = item
@@ -880,7 +1176,12 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 self.wfile.flush()
 
             sent = 0
+            t_first_tok = t_last_tok = 0.0
             half_closed = False  # the client shut down its sending side: legal
+            # a live stream's spans must survive span pressure from other
+            # requests: pinned until the stream ends
+            pinned_tid = sp.trace_id if sp is not None else ""
+            TRACER.pin(pinned_tid)
             deadline = time.monotonic() + request_timeout
             try:
                 while time.monotonic() < deadline:
@@ -903,6 +1204,15 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                                 raise BrokenPipeError("client disconnected") from None
                             half_closed = True  # EOF stays: stop peeking
                         continue
+                    if completion and not t_first_tok:
+                        t_first_tok = time.monotonic()
+                        # an SSE comment, which clients ignore: the queue
+                        # wait for the fleet router's journey record (the
+                        # stream's headers went out before admission)
+                        qw = _queue_wait_ms(reqs[0])
+                        if qw is not None:
+                            meta = f': slo {{"queue_ms": {qw:.3f}}}\n\n'.encode()
+                            self.wfile.write(f"{len(meta):x}\r\n".encode() + meta + b"\r\n")
                     items = [first]
                     while True:  # one HTTP chunk per burst of tokens
                         try:
@@ -911,15 +1221,20 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                             break
                     chunk([event_json(e) for e in items])
                     sent += len(items)
+                    t_last_tok = time.monotonic()
                 if not all(r.done.is_set() for r in reqs):
                     for r in reqs:
                         r.cancel()
+                    if completion:
+                        SERVE_REQUESTS.inc("timeout", value=float(n))
                     chunk([json.dumps({"error": timeout_error})])
                 else:
                     for k, r in enumerate(reqs):
                         if r.error:
                             ev = {"error": r.error, **({"index": k} if n > 1 else {})}
                             chunk([json.dumps(ev)])
+                        if completion:
+                            SERVE_REQUESTS.inc("error" if r.error else "ok")
                 chunk(["[DONE]"])
                 self.wfile.write(b"0\r\n\r\n")
                 self.wfile.flush()
@@ -927,7 +1242,25 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 for r in reqs:
                     r.cancel()  # dead client: a slot goes at the next chunk boundary
                 engine._purge_cancelled_queued()  # a queue entry goes now
+                if completion:
+                    SERVE_REQUESTS.inc("cancelled", value=float(n))
                 log.info("stream client disconnected after %d tokens", sent)
+            finally:
+                TRACER.unpin(pinned_tid)
+                if completion:
+                    e2e = time.monotonic() - t0
+                    SERVE_LATENCY.observe(value=e2e)
+                    SERVE_TOKENS.inc(value=sent)
+                    if sp is not None:
+                        sp.set_attr("sse_chunks", sent)
+                        sp.set_attr("sse_flushes", flushes)
+                    self._replica_journey(
+                        sp, ok=all(r.done.is_set() and not r.error for r in reqs),
+                        e2e_ms=e2e * 1000, queue_ms=_queue_wait_ms(reqs[0]), tokens=sent,
+                        ttft_ms=round((t_first_tok - t0) * 1000, 3) if t_first_tok else None,
+                        tpot_ms=(round((t_last_tok - t_first_tok) * 1000 / (sent - 1), 3)
+                                 if sent > 1 and t_last_tok > t_first_tok else None),
+                    )
 
         def _client_gone(self) -> bool:
             """True when a zero-timeout peek finds the client socket at EOF
@@ -965,6 +1298,13 @@ def drain(loop: EngineLoop, timeout: float = 30.0, poll: float = 0.05) -> bool:
     ) and loop.http_inflight == 0
 
 
+class _Server(ThreadingHTTPServer):
+    # the stdlib's listen backlog of 5 drops the connections past it in a
+    # burst of concurrent clients, and each of those waits a second for its
+    # SYN to be sent again
+    request_queue_size = 128
+
+
 def serve_inference(
     engine: InferenceEngine,
     port: int = 8000,
@@ -974,7 +1314,7 @@ def serve_inference(
     """Start the engine loop and the HTTP server (daemon threads); the
     caller owns shutdown: ``server.shutdown(); loop.stop()``."""
     loop = EngineLoop(engine).start()
-    server = ThreadingHTTPServer((host, port), make_handler(loop, request_timeout))
+    server = _Server((host, port), make_handler(loop, request_timeout))
     threading.Thread(target=server.serve_forever, name="inference-http", daemon=True).start()
     log.info("inference server on %s:%d", host, server.server_address[1])
     return server, loop

@@ -444,3 +444,23 @@ def test_serve_cli_with_kv_int8_prefix_cache_and_chunked_prefill():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_listen_backlog_holds_a_burst_of_connections():
+    """A burst of concurrent clients past the stdlib's listen backlog of 5
+    must not lose connections (each lost one waits a second for its SYN to
+    be sent again): with accepting stopped, 24 connections still complete
+    their handshake in the listen queue."""
+    engine = InferenceEngine(_params(), CFG, max_batch=2, max_len=64, page_size=8, device="cpu")
+    server, loop = serve_inference(engine, port=0, host="127.0.0.1")
+    server.shutdown()  # stop accepting; the socket keeps listening
+    socks = []
+    try:
+        for _ in range(24):
+            socks.append(socket.create_connection(server.server_address, timeout=0.5))
+    finally:
+        for s in socks:
+            s.close()
+        server.server_close()
+        loop.stop()
+    assert len(socks) == 24

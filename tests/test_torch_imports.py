@@ -60,7 +60,16 @@ def test_port_imports_no_jax_and_no_jax_package():
             "elastic_gpu_scheduler_tpu_torch.serve",
             "elastic_gpu_scheduler_tpu_torch.utils.prefixdigest",
             "elastic_gpu_scheduler_tpu_torch.utils.kvwire",
-            "elastic_gpu_scheduler_tpu_torch.launcher"} <= expected
+            "elastic_gpu_scheduler_tpu_torch.launcher",
+            "elastic_gpu_scheduler_tpu_torch.tracing",
+            "elastic_gpu_scheduler_tpu_torch.metrics",
+            "elastic_gpu_scheduler_tpu_torch.slo",
+            "elastic_gpu_scheduler_tpu_torch.slo.assembly",
+            "elastic_gpu_scheduler_tpu_torch.profile",
+            "elastic_gpu_scheduler_tpu_torch.policy",
+            "elastic_gpu_scheduler_tpu_torch.policy.lang",
+            "elastic_gpu_scheduler_tpu_torch.policy.vm",
+            "elastic_gpu_scheduler_tpu_torch.policy.registry"} <= expected
     bad = [m for m in res["modules"] if _is_jax_package(m)]
     assert not bad, bad
     assert "elastic_gpu_scheduler_tpu_torch" in res["modules"]
