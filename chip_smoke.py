@@ -186,11 +186,42 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    the aux is finite and in the loss, K1 / K4 2L / L a step and no KE;
    one step profiled; a small float32 MoE model card vs CPU;
    ``launcher.run_job`` with a MoE JobSpec beside the default one;
+11. ``serve --hf`` (after 7b, as are 12-14): a Llama-layout checkpoint at
+   TinyLlama-1.1B's published widths (hidden 2048, 22 layers, 32 heads, 4
+   kv heads, d_ff 5632, vocab 32000; random bf16 weights from a seed)
+   written as safetensors by the port's own writer, served by ``python -m
+   elastic_gpu_scheduler_tpu_torch.serve --hf`` in its own process (a
+   float32 model, as the converter sets it; paged kernel): four concurrent
+   completions over HTTP equal to the same engine built in this process
+   from the same checkpoint (K1 = L x prefills and K2 = L x K x (chunks +
+   captures' warm-ups) on that main path), and the port's first-token
+   logits within 1e-3 of a plain float32 forward of the HF-layout state
+   dict; load time, tokens/s and the weights' GB logged;
+12. ``--draft-hf``: a 2-layer draft (the checkpoint's embedding, first two
+   layers and head) with ``--spec-k 4``: greedy streams equal to the
+   unspeculated ones, over HTTP and in this process (K2 = L x (verify
+   passes + K x (chunks + warm-ups))), accepted drafts a pass logged;
+13. checkpoint and resume: ``launcher.run_job`` at the dense flagship's
+   width, depth cut to 2 layers, B 8, S 1024, 6 steps: uninterrupted
+   (K1 2L and K4 L a step), then in a child process killed (SIGKILL)
+   as step 5 starts, after its saves of steps 2 and 4 were dispatched,
+   then resumed here from the latest complete step; the resumed losses
+   and the final checkpoint against the uninterrupted run's (whether
+   bitwise, else the largest difference); save, write and restore ms
+   and the bytes;
+14. ViT training at ViT-B/16's widths (image 224, patch 16, D 768, 12
+   heads, d_ff 3072, 1000 classes, bf16, all 12 layers), B 64, one
+   warm-up and 5 timed steps on one batch: the loss falls, K1 and K4 L a
+   step, all not causal; step ms, images/s, model TFLOP/s;
 10. K1 and K4 at the train shape, K3 and K2 (dense and int8) with split
-   keys, called twice, must give identical bytes;
+   keys, called twice, must give identical bytes; K1 and K4 not causal at
+   the ViT's shape (B 64, 12, 197, 64, bf16) against ``mha_reference`` and
+   ``flash_backward_reference`` (``grad_close``), read early in the run
+   with non-causal SDPA as the library call;
    a ``{"kernels": [...]}`` line (K2 twice: decode, and the W = 5
    verify window of phase 6d; KE once a shape of its phase, its launches
-   those of the path the shape belongs to) with each kernel's launches on its main
+   those of the path the shape belongs to; K1 and K4 once at the train
+   shape and once at the ViT's) with each kernel's launches on its main
    path, error against its plain version, time, plain time, library
    time and lower bound, its share of the bound (``of_bound``) and its
    factor over the library call (``vs_library``).  Every row's calls
@@ -5103,6 +5134,693 @@ def kernel_train_rows(dev, k4_err) -> list[dict]:
     return rows
 
 
+# -- phases 11-14: HF import, --draft-hf, checkpoint and resume, the ViT ------
+
+
+# TinyLlama-1.1B's published config.json (TinyLlama/TinyLlama-1.1B-
+# intermediate-step-1431k-3T): the widths, depth and vocabulary of phase 11
+TINYLLAMA = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_act": "silu",
+    "hidden_size": 2048, "intermediate_size": 5632, "num_hidden_layers": 22,
+    "num_attention_heads": 32, "num_key_value_heads": 4, "vocab_size": 32000,
+    "rope_theta": 10000.0, "rms_norm_eps": 1e-05, "max_position_embeddings": 2048,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+}
+HF_DRAFT_LAYERS = 2
+HF_SPEC_K = 4
+HF_PROMPT_LENS = [32, 64, 128, 256]
+HF_NEW = 48
+HF_ENGINE = dict(max_batch=4, max_len=512, page_size=16, fused_steps=16, paged_kernel=True)
+HF_SERVE_FLAGS = ["--max-batch", "4", "--max-len", "512", "--page-size", "16",
+                  "--fused-steps", "16", "--paged-kernel"]
+# logits of unit scale through 22 float32 layers, summed in another order
+# (K1's FMA kernel and cuBLAS against einsum and matmul of the plain forward)
+HF_LOGIT_TOL = 1e-3
+
+
+def hf_state_dict(hf: dict, layers: int, dev, seed: int) -> dict:
+    """An HF Llama state dict at ``hf``'s widths with ``layers`` layers:
+    random bf16 weights (normal / sqrt(fan_in); embedding rows N(0, 1); unit
+    norms), drawn on the card from ``seed``, returned on the host."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D, F, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    KV = hf["num_key_value_heads"] * D // hf["num_attention_heads"]
+
+    def w(out_f, in_f, scale=None):
+        t = torch.randn(out_f, in_f, generator=g, device=dev)
+        return t.mul_(in_f ** -0.5 if scale is None else scale).to(torch.bfloat16).cpu()
+
+    def ones():
+        return torch.ones(D, dtype=torch.bfloat16)
+
+    sd = {"model.embed_tokens.weight": w(V, D, 1.0), "model.norm.weight": ones(),
+          "lm_head.weight": w(V, D)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": ones(),
+                   p + "post_attention_layernorm.weight": ones(),
+                   p + "self_attn.q_proj.weight": w(D, D), p + "self_attn.k_proj.weight": w(KV, D),
+                   p + "self_attn.v_proj.weight": w(KV, D), p + "self_attn.o_proj.weight": w(D, D),
+                   p + "mlp.gate_proj.weight": w(F, D), p + "mlp.up_proj.weight": w(F, D),
+                   p + "mlp.down_proj.weight": w(D, F)})
+    return sd
+
+
+def write_hf_dir(path: str, hf: dict, sd: dict) -> dict:
+    """``config.json`` and ``model.safetensors`` (the port's writer):
+    bytes and seconds."""
+    from elastic_gpu_scheduler_tpu_torch.utils.safetensors import save_file
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    t0 = time.perf_counter()
+    n = save_file(sd, os.path.join(path, "model.safetensors"), metadata={"format": "pt"})
+    return {"bytes": n, "write_s": time.perf_counter() - t0}
+
+
+def plain_llama_logits(sd: dict, hf: dict, tokens, dev):
+    """The last position's logits of an HF Llama state dict, in plain
+    float32 tensor code on ``dev`` (HF's layout and rotate-half RoPE, GQA by
+    repeating the kv heads, softmax over the whole causal score matrix).
+    RMSNorm's epsilon is 1e-6, the port's and the reference's: their
+    converters do not carry ``rms_norm_eps``."""
+    import torch
+    import torch.nn.functional as F
+
+    def W(name):
+        return sd[name].to(dev, torch.float32)
+
+    H, KV = hf["num_attention_heads"], hf["num_key_value_heads"]
+    D = hf["hidden_size"]
+    Dh = D // H
+    t = torch.as_tensor(tokens, device=dev).long()
+    S = t.shape[0]
+    x = W("model.embed_tokens.weight")[t]
+    inv = 1.0 / (hf["rope_theta"] ** (torch.arange(0, Dh, 2, device=dev).float() / Dh))
+    ang = torch.arange(S, device=dev).float()[:, None] * inv[None]
+    cos, sin = torch.cat([ang.cos()] * 2, -1)[:, None], torch.cat([ang.sin()] * 2, -1)[:, None]
+
+    def rms(v, wname):
+        return v * torch.rsqrt(v.pow(2).mean(-1, keepdim=True) + 1e-6) * W(wname)
+
+    def rot(v):
+        return torch.cat([-v[..., Dh // 2:], v[..., : Dh // 2]], -1)
+
+    mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    for i in range(hf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        h = rms(x, p + "input_layernorm.weight")
+        q = (h @ W(p + "self_attn.q_proj.weight").t()).view(S, H, Dh)
+        k = (h @ W(p + "self_attn.k_proj.weight").t()).view(S, KV, Dh)
+        v = (h @ W(p + "self_attn.v_proj.weight").t()).view(S, KV, Dh)
+        q, k = q * cos + rot(q) * sin, k * cos + rot(k) * sin
+        k, v = k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1)
+        s = torch.einsum("qhd,khd->hqk", q, k) * Dh ** -0.5
+        a = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+        o = torch.einsum("hqk,khd->qhd", a, v).reshape(S, D)
+        x = x + o @ W(p + "self_attn.o_proj.weight").t()
+        h = rms(x, p + "post_attention_layernorm.weight")
+        x = x + (F.silu(h @ W(p + "mlp.gate_proj.weight").t())
+                 * (h @ W(p + "mlp.up_proj.weight").t())) @ W(p + "mlp.down_proj.weight").t()
+    return rms(x[-1], "model.norm.weight") @ W("lm_head.weight").t()
+
+
+class ServeProcess:
+    """``python -m elastic_gpu_scheduler_tpu_torch.serve`` with ``args`` in
+    its own process, as a pod starts it: its log in a file, the seconds
+    until /healthz answered 200, SIGTERM (drain) at the end, a kill if it
+    does not exit."""
+
+    def __init__(self, args: list, log_path: str):
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        self.addr = ("127.0.0.1", self.port)
+        self.log_path = log_path
+        self.log = open(log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "elastic_gpu_scheduler_tpu_torch.serve", "--port",
+             str(self.port), "--host", "127.0.0.1", *args],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), stdout=self.log,
+            stderr=subprocess.STDOUT)
+
+    def tail(self) -> str:
+        with open(self.log_path) as f:
+            return "".join(f.readlines()[-30:])
+
+    def wait_ready(self, timeout: float) -> float:
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                if get_json(self.addr, "/healthz")[0] == 200:
+                    return time.perf_counter() - self.t0
+            except OSError:
+                pass
+            if self.proc.poll() is not None:
+                fail(f"serve exited with {self.proc.returncode}:\n{self.tail()}")
+            if time.monotonic() > deadline:
+                fail(f"serve did not answer /healthz in {timeout} s:\n{self.tail()}")
+            time.sleep(0.25)
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(__import__("signal").SIGTERM)
+            try:
+                self.proc.wait(timeout=90)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+        return self.proc.returncode
+
+
+def http_completions(addr, prompts, max_new) -> tuple[list, float]:
+    """The prompts as concurrent blocking completions: (tokens each, wall s)."""
+    import threading
+
+    out, errs = [None] * len(prompts), []
+
+    def one(i):
+        try:
+            code, _, data = post_json(addr, {"prompt": list(prompts[i]), "max_tokens": max_new})
+            check(code == 200, f"completion {i}: HTTP {code} {data[:200]!r}")
+            out[i] = json.loads(data)["tokens"]
+        except Exception as e:  # noqa: BLE001 - re-raised by the caller's check
+            errs.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errs, f"HTTP completions failed: {errs}")
+    return out, wall
+
+
+def phase_hf(dev) -> dict:
+    """11. ``serve --hf`` on a Llama-layout checkpoint at TinyLlama-1.1B's
+    widths (random bf16 weights from a seed, written as safetensors by the
+    port's writer), served as a pod starts it, four concurrent completions
+    over HTTP; the same engine built in this process from the same state
+    dict (the main path: K1 and K2 launches exact) must give the same
+    greedy tokens, and the port's forward the plain float32 forward's
+    first-token logits.  12. ``--draft-hf`` with a 2-layer draft (the
+    checkpoint's embedding, first two layers and head) and ``--spec-k 4``:
+    the greedy streams equal the unspeculated ones, over HTTP and in this
+    process (K2's W = 5 launches exact)."""
+    import tempfile
+
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.convert import load_hf
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import forward, param_count
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    res: dict = {"config": "TinyLlama-1.1B widths (config.json), random bf16 weights, seed 13"}
+    work = tempfile.mkdtemp(prefix="hf_")
+    try:
+        sd = hf_state_dict(TINYLLAMA, TINYLLAMA["num_hidden_layers"], dev, seed=13)
+        base_dir, draft_dir = os.path.join(work, "base"), os.path.join(work, "draft")
+        res["checkpoint"] = write_hf_dir(base_dir, TINYLLAMA, sd)
+        draft_hf = dict(TINYLLAMA, num_hidden_layers=HF_DRAFT_LAYERS)
+        keep = ("model.embed_tokens.", "model.norm.", "lm_head.") + tuple(
+            f"model.layers.{i}." for i in range(HF_DRAFT_LAYERS))
+        res["draft_checkpoint"] = write_hf_dir(
+            draft_dir, draft_hf, {k: v for k, v in sd.items() if k.startswith(keep)})
+        log(f"hf: wrote {res['checkpoint']['bytes'] / 1e9:.3f} GB base and "
+            f"{res['draft_checkpoint']['bytes'] / 1e9:.3f} GB draft safetensors")
+        srv = ServeProcess(["--hf", base_dir, *HF_SERVE_FLAGS], os.path.join(work, "serve.log"))
+        try:
+            # the in-memory engine while the server loads
+            t0 = time.perf_counter()
+            params, cfg = load_hf(base_dir)
+            res["load_s"] = time.perf_counter() - t0
+            n_params = param_count(params)
+            res["weights_gb"] = n_params * 4 / 1e9
+            log(f"hf: load_hf (read + convert on the host) {res['load_s']:.2f} s: "
+                f"{n_params / 1e9:.3f}B parameters, {res['weights_gb']:.2f} GB float32, "
+                f"{cfg.n_heads}q/{cfg.kv_heads}kv heads, Dh {cfg.head_dim}")
+            check(cfg.dtype == "float32" and cfg.kv_heads == 4 and cfg.n_layers == 22,
+                  f"converted config {cfg}")
+            t0 = time.perf_counter()
+            eng = InferenceEngine(params, cfg, device=dev, **HF_ENGINE)
+            torch.cuda.synchronize()
+            res["to_device_s"] = time.perf_counter() - t0
+            del params
+            rng = np.random.default_rng(17)
+            prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in HF_PROMPT_LENS]
+            drive_wall(eng, prompts[:1], 4)  # captures the decode graphs
+            # the main path: counts at 0 just before, read just after
+            warm0, steps0, pre0 = eng.graph_warmups, eng.steps_run, eng.prefills_run
+            _build.reset_launches()
+            reqs, wall, chunks = drive_wall(eng, prompts, HF_NEW)
+            launches = dict(_build.LAUNCHES)
+            L, K = cfg.n_layers, eng.fused_steps
+            warm, pre = eng.graph_warmups - warm0, eng.prefills_run - pre0
+            want = dict.fromkeys(launches, 0)
+            want.update(flash_fwd=L * pre, paged_attention=L * K * (chunks + warm))
+            log(f"hf engine main path: {pre} prefills, {chunks} chunks, launches {launches} "
+                f"(want {want})")
+            check(launches == want and pre == len(prompts), "--hf engine launches differ")
+            mem_tokens = [r.output for r in reqs]
+            res["engine_tokens_per_s"] = len(prompts) * HF_NEW / wall
+            res["engine_launches"] = launches
+            # where a float32 chunk's time goes
+            prof = chunk_profile(eng, [(p, {}) for p in prompts], "hf float32")
+            res["chunk_profile"] = {k: prof[k] for k in (
+                "wall_ms_per_chunk", "device_ms_per_chunk", "kernels_per_chunk", "idle_share")}
+            res["chunk_profile"]["top"] = [
+                {"kernel": k["kernel"][:80], "ms_per_chunk": k["ms"] / CONTROL_WINDOW,
+                 "count_per_chunk": k["count"] / CONTROL_WINDOW} for k in prof["top"][:6]]
+            for k in res["chunk_profile"]["top"]:
+                log(f"  hf chunk: {k['ms_per_chunk']:9.3f} ms  x{k['count_per_chunk']:6.0f}  "
+                    f"{k['kernel']}")
+            # first-token logits against the plain float32 forward on the card
+            p0 = prompts[1]
+            with torch.no_grad():
+                got = forward(eng.params, torch.tensor([p0], device=dev), cfg)[0, -1]
+                want_l = plain_llama_logits(sd, TINYLLAMA, p0, dev)
+            err = maxerr(got, want_l)
+            top2 = torch.topk(want_l, 2).values
+            margin = float(top2[0] - top2[1])
+            res["first_logits"] = {"max_abs_err": err, "tolerance": HF_LOGIT_TOL,
+                                   "max_abs_logit": float(want_l.abs().max()),
+                                   "top2_margin": margin}
+            log(f"hf first-token logits, port forward (K1) vs plain float32 forward: max|d| "
+                f"{err:.3g} (tol {HF_LOGIT_TOL}), max|logit| {float(want_l.abs().max()):.3g}, "
+                f"top-2 margin {margin:.3g}")
+            check(err <= HF_LOGIT_TOL, "--hf logits disagree with the plain forward")
+            if margin > 2 * HF_LOGIT_TOL:
+                check(mem_tokens[1][0] == int(torch.argmax(want_l)),
+                      "the first token is not the plain forward's argmax")
+            # the server: the same tokens over HTTP
+            res["serve_ready_s"] = srv.wait_ready(600)
+            http_completions(srv.addr, prompts[:1], 4)  # its graphs
+            got_t, wall = http_completions(srv.addr, prompts, HF_NEW)
+            res["http_tokens_per_s"] = len(prompts) * HF_NEW / wall
+            res["http_wall_s"] = wall
+            check(got_t == mem_tokens, "serve --hf tokens differ from the in-memory engine's")
+            stats = get_json(srv.addr, "/v1/stats")[1]
+            log(f"serve --hf: ready in {res['serve_ready_s']:.1f} s, 4 concurrent completions "
+                f"x {HF_NEW} tokens in {wall:.2f} s ({res['http_tokens_per_s']:.1f} tokens/s; "
+                f"in memory {res['engine_tokens_per_s']:.1f}), greedy tokens identical to the "
+                f"in-memory engine's")
+            check(stats["spec_k"] == 0, "serve --hf stats")
+        finally:
+            rc = srv.stop()
+        check(rc == 0, f"serve --hf exited {rc}:\n{srv.tail()}")
+        check("serving hf-imported model (22 layers, d=2048)" in open(srv.log_path).read(),
+              "serve --hf did not log its hf-imported model")
+        # 12. --draft-hf
+        srv = ServeProcess(["--hf", base_dir, "--draft-hf", draft_dir, "--spec-k",
+                            str(HF_SPEC_K), *HF_SERVE_FLAGS], os.path.join(work, "draft.log"))
+        try:
+            dparams, dcfg = load_hf(draft_dir)
+            seng = InferenceEngine(eng.params, cfg, device=dev, spec_k=HF_SPEC_K,
+                                   draft=(dparams, dcfg), **HF_ENGINE)
+            del dparams
+            drive_wall(seng, prompts[:1], 4)
+            marks = spec_marks(seng)
+            _build.reset_launches()
+            sreqs, swall, _ = drive_wall(seng, prompts, HF_NEW)
+            launches = dict(_build.LAUNCHES)
+            c = spec_counts(seng, marks)
+            chunks = c["steps"] - c["passes"]
+            want_k2 = cfg.n_layers * (c["passes"] + seng.fused_steps * (chunks + c["warmups"]))
+            log(f"hf draft engine main path: {c['passes']} verify passes ({c['accepted']} "
+                f"drafts accepted), {chunks} chunks, launches {launches} (want "
+                f"paged_attention={want_k2})")
+            check(c["passes"] > 0 and launches["paged_attention"] == want_k2,
+                  "--draft-hf engine K2 launches differ from the path")
+            check([r.output for r in sreqs] == mem_tokens,
+                  "the draft engine's greedy tokens differ from the unspeculated ones")
+            res["draft_engine"] = {"tokens_per_s": len(prompts) * HF_NEW / swall,
+                                   "passes": c["passes"], "accepted": c["accepted"],
+                                   "accepted_a_pass": c["accepted"] / c["passes"],
+                                   "launches": launches}
+            del seng
+            res["draft_serve_ready_s"] = srv.wait_ready(600)
+            http_completions(srv.addr, prompts[:1], 4)
+            got_t, wall = http_completions(srv.addr, prompts, HF_NEW)
+            stats = get_json(srv.addr, "/v1/stats")[1]
+            res["draft_http_tokens_per_s"] = len(prompts) * HF_NEW / wall
+            log(f"serve --hf --draft-hf --spec-k {HF_SPEC_K}: ready in "
+                f"{res['draft_serve_ready_s']:.1f} s, {res['draft_http_tokens_per_s']:.1f} "
+                f"tokens/s over HTTP, {stats['spec_passes']} passes, {stats['spec_accepted']} "
+                f"accepted; streams equal to the unspeculated ones")
+            check(got_t == mem_tokens, "--draft-hf streams differ from the unspeculated ones")
+            check(stats["spec_k"] == HF_SPEC_K and stats["spec_passes"] > 0,
+                  "serve --draft-hf ran no verify pass")
+        finally:
+            rc = srv.stop()
+        check(rc == 0, f"serve --draft-hf exited {rc}:\n{srv.tail()}")
+        del eng
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("hf: " + json.dumps(res))
+    return res
+
+
+# 13. checkpoint and resume: the dense flagship's width, depth cut to 2
+# layers (its checkpoint holds bf16 params, fp32 masters and both fp32
+# moments: ~3.5 GB a step at L 2), phase 9's batch and sequence
+RESUME_MODEL = dict(TRAIN, n_layers=2)
+RESUME_JOB = dict(steps=6, batch_size=TRAIN_B, seq_len=TRAIN_S, lr=3e-4, checkpoint_every=2)
+RESUME_KILL_AT = 5  # the child dies as it starts step 5: saves of 2 and 4 dispatched
+
+
+def resume_child(ckpt_dir: str) -> None:
+    """The interrupted job, run in its own process: ``launcher.run_job``
+    with a save every 2 steps, SIGKILLed as its train step is called for
+    step RESUME_KILL_AT (no clean-up, a save possibly mid-write)."""
+    import signal
+
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch import launcher
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    real = launcher.make_train_step
+
+    def make(*a, **k):
+        fn, calls = real(*a, **k), [0]
+
+        def step(*args):
+            if calls[0] == RESUME_KILL_AT:
+                print(f"killed at step {calls[0]}", flush=True)
+                os.kill(os.getpid(), signal.SIGKILL)
+            calls[0] += 1
+            return fn(*args)
+
+        return step
+
+    launcher.make_train_step = make
+    spec = launcher.JobSpec(model=TransformerConfig(**RESUME_MODEL), checkpoint_dir=ckpt_dir,
+                            **RESUME_JOB)
+    launcher.run_job(spec, device="cuda")
+
+
+def _flat_file(step_dir: str) -> list:
+    import torch
+
+    payload = torch.load(os.path.join(step_dir, "state.pt"), map_location="cpu",
+                         weights_only=True)
+    return payload["params"] + payload["opt_state"]
+
+
+def phase_resume(dev) -> dict:
+    """13. ``launcher.run_job`` with checkpoints at the dense flagship's
+    width (L 2): uninterrupted (the main path); killed in a child process
+    after its saves of steps 2 and 4 were dispatched, then resumed here
+    from the latest complete step; the resumed losses and the final
+    checkpoint against the uninterrupted run's (bitwise, else the largest
+    difference); the manager's save (the host copy), write and restore
+    times and bytes."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch import launcher
+    from elastic_gpu_scheduler_tpu_torch.models.checkpoint import CheckpointManager
+    from elastic_gpu_scheduler_tpu_torch.models.train import init_state, make_optimizer
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    cfg = TransformerConfig(**RESUME_MODEL)
+    work = tempfile.mkdtemp(prefix="resume_")
+    res: dict = {"model": f"dense flagship widths, L {cfg.n_layers} (cut from 16), "
+                          f"B {TRAIN_B}, S {TRAIN_S}", "steps": RESUME_JOB["steps"]}
+    try:
+        whole_dir, cut_dir = os.path.join(work, "whole"), os.path.join(work, "cut")
+        # the main path: counts at 0 just before, read just after
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        whole = launcher.run_job(launcher.JobSpec(
+            model=cfg, checkpoint_dir=whole_dir, **dict(RESUME_JOB, checkpoint_every=6)),
+            device=dev)
+        res["whole_s"] = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        L, n = cfg.n_layers, RESUME_JOB["steps"]
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_fwd=2 * L * n, flash_bwd_dq=L * n, flash_bwd_dkv=L * n)
+        log(f"resume: uninterrupted run_job, {n} steps in {res['whole_s']:.2f} s, losses "
+            f"{whole}, launches {launches} (want {want})")
+        check(launches == want, "run_job with checkpoints: K1 / K4 launches differ")
+        # the killed child
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+             "import chip_smoke; chip_smoke.resume_child(sys.argv[2])", HERE, cut_dir],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), capture_output=True, text=True,
+            timeout=600)
+        res["child_s"] = time.perf_counter() - t0
+        check(child.returncode == -9, f"the child was to die by SIGKILL, exit "
+              f"{child.returncode}: {child.stderr[-2000:]}")
+        left = sorted(os.listdir(cut_dir))
+        res["left_on_disk"] = left
+        log(f"resume: child killed at step {RESUME_KILL_AT} after {res['child_s']:.1f} s; on "
+            f"disk: {left}")
+        t0 = time.perf_counter()
+        resumed = launcher.run_job(launcher.JobSpec(model=cfg, checkpoint_dir=cut_dir,
+                                                    **RESUME_JOB), device=dev)
+        res["resume_run_s"] = time.perf_counter() - t0
+        start = n - len(resumed)
+        res["resumed_from"] = start
+        check(start in (2, 4), f"resumed from step {start}, not a saved step")
+        loss_diff = max(abs(a - b) for a, b in zip(resumed, whole[start:]))
+        a_leaves = _flat_file(os.path.join(whole_dir, f"step_{n:08d}"))
+        b_leaves = _flat_file(os.path.join(cut_dir, f"step_{n:08d}"))
+        check(len(a_leaves) == len(b_leaves), "the final checkpoints differ in leaves")
+        bitwise = resumed == whole[start:] and all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(a_leaves, b_leaves))
+        state_diff = max(float((a.float() - b.float()).abs().max()) if isinstance(
+            a, torch.Tensor) else abs(a - b) for a, b in zip(a_leaves, b_leaves))
+        res.update(losses_whole=whole, losses_resumed=resumed, bitwise=bitwise,
+                   max_loss_diff=loss_diff, max_state_diff=state_diff)
+        log(f"resume: resumed from step {start}: losses {resumed} against {whole[start:]}; "
+            f"final params and optimizer state {'bitwise equal' if bitwise else 'differ'} "
+            f"(largest loss difference {loss_diff:.3g}, state {state_diff:.3g})")
+        check(loss_diff <= 1e-3 and state_diff <= 1e-2,
+              "the resumed run is far from the uninterrupted one")
+        del a_leaves, b_leaves
+        # the manager alone: save (host copy), write, restore, bytes
+        opt = make_optimizer(lr=RESUME_JOB["lr"], grad_clip=1.0)
+        params, state = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)
+        mgr = CheckpointManager(os.path.join(work, "timed"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(params, state, 1)
+        res["save_call_ms"] = (time.perf_counter() - t0) * 1e3
+        mgr.wait()
+        res["save_total_ms"] = (time.perf_counter() - t0) * 1e3
+        res["bytes"] = os.path.getsize(os.path.join(mgr.step_dir(1), "state.pt"))
+        t0 = time.perf_counter()
+        out = mgr.restore(params, state)
+        torch.cuda.synchronize()
+        res["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        check(out is not None and out[2] == 1, "restore of the timed save")
+        log(f"checkpoint manager at L {cfg.n_layers}: {res['bytes'] / 1e9:.3f} GB; save call "
+            f"(device-to-host copy) {res['save_call_ms']:.1f} ms, save with the write "
+            f"{res['save_total_ms']:.1f} ms, restore {res['restore_ms']:.1f} ms")
+        del params, state, out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("resume: " + json.dumps({k: v for k, v in res.items()
+                                 if k not in ("losses_whole", "losses_resumed")}))
+    return res
+
+
+# 14. the ViT at ViT-B/16's widths (image 224, patch 16, D 768, 12 heads,
+# d_ff 3072, 1000 classes, bf16 compute, fp32 weights); all 12 layers
+VIT_B16 = dict(image_size=224, patch_size=16, channels=3, n_classes=1000, d_model=768,
+               n_layers=12, n_heads=12, d_ff=3072, dtype="bfloat16")
+VIT_B, VIT_STEPS = 64, 5
+VIT_ATTN = (VIT_B, 12, 197, 197, 64)  # B, H, Sq, Sk, Dh: 196 patches + CLS
+
+
+def vit_matmul_flops_fwd(cfg, batch: int) -> float:
+    """Matmul forward FLOPs of the ViT: patch embedding, projections, the
+    FFN, both attention products over all S x S pairs, the head."""
+    S, D, F, L = cfg.n_patches + 1, cfg.d_model, cfg.d_ff, cfg.n_layers
+    patch = cfg.n_patches * 2 * cfg.patch_size ** 2 * cfg.channels * D
+    layer = S * (8 * D * D + 6 * D * F) + 4 * S * S * D
+    return float(batch * (patch + L * layer + 2 * D * cfg.n_classes))
+
+
+def phase_vit(dev) -> dict:
+    """14. ViT training at ViT-B/16's widths: one warm-up and VIT_STEPS
+    timed steps on one batch of random images; the loss finite and
+    falling, K1 L a step and K4 L a step, all non-causal."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.train import make_optimizer
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import param_count
+    from elastic_gpu_scheduler_tpu_torch.models.vit import (
+        ViTConfig,
+        init_vit_params,
+        make_vit_train_step,
+    )
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    cfg = ViTConfig(**VIT_B16)
+    params = init_vit_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = make_optimizer(lr=1e-4)
+    state = opt.init(params)
+    step = make_vit_train_step(cfg, opt)
+    g = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn(VIT_B, 224, 224, 3, generator=g, device=dev)
+    labels = torch.randint(0, cfg.n_classes, (VIT_B,), generator=g, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path: counts at 0 just before, read just after
+    _build.reset_launches()
+    losses, times = [], []
+    for _ in range(VIT_STEPS + 1):
+        t0 = time.perf_counter()
+        loss = step(params, state, images, labels)[2]
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches = dict(_build.LAUNCHES)
+    L, n = cfg.n_layers, VIT_STEPS + 1
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_fwd=L * n, flash_bwd_dq=L * n, flash_bwd_dkv=L * n)
+    log(f"vit main path: {param_count(params) / 1e6:.1f}M parameters, B {VIT_B}, {n} steps, "
+        f"losses {[round(x, 4) for x in losses]}, launches {launches} (want {want})")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], "ViT loss not finite or not falling")
+    check(launches == want, "ViT launches differ from L (K1) and L (K4) a step")
+    step_ms = float(np.mean(times[1:])) * 1e3
+    flops = 3 * vit_matmul_flops_fwd(cfg, VIT_B)
+    perf = {"config": "ViT-B/16 widths, 12 layers (not cut)", "batch": VIT_B,
+            "params_m": param_count(params) / 1e6, "step_ms": step_ms,
+            "step_ms_each": [x * 1e3 for x in times],
+            "images_per_s": VIT_B / (step_ms / 1e3),
+            "model_tflops": flops / (step_ms / 1e3) / 1e12,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "losses": losses, "launches": launches}
+    log("vit perf: " + json.dumps(perf))
+    del params, state, step, images
+    gc.collect()
+    torch.cuda.empty_cache()
+    return perf
+
+
+def kernel_vit_rows(dev) -> list[dict]:
+    """K1 and K4 at the ViT's attention shape (B, 12, 197, 64), bf16, not
+    causal: held to ``mha_reference`` and ``flash_backward_reference``
+    (``grad_close``), read as the train rows are, with non-causal SDPA
+    forward and backward as the library calls; launches filled in from
+    phase 14."""
+    import torch
+    import torch.nn.functional as F
+
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_backward,
+        flash_backward_reference,
+        grad_close,
+        mha_reference,
+    )
+
+    B, H, S, _, D = VIT_ATTN
+    g = torch.Generator(device=dev).manual_seed(19)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = flash_attention(q, k, v, False, None, 0, return_lse=True)
+    ref, ref_lse = mha_reference(q, k, v, False, None, 0)
+    k1_err, lse_err = maxerr(out, ref), maxerr(lse, ref_lse)
+    log(f"K1 at the ViT shape (not causal): max|out-ref|={k1_err:.3g} max|lse-ref|={lse_err:.3g}")
+    check(close(out, ref, "bfloat16") and lse_err <= 1e-4,
+          "K1 disagrees with mha_reference at the ViT shape")
+    got = flash_backward(q, k, v, out, lse, do, False, None, 0)
+    want = flash_backward_reference(q, k, v, out, lse, do, False, None, 0,
+                                    round_like_kernel=True)
+    k4_err = {}
+    for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+        use, text = tol_use(a, b)
+        log(f"K4 at the ViT shape (not causal) {nm}: {text}")
+        check(grad_close(a, b), f"K4 {nm} disagrees with flash_backward_reference at the ViT shape")
+        k4_err[nm] = maxerr(a, b)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(flash_attention(*leaves, False, None, 0), leaves, do)
+    plain = torch.autograd.grad(mha_reference(*leaves, False, None, 0)[0], leaves, do)
+    for nm, a, b in zip(("dq", "dk", "dv"), auto, plain):
+        use, text = tol_use(a, b, rounded=False)
+        log(f"FlashAttention at the ViT shape {nm} against autograd of mha_reference: {text}")
+        check(grad_close(a, b, rounded=False), "ViT-shape gradients disagree with autograd")
+    del got, want, auto, plain, leaves
+    k1_bound, k1_by = k1_bound_ms(B, H, S, S, D, False, 0, 2)
+    k1_rd = replay_readings(lambda: flash_attention(q, k, v, False, None, 0), 20,
+                            bound=k1_bound)
+    k1_plain = device_ms(lambda: mha_reference(q, k, v, False, None, 0), 5)
+    k1_lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    k4_bound, k4_by = k4_bound_ms(B, H, S, S, D, False, 0, 2)
+
+    def bwd():
+        return flash_backward(q, k, v, out, lse, do, False, None, 0)
+
+    bwd_rd = replay_readings(bwd, 10, matches=("flash_bwd_dq", "flash_bwd_dkv"),
+                             call_bound=k4_bound)
+    plain_bwd = device_ms(lambda: flash_backward_reference(q, k, v, ref, ref_lse, do, False,
+                                                           None, 0), 3)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(F.scaled_dot_product_attention(*leaves), leaves, do)
+
+    lib_bwd = device_ms(sdpa_fwd_bwd, 10) - device_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    dq_ms, dkv_ms = bwd_rd["ms"]["flash_bwd_dq"], bwd_rd["ms"]["flash_bwd_dkv"]
+    log(f"ViT-shape timing (B={B} H={H} S={S} D={D} bf16, not causal): K1 {k1_rd['ms']['']:.5f} "
+        f"ms (profiler {k1_rd['profiler_ms']['']:.5f}; plain {k1_plain:.4f}, sdpa {k1_lib:.5f}, "
+        f"bound {k1_bound:.5f} {k1_by}); K4 dq {dq_ms:.5f} + dkv {dkv_ms:.5f} ms (call "
+        f"{bwd_rd['call_ms']:.5f}, profiler {bwd_rd['profiler_call_ms']:.5f}; plain backward "
+        f"{plain_bwd:.4f}, sdpa backward {lib_bwd:.5f}, bound {k4_bound:.5f} {k4_by})")
+    src = "elastic_gpu_scheduler_tpu_torch/csrc/"
+    rows = [{
+        **reading_fields([(1, k1_rd)]),
+        "name": "flash_fwd", "path": "vit", "route": "cuda", "source": src + "flash_fwd.cu",
+        "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:290",
+        "launches": 0, "max_abs_err": k1_err, "plain_ms": k1_plain, "bound_ms": k1_bound,
+        "bound_by": k1_by, "library_ms": k1_lib,
+        "note": "not causal, S 197; library_ms is non-causal SDPA",
+    }]
+    errs = {"dq": k4_err["dq"], "dkv": max(k4_err["dk"], k4_err["dv"])}
+    for which in ("dq", "dkv"):
+        bound = K4_SHARE[which] * k4_bound
+        rows.append({
+            **reading_fields([(1, bwd_rd)], f"flash_bwd_{which}", bound),
+            "name": f"flash_bwd_{which}", "path": "vit", "route": "cuda",
+            "source": src + "flash_bwd.cu",
+            "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:633",
+            "launches": 0, "max_abs_err": errs[which], "plain_ms": plain_bwd,
+            "bound_ms": bound, "bound_by": k4_by, "library_ms": lib_bwd,
+            "note": "not causal, S 197; plain_ms and library_ms are the whole backward "
+                    "(flash_backward_reference; non-causal SDPA forward+backward minus "
+                    "forward), bound_ms this kernel's share of the whole backward's bound",
+        })
+    del q, k, v, do, out, lse, ref, ref_lse, leaves
+    torch.cuda.empty_cache()
+    return rows
+
+
 # the PR that last rebuilt each kernel's bf16 path for Hopper
 REDESIGNED = {"flash_fwd": "PR 4", "flash_bwd_dq": "PR 4", "flash_bwd_dkv": "PR 4",
               "paged_attention": "PR 5", "paged_attention_int8": "PR 5",
@@ -5210,8 +5928,10 @@ def main() -> int:
     k3_err = phase_k3(dev)
     k4_err = phase_k4(dev)
     ke_rows = phase_ke(dev)
-    # the train-shape rows early, before the run's many profiler sessions
+    # the train-shape and ViT-shape rows early, before the run's many
+    # profiler sessions
     train_rows = kernel_train_rows(dev, k4_err)
+    vit_rows = kernel_vit_rows(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5299,11 +6019,18 @@ def main() -> int:
     obs = phase_observability(dev, *full_model(dev))
     gc.collect()
     torch.cuda.empty_cache()
+    # 11, 12. serve --hf and --draft-hf; 13. checkpoint and resume; 14. the
+    # ViT (after 7b, whose profiler windows keep their place in the run)
+    hf = phase_hf(dev)
+    resume = phase_resume(dev)
+    vit = phase_vit(dev)
 
     # 10. the kernels line
     for r in train_rows:
         r["launches"] = train_launches[r["name"]]
-    kernels += train_rows
+    for r in vit_rows:
+        r["launches"] = vit["launches"][r["name"]]
+    kernels += train_rows + vit_rows
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
         k["of_bound"] = k["bound_ms"] / k["ms"]
@@ -5326,6 +6053,7 @@ def main() -> int:
                     "launcher": launcher_res, "lora_train": lora_train}))
     log(json.dumps({"kernel_readings": readings}))
     log(json.dumps({"observability": obs}))
+    log(json.dumps({"hf": hf, "resume": resume, "vit": vit}))
     log(card)
     print(json.dumps({"kernels": kernels}))
     # the one card this script drives (cuda:0)

@@ -12,11 +12,14 @@ than one device or a module not ported yet is refused by name, and
 - a mesh whose axis sizes multiply past 1 (``--mesh``);
 - an allocation (annotation, ``TPU_VISIBLE_CHIPS`` or a straddling gang's
   slice list) naming more than one chip;
-- checkpoints (``--checkpoint-dir``) and the compile cache
-  (``--compile-cache``).
+- the compile cache (``--compile-cache``).
 
-``--profile-dir`` writes a ``torch.profiler`` trace, ``--metrics-log``
-appends per-step ``{step, loss}`` JSON lines.
+``--checkpoint-dir`` with ``--checkpoint-every N`` saves the params and
+optimizer state every N steps and once more, blocking, at the end
+(``models/checkpoint``); a job started on a directory that holds a
+checkpoint resumes from its latest step, its batch stream fast-forwarded
+to that step.  ``--profile-dir`` writes a ``torch.profiler`` trace,
+``--metrics-log`` appends per-step ``{step, loss}`` JSON lines.
 """
 
 from __future__ import annotations
@@ -116,11 +119,6 @@ def check_one_device(spec: JobSpec, annotations: Optional[dict[str, str]] = None
             f"a gang across {len(slices)} slices ({ANNOTATION_GANG_SLICES}) "
             "needs parallel/, a later slice of the port"
         )
-    if spec.checkpoint_dir:
-        raise Unported(
-            "--checkpoint-dir: checkpoints (models/checkpoint) are a later "
-            "slice of the port"
-        )
 
 
 def run_job(spec: JobSpec, pod_annotations: Optional[dict[str, str]] = None,
@@ -142,14 +140,32 @@ def run_job(spec: JobSpec, pod_annotations: Optional[dict[str, str]] = None,
         if spec.dataset_path
         else SyntheticTokenDataset(spec.model.vocab_size, seed=spec.seed)
     )
+    start_step = 0
+    ckpt = None
+    if spec.checkpoint_dir:
+        from .models.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(spec.checkpoint_dir)
+        restored = ckpt.restore(params, opt_state)
+        if restored is not None:
+            params, opt_state, start_step = restored
+            log.info("resumed from step %d", start_step)
+    # built after the restore: a resumed run continues the stream, not replays it
     batch_iter = batches(source, batch_size=spec.batch_size, seq_len=spec.seq_len,
-                         seed=spec.seed + 1)
+                         seed=spec.seed + 1, start_batch=start_step)
     log.info("training on %s: %s", dev, spec.model)
     losses = []
-    for _ in range(spec.steps):
+    for step in range(start_step, spec.steps):
         tokens = torch.from_numpy(next(batch_iter)).to(dev)
         params, opt_state, loss = step_fn(params, opt_state, tokens)
         losses.append(float(loss))
+        if ckpt and spec.checkpoint_every and (step + 1) % spec.checkpoint_every == 0:
+            ckpt.save(params, opt_state, step + 1)
+    if ckpt and spec.checkpoint_every:
+        # the job's final save is on disk before the pod exits
+        ckpt.save(params, opt_state, spec.steps, block=True)
+    if ckpt:
+        ckpt.close()
     return losses
 
 
@@ -190,8 +206,10 @@ def main(argv=None) -> int:
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--data", default="", help="memmap token file (else synthetic)")
-    p.add_argument("--checkpoint-dir", default="", help="not ported yet: exits 2")
-    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--checkpoint-dir", default="",
+                   help="save here, and resume from the latest step found here")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save every this many steps, and at the end (0: never save)")
     p.add_argument("--container", default="main")
     p.add_argument("--mesh", default="",
                    help="axis sizes, e.g. 'tensor=2' (this slice: product 1)")
@@ -244,12 +262,13 @@ def main(argv=None) -> int:
         losses = run_job(job, annotations, args.container, device)
     if args.metrics_log:
         with open(args.metrics_log, "a") as f:
+            start = job.steps - len(losses)  # past the resumed steps
             for i, loss in enumerate(losses):
-                f.write(json.dumps({"step": i, "loss": loss}) + "\n")
+                f.write(json.dumps({"step": start + i, "loss": loss}) + "\n")
     if losses:
         print(f"trained {len(losses)} steps; final loss {losses[-1]:.4f}")
     else:
-        print("no steps to run (--steps 0)")
+        print("no steps to run (already complete or --steps 0)")
     return 0
 
 

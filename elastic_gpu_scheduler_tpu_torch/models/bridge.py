@@ -12,7 +12,9 @@ bfloat16 arrives as an ``ml_dtypes`` bfloat16 array, which
 bit-exact.  ``params_to_numpy`` is the way back, with bfloat16 leaves as
 their raw bits in uint16 arrays (view them as ``ml_dtypes.bfloat16`` to
 compare).  ``lora_from_jax`` / ``lora_to_numpy`` carry a LoRA adapter
-tree (``{"adapters", "alpha", "rank"}``) the same way.
+tree (``{"adapters", "alpha", "rank"}``) the same way, and
+``vit_params_from_jax`` the ViT family's tree (``models/vit``), int8
+leaves ({"q8", "scale"}) included.
 """
 
 from __future__ import annotations
@@ -62,6 +64,18 @@ def params_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tensor_to_numpy(tree)
+
+
+_VIT_KEYS = {"patch_embed", "pos_embed", "cls_token", "layers", "final_norm", "head"}
+
+
+def vit_params_from_jax(tree, device=None):
+    """The reference's ``init_vit_params`` tree (numpy leaves, or a
+    ``quantize_params`` tree of it) → the port's: the same nesting,
+    shapes and dtypes.  Raises when the top-level keys are not the ViT's."""
+    if set(tree) != _VIT_KEYS:
+        raise ValueError(f"not a ViT params tree: keys {sorted(tree)}, want {sorted(_VIT_KEYS)}")
+    return params_from_jax(tree, device)
 
 
 def lora_from_jax(lora_np: dict, device=None) -> dict:

@@ -231,16 +231,23 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW, mesh=None, grad_ac
 
     def train_step(params, opt_state, tokens):
         loss, grads = _grads_of(params, tokens, cfg, grad_accum)
-        if isinstance(opt_state, MasterState):
-            optimizer.update(_unflatten(params, grads), opt_state.inner, opt_state.master)
-            with torch.no_grad():
-                for p, m in zip(_leaves(params), _leaves(opt_state.master)):
-                    p.copy_(m)
-            return params, opt_state, loss
-        optimizer.update(_unflatten(params, grads), opt_state, params)
+        apply_update(optimizer, params, opt_state, grads)
         return params, opt_state, loss
 
     return train_step
+
+
+def apply_update(optimizer: AdamW, params, opt_state, grads: list) -> None:
+    """One optimizer step in place from fp32 ``grads`` (a list in
+    ``_leaves(params)`` order).  A ``MasterState`` updates the fp32
+    masters, then re-casts the parameters from them."""
+    if isinstance(opt_state, MasterState):
+        optimizer.update(_unflatten(params, grads), opt_state.inner, opt_state.master)
+        with torch.no_grad():
+            for p, m in zip(_leaves(params), _leaves(opt_state.master)):
+                p.copy_(m)
+        return
+    optimizer.update(_unflatten(params, grads), opt_state, params)
 
 
 def init_state(cfg: TransformerConfig, optimizer: AdamW, generator: torch.Generator,

@@ -1,14 +1,21 @@
-"""``python -m elastic_gpu_scheduler_tpu_torch.serve --init`` — the
-inference HTTP server around the port's paged serving engine.
+"""``python -m elastic_gpu_scheduler_tpu_torch.serve`` — the inference
+HTTP server around the port's paged serving engine.
 
 Counterpart of ``elastic_gpu_scheduler_tpu/serve.py`` with the flags the
-port serves, under the reference's names.  ``--init`` builds random
-weights from the model flags (seed 0); the HF checkpoint
-imports (``--hf``, and ``--draft-hf`` for a draft model) wait for the
-port of ``models/convert.py``.  ``--int8`` quantizes the weights after
-they are built (weight-only int8, ``models/quantize``), as the
-reference quantizes whichever base it loaded.  ``--serve-overlap`` (default ``on``) and
-``--spec-k`` (prompt-lookup drafts) select the engine's modes;
+port serves, under the reference's names.  Model sources, one of the two
+required:
+
+- ``--hf DIR``: an HF Llama / Mistral checkpoint directory (its
+  ``config.json`` and ``*.safetensors``, else ``pytorch_model*.bin``),
+  converted by ``models/convert.py`` on the host into a float32 model;
+- ``--init``: random weights from the model flags (seed 0).
+
+``--draft-hf DIR`` adds a draft model for speculative decoding (it needs
+``--spec-k`` > 0, checked before any weight is read).  ``--int8``
+quantizes the base after it is built or imported (weight-only int8,
+``models/quantize``).  ``--serve-overlap`` (default ``on``) and
+``--spec-k`` (prompt-lookup drafts unless ``--draft-hf``) select the
+engine's modes;
 ``--logprobs-k`` sets the top-k width of per-token logprobs and
 ``--max-queue`` bounds the admission queue (429 beyond it).
 ``--fleet-role`` (``TPU_FLEET_ROLE``) and ``--replica-name`` (``POD_NAME``)
@@ -37,9 +44,10 @@ def build_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--host", default="0.0.0.0")
-    p.add_argument("--init", action="store_true", required=True,
-                   help="random init from the model flags (the HF import "
-                        "is a later slice of the port)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--hf", default="", help="HF checkpoint dir to import")
+    src.add_argument("--init", action="store_true",
+                     help="random init from the model flags")
     p.add_argument("--vocab-size", type=int, default=32000)
     p.add_argument("--d-model", type=int, default=512)
     p.add_argument("--n-layers", type=int, default=4)
@@ -67,7 +75,11 @@ def build_args(argv=None):
                         "step, between decode chunks (0 = one pass)")
     p.add_argument("--spec-k", type=int, default=0,
                    help=">0 enables speculative decoding (this many draft "
-                        "tokens per verify pass, prompt-lookup drafting)")
+                        "tokens per verify pass; prompt-lookup drafting "
+                        "unless --draft-hf)")
+    p.add_argument("--draft-hf", default="",
+                   help="HF checkpoint dir for a DRAFT model "
+                        "(draft-model speculation; requires --spec-k)")
     p.add_argument("--logprobs-k", type=int, default=5,
                    help="top-k width for per-token logprobs (0 disables; "
                         "requests asking more are clamped)")
@@ -183,36 +195,46 @@ def configure_planes(args, device) -> None:
 
 def main(argv=None) -> int:
     args = build_args(argv)
+    if args.draft_hf and args.spec_k <= 0:
+        # before any weight is read: a wrong flag pair must not cost a
+        # checkpoint read first
+        raise SystemExit("--draft-hf requires --spec-k > 0")
     role = fleet_role(args)
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
     )
     import torch
 
+    from .models.convert import load_hf
     from .models.serving import InferenceEngine
     from .models.transformer import TransformerConfig, init_params, resolve_device
     from .server.inference import drain, serve_inference
 
     device = resolve_device("cpu" if args.cpu else None)
     configure_planes(args, device)
-    cfg = TransformerConfig(
-        vocab_size=args.vocab_size, d_model=args.d_model, n_layers=args.n_layers,
-        n_heads=args.n_heads, d_ff=args.d_ff,
-        dtype=args.dtype,
-    )
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    params = init_params(cfg, gen, device)
+    if args.hf:
+        # converted on the host; the engine moves the params once
+        params, cfg = load_hf(args.hf)
+    else:
+        cfg = TransformerConfig(
+            vocab_size=args.vocab_size, d_model=args.d_model, n_layers=args.n_layers,
+            n_heads=args.n_heads, d_ff=args.d_ff,
+            dtype=args.dtype,
+        )
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, device)
     if args.int8:
         from .models.quantize import quantize_params
 
         params = quantize_params(params)
+    draft = load_hf(args.draft_hf) if args.draft_hf else None
     engine = InferenceEngine(
         params, cfg, max_batch=args.max_batch, max_len=args.max_len,
         page_size=args.page_size, n_pages=args.n_pages,
         fused_steps=args.fused_steps, kv_int8=args.kv_int8,
         prefix_cache=args.prefix_cache, paged_kernel=args.paged_kernel,
-        prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
+        prefill_chunk=args.prefill_chunk, spec_k=args.spec_k, draft=draft,
         overlap=args.serve_overlap == "on", logprobs_k=args.logprobs_k,
         max_queue=args.max_queue, device=device,
     )
@@ -220,7 +242,8 @@ def main(argv=None) -> int:
     engine.fleet_role = role
     server, loop = serve_inference(engine, port=args.port, host=args.host)
     log.info(
-        "serving random-init model (%d layers, d=%d) on %s, %s:%d",
+        "serving %s model (%d layers, d=%d) on %s, %s:%d",
+        "hf-imported" if args.hf else "random-init",
         cfg.n_layers, cfg.d_model, device, args.host, server.server_address[1],
     )
     stop = threading.Event()

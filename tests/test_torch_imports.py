@@ -69,9 +69,17 @@ def test_port_imports_no_jax_and_no_jax_package():
             "elastic_gpu_scheduler_tpu_torch.policy",
             "elastic_gpu_scheduler_tpu_torch.policy.lang",
             "elastic_gpu_scheduler_tpu_torch.policy.vm",
-            "elastic_gpu_scheduler_tpu_torch.policy.registry"} <= expected
+            "elastic_gpu_scheduler_tpu_torch.policy.registry",
+            "elastic_gpu_scheduler_tpu_torch.models.convert",
+            "elastic_gpu_scheduler_tpu_torch.models.checkpoint",
+            "elastic_gpu_scheduler_tpu_torch.models.vit",
+            "elastic_gpu_scheduler_tpu_torch.utils.safetensors"} <= expected
     bad = [m for m in res["modules"] if _is_jax_package(m)]
     assert not bad, bad
+    # the HF import reads checkpoints with its own code: the card's machine
+    # has neither package
+    assert not [m for m in res["modules"]
+                if m.split(".")[0] in ("transformers", "safetensors", "orbax")]
     assert "elastic_gpu_scheduler_tpu_torch" in res["modules"]
     assert not res["built"]
 

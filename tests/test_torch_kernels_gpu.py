@@ -252,6 +252,38 @@ def test_flash_attention_grads_match_autograd_of_plain(cuda, dtype):
         assert grad_close(a, b, rounded=False), _err(a, b)
 
 
+# (B, H, S, D, dtype): bidirectional attention at the ViT's ragged length
+# (196 patches + CLS, no multiple of any tile) in bfloat16 at ViT-B/16's
+# head_dim, and a float32 case one row past a 64-row tile
+NOT_CAUSAL_CASES = [(4, 12, 197, 64, torch.bfloat16), (2, 3, 65, 32, torch.float32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", NOT_CAUSAL_CASES, ids=str)
+def test_flash_kernels_not_causal_at_ragged_lengths(cuda, case):
+    """K1 and K4 with ``causal=False``, as the ViT calls them: the forward
+    against ``mha_reference``, the backward against
+    ``flash_backward_reference`` rounded like the kernel (``grad_close``),
+    and K1 + K4 through autograd against autograd of the plain version."""
+    B, H, S, D, dtype = case
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    out, lse = flash_attention(q, k, v, False, None, 0, return_lse=True)
+    ref, ref_lse = mha_reference(q, k, v, False, None, 0)
+    assert _close(out, ref) and _err(lse, ref_lse) <= 1e-4
+    got = flash_backward(q, k, v, ref, ref_lse, do, False, None, 0)
+    want = flash_backward_reference(q, k, v, ref, ref_lse, do, False, None, 0,
+                                    round_like_kernel=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert grad_close(a, b), (name, _err(a, b))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves, False, None, 0), leaves, do)
+    want = torch.autograd.grad(mha_reference(*leaves, False, None, 0)[0], leaves, do)
+    for a, b in zip(got, want):
+        assert grad_close(a, b, rounded=False), _err(a, b)
+
+
 @pytest.mark.gpu
 def test_flash_backward_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 1, 8, 48, device=cuda)

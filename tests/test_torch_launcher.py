@@ -50,7 +50,6 @@ def test_run_job_loss_falls():
 @pytest.mark.parametrize("argv", [
     ["--mesh", "tensor=2"],
     ["--mesh", "data=2,seq=2"],
-    ["--checkpoint-dir", "/nonexistent/ckpt"],
     ["--compile-cache", "/nonexistent/cache"],
     ["--mesh", "bogus=2"],
 ], ids=str)

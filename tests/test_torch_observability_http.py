@@ -149,6 +149,26 @@ TRAFFIC = [
 ]
 
 
+@contextlib.contextmanager
+def _admit_whole(eng, n: int):
+    """Hold ``eng``'s admissions until ``n`` requests are queued.  The
+    handler submits the choices of an ``n`` > 1 completion one by one, and
+    a loop pass between two submissions admits the first choice alone: the
+    trace's order (queued, admitted, queued, admitted against queued,
+    queued, admitted, admitted) would then depend on the machine's load."""
+    admit = eng._admit
+
+    def gated():
+        if eng.queue.qsize() >= n:
+            admit()
+
+    eng._admit = gated
+    try:
+        yield
+    finally:
+        del eng._admit  # the class's method again
+
+
 def _drive(addrs, engines):
     """TRAFFIC to each server in turn; waits for each engine loop's last
     step and each request span to finish.  Returns the raw responses."""
@@ -156,8 +176,9 @@ def _drive(addrs, engines):
     for name, addr in addrs.items():
         got = []
         for body, tparent in TRAFFIC:
-            status, resp, data = _request(addr, "POST", "/v1/completions", body,
-                                          {"traceparent": tparent})
+            with _admit_whole(engines[name], body.get("n", 1)):
+                status, resp, data = _request(addr, "POST", "/v1/completions", body,
+                                              {"traceparent": tparent})
             assert status == 200, data
             got.append((data, resp.getheader("X-TPU-Queue-Wait-Ms")))
         # the handler ends its serve.request span after the last write
