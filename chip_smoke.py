@@ -213,6 +213,21 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    heads, d_ff 3072, 1000 classes, bf16, all 12 layers), B 64, one
    warm-up and 5 timed steps on one batch: the loss falls, K1 and K4 L a
    step, all not causal; step ms, images/s, model TFLOP/s;
+15. training on a mesh (``parallel/``): (a) ``launcher.run_job`` at
+   phase 9's model and batch through a one-rank NCCL process group,
+   bitwise equal to the same job on one device; (b) ranks sharing the
+   card over gloo (collectives staged through the host) at the
+   flagship's width, depth cut to 2 layers for time, 3 steps each:
+   tensor=2 (K1 / K4 on 8 query / 4 KV heads a rank, the tensor-parallel
+   loss), seq=2 with ring attention (K3 forward hops, K4 backward hops,
+   float32) and fsdp=2,tensor=2, against the single-device run; (c) the
+   same meshes with a small float32 model, within 1e-5; (d) a float32 job
+   saved on tensor=2 and resumed on one device, against the uninterrupted
+   run.
+   Every rank's launches are held exactly; step ms and peak memory a rank
+   are of ranks sharing one card, not a scaling figure.  The ring's K3
+   and K4 hops get their own kernel rows (float32, B 8, 16 heads, a
+   512-token shard, Dh 128);
 10. K1 and K4 at the train shape, K3 and K2 (dense and int8) with split
    keys, called twice, must give identical bytes; K1 and K4 not causal at
    the ViT's shape (B 64, 12, 197, 64, bf16) against ``mha_reference`` and
@@ -5821,6 +5836,390 @@ def kernel_vit_rows(dev) -> list[dict]:
     return rows
 
 
+# -- phase 15: training on a mesh -----------------------------------------------
+
+MESH_STEPS = 3
+# the ranks of (b) to (d) share the one card over gloo, which stages every
+# collective through the host: (label, mesh axes, config fields); one world
+# of ranks a mesh size, each mesh over its whole world
+MESH_GLOO = [("tensor=2", dict(tensor=2), {}),
+             ("seq=2 ring", dict(seq=2), dict(use_ring_attention=True)),
+             ("fsdp=2,tensor=2", dict(fsdp=2, tensor=2), {})]
+MESH_OPT = dict(mu_dtype="bfloat16", grad_clip=1.0)
+# (b)'s depth cut, for time and memory: every collective of a rank crosses
+# the host (gloo); at 2 layers a step takes 1.6-4.5 s a mesh and the three
+# meshes' runs ~80 s, 16 layers would take about 8x that, and each seq=2
+# rank holds the whole model's state and moments beside the other's
+MESH_LAYERS = 2
+# (c): a small float32 model on the same meshes, held to the card's
+# single-device run within MESH_F32_TOL
+MESH_SMALL = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,
+                  dtype="float32", remat=True, xent_chunks=4)
+MESH_SMALL_B, MESH_SMALL_S = 4, 128
+MESH_F32_TOL = 1e-5
+# (b): the flagship in bf16 against its single-device run: a row-parallel
+# product sums two bf16-rounded partial outputs where one device rounds
+# once, and the ring runs attention in float32; the losses of 3 steps stay
+# within this (absolute, of losses from 10.8 to 3.1)
+MESH_BF16_TOL = 1e-3
+# (d): saved on tensor=2 at step 2 of 4, resumed on one device
+MESH_RESUME = dict(steps=4, batch_size=MESH_SMALL_B, seq_len=MESH_SMALL_S, lr=1e-3)
+
+
+def mesh_want(cfg, kw, seq_index: int, steps: int) -> dict:
+    """A rank's exact launches: K1 2L and K4 L a step (remat) off the ring;
+    on the ring K3 and K4 once a kept hop a layer, and rank i of the seq
+    axis keeps i + 1 hops (the later shards' hops keep no key), K3 twice
+    (the forward and its recomputation)."""
+    L = cfg["n_layers"]
+    if kw.get("seq", 1) > 1 and cfg.get("use_ring_attention"):
+        hops = seq_index + 1
+        return dict(flash_block_stats=2 * L * hops * steps, flash_bwd_dq=L * hops * steps,
+                    flash_bwd_dkv=L * hops * steps)
+    return dict(flash_fwd=2 * L * steps, flash_bwd_dq=L * steps, flash_bwd_dkv=L * steps)
+
+
+def mesh_rank(rank, world, rendezvous, runs, resume_dir):
+    """One rank of a phase-15 gloo world (a spawned process): each run in
+    ``runs`` trains MESH_STEPS steps on its slices and rows over the whole
+    world (the flagship and the small float32 model); with ``resume_dir``,
+    then (d)'s tensor=2 jobs through ``launcher.run_job``.  Returns losses,
+    step ms, peak memory and launch counts a run."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch import launcher
+    from elastic_gpu_scheduler_tpu_torch.models.train import (
+        init_sharded_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+    from elastic_gpu_scheduler_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from elastic_gpu_scheduler_tpu_torch.parallel.sharding import local_batch
+
+    # the ranks share the card: segments that grow keep fragments small
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_initialize_distributed(rendezvous, world, rank, backend="gloo", local_rank=rank,
+                                 local_ranks=world)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.lib()  # built by the parent before the spawn
+    out = {}
+    for name, kw, cfg_kw, opt_kw, tokens in runs:
+        mesh = make_mesh(MeshSpec(**kw)).connect()
+        cfg = TransformerConfig(**cfg_kw)
+        opt = make_optimizer(**opt_kw)
+        params, state = init_sharded_state(cfg, opt, torch.Generator(device=dev).manual_seed(0),
+                                           dev, mesh)
+        step = make_train_step(cfg, opt, mesh)
+        tok = local_batch(torch.from_numpy(tokens).to(dev), mesh)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the main path: counts at 0 just before, read just after
+        _build.reset_launches()
+        losses, times = [], []
+        for _ in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(params, state, tok)[2]))  # synchronizes
+            times.append((time.perf_counter() - t0) * 1e3)
+            print(f"mesh rank {rank} {name}: step {len(times)} loss {losses[-1]:.5f} in "
+                  f"{times[-1]:.1f} ms", file=sys.stderr, flush=True)
+        out[name] = {"losses": losses, "step_ms": times, "seq_index": mesh.axis_index("seq"),
+                     "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                     "launches": dict(_build.LAUNCHES)}
+        del params, state, step, tok
+        gc.collect()
+        torch.cuda.empty_cache()
+    if resume_dir:  # (d): the uninterrupted tensor=2 job, and one saved at step 2
+        model = TransformerConfig(**MESH_SMALL)
+        spec = launcher.MeshSpec(tensor=2)
+        out["resume_whole"] = launcher.run_job(
+            launcher.JobSpec(model=model, mesh=spec, **MESH_RESUME))
+        launcher.run_job(launcher.JobSpec(model=model, mesh=spec, checkpoint_dir=resume_dir,
+                                          checkpoint_every=2, **dict(MESH_RESUME, steps=2)))
+    return out
+
+
+def mesh_nccl_rank(rank, world, rendezvous, job):
+    """(a)'s one rank: a real NCCL process group of one, ``run_job`` on it."""
+    import torch
+    import torch.distributed as dist
+
+    from elastic_gpu_scheduler_tpu_torch import launcher
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+    from elastic_gpu_scheduler_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_initialize_distributed(rendezvous, world, rank, local_rank=rank, local_ranks=world)
+    _build.lib()
+    _build.reset_launches()
+    losses = launcher.run_job(job)
+    return {"losses": losses, "backend": str(dist.get_backend()),
+            "world": dist.get_world_size(), "launches": dict(_build.LAUNCHES)}
+
+
+def single_device_losses(dev, cfg_kw, opt_kw, tokens) -> list[float]:
+    """The same steps on one device with no process group: the baseline."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.train import (
+        init_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig
+
+    cfg, opt = TransformerConfig(**cfg_kw), make_optimizer(**opt_kw)
+    params, state = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)
+    step = make_train_step(cfg, opt)
+    tok = torch.from_numpy(tokens).to(dev)
+    losses = [float(step(params, state, tok)[2]) for _ in range(MESH_STEPS)]
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase_mesh(dev) -> dict:
+    """15. Training on a mesh.  (a) ``launcher.run_job`` at phase 9's model
+    and batch through a one-rank NCCL process group, against the same job
+    on one device with no process group: bitwise.  (b) ranks sharing the
+    card over gloo at the flagship's width, depth cut to MESH_LAYERS:
+    tensor=2 (K1 / K4 on 8 query / 4 KV heads a rank, the TP loss), seq=2
+    with the ring (K3
+    forward hops, K4 backward hops) and fsdp=2,tensor=2, 3 steps each
+    against the single-device run within MESH_BF16_TOL; (c) the same
+    meshes with a small float32 model within MESH_F32_TOL; (d) a float32
+    job saved on tensor=2 and resumed on one device against the
+    uninterrupted tensor=2 run within MESH_F32_TOL.  Each rank's launches
+    are held exactly.  Step ms and peak memory a rank are of ranks sharing
+    one card over host-staged gloo: not a scaling figure."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch import launcher
+    from elastic_gpu_scheduler_tpu_torch.models.data import SyntheticTokenDataset, batches
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig
+    from elastic_gpu_scheduler_tpu_torch.parallel.distributed import spawn_ranks
+    from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec
+
+    res: dict = {"card": card_line(), "steps": MESH_STEPS}
+    work = tempfile.mkdtemp(prefix="mesh_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        # (a) one rank, NCCL, phase 9's model and batch
+        job = launcher.JobSpec(model=TransformerConfig(**TRAIN), batch_size=TRAIN_B,
+                               seq_len=TRAIN_S, steps=MESH_STEPS)
+        t0 = time.perf_counter()
+        one = spawn_ranks(mesh_nccl_rank, 1, (job,), rendezvous=f"file://{work}/nccl",
+                          timeout_s=600)[0]
+        res["nccl_wall_s"] = time.perf_counter() - t0
+        single = launcher.run_job(job, device=dev)
+        gc.collect()
+        torch.cuda.empty_cache()  # the spawned ranks share the card with this process
+        want = dict.fromkeys(one["launches"], 0)
+        want.update(mesh_want(TRAIN, {}, 0, MESH_STEPS))
+        res["nccl"] = {"backend": one["backend"], "world": one["world"],
+                       "losses": one["losses"], "single_device_losses": single,
+                       "bitwise": one["losses"] == single, "launches": one["launches"]}
+        log(f"mesh (a): run_job on a one-rank {one['backend']} process group: losses "
+            f"{one['losses']}; on one device with no process group: {single}; launches "
+            f"{one['launches']} (want {want})")
+        check(one["backend"] == "nccl" and one["world"] == 1, "(a) ran on no NCCL group of one")
+        check(one["losses"] == single, "the one-rank NCCL run differs from one device")
+        check(one["launches"] == want, "the one-rank run's launches differ from 2L / L a step")
+
+        # (b), (c): the same batch as phase 9 for the flagship
+        tokens = next(batches(SyntheticTokenDataset(TRAIN["vocab_size"], seed=0), TRAIN_B,
+                              TRAIN_S, seed=1))
+        small_tok = next(batches(SyntheticTokenDataset(MESH_SMALL["vocab_size"], seed=4),
+                                 MESH_SMALL_B, MESH_SMALL_S, seed=5))
+        worlds: dict = {}
+        for label, kw, extra in MESH_GLOO:
+            runs = worlds.setdefault(MeshSpec(**kw).num_devices, [])
+            runs.append((f"small {label}", kw, dict(MESH_SMALL, **extra), {}, small_tok))
+            runs.append((label, kw, dict(TRAIN, n_layers=MESH_LAYERS, **extra), MESH_OPT,
+                         tokens))
+        resume_dir = os.path.join(work, "resume")
+        out = {}
+        res["gloo_wall_s"] = {}
+        for n, runs in worlds.items():
+            t0 = time.perf_counter()
+            out[n] = spawn_ranks(mesh_rank, n, (runs, resume_dir if n == 2 else ""),
+                                 rendezvous=f"file://{work}/gloo{n}", timeout_s=600)
+            res["gloo_wall_s"][n] = time.perf_counter() - t0
+            log(f"mesh: {n} gloo ranks on one card ran {[r[0] for r in runs]} in "
+                f"{res['gloo_wall_s'][n]:.1f} s")
+        base = {"flagship": single_device_losses(dev, dict(TRAIN, n_layers=MESH_LAYERS),
+                                                 MESH_OPT, tokens),
+                "small": single_device_losses(dev, MESH_SMALL, {}, small_tok)}
+        res["single_device"] = base
+        res["meshes"] = {}
+        for name, kw, cfg_kw, _, _ in [r for runs in worlds.values() for r in runs]:
+            small = name.startswith("small")
+            ref = base["small" if small else "flagship"]
+            tol = MESH_F32_TOL if small else MESH_BF16_TOL
+            members = range(MeshSpec(**kw).num_devices)
+            per = [out[len(members)][r][name] for r in members]
+            diff = max(abs(a - b) for p in per for a, b in zip(p["losses"], ref))
+            entry = {"losses": per[0]["losses"], "max_loss_diff": diff, "tol": tol,
+                     "step_ms_a_rank": [p["step_ms"] for p in per],
+                     "peak_gb_a_rank": [p["peak_gb"] for p in per],
+                     "launches_a_rank": [p["launches"] for p in per]}
+            res["meshes"][name] = entry
+            log(f"mesh {name} ({len(members)} gloo ranks on one card): losses "
+                f"{per[0]['losses']} against one device {ref}: max diff {diff:.3g} (tol "
+                f"{tol}); step ms a rank {[[round(x, 1) for x in p['step_ms']] for p in per]}; "
+                f"peak GB a rank {[round(p['peak_gb'], 2) for p in per]} (ranks sharing one "
+                f"card over host-staged gloo, not a scaling figure)")
+            check(all(p["losses"] == per[0]["losses"] for p in per),
+                  f"{name}: the ranks report different losses")
+            check(diff <= tol, f"{name}: the mesh's losses differ from one device's")
+            for r, p in zip(members, per):
+                want = dict.fromkeys(p["launches"], 0)
+                want.update(mesh_want(cfg_kw, kw, p["seq_index"], MESH_STEPS))
+                check(p["launches"] == want, f"{name} rank {r}: launches {p['launches']}, "
+                                             f"want {want}")
+        # (d) resumed on one device
+        whole = out[2][0]["resume_whole"]
+        resumed = launcher.run_job(launcher.JobSpec(
+            model=TransformerConfig(**MESH_SMALL), checkpoint_dir=resume_dir, **MESH_RESUME),
+            device=dev)
+        diff = max(abs(a - b) for a, b in zip(resumed, whole[2:]))
+        res["resume"] = {"saved_on": "tensor=2", "resumed_on": "one device",
+                         "losses_whole": whole, "losses_resumed": resumed, "max_diff": diff}
+        log(f"mesh (d): saved on tensor=2 at step 2, resumed on one device: losses {resumed} "
+            f"against the uninterrupted tensor=2 run's {whole[2:]}: max diff {diff:.3g} "
+            f"(tol {MESH_F32_TOL})")
+        check(len(resumed) == 2 and diff <= MESH_F32_TOL,
+              "the job resumed on one device left the uninterrupted trajectory")
+        ring = res["meshes"]["seq=2 ring"]["launches_a_rank"]
+        res["ring_launches"] = {k: sum(r[k] for r in ring)
+                                for k in ("flash_block_stats", "flash_bwd_dq", "flash_bwd_dkv")}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("mesh: " + json.dumps({k: v for k, v in res.items() if k != "meshes"}))
+    return res
+
+
+# the ring's hop shape at phase 15's seq=2 mesh: B, H (after repeat_kv),
+# S a shard, Dh; float32, as the ring casts
+RING_HOP = (TRAIN_B, 16, TRAIN_S // 2, 128)
+
+
+def kernel_ring_rows(dev) -> list[dict]:
+    """K3 and K4 at the ring's hops (float32, 16 heads, a 512-token shard
+    of S 1024, Dh 128): the diagonal hop (causal, aligned) and the hop on
+    the earlier shard (every key kept), each held to its plain version,
+    read as the other rows are; SDPA in float32 as the library call (its
+    forward for K3, forward+backward minus forward for K4).  Launches are
+    phase 15's seq=2 run's, filled in after it."""
+    import torch
+    import torch.nn.functional as F
+
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_backward,
+        flash_backward_reference,
+        flash_block_stats,
+        flash_block_stats_reference,
+        grad_close,
+    )
+
+    B, H, S, D = RING_HOP
+    g = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=dev) for _ in range(4))
+    # rank 1's two hops: its own shard (the diagonal) and rank 0's; K3
+    # takes both causal at their offsets, as the ring calls it, K4 the
+    # diagonal causal and the earlier shard not
+    hops = [("diagonal", S, S, True), ("earlier shard", S, 0, False)]
+    k3, k4, errs = [], [], {"k3": 0.0, "dq": 0.0, "dkv": 0.0}
+    for label, q_off, k_off, causal in hops:
+        errs["k3"] = max(errs["k3"], check_k3(q, k, v, q_off, k_off, True, f"ring {label} hop"))
+        bound, by = k3_bound_ms(B, H, H, S, S, D, q_off, k_off, True, 4)
+        rd = replay_readings(lambda: flash_block_stats(q, k, v, q_off, k_off, True), 5,
+                             matches=("flash_stats_kernel",), bound=bound)
+        plain = device_ms(lambda: flash_block_stats_reference(q, k, v, q_off, k_off, True), 3)
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 5)
+        k3.append((rd, plain, lib, bound, by))
+        # K4 on the hop, from the forward's out and lse over this shard
+        out, lse = flash_attention(q, k, v, causal, None, 0, return_lse=True)
+        got = flash_backward(q, k, v, out, lse, do, causal, None, 0)
+        want = flash_backward_reference(q, k, v, out, lse, do, causal, None, 0)
+        for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+            check(grad_close(a, b), f"K4 {nm} disagrees with its plain version at the ring "
+                                    f"{label} hop")
+            key = "dq" if nm == "dq" else "dkv"
+            errs[key] = max(errs[key], maxerr(a, b))
+        del got, want
+        k4_bound, k4_by = k4_bound_ms(B, H, S, S, D, causal, 0, 4)
+        bwd_rd = replay_readings(lambda: flash_backward(q, k, v, out, lse, do, causal, None, 0),
+                                 3, matches=("flash_bwd_dq", "flash_bwd_dkv"),
+                                 call_bound=k4_bound)
+        plain_bwd = device_ms(lambda: flash_backward_reference(q, k, v, out, lse, do, causal,
+                                                               None, 0), 3)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        def sdpa_fwd_bwd(causal=causal, leaves=leaves):
+            o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            return torch.autograd.grad(o, leaves, do)
+
+        lib_bwd = device_ms(sdpa_fwd_bwd, 3) - device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 5)
+        k4.append((bwd_rd, plain_bwd, lib_bwd, k4_bound, k4_by))
+        log(f"ring {label} hop (B={B} H={H} S={S} D={D} float32): K3 {rd['ms']['flash_stats_kernel']:.4f} "
+            f"ms (plain {plain:.4f}, sdpa {lib:.4f}, bound {bound:.5f} {by}); K4 dq "
+            f"{bwd_rd['ms']['flash_bwd_dq']:.4f} + dkv {bwd_rd['ms']['flash_bwd_dkv']:.4f} ms "
+            f"(plain {plain_bwd:.4f}, sdpa backward {lib_bwd:.4f}, bound {k4_bound:.5f} {k4_by})")
+        del out, lse, leaves
+
+    def mean(rows, i):
+        return float(np.mean([r[i] for r in rows]))
+
+    src = "elastic_gpu_scheduler_tpu_torch/csrc/"
+    note = ("float32 ring hops at phase 15's seq=2 shard (the mean of the diagonal and the "
+            "earlier-shard hop); launches are the seq=2 run's, both ranks, 3 steps")
+    rows = [{
+        **reading_fields([(1, r[0]) for r in k3], "flash_stats_kernel"),
+        "name": "flash_block_stats", "path": "train: ring (seq=2)", "route": "cuda",
+        "source": src + "flash_stats.cu", "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:902",
+        "launches": 0, "max_abs_err": errs["k3"], "plain_ms": mean(k3, 1),
+        "bound_ms": mean(k3, 3), "bound_by": k3[0][4], "library_ms": mean(k3, 2),
+        "note": note + "; max_abs_err is on pv / l; library_ms is float32 SDPA, normalised",
+    }]
+    for which in ("dq", "dkv"):
+        share = K4_SHARE[which]
+        rows.append({
+            **reading_fields([(1, r[0]) for r in k4], f"flash_bwd_{which}",
+                             share * mean(k4, 3)),
+            "name": f"flash_bwd_{which}", "path": "train: ring hop backward (seq=2)",
+            "route": "cuda", "source": src + "flash_bwd.cu",
+            "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:633",
+            "launches": 0, "max_abs_err": errs[which], "plain_ms": mean(k4, 1),
+            "bound_ms": share * mean(k4, 3), "bound_by": k4[0][4], "library_ms": mean(k4, 2),
+            "note": note + "; plain_ms and library_ms are the whole hop backward, bound_ms "
+                    "this kernel's share of its bound",
+        })
+    for r in rows:  # each call's bound is its own hop's share
+        for c, hop in zip(r["calls"], (k3 if r["name"] == "flash_block_stats" else k4)):
+            c["bound_ms"] = hop[3] * (1.0 if r["name"] == "flash_block_stats"
+                                      else K4_SHARE[r["name"][len("flash_bwd_"):]])
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return rows
+
+
 # the PR that last rebuilt each kernel's bf16 path for Hopper
 REDESIGNED = {"flash_fwd": "PR 4", "flash_bwd_dq": "PR 4", "flash_bwd_dkv": "PR 4",
               "paged_attention": "PR 5", "paged_attention_int8": "PR 5",
@@ -5932,6 +6331,7 @@ def main() -> int:
     # profiler sessions
     train_rows = kernel_train_rows(dev, k4_err)
     vit_rows = kernel_vit_rows(dev)
+    ring_rows = kernel_ring_rows(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6024,13 +6424,17 @@ def main() -> int:
     hf = phase_hf(dev)
     resume = phase_resume(dev)
     vit = phase_vit(dev)
+    # 15. training on a mesh
+    mesh = phase_mesh(dev)
 
     # 10. the kernels line
     for r in train_rows:
         r["launches"] = train_launches[r["name"]]
     for r in vit_rows:
         r["launches"] = vit["launches"][r["name"]]
-    kernels += train_rows + vit_rows
+    for r in ring_rows:
+        r["launches"] = mesh["ring_launches"][r["name"]]
+    kernels += train_rows + vit_rows + ring_rows
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
         k["of_bound"] = k["bound_ms"] / k["ms"]
@@ -6054,6 +6458,7 @@ def main() -> int:
     log(json.dumps({"kernel_readings": readings}))
     log(json.dumps({"observability": obs}))
     log(json.dumps({"hf": hf, "resume": resume, "vit": vit}))
+    log(json.dumps({"mesh": mesh}))
     log(card)
     print(json.dumps({"kernels": kernels}))
     # the one card this script drives (cuda:0)

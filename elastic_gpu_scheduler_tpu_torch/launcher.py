@@ -1,24 +1,30 @@
-"""Workload launcher on one device: from a bound pod's annotations to a
-running training job.
+"""Workload launcher: from a bound pod's annotations to a running
+training job, on one device or on a mesh of ranks.
 
-Counterpart of ``elastic_gpu_scheduler_tpu/launcher.py`` for a single
-device.  The reference reads the scheduler's chip-coordinate annotation
-(or the device plugin's ``TPU_VISIBLE_CHIPS``), builds a mesh over those
-chips and trains; this slice of the port trains on one device (``cuda``
-unless asked otherwise, ``--cpu`` on the command line).  What needs more
-than one device or a module not ported yet is refused by name, and
-``main`` exits 2 for it:
+Counterpart of ``elastic_gpu_scheduler_tpu/launcher.py``.  Inside the pod
+the launcher reads the scheduler's chip-coordinate annotation (or the
+device plugin's ``TPU_VISIBLE_CHIPS``), joins the job's process group
+(``parallel/distributed``: from the environment, or from a gang's bind
+annotations), builds the mesh (``parallel/mesh``: the hierarchical mesh
+when a gang straddles slices and the data axis can hold the boundary, else
+the flat mesh from the allocation) and trains (``models/train``).  One
+process is one rank on one device.
 
-- a mesh whose axis sizes multiply past 1 (``--mesh``);
-- an allocation (annotation, ``TPU_VISIBLE_CHIPS`` or a straddling gang's
-  slice list) naming more than one chip;
-- the compile cache (``--compile-cache``).
+``main`` with a mesh of N ranks in a process that is not already a rank of
+a world starts N local ranks (``parallel/distributed.spawn_ranks``), one a
+card; ``--dist-backend`` picks the transport (``nccl`` by default on cards,
+``gloo`` on ``--cpu``; gloo on cards lets ranks share a card).  Rank 0
+prints the losses and writes the metrics log.  Refused by name, and exit 2
+from ``main``: the ``pipe`` and ``expert`` axes past 1 and the pipeline
+schedule (``n_microbatches``), a later slice; the compile cache
+(``--compile-cache``).
 
 ``--checkpoint-dir`` with ``--checkpoint-every N`` saves the params and
 optimizer state every N steps and once more, blocking, at the end
-(``models/checkpoint``); a job started on a directory that holds a
-checkpoint resumes from its latest step, its batch stream fast-forwarded
-to that step.  ``--profile-dir`` writes a ``torch.profiler`` trace,
+(``models/checkpoint``), as whole leaves whatever the mesh; a job started on
+a directory that holds a checkpoint resumes from its latest step on
+whatever mesh it now has, its batch stream fast-forwarded to that step.
+``--profile-dir`` writes a ``torch.profiler`` trace (rank 0's),
 ``--metrics-log`` appends per-step ``{step, loss}`` JSON lines.
 """
 
@@ -34,40 +40,21 @@ from typing import Optional
 import torch
 
 from .models.data import MemmapTokenDataset, SyntheticTokenDataset, batches
-from .models.train import init_state, make_optimizer, make_train_step
-from .models.transformer import TransformerConfig, resolve_device
+from .models.train import init_sharded_state, make_optimizer, make_train_step
+from .models.transformer import TransformerConfig, check_mesh_model, resolve_device
+from .parallel.mesh import (
+    ANNOTATION_CONTAINER_PREFIX,
+    MeshSpec,
+    coords_from_annotations,
+    format_coord,
+    gang_slices_from_annotations,
+    hierarchical_mesh,
+    mesh_from_allocation,
+    parse_coord,
+    parse_mesh,
+)
 
 log = logging.getLogger("torch-launcher")
-
-# the scheduler's annotations (own copies of the reference's utils/consts)
-ANNOTATION_CONTAINER_PREFIX = "elasticgpu.io/container-"  # + name → "x.y.z,..."
-ANNOTATION_GANG_SLICES = "elasticgpu.io/gang-slices"  # "sliceA,sliceB,..."
-
-AXES = ("data", "fsdp", "expert", "pipe", "tensor", "seq")
-
-
-@dataclass(frozen=True)
-class MeshSpec:
-    """Logical mesh shape (the reference's ``parallel/mesh.MeshSpec``);
-    this slice runs only the one-device mesh."""
-
-    data: int = 1
-    fsdp: int = 1
-    expert: int = 1
-    pipe: int = 1
-    tensor: int = 1
-    seq: int = 1
-
-    @property
-    def sizes(self) -> dict[str, int]:
-        return {a: getattr(self, a) for a in AXES}
-
-    @property
-    def num_devices(self) -> int:
-        n = 1
-        for v in self.sizes.values():
-            n *= v
-        return n
 
 
 @dataclass
@@ -75,7 +62,7 @@ class JobSpec:
     model: TransformerConfig = field(default_factory=TransformerConfig)
     mesh: MeshSpec = field(default_factory=MeshSpec)
     steps: int = 10
-    batch_size: int = 8
+    batch_size: int = 8  # global batch (cut across the data and fsdp ranks)
     seq_len: int = 128
     lr: float = 3e-4
     seed: int = 0
@@ -92,39 +79,75 @@ class Unported(NotImplementedError):
 
 def coords_for_container(annotations: Optional[dict[str, str]], container: str) -> list:
     """Scheduler annotation first, device-plugin env as on-node fallback."""
-    raw = (annotations or {}).get(ANNOTATION_CONTAINER_PREFIX + container, "")
-    if not raw:
-        raw = os.environ.get("TPU_VISIBLE_CHIPS", "")
-    return [tuple(int(v) for v in p.split(".")) for p in raw.split(",") if p]
+    coords = coords_from_annotations(annotations or {}, container)
+    if coords:
+        return coords
+    env = os.environ.get("TPU_VISIBLE_CHIPS", "")
+    return [parse_coord(p) for p in env.split(",") if p]
 
 
-def check_one_device(spec: JobSpec, annotations: Optional[dict[str, str]] = None,
-                     container: str = "main") -> None:
-    """Raise ``Unported``, naming the field, for what this slice cannot run."""
-    if spec.mesh.num_devices > 1:
-        raise Unported(
-            f"mesh {spec.mesh.sizes} spans {spec.mesh.num_devices} devices: "
-            "--mesh past one device needs parallel/, a later slice of the port"
-        )
-    coords = coords_for_container(annotations, container)
-    if len(coords) > 1:
-        raise Unported(
-            f"the allocation names {len(coords)} chips (annotation "
-            f"{ANNOTATION_CONTAINER_PREFIX + container} or TPU_VISIBLE_CHIPS): "
-            "this slice of the port trains on one device"
-        )
-    slices = [s for s in (annotations or {}).get(ANNOTATION_GANG_SLICES, "").split(",") if s]
+def check_mesh_job(spec: JobSpec) -> None:
+    """``check_mesh_model`` on the job's model and mesh, before any rank
+    starts: ``Unported`` names what this slice cannot run on a mesh, a
+    ValueError a mesh the model cannot be cut over."""
+    try:
+        check_mesh_model(spec.model, spec.mesh)
+    except NotImplementedError as e:
+        raise Unported(str(e)) from None
+
+
+def build_mesh(spec: JobSpec, annotations: Optional[dict[str, str]], container: str,
+               devices=None):
+    """The job's mesh (reference ``run_job``'s choice): hierarchical when a
+    gang straddles slices and the data axis can hold the boundary, else
+    the flat mesh from the allocation, with the reference's warning."""
+    ann = dict(annotations or {})
+    coords = coords_for_container(ann, container)
+    if coords:  # the annotation shape mesh_from_allocation reads
+        ann[ANNOTATION_CONTAINER_PREFIX + container] = ",".join(format_coord(c) for c in coords)
+    slices = gang_slices_from_annotations(ann)
+    if len(slices) > 1 and spec.mesh.data % len(slices) == 0:
+        from .parallel.mesh import _world_devices
+
+        devs = list(devices) if devices is not None else _world_devices()
+        mesh = hierarchical_mesh(spec.mesh, len(slices), devices=devs[:spec.mesh.num_devices])
+        log.info("hierarchical mesh: %s across %d slices (the data axis spans them) over "
+                 "%d ranks", spec.mesh.sizes, len(slices), spec.mesh.num_devices)
+        return mesh
     if len(slices) > 1:
-        raise Unported(
-            f"a gang across {len(slices)} slices ({ANNOTATION_GANG_SLICES}) "
-            "needs parallel/, a later slice of the port"
-        )
+        log.warning(
+            "gang spans %d slices but mesh data axis %d is not divisible by the slice "
+            "count; building a FLAT mesh — intra-slice collectives will cross the slice "
+            "boundary. Set MeshSpec(data=k*%d, ...) to get the hierarchical layout.",
+            len(slices), spec.mesh.data, len(slices))
+    mesh = mesh_from_allocation(ann, container, spec.mesh, devices=devices)
+    log.info("mesh: %s over %d ranks", spec.mesh.sizes, spec.mesh.num_devices)
+    return mesh
 
 
 def run_job(spec: JobSpec, pod_annotations: Optional[dict[str, str]] = None,
-            container: str = "main", device=None) -> list[float]:
-    """Train for ``spec.steps`` on one device; returns per-step losses."""
-    check_one_device(spec, pod_annotations, container)
+            container: str = "main", device=None, devices=None) -> list[float]:
+    """Train for ``spec.steps``; returns per-step losses (the global mean
+    on every rank).  A mesh of more than one rank needs this process to be
+    a rank of a world of that size (``parallel/distributed``); a process
+    in a world of one rank trains through the mesh path on a one-rank mesh."""
+    from .parallel.collectives import barrier
+    from .parallel.distributed import (
+        gang_info_from_annotations,
+        initialize_for_gang,
+        maybe_initialize_distributed,
+    )
+
+    check_mesh_job(spec)
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not maybe_initialize_distributed(cpu=cpu):
+        if gang_info_from_annotations(pod_annotations or {})[1] > 1:
+            initialize_for_gang(pod_annotations, cpu=cpu)
+    import torch.distributed as dist
+
+    mesh = None
+    if dist.is_initialized() or spec.mesh.num_devices > 1:
+        mesh = build_mesh(spec, pod_annotations, container, devices).connect()
     dev = resolve_device(device)
     opt = make_optimizer(
         lr=spec.lr,
@@ -133,8 +156,8 @@ def run_job(spec: JobSpec, pod_annotations: Optional[dict[str, str]] = None,
         grad_clip=spec.grad_clip,
     )
     gen = torch.Generator(device=dev).manual_seed(spec.seed)
-    params, opt_state = init_state(spec.model, opt, gen, dev)
-    step_fn = make_train_step(spec.model, opt)
+    params, opt_state = init_sharded_state(spec.model, opt, gen, dev, mesh)
+    step_fn = make_train_step(spec.model, opt, mesh)
     source = (
         MemmapTokenDataset(spec.dataset_path)
         if spec.dataset_path
@@ -146,41 +169,34 @@ def run_job(spec: JobSpec, pod_annotations: Optional[dict[str, str]] = None,
         from .models.checkpoint import CheckpointManager
 
         ckpt = CheckpointManager(spec.checkpoint_dir)
-        restored = ckpt.restore(params, opt_state)
+        restored = ckpt.restore(params, opt_state, mesh=mesh)
         if restored is not None:
             params, opt_state, start_step = restored
             log.info("resumed from step %d", start_step)
-    # built after the restore: a resumed run continues the stream, not replays it
+    # the global batch of the seeded stream, cut by this rank's (data, fsdp)
+    # index; built after the restore, so a resumed run continues the stream
+    dp_index, dp_count = 0, 1
+    if mesh is not None:
+        dp_index, dp_count = mesh.axes_index(("data", "fsdp")), mesh.axes_size(("data", "fsdp"))
     batch_iter = batches(source, batch_size=spec.batch_size, seq_len=spec.seq_len,
-                         seed=spec.seed + 1, start_batch=start_step)
-    log.info("training on %s: %s", dev, spec.model)
+                         seed=spec.seed + 1, process_index=dp_index, process_count=dp_count,
+                         start_batch=start_step)
+    log.info("training on %s (mesh %s): %s", dev, mesh, spec.model)
     losses = []
     for step in range(start_step, spec.steps):
         tokens = torch.from_numpy(next(batch_iter)).to(dev)
         params, opt_state, loss = step_fn(params, opt_state, tokens)
         losses.append(float(loss))
         if ckpt and spec.checkpoint_every and (step + 1) % spec.checkpoint_every == 0:
-            ckpt.save(params, opt_state, step + 1)
+            ckpt.save(params, opt_state, step + 1, mesh=mesh)
     if ckpt and spec.checkpoint_every:
         # the job's final save is on disk before the pod exits
-        ckpt.save(params, opt_state, spec.steps, block=True)
+        ckpt.save(params, opt_state, spec.steps, block=True, mesh=mesh)
     if ckpt:
         ckpt.close()
+    if mesh is not None:
+        barrier(mesh)
     return losses
-
-
-def _parse_mesh(text: str) -> MeshSpec:
-    sizes = {a: 1 for a in AXES}
-    for part in text.split(","):
-        k, _, v = part.partition("=")
-        k = k.strip()
-        if k not in sizes:
-            raise ValueError(f"unknown mesh axis {k!r}; choose from {list(AXES)}")
-        try:
-            sizes[k] = int(v)
-        except ValueError:
-            raise ValueError(f"mesh axis {k}={v!r} is not an integer") from None
-    return MeshSpec(**sizes)
 
 
 def _read_annotations(path: str) -> dict[str, str]:
@@ -194,6 +210,58 @@ def _read_annotations(path: str) -> dict[str, str]:
             k, _, v = line.partition("=")
             out[k] = json.loads(v) if v.startswith('"') else v
     return out
+
+
+def _device_count(annotations: dict, container: str, cpu: bool, mesh: Optional[MeshSpec]
+                  ) -> int:
+    """The ranks a job has (the reference's ``len(jax.devices())``): the
+    world it is a rank of, else the chips its allocation names, else the
+    ranks ``--mesh`` names, else the local cards (one on the CPU)."""
+    from .parallel.distributed import _env_int
+
+    world = _env_int("TPU_NUM_PROCESSES", "WORLD_SIZE", default=0)
+    if world > 0:
+        return world
+    coords = coords_for_container(annotations, container)
+    if coords:
+        return len(coords)
+    if mesh is not None:
+        return mesh.num_devices
+    return 1 if cpu else max(1, torch.cuda.device_count())
+
+
+def _in_world() -> bool:
+    from .parallel.distributed import _env_int
+
+    return _env_int("TPU_NUM_PROCESSES", "WORLD_SIZE", default=0) > 0
+
+
+def _train(job: JobSpec, annotations: dict, container: str, device, profile_dir: str,
+           cpu: bool) -> list[float]:
+    if not profile_dir:
+        return run_job(job, annotations, container, device)
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([] if cpu else [ProfilerActivity.CUDA])
+    with profile(activities=acts) as prof:
+        losses = run_job(job, annotations, container, device)
+    os.makedirs(profile_dir, exist_ok=True)
+    trace = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(trace)
+    log.info("profiler trace written to %s", trace)
+    return losses
+
+
+def _launch_rank(rank: int, world: int, rendezvous: str, job: JobSpec, annotations: dict,
+                 container: str, backend: str, cpu: bool, profile_dir: str) -> list[float]:
+    """One local rank of ``main``'s spawn: join the world, train."""
+    from .parallel.distributed import maybe_initialize_distributed
+
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING)
+    maybe_initialize_distributed(rendezvous, world, rank, backend=backend, local_rank=rank,
+                                 local_ranks=world, cpu=cpu)
+    return _train(job, annotations, container, "cpu" if cpu else None,
+                  profile_dir if rank == 0 else "", cpu)
 
 
 def main(argv=None) -> int:
@@ -212,9 +280,12 @@ def main(argv=None) -> int:
                    help="save every this many steps, and at the end (0: never save)")
     p.add_argument("--container", default="main")
     p.add_argument("--mesh", default="",
-                   help="axis sizes, e.g. 'tensor=2' (this slice: product 1)")
+                   help="axis sizes, e.g. 'tensor=2,seq=2' (the rest of the ranks go to data)")
     p.add_argument("--annotations", default="",
                    help="downward-API file with pod annotations (key=\"value\" lines)")
+    p.add_argument("--dist-backend", default="", choices=["", "nccl", "gloo"],
+                   help="collective transport: nccl (default on cards; one rank a card) "
+                        "or gloo (the CPU; on cards, ranks may share one)")
     p.add_argument("--profile-dir", default="", help="write a torch.profiler trace")
     p.add_argument("--compile-cache", default="", help="not ported yet: exits 2")
     p.add_argument("--metrics-log", default="",
@@ -229,37 +300,64 @@ def main(argv=None) -> int:
 
     if args.compile_cache:
         return refuse("--compile-cache: the compile cache is a later slice of the port")
-    try:
-        mesh = _parse_mesh(args.mesh) if args.mesh else MeshSpec()
-    except ValueError as e:
-        return refuse(str(e))
     annotations = {}
     if args.annotations and os.path.exists(args.annotations):
         annotations = _read_annotations(args.annotations)
+    try:
+        named = parse_mesh(args.mesh) if args.mesh else None
+    except ValueError as e:
+        return refuse(str(e))
+    mesh = named or MeshSpec()
+    n_dev = _device_count(annotations, args.container, args.cpu, named)
+    sizes = mesh.sizes
+    prod = mesh.num_devices
+    if prod != n_dev:  # the remainder goes to data parallelism, as the reference's
+        if n_dev % prod:
+            return refuse(f"mesh product {prod} incompatible with {n_dev} devices")
+        sizes["data"] *= n_dev // prod
+        mesh = MeshSpec(**sizes)
     job = JobSpec(
         mesh=mesh, steps=args.steps, batch_size=args.batch_size, seq_len=args.seq_len,
         lr=args.lr, dataset_path=args.data, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
     )
     try:
-        check_one_device(job, annotations, args.container)
-    except Unported as e:
+        check_mesh_job(job)
+    except (Unported, ValueError) as e:
         return refuse(str(e))
+    dp = mesh.data * mesh.fsdp
+    if args.batch_size % dp:
+        return refuse(f"global batch {args.batch_size} not divisible by data*fsdp={dp}")
+    if args.seq_len % mesh.seq:
+        return refuse(f"--seq-len {args.seq_len} not divisible by seq={mesh.seq}")
     device = "cpu" if args.cpu else None
-    if args.profile_dir:
-        from torch.profiler import ProfilerActivity, profile
+    if mesh.num_devices > 1 and not _in_world():
+        from .parallel.distributed import resolve_backend, spawn_ranks
 
-        acts = [ProfilerActivity.CPU]
-        if not args.cpu:
-            acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
-            losses = run_job(job, annotations, args.container, device)
-        os.makedirs(args.profile_dir, exist_ok=True)
-        trace = os.path.join(args.profile_dir, "trace.json")
-        prof.export_chrome_trace(trace)
-        log.info("profiler trace written to %s", trace)
+        try:
+            backend = resolve_backend(args.dist_backend, mesh.num_devices, args.cpu)
+        except ValueError as e:
+            return refuse(str(e))
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="torch-launcher-") as tmp:
+            log.info("starting %d local ranks over %s", mesh.num_devices, backend)
+            results = spawn_ranks(
+                _launch_rank, mesh.num_devices,
+                (job, annotations, args.container, backend, args.cpu, args.profile_dir),
+                rendezvous="file://" + os.path.join(tmp, "rendezvous"))
+        losses = results[0]
     else:
-        losses = run_job(job, annotations, args.container, device)
+        from .parallel.distributed import maybe_initialize_distributed, process_info
+
+        try:
+            maybe_initialize_distributed(backend=args.dist_backend, cpu=args.cpu)
+        except ValueError as e:
+            return refuse(str(e))
+        if process_info()[0] != 0:  # rank 0 reports
+            run_job(job, annotations, args.container, device)
+            return 0
+        losses = _train(job, annotations, args.container, device, args.profile_dir, args.cpu)
     if args.metrics_log:
         with open(args.metrics_log, "a") as f:
             start = job.steps - len(losses)  # past the resumed steps

@@ -20,6 +20,14 @@ thread: into a temporary directory, fsynced, then renamed into place with
 ``restore`` would pick.  A second ``save`` joins the first; ``restore``
 and ``close`` join any save in flight.  At most ``keep`` steps stay on
 disk.  As with orbax, a step at or below the last one saved is skipped.
+
+On a mesh (``mesh=`` a connected ``parallel/mesh.Mesh``) the file holds
+whole leaves, so a checkpoint does not depend on the mesh that wrote it:
+``save`` gathers each leaf from the ranks' slices (a collective call, every
+rank makes it), the mesh's first rank writes, and the others wait on a barrier;
+``restore`` reads the file on every rank and keeps each rank's slice under
+the sharding rules of the mesh it is given.  A job saved on one mesh so
+resumes on another, or on one device.
 """
 
 from __future__ import annotations
@@ -81,6 +89,40 @@ def _rebuild(template, it):
         got = {k: _rebuild(template[k], it) for k in sorted(template)}
         return {k: got[k] for k in template}  # the template's key order
     return _place(next(it), template)
+
+
+def _flat_specs(tree, mesh) -> list:
+    """Each leaf's spec on ``mesh`` in ``_flat`` order (None for a count):
+    moments and masters follow their params'."""
+    from ..parallel.sharding import leaf_specs
+
+    if isinstance(tree, MasterState):
+        return _flat_specs(tree.master, mesh) + _flat_specs(tree.inner, mesh)
+    if isinstance(tree, AdamWState):
+        return [None] + _flat_specs(tree.mu, mesh) + _flat_specs(tree.nu, mesh)
+    return _flat(leaf_specs(tree, mesh))
+
+
+def _gathered(tree, mesh, keep: bool) -> list:
+    """Host copies of the whole leaves of a tree of slices, in ``_flat``
+    order, gathered one leaf at a time (a collective call).  Only a rank
+    that ``keep``s them copies them to the host; the others let each leaf
+    go once it has passed through the gather, and get an empty list."""
+    from ..parallel.sharding import full_leaf
+
+    out = []
+    for x, s in zip(_flat(tree), _flat_specs(tree, mesh)):
+        whole = full_leaf(x, s, mesh) if s is not None else x
+        if keep:
+            out.append(whole.to("cpu", copy=True) if s is not None else whole)
+    return out
+
+
+def _sliced(saved: list, template, mesh) -> list:
+    from ..parallel.sharding import local_slice
+
+    return [local_slice(x, s, mesh) if s is not None else x
+            for x, s in zip(saved, _flat_specs(template, mesh))]
 
 
 def _snapshot(leaves: list) -> list:
@@ -153,17 +195,34 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise RuntimeError("checkpoint write failed") from err
 
-    def save(self, params: Any, opt_state: Any, step: int, block: bool = False) -> None:
+    def save(self, params: Any, opt_state: Any, step: int, block: bool = False,
+             mesh=None) -> None:
         """Asynchronous by default: the leaves are copied to the host now,
         and the write runs in a background thread while training goes on
         (the train loop pays the device-to-host copy, not the disk).
-        ``block=True`` for a job's final save."""
+        ``block=True`` for a job's final save.  On a mesh of more than one
+        rank, every rank calls it: the mesh's first rank writes the gathered
+        leaves."""
         self.wait()
         if self._last is not None and step <= self._last:
             log.info("checkpoint save skipped at step %d (last saved %d)", step, self._last)
             return
-        payload = {"step": int(step), "params": _snapshot(_flat(params)),
-                   "opt_state": _snapshot(_flat(opt_state))}
+        if mesh is not None and mesh.size > 1:
+            from ..parallel.collectives import barrier
+
+            writer = mesh.rank == int(mesh.ranks.flat[0])  # the mesh's first rank writes
+            p_leaves = _gathered(params, mesh, writer)
+            o_leaves = _gathered(opt_state, mesh, writer)
+            self._last = step
+            if writer:
+                self._dispatch(step, p_leaves, o_leaves, block)
+            barrier(mesh)
+            return
+        self._dispatch(step, _snapshot(_flat(params)), _snapshot(_flat(opt_state)), block)
+
+    def _dispatch(self, step: int, p_leaves: list, o_leaves: list, block: bool) -> None:
+        """Write host copies ``p_leaves`` / ``o_leaves`` in the background."""
+        payload = {"step": int(step), "params": p_leaves, "opt_state": o_leaves}
         self._last = step
         self._thread = threading.Thread(target=self._write, args=(step, payload),
                                         name=f"checkpoint-{step}", daemon=False)
@@ -172,18 +231,26 @@ class CheckpointManager:
         if block:
             self.wait()
 
-    def restore(self, params_template: Any, opt_state_template: Any
+    def restore(self, params_template: Any, opt_state_template: Any, mesh=None
                 ) -> Optional[tuple[Any, Any, int]]:
         """(params, opt_state, step) of the latest checkpoint, each leaf on
         its template's device in its template's dtype, or None when there is
-        none.  Joins any save in flight first."""
+        none.  Joins any save in flight first.  On a mesh the templates are
+        this rank's slices, and so is what comes back."""
         self.wait()
         step = self.latest_step()
         if step is None:
             return None
         payload = torch.load(os.path.join(self.step_dir(step), _FILE), map_location="cpu",
                              weights_only=True)
-        params_it, opt_it = iter(payload["params"]), iter(payload["opt_state"])
+        p_saved, o_saved = payload["params"], payload["opt_state"]
+        if mesh is not None and mesh.size > 1:
+            if (len(p_saved) != len(_flat(params_template))
+                    or len(o_saved) != len(_flat(opt_state_template))):
+                raise ValueError(f"checkpoint step {step}: leaves do not match the template")
+            p_saved = _sliced(p_saved, params_template, mesh)
+            o_saved = _sliced(o_saved, opt_state_template, mesh)
+        params_it, opt_it = iter(p_saved), iter(o_saved)
         try:
             params = _rebuild(params_template, params_it)
             opt_state = _rebuild(opt_state_template, opt_it)

@@ -1,11 +1,25 @@
-"""Training step on one device: loss, AdamW, fp32 masters, gradient
-accumulation.
+"""Training step: loss, AdamW, fp32 masters, gradient accumulation, on
+one device or on a mesh.
 
-Counterpart of ``elastic_gpu_scheduler_tpu/models/train.py`` without a
-mesh (a ``mesh`` argument raises, naming ``parallel/``).  Parameters are a
-nested dict of tensors, as in ``transformer.py``; the step updates them
-and the optimizer state in place (JAX donates both trees to its jitted
-step; in place is PyTorch's way to the same memory) and returns them.
+Counterpart of ``elastic_gpu_scheduler_tpu/models/train.py``.  Parameters
+are a nested dict of tensors, as in ``transformer.py``; the step updates
+them and the optimizer state in place (JAX donates both trees to its
+jitted step; in place is PyTorch's way to the same memory) and returns
+them.
+
+On a mesh (``parallel/mesh.Mesh``, connected) a rank holds its slice of
+each leaf and of its moments and master (``init_sharded_state``), and the
+step takes its rows of the global batch (``sharding.local_batch``: cut by
+its (data, fsdp) index) with the whole sequence; the next-token targets
+are built from the whole sequence before it is cut over ``seq``, so a
+shard's last target is the next shard's first token.  Each rank's loss is
+its tokens' sum over the global count of valid targets, so the gradients
+sum over ranks: a leaf's gradient is reduce-scattered over ``fsdp`` where
+it is sharded there (the backward of the gather) and all-reduced over the
+other batch axes (data, fsdp, seq) it is not sharded over.  The global
+gradient norm for clipping counts each slice once (a leaf's squared norm
+weighed by 1 / its number of copies, summed over the mesh).  The reported
+loss is the sum over the batch axes: the global mean.
 
 The optimizer is the reference's ``optax`` recipe written out on tensors
 (optax has no PyTorch counterpart, and ``torch.optim.AdamW`` cannot keep
@@ -36,16 +50,22 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from ..ops.xent import chunked_softmax_xent
-from .quantize import wmat
+from ..ops.xent import chunked_softmax_xent, chunked_softmax_xent_tp
+from ..parallel.collectives import all_reduce, all_reduce_flat, axes_of, group_size
+from ..parallel.mesh import AXES
+from ..parallel.sharding import leaf_specs, shard_params
 from .transformer import (
     TransformerConfig,
-    check_no_mesh,
+    check_mesh_model,
     forward_with_aux,
     hidden_with_aux,
     init_params,
     torch_dtype,
+    unembed_in_use,
 )
+
+# the axes a rank's tokens are cut over: a loss or gradient sums over them
+BATCH_AXES = ("data", "fsdp", "seq")
 
 
 def _leaves(tree) -> list[torch.Tensor]:
@@ -63,31 +83,58 @@ def _map(fn, tree):
 # -- loss --------------------------------------------------------------------
 
 
-def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, n_valid=None
+                       ) -> torch.Tensor:
     """Masked mean next-token CE.  logits (B, S, V) fp32; targets (B, S)
     int.  Target ids outside [0, V) are ignored: no loss, no gradient, out
-    of the denominator."""
+    of the denominator.  ``n_valid``: the denominator when it is not this
+    call's own count (a loss summed across ranks)."""
     V = logits.shape[-1]
     t = targets.long()
     valid = (t >= 0) & (t < V)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, torch.clamp(t, 0, V - 1)[..., None])[..., 0]
-    n_valid = torch.clamp(valid.sum(), min=1)
+    n_valid = torch.clamp(valid.sum() if n_valid is None else n_valid, min=1)
     return torch.where(valid, logz - gold, 0.0).sum() / n_valid
 
 
+def seq_shard(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's columns of a (B, S) tensor cut over ``seq``."""
+    n = group_size(mesh, "seq")
+    if n == 1:
+        return x
+    if x.shape[1] % n:
+        raise ValueError(f"sequence {x.shape[1]} not divisible by seq={n}")
+    s = x.shape[1] // n
+    i = mesh.axis_index("seq")
+    return x[:, i * s:(i + 1) * s]
+
+
 def loss_fn(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None) -> torch.Tensor:
-    """tokens (B, S+1): predicts tokens[:, 1:] from tokens[:, :-1]."""
-    check_no_mesh(mesh, "loss_fn")
+    """tokens (B, S+1): predicts tokens[:, 1:] from tokens[:, :-1].
+
+    On a mesh: this rank's rows and whole sequence in, its share of the
+    global mean out (its tokens' sum over the global valid count)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    n_valid = None
+    if mesh is not None:
+        check_mesh_model(cfg, mesh, params)
+        inputs, targets = seq_shard(inputs, mesh), seq_shard(targets, mesh)
+        t = targets.long()
+        n_valid = all_reduce(((t >= 0) & (t < cfg.vocab_size)).sum(), mesh, BATCH_AXES)
     if cfg.xent_chunks > 0:
         # vocab-chunked CE: the (B, S, V) logits never materialize
-        hidden, aux = hidden_with_aux(params, inputs, cfg)
-        w = wmat(params["unembed"], torch_dtype(cfg.dtype))
-        loss = chunked_softmax_xent(hidden, w, targets, cfg.xent_chunks)
+        hidden, aux = hidden_with_aux(params, inputs, cfg, mesh)
+        w = unembed_in_use(params, torch_dtype(cfg.dtype), mesh)
+        if group_size(mesh, "tensor") > 1:
+            # V-sharded unembed: each rank scans its columns, one merge
+            loss = chunked_softmax_xent_tp(hidden, w, targets, cfg.xent_chunks, mesh,
+                                           n_valid=n_valid)
+        else:
+            loss = chunked_softmax_xent(hidden, w, targets, cfg.xent_chunks, n_valid)
     else:
-        logits, aux = forward_with_aux(params, inputs, cfg)
-        loss = cross_entropy_loss(logits, targets)
+        logits, aux = forward_with_aux(params, inputs, cfg, mesh)
+        loss = cross_entropy_loss(logits, targets, n_valid)
     if cfg.n_experts > 0:
         loss = loss + cfg.aux_loss_weight * aux
     return loss
@@ -148,13 +195,16 @@ class AdamW:
         )
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params) -> None:
+    def update(self, grads, state: AdamWState, params, sq_norm=None) -> None:
         """One step, in place on ``params`` (and ``state``): grads, params
-        and nu are trees of the same fp32 tensors' shapes."""
+        and nu are trees of the same fp32 tensors' shapes.  ``sq_norm``
+        (a function of the gradient list) gives the squared global norm
+        for clipping when the gradients are slices of a mesh's leaves."""
         gs, ps = _leaves(grads), _leaves(params)
         mus, nus = _leaves(state.mu), _leaves(state.nu)
         if self.grad_clip > 0:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in gs))
+            sq = sq_norm(gs) if sq_norm else sum(torch.sum(g * g) for g in gs)
+            g_norm = torch.sqrt(sq)
             if not bool(g_norm < self.grad_clip):
                 gs = [(g / g_norm) * self.grad_clip for g in gs]
         lr = self.learning_rate(state.count)  # before the increment
@@ -193,11 +243,12 @@ def make_optimizer(
 # -- the step ----------------------------------------------------------------
 
 
-def _grads_of(params, tokens, cfg, grad_accum: int):
-    """(mean loss, fp32 gradients as a list in ``_leaves`` order)."""
+def _grads_of(params, tokens, cfg, grad_accum: int, mesh=None):
+    """(mean loss, fp32 gradients as a list in ``_leaves`` order); on a
+    mesh, this rank's shares of both, before any sum over ranks."""
     leaves = _leaves(params)
     if grad_accum <= 1:
-        loss = loss_fn(params, tokens, cfg)
+        loss = loss_fn(params, tokens, cfg, mesh)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), [g.float() for g in grads]
     B = tokens.shape[0]
@@ -207,7 +258,7 @@ def _grads_of(params, tokens, cfg, grad_accum: int):
     acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
     loss_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for mb in tokens.reshape(grad_accum, B // grad_accum, tokens.shape[1]):
-        loss = loss_fn(params, mb, cfg)
+        loss = loss_fn(params, mb, cfg, mesh)
         for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
             a += g.float()
         loss_sum += loss.detach()
@@ -226,38 +277,87 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW, mesh=None, grad_ac
     0-dim fp32 tensor on the parameters' device).
 
     ``grad_accum`` > 1 splits the batch into that many microbatches and
-    sums fp32 gradients before one optimizer update."""
-    check_no_mesh(mesh, "make_train_step")
+    sums fp32 gradients before one optimizer update.  On a mesh the
+    tokens are this rank's rows (``sharding.local_batch``), the gradients
+    are summed over ranks before the update, and the loss is the global
+    mean on every rank."""
+    check_mesh_model(cfg, mesh)
+    if mesh is not None and not mesh.connected:
+        raise RuntimeError("make_train_step: connect the mesh first (Mesh.connect())")
 
     def train_step(params, opt_state, tokens):
-        loss, grads = _grads_of(params, tokens, cfg, grad_accum)
-        apply_update(optimizer, params, opt_state, grads)
-        return params, opt_state, loss
+        loss, grads = _grads_of(params, tokens, cfg, grad_accum, mesh)
+        if mesh is None:
+            apply_update(optimizer, params, opt_state, grads)
+            return params, opt_state, loss
+        specs = _leaves(leaf_specs(params, mesh))
+        grads = reduce_grads(grads, specs, mesh)
+        apply_update(optimizer, params, opt_state, grads,
+                     sq_norm=lambda gs: global_sq_norm(gs, specs, mesh))
+        return params, opt_state, all_reduce(loss, mesh, BATCH_AXES)
 
     return train_step
 
 
-def apply_update(optimizer: AdamW, params, opt_state, grads: list) -> None:
+def reduce_grads(grads: list, specs: list, mesh) -> list:
+    """Each leaf's gradient summed over the batch axes it is not sharded
+    over (an ``fsdp``-sharded leaf got its sum over ``fsdp`` from the
+    gather's backward); one all-reduce a set of axes."""
+    buckets: dict[tuple, list[int]] = {}
+    for i, spec in enumerate(specs):
+        held = {a for ax in spec for a in axes_of(ax)}
+        axes = tuple(a for a in BATCH_AXES if a not in held and mesh.shape[a] > 1)
+        if axes:
+            buckets.setdefault(axes, []).append(i)
+    out = list(grads)
+    for axes, idx in buckets.items():
+        for i, g in zip(idx, all_reduce_flat([grads[i] for i in idx], mesh, axes)):
+            out[i] = g
+    return out
+
+
+def global_sq_norm(grads: list, specs: list, mesh) -> torch.Tensor:
+    """The squared norm of the whole gradient tree from every rank's
+    slices: each leaf's local squared norm weighed by 1 / the number of
+    ranks holding that slice, summed over the mesh."""
+    total = None
+    for g, spec in zip(grads, specs):
+        copies = mesh.size // mesh.axes_size([a for ax in spec for a in axes_of(ax)])
+        term = torch.sum(g * g)
+        if copies != 1:
+            term = term / copies
+        total = term if total is None else total + term
+    return all_reduce(total, mesh, AXES)
+
+
+def apply_update(optimizer: AdamW, params, opt_state, grads: list, sq_norm=None) -> None:
     """One optimizer step in place from fp32 ``grads`` (a list in
     ``_leaves(params)`` order).  A ``MasterState`` updates the fp32
     masters, then re-casts the parameters from them."""
     if isinstance(opt_state, MasterState):
-        optimizer.update(_unflatten(params, grads), opt_state.inner, opt_state.master)
+        optimizer.update(_unflatten(params, grads), opt_state.inner, opt_state.master,
+                         sq_norm)
         with torch.no_grad():
             for p, m in zip(_leaves(params), _leaves(opt_state.master)):
                 p.copy_(m)
         return
-    optimizer.update(_unflatten(params, grads), opt_state, params)
+    optimizer.update(_unflatten(params, grads), opt_state, params, sq_norm)
 
 
-def init_state(cfg: TransformerConfig, optimizer: AdamW, generator: torch.Generator,
-               device=None, mesh=None):
-    """(params, opt_state) on one device: the counterpart of
-    ``init_sharded_state`` with no mesh.  Parameters require grad; with
-    any bf16 leaf the state is a ``MasterState`` of fp32 copies."""
-    check_no_mesh(mesh, "init_state")
+def init_sharded_state(cfg: TransformerConfig, optimizer: AdamW, generator: torch.Generator,
+                       device=None, mesh=None):
+    """(params, opt_state).  Parameters require grad; with any bf16 leaf
+    the state is a ``MasterState`` of fp32 copies.  On a mesh every rank
+    builds the whole params from the seed and keeps its slice (strict
+    sharding rules); moments and masters follow the slices."""
+    check_mesh_model(cfg, mesh)
     params = init_params(cfg, generator, device)
+    if mesh is not None:
+        params = shard_params(params, mesh)
     return state_for(params, optimizer)
+
+
+init_state = init_sharded_state  # the name the one-device callers use
 
 
 def state_for(params, optimizer: AdamW):
@@ -272,11 +372,11 @@ def state_for(params, optimizer: AdamW):
 
 @torch.no_grad()
 def evaluate(params, cfg: TransformerConfig, batches, mesh=None) -> dict:
-    """Mean next-token loss and perplexity over (B, S+1) token batches."""
-    check_no_mesh(mesh, "evaluate")
+    """Mean next-token loss and perplexity over (B, S+1) token batches
+    (on a mesh, this rank's rows of each)."""
     total, n = 0.0, 0
     for tokens in batches:
-        total += float(loss_fn(params, tokens, cfg))
+        total += float(all_reduce(loss_fn(params, tokens, cfg, mesh), mesh, BATCH_AXES))
         n += 1
     if n == 0:
         raise ValueError("evaluate: no batches")

@@ -16,9 +16,22 @@ domain.  ``cfg.n_experts`` > 0 replaces each layer's FFN by the Switch
 MoE FFN (``models/moe.moe_ffn``), whose auxiliary loss ``hidden_with_aux``
 sums over the layers.  A tree from ``quantize.quantize_params`` (int8
 weights) runs the forward through ``quantize.wmatmul`` (kernel KE on
-CUDA) and its embedding table is gathered before it is dequantised.  Not
-ported yet, and rejected by name where a config asks for them: ring
-attention and pipeline parallelism.
+CUDA) and its embedding table is gathered before it is dequantised.
+
+On a mesh (``parallel/mesh.Mesh``, connected) each rank holds its slice of
+every leaf (``parallel/sharding``) and runs the reference's layout with
+explicit collectives (``parallel/collectives``): a vocab-sharded embedding
+(rows it does not hold masked, a sum over ``tensor``), column-parallel
+wq / wk / wv / w_gate / w_in and row-parallel wo / w_out (Megatron's f and
+g operators over ``tensor``: each rank computes its own query and KV
+heads), ``fsdp``-sharded weights gathered where a layer uses them (inside
+the remat region, so the backward gathers again) and their gradients
+reduce-scattered, and the sequence cut over ``seq``: RoPE positions at the
+shard's global offset, attention by the ring (``parallel/ring``, K3 and
+K4) under ``cfg.use_ring_attention``, else by K1 over the keys gathered up
+to the shard's end.  The pipeline schedule (``n_microbatches``) is not
+ported yet and is refused by name; so are MoE, LoRA and int8 weights on a
+mesh of more than one rank.
 """
 
 from __future__ import annotations
@@ -31,6 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import flash_attention
 from ..ops.xent import mm_f32
+from ..parallel.collectives import copy_to, gather_from, group_size, reduce_from
+from ..parallel.mesh import MeshSpec
 from .moe import moe_ffn
 from .quantize import is_qtensor, wmat, wmatmul
 
@@ -92,29 +107,65 @@ class TransformerConfig:
 
 
 def check_dense(cfg: TransformerConfig) -> None:
-    """Raise, by name, on the config fields the port does not serve yet:
-    ring attention and the pipeline schedule wait for ``parallel/``."""
-    unported = {
-        "use_ring_attention": cfg.use_ring_attention,
-        "n_microbatches": cfg.n_microbatches > 0,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+    """Raise, by name, on the config field the port does not serve yet:
+    the pipeline schedule waits for ``parallel/pipeline.py``."""
+    if cfg.n_microbatches > 0:
         raise NotImplementedError(
-            f"config fields {bad} are not ported yet (ring attention and "
-            "the pipeline schedule need parallel/, a later slice of the port)"
+            "config field n_microbatches is not ported yet (the pipeline "
+            "schedule, parallel/pipeline.py and the pipe axis, is the next "
+            "slice of the port's parallel/)"
         )
-
-
-# -- init --------------------------------------------------------------------
 
 
 def check_no_mesh(mesh, what: str) -> None:
+    """Refuse a mesh where the port trains on one device only (LoRA, the
+    ViT)."""
     if mesh is not None:
         raise NotImplementedError(
-            f"{what}: a device mesh needs parallel/ (sharding, collectives), "
-            "which is a later slice of the port; this slice runs on one device"
+            f"{what} on a device mesh is not ported yet: training on a mesh "
+            "takes the dense transformer (models/train.py); this path waits for "
+            "a later slice of the port's parallel/"
         )
+
+
+def check_mesh_model(cfg: TransformerConfig, mesh, params=None) -> None:
+    """Raise, by name, on what the mesh path does not run: the pipe and
+    expert axes, the pipeline schedule, and MoE, LoRA or int8 weights on
+    more than one rank (NotImplementedError); and on head counts the
+    tensor axis cannot split (ValueError).  ``mesh`` is a ``Mesh`` or the
+    ``MeshSpec`` a job asks for."""
+    check_dense(cfg)
+    if mesh is None:
+        return
+    spec = mesh if isinstance(mesh, MeshSpec) else mesh.spec
+    sizes, n = spec.sizes, spec.num_devices
+    for axis in ("pipe", "expert"):
+        if sizes[axis] > 1:
+            raise NotImplementedError(
+                f"mesh axis {axis}={sizes[axis]} is not ported yet (the pipe and "
+                "expert axes are the next slice of the port's parallel/)")
+    if n == 1:
+        return
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"n_experts={cfg.n_experts} on a mesh of {n} ranks is not ported yet "
+            "(MoE training on a mesh comes with the expert axis)")
+    if params is not None:
+        for name, leaf in params["layers"].items():
+            if isinstance(leaf, dict):
+                raise NotImplementedError(
+                    f"layer leaf {name!r} (LoRA or int8) on a mesh of {n} ranks "
+                    "is not ported yet")
+    T = sizes["tensor"]
+    if cfg.n_heads % T or cfg.kv_heads % T:
+        raise ValueError(f"tensor={T} must divide n_heads={cfg.n_heads} and "
+                         f"kv heads={cfg.kv_heads} (each rank keeps whole heads)")
+    if sizes["seq"] > 1 and cfg.use_ring_attention and cfg.window_size:
+        raise NotImplementedError("sliding window + ring attention is not supported "
+                                  "(the reference asserts the same)")
+
+
+# -- init --------------------------------------------------------------------
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None) -> dict:
@@ -230,11 +281,27 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(B, S, Hkv, n_rep, Dh).reshape(B, S, Hkv * n_rep, Dh)
 
 
-def _attention(q, k, v, cfg: TransformerConfig):
-    """(B, S, H, Dh) → (B, S, H, Dh) through flash attention."""
+def _attention(q, k, v, cfg: TransformerConfig, mesh=None):
+    """(B, S, H, Dh) → (B, S, H, Dh) through flash attention.  With the
+    sequence cut over ``seq`` (S the shard's length): ring attention under
+    ``cfg.use_ring_attention``, else flash attention over the keys
+    gathered from the shards up to this one's end."""
     n_rep = cfg.n_heads // cfg.kv_heads
+    seq = group_size(mesh, "seq")
+    if seq > 1 and not cfg.use_ring_attention:
+        end = (mesh.axis_index("seq") + 1) * q.shape[1]
+        k = gather_from(k, mesh, "seq", 1)[:, :end]
+        v = gather_from(v, mesh, "seq", 1)[:, :end]
     k = repeat_kv(k, n_rep)
     v = repeat_kv(v, n_rep)
+    if seq > 1 and cfg.use_ring_attention:
+        from ..parallel.ring import ring_attention
+
+        if cfg.window_size:
+            raise NotImplementedError("sliding window + ring attention is not supported")
+        o = ring_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mesh,
+                           "seq", causal=True)
+        return o.transpose(1, 2)
     o = flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         True, None, cfg.window_size,
@@ -274,27 +341,72 @@ def _proj(h, p, name, dtype):
     return (y + t).to(dtype)
 
 
-def _layer(x, p, cfg: TransformerConfig):
+def _gather_fsdp(w, spec, mesh):
+    """``w`` whole along the dimensions its spec shards over ``fsdp``
+    (an all-gather, whose backward reduce-scatters the gradient)."""
+    for i, ax in enumerate(spec):
+        if ax == "fsdp":
+            w = gather_from(w, mesh, "fsdp", i)
+    return w
+
+
+def _layer_in_use(p: dict, mesh) -> dict:
+    """A layer's leaves as the layer uses them on ``mesh``: fsdp dimensions
+    gathered, tensor dimensions kept as this rank's slice."""
+    if group_size(mesh, "fsdp") == 1:
+        return p
+    from ..parallel.sharding import _spec_for
+
+    return {k: _gather_fsdp(v, _spec_for("layers/" + k, v.ndim + 1, None)[1:], mesh)
+            for k, v in p.items()}
+
+
+def _layer(x, p, cfg: TransformerConfig, mesh=None):
     B, S, _ = x.shape
-    Hn, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    T = group_size(mesh, "tensor")
+    Hn, Dh, Hkv = cfg.n_heads // T, cfg.head_dim, cfg.kv_heads // T
     dtype = torch_dtype(cfg.dtype)
-    h = rms_norm(x, p["attn_norm"])
+    p = _layer_in_use(p, mesh)
+    h = copy_to(rms_norm(x, p["attn_norm"]), mesh, "tensor")
     q = _proj(h, p, "wq", dtype).reshape(B, S, Hn, Dh)
     k = _proj(h, p, "wk", dtype).reshape(B, S, Hkv, Dh)
     v = _proj(h, p, "wv", dtype).reshape(B, S, Hkv, Dh)
     positions = torch.arange(S, device=x.device)
+    if group_size(mesh, "seq") > 1:  # the shard's global positions
+        positions = positions + mesh.axis_index("seq") * S
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = _attention(q, k, v, cfg).reshape(B, S, Hn * Dh)
-    x = x + _proj(o, p, "wo", dtype)
+    o = _attention(q, k, v, cfg, mesh).reshape(B, S, Hn * Dh)
+    x = x + reduce_from(_proj(o, p, "wo", dtype), mesh, "tensor")
     h = rms_norm(x, p["mlp_norm"])
     if cfg.n_experts > 0:
         ffn, aux = moe_ffn(h, p["moe_gate"], p["w_in"], p["w_gate"], p["w_out"],
                            capacity_factor=cfg.capacity_factor, dtype=dtype)
         return x + ffn, aux
+    h = copy_to(h, mesh, "tensor")
     gate = F.silu(_proj(h, p, "w_gate", dtype))
     up = _proj(h, p, "w_in", dtype)
-    return x + _proj(gate * up, p, "w_out", dtype), None
+    return x + reduce_from(_proj(gate * up, p, "w_out", dtype), mesh, "tensor"), None
+
+
+def _embed_mesh(embed, tokens, dtype, mesh):
+    """The vocab-sharded lookup: this rank's rows (V/T of them) gathered
+    whole over ``fsdp``, tokens outside them masked to 0, and the rows
+    summed over ``tensor`` (one rank holds each token's row)."""
+    w = _gather_fsdp(embed, ("tensor", "fsdp"), mesh)
+    if group_size(mesh, "tensor") == 1:
+        return _embed_lookup(w, tokens, dtype)
+    v_local = w.shape[0]
+    t = tokens.long() - mesh.axis_index("tensor") * v_local
+    inside = (t >= 0) & (t < v_local)
+    rows = w.to(dtype)[t.clamp(0, v_local - 1)]
+    return reduce_from(torch.where(inside[..., None], rows, 0), mesh, "tensor")
+
+
+def unembed_in_use(params: dict, dtype, mesh=None) -> torch.Tensor:
+    """The unembed as the loss uses it: whole over ``fsdp``, this rank's
+    V/T columns under ``tensor``, in the compute dtype."""
+    return wmat(_gather_fsdp(params["unembed"], ("fsdp", "tensor"), mesh), dtype)
 
 
 def hidden_with_aux(
@@ -308,20 +420,26 @@ def hidden_with_aux(
     leaves are unbound once, so their gradients gather into the stacked
     tensors by one stack in the backward, not by L full-size adds.  With
     ``cfg.remat`` each layer is checkpointed: only its input is kept and
-    its forward (K1 included) runs again in the backward."""
-    check_no_mesh(mesh, "hidden_with_aux")
-    check_dense(cfg)
+    its forward (K1 included) runs again in the backward.
+
+    On a mesh, ``params`` are this rank's slices and ``tokens`` its
+    (batch, sequence) shard; the hidden states are its shard's, alike on
+    every ``tensor`` rank."""
+    check_mesh_model(cfg, mesh, params)
     dtype = torch_dtype(cfg.dtype)
-    x = _embed_lookup(params["embed"], tokens, dtype)
+    if mesh is None:
+        x = _embed_lookup(params["embed"], tokens, dtype)
+    else:
+        x = _embed_mesh(params["embed"], tokens, dtype, mesh)
     per_layer = _unbind_layers(params["layers"])
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = layer_slice(per_layer, i)
         if remat:
-            x, a = checkpoint(_layer, x, lp, cfg, use_reentrant=False)
+            x, a = checkpoint(_layer, x, lp, cfg, mesh, use_reentrant=False)
         else:
-            x, a = _layer(x, lp, cfg)
+            x, a = _layer(x, lp, cfg, mesh)
         if a is not None:  # a MoE layer's load-balancing loss
             aux = aux + a
     x = rms_norm(x, params["final_norm"])
@@ -331,10 +449,18 @@ def hidden_with_aux(
 def forward_with_aux(
     params: dict, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) int → (logits (B, S, V) float32, aux scalar)."""
+    """tokens: (B, S) int → (logits (B, S, V) float32, aux scalar).  On a
+    mesh each rank computes its V/T columns and the logits are gathered
+    whole over ``tensor``."""
     x, aux = hidden_with_aux(params, tokens, cfg, mesh)
-    logits = wmatmul(x, params["unembed"], torch_dtype(cfg.dtype))
-    return logits.float(), aux
+    if mesh is None:
+        logits = wmatmul(x, params["unembed"], torch_dtype(cfg.dtype))
+        return logits.float(), aux
+    from ..parallel.collectives import gather_replicated
+
+    dtype = torch_dtype(cfg.dtype)
+    logits = copy_to(x, mesh, "tensor") @ unembed_in_use(params, dtype, mesh)
+    return gather_replicated(logits, mesh, "tensor", -1).float(), aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None) -> torch.Tensor:

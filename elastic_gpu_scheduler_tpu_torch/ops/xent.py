@@ -45,76 +45,163 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def _check_chunks(V: int, n_chunks: int) -> int:
+    if n_chunks <= 0 or V % n_chunks:
+        raise ValueError(f"vocab {V} not divisible by n_chunks {n_chunks}")
+    return V // n_chunks
+
+
+def _scan_parts(x2d, w, t, n_chunks):
+    """Online logsumexp pieces and the gold logit over vocab chunks: (m
+    running max, s scaled sum, gold), each (N,) fp32.  Ids outside [0, V)
+    of ``w``'s columns pick up no gold, so a tensor rank passes ids shifted
+    into its column space straight in."""
+    C = w.shape[1] // n_chunks
+    N = x2d.shape[0]
+    m = torch.full((N,), float("-inf"), dtype=torch.float32, device=x2d.device)
+    s = torch.zeros((N,), dtype=torch.float32, device=x2d.device)
+    gold = torch.zeros((N,), dtype=torch.float32, device=x2d.device)
+    for c in range(n_chunks):
+        logits = mm_f32(x2d, w[:, c * C:(c + 1) * C])  # (N, C) fp32
+        m_new = torch.maximum(m, logits.max(dim=-1).values)
+        s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
+        m = m_new
+        local = t - c * C
+        in_chunk = (local >= 0) & (local < C)
+        picked = logits.gather(1, torch.clamp(local, 0, C - 1)[:, None])[:, 0]
+        gold = gold + torch.where(in_chunk, picked, 0.0)
+    return m, s, gold
+
+
+def _bwd_scan(x2d, w, t, logz, scale, n_chunks):
+    """Recompute each chunk's logits, form d_logits = (softmax − onehot)·scale
+    against ``logz`` (global under tensor parallelism), contract at once.
+    Returns (dx fp32 (N, D), dw like w).  Ids outside a chunk get no onehot."""
+    C = w.shape[1] // n_chunks
+    dx = torch.zeros(x2d.shape, dtype=torch.float32, device=x2d.device)
+    dw = torch.empty_like(w)
+    cols = torch.arange(C, device=x2d.device)
+    for c in range(n_chunks):
+        w_c = w[:, c * C:(c + 1) * C]
+        logits = mm_f32(x2d, w_c)
+        p = torch.exp(logits - logz[:, None])
+        local = t - c * C
+        onehot = (cols[None, :] == local[:, None]).float()  # 0 off-chunk
+        d_logits = ((p - onehot) * scale[:, None]).to(x2d.dtype)
+        dx += mm_f32(d_logits, w_c.t())
+        dw[:, c * C:(c + 1) * C] = mm_f32(x2d.t(), d_logits).to(w.dtype)
+    return dx, dw
+
+
+def _denominator(valid, n_valid):
+    """The mean's denominator: this call's valid count, or ``n_valid`` (the
+    count over every rank's tokens, for a loss summed across ranks)."""
+    if n_valid is None:
+        return torch.clamp(valid.sum(), min=1)
+    return torch.clamp(torch.as_tensor(n_valid, device=valid.device), min=1)
+
+
 class ChunkedSoftmaxXent(torch.autograd.Function):
     """Mean CE of ``(x @ w, targets)`` over vocab chunks; gradients for x
     and w."""
 
     @staticmethod
-    def forward(ctx, x, w, targets, n_chunks):
+    def forward(ctx, x, w, targets, n_chunks, n_valid=None):
         D, V = w.shape
-        if n_chunks <= 0 or V % n_chunks:
-            raise ValueError(f"vocab {V} not divisible by n_chunks {n_chunks}")
-        C = V // n_chunks
+        _check_chunks(V, n_chunks)
         x2d = x.reshape(-1, x.shape[-1])
         t_raw = targets.reshape(-1).long()
         valid = (t_raw >= 0) & (t_raw < V)
         t = torch.clamp(t_raw, 0, V - 1)
-        N = x2d.shape[0]
-        m = torch.full((N,), float("-inf"), dtype=torch.float32, device=x.device)
-        s = torch.zeros((N,), dtype=torch.float32, device=x.device)
-        gold = torch.zeros((N,), dtype=torch.float32, device=x.device)
-        for c in range(n_chunks):
-            logits = mm_f32(x2d, w[:, c * C:(c + 1) * C])  # (N, C) fp32
-            m_new = torch.maximum(m, logits.max(dim=-1).values)
-            s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
-            m = m_new
-            local = t - c * C
-            in_chunk = (local >= 0) & (local < C)
-            picked = logits.gather(1, torch.clamp(local, 0, C - 1)[:, None])[:, 0]
-            gold = gold + torch.where(in_chunk, picked, 0.0)
+        m, s, gold = _scan_parts(x2d, w, t, n_chunks)
         logz = m + torch.log(s)
-        n_valid = torch.clamp(valid.sum(), min=1)
-        loss = torch.where(valid, logz - gold, 0.0).sum() / n_valid
-        ctx.save_for_backward(x, w, t, valid, logz)
+        denom = _denominator(valid, n_valid)
+        loss = torch.where(valid, logz - gold, 0.0).sum() / denom
+        ctx.save_for_backward(x, w, t, valid, logz, denom)
         ctx.n_chunks = n_chunks
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        x, w, t, valid, logz = ctx.saved_tensors
-        n_chunks = ctx.n_chunks
-        D, V = w.shape
-        C = V // n_chunks
+        x, w, t, valid, logz, denom = ctx.saved_tensors
         x2d = x.reshape(-1, x.shape[-1])
-        n_valid = torch.clamp(valid.sum(), min=1)
         # per-token cotangent: masked positions get exactly zero gradient
-        scale = (g / n_valid) * valid.float()  # (N,)
-        dx = torch.zeros(x2d.shape, dtype=torch.float32, device=x.device)
-        dw = torch.empty_like(w)
-        cols = torch.arange(C, device=x.device)
-        for c in range(n_chunks):
-            w_c = w[:, c * C:(c + 1) * C]
-            logits = mm_f32(x2d, w_c)
-            p = torch.exp(logits - logz[:, None])
-            local = t - c * C
-            onehot = (cols[None, :] == local[:, None]).float()  # 0 off-chunk
-            d_logits = ((p - onehot) * scale[:, None]).to(x2d.dtype)
-            dx += mm_f32(d_logits, w_c.t())
-            dw[:, c * C:(c + 1) * C] = mm_f32(x2d.t(), d_logits).to(w.dtype)
-        return dx.to(x.dtype).reshape(x.shape), dw, None, None
+        scale = (g / denom) * valid.float()  # (N,)
+        dx, dw = _bwd_scan(x2d, w, t, logz, scale, ctx.n_chunks)
+        return dx.to(x.dtype).reshape(x.shape), dw, None, None, None
 
 
 def chunked_softmax_xent(
-    x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor, n_chunks: int
+    x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor, n_chunks: int, n_valid=None
 ) -> torch.Tensor:
     """Mean next-token CE of ``(x @ w, targets)`` without materializing
     the logits.  x: (..., D) hidden states; w: (D, V); targets: (...) int.
-    V must divide evenly by ``n_chunks``."""
-    return ChunkedSoftmaxXent.apply(x, w, targets, int(n_chunks))
+    V must divide evenly by ``n_chunks``.  ``n_valid``: the mean's
+    denominator when it is not this call's own count of valid targets."""
+    return ChunkedSoftmaxXent.apply(x, w, targets, int(n_chunks), n_valid)
 
 
-def chunked_softmax_xent_tp(*args, **kwargs):
-    raise NotImplementedError(
-        "chunked_softmax_xent_tp (a tensor-sharded unembed) needs the mesh "
-        "and collectives of parallel/, which is a later slice of the port"
-    )
+# -- tensor-parallel variant -------------------------------------------------
+
+
+class ChunkedSoftmaxXentTP(torch.autograd.Function):
+    """One tensor rank's part of the TP loss: ``w_local`` is its (D, V/T)
+    unembed columns, x and targets are alike on every tensor rank."""
+
+    @staticmethod
+    def forward(ctx, x, w_local, targets, n_chunks_local, mesh, axis, v_global, n_valid):
+        from ..parallel.collectives import all_reduce
+
+        v_local = w_local.shape[1]
+        x2d = x.reshape(-1, x.shape[-1])
+        t_raw = targets.reshape(-1).long()
+        valid = (t_raw >= 0) & (t_raw < v_global)
+        # ids shifted into this rank's column space: off-rank ids fall
+        # outside [0, v_local) and pick up no gold, so the sum over ranks
+        # holds each token's gold logit once
+        t_local = torch.clamp(t_raw, 0, v_global - 1) - mesh.axis_index(axis) * v_local
+        m, s, gold = _scan_parts(x2d, w_local, t_local, n_chunks_local)
+        m_g = all_reduce(m, mesh, axis, op="max")
+        s_g = all_reduce(s * torch.exp(m - m_g), mesh, axis)
+        logz = m_g + torch.log(s_g)
+        gold_g = all_reduce(gold, mesh, axis)
+        denom = _denominator(valid, n_valid)
+        loss = torch.where(valid, logz - gold_g, 0.0).sum() / denom
+        ctx.save_for_backward(x, w_local, t_local, valid, logz, denom)
+        ctx.n_chunks, ctx.mesh, ctx.axis = n_chunks_local, mesh, axis
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..parallel.collectives import all_reduce
+
+        x, w_local, t_local, valid, logz, denom = ctx.saved_tensors
+        x2d = x.reshape(-1, x.shape[-1])
+        scale = (g / denom) * valid.float()
+        # logz is global and t_local rank-shifted: this rank's slice of the
+        # global softmax gradient (an off-rank gold gets only the softmax term)
+        dx, dw = _bwd_scan(x2d, w_local, t_local, logz, scale, ctx.n_chunks)
+        # x is alike on every tensor rank: its cotangent sums their parts
+        dx = all_reduce(dx, ctx.mesh, ctx.axis)
+        return dx.to(x.dtype).reshape(x.shape), dw, None, None, None, None, None, None
+
+
+def chunked_softmax_xent_tp(x: torch.Tensor, w_local: torch.Tensor, targets: torch.Tensor,
+                            n_chunks: int, mesh, axis: str = "tensor", n_valid=None
+                            ) -> torch.Tensor:
+    """Tensor-parallel ``chunked_softmax_xent`` (reference
+    ``ops/xent.py chunked_softmax_xent_tp``): the V-sharded unembed stays
+    sharded and the (N, V) logits never exist.  ``w_local`` is this rank's
+    (D, V/T) slice; ``n_chunks`` counts chunks over the whole vocab, so each
+    rank scans its columns in ``n_chunks``/T chunks, and one max and two
+    sums over ``axis`` merge the logsumexp and the gold logit.  The
+    backward sums dx over ``axis`` and keeps dW on its rank.  The
+    combinations the reference rejects raise the same way."""
+    T = mesh.shape[axis]
+    V = w_local.shape[1] * T
+    if n_chunks % T or (V // T) % (n_chunks // T):
+        raise ValueError(
+            f"xent_chunks={n_chunks} must be a multiple of {axis}={T} with "
+            f"V/{axis} = {V // T} divisible by chunks/{axis} = "
+            f"{n_chunks // T} (each rank scans its shard in that many chunks)")
+    return ChunkedSoftmaxXentTP.apply(x, w_local, targets, n_chunks // T, mesh, axis, V, n_valid)

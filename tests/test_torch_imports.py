@@ -73,7 +73,13 @@ def test_port_imports_no_jax_and_no_jax_package():
             "elastic_gpu_scheduler_tpu_torch.models.convert",
             "elastic_gpu_scheduler_tpu_torch.models.checkpoint",
             "elastic_gpu_scheduler_tpu_torch.models.vit",
-            "elastic_gpu_scheduler_tpu_torch.utils.safetensors"} <= expected
+            "elastic_gpu_scheduler_tpu_torch.utils.safetensors",
+            "elastic_gpu_scheduler_tpu_torch.parallel",
+            "elastic_gpu_scheduler_tpu_torch.parallel.mesh",
+            "elastic_gpu_scheduler_tpu_torch.parallel.distributed",
+            "elastic_gpu_scheduler_tpu_torch.parallel.collectives",
+            "elastic_gpu_scheduler_tpu_torch.parallel.sharding",
+            "elastic_gpu_scheduler_tpu_torch.parallel.ring"} <= expected
     bad = [m for m in res["modules"] if _is_jax_package(m)]
     assert not bad, bad
     # the HF import reads checkpoints with its own code: the card's machine

@@ -48,8 +48,9 @@ def test_run_job_loss_falls():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "tensor=2"],
-    ["--mesh", "data=2,seq=2"],
+    ["--mesh", "pipe=2"],
+    ["--mesh", "expert=2"],
+    ["--mesh", "tensor=3"],  # 8 heads do not split over 3 ranks
     ["--compile-cache", "/nonexistent/cache"],
     ["--mesh", "bogus=2"],
 ], ids=str)
@@ -59,17 +60,20 @@ def test_unported_flags_exit_2(argv, capsys):
 
 
 def test_multi_chip_allocations_exit_2(tmp_path, monkeypatch, capsys):
+    """A multi-chip allocation trains on a mesh of that many ranks now;
+    what it cannot tile still exits 2 by name: a mesh that does not divide
+    the allocation, a batch the data axes do not divide, the pipe axis."""
     ann = tmp_path / "annotations"
     ann.write_text('elasticgpu.io/container-main="0.0.0,0.1.0"\n')
-    assert launcher.main(["--cpu", "--steps", "1", "--annotations", str(ann)]) == 2
-    assert "2 chips" in capsys.readouterr().err
+    assert launcher.main(["--cpu", "--steps", "1", "--annotations", str(ann),
+                          "--mesh", "tensor=4"]) == 2
+    assert "incompatible with 2 devices" in capsys.readouterr().err
     monkeypatch.setenv("TPU_VISIBLE_CHIPS", "0.0,0.1,1.0")
-    assert launcher.main(["--cpu", "--steps", "1"]) == 2
-    assert "3 chips" in capsys.readouterr().err
-    with pytest.raises(launcher.Unported, match="gang"):
+    assert launcher.main(["--cpu", "--steps", "1", "--batch-size", "2"]) == 2
+    assert "not divisible by data*fsdp=3" in capsys.readouterr().err
+    with pytest.raises(launcher.Unported, match="pipe"):
         monkeypatch.delenv("TPU_VISIBLE_CHIPS")
-        launcher.check_one_device(launcher.JobSpec(model=TINY),
-                                  {"elasticgpu.io/gang-slices": "a,b"})
+        launcher.check_mesh_job(launcher.JobSpec(model=TINY, mesh=launcher.MeshSpec(pipe=2)))
 
 
 def test_one_chip_allocation_runs(monkeypatch):
@@ -83,3 +87,76 @@ def test_default_device_is_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launcher.run_job(launcher.JobSpec(model=TINY, steps=1))
+
+
+def test_more_ranks_than_cards_needs_gloo_by_name(capsys):
+    """Two ranks and no card: NCCL is refused by name, never swapped for
+    gloo on its own."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("this host has two cards")
+    assert launcher.main(["--steps", "1", "--mesh", "tensor=2"]) == 2
+    err = capsys.readouterr().err
+    assert "NCCL takes one rank a card" in err and "--dist-backend gloo" in err
+
+
+def test_cli_mesh_trains_like_reference_run_job(tmp_path):
+    """``--cpu --mesh tensor=2`` (two gloo ranks) trains the reference's
+    default job and equals the reference's ``run_job`` on that mesh.  The
+    reference draws its weights from ``jax.random``, so they reach the port
+    as a step-0 checkpoint of the same state; the batch stream is the same
+    seeded one.  The default model is bf16: losses agree to 2e-2 (the
+    bf16 products round differently; the float32 meshes are held to 1e-5
+    in test_torch_parallel.py)."""
+    import jax
+
+    from elastic_gpu_scheduler_tpu import launcher as jlauncher
+    from elastic_gpu_scheduler_tpu.models.train import init_sharded_state
+    from elastic_gpu_scheduler_tpu.models.train import make_optimizer as jax_opt
+    from elastic_gpu_scheduler_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
+    from elastic_gpu_scheduler_tpu_torch.models.bridge import params_from_jax
+    from elastic_gpu_scheduler_tpu_torch.models.checkpoint import CheckpointManager
+    from elastic_gpu_scheduler_tpu_torch.models.train import make_optimizer, state_for
+
+    job = dict(steps=3, batch_size=2, seq_len=16, lr=1e-3)
+    want = jlauncher.run_job(jlauncher.JobSpec(mesh=JaxMeshSpec(tensor=2), **job),
+                             devices=jax.devices()[:2])
+    jp, _ = init_sharded_state(jax.random.key(0), jlauncher.JobSpec().model, jax_opt())
+    params, state = state_for(params_from_jax(jax.tree.map(np.asarray, jp), "cpu"),
+                              make_optimizer(lr=1e-3, grad_clip=1.0))
+    ckpt = tmp_path / "ckpt"
+    mgr = CheckpointManager(str(ckpt))
+    mgr.save(params, state, 0, block=True)
+    mgr.close()
+    log = tmp_path / "metrics.jsonl"
+    out = subprocess.run(
+        [sys.executable, "-m", "elastic_gpu_scheduler_tpu_torch.launcher", "--cpu",
+         "--mesh", "tensor=2", "--steps", "3", "--batch-size", "2", "--seq-len", "16",
+         "--lr", "1e-3", "--checkpoint-dir", str(ckpt), "--metrics-log", str(log)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "trained 3 steps" in out.stdout
+    recs = [json.loads(line) for line in log.read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1, 2]  # rank 0 alone writes
+    np.testing.assert_allclose([r["loss"] for r in recs], want, atol=2e-2)
+
+
+def test_two_chip_allocation_trains_on_two_ranks(tmp_path):
+    """An allocation of two chips and no ``--mesh``: the reference's rule
+    gives data=2, and the launcher starts two ranks (gloo on the CPU);
+    rank 0 alone writes the metrics log."""
+    ann = tmp_path / "annotations"
+    ann.write_text('elasticgpu.io/container-main="0.0.0,0.1.0"\n')
+    log = tmp_path / "metrics.jsonl"
+    out = subprocess.run(
+        [sys.executable, "-m", "elastic_gpu_scheduler_tpu_torch.launcher", "--cpu",
+         "--annotations", str(ann), "--steps", "2", "--batch-size", "2", "--seq-len", "8",
+         "--metrics-log", str(log)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "'data': 2" in out.stderr and "trained 2 steps" in out.stdout
+    recs = [json.loads(line) for line in log.read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1] and np.isfinite([r["loss"] for r in recs]).all()

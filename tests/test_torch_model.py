@@ -111,8 +111,8 @@ def test_forward_matches_jax(dtype, window):
 
 
 def test_forward_rejects_unported_config():
-    _, cfg = _cfgs(use_ring_attention=True, dtype="float32")
-    with pytest.raises(NotImplementedError, match="use_ring_attention"):
+    _, cfg = _cfgs(n_microbatches=2, dtype="float32")
+    with pytest.raises(NotImplementedError, match="n_microbatches"):
         forward({}, torch.zeros(1, 4, dtype=torch.int32), cfg)
 
 

@@ -243,13 +243,24 @@ def test_evaluate_matches_jax():
 
 
 def test_mesh_and_unported_configs_refused():
+    from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec, RankDevice, make_mesh
+
     _, cfg = _cfgs(dtype="float32")
     opt = train.make_optimizer()
-    for fn in (lambda: train.make_train_step(cfg, opt, mesh=object()),
-               lambda: train.loss_fn({}, torch.zeros(1, 3, dtype=torch.int32), cfg, object()),
-               lambda: train.init_state(cfg, opt, torch.Generator(), "cpu", mesh=object())):
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            fn()
+    for axis in ("pipe", "expert"):  # the next slice of parallel/
+        mesh = make_mesh(MeshSpec(**{axis: 2}), [RankDevice(0), RankDevice(1)])
+        for fn in (lambda: train.make_train_step(cfg, opt, mesh=mesh),
+                   lambda: train.loss_fn({"layers": {}}, torch.zeros(1, 3, dtype=torch.int32),
+                                         cfg, mesh),
+                   lambda: train.init_state(cfg, opt, torch.Generator(), "cpu", mesh=mesh)):
+            with pytest.raises(NotImplementedError, match=f"{axis}=2.*parallel/"):
+                fn()
+    two = make_mesh(MeshSpec(tensor=2), [RankDevice(0), RankDevice(1)])
+    _, moe = _cfgs(dtype="float32", n_experts=2)
+    with pytest.raises(NotImplementedError, match="n_experts"):
+        train.init_state(moe, opt, torch.Generator(), "cpu", mesh=two)
+    with pytest.raises(RuntimeError, match="connect"):
+        train.make_train_step(cfg, opt, mesh=two)
     _, piped = _cfgs(dtype="float32", n_microbatches=2)
     with pytest.raises(NotImplementedError, match="n_microbatches"):
         train.init_state(piped, opt, torch.Generator(), "cpu")

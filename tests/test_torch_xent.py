@@ -108,5 +108,8 @@ def test_refusals():
     x, w, t = (torch.from_numpy(a) for a in _inputs("float32"))
     with pytest.raises(ValueError, match="not divisible"):
         chunked_softmax_xent(x, w, t, 5)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        chunked_softmax_xent_tp(x, w, t, 4, None)
+    from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec, RankDevice, make_mesh
+
+    mesh = make_mesh(MeshSpec(tensor=2), [RankDevice(0), RankDevice(1)])
+    with pytest.raises(ValueError, match="multiple of tensor=2"):
+        chunked_softmax_xent_tp(x, w, t, 3, mesh)
