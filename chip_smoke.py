@@ -5839,7 +5839,7 @@ def kernel_vit_rows(dev) -> list[dict]:
 # -- phase 15: training on a mesh -----------------------------------------------
 
 MESH_STEPS = 3
-# the ranks of (b) to (d) share the one card over gloo, which stages every
+# the ranks of (b) to (g) share the one card over gloo, which stages every
 # collective through the host: (label, mesh axes, config fields); one world
 # of ranks a mesh size, each mesh over its whole world
 MESH_GLOO = [("tensor=2", dict(tensor=2), {}),
@@ -5857,34 +5857,79 @@ MESH_SMALL = dict(vocab_size=512, d_model=256, n_layers=2, n_heads=4, n_kv_heads
                   dtype="float32", remat=True, xent_chunks=4)
 MESH_SMALL_B, MESH_SMALL_S = 4, 128
 MESH_F32_TOL = 1e-5
-# (b): the flagship in bf16 against its single-device run: a row-parallel
-# product sums two bf16-rounded partial outputs where one device rounds
-# once, and the ring runs attention in float32; the losses of 3 steps stay
-# within this (absolute, of losses from 10.8 to 3.1)
+# (b), (e), (f): the flagship in bf16 against its single-device run: a
+# row-parallel product sums two bf16-rounded partial outputs where one
+# device rounds once, and the ring runs attention in float32; the losses of
+# 3 steps stay within this (absolute, of losses from 10.8 to 3.1)
 MESH_BF16_TOL = 1e-3
-# (d): saved on tensor=2 at step 2 of 4, resumed on one device
+# (e): the pipe axis at the flagship's widths, depth cut to 4 layers (2 a
+# stage), 4 microbatches of 2 rows
+MESH_PIPE = dict(n_layers=4, n_microbatches=4)
+# (f): the expert axis at the flagship's widths with 8 experts, depth cut to
+# 2 layers (4 experts a rank)
+MESH_MOE = dict(n_layers=2, n_experts=8)
+# (g): the small float32 model on the new axes, at 4 layers where pipe is in
+# the mesh; MoE with 4 experts.  expert=2,pipe=2 routes each microbatch on
+# its own, as the reference does: its one-device run is the step that
+# accumulates the same microbatches (grad_accum = n_microbatches)
+SMALL_PIPE = dict(n_layers=4, n_microbatches=2)
+SMALL_MOE = dict(n_experts=4)
+MESH_NEW = [
+    ("pipe=2,seq=2 ring", dict(pipe=2, seq=2), dict(SMALL_PIPE, use_ring_attention=True), 1),
+    ("pipe=2,tensor=2", dict(pipe=2, tensor=2), SMALL_PIPE, 1),
+    ("data=2,expert=2", dict(data=2, expert=2), SMALL_MOE, 1),
+    ("expert=2,pipe=2", dict(expert=2, pipe=2), dict(SMALL_PIPE, **SMALL_MOE), 2),
+]
+# (d): float32 jobs saved at step 2 of 4 on tensor=2, pipe=2 (pipelined) and
+# expert=2 (MoE), resumed on one device
 MESH_RESUME = dict(steps=4, batch_size=MESH_SMALL_B, seq_len=MESH_SMALL_S, lr=1e-3)
+MESH_RESUME_JOBS = [("tensor=2", dict(tensor=2), {}),
+                    ("pipe=2", dict(pipe=2), SMALL_PIPE),
+                    ("expert=2", dict(expert=2), SMALL_MOE)]
 
 
 def mesh_want(cfg, kw, seq_index: int, steps: int) -> dict:
     """A rank's exact launches: K1 2L and K4 L a step (remat) off the ring;
     on the ring K3 and K4 once a kept hop a layer, and rank i of the seq
     axis keeps i + 1 hops (the later shards' hops keep no key), K3 twice
-    (the forward and its recomputation)."""
-    L = cfg["n_layers"]
+    (the forward and its recomputation).  Pipelined, a rank runs its
+    stage's L/pipe layers once a microbatch."""
+    L, reps = cfg["n_layers"], 1
+    if cfg.get("n_microbatches", 0) > 0 and kw.get("pipe", 1) > 1:
+        L, reps = L // kw["pipe"], cfg["n_microbatches"]
+    n = L * reps * steps
     if kw.get("seq", 1) > 1 and cfg.get("use_ring_attention"):
         hops = seq_index + 1
-        return dict(flash_block_stats=2 * L * hops * steps, flash_bwd_dq=L * hops * steps,
-                    flash_bwd_dkv=L * hops * steps)
-    return dict(flash_fwd=2 * L * steps, flash_bwd_dq=L * steps, flash_bwd_dkv=L * steps)
+        return dict(flash_block_stats=2 * n * hops, flash_bwd_dq=n * hops,
+                    flash_bwd_dkv=n * hops)
+    return dict(flash_fwd=2 * n, flash_bwd_dq=n, flash_bwd_dkv=n)
+
+
+def mesh_step_profile(step, params, state, tok) -> dict:
+    """One more step of rank 0 under torch.profiler (the other ranks run it
+    plainly beside): its wall ms, the device's busy share of it, the shares
+    of the device time in gloo's host staging copies, the ring's K3 / K4
+    and K1, and the top kernels by device time."""
+    wall_ms, kernels = profiled(lambda: float(step(params, state, tok)[2]),
+                                "a mesh step", cpu=True)
+    busy = sum(k["ms"] for k in kernels)
+
+    def share(*subs):
+        return sum(k["ms"] for k in kernels if any(s in k["kernel"] for s in subs)) / busy
+
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "busy_share": busy / wall_ms,
+            "copy_share": share("Memcpy"), "k3_share": share("flash_stats"), "k4_fp32_share": share("fp32_kernel"),
+            "k4_share": share("flash_bwd"), "k1_share": share("flash_fwd"),
+            "launches": sum(k["count"] for k in kernels), "top": kernels[:10]}
 
 
 def mesh_rank(rank, world, rendezvous, runs, resume_dir):
     """One rank of a phase-15 gloo world (a spawned process): each run in
     ``runs`` trains MESH_STEPS steps on its slices and rows over the whole
-    world (the flagship and the small float32 model); with ``resume_dir``,
-    then (d)'s tensor=2 jobs through ``launcher.run_job``.  Returns losses,
-    step ms, peak memory and launch counts a run."""
+    world; a run marked ``profile`` then takes one more step, rank 0's
+    under torch.profiler.  With ``resume_dir``, then (d)'s jobs through
+    ``launcher.run_job``.  Returns losses, step ms, peak memory and launch
+    counts a run."""
     import torch
 
     from elastic_gpu_scheduler_tpu_torch import launcher
@@ -5909,14 +5954,15 @@ def mesh_rank(rank, world, rendezvous, runs, resume_dir):
     dev = torch.device("cuda", torch.cuda.current_device())
     _build.lib()  # built by the parent before the spawn
     out = {}
-    for name, kw, cfg_kw, opt_kw, tokens in runs:
-        mesh = make_mesh(MeshSpec(**kw)).connect()
-        cfg = TransformerConfig(**cfg_kw)
-        opt = make_optimizer(**opt_kw)
+    for run in runs:
+        name = run["name"]
+        mesh = make_mesh(MeshSpec(**run["kw"])).connect()
+        cfg = TransformerConfig(**run["cfg"])
+        opt = make_optimizer(**run["opt"])
         params, state = init_sharded_state(cfg, opt, torch.Generator(device=dev).manual_seed(0),
                                            dev, mesh)
         step = make_train_step(cfg, opt, mesh)
-        tok = local_batch(torch.from_numpy(tokens).to(dev), mesh)
+        tok = local_batch(torch.from_numpy(run["tokens"]).to(dev), mesh)
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         # the main path: counts at 0 just before, read just after
@@ -5931,16 +5977,23 @@ def mesh_rank(rank, world, rendezvous, runs, resume_dir):
         out[name] = {"losses": losses, "step_ms": times, "seq_index": mesh.axis_index("seq"),
                      "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
                      "launches": dict(_build.LAUNCHES)}
+        if run.get("profile"):
+            if rank == 0:
+                out[name]["profile"] = mesh_step_profile(step, params, state, tok)
+            else:
+                float(step(params, state, tok)[2])
         del params, state, step, tok
         gc.collect()
         torch.cuda.empty_cache()
-    if resume_dir:  # (d): the uninterrupted tensor=2 job, and one saved at step 2
-        model = TransformerConfig(**MESH_SMALL)
-        spec = launcher.MeshSpec(tensor=2)
-        out["resume_whole"] = launcher.run_job(
-            launcher.JobSpec(model=model, mesh=spec, **MESH_RESUME))
-        launcher.run_job(launcher.JobSpec(model=model, mesh=spec, checkpoint_dir=resume_dir,
-                                          checkpoint_every=2, **dict(MESH_RESUME, steps=2)))
+    if resume_dir:  # (d): each job uninterrupted, and once saved at step 2
+        for label, kw, extra in MESH_RESUME_JOBS:
+            model = TransformerConfig(**dict(MESH_SMALL, **extra))
+            spec = launcher.MeshSpec(**kw)
+            out[f"resume {label}"] = launcher.run_job(
+                launcher.JobSpec(model=model, mesh=spec, **MESH_RESUME))
+            launcher.run_job(launcher.JobSpec(
+                model=model, mesh=spec, checkpoint_dir=os.path.join(resume_dir, label),
+                checkpoint_every=2, **dict(MESH_RESUME, steps=2)))
     return out
 
 
@@ -5964,7 +6017,7 @@ def mesh_nccl_rank(rank, world, rendezvous, job):
             "world": dist.get_world_size(), "launches": dict(_build.LAUNCHES)}
 
 
-def single_device_losses(dev, cfg_kw, opt_kw, tokens) -> list[float]:
+def single_device_losses(dev, cfg_kw, opt_kw, tokens, grad_accum: int = 1) -> list[float]:
     """The same steps on one device with no process group: the baseline."""
     import torch
 
@@ -5977,7 +6030,7 @@ def single_device_losses(dev, cfg_kw, opt_kw, tokens) -> list[float]:
 
     cfg, opt = TransformerConfig(**cfg_kw), make_optimizer(**opt_kw)
     params, state = init_state(cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, opt, grad_accum=grad_accum)
     tok = torch.from_numpy(tokens).to(dev)
     losses = [float(step(params, state, tok)[2]) for _ in range(MESH_STEPS)]
     del params, state
@@ -5992,13 +6045,18 @@ def phase_mesh(dev) -> dict:
     on one device with no process group: bitwise.  (b) ranks sharing the
     card over gloo at the flagship's width, depth cut to MESH_LAYERS:
     tensor=2 (K1 / K4 on 8 query / 4 KV heads a rank, the TP loss), seq=2
-    with the ring (K3
-    forward hops, K4 backward hops) and fsdp=2,tensor=2, 3 steps each
-    against the single-device run within MESH_BF16_TOL; (c) the same
-    meshes with a small float32 model within MESH_F32_TOL; (d) a float32
-    job saved on tensor=2 and resumed on one device against the
-    uninterrupted tensor=2 run within MESH_F32_TOL.  Each rank's launches
-    are held exactly.  Step ms and peak memory a rank are of ranks sharing
+    with the ring (K3 forward hops, K4 backward hops) and fsdp=2,tensor=2,
+    3 steps each against the single-device run within MESH_BF16_TOL; (c)
+    the same meshes with a small float32 model within MESH_F32_TOL; (e)
+    pipe=2 at the flagship's widths (MESH_PIPE: 2 layers a stage, 4
+    microbatches) and (f) expert=2 (MESH_MOE: 8 experts, 4 a rank) within
+    MESH_BF16_TOL; (g) the small float32 model on pipe=2,seq=2 (the ring
+    inside the stages), pipe=2,tensor=2, data=2,expert=2 and expert=2,pipe=2
+    within MESH_F32_TOL; (d) float32 jobs saved on tensor=2, pipe=2 and
+    expert=2 and resumed on one device against the uninterrupted mesh runs
+    within MESH_F32_TOL.  Each rank's launches are held exactly; (b)'s
+    seq=2 and (e)'s pipe=2 runs take one more step, rank 0's under
+    torch.profiler.  Step ms and peak memory a rank are of ranks sharing
     one card over host-staged gloo: not a scaling figure."""
     import shutil
     import tempfile
@@ -6038,70 +6096,103 @@ def phase_mesh(dev) -> dict:
         check(one["losses"] == single, "the one-rank NCCL run differs from one device")
         check(one["launches"] == want, "the one-rank run's launches differ from 2L / L a step")
 
-        # (b), (c): the same batch as phase 9 for the flagship
+        # (b), (c), (e), (f), (g): the same batch as phase 9 for the flagship
         tokens = next(batches(SyntheticTokenDataset(TRAIN["vocab_size"], seed=0), TRAIN_B,
                               TRAIN_S, seed=1))
         small_tok = next(batches(SyntheticTokenDataset(MESH_SMALL["vocab_size"], seed=4),
                                  MESH_SMALL_B, MESH_SMALL_S, seed=5))
-        worlds: dict = {}
+
+        def small(label, kw, extra, accum=1):
+            cfg = dict(MESH_SMALL, **extra)
+            return dict(name=f"small {label}", kw=kw, cfg=cfg, opt={}, tokens=small_tok,
+                        tol=MESH_F32_TOL, base=(cfg, {}, small_tok, accum))
+
+        def flagship(label, kw, extra, profile=False):
+            cfg = dict(dict(TRAIN, n_layers=MESH_LAYERS), **extra)
+            return dict(name=label, kw=kw, cfg=cfg, opt=MESH_OPT, tokens=tokens,
+                        tol=MESH_BF16_TOL, base=(cfg, MESH_OPT, tokens, 1), profile=profile)
+
+        runs = []
         for label, kw, extra in MESH_GLOO:
-            runs = worlds.setdefault(MeshSpec(**kw).num_devices, [])
-            runs.append((f"small {label}", kw, dict(MESH_SMALL, **extra), {}, small_tok))
-            runs.append((label, kw, dict(TRAIN, n_layers=MESH_LAYERS, **extra), MESH_OPT,
-                         tokens))
+            runs.append(small(label, kw, extra))
+            runs.append(flagship(label, kw, extra, profile=label == "seq=2 ring"))
+        runs.append(flagship("pipe=2", dict(pipe=2), MESH_PIPE, profile=True))
+        runs.append(flagship("expert=2", dict(expert=2), MESH_MOE))
+        runs += [small(label, kw, extra, accum) for label, kw, extra, accum in MESH_NEW]
+        worlds: dict = {}
+        for r in runs:
+            worlds.setdefault(MeshSpec(**r["kw"]).num_devices, []).append(r)
         resume_dir = os.path.join(work, "resume")
         out = {}
         res["gloo_wall_s"] = {}
-        for n, runs in worlds.items():
+        for n, wruns in worlds.items():
             t0 = time.perf_counter()
-            out[n] = spawn_ranks(mesh_rank, n, (runs, resume_dir if n == 2 else ""),
-                                 rendezvous=f"file://{work}/gloo{n}", timeout_s=600)
+            out[n] = spawn_ranks(mesh_rank, n, (wruns, resume_dir if n == 2 else ""),
+                                 rendezvous=f"file://{work}/gloo{n}", timeout_s=900)
             res["gloo_wall_s"][n] = time.perf_counter() - t0
-            log(f"mesh: {n} gloo ranks on one card ran {[r[0] for r in runs]} in "
+            log(f"mesh: {n} gloo ranks on one card ran {[r['name'] for r in wruns]} in "
                 f"{res['gloo_wall_s'][n]:.1f} s")
-        base = {"flagship": single_device_losses(dev, dict(TRAIN, n_layers=MESH_LAYERS),
-                                                 MESH_OPT, tokens),
-                "small": single_device_losses(dev, MESH_SMALL, {}, small_tok)}
-        res["single_device"] = base
+        bases: dict = {}
         res["meshes"] = {}
-        for name, kw, cfg_kw, _, _ in [r for runs in worlds.values() for r in runs]:
-            small = name.startswith("small")
-            ref = base["small" if small else "flagship"]
-            tol = MESH_F32_TOL if small else MESH_BF16_TOL
+        res["profiles"] = {}
+        for r in runs:
+            name, kw, cfg_kw = r["name"], r["kw"], r["cfg"]
+            key = json.dumps(r["base"][0], sort_keys=True) + str(r["base"][3])
+            if key not in bases:
+                bases[key] = single_device_losses(dev, *r["base"])
+            ref, tol = bases[key], r["tol"]
             members = range(MeshSpec(**kw).num_devices)
-            per = [out[len(members)][r][name] for r in members]
+            per = [out[len(members)][m][name] for m in members]
             diff = max(abs(a - b) for p in per for a, b in zip(p["losses"], ref))
-            entry = {"losses": per[0]["losses"], "max_loss_diff": diff, "tol": tol,
+            entry = {"losses": per[0]["losses"], "single_device_losses": ref,
+                     "max_loss_diff": diff, "tol": tol,
                      "step_ms_a_rank": [p["step_ms"] for p in per],
                      "peak_gb_a_rank": [p["peak_gb"] for p in per],
                      "launches_a_rank": [p["launches"] for p in per]}
             res["meshes"][name] = entry
             log(f"mesh {name} ({len(members)} gloo ranks on one card): losses "
-                f"{per[0]['losses']} against one device {ref}: max diff {diff:.3g} (tol "
-                f"{tol}); step ms a rank {[[round(x, 1) for x in p['step_ms']] for p in per]}; "
-                f"peak GB a rank {[round(p['peak_gb'], 2) for p in per]} (ranks sharing one "
-                f"card over host-staged gloo, not a scaling figure)")
+                f"{per[0]['losses']} against one device {ref}"
+                f"{' (grad_accum %d)' % r['base'][3] if r['base'][3] > 1 else ''}: max diff "
+                f"{diff:.3g} (tol {tol}); step ms a rank "
+                f"{[[round(x, 1) for x in p['step_ms']] for p in per]}; peak GB a rank "
+                f"{[round(p['peak_gb'], 2) for p in per]} (ranks sharing one card over "
+                f"host-staged gloo, not a scaling figure)")
             check(all(p["losses"] == per[0]["losses"] for p in per),
                   f"{name}: the ranks report different losses")
             check(diff <= tol, f"{name}: the mesh's losses differ from one device's")
-            for r, p in zip(members, per):
+            for m, p in zip(members, per):
                 want = dict.fromkeys(p["launches"], 0)
                 want.update(mesh_want(cfg_kw, kw, p["seq_index"], MESH_STEPS))
-                check(p["launches"] == want, f"{name} rank {r}: launches {p['launches']}, "
+                check(p["launches"] == want, f"{name} rank {m}: launches {p['launches']}, "
                                              f"want {want}")
+            if r.get("profile"):
+                prof = per[0]["profile"]
+                res["profiles"][name] = prof
+                log(f"mesh {name} profile (rank 0, one step): wall {prof['wall_ms']:.1f} ms, "
+                    f"device busy {prof['device_busy_ms']:.1f} ms (busy share "
+                    f"{prof['busy_share']:.3f}); host-staging copies {prof['copy_share']:.3f}, "
+                    f"K3 {prof['k3_share']:.3f}, K4 "
+                    f"{prof['k4_share']:.3f} (float32 {prof['k4_fp32_share']:.3f}), K1 "
+                    f"{prof['k1_share']:.3f} of device time; {prof['launches']} launches")
+                for k in prof["top"]:
+                    log(f"  {k['ms']:9.3f} ms  x{k['count']:5d}  {k['kernel']}")
+                check(prof["device_busy_ms"] > 0, f"{name}: the profiler saw no device time")
         # (d) resumed on one device
-        whole = out[2][0]["resume_whole"]
-        resumed = launcher.run_job(launcher.JobSpec(
-            model=TransformerConfig(**MESH_SMALL), checkpoint_dir=resume_dir, **MESH_RESUME),
-            device=dev)
-        diff = max(abs(a - b) for a, b in zip(resumed, whole[2:]))
-        res["resume"] = {"saved_on": "tensor=2", "resumed_on": "one device",
-                         "losses_whole": whole, "losses_resumed": resumed, "max_diff": diff}
-        log(f"mesh (d): saved on tensor=2 at step 2, resumed on one device: losses {resumed} "
-            f"against the uninterrupted tensor=2 run's {whole[2:]}: max diff {diff:.3g} "
-            f"(tol {MESH_F32_TOL})")
-        check(len(resumed) == 2 and diff <= MESH_F32_TOL,
-              "the job resumed on one device left the uninterrupted trajectory")
+        res["resume"] = {}
+        for label, _, extra in MESH_RESUME_JOBS:
+            whole = out[2][0][f"resume {label}"]
+            resumed = launcher.run_job(launcher.JobSpec(
+                model=TransformerConfig(**dict(MESH_SMALL, **extra)),
+                checkpoint_dir=os.path.join(resume_dir, label), **MESH_RESUME), device=dev)
+            diff = max(abs(a - b) for a, b in zip(resumed, whole[2:]))
+            res["resume"][label] = {"resumed_on": "one device", "losses_whole": whole,
+                                    "losses_resumed": resumed, "max_diff": diff}
+            log(f"mesh (d): saved on {label} at step 2, resumed on one device: losses "
+                f"{resumed} against the uninterrupted {label} run's {whole[2:]}: max diff "
+                f"{diff:.3g} (tol {MESH_F32_TOL})")
+            check(len(resumed) == 2 and diff <= MESH_F32_TOL,
+                  f"the job saved on {label} and resumed on one device left the "
+                  "uninterrupted trajectory")
         ring = res["meshes"]["seq=2 ring"]["launches_a_rank"]
         res["ring_launches"] = {k: sum(r[k] for r in ring)
                                 for k in ("flash_block_stats", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -6109,7 +6200,7 @@ def phase_mesh(dev) -> dict:
         shutil.rmtree(work, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
-    log("mesh: " + json.dumps({k: v for k, v in res.items() if k != "meshes"}))
+    log("mesh: " + json.dumps({k: v for k, v in res.items() if k not in ("meshes", "profiles")}))
     return res
 
 

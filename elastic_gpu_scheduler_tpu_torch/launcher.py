@@ -14,10 +14,14 @@ process is one rank on one device.
 a world starts N local ranks (``parallel/distributed.spawn_ranks``), one a
 card; ``--dist-backend`` picks the transport (``nccl`` by default on cards,
 ``gloo`` on ``--cpu``; gloo on cards lets ranks share a card).  Rank 0
-prints the losses and writes the metrics log.  Refused by name, and exit 2
-from ``main``: the ``pipe`` and ``expert`` axes past 1 and the pipeline
-schedule (``n_microbatches``), a later slice; the compile cache
-(``--compile-cache``).
+prints the losses and writes the metrics log.  Every mesh axis trains:
+``--mesh pipe=2`` with ``--n-microbatches M`` runs the layers in the GPipe
+schedule (without it the pipe ranks hold the layers whole), and
+``--n-experts E`` makes the model a Switch MoE whose experts split over
+``--mesh expert=N``; these two flags set ``TransformerConfig``'s fields of
+the same names (a ``JobSpec`` carries them in its ``model``).  Refused by
+name, and exit 2 from ``main``: MoE in the pipeline schedule on a batch cut
+over data or fsdp, and the compile cache (``--compile-cache``).
 
 ``--checkpoint-dir`` with ``--checkpoint-every N`` saves the params and
 optimizer state every N steps and once more, blocking, at the end
@@ -41,7 +45,12 @@ import torch
 
 from .models.data import MemmapTokenDataset, SyntheticTokenDataset, batches
 from .models.train import init_sharded_state, make_optimizer, make_train_step
-from .models.transformer import TransformerConfig, check_mesh_model, resolve_device
+from .models.transformer import (
+    TransformerConfig,
+    check_mesh_model,
+    pipelined,
+    resolve_device,
+)
 from .parallel.mesh import (
     ANNOTATION_CONTAINER_PREFIX,
     MeshSpec,
@@ -157,6 +166,7 @@ def run_job(spec: JobSpec, pod_annotations: Optional[dict[str, str]] = None,
     )
     gen = torch.Generator(device=dev).manual_seed(spec.seed)
     params, opt_state = init_sharded_state(spec.model, opt, gen, dev, mesh)
+    piped = pipelined(spec.model, mesh)
     step_fn = make_train_step(spec.model, opt, mesh)
     source = (
         MemmapTokenDataset(spec.dataset_path)
@@ -169,7 +179,7 @@ def run_job(spec: JobSpec, pod_annotations: Optional[dict[str, str]] = None,
         from .models.checkpoint import CheckpointManager
 
         ckpt = CheckpointManager(spec.checkpoint_dir)
-        restored = ckpt.restore(params, opt_state, mesh=mesh)
+        restored = ckpt.restore(params, opt_state, mesh=mesh, pipeline=piped)
         if restored is not None:
             params, opt_state, start_step = restored
             log.info("resumed from step %d", start_step)
@@ -188,10 +198,10 @@ def run_job(spec: JobSpec, pod_annotations: Optional[dict[str, str]] = None,
         params, opt_state, loss = step_fn(params, opt_state, tokens)
         losses.append(float(loss))
         if ckpt and spec.checkpoint_every and (step + 1) % spec.checkpoint_every == 0:
-            ckpt.save(params, opt_state, step + 1, mesh=mesh)
+            ckpt.save(params, opt_state, step + 1, mesh=mesh, pipeline=piped)
     if ckpt and spec.checkpoint_every:
         # the job's final save is on disk before the pod exits
-        ckpt.save(params, opt_state, spec.steps, block=True, mesh=mesh)
+        ckpt.save(params, opt_state, spec.steps, block=True, mesh=mesh, pipeline=piped)
     if ckpt:
         ckpt.close()
     if mesh is not None:
@@ -287,6 +297,11 @@ def main(argv=None) -> int:
                    help="collective transport: nccl (default on cards; one rank a card) "
                         "or gloo (the CPU; on cards, ranks may share one)")
     p.add_argument("--profile-dir", default="", help="write a torch.profiler trace")
+    p.add_argument("--n-microbatches", type=int, default=0,
+                   help="microbatches of the pipeline schedule over --mesh pipe=N "
+                        "(0: no schedule; the pipe ranks hold the layers whole)")
+    p.add_argument("--n-experts", type=int, default=0,
+                   help="a Switch MoE model of this many experts, split over --mesh expert=N")
     p.add_argument("--compile-cache", default="", help="not ported yet: exits 2")
     p.add_argument("--metrics-log", default="",
                    help="append per-step {step, loss} JSONL records to this file")
@@ -317,6 +332,7 @@ def main(argv=None) -> int:
         sizes["data"] *= n_dev // prod
         mesh = MeshSpec(**sizes)
     job = JobSpec(
+        model=TransformerConfig(n_microbatches=args.n_microbatches, n_experts=args.n_experts),
         mesh=mesh, steps=args.steps, batch_size=args.batch_size, seq_len=args.seq_len,
         lr=args.lr, dataset_path=args.data, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
@@ -330,6 +346,9 @@ def main(argv=None) -> int:
         return refuse(f"global batch {args.batch_size} not divisible by data*fsdp={dp}")
     if args.seq_len % mesh.seq:
         return refuse(f"--seq-len {args.seq_len} not divisible by seq={mesh.seq}")
+    if pipelined(job.model, mesh) and (args.batch_size // dp) % args.n_microbatches:
+        return refuse(f"batch {args.batch_size // dp} not divisible by {args.n_microbatches} "
+                      f"microbatches (a rank's rows: --batch-size over data*fsdp={dp})")
     device = "cpu" if args.cpu else None
     if mesh.num_devices > 1 and not _in_world():
         from .parallel.distributed import resolve_backend, spawn_ranks

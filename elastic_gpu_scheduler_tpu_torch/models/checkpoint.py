@@ -91,19 +91,22 @@ def _rebuild(template, it):
     return _place(next(it), template)
 
 
-def _flat_specs(tree, mesh) -> list:
+def _flat_specs(tree, mesh, pipeline: bool) -> list:
     """Each leaf's spec on ``mesh`` in ``_flat`` order (None for a count):
-    moments and masters follow their params'."""
+    moments and masters follow their params'.  ``pipeline``: the layer
+    leaves are pipe-sharded (``transformer.pipelined``)."""
     from ..parallel.sharding import leaf_specs
 
     if isinstance(tree, MasterState):
-        return _flat_specs(tree.master, mesh) + _flat_specs(tree.inner, mesh)
+        return (_flat_specs(tree.master, mesh, pipeline)
+                + _flat_specs(tree.inner, mesh, pipeline))
     if isinstance(tree, AdamWState):
-        return [None] + _flat_specs(tree.mu, mesh) + _flat_specs(tree.nu, mesh)
-    return _flat(leaf_specs(tree, mesh))
+        return ([None] + _flat_specs(tree.mu, mesh, pipeline)
+                + _flat_specs(tree.nu, mesh, pipeline))
+    return _flat(leaf_specs(tree, mesh, pipeline))
 
 
-def _gathered(tree, mesh, keep: bool) -> list:
+def _gathered(tree, mesh, keep: bool, pipeline: bool) -> list:
     """Host copies of the whole leaves of a tree of slices, in ``_flat``
     order, gathered one leaf at a time (a collective call).  Only a rank
     that ``keep``s them copies them to the host; the others let each leaf
@@ -111,18 +114,18 @@ def _gathered(tree, mesh, keep: bool) -> list:
     from ..parallel.sharding import full_leaf
 
     out = []
-    for x, s in zip(_flat(tree), _flat_specs(tree, mesh)):
+    for x, s in zip(_flat(tree), _flat_specs(tree, mesh, pipeline)):
         whole = full_leaf(x, s, mesh) if s is not None else x
         if keep:
             out.append(whole.to("cpu", copy=True) if s is not None else whole)
     return out
 
 
-def _sliced(saved: list, template, mesh) -> list:
+def _sliced(saved: list, template, mesh, pipeline: bool) -> list:
     from ..parallel.sharding import local_slice
 
     return [local_slice(x, s, mesh) if s is not None else x
-            for x, s in zip(saved, _flat_specs(template, mesh))]
+            for x, s in zip(saved, _flat_specs(template, mesh, pipeline))]
 
 
 def _snapshot(leaves: list) -> list:
@@ -196,13 +199,14 @@ class CheckpointManager:
             raise RuntimeError("checkpoint write failed") from err
 
     def save(self, params: Any, opt_state: Any, step: int, block: bool = False,
-             mesh=None) -> None:
+             mesh=None, pipeline: bool = False) -> None:
         """Asynchronous by default: the leaves are copied to the host now,
         and the write runs in a background thread while training goes on
         (the train loop pays the device-to-host copy, not the disk).
         ``block=True`` for a job's final save.  On a mesh of more than one
         rank, every rank calls it: the mesh's first rank writes the gathered
-        leaves."""
+        leaves.  ``pipeline``: the layer leaves are pipe-sharded, each
+        stage holding its block of the stack (``transformer.pipelined``)."""
         self.wait()
         if self._last is not None and step <= self._last:
             log.info("checkpoint save skipped at step %d (last saved %d)", step, self._last)
@@ -211,8 +215,8 @@ class CheckpointManager:
             from ..parallel.collectives import barrier
 
             writer = mesh.rank == int(mesh.ranks.flat[0])  # the mesh's first rank writes
-            p_leaves = _gathered(params, mesh, writer)
-            o_leaves = _gathered(opt_state, mesh, writer)
+            p_leaves = _gathered(params, mesh, writer, pipeline)
+            o_leaves = _gathered(opt_state, mesh, writer, pipeline)
             self._last = step
             if writer:
                 self._dispatch(step, p_leaves, o_leaves, block)
@@ -231,12 +235,13 @@ class CheckpointManager:
         if block:
             self.wait()
 
-    def restore(self, params_template: Any, opt_state_template: Any, mesh=None
-                ) -> Optional[tuple[Any, Any, int]]:
+    def restore(self, params_template: Any, opt_state_template: Any, mesh=None,
+                pipeline: bool = False) -> Optional[tuple[Any, Any, int]]:
         """(params, opt_state, step) of the latest checkpoint, each leaf on
         its template's device in its template's dtype, or None when there is
         none.  Joins any save in flight first.  On a mesh the templates are
-        this rank's slices, and so is what comes back."""
+        this rank's slices, and so is what comes back, cut for ``mesh`` and
+        ``pipeline`` whatever mesh wrote the file."""
         self.wait()
         step = self.latest_step()
         if step is None:
@@ -248,8 +253,8 @@ class CheckpointManager:
             if (len(p_saved) != len(_flat(params_template))
                     or len(o_saved) != len(_flat(opt_state_template))):
                 raise ValueError(f"checkpoint step {step}: leaves do not match the template")
-            p_saved = _sliced(p_saved, params_template, mesh)
-            o_saved = _sliced(o_saved, opt_state_template, mesh)
+            p_saved = _sliced(p_saved, params_template, mesh, pipeline)
+            o_saved = _sliced(o_saved, opt_state_template, mesh, pipeline)
         params_it, opt_it = iter(p_saved), iter(o_saved)
         try:
             params = _rebuild(params_template, params_it)

@@ -39,7 +39,6 @@ from .sampling import sample_static
 from .transformer import (
     TransformerConfig,
     _embed_lookup,
-    check_dense,
     layer_slice,
     rms_norm,
     rope,
@@ -137,7 +136,6 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: KVCache, cfg: Tran
     """Multi-token cached forward: T tokens from position ``cache.length``
     in one pass.  tokens: (B, T) → (logits (B, T, V) float32, cache at
     length + T).  The new K/V rows are written into ``cache`` in place."""
-    check_dense(cfg)
     dtype = torch_dtype(cfg.dtype)
     B, T = tokens.shape
     Hn, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads

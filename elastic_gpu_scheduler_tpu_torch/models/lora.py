@@ -13,6 +13,17 @@ dtype, and autograd reaches only (A, B): the base stays frozen bits (and
 may sit in bf16).  A merged view would round a delta below the bf16
 base's ulp to zero for every token, and early fine-tuning would stall.
 
+On a mesh the base is sharded as any model's, and the adapters are whole
+and alike on every rank, as the reference's unsharded ``lora`` tree.  Each
+projection takes the slice of its adapter that matches its own: a
+column-parallel one (wq, wk, wv, w_in, w_gate) B's columns for its heads
+or F, a row-parallel one (wo, w_out) A's rows, and a pipe stage its
+layers.  The gradient of a slice reaches the whole adapter with zeros
+elsewhere, and the gradient of (h·A) is partial on each ``tensor`` rank,
+so one sum over the batch axes, ``tensor`` and (pipelined) ``pipe``
+assembles the whole gradient on every rank; the update then keeps the
+adapters equal everywhere.
+
 For serving, ``merge_lora`` bakes an adapter into plain parameters; the
 multi-LoRA engine (``serving.build_lora_bank``) serves many adapters on
 one base without merging.
@@ -24,12 +35,15 @@ from typing import Iterable, Optional
 
 import torch
 
-from .train import AdamW, _leaves, _unflatten, loss_fn
-from .transformer import TransformerConfig, check_no_mesh
+from ..parallel.collectives import all_reduce, all_reduce_flat
+from ..parallel.sharding import local_slice
+from .train import BATCH_AXES, AdamW, _leaves, _unflatten, loss_fn
+from .transformer import TransformerConfig, check_mesh_model, pipelined
 
 # weight families eligible for adaptation (dense path)
 DEFAULT_TARGETS = ("wq", "wv")
 ALL_TARGETS = ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out")
+ROW_PARALLEL = ("wo", "w_out")
 
 
 def lora_init(
@@ -77,15 +91,28 @@ def lora_param_count(lora: dict) -> int:
     return sum(x.numel() for x in _leaves(lora["adapters"]))
 
 
-def inject_lora(params: dict, lora: dict) -> dict:
+def _adapter_specs(target: str, lead) -> tuple[tuple, tuple]:
+    """The (A, B) slices a rank's projection of ``target`` uses."""
+    if target in ROW_PARALLEL:
+        return (lead, "tensor", None), (lead, None, None)
+    return (lead, None, None), (lead, None, "tensor")
+
+
+def inject_lora(params: dict, lora: dict, mesh=None, pipeline: bool = False) -> dict:
     """A parameter tree whose layer dict carries ``<target>_lora`` leaves
     ({"a": (L, d_in, r), "b": (L, r, d_out)} with alpha/r folded into b):
     the training view, applied by ``transformer._proj`` in the activation
-    domain.  Differentiable in (A, B)."""
+    domain.  Differentiable in (A, B).  On a mesh, ``params`` are this
+    rank's slices and each adapter leaf is cut to match its projection's
+    (``pipeline``: the layers are pipe-sharded)."""
     scale = lora["alpha"] / lora["rank"]
     layers = dict(params["layers"])
     for t, ab in lora["adapters"].items():
-        layers[t + "_lora"] = {"a": ab["a"], "b": ab["b"] * scale}
+        a, b = ab["a"], ab["b"] * scale
+        if mesh is not None and mesh.size > 1:
+            sa, sb = _adapter_specs(t, "pipe" if pipeline else None)
+            a, b = local_slice(a, sa, mesh), local_slice(b, sb, mesh)
+        layers[t + "_lora"] = {"a": a, "b": b}
     out = dict(params)
     out["layers"] = layers
     return out
@@ -114,8 +141,8 @@ def merge_lora(params: dict, lora: dict) -> dict:
 def lora_loss_fn(lora: dict, params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
                  mesh=None) -> torch.Tensor:
     """The full fine-tune's objective (``train.loss_fn``) on the
-    adapter-injected model."""
-    return loss_fn(inject_lora(params, lora), tokens, cfg, mesh)
+    adapter-injected model (on a mesh: this rank's share)."""
+    return loss_fn(inject_lora(params, lora, mesh, pipelined(cfg, mesh)), tokens, cfg, mesh)
 
 
 def _frozen(tree):
@@ -131,17 +158,26 @@ def make_lora_train_step(cfg: TransformerConfig, optimizer: AdamW, mesh=None):
     ``lora["adapters"]``) updated in place, the loss a 0-dim fp32 tensor.
 
     Gradients reach the adapter leaves only: the base is read detached, so
-    it gets no ``.grad`` and keeps its bits."""
-    check_no_mesh(mesh, "make_lora_train_step")
+    it gets no ``.grad`` and keeps its bits.  On a mesh ``params`` are
+    this rank's slices and ``tokens`` its rows; the adapters' gradients are
+    summed whole on every rank before the update, and the loss is the
+    global mean."""
+    check_mesh_model(cfg, mesh)
+    if mesh is not None and not mesh.connected:
+        raise RuntimeError("make_lora_train_step: connect the mesh first (Mesh.connect())")
+    # the axes over which a rank holds a share or a slice of each gradient
+    axes = BATCH_AXES + ("tensor",) + (("pipe",) if pipelined(cfg, mesh) else ())
 
     def step(lora, opt_state, params, tokens):
         leaves = _leaves(lora["adapters"])
         for p in leaves:
             p.requires_grad_(True)
-        loss = lora_loss_fn(lora, _frozen(params), tokens, cfg)
-        grads = torch.autograd.grad(loss, leaves)
-        optimizer.update(_unflatten(lora["adapters"], [g.float() for g in grads]),
-                         opt_state, lora["adapters"])
+        loss = lora_loss_fn(lora, _frozen(params), tokens, cfg, mesh)
+        grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
+        if mesh is not None:
+            grads = all_reduce_flat(grads, mesh, axes)
+            loss = all_reduce(loss.detach(), mesh, BATCH_AXES)
+        optimizer.update(_unflatten(lora["adapters"], grads), opt_state, lora["adapters"])
         return lora, opt_state, loss.detach()
 
     return step

@@ -147,7 +147,6 @@ from .transformer import (
     TransformerConfig,
     _embed_lookup,
     _rope_tables,
-    check_dense,
     layer_slice,
     repeat_kv,
     resolve_device,
@@ -1216,7 +1215,6 @@ class InferenceEngine:
                 f"engine options {asked} are not ported yet (later slices "
                 "of the port serve them)"
             )
-        check_dense(cfg)
         spec_k = max(0, spec_k)
         if draft is not None:
             dparams, dcfg = draft
@@ -1226,7 +1224,6 @@ class InferenceEngine:
                 raise ValueError(f"draft vocab {dcfg.vocab_size} != target {cfg.vocab_size}")
             if dcfg.n_experts > 0:
                 raise ValueError("draft model must be dense (n_experts=0)")
-            check_dense(dcfg)
         self.device = resolve_device(device)
         self.params = _tree_to(params, self.device)
         self.cfg = cfg

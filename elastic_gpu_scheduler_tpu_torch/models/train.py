@@ -8,13 +8,15 @@ jitted step; in place is PyTorch's way to the same memory) and returns
 them.
 
 On a mesh (``parallel/mesh.Mesh``, connected) a rank holds its slice of
-each leaf and of its moments and master (``init_sharded_state``), and the
+each leaf and of its moments and master (``init_sharded_state``; layer
+leaves pipe-sharded when the model is ``pipelined``), and the
 step takes its rows of the global batch (``sharding.local_batch``: cut by
 its (data, fsdp) index) with the whole sequence; the next-token targets
 are built from the whole sequence before it is cut over ``seq``, so a
 shard's last target is the next shard's first token.  Each rank's loss is
-its tokens' sum over the global count of valid targets, so the gradients
-sum over ranks: a leaf's gradient is reduce-scattered over ``fsdp`` where
+its tokens' sum over the global count of valid targets (and its share of
+a MoE model's aux, which every rank holds whole), so the gradients sum
+over ranks: a leaf's gradient is reduce-scattered over ``fsdp`` where
 it is sharded there (the backward of the gather) and all-reduced over the
 other batch axes (data, fsdp, seq) it is not sharded over.  The global
 gradient norm for clipping counts each slice once (a leaf's squared norm
@@ -53,19 +55,17 @@ import torch
 from ..ops.xent import chunked_softmax_xent, chunked_softmax_xent_tp
 from ..parallel.collectives import all_reduce, all_reduce_flat, axes_of, group_size
 from ..parallel.mesh import AXES
-from ..parallel.sharding import leaf_specs, shard_params
+from ..parallel.sharding import BATCH_AXES, leaf_specs, shard_params
 from .transformer import (
     TransformerConfig,
     check_mesh_model,
     forward_with_aux,
     hidden_with_aux,
     init_params,
+    pipelined,
     torch_dtype,
     unembed_in_use,
 )
-
-# the axes a rank's tokens are cut over: a loss or gradient sums over them
-BATCH_AXES = ("data", "fsdp", "seq")
 
 
 def _leaves(tree) -> list[torch.Tensor]:
@@ -136,7 +136,8 @@ def loss_fn(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None) -> 
         logits, aux = forward_with_aux(params, inputs, cfg, mesh)
         loss = cross_entropy_loss(logits, targets, n_valid)
     if cfg.n_experts > 0:
-        loss = loss + cfg.aux_loss_weight * aux
+        # aux is the whole batch's on every rank: this rank adds its share
+        loss = loss + cfg.aux_loss_weight * aux / group_size(mesh, BATCH_AXES)
     return loss
 
 
@@ -290,7 +291,7 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW, mesh=None, grad_ac
         if mesh is None:
             apply_update(optimizer, params, opt_state, grads)
             return params, opt_state, loss
-        specs = _leaves(leaf_specs(params, mesh))
+        specs = _leaves(leaf_specs(params, mesh, pipelined(cfg, mesh)))
         grads = reduce_grads(grads, specs, mesh)
         apply_update(optimizer, params, opt_state, grads,
                      sq_norm=lambda gs: global_sq_norm(gs, specs, mesh))
@@ -302,7 +303,10 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW, mesh=None, grad_ac
 def reduce_grads(grads: list, specs: list, mesh) -> list:
     """Each leaf's gradient summed over the batch axes it is not sharded
     over (an ``fsdp``-sharded leaf got its sum over ``fsdp`` from the
-    gather's backward); one all-reduce a set of axes."""
+    gather's backward); one all-reduce a set of axes.  A leaf's gradient is
+    whole on every ``tensor``, ``pipe`` and ``expert`` rank that holds the
+    same slice (the parallel operators' backwards see to it), so no sum
+    runs over those."""
     buckets: dict[tuple, list[int]] = {}
     for i, spec in enumerate(specs):
         held = {a for ax in spec for a in axes_of(ax)}
@@ -319,7 +323,9 @@ def reduce_grads(grads: list, specs: list, mesh) -> list:
 def global_sq_norm(grads: list, specs: list, mesh) -> torch.Tensor:
     """The squared norm of the whole gradient tree from every rank's
     slices: each leaf's local squared norm weighed by 1 / the number of
-    ranks holding that slice, summed over the mesh."""
+    ranks holding that slice, summed over the mesh.  ``specs`` must be the
+    ones the leaves were cut by (``pipeline=True`` when the layers are
+    pipe-sharded), else a stage's layers count as copies of the stack."""
     total = None
     for g, spec in zip(grads, specs):
         copies = mesh.size // mesh.axes_size([a for ax in spec for a in axes_of(ax)])
@@ -353,7 +359,7 @@ def init_sharded_state(cfg: TransformerConfig, optimizer: AdamW, generator: torc
     check_mesh_model(cfg, mesh)
     params = init_params(cfg, generator, device)
     if mesh is not None:
-        params = shard_params(params, mesh)
+        params = shard_params(params, mesh, pipeline=pipelined(cfg, mesh))
     return state_for(params, optimizer)
 
 

@@ -29,9 +29,15 @@ the remat region, so the backward gathers again) and their gradients
 reduce-scattered, and the sequence cut over ``seq``: RoPE positions at the
 shard's global offset, attention by the ring (``parallel/ring``, K3 and
 K4) under ``cfg.use_ring_attention``, else by K1 over the keys gathered up
-to the shard's end.  The pipeline schedule (``n_microbatches``) is not
-ported yet and is refused by name; so are MoE, LoRA and int8 weights on a
-mesh of more than one rank.
+to the shard's end.  With ``cfg.n_microbatches`` > 0 and a ``pipe`` axis
+past 1 the layers run in the GPipe schedule (``parallel/pipeline``), each
+stage its L/PP layers, with the ring inside the stages when it is on (the
+reference's sp × pp); ``n_microbatches`` without a ``pipe`` axis runs the
+plain path, as the reference does, and a ``pipe`` axis without it
+replicates the layers.  MoE layers split their experts over ``expert``
+(``models/moe``), and LoRA leaves take the slice of each adapter that
+matches their projection's.  Int8 weights on more than one rank are
+refused by name.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..ops.attention import flash_attention
 from ..ops.xent import mm_f32
 from ..parallel.collectives import copy_to, gather_from, group_size, reduce_from
 from ..parallel.mesh import MeshSpec
+from ..parallel.sharding import BATCH_AXES
 from .moe import moe_ffn
 from .quantize import is_qtensor, wmat, wmatmul
 
@@ -106,56 +113,36 @@ class TransformerConfig:
         return torch_dtype(self.params_dtype or self.dtype)
 
 
-def check_dense(cfg: TransformerConfig) -> None:
-    """Raise, by name, on the config field the port does not serve yet:
-    the pipeline schedule waits for ``parallel/pipeline.py``."""
-    if cfg.n_microbatches > 0:
-        raise NotImplementedError(
-            "config field n_microbatches is not ported yet (the pipeline "
-            "schedule, parallel/pipeline.py and the pipe axis, is the next "
-            "slice of the port's parallel/)"
-        )
-
-
-def check_no_mesh(mesh, what: str) -> None:
-    """Refuse a mesh where the port trains on one device only (LoRA, the
-    ViT)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} on a device mesh is not ported yet: training on a mesh "
-            "takes the dense transformer (models/train.py); this path waits for "
-            "a later slice of the port's parallel/"
-        )
+def pipelined(cfg: TransformerConfig, mesh) -> bool:
+    """Whether the layers run in the pipeline schedule: ``n_microbatches``
+    set and a ``pipe`` axis past 1 (the reference's condition).  ``mesh``
+    is a ``Mesh``, the ``MeshSpec`` a job asks for, or None."""
+    if mesh is None or cfg.n_microbatches <= 0:
+        return False
+    spec = mesh if isinstance(mesh, MeshSpec) else mesh.spec
+    return spec.pipe > 1
 
 
 def check_mesh_model(cfg: TransformerConfig, mesh, params=None) -> None:
-    """Raise, by name, on what the mesh path does not run: the pipe and
-    expert axes, the pipeline schedule, and MoE, LoRA or int8 weights on
-    more than one rank (NotImplementedError); and on head counts the
-    tensor axis cannot split (ValueError).  ``mesh`` is a ``Mesh`` or the
-    ``MeshSpec`` a job asks for."""
-    check_dense(cfg)
+    """Raise, by name, on what the mesh path does not run: int8 weights on
+    more than one rank, and MoE in the pipeline schedule where the batch
+    is cut over data or fsdp (NotImplementedError); and on what the mesh
+    cannot cut (ValueError): head counts the tensor axis cannot split,
+    layers the pipe axis cannot, experts the expert axis cannot, a sliding
+    window under the ring.  ``mesh`` is a ``Mesh`` or the ``MeshSpec`` a
+    job asks for."""
     if mesh is None:
         return
     spec = mesh if isinstance(mesh, MeshSpec) else mesh.spec
     sizes, n = spec.sizes, spec.num_devices
-    for axis in ("pipe", "expert"):
-        if sizes[axis] > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={sizes[axis]} is not ported yet (the pipe and "
-                "expert axes are the next slice of the port's parallel/)")
     if n == 1:
         return
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"n_experts={cfg.n_experts} on a mesh of {n} ranks is not ported yet "
-            "(MoE training on a mesh comes with the expert axis)")
     if params is not None:
         for name, leaf in params["layers"].items():
-            if isinstance(leaf, dict):
+            if is_qtensor(leaf):
                 raise NotImplementedError(
-                    f"layer leaf {name!r} (LoRA or int8) on a mesh of {n} ranks "
-                    "is not ported yet")
+                    f"int8 layer leaf {name!r} on a mesh of {n} ranks is not ported yet "
+                    "(int8 weights on a mesh come with serving on a mesh)")
     T = sizes["tensor"]
     if cfg.n_heads % T or cfg.kv_heads % T:
         raise ValueError(f"tensor={T} must divide n_heads={cfg.n_heads} and "
@@ -163,6 +150,20 @@ def check_mesh_model(cfg: TransformerConfig, mesh, params=None) -> None:
     if sizes["seq"] > 1 and cfg.use_ring_attention and cfg.window_size:
         raise NotImplementedError("sliding window + ring attention is not supported "
                                   "(the reference asserts the same)")
+    if cfg.n_experts > 0 and cfg.n_experts % sizes["expert"]:
+        raise ValueError(f"n_experts={cfg.n_experts} not divisible by expert="
+                         f"{sizes['expert']} (each rank keeps n_experts/expert experts)")
+    if pipelined(cfg, spec):
+        P = sizes["pipe"]
+        if cfg.n_layers % P:
+            raise ValueError(f"n_layers={cfg.n_layers} not divisible by pipe={P} (each "
+                             "stage keeps n_layers/pipe layers)")
+        dp = sizes["data"] * sizes["fsdp"]
+        if cfg.n_experts > 0 and dp > 1:
+            raise NotImplementedError(
+                f"n_experts={cfg.n_experts} with n_microbatches={cfg.n_microbatches} on "
+                f"pipe={P} and data*fsdp={dp} is not ported yet: the reference routes each "
+                "microbatch of the global batch, which spans the data ranks' rows")
 
 
 # -- init --------------------------------------------------------------------
@@ -173,7 +174,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator, device=None)
     dtypes (normal / sqrt(fan_in); fp32 norms).  The values come from
     ``generator`` and differ from ``jax.random``'s: parity tests carry
     the reference's weights across with ``bridge.params_from_jax``."""
-    check_dense(cfg)
     dev = resolve_device(device)
     D, H, F_, L, V = (
         cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff, cfg.n_layers, cfg.vocab_size
@@ -235,6 +235,18 @@ def _unbind_layers(layers: dict) -> dict:
     ones included, so gradients gather by one stack per leaf."""
     return {k: _unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
             for k, v in layers.items()}
+
+
+def _run_layers(layer_fn, layers: dict, x):
+    """``layer_fn(x, layer)`` over the stacked ``layers`` in order: (x, the
+    layers' aux summed, or None when none returns one)."""
+    per_layer = _unbind_layers(layers)
+    aux = None
+    for i in range(layers["attn_norm"].shape[0]):
+        x, a = layer_fn(x, layer_slice(per_layer, i))
+        if a is not None:  # a MoE layer's load-balancing loss
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 # -- building blocks ---------------------------------------------------------
@@ -357,11 +369,13 @@ def _layer_in_use(p: dict, mesh) -> dict:
         return p
     from ..parallel.sharding import _spec_for
 
-    return {k: _gather_fsdp(v, _spec_for("layers/" + k, v.ndim + 1, None)[1:], mesh)
+    # LoRA's {"a", "b"} are whole on every rank
+    return {k: v if isinstance(v, dict)
+            else _gather_fsdp(v, _spec_for("layers/" + k, v.ndim + 1, None)[1:], mesh)
             for k, v in p.items()}
 
 
-def _layer(x, p, cfg: TransformerConfig, mesh=None):
+def _layer(x, p, cfg: TransformerConfig, mesh=None, route_axes=BATCH_AXES):
     B, S, _ = x.shape
     T = group_size(mesh, "tensor")
     Hn, Dh, Hkv = cfg.n_heads // T, cfg.head_dim, cfg.kv_heads // T
@@ -381,7 +395,8 @@ def _layer(x, p, cfg: TransformerConfig, mesh=None):
     h = rms_norm(x, p["mlp_norm"])
     if cfg.n_experts > 0:
         ffn, aux = moe_ffn(h, p["moe_gate"], p["w_in"], p["w_gate"], p["w_out"],
-                           capacity_factor=cfg.capacity_factor, dtype=dtype)
+                           capacity_factor=cfg.capacity_factor, dtype=dtype, mesh=mesh,
+                           route_axes=route_axes)
         return x + ffn, aux
     h = copy_to(h, mesh, "tensor")
     gate = F.silu(_proj(h, p, "w_gate", dtype))
@@ -424,24 +439,46 @@ def hidden_with_aux(
 
     On a mesh, ``params`` are this rank's slices and ``tokens`` its
     (batch, sequence) shard; the hidden states are its shard's, alike on
-    every ``tensor`` rank."""
+    every ``tensor`` (and ``pipe``, ``expert``) rank.  Pipelined
+    (``pipelined``), each rank microbatches its own rows; the aux is then
+    the reference's mean over the microbatches (and seq shards, when the
+    ring runs inside the stages and each shard routes its own tokens)."""
     check_mesh_model(cfg, mesh, params)
     dtype = torch_dtype(cfg.dtype)
     if mesh is None:
         x = _embed_lookup(params["embed"], tokens, dtype)
     else:
         x = _embed_mesh(params["embed"], tokens, dtype, mesh)
-    per_layer = _unbind_layers(params["layers"])
+    piped = pipelined(cfg, mesh)
+    # sp × pp: the ring inside the stages, each seq shard routing its own
+    # tokens (the reference's manual {pipe, seq} region); otherwise MoE
+    # routes over every axis the tokens are cut over
+    seq_manual = piped and cfg.use_ring_attention and group_size(mesh, "seq") > 1
+    route = ("data", "fsdp") if seq_manual else BATCH_AXES
     remat = cfg.remat and torch.is_grad_enabled()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = layer_slice(per_layer, i)
+
+    def layer_fn(h, lp):
         if remat:
-            x, a = checkpoint(_layer, x, lp, cfg, mesh, use_reentrant=False)
-        else:
-            x, a = _layer(x, lp, cfg, mesh)
-        if a is not None:  # a MoE layer's load-balancing loss
-            aux = aux + a
+            return checkpoint(_layer, h, lp, cfg, mesh, route, use_reentrant=False)
+        return _layer(h, lp, cfg, mesh, route)
+
+    if piped:
+        from ..parallel.pipeline import microbatch, pipeline_apply, unmicrobatch
+
+        M = cfg.n_microbatches
+        if x.shape[0] % M:
+            dp = group_size(mesh, ("data", "fsdp"))
+            raise ValueError(f"batch {x.shape[0]} not divisible by {M} microbatches (the "
+                             f"batch a rank pipelines is its rows: the global batch over "
+                             f"data*fsdp={dp})")
+        y, aux = pipeline_apply(lambda h, layers: _run_layers(layer_fn, layers, h),
+                                params["layers"], microbatch(x, M), mesh,
+                                seq_axis="seq" if seq_manual else None)
+        x = unmicrobatch(y)
+    else:
+        x, aux = _run_layers(layer_fn, params["layers"], x)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = rms_norm(x, params["final_norm"])
     return x, aux
 

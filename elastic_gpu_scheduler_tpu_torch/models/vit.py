@@ -30,7 +30,6 @@ from .quantize import wmatmul
 from .train import AdamW, _leaves, apply_update
 from .transformer import (
     _unbind_layers,
-    check_no_mesh,
     layer_slice,
     resolve_device,
     rms_norm,
@@ -160,8 +159,10 @@ def vit_loss(params, images, labels, cfg: ViTConfig) -> torch.Tensor:
 def make_vit_train_step(cfg: ViTConfig, optimizer: AdamW, mesh=None):
     """step(params, opt_state, images, labels) → (params, opt_state, loss):
     the same objects, updated in place (``optimizer.init(params)`` builds
-    the state), and the loss as a 0-dim fp32 tensor."""
-    check_no_mesh(mesh, "make_vit_train_step")
+    the state), and the loss as a 0-dim fp32 tensor.
+
+    ``mesh`` is accepted and not used, as in the reference, whose ViT step
+    takes a mesh and jits without it: the ViT has no sharded path."""
 
     def step(params, opt_state, images, labels):
         leaves = _leaves(params)

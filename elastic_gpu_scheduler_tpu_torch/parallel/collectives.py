@@ -27,7 +27,13 @@ The autograd functions are the parallel operators of the model:
   (the sum of each rank's gradient of the whole) backward — an
   ``fsdp``-sharded weight before use, or sequence-sharded keys;
 - ``gather_replicated``: all-gather forward, own slice backward — logits
-  every rank then uses alike.
+  every rank then uses alike;
+- ``sum_shares``: all-reduce forward and backward — a sum of the ranks'
+  shares that every rank then adds, as its share, to a loss summed over
+  the same ranks (the MoE router's mean probability over the batch).
+
+The pipeline's stage-to-stage hops (``parallel/pipeline.py``) are
+``ring_shift`` forward and ``ring_shift(step=-1)`` in its own backward.
 """
 
 from __future__ import annotations
@@ -110,15 +116,16 @@ def reduce_scatter(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return out
 
 
-def ring_shift(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Send ``t`` to the next rank along ``axis`` (index + 1, wrapping) and
-    return what the previous one sent: one hop of a ring."""
+def ring_shift(t: torch.Tensor, mesh, axis: str, step: int = 1) -> torch.Tensor:
+    """Send ``t`` to the rank ``step`` further along ``axis`` (index + 1 by
+    default, wrapping) and return what the rank ``step`` before sent: one
+    hop of a ring (``step=-1`` runs it the other way)."""
     g = _group(mesh, axis)
     if g is None:
         return t
     ranks = g[1]
     i = ranks.index(mesh.rank)
-    nxt, prv = ranks[(i + 1) % len(ranks)], ranks[(i - 1) % len(ranks)]
+    nxt, prv = ranks[(i + step) % len(ranks)], ranks[(i - step) % len(ranks)]
     src = t.detach().contiguous()
     if _staged(t, mesh):
         src = src.cpu()
@@ -194,6 +201,17 @@ class _GatherReplicated(torch.autograd.Function):
         return g.chunk(n, dim=ctx.dim)[pos].contiguous(), None, None, None
 
 
+class _SumShares(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
 def _trivial(mesh, axes) -> bool:
     return mesh is None or mesh.axes_size(axes) == 1
 
@@ -212,6 +230,10 @@ def gather_from(x, mesh, axes, dim: int):
 
 def gather_replicated(x, mesh, axes, dim: int):
     return x if _trivial(mesh, axes) else _GatherReplicated.apply(x, mesh, axes, dim)
+
+
+def sum_shares(x, mesh, axes):
+    return x if _trivial(mesh, axes) else _SumShares.apply(x, mesh, axes)
 
 
 def all_reduce_flat(tensors: Sequence[torch.Tensor], mesh, axes) -> list[torch.Tensor]:

@@ -23,8 +23,8 @@ Axes, as in the reference:
     data    — pure data parallelism (gradient all-reduce)
     fsdp    — fully-sharded data parallel (weight all-gather, gradient
               reduce-scatter)
-    expert  — expert parallelism (not served on more than one rank yet)
-    pipe    — pipeline parallelism (not served on more than one rank yet)
+    expert  — expert parallelism (models/moe.py)
+    pipe    — pipeline parallelism (parallel/pipeline.py)
     tensor  — tensor parallelism (column / row-parallel products)
     seq     — sequence parallelism (ring attention, parallel/ring.py)
 """

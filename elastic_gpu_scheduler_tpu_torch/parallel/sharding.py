@@ -27,6 +27,10 @@ import torch
 
 from .collectives import all_gather, axes_of
 
+# the axes a rank's tokens are cut over (``batch_spec``): a loss, a gradient
+# and the MoE routing sum over them
+BATCH_AXES = ("data", "fsdp", "seq")
+
 
 def _spec_for(name: str, nd: int, lead) -> tuple:
     in_layers = "layers" in name

@@ -48,8 +48,10 @@ def test_run_job_loss_falls():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "pipe=2"],
-    ["--mesh", "expert=2"],
+    ["--mesh", "pipe=3", "--n-microbatches", "2"],  # 4 layers do not split over 3 stages
+    ["--mesh", "expert=3", "--n-experts", "4"],  # 4 experts do not split over 3 ranks
+    ["--mesh", "data=2,pipe=2", "--n-microbatches", "2", "--n-experts", "2"],
+    ["--mesh", "pipe=2", "--n-microbatches", "3"],  # a rank's 8 rows
     ["--mesh", "tensor=3"],  # 8 heads do not split over 3 ranks
     ["--compile-cache", "/nonexistent/cache"],
     ["--mesh", "bogus=2"],
@@ -62,7 +64,8 @@ def test_unported_flags_exit_2(argv, capsys):
 def test_multi_chip_allocations_exit_2(tmp_path, monkeypatch, capsys):
     """A multi-chip allocation trains on a mesh of that many ranks now;
     what it cannot tile still exits 2 by name: a mesh that does not divide
-    the allocation, a batch the data axes do not divide, the pipe axis."""
+    the allocation, a batch the data axes do not divide, MoE pipelined
+    over the data axis."""
     ann = tmp_path / "annotations"
     ann.write_text('elasticgpu.io/container-main="0.0.0,0.1.0"\n')
     assert launcher.main(["--cpu", "--steps", "1", "--annotations", str(ann),
@@ -73,7 +76,10 @@ def test_multi_chip_allocations_exit_2(tmp_path, monkeypatch, capsys):
     assert "not divisible by data*fsdp=3" in capsys.readouterr().err
     with pytest.raises(launcher.Unported, match="pipe"):
         monkeypatch.delenv("TPU_VISIBLE_CHIPS")
-        launcher.check_mesh_job(launcher.JobSpec(model=TINY, mesh=launcher.MeshSpec(pipe=2)))
+        moe = TransformerConfig(vocab_size=128, d_model=32, n_layers=2, n_heads=2, d_ff=64,
+                                dtype="float32", n_experts=2, n_microbatches=2)
+        launcher.check_mesh_job(launcher.JobSpec(model=moe,
+                                                 mesh=launcher.MeshSpec(data=2, pipe=2)))
 
 
 def test_one_chip_allocation_runs(monkeypatch):

@@ -248,5 +248,8 @@ def test_rejects_bad_targets_and_mesh():
     flat = dict(params, layers=dict(params["layers"], wq=params["layers"]["wq"][0]))
     with pytest.raises(ValueError, match="stacked"):
         lora.lora_init(flat, rank=4, generator=g)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        lora.make_lora_train_step(cfg, make_optimizer(), mesh=object())
+    from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec, RankDevice, make_mesh
+
+    two = make_mesh(MeshSpec(tensor=2), [RankDevice(0), RankDevice(1)])
+    with pytest.raises(RuntimeError, match="connect the mesh"):
+        lora.make_lora_train_step(cfg, make_optimizer(), mesh=two)

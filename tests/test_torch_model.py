@@ -111,9 +111,15 @@ def test_forward_matches_jax(dtype, window):
 
 
 def test_forward_rejects_unported_config():
+    """``n_microbatches`` runs the plain path on one device now; int8
+    weights on a mesh of more than one rank stay refused by name."""
+    from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec, RankDevice, make_mesh
+
     _, cfg = _cfgs(n_microbatches=2, dtype="float32")
-    with pytest.raises(NotImplementedError, match="n_microbatches"):
-        forward({}, torch.zeros(1, 4, dtype=torch.int32), cfg)
+    two = make_mesh(MeshSpec(tensor=2), [RankDevice(0), RankDevice(1)])
+    q8 = {"layers": {"wq": {"q8": None, "scale": None}}}
+    with pytest.raises(NotImplementedError, match="int8 layer leaf 'wq'"):
+        forward(q8, torch.zeros(1, 4, dtype=torch.int32), cfg, two)
 
 
 def _pools(jcfg, cfg, n_pages, ps):

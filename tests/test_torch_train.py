@@ -243,27 +243,32 @@ def test_evaluate_matches_jax():
 
 
 def test_mesh_and_unported_configs_refused():
+    """The pipe and expert axes train now; what a mesh cannot cut is a
+    ValueError by name, MoE pipelined over a batch cut by data is refused
+    by name, and a step needs a connected mesh."""
     from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec, RankDevice, make_mesh
 
-    _, cfg = _cfgs(dtype="float32")
+    _, cfg = _cfgs(dtype="float32", n_microbatches=2)
     opt = train.make_optimizer()
-    for axis in ("pipe", "expert"):  # the next slice of parallel/
-        mesh = make_mesh(MeshSpec(**{axis: 2}), [RankDevice(0), RankDevice(1)])
-        for fn in (lambda: train.make_train_step(cfg, opt, mesh=mesh),
-                   lambda: train.loss_fn({"layers": {}}, torch.zeros(1, 3, dtype=torch.int32),
-                                         cfg, mesh),
-                   lambda: train.init_state(cfg, opt, torch.Generator(), "cpu", mesh=mesh)):
-            with pytest.raises(NotImplementedError, match=f"{axis}=2.*parallel/"):
-                fn()
-    two = make_mesh(MeshSpec(tensor=2), [RankDevice(0), RankDevice(1)])
-    _, moe = _cfgs(dtype="float32", n_experts=2)
+    three = make_mesh(MeshSpec(pipe=3), [RankDevice(i) for i in range(3)])
+    for fn in (lambda: train.make_train_step(cfg, opt, mesh=three),
+               lambda: train.init_state(cfg, opt, torch.Generator(), "cpu", mesh=three)):
+        with pytest.raises(ValueError, match="not divisible by pipe=3"):
+            fn()
+    _, moe = _cfgs(dtype="float32", n_experts=2, n_microbatches=2)
+    piped = make_mesh(MeshSpec(data=2, pipe=2), [RankDevice(i) for i in range(4)])
     with pytest.raises(NotImplementedError, match="n_experts"):
-        train.init_state(moe, opt, torch.Generator(), "cpu", mesh=two)
+        train.init_state(moe, opt, torch.Generator(), "cpu", mesh=piped)
+    with pytest.raises(ValueError, match="n_experts=2 not divisible by expert=4"):
+        train.make_train_step(moe, opt, make_mesh(MeshSpec(expert=4),
+                                                  [RankDevice(i) for i in range(4)]))
+    two = make_mesh(MeshSpec(tensor=2), [RankDevice(0), RankDevice(1)])
     with pytest.raises(RuntimeError, match="connect"):
         train.make_train_step(cfg, opt, mesh=two)
-    _, piped = _cfgs(dtype="float32", n_microbatches=2)
-    with pytest.raises(NotImplementedError, match="n_microbatches"):
-        train.init_state(piped, opt, torch.Generator(), "cpu")
+    # one device: n_microbatches takes the plain path, as the reference's
+    params, state = train.init_state(cfg, opt, torch.Generator(), "cpu")
+    assert np.isfinite(float(train.make_train_step(cfg, opt)(
+        params, state, torch.zeros(2, 5, dtype=torch.int32))[2]))
 
 
 # -- data -----------------------------------------------------------------------
