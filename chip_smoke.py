@@ -32,10 +32,11 @@ Phases, each failing the run (non-zero exit) on any fault:
    refuse; gradients through ``FlashAttention`` (K1 + K4) against
    autograd of ``mha_reference``;
 KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
-   against ``expert_matmul_reference`` at every shape the main paths
-   give it (MoE decode w_gate / w_in and w_out, the grouped prefill at T
+   against ``expert_matmul_reference`` at the one-device main paths'
+   shapes (MoE decode w_gate / w_in and w_out, the grouped prefill at T
    512, MoE + int8 decode, the int8 projections and unembed at M 8, the
-   int8 prefill at T 512): tolerance, bitwise repeatable, the plan's
+   int8 prefill at T 512; the mesh's slices and foreign ids are held in
+   phase 16): tolerance, bitwise repeatable, the plan's
    kernel alone and once a call (the ring kernel, its K splits one
    cluster with no combine kernel, or the wgmma kernel), both readings
    over calls that find their weight cold in L2, against the plain
@@ -228,6 +229,36 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    are of ranks sharing one card, not a scaling figure.  The ring's K3
    and K4 hops get their own kernel rows (float32, B 8, 16 heads, a
    512-token shard, Dh 128);
+16. serving on a mesh (``InferenceEngine(mesh=...)``): ranks sharing the
+   card over gloo, each building the model from the seed and serving its
+   slice, rank 0 submitting and the others following its tickets: (a)
+   the flagship (all 16 layers) on tensor=2 in float32, 8 of the serve
+   bench's prompts, 32 new tokens: greedy tokens equal one device's, the
+   largest |logit| gap on the first decode step printed; then in bf16 for
+   64 new tokens: each prompt's first-token logits within
+   ``SERVE_MESH_BF16_ULPS`` bf16 ulps (at its largest |logit|) of one
+   device's, first tokens equal one device's wherever one device's bf16
+   logits do not tie (a first token that differs must score within that
+   limit of one device's best, and is listed), tokens/s a rank and wall
+   ms a chunk (not a scaling figure); rank 0's sampled K2 calls (8 query /
+   4 kv heads) held to ``paged_attention_reference``; (b) tensor=2 at the
+   flagship's widths, 4 layers, float32: int8 KV + prefix cache + chunked
+   prefill + spec_k 4 (K3 and K2-int8 at W 5 on the rank's heads) and
+   int8 weights (KE on row and column slices), tokens equal one
+   device's; (c) MoE (E 8, 4 layers, float32) on expert=2 and on
+   expert=2,tensor=2 (four ranks), tokens equal one device's, peak GB a
+   rank; in (b)'s int8 weights and (c), every rank's sampled KE calls
+   (column and row slices; a rank's E/2 experts, F/2 under tensor=2, with
+   tokens routed to the other rank's experts) run again and held to
+   ``expert_matmul_reference``, every foreign id's row zeros; (d) a
+   one-rank NCCL tensor=1 mesh: the overlapped engine captures and
+   replays, tokens equal one device's; (e) ``serve --init
+   --tensor 2 --dist-backend gloo`` answers 4 completions with
+   ``--tensor 1``'s tokens and exits 0 on SIGTERM.  Every rank's
+   launches are exact (K1 L a plain prefill, K3 L a prefixed one, K2 L a
+   decode step or verify pass, KE 7L + 1 or 3L a pass), every rank emits
+   the same tokens, and a K2 row times the kernel on calls (a)'s bf16
+   rank 0 gave it (8 query / 4 kv heads a rank);
 10. K1 and K4 at the train shape, K3 and K2 (dense and int8) with split
    keys, called twice, must give identical bytes; K1 and K4 not causal at
    the ViT's shape (B 64, 12, 197, 64, bf16) against ``mha_reference`` and
@@ -2844,6 +2875,18 @@ KE_SHAPES = [
 # the weights a timed sequence cycles through: more than the 50 MB L2 holds,
 # so each call finds its weight cold, as a decode step's layers do
 KE_COLD_BYTES = 128 << 20
+# KE against its plain version: a float32 output within this (absolute),
+# a bf16 one within bf16's TOL + RTOL|ref|
+KE_F32_TOL = 1e-3
+
+
+def ke_within(got, want) -> bool:
+    """KE's output ``got`` within its tolerance of ``want``, and finite."""
+    import torch
+
+    if got.dtype == torch.float32:
+        return maxerr(got, want) <= KE_F32_TOL and bool(torch.isfinite(got).all())
+    return close(got, want, "bfloat16")
 
 
 def ke_bound_ms(T, K, N, touched, x_bytes, w_bytes, out_bytes, int8) -> tuple[float, str]:
@@ -2986,9 +3029,7 @@ def phase_ke(dev) -> list[dict]:
 
         got, want = kern(), plain()
         err = maxerr(got, want)
-        name = "float32" if f32 else "bfloat16"
-        ok = (err <= 1e-3) if f32 else close(got, want, name)
-        check(ok and bool(torch.isfinite(got).all()),
+        check(ke_within(got, want),
               f"KE {label}: disagrees with expert_matmul_reference (max err {err:.3g})")
         check(torch.equal(got, kern()), f"KE {label}: not bitwise repeatable")
         plan = expert_matmul_plan(x, w, ids)
@@ -6039,6 +6080,479 @@ def single_device_losses(dev, cfg_kw, opt_kw, tokens, grad_accum: int = 1) -> li
     return losses
 
 
+# -- phase 16: serving on a mesh ---------------------------------------------
+
+
+SERVE_MESH_ENGINE = dict(ENGINE, paged_kernel=True)
+SERVE_MESH_SMALL = dict(FULL, n_layers=4, dtype="float32")  # (b)-(d): depth cut for time
+SERVE_MESH_K2_EVERY = 97  # rank 0 of (a) bf16 keeps every 97th K2 call's inputs
+# (b) int8 weights and (c): every rank keeps every 37th KE call's inputs
+# (of 3L or 7L + 1 a pass: prefills and decode steps, several projections)
+SERVE_MESH_KE_EVERY = 37
+# (a) bf16: a mesh's first-token logits stay within this many bf16 ulps
+# (at the prompt's largest |logit|) of one device's; the H100 read 0.0645 to
+# 0.0781, 2 to 2.5 ulps of 1/32 (PERF.md §6)
+SERVE_MESH_BF16_ULPS = 4
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+def serve_mesh_plan():
+    """Phase 16's runs by world: (backend, [run, ...]).  A run names its
+    mesh axes, model, engine options, traffic (waves of prompts) and new
+    tokens; the traffic is 8 of the serve bench's prompts, or for the
+    prefix-cached run a primer then four prompts on its 256-token prefix."""
+    rng = np.random.default_rng(11)
+    V = FULL["vocab_size"]
+    main = [rng.integers(0, V, n).tolist() for n in PROMPT_LENS[:8]]
+    r2 = np.random.default_rng(16)
+    wave1, wave2 = prefix_traffic(r2, V, SHARED_PREFIX, (8,), (16, 48, 80, 129))
+    t2, e2 = dict(tensor=2), dict(expert=2)
+
+    def run(name, kw, cfg, new, waves=(main,), **more):
+        return dict(name=name, kw=kw, cfg=cfg, new=new, waves=[list(w) for w in waves],
+                    engine=dict(SERVE_MESH_ENGINE, **more.pop("engine", {})), **more)
+
+    return {
+        (2, "gloo"): [
+            run("(a) float32", t2, dict(FULL, dtype="float32"), 32, logits=True),
+            run("(a) bf16", t2, FULL, 64, sample_k2=True, logits=True),
+            run("(b) int8 KV, prefix, chunked, spec_k 4", t2, SERVE_MESH_SMALL, 16,
+                waves=(wave1, wave2),
+                engine=dict(kv_int8=True, prefix_cache=True, prefill_chunk=128, spec_k=4)),
+            run("(b) int8 weights", t2, SERVE_MESH_SMALL, 16, int8=True, sample_ke=True),
+            run("(c) MoE expert=2", e2, dict(SERVE_MESH_SMALL, n_experts=8), 16,
+                sample_ke=True),
+        ],
+        (4, "gloo"): [run("(c) MoE expert=2,tensor=2", dict(expert=2, tensor=2),
+                          dict(SERVE_MESH_SMALL, n_experts=8), 16, sample_ke=True)],
+        (1, "nccl"): [run("(d) NCCL tensor=1", dict(tensor=1), SERVE_MESH_SMALL, 32,
+                          captured=True)],
+    }
+
+
+def serve_mesh_run(dev, mesh, run) -> dict:
+    """One run of phase 16 on this process's device: the model from seed 0
+    (int8 when asked), the engine on ``mesh`` (None: one device, the
+    sequential reference) cut to this rank's slice, the traffic in waves
+    (rank 0 submits; a follower follows).  Counts at 0 just before the
+    main path, read just after; the serving passes are counted by kind, so
+    each kernel's launches are held to them."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models import serving
+    from elastic_gpu_scheduler_tpu_torch.models.quantize import quantize_params
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+    cfg = TransformerConfig(**run["cfg"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if run.get("int8"):
+        params = quantize_params(params)
+    kw = dict(run["engine"])
+    if mesh is None:
+        kw["overlap"] = False
+    eng = InferenceEngine(params, cfg, device=dev, mesh=mesh, **kw)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    resident = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    calls = dict.fromkeys(("_paged_prefill", "_paged_prefill_prefixed", "_paged_decode_step",
+                           "_fused_verify_chunk"), 0)
+    real = {n: getattr(serving, n) for n in calls}
+    first, prefill_logits = [], []
+
+    def counted(name):
+        def call(*args, **k):
+            calls[name] += 1
+            out = real[name](*args, **k)
+            if name == "_paged_decode_step" and run.get("logits") and not first:
+                first.append(out[0].float().cpu())
+            if name == "_paged_prefill" and run.get("logits"):
+                prefill_logits.append(out[0].float().cpu())  # each prompt's first token's
+            return out
+        return call
+
+    log_ = []
+    emit = eng._emit
+
+    def logged(req, tok, *a, **k):
+        log_.append(int(tok))
+        emit(req, tok, *a, **k)
+
+    eng._emit = logged
+    sampler = None
+    if run.get("sample_k2") and eng.leader and mesh is not None:
+        sampler = CallSampler(lambda q, lkv, tables, lengths, cfg, dtype: (
+            q.cpu(), {k: v.cpu() for k, v in lkv.items()}, tables.cpu(), lengths.cpu(), cfg),
+            every=SERVE_MESH_K2_EVERY, keep=3)
+        real_attn = serving._paged_attn_call
+        serving._paged_attn_call = sampler.wrap(real_attn)
+    ke = None
+    if run.get("sample_ke") and mesh is not None:
+        from elastic_gpu_scheduler_tpu_torch.models import quantize
+
+        # the weights are the engine's own, never overwritten
+        ke = CallSampler(lambda x, w, ids, scale=None, out_dtype=None: (
+            x.clone(), w, None if ids is None else ids.clone(), scale, out_dtype),
+            every=SERVE_MESH_KE_EVERY)
+        real_ke = {m: m.expert_matmul for m in (serving, quantize)}
+        for m, fn in real_ke.items():
+            m.expert_matmul = ke.wrap(fn)
+    for n in calls:
+        setattr(serving, n, counted(n))
+    torch.cuda.synchronize(dev)
+    # the main path: counts at 0 just before, read just after
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    reqs = []
+    try:
+        if eng.leader:
+            for wave in run["waves"]:
+                reqs += [eng.submit(Request(prompt=list(p), max_new_tokens=run["new"]))
+                         for p in wave]
+                eng.run_until_idle(max_steps=100_000)
+            eng.stop_followers()
+        else:
+            eng.follow()
+        torch.cuda.synchronize(dev)
+    finally:
+        for n in calls:
+            setattr(serving, n, real[n])
+        if sampler is not None:
+            serving._paged_attn_call = real_attn
+        if ke is not None:
+            for m, fn in real_ke.items():
+                m.expert_matmul = fn
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    L = cfg.n_layers
+    passes = sum(calls.values())
+    want = dict.fromkeys(launches, 0)
+    k2 = "paged_attention_int8" if eng.kv_int8 else "paged_attention"
+    if run.get("captured"):  # graph replays: the engine's counters
+        want.update({"flash_fwd": L * eng.prefills_run,
+                     k2: L * eng.fused_steps * (eng.steps_run + eng.graph_warmups)})
+    else:
+        want.update({"flash_fwd": L * calls["_paged_prefill"],
+                     "flash_block_stats": L * calls["_paged_prefill_prefixed"],
+                     k2: L * (calls["_paged_decode_step"] + calls["_fused_verify_chunk"])})
+        if cfg.n_experts:
+            want["expert_matmul"] = 3 * L * passes
+        elif run.get("int8"):
+            want["expert_matmul"] = (7 * L + 1) * passes
+    want = {k: v for k, v in want.items() if v or k in launches}
+    out = {"launches": launches, "want": want, "calls": calls, "wall_s": wall,
+           "log": log_, "resident_gb": resident,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "counters": {c: int(getattr(eng, c)) for c in (
+               "prefills_run", "steps_run", "spec_passes", "spec_accepted",
+               "prefix_admission_hits", "graphs_captured", "graph_replays", "graph_warmups",
+               "tickets")}}
+    if ke is not None:
+        out["ke"] = ke_samples_check(ke.calls)
+    if eng.leader:
+        for r in reqs:
+            check(r.done.is_set() and not r.error, f"{run['name']}: request failed: {r.error!r}")
+        out["tokens"] = [r.output for r in reqs]
+        out["generated"] = sum(len(r.output) for r in reqs)
+        if first:
+            out["first_logits"] = first[0].numpy()
+        if prefill_logits:
+            out["prefill_logits"] = torch.stack(prefill_logits).numpy()
+        if sampler is not None:
+            # as bytes: a tensor on the result queue travels by a file
+            # descriptor that dies with this process
+            import io
+
+            buf = io.BytesIO()
+            torch.save(sampler.calls, buf)
+            out["k2_calls"] = buf.getvalue()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ke_samples_check(calls) -> dict:
+    """KE calls a serving rank's main path made (sampled), each run again
+    through the kernel and held to ``expert_matmul_reference``: within
+    ``ke_within``, and a zero row for every token whose local id lies
+    outside [0, E) (routed to another rank's experts).  The output block
+    is filled with NaNs first, so a row the kernel left unwritten shows."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import (
+        expert_matmul,
+        expert_matmul_reference,
+    )
+
+    res = {"samples": len(calls), "max_abs_err": 0.0, "within": bool(calls),
+           "foreign_rows": 0, "foreign_nonzero": 0, "shapes": []}
+    for x, w, ids, scale, out_dtype in calls:
+        T, N = x.shape[0], w.shape[-1]
+        torch.full((T, N), float("nan"), dtype=out_dtype or x.dtype, device=x.device)
+        got = expert_matmul(x, w, ids, scale=scale, out_dtype=out_dtype)
+        want = expert_matmul_reference(x, w, ids, scale, out_dtype)
+        res["max_abs_err"] = max(res["max_abs_err"], maxerr(got, want))
+        res["within"] &= ke_within(got, want)
+        if ids is not None:
+            foreign = (ids < 0) | (ids >= w.shape[0])
+            res["foreign_rows"] += int(foreign.sum())
+            res["foreign_nonzero"] += int((got[foreign] != 0).any(dim=-1).sum())
+        res["shapes"].append([T, w.shape[0], w.shape[1], N, str(w.dtype).split(".")[-1]])
+    torch.cuda.synchronize()
+    return res
+
+
+def serve_mesh_rank(rank, world, rendezvous, runs, backend):
+    """One rank of a phase-16 world (a spawned process): each run on its
+    mesh, on this rank's share of the card."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+    from elastic_gpu_scheduler_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_initialize_distributed(rendezvous, world, rank, backend=backend, local_rank=rank,
+                                 local_ranks=world)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.lib()  # built by the parent before the spawn
+    out = {}
+    for run in runs:
+        mesh = make_mesh(MeshSpec(**run["kw"])).connect()
+        out[run["name"]] = serve_mesh_run(dev, mesh, run)
+        print(f"serve mesh rank {rank} {run['name']}: {out[run['name']]['wall_s']:.1f} s",
+              file=sys.stderr, flush=True)
+    return out
+
+
+def phase_serve_mesh(dev) -> dict:
+    """16. Serving on a mesh (see the module docstring): the one-device
+    references first, then each world of ranks sharing the card, then
+    ``serve --tensor`` over HTTP.  Returns the readings and the K2 row at
+    a rank's local heads (``k2_row``)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.parallel.distributed import spawn_ranks
+
+    res: dict = {"card": card_line(), "runs": {},
+                 "note": "ranks sharing one card over host-staged gloo: not a scaling figure"}
+    plan = serve_mesh_plan()
+    t_phase = time.perf_counter()
+    refs, by_setup = {}, {}
+    for runs in plan.values():
+        for run in runs:  # one reference a setup: (c)'s two meshes share one
+            key = json.dumps([run[k] for k in ("cfg", "engine", "waves", "new")]
+                             + [run.get("int8", False)], sort_keys=True)
+            if key not in by_setup:
+                by_setup[key] = serve_mesh_run(dev, None, run)
+            refs[run["name"]] = by_setup[key]
+    del by_setup
+    gc.collect()
+    torch.cuda.empty_cache()  # the spawned ranks share the card with this process
+    work = tempfile.mkdtemp(prefix="serve_mesh_")
+    out = {}
+    try:
+        for (n, backend), runs in plan.items():
+            t0 = time.perf_counter()
+            out[n] = spawn_ranks(serve_mesh_rank, n, (runs, backend),
+                                 rendezvous=f"file://{work}/{backend}{n}", timeout_s=900)
+            res[f"spawn_{n}_{backend}_s"] = time.perf_counter() - t0
+            log(f"serve mesh: {n} {backend} rank(s) ran {[r['name'] for r in runs]} in "
+                f"{res[f'spawn_{n}_{backend}_s']:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    k2_row = None
+    for (n, backend), runs in plan.items():
+        for run in runs:
+            name = run["name"]
+            ref, per = refs[name], [out[n][r][name] for r in range(n)]
+            lead = per[0]
+            entry = {"axes": run["kw"], "ranks": n, "backend": backend,
+                     "layers": run["cfg"]["n_layers"], "dtype": run["cfg"]["dtype"],
+                     "wall_s_rank0": lead["wall_s"], "one_device_wall_s": ref["wall_s"],
+                     "chunks": lead["counters"]["steps_run"],
+                     "wall_ms_per_chunk": lead["wall_s"] / max(1, lead["counters"]["steps_run"])
+                     * 1e3,
+                     "tokens_per_s_rank0": lead["generated"] / lead["wall_s"],
+                     "resident_gb_a_rank": [p["resident_gb"] for p in per],
+                     "peak_gb_a_rank": [p["peak_gb"] for p in per],
+                     "one_device_peak_gb": ref["peak_gb"],
+                     "counters": lead["counters"], "launches_a_rank": [p["launches"] for p in per]}
+            firsts = [a[0] == b[0] for a, b in zip(lead["tokens"], ref["tokens"])]
+            entry["first_tokens_equal"] = sum(firsts)
+            entry["tokens_equal"] = sum(a == b for a, b in zip(lead["tokens"], ref["tokens"]))
+            if "first_logits" in lead:
+                entry["first_step_max_logit_gap"] = float(np.abs(
+                    lead["first_logits"] - ref["first_logits"]).max())
+            if "prefill_logits" in lead:
+                # each prompt's first-token logits: the largest gap, and one
+                # device's margin between its two best tokens
+                gap = np.abs(lead["prefill_logits"] - ref["prefill_logits"]).max(axis=1)
+                top2 = np.sort(ref["prefill_logits"], axis=1)[:, -2:]
+                entry["prefill_max_logit_gap"] = gap.tolist()
+                entry["one_device_top2_margin"] = (top2[:, 1] - top2[:, 0]).tolist()
+            res["runs"][name] = entry
+            log(f"serve mesh {name} on {run['kw']} ({n} {backend} rank(s), L "
+                f"{run['cfg']['n_layers']}, {run['cfg']['dtype']}): tokens equal one device's "
+                f"{entry['tokens_equal']}/{len(ref['tokens'])}, first tokens "
+                f"{entry['first_tokens_equal']}/{len(ref['tokens'])}"
+                + (f", first decode step's largest |logit| gap "
+                   f"{entry['first_step_max_logit_gap']:.3g}"
+                   if "first_step_max_logit_gap" in entry else "")
+                + (f"; first-token logits' largest gap a prompt "
+                   f"{[round(x, 4) for x in entry['prefill_max_logit_gap']]} against one "
+                   f"device's top-2 margins "
+                   f"{[round(x, 4) for x in entry['one_device_top2_margin']]}"
+                   if "prefill_max_logit_gap" in entry else "")
+                + f"; rank 0 {entry['tokens_per_s_rank0']:.1f} tokens/s, "
+                f"{entry['wall_ms_per_chunk']:.1f} ms wall a chunk over {entry['chunks']} "
+                f"chunks (one device: {ref['wall_s']:.2f} s); peak GB a rank "
+                f"{[round(x, 2) for x in entry['peak_gb_a_rank']]} (one device "
+                f"{ref['peak_gb']:.2f}); counters {lead['counters']} (ranks sharing one card "
+                f"over host-staged gloo: not a scaling figure)")
+            for r, p in enumerate(per):
+                check(p["launches"] == p["want"], f"{name} rank {r}: launches {p['launches']}, "
+                                                  f"want {p['want']}")
+                check(p["log"] == lead["log"], f"{name}: rank {r} emitted other tokens")
+                check(p["counters"] == lead["counters"] or r == 0,
+                      f"{name}: rank {r}'s counters {p['counters']} differ from rank 0's")
+            check(min(v for v in lead["want"].values() if v) > 0, f"{name}: no kernel ran")
+            if run.get("sample_ke"):
+                for r, p in enumerate(per):
+                    k = p["ke"]
+                    check(k["within"], f"{name} rank {r}: a sampled KE call disagrees with "
+                                       f"expert_matmul_reference (max err "
+                                       f"{k['max_abs_err']:.3g})")
+                    check(k["foreign_nonzero"] == 0,
+                          f"{name} rank {r}: KE wrote {k['foreign_nonzero']} non-zero rows "
+                          "for tokens routed to another rank's experts")
+                    check(not run["cfg"].get("n_experts") or k["foreign_rows"] > 0,
+                          f"{name} rank {r}: no sampled KE call held a foreign id")
+                entry["ke_samples_a_rank"] = [p["ke"] for p in per]
+                log(f"serve mesh {name}: sampled KE calls a rank against "
+                    f"expert_matmul_reference (tol {KE_F32_TOL} for a float32 output): "
+                    + "; ".join(f"rank {r} {p['ke']['samples']} calls at (T, E, K, N, w) "
+                                f"{p['ke']['shapes']}, max err {p['ke']['max_abs_err']:.3g}"
+                                + (f", {p['ke']['foreign_rows']} foreign rows all zero"
+                                   if run["cfg"].get("n_experts") else "")
+                                for r, p in enumerate(per)))
+            if run["cfg"]["dtype"] == "float32":
+                check(lead["tokens"] == ref["tokens"], f"{name}: tokens differ from one device's")
+            else:
+                # bf16: the mesh rounds its row-parallel sums once in fp32
+                # where one device rounds each bf16 product, so its logits
+                # differ by a few ulps, within SERVE_MESH_BF16_ULPS; a first
+                # token may differ only where one device's logit for it lies
+                # within that limit of its best (a tie bf16 cannot break)
+                ties, limits = [], []
+                for i, ok in enumerate(firsts):
+                    lg = ref["prefill_logits"][i]
+                    lim = float(SERVE_MESH_BF16_ULPS * bf16_ulp(float(np.abs(lg).max())))
+                    limits.append(lim)
+                    check(entry["prefill_max_logit_gap"][i] <= lim,
+                          f"{name}: prompt {i}'s first-token logits differ from one device's "
+                          f"by {entry['prefill_max_logit_gap'][i]:.4g}, past "
+                          f"{SERVE_MESH_BF16_ULPS} bf16 ulps ({lim:.4g})")
+                    ours = lead["tokens"][i][0]
+                    if not ok:
+                        ties.append({"prompt": i, "one_device": ref["tokens"][i][0],
+                                     "mesh": ours, "below_best": float(lg.max() - lg[ours])})
+                    check(ok or lg.max() - lg[ours] <= lim,
+                          f"{name}: prompt {i}'s first token differs from one device's "
+                          "beyond a tie")
+                entry["prefill_gap_limit"] = limits
+                entry["first_token_ties"] = ties
+                log(f"serve mesh {name}: first-token logit gaps within "
+                    f"{SERVE_MESH_BF16_ULPS} bf16 ulps of one device's (limits "
+                    f"{[round(x, 4) for x in limits]}); first tokens that differ, each a "
+                    f"tie within that limit of one device's best: {ties}")
+            if run.get("captured"):
+                check(lead["counters"]["graph_replays"] > 0, f"{name}: no graph replay")
+            elif n > 1:
+                check(lead["counters"]["graph_replays"] == lead["counters"]["graph_warmups"]
+                      == 0, f"{name}: a gloo mesh ran a captured chunk")
+            if "k2_calls" in lead:
+                import io
+
+                sampler = CallSampler(None, 1)
+                calls = torch.load(io.BytesIO(lead.pop("k2_calls")), weights_only=False)
+                sampler.calls = [(q.to(dev), {k: v.to(dev) for k, v in lkv.items()},
+                                  t.to(dev), ln.to(dev), c) for q, lkv, t, ln, c in calls]
+                err = check_verify_samples(sampler.calls, "paged_attention",
+                                           f"{name} rank 0", width=1)
+                k2_row = kernel_k2(sampler, lead["launches"], err)
+                k2_row["path"] = (f"serve on tensor=2, {run['cfg']['dtype']}: a rank's "
+                                  f"{run['cfg']['n_heads'] // 2} query / "
+                                  f"{run['cfg']['n_kv_heads'] // 2} kv heads")
+                del sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["http"] = phase_serve_mesh_http()
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["k2_row"] = k2_row
+    check(k2_row is not None, "(a) bf16 sampled no K2 call on rank 0")
+    return res
+
+
+def phase_serve_mesh_http() -> dict:
+    """(e) ``serve --init --tensor 2 --dist-backend gloo`` and ``--tensor
+    1`` on the same seed: 4 concurrent completions each, the same tokens;
+    /v1/stats shows the mesh; SIGTERM drains and both exit 0."""
+    import shutil
+    import tempfile
+
+    args = ["--init", "--dtype", "float32", "--paged-kernel", "--max-batch", "4",
+            "--max-len", "256", "--page-size", "16", "--fused-steps", "8"]
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, 32000, n).tolist() for n in (24, 64, 100, 7)]
+    work = tempfile.mkdtemp(prefix="serve_tensor_")
+    procs = {t: ServeProcess(args + ["--tensor", str(t)] + (["--dist-backend", "gloo"]
+                                                             if t > 1 else []),
+                             os.path.join(work, f"tensor{t}.log")) for t in (1, 2)}
+    out = {}
+    try:
+        for t, sp in procs.items():
+            ready = sp.wait_ready(300)
+            toks, wall = http_completions(sp.addr, prompts, 16)
+            code, stats = get_json(sp.addr, "/v1/stats")
+            check(code == 200, f"--tensor {t}: /v1/stats {code}")
+            out[t] = {"ready_s": ready, "tokens": toks, "wall_s": wall, "mesh": stats["mesh"]}
+        codes = {t: sp.stop() for t, sp in procs.items()}
+        tails = {t: sp.tail() for t, sp in procs.items()}
+    finally:
+        for sp in procs.values():
+            if sp.proc.poll() is None:
+                sp.proc.kill()
+                sp.proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    res = {"tokens_equal": out[1]["tokens"] == out[2]["tokens"], "exit_codes": codes,
+           "ready_s": {t: o["ready_s"] for t, o in out.items()},
+           "wall_s": {t: o["wall_s"] for t, o in out.items()}, "mesh": out[2]["mesh"]}
+    log(f"serve mesh (e): serve --init --tensor 2 --dist-backend gloo against --tensor 1: "
+        f"4 completions equal {res['tokens_equal']}, ready in {res['ready_s']} s, wall "
+        f"{res['wall_s']} s, mesh {res['mesh']}, exit codes {codes}")
+    check(res["tokens_equal"], f"serve --tensor 2 answered other tokens than --tensor 1: "
+                               f"{out[1]['tokens']} vs {out[2]['tokens']}")
+    check(res["mesh"] == {"shape": {"tensor": 2}, "ranks": 2}, "serve --tensor 2: no mesh")
+    check(codes == {1: 0, 2: 0}, f"serve exit codes {codes}:\n{tails}")
+    return res
+
+
 def phase_mesh(dev) -> dict:
     """15. Training on a mesh.  (a) ``launcher.run_job`` at phase 9's model
     and batch through a one-rank NCCL process group, against the same job
@@ -6517,6 +7031,9 @@ def main() -> int:
     vit = phase_vit(dev)
     # 15. training on a mesh
     mesh = phase_mesh(dev)
+    # 16. serving on a mesh
+    serve_mesh = phase_serve_mesh(dev)
+    kernels.append(serve_mesh.pop("k2_row"))
 
     # 10. the kernels line
     for r in train_rows:
@@ -6550,6 +7067,7 @@ def main() -> int:
     log(json.dumps({"observability": obs}))
     log(json.dumps({"hf": hf, "resume": resume, "vit": vit}))
     log(json.dumps({"mesh": mesh}))
+    log(json.dumps({"serve_mesh": serve_mesh}))
     log(card)
     print(json.dumps({"kernels": kernels}))
     # the one card this script drives (cuda:0)

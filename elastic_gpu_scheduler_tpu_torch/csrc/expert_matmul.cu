@@ -73,7 +73,11 @@
 //     order; its K splits write fp32 partials that
 //     expert_matmul_combine_kernel adds in order.
 // A block finds its expert's tokens itself: it scans `ids` in order
-// (ballots and a block prefix) for its run of them (find_tokens).  Nothing
+// (ballots and a block prefix) for its run of them (find_tokens).  A token
+// whose id lies outside [0, E) (another rank's expert, on an expert mesh)
+// gets a zero row: the grid holds one more expert's worth of runs, whose
+// blocks find such tokens and write their rows' columns (or, split over K
+// on CUDA cores, their partials) as zeros, as the plain version does.  Nothing
 // is read on the host, so a captured CUDA graph replays it for any
 // routing; a block whose expert has no token in its run (and so its whole
 // cluster) exits after the scan, so an expert no token chose costs no
@@ -184,11 +188,12 @@ template <typename TW> struct Row<TW, false> {
 };
 
 // The block's tokens: the run [first, first + MTOK) of those routed to
-// expert e (every token when ids is null), in token order, into tok.
-// Returns their count (uniform across the block; <= 0: nothing to do).
+// expert e (every token when ids is null; e == E: those whose id lies
+// outside [0, E)), in token order, into tok.  Returns their count
+// (uniform across the block; <= 0: nothing to do).
 template <int MTOK, int NTH>
-__device__ __forceinline__ int find_tokens(const int* __restrict__ ids, int T, int e, int first,
-                                           int* tok, int* warp_cnt) {
+__device__ __forceinline__ int find_tokens(const int* __restrict__ ids, int T, int e, int E,
+                                           int first, int* tok, int* warp_cnt) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   int cnt;
   if (ids == nullptr) {
@@ -198,7 +203,8 @@ __device__ __forceinline__ int find_tokens(const int* __restrict__ ids, int T, i
     int base = 0;
     for (int t0 = 0; t0 < T && base < first + MTOK; t0 += NTH) {
       const int t = t0 + tid;
-      const bool f = t < T && __ldg(ids + t) == e;
+      const int id = t < T ? __ldg(ids + t) : -1;
+      const bool f = t < T && (e < E ? id == e : (unsigned)id >= (unsigned)E);
       const unsigned bal = __ballot_sync(0xffffffffu, f);
       if (lane == 0) warp_cnt[wid] = __popc(bal);
       __syncthreads();
@@ -221,12 +227,22 @@ __device__ __forceinline__ int find_tokens(const int* __restrict__ ids, int T, i
   return cnt;
 }
 
+// The foreign tokens' rows, columns [n0, n0 + BN) of them, as zeros.
+template <typename TO, int BN>
+__device__ __forceinline__ void zero_rows(TO* __restrict__ out, const int* tok, int cnt, int n0,
+                                          int N) {
+  for (int o = threadIdx.x; o < cnt * BN; o += blockDim.x) {
+    const int n = n0 + o % BN;
+    if (n < N) out[(size_t)tok[o / BN] * N + n] = from_f<TO>(0.0f);
+  }
+}
+
 template <typename TX, typename TW, typename TO, bool VEC>
 __global__ void __launch_bounds__(NTHREADS)
 expert_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                      const float* __restrict__ scale, const int* __restrict__ ids,
                      TO* __restrict__ out, float* __restrict__ part, int T, int K, int N,
-                     int chunks, int rows_per_split) {
+                     int E, int chunks, int rows_per_split) {
   using R = Row<TW, VEC>;
   constexpr int G = R::IN_FLIGHT;
   __shared__ int tok[MT];
@@ -239,8 +255,15 @@ expert_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   const int e = blockIdx.y / chunks, c = blockIdx.y % chunks;
   const int first = c * MT;
 
-  const int cnt = find_tokens<MT, NTHREADS>(ids, T, e, first, tok, warp_cnt);
+  const int cnt = find_tokens<MT, NTHREADS>(ids, T, e, E, first, tok, warp_cnt);
   if (cnt <= 0) return;  // uniform across the block
+  if (e == E) {  // foreign ids: zero rows, or this split's zero partials
+    if (part != nullptr)
+      zero_rows<float, NT>(part + (size_t)blockIdx.z * T * N, tok, cnt, blockIdx.x * NT, N);
+    else
+      zero_rows<TO, NT>(out, tok, cnt, blockIdx.x * NT, N);
+    return;
+  }
 
   // stage the block's x rows (its K range, its tokens) once
   const int kb = blockIdx.z * rows_per_split;
@@ -505,7 +528,7 @@ template <typename TW, typename TO, int NT8>
 __global__ void __launch_bounds__(ring::THREADS)
 expert_matmul_ring_kernel(const __grid_constant__ CUtensorMap tm_w, const egs::bf16* __restrict__ x,
                           const float* __restrict__ scale, const int* __restrict__ ids,
-                          TO* __restrict__ out, int T, int K, int N, int chunks,
+                          TO* __restrict__ out, int T, int K, int N, int E, int chunks,
                           int rows_per_split) {
   using namespace ring;
   constexpr bool INT8 = std::is_same<TW, int8_t>::value;
@@ -532,8 +555,12 @@ expert_matmul_ring_kernel(const __grid_constant__ CUtensorMap tm_w, const egs::b
   }
   __syncthreads();
   const int e = blockIdx.y / chunks, c = blockIdx.y % chunks;
-  const int cnt = find_tokens<RT, THREADS>(ids, T, e, c * RT, tok, warp_cnt);
+  const int cnt = find_tokens<RT, THREADS>(ids, T, e, E, c * RT, tok, warp_cnt);
   if (cnt <= 0) return;  // uniform across the block and its cluster
+  if (e == E) {  // foreign ids: zero rows, by the first split (no cluster sync)
+    if (blockIdx.z == 0) zero_rows<TO, BN>(out, tok, cnt, blockIdx.x * BN, N);
+    return;
+  }
 
   const int n0 = blockIdx.x * BN;
   const int kb = blockIdx.z * rows_per_split;
@@ -791,7 +818,7 @@ __global__ void __launch_bounds__(grp::THREADS, 1)
 expert_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
                            const egs::bf16* __restrict__ x, const float* __restrict__ scale,
                            const int* __restrict__ ids, TO* __restrict__ out, int T, int K,
-                           int N, int chunks) {
+                           int N, int E, int chunks) {
   using namespace grp;
   constexpr bool INT8 = Stage<TW>::INT8;
   constexpr uint32_t SB = Stage<TW>::BYTES;
@@ -815,8 +842,12 @@ expert_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
   }
   __syncthreads();
   const int e = blockIdx.y / chunks, c = blockIdx.y % chunks;
-  const int cnt = find_tokens<TOK, THREADS>(ids, T, e, c * TOK, tok, warp_cnt);
+  const int cnt = find_tokens<TOK, THREADS>(ids, T, e, E, c * TOK, tok, warp_cnt);
   if (cnt <= 0) return;  // uniform across the block
+  if (e == E) {  // foreign ids: zero rows
+    zero_rows<TO, BN>(out, tok, cnt, blockIdx.x * BN, N);
+    return;
+  }
   const int n0 = blockIdx.x * BN;
   const int steps = ceil_div(K, ROWS);
 
@@ -1048,7 +1079,7 @@ int launch_ring(const Plan& pl, const void* x, const void* w, const void* scale,
   const int* ip = static_cast<const int*>(ids);
   TO* op = static_cast<TO*>(out);
   int chunks = pl.chunks, rows = pl.rows;
-  void* args[] = {&tm, &xp, &sp, &ip, &op, &T, &K, &N, &chunks, &rows};
+  void* args[] = {&tm, &xp, &sp, &ip, &op, &T, &K, &N, &E, &chunks, &rows};
   err = (int)cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kern), args);
   if (err) return err;
   return (int)cudaGetLastError();
@@ -1070,7 +1101,7 @@ int launch_grouped(const Plan& pl, const void* x, const void* w, const void* sca
   const dim3 grid(ceil_div(N, grp::BN), gy, 1);
   kern<<<grid, grp::THREADS, smem, stream>>>(
       tm, static_cast<const egs::bf16*>(x), static_cast<const float*>(scale),
-      static_cast<const int*>(ids), static_cast<TO*>(out), T, K, N, pl.chunks);
+      static_cast<const int*>(ids), static_cast<TO*>(out), T, K, N, E, pl.chunks);
   return (int)cudaGetLastError();
 }
 
@@ -1081,7 +1112,8 @@ int launch(const void* x, const void* w, const void* scale, const void* ids, voi
   const bool dense = ids == nullptr;
   const Plan pl = make_plan(T, K, N, E, dense, std::is_same<TX, float>::value ? 0 : 1, INT8,
                             aligned);
-  const long long gy = (long long)(dense ? 1 : E) * pl.chunks;
+  // one more expert's runs: the blocks that zero foreign ids' rows
+  const long long gy = (long long)(dense ? 1 : E + 1) * pl.chunks;
   if (gy > 65535) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
     if (pl.route == RING && pl.tok == 8)
@@ -1102,10 +1134,10 @@ int launch(const void* x, const void* w, const void* scale, const void* ids, voi
   TO* op = static_cast<TO*>(out);
   if (N % 8 == 0 && aligned)
     expert_matmul_kernel<TX, TW, TO, true><<<grid, NTHREADS, 0, stream>>>(
-        xp, wp, sp, ip, op, p, T, K, N, pl.chunks, pl.rows);
+        xp, wp, sp, ip, op, p, T, K, N, E, pl.chunks, pl.rows);
   else
     expert_matmul_kernel<TX, TW, TO, false><<<grid, NTHREADS, 0, stream>>>(
-        xp, wp, sp, ip, op, p, T, K, N, pl.chunks, pl.rows);
+        xp, wp, sp, ip, op, p, T, K, N, E, pl.chunks, pl.rows);
   if (pl.splits > 1) {
     const long long TN = (long long)T * N;
     const int blocks = (int)((TN + 255) / 256 < 4 * 132 ? (TN + 255) / 256 : 4 * 132);
@@ -1149,7 +1181,8 @@ extern "C" int egs_expert_matmul_plan(int T, int K, int N, int E, int dense, int
 
 // x (T, K) in the compute dtype (0 = float32, 1 = bfloat16); w (E, K, N)
 // in that dtype, or int8 (w_int8 = 1) with scale (E, N) fp32; ids (T,)
-// int32 in [0, E), or null (every token on expert 0); out (T, N) in the
+// int32 (a row whose id lies outside [0, E) is written as zeros), or null
+// (every token on expert 0); out (T, N) in the
 // compute dtype, or fp32 (out_f32 = 1); part: egs_expert_matmul_workspace
 // fp32 words (null when 0).  All contiguous; aligned as the wrapper found
 // them (checked).  Returns the launch's error, else cudaGetLastError().

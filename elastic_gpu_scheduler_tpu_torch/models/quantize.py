@@ -19,11 +19,12 @@ Usage:
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from ..ops.expert_matmul import expert_matmul
+from ..ops.xent import mm_f32
 
 
 def is_qtensor(x: Any) -> bool:
@@ -71,15 +72,21 @@ def wmat(w: Any, dtype: torch.dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
-def wmatmul(x: torch.Tensor, w: Any, dtype: torch.dtype) -> torch.Tensor:
+def wmatmul(x: torch.Tensor, w: Any, dtype: torch.dtype,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x @ wmat(w, dtype)`` for a (d_in, d_out) weight, x (..., d_in) in
     ``dtype``.  A dense leaf takes ``torch.matmul``; an int8 leaf takes
     ``expert_matmul`` as its E = 1 case (kernel KE on CUDA, the weight read
-    as int8): fp32 sums, the result in ``dtype``."""
-    if not is_qtensor(w):
-        return x @ w.to(dtype)
+    as int8): fp32 sums, the result in ``dtype``, or unrounded with
+    ``out_dtype`` float32 (a row-parallel rank's partial sums)."""
     lead = x.shape[:-1]
-    y = expert_matmul(x.reshape(-1, x.shape[-1]), w["q8"][None], None, scale=w["scale"][None])
+    x2 = x.reshape(-1, x.shape[-1])
+    if not is_qtensor(w):
+        if out_dtype in (None, dtype):
+            return x @ w.to(dtype)
+        y = mm_f32(x2, w.to(dtype))
+    else:
+        y = expert_matmul(x2, w["q8"][None], None, scale=w["scale"][None], out_dtype=out_dtype)
     return y.reshape(*lead, y.shape[-1])
 
 

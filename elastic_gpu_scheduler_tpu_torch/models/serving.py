@@ -115,13 +115,53 @@ some; a higher-priority stalled slot spills a lower-priority one (its
 request requeues and resumes exactly); if every slot is stalled the engine
 raises "page pool exhausted".
 
-Not ported yet, and rejected by name: a mesh and the compile cache
-(engine options).
+- **Serving on a mesh** (``mesh``: a connected ``parallel/mesh.Mesh``,
+  one process a rank): every rank runs this engine whole, on its slice of
+  the weights (``sharding.serving_specs``: cut over ``tensor`` and
+  ``expert``, every other axis replicated, so each rank of those computes
+  the whole batch; attention leaves cut only when ``tensor`` divides both
+  head counts) and of the pool (its kv heads, pages whole, so tables stay
+  host-side and unchanged).  Column-parallel ``wq`` / ``wk`` / ``wv`` /
+  ``w_gate`` / ``w_in`` give a rank its heads or its F columns; ``wo`` and
+  ``w_out`` are row-parallel, their partial outputs summed in fp32 by one
+  ``all_reduce`` over ``tensor`` and rounded once before the residual add
+  (a LoRA delta joins it: a column-parallel family takes B's columns, a
+  row-parallel one A's rows).  The embedding is vocab-parallel (a masked local lookup, an
+  ``all_reduce``), the unembed column-parallel (the local V/T columns,
+  then an ``all_gather``), so every rank reads the same logits.  K1, K2,
+  K3 and the int8 pool's scales work on the rank's heads; MoE runs the
+  router whole, KE on the rank's E/expert experts (foreign ids are zero
+  rows) and F/tensor columns, and one fp32 ``all_reduce`` over (``expert``,
+  ``tensor``) before the probability.  The draft model and its cache are
+  whole on every rank.
+
+  One host decision point, mirrored host state: rank 0 takes the
+  requests (``submit``) and the cancellations (``Request.cancel``), and
+  at every round hands the ranks a ticket (``exchange_ticket``: the
+  requests submitted since the last one with every field, the
+  cancellations, the drain and stop flags, over the mesh's gloo object
+  group); every rank applies it and runs the same admission and step.
+  The device results host logic reads are the same bytes on every rank
+  (the logits leave through a collective, every generator is seeded
+  alike), so the mirrors never part.  Followers run ``follow()`` until the
+  stop ticket (``stop_followers``).  After a fault on a mirrored engine
+  the ranks' states may have parted: ``fail_mirrored`` fails every waiting
+  request and every later submit (``ENGINE_FAILED_ERROR``), and sends no
+  ticket.  A gloo collective cannot sit in a CUDA graph, and an NCCL
+  collective over ranks of several cards is untried in one: wherever the
+  ``tensor`` x ``expert`` group spans more than one rank, over either
+  backend, the overlapped loop runs its chunks eagerly, decided at
+  construction.  The disaggregated verbs are refused by name on more than
+  one rank.
+
+Not ported yet, and rejected by name: the compile cache (an engine
+option).
 """
 
 from __future__ import annotations
 
 import gc
+import hashlib
 import itertools
 import logging
 import queue
@@ -140,6 +180,7 @@ from ..ops.expert_matmul import expert_matmul
 from ..ops.paged_attention import dequant, paged_attention
 from ..tracing import TRACER
 from ..utils import kvwire, prefixdigest
+from ..parallel.collectives import all_gather, all_reduce, broadcast_object
 from .generate import cached_attention, cached_attention_multi
 from .quantize import is_qtensor, wmat, wmatmul
 from .sampling import categorical, sample_batched, sample_static
@@ -157,23 +198,25 @@ from .transformer import (
 # structured rejection sentinels: the HTTP layer maps them to 503 / 429
 DRAINING_ERROR = "server draining"
 QUEUE_FULL_ERROR = "admission queue full"
+ENGINE_FAILED_ERROR = "engine on a mesh failed: the replica is stopping"
 
 log = logging.getLogger("tpu-scheduler")
 
 SCRATCH_PAGE = 0  # reserved; inactive slots write here, nobody reads it
 
 # reference engine options this slice does not serve (a truthy value raises)
-_UNPORTED_OPTIONS = ("mesh", "compile_cache")
+_UNPORTED_OPTIONS = ("compile_cache",)
 
 
 # -- paged KV pool -----------------------------------------------------------
 
 
 def make_kv_pool(cfg: TransformerConfig, n_pages: int, page_size: int, device,
-                 int8: bool = False) -> dict:
+                 int8: bool = False, kv_heads: int = 0) -> dict:
     """Pool {"k", "v"} of shape (L, P, page_size, Hkv, Dh) in the compute
-    dtype, or int8 with {"ks", "vs"} (L, P, page_size, Hkv) fp32 scales."""
-    shape = (cfg.n_layers, n_pages, page_size, cfg.kv_heads, cfg.head_dim)
+    dtype, or int8 with {"ks", "vs"} (L, P, page_size, Hkv) fp32 scales.
+    ``kv_heads`` > 0: a rank's share of the heads (Hkv / tensor)."""
+    shape = (cfg.n_layers, n_pages, page_size, kv_heads or cfg.kv_heads, cfg.head_dim)
     if int8:
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -290,10 +333,25 @@ class Request:
     cancelled: bool = False
     t_submit: float = 0.0  # first enqueue (monotonic)
     t_admit: float = 0.0  # first slot admission (monotonic)
+    # set by a mirrored engine's ``submit`` (serving on a mesh): a cancel
+    # is then asked for, and the next ticket cancels it on every rank
+    mirrored: bool = False
+    cancel_asked: bool = False
 
     def cancel(self) -> None:
         """Stop generation at the next chunk boundary; any thread."""
-        self.cancelled = True
+        if self.mirrored:
+            self.cancel_asked = True
+        else:
+            self.cancelled = True
+
+
+# the fields a ticket carries of a request submitted on a mirrored engine
+_TICKET_FIELDS = (
+    "prompt", "max_new_tokens", "temperature", "top_k", "top_p", "adapter", "stop_tokens",
+    "logprobs", "frequency_penalty", "presence_penalty", "min_tokens", "seed",
+    "allowed_tokens", "priority", "pool_spills", "logit_bias", "output", "cancelled",
+)
 
 
 # -- step functions ------------------------------------------------------------
@@ -409,7 +467,7 @@ def _experts(w, dtype) -> tuple:
     return (w["q8"], w["scale"]) if is_qtensor(w) else (w.to(dtype), None)
 
 
-def _moe_ffn_serve(h, p, dtype):
+def _moe_ffn_serve(h, p, dtype, cfg=None, mesh=None):
     """Drop-free top-1 MoE FFN for every paged path (reference
     ``_moe_ffn_serve``): a token's output never depends on which other
     requests share the batch, so engine outputs equal solo runs.
@@ -422,7 +480,13 @@ def _moe_ffn_serve(h, p, dtype):
     asks, times the probability in fp32, cast to h's dtype.  One form for
     every T: the reference's gather (T <= E) and ``ragged_dot`` forms
     compute the same function, and KE reads no host value, so a captured
-    decode chunk replays for any routing.  On the CPU the plain version."""
+    decode chunk replays for any routing.  On the CPU the plain version.
+
+    On a mesh (``cfg`` and ``mesh`` given) a rank holds E/expert experts
+    and F/tensor columns of each: its KE products take the local id (id -
+    e0), so tokens routed to another rank's experts are zero rows, and the
+    fp32 ``w_out`` output is summed over the axes the experts are cut on
+    before the probability; each token has one non-zero expert term."""
     B, T, D = h.shape
     xf = h.reshape(B * T, D)
     glog = (xf @ wmat(p["moe_gate"], h.dtype)).float()
@@ -433,38 +497,96 @@ def _moe_ffn_serve(h, p, dtype):
     wg, sg = _experts(p["w_gate"], dtype)
     wi, si = _experts(p["w_in"], dtype)
     wo, so = _experts(p["w_out"], dtype)
+    cut = ()
+    if mesh is not None:
+        E_local = wg.shape[0]
+        if E_local < glog.shape[-1]:  # this rank's experts e0 .. e0 + E_local - 1
+            ids = ids - mesh.axis_index("expert") * E_local
+            cut += ("expert",)
+        if wg.shape[-1] < cfg.d_ff:
+            cut += ("tensor",)
     gate = F.silu(expert_matmul(xf, wg, ids, scale=sg, out_dtype=dtype))
     up = expert_matmul(xf, wi, ids, scale=si, out_dtype=dtype)
     out = expert_matmul(gate * up, wo, ids, scale=so, out_dtype=torch.float32)
+    if cut:
+        out = all_reduce(out, mesh, cut)
     return (out * prob).to(h.dtype).reshape(B, T, D)
 
 
-def _paged_layer(x, p, lkv, cs, pidx, off, attn, cfg, dtype, ad=None):
+def _row_parallel(x, p, name, dtype, ad, cut: bool, mesh):
+    """``_sproj`` of a row-parallel weight (``wo``, ``w_out``).  Where its
+    contraction dimension is cut over ``tensor``, each rank's product
+    leaves in fp32 (its LoRA delta beside it), one ``all_reduce`` sums
+    both, and each is rounded to ``dtype`` once, as one device rounds its
+    whole product (a bf16 product rounded on each rank, then summed, would
+    round twice more)."""
+    if not cut:
+        return _sproj(x, p, name, dtype, ad)
+    y = wmatmul(x, p[name], dtype, torch.float32)
+    if ad and name in ad:
+        t = torch.bmm(x.float(), ad[name]["a"])
+        both = all_reduce(torch.stack([y, torch.bmm(t, ad[name]["b"])]), mesh, "tensor")
+        return both[0].to(dtype) + both[1].to(dtype)
+    return all_reduce(y, mesh, "tensor").to(dtype)
+
+
+def _embed_serve(embed, tokens, dtype, cfg, mesh=None):
+    """The embedding lookup; vocab-parallel when this rank holds V/tensor
+    rows: tokens outside them give exact zero rows, summed over
+    ``tensor`` (one rank holds each token's row)."""
+    rows = (embed["q8"] if is_qtensor(embed) else embed).shape[0]
+    if mesh is None or rows == cfg.vocab_size:
+        return _embed_lookup(embed, tokens, dtype)
+    t = tokens.long() - mesh.axis_index("tensor") * rows
+    inside = (t >= 0) & (t < rows)
+    x = _embed_lookup(embed, t.clamp(0, rows - 1), dtype)
+    return all_reduce(torch.where(inside[..., None], x, torch.zeros((), dtype=dtype,
+                                                                     device=x.device)),
+                      mesh, "tensor")
+
+
+def _unembed(x, params, dtype, cfg, mesh=None):
+    """Logits over the whole vocabulary in ``dtype``; column-parallel when
+    this rank holds V/tensor columns, gathered over ``tensor``."""
+    logits = wmatmul(x, params["unembed"], dtype)
+    if mesh is not None and logits.shape[-1] < cfg.vocab_size:
+        logits = all_gather(logits, mesh, "tensor", -1)
+    return logits
+
+
+def _paged_layer(x, p, lkv, cs, pidx, off, attn, cfg, dtype, ad=None, mesh=None):
     """ONE transformer layer shared by the paged paths (decode step,
     prefill and verify); they differ only in the rope tables ``cs`` of
     their positions (B, T) (``_rope_cs``), the scatter targets (B·T,) and
     ``attn(q, k, v, lkv)`` → (B, T, Hn·Dh).  ``ad``: this layer's slice
-    of ``adapter_rows`` (None: the plain computation)."""
+    of ``adapter_rows`` (None: the plain computation).
+
+    On a mesh the leaves are this rank's slices: the head counts come
+    from the local ``wq`` / ``wk`` widths, and ``wo`` / ``w_out`` outputs
+    are summed over ``tensor`` where their heads or F are cut."""
     B, T, _ = x.shape
-    Hn, Dh, Hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    Dh = cfg.head_dim
     h = rms_norm(x, p["attn_norm"])
-    q = _sproj(h, p, "wq", dtype, ad).reshape(B, T, Hn, Dh)
-    k = _sproj(h, p, "wk", dtype, ad).reshape(B, T, Hkv, Dh)
-    v = _sproj(h, p, "wv", dtype, ad).reshape(B, T, Hkv, Dh)
-    q = _rope_rows(q, cs)
-    k = _rope_rows(k, cs)
+    q = _sproj(h, p, "wq", dtype, ad)
+    k = _sproj(h, p, "wk", dtype, ad)
+    v = _sproj(h, p, "wv", dtype, ad)
+    Hn, Hkv = q.shape[-1] // Dh, k.shape[-1] // Dh  # this rank's heads
+    q = _rope_rows(q.reshape(B, T, Hn, Dh), cs)
+    k = _rope_rows(k.reshape(B, T, Hkv, Dh), cs)
+    v = v.reshape(B, T, Hkv, Dh)
     # inactive/padding rows target the scratch page
     _kv_write_rows(lkv, pidx, off, k.reshape(B * T, Hkv, Dh), v.reshape(B * T, Hkv, Dh))
     o = attn(q, k, v, lkv)
-    x = x + _sproj(o, p, "wo", dtype, ad)
+    x = x + _row_parallel(o, p, "wo", dtype, ad, Hn < cfg.n_heads, mesh)
     h = rms_norm(x, p["mlp_norm"])
     if cfg.n_experts > 0:
         # expert-stacked FFN weights take no adapter (build_lora_bank
         # refuses adapters against (E, D, F) shapes)
-        return x + _moe_ffn_serve(h, p, dtype)
+        return x + _moe_ffn_serve(h, p, dtype, cfg, mesh)
     gate = F.silu(_sproj(h, p, "w_gate", dtype, ad))
     up = _sproj(h, p, "w_in", dtype, ad)
-    return x + _sproj(gate * up, p, "w_out", dtype, ad)
+    return x + _row_parallel(gate * up, p, "w_out", dtype, ad, gate.shape[-1] < cfg.d_ff,
+                             mesh)
 
 
 def _paged_attn_call(q, lkv, tables, lengths, cfg, dtype):
@@ -479,17 +601,17 @@ def _paged_attn_call(q, lkv, tables, lengths, cfg, dtype):
 
 @torch.inference_mode()
 def _paged_decode_step(params, tokens, kv, tables, lengths, cfg, page_size,
-                       paged_kernel=False, ad=None):
+                       paged_kernel=False, ad=None, mesh=None):
     """One decode step for every slot at its own position.
 
     tokens: (B,) int32; kv: pool (``make_kv_pool``), updated in place;
     tables: (B, NB) int32 page ids; lengths: (B,) int32 write positions;
-    ad: the rows' gathered adapter factors (``adapter_rows``) or None.
+    ad: the rows' gathered adapter factors (``adapter_rows``) or None;
+    mesh: the serving mesh (``params`` and ``kv`` this rank's slices).
     Returns (logits (B, V) float32, kv)."""
     dtype = torch_dtype(cfg.dtype)
     B = tokens.shape[0]
-    Hn, Dh = cfg.n_heads, cfg.head_dim
-    x = _embed_lookup(params["embed"], tokens, dtype)[:, None, :]  # (B, 1, D)
+    x = _embed_serve(params["embed"], tokens, dtype, cfg, mesh)[:, None, :]  # (B, 1, D)
     ln = lengths.long()
     bidx = torch.arange(B, device=tokens.device)
     # a finished slot's overshoot may step past its table view: clamp the
@@ -501,27 +623,27 @@ def _paged_decode_step(params, tokens, kv, tables, lengths, cfg, page_size,
     def attn(q, k, v, lkv):
         if paged_kernel:
             o = _paged_attn_call(q[:, 0], lkv, tables, lengths, cfg, dtype)
-            return o.reshape(B, 1, Hn * Dh)
+            return o.reshape(B, 1, -1)
         # position j of the gathered view IS token position j
         k_all, v_all = _kv_gather(lkv, tables, page_size, dtype)
         return cached_attention(
             q, k_all, v_all, lengths, window=cfg.window_size
-        ).reshape(B, 1, Hn * Dh)
+        ).reshape(B, 1, -1)
 
     cs = _rope_cs(ln[:, None], cfg)
     for i in range(cfg.n_layers):
         x = _paged_layer(
             x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, page_idx, offset,
-            attn, cfg, dtype, ad and layer_slice(ad, i),
+            attn, cfg, dtype, ad and layer_slice(ad, i), mesh,
         )
     x = rms_norm(x, params["final_norm"])
-    logits = wmatmul(x, params["unembed"], dtype)[:, 0, :]
+    logits = _unembed(x, params, dtype, cfg, mesh)[:, 0, :]
     return logits.float(), kv
 
 
 @torch.inference_mode()
 def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size, bank=None,
-                   aids=None):
+                   aids=None, mesh=None):
     """One-pass prompt ingestion for ONE slot: causal self-attention over
     the whole (padded) prompt block, K/V scattered into the slot's pages.
 
@@ -531,16 +653,15 @@ def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size, ba
     (V,) of the last real position, kv) — only that row is unembedded."""
     dtype = torch_dtype(cfg.dtype)
     Tpad = tokens.shape[1]
-    Hn, Dh = cfg.n_heads, cfg.head_dim
     dev = tokens.device
-    x = _embed_lookup(params["embed"], tokens, dtype)  # (1, Tpad, D)
+    x = _embed_serve(params["embed"], tokens, dtype, cfg, mesh)  # (1, Tpad, D)
     positions = torch.arange(Tpad, device=dev)
     col = torch.clamp(positions // page_size, max=pages.shape[0] - 1)
     pidx = torch.where(
         positions < t_real, pages.long()[col], torch.full_like(positions, SCRATCH_PAGE)
     )
     off = positions % page_size
-    n_rep = Hn // cfg.kv_heads
+    n_rep = cfg.n_heads // cfg.kv_heads  # a rank's heads keep the ratio
 
     def attn(q, k, v, lkv):
         # the prompt is the whole valid prefix: plain causal attention
@@ -550,24 +671,24 @@ def _paged_prefill(params, tokens, kv, pages, t_real: int, *, cfg, page_size, ba
             repeat_kv(k, n_rep).transpose(1, 2),
             repeat_kv(v, n_rep).transpose(1, 2),
             True, None, cfg.window_size,
-        ).transpose(1, 2).reshape(1, Tpad, Hn * Dh)
+        ).transpose(1, 2).reshape(1, Tpad, -1)
 
     cs = _rope_cs(positions[None, :], cfg)
     ad = adapter_rows(bank, aids)
     for i in range(cfg.n_layers):
         x = _paged_layer(
             x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, pidx, off, attn,
-            cfg, dtype, ad and layer_slice(ad, i),
+            cfg, dtype, ad and layer_slice(ad, i), mesh,
         )
     x = x[:, t_real - 1:t_real]  # (1, 1, D)
     x = rms_norm(x, params["final_norm"])
-    logits = wmatmul(x, params["unembed"], dtype)[0, 0]
+    logits = _unembed(x, params, dtype, cfg, mesh)[0, 0]
     return logits.float(), kv
 
 
 @torch.inference_mode()
 def _paged_prefill_prefixed(params, tokens, kv, pages, t0: int, t_real: int, *, cfg,
-                            page_size, bank=None, aids=None):
+                            page_size, bank=None, aids=None, mesh=None):
     """One-pass prompt ingestion BEHIND pages already written (a
     prefix-cache hit, or a later chunk of a chunked prefill).
 
@@ -579,9 +700,8 @@ def _paged_prefill_prefixed(params, tokens, kv, pages, t0: int, t_real: int, *, 
     rows write to the scratch page; their outputs are never consumed."""
     dtype = torch_dtype(cfg.dtype)
     Tpad = tokens.shape[1]
-    Hn, Dh = cfg.n_heads, cfg.head_dim
     dev = tokens.device
-    x = _embed_lookup(params["embed"], tokens, dtype)  # (1, Tpad, D)
+    x = _embed_serve(params["embed"], tokens, dtype, cfg, mesh)  # (1, Tpad, D)
     rel = torch.arange(Tpad, device=dev)
     positions = t0 + rel
     # padding positions may index past the table row: clamp, as the
@@ -596,18 +716,18 @@ def _paged_prefill_prefixed(params, tokens, kv, pages, t0: int, t_real: int, *, 
         k_all, v_all = _kv_gather(lkv, pages[None, :], page_size, dtype)
         return cached_attention_multi(
             q, k_all, v_all, t0, window=cfg.window_size
-        ).reshape(1, Tpad, Hn * Dh)
+        ).reshape(1, Tpad, -1)
 
     cs = _rope_cs(positions[None, :], cfg)
     ad = adapter_rows(bank, aids)
     for i in range(cfg.n_layers):
         x = _paged_layer(
             x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, pidx, off, attn,
-            cfg, dtype, ad and layer_slice(ad, i),
+            cfg, dtype, ad and layer_slice(ad, i), mesh,
         )
     x = x[:, t_real - 1:t_real]  # (1, 1, D)
     x = rms_norm(x, params["final_norm"])
-    logits = wmatmul(x, params["unembed"], dtype)[0, 0]
+    logits = _unembed(x, params, dtype, cfg, mesh)[0, 0]
     return logits.float(), kv
 
 
@@ -683,7 +803,7 @@ def _fused_serve_chunk(
     temps, top_ks, top_ps, generator, bias=None, fpens=None, ppens=None, counts=None,
     seeds=None, seeded=None, stop_rows=None, min_toks=None, bank=None, aids=None,
     *, cfg, page_size, n_steps, use_filters, use_temp, paged_kernel=False,
-    logprobs_k=0, use_pen=False, use_seed=False, use_min=False,
+    logprobs_k=0, use_pen=False, use_seed=False, use_min=False, mesh=None,
 ):
     """``n_steps`` decode iterations with sampling and prompt feeding on
     the device.  Returns (out, kv, next_tokens (B,), new_lengths (B,)):
@@ -713,7 +833,7 @@ def _fused_serve_chunk(
         cnt = counts.float()
     for _ in range(n_steps):
         logits, kv = _paged_decode_step(
-            params, tokens, kv, tables, lengths, cfg, page_size, paged_kernel, ad
+            params, tokens, kv, tables, lengths, cfg, page_size, paged_kernel, ad, mesh
         )
         if bias is not None:
             logits = logits + bias
@@ -789,7 +909,7 @@ def _cached_attention_rows(q, cache_k, cache_v, starts, window: int = 0):
 
 @torch.inference_mode()
 def _verify_logits(params, kv, tables, feed, lengths, active, bank=None, aids=None, *, cfg,
-                   page_size, paged_kernel=False):
+                   page_size, paged_kernel=False, mesh=None):
     """The verify pass's forward: every slot's W fed tokens at positions
     lengths..lengths+W-1 through the model (each row under its adapter,
     ``bank`` / ``aids``), their K/V rows written into the pool (IN PLACE).
@@ -800,9 +920,8 @@ def _verify_logits(params, kv, tables, feed, lengths, active, bank=None, aids=No
     acceptance)."""
     dtype = torch_dtype(cfg.dtype)
     B, W = feed.shape
-    Hn, Dh = cfg.n_heads, cfg.head_dim
     max_len = tables.shape[1] * page_size
-    x = _embed_lookup(params["embed"], feed, dtype)  # (B, W, D)
+    x = _embed_serve(params["embed"], feed, dtype, cfg, mesh)  # (B, W, D)
     positions = lengths.long()[:, None] + torch.arange(W, device=feed.device)  # (B, W)
     in_range = (positions < max_len) & active[:, None]
     page_of = torch.clamp(positions // page_size, 0, tables.shape[1] - 1)
@@ -816,21 +935,21 @@ def _verify_logits(params, kv, tables, feed, lengths, active, bank=None, aids=No
         if paged_kernel:
             # the W-query form of K2: verify and decode share one attention
             # implementation, so a mixed greedy batch never mixes two
-            return _paged_attn_call(q, lkv, tables, lengths, cfg, dtype).reshape(B, W, Hn * Dh)
+            return _paged_attn_call(q, lkv, tables, lengths, cfg, dtype).reshape(B, W, -1)
         k_all, v_all = _kv_gather(lkv, tables, page_size, dtype)
         return _cached_attention_rows(
             q, k_all, v_all, lengths, window=cfg.window_size
-        ).reshape(B, W, Hn * Dh)
+        ).reshape(B, W, -1)
 
     cs = _rope_cs(positions, cfg)
     ad = adapter_rows(bank, aids)
     for i in range(cfg.n_layers):
         x = _paged_layer(
             x, layer_slice(params["layers"], i), _layer_kv(kv, i), cs, pidx, off, attn,
-            cfg, dtype, ad and layer_slice(ad, i),
+            cfg, dtype, ad and layer_slice(ad, i), mesh,
         )
     x = rms_norm(x, params["final_norm"])
-    return wmatmul(x, params["unembed"], dtype).float()
+    return _unembed(x, params, dtype, cfg, mesh).float()
 
 
 @torch.inference_mode()
@@ -839,7 +958,7 @@ def _fused_verify_chunk(
     bias=None, fpens=None, ppens=None, counts=None, plens=None, seeds=None, seeded=None,
     stop_rows=None, min_toks=None, bank=None, aids=None,
     *, cfg, page_size, use_filters, use_temp, paged_kernel=False,
-    logprobs_k=0, use_pen=False, use_seed=False, use_min=False,
+    logprobs_k=0, use_pen=False, use_seed=False, use_min=False, mesh=None,
 ):
     """ONE wide pass over every slot's verify window (speculative decoding
     inside the paged engine).
@@ -867,7 +986,7 @@ def _fused_verify_chunk(
     the distribution at fed position j.  ``bank`` / ``aids``: the
     adapters, as in the decode chunk."""
     logits = _verify_logits(params, kv, tables, feed, lengths, active, bank, aids, cfg=cfg,
-                            page_size=page_size, paged_kernel=paged_kernel)
+                            page_size=page_size, paged_kernel=paged_kernel, mesh=mesh)
     B, W = feed.shape
     positions = lengths[:, None] + torch.arange(W, device=feed.device, dtype=lengths.dtype)
     if bias is not None:
@@ -1129,6 +1248,21 @@ class _PendingChunk:
         return [t.numpy() for t in outs]
 
 
+def _slice_bank(bank: dict, layer_specs: dict, mesh) -> dict:
+    """The adapter bank cut as its families' weights are cut: a
+    column-parallel family's ``b`` over its output columns, a row-parallel
+    family's ``a`` over its input rows."""
+    from ..parallel.sharding import local_slice
+
+    out = {}
+    for t, ab in bank.items():
+        sp = layer_specs[t]
+        sp = tuple(sp["q8"] if isinstance(sp, dict) else sp) + (None,) * 3
+        out[t] = {"a": local_slice(ab["a"], (None, None, sp[1], None), mesh),
+                  "b": local_slice(ab["b"], (None, None, None, sp[2]), mesh)}
+    return out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -1159,6 +1293,8 @@ class InferenceEngine:
         max_queue: int = 0,
         adapters: Optional[dict] = None,
         device=None,
+        mesh=None,
+        sliced: bool = False,
         **unported,
     ):
         """``paged_kernel``: decode attention reads the page pool in place
@@ -1205,7 +1341,18 @@ class InferenceEngine:
         (``build_lora_bank``); a request names one in ``Request.adapter``
         ("" is the base model) and requests on different adapters share
         the batch, its graphs and the verify pass.  The draft model runs
-        without them."""
+        without them.
+
+        ``mesh``: serve over a connected ``parallel/mesh.Mesh`` (every rank
+        builds this engine with the same arguments, each on its own
+        ``device``): ``params`` are cut to this rank's slice
+        (``sharding.serving_specs``) before they move, or are that slice
+        already with ``sliced`` (``serve --tensor`` sends each rank only its
+        own); the pool keeps the rank's kv heads.  Rank 0 takes requests;
+        the other ranks run ``follow()`` (see the module docstring).  A
+        mesh without a ``tensor`` axis raises ``ValueError``, and so does
+        ``paged_kernel`` when ``tensor`` does not divide both head
+        counts."""
         unknown = sorted(set(unported) - set(_UNPORTED_OPTIONS))
         if unknown:
             raise TypeError(f"unknown engine options {unknown}")
@@ -1225,17 +1372,25 @@ class InferenceEngine:
             if dcfg.n_experts > 0:
                 raise ValueError("draft model must be dense (n_experts=0)")
         self.device = resolve_device(device)
-        self.params = _tree_to(params, self.device)
         self.cfg = cfg
+        self.mesh = mesh
+        heads = self._check_mesh(mesh, cfg, paged_kernel, sliced, adapters)
         # multi-LoRA: the bank (fixed for the engine's life) and each slot's
         # adapter id (0 = the base model, an all-zero bank row)
         if adapters:
             self.lora_bank, self.adapter_index = build_lora_bank(
-                adapters, torch_dtype(cfg.dtype), base_layers=self.params["layers"],
-                device=self.device,
+                adapters, torch_dtype(cfg.dtype), base_layers=params["layers"],
             )
         else:
             self.lora_bank, self.adapter_index = {}, {"": 0}
+        if mesh is not None and not sliced:
+            from ..parallel.sharding import serving_specs, slice_tree
+
+            specs = serving_specs(params, cfg, mesh)
+            self.lora_bank = _slice_bank(self.lora_bank, specs["layers"], mesh)
+            params = slice_tree(params, specs, mesh)
+        self.params = _tree_to(params, self.device)
+        self.lora_bank = _tree_to(self.lora_bank, self.device)
         self.adapter_ids = np.zeros(max_batch, np.int32)
         self.max_batch = max_batch
         self.max_len = max_len
@@ -1247,7 +1402,8 @@ class InferenceEngine:
         self.fused_steps = max(1, fused_steps)
         self.kv_int8 = kv_int8
         self.paged_kernel = paged_kernel
-        self.kv = make_kv_pool(cfg, self.n_pages, page_size, self.device, int8=kv_int8)
+        self.kv = make_kv_pool(cfg, self.n_pages, page_size, self.device, int8=kv_int8,
+                               kv_heads=heads)
         self.free_pages = list(range(self.n_pages - 1, SCRATCH_PAGE, -1))
         self.tables = np.zeros((max_batch, self.max_pages_per_slot), np.int32)
         self.slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
@@ -1274,6 +1430,7 @@ class InferenceEngine:
         self._submit_seq = itertools.count()
         self.spills = 0
         self.draining = False
+        self.failed = False  # a mirrored engine after a fault (``fail_mirrored``)
         self._work = threading.Event()  # set on enqueue: wakes an idle loop
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(0)
@@ -1374,11 +1531,25 @@ class InferenceEngine:
         self.graph_capture_s = 0.0
         self.graph_warmups = 0  # eager chunks run on scratch before a capture
         self.graph_replays = 0
+        # decided once: a chunk holding a collective over more than one rank
+        # runs eagerly, never in a graph, whatever the backend (gloo stages
+        # through the host; NCCL capture across cards is untried)
+        self._capture = (self.device.type == "cuda" and overlap
+                         and (mesh is None or mesh.axes_size(("tensor", "expert")) == 1))
         if self.device.type == "cuda":
             self._out_bufs = [{}, {}]
-            if overlap:
+            if self._capture:
                 self._graph_pool = torch.cuda.graph_pool_handle()
                 self._capture_stream = torch.cuda.Stream(self.device)
+        # -- serving on a mesh: one host decision point, mirrored state --------
+        # rank 0 takes requests and cancels; every round starts with its
+        # ticket (``exchange_ticket``), which every rank applies alike
+        self.mirrored = mesh is not None and mesh.size > 1
+        self.leader = not self.mirrored or mesh.rank == int(mesh.ranks.flat[0])
+        self._unticketed: list[Request] = []  # rank 0: submitted since the last ticket
+        self._ticketed: dict[int, Request] = {}  # ticket id → live request
+        self._ticket_ids = itertools.count()
+        self.tickets = 0
         # -- speculative decoding ---------------------------------------------
         self.spec_k = spec_k
         self.spec_ngram = spec_ngram
@@ -1399,6 +1570,30 @@ class InferenceEngine:
             self.draft_len = np.zeros(max_batch, np.int32)
             self._draft_chunk = 64  # pre-ingest width for long prompts
 
+    @staticmethod
+    def _check_mesh(mesh, cfg, paged_kernel: bool, sliced: bool, adapters) -> int:
+        """Refuse what a serving mesh cannot take; returns the pool's kv
+        heads a rank (0: all of them)."""
+        if mesh is None:
+            if sliced:
+                raise ValueError("sliced params need the mesh they were cut for")
+            return 0
+        if "tensor" not in mesh.axis_names:
+            raise ValueError(f"serving mesh needs a 'tensor' axis, got {tuple(mesh.axis_names)}")
+        if not mesh.connected:
+            raise ValueError("connect the serving mesh (Mesh.connect() on every rank of the "
+                             "world) before building the engine")
+        t = mesh.shape["tensor"]
+        if paged_kernel and (cfg.n_heads % t or cfg.kv_heads % t):
+            raise ValueError(
+                f"paged_kernel over a tensor={t} mesh needs n_heads ({cfg.n_heads}) and "
+                f"kv_heads ({cfg.kv_heads}) divisible by the tensor axis")
+        if sliced and adapters:
+            raise ValueError("adapters need the whole params: the bank is checked against "
+                             "the whole base and cut as its weights are")
+        whole_heads = cfg.n_heads % t == 0 and cfg.kv_heads % t == 0
+        return cfg.kv_heads // t if whole_heads else 0
+
     # -- public API ----------------------------------------------------------
 
     def submit(self, req: Request) -> Request:
@@ -1416,6 +1611,24 @@ class InferenceEngine:
             return req
         if req.max_new_tokens <= 0:
             req.done.set()  # nothing to generate
+            return req
+        if self.mirrored:
+            # enqueued by the next ticket, on every rank in the same order
+            if not self.leader:
+                raise RuntimeError("a follower takes its requests from rank 0's tickets")
+            with self._cap_lock:
+                if self.failed:
+                    req.error = ENGINE_FAILED_ERROR
+                    req.done.set()
+                    return req
+                if self.max_queue and (self.queue.qsize() + len(self._unticketed)
+                                       >= self.max_queue):
+                    req.error = QUEUE_FULL_ERROR
+                    req.done.set()
+                    return req
+                req.mirrored = True
+                self._unticketed.append(req)
+            self._work.set()
             return req
         if self.max_queue:
             # cancelled entries (clients gone) are purged before they can
@@ -1480,9 +1693,12 @@ class InferenceEngine:
     def _purge_cancelled_queued(self) -> None:
         """Drop queued requests cancelled while waiting, so the admission
         cap does not count them; the list surgery holds the queue's own
-        mutex, safe against the engine thread."""
+        mutex, safe against the engine thread.  A mirrored engine leaves
+        them to admission, which every rank runs alike."""
         import heapq
 
+        if self.mirrored:
+            return
         with self.queue.mutex:
             q = self.queue.queue
             dead = [e for e in q if e[2].cancelled]
@@ -1550,7 +1766,17 @@ class InferenceEngine:
 
     def run_until_idle(self, max_steps: int = 10_000) -> None:
         """Drive fused chunks until no request is active or queued, then
-        drain the chunk still in flight (if any)."""
+        drain the chunk still in flight (if any).  On a mirrored engine
+        rank 0 calls it, each round behind a ticket (the followers run
+        ``follow``), and ``stop_followers`` after it."""
+        if self.mirrored:
+            if not self.leader:
+                raise RuntimeError("a follower runs follow(); rank 0 drives the engine")
+            for _ in range(max_steps):
+                self.exchange_ticket()
+                if not self.round() and self.queue.empty():
+                    return
+            raise RuntimeError("run_until_idle: step budget exhausted")
         for _ in range(max_steps):
             self._admit()
             if not any(s is not None for s in self.slots):
@@ -1560,6 +1786,150 @@ class InferenceEngine:
                 continue
             self.step()
         raise RuntimeError("run_until_idle: step budget exhausted")
+
+    # -- serving on a mesh -----------------------------------------------------
+
+    def exchange_ticket(self, stop: bool = False, preempt: bool = False) -> dict:
+        """One round's ticket, on every rank of a mirrored engine (a
+        collective over the mesh's object group): rank 0 sends the requests
+        submitted since the last ticket (the fields ``_TICKET_FIELDS``
+        names, under ticket ids), the ids of those whose cancel was asked
+        for, its drain flag, ``stop`` (the followers leave ``follow``) and
+        ``preempt`` (a round whose pool runs dry preempts a slot instead
+        of raising); every rank then enqueues and cancels in the ticket's
+        order.  The ticket also carries a digest of rank 0's host state
+        after the last round (``_mirror_digest``): a follower whose own
+        differs raises, naming the ticket, before it runs another round.
+        Returns the ticket."""
+        digest = self._mirror_digest()
+        if self.leader:
+            with self._cap_lock:
+                new, self._unticketed = self._unticketed, []
+            ids = [next(self._ticket_ids) for _ in new]
+            self._ticketed.update(zip(ids, new))
+            ticket = {
+                "new": [(i, {f: getattr(r, f) for f in _TICKET_FIELDS})
+                        for i, r in zip(ids, new)],
+                "cancel": [i for i, r in self._ticketed.items()
+                           if r.cancel_asked and not r.cancelled],
+                "draining": self.draining, "stop": stop, "preempt": preempt,
+                "digest": digest,
+            }
+        else:
+            ticket = None
+        ticket = broadcast_object(ticket, self.mesh)
+        if ticket["digest"] != digest:
+            raise RuntimeError(f"rank {self.mesh.rank}'s engine parted from rank 0's before "
+                               f"ticket {self.tickets}: its host state differs")
+        self.tickets += 1
+        for i, state in ticket["new"]:
+            if not self.leader:
+                self._ticketed[i] = Request(**state)
+            self._enqueue(self._ticketed[i])
+        for i in ticket["cancel"]:
+            self._ticketed[i].cancelled = True
+        if not self.leader:
+            self.draining = ticket["draining"]
+        self._ticketed = {i: r for i, r in self._ticketed.items() if not r.done.is_set()}
+        return ticket
+
+    def _mirror_digest(self) -> bytes:
+        """A digest of the host state the mirrors must share: the counters,
+        each slot's length, next token and pages, the free list and the
+        queue's length (every sampled token passes through them)."""
+        h = hashlib.blake2b(digest_size=16)
+        for a in (self.lengths, self.next_token, self.emitted, self.tables):
+            h.update(a.tobytes())
+        h.update(np.asarray([self.tokens_emitted, self.steps_run, self.prefills_run,
+                             self.spec_accepted, self.spills, len(self.free_pages),
+                             self.queue.qsize()], np.int64).tobytes())
+        return h.digest()
+
+    def round(self, preempt: bool = False, victim_fn=None, step=None) -> bool:
+        """Admission, then one step (``step``, ``self.step`` when None: a
+        caller may wrap it in its spans), or the drain of the chunk in
+        flight when no slot is live: the one body ``EngineLoop`` and every
+        follower run after each ticket.  With ``preempt`` a step that finds
+        the pool dry preempts one slot (``preempt_for_pool(victim_fn)``)
+        instead of raising.  True when some slot was live."""
+        self._admit()
+        if not any(s is not None for s in self.slots):
+            self._drain_pending()
+            return False
+        try:
+            (step or self.step)()
+        except RuntimeError as e:
+            if not preempt or "page pool exhausted" not in str(e):
+                raise
+            self.preempt_for_pool(victim_fn)
+        return True
+
+    def follow(self) -> None:
+        """A follower's loop: each ticket from rank 0, then the round rank
+        0 runs after it, until the stop ticket."""
+        if self.leader:
+            raise RuntimeError("rank 0 leads: it runs run_until_idle or an EngineLoop")
+        with torch.inference_mode():
+            while True:
+                ticket = self.exchange_ticket()
+                if ticket["stop"]:
+                    return
+                self.round(ticket["preempt"])
+
+    def stop_followers(self) -> None:
+        """Rank 0: the stop ticket, which ends every follower's ``follow``."""
+        if self.mirrored:
+            self.exchange_ticket(stop=True)
+
+    def fail_mirrored(self) -> None:
+        """Rank 0 of a mirrored engine after a fault: the ranks' host states
+        may have parted, so it serves no more.  Every request not done yet
+        (queued, ticketed or waiting for a ticket) fails at once, and so
+        does every later ``submit`` (``ENGINE_FAILED_ERROR``).  No ticket is
+        sent: a follower may be inside a collective, and ends when this
+        process does."""
+        with self._cap_lock:
+            self.failed = True
+            waiting, self._unticketed = self._unticketed, []
+        waiting += self._ticketed.values()
+        self._ticketed = {}
+        while True:
+            try:
+                waiting.append(self.queue.get_nowait()[2])
+            except queue.Empty:
+                break
+        for r in waiting:
+            if not r.done.is_set():
+                r.error = ENGINE_FAILED_ERROR
+                r.done.set()
+
+    def preempt_for_pool(self, victim_fn=None) -> int:
+        """Every slot stalled for pages: preempt ONE, rank 0's choice
+        (``victim_fn(engine)``; a follower passes none and takes rank 0's),
+        on every rank of a mirrored engine.  Its first eviction requeues it
+        for an exact resume; a second means it cannot fit the pool and it
+        fails.  Returns the slot."""
+        victim = victim_fn(self) if self.leader else None
+        if self.mirrored:
+            victim = broadcast_object(victim, self.mesh)
+        req = self.slots[victim]
+        log.warning("KV page pool exhausted; preempting priority-%d slot %d (%d pages held)",
+                    int(self.priorities[victim]), victim, len(self.slot_pages[victim]))
+        if req.pool_spills < 1:
+            req.pool_spills += 1
+            self.spills += 1
+            self.evict_slot(victim)
+        else:
+            req.error = "preempted: KV page pool exhausted"
+            req.done.set()
+            self._release_slot(victim)
+        return victim
+
+    def _single_rank(self, verb: str) -> None:
+        if self.mirrored:
+            raise NotImplementedError(
+                f"{verb} on a mesh of {self.mesh.size} ranks is not ported yet: a "
+                "head-sharded pool's pages are a gather over tensor that every rank joins")
 
     def step(self) -> None:
         """One engine step: every mid-chunked-prefill slot ingests one
@@ -1795,10 +2165,11 @@ class InferenceEngine:
         toks = np.zeros((1, tpad), np.int32)
         toks[0, :n] = self.prompts[i, t0:t0 + n]
         toks = torch.tensor(toks, device=self.device)
-        # the slot's adapter (1,), passed only by an engine with a bank
-        ad = {}
+        # the slot's adapter (1,), passed only by an engine with a bank; the
+        # mesh only by an engine on one
+        ad = {} if self.mesh is None else {"mesh": self.mesh}
         if self.lora_bank:
-            ad = dict(bank=self.lora_bank,
+            ad.update(bank=self.lora_bank,
                       aids=torch.tensor(self.adapter_ids[i:i + 1], device=self.device))
         if t0 == 0:
             logits, self.kv = _paged_prefill(
@@ -2103,6 +2474,7 @@ class InferenceEngine:
         full pages, or None when none is cached.  The receiver re-derives
         registration keys from the shipped tokens under its own adapter
         seed, so bank-index skew between replicas cannot alias pages."""
+        self._single_rank("export_prefix_pages")
         toks = [int(t) for t in tokens]
         pgs = self.cached_prefix_pages(toks, adapter)
         if max_pages > 0:
@@ -2130,6 +2502,7 @@ class InferenceEngine:
         written in place (``index_copy_``): the pool keeps its storage,
         which captured decode graphs read by address.  Returns
         {"imported", "already", "tokens", "stopped"}."""
+        self._single_rank("import_pages")
         if not self.prefix_cache:
             raise ValueError("prefix cache disabled (--prefix-cache)")
         adapter = str(header.get("adapter", ""))
@@ -2209,6 +2582,7 @@ class InferenceEngine:
         from here and requeues it only if the destination refuses.  The
         eviction drops at most the one chunk in flight; the bundle holds
         confirmed state only, so the destination resumes exactly."""
+        self._single_rank("migrate_out_bundle")
         req = self.slots[slot]
         if req is None or req.done.is_set():
             return None
@@ -2258,6 +2632,7 @@ class InferenceEngine:
         migrated session is work in flight, not new traffic) and holds the
         state to ``submit``'s rules (``_invalid_reason``).  Raises on
         invalid state; returns the live Request."""
+        self._single_rank("resume_session")
         if self.draining:
             raise RuntimeError(DRAINING_ERROR)
         prompt = [int(t) for t in (state.get("prompt") or [])]
@@ -2487,7 +2862,10 @@ class InferenceEngine:
         return [self.lora_bank, self._ds.get("adapter_ids", self.adapter_ids)]
 
     def _static(self, v: dict, **kw) -> dict:
-        """The step functions' keyword flags for variant ``v``."""
+        """The step functions' keyword flags for variant ``v`` (and the
+        mesh, on one)."""
+        if self.mesh is not None:
+            kw["mesh"] = self.mesh
         return dict(cfg=self.cfg, page_size=self.page_size, paged_kernel=self.paged_kernel,
                     use_filters=v["use_filters"], use_temp=v["use_temp"],
                     logprobs_k=self.logprobs_k if v["want_lp"] else 0,
@@ -2805,7 +3183,7 @@ class InferenceEngine:
             *self._adapter_args(),
         )
         static = self._static(v, n_steps=K)
-        if self.overlap and self.device.type == "cuda":
+        if self._capture:
             key = (view.shape[1], v["use_filters"], v["use_temp"], v["want_lp"],
                    v["use_pen"], v["use_seed"], v["use_min"])
             out = self._replay_chunk(key, args, static)

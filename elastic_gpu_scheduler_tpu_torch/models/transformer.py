@@ -36,8 +36,9 @@ reference's sp × pp); ``n_microbatches`` without a ``pipe`` axis runs the
 plain path, as the reference does, and a ``pipe`` axis without it
 replicates the layers.  MoE layers split their experts over ``expert``
 (``models/moe``), and LoRA leaves take the slice of each adapter that
-matches their projection's.  Int8 weights on more than one rank are
-refused by name.
+matches their projection's.  Int8 weights on more than one rank do not
+train: ``check_mesh_model`` refuses them by name on the training path
+(they serve on a mesh: ``models/serving``).
 """
 
 from __future__ import annotations
@@ -124,8 +125,8 @@ def pipelined(cfg: TransformerConfig, mesh) -> bool:
 
 
 def check_mesh_model(cfg: TransformerConfig, mesh, params=None) -> None:
-    """Raise, by name, on what the mesh path does not run: int8 weights on
-    more than one rank, and MoE in the pipeline schedule where the batch
+    """Raise, by name, on what the training mesh path does not run: int8
+    weights on more than one rank (serving runs them), and MoE in the pipeline schedule where the batch
     is cut over data or fsdp (NotImplementedError); and on what the mesh
     cannot cut (ValueError): head counts the tensor axis cannot split,
     layers the pipe axis cannot, experts the expert axis cannot, a sliding
@@ -141,8 +142,9 @@ def check_mesh_model(cfg: TransformerConfig, mesh, params=None) -> None:
         for name, leaf in params["layers"].items():
             if is_qtensor(leaf):
                 raise NotImplementedError(
-                    f"int8 layer leaf {name!r} on a mesh of {n} ranks is not ported yet "
-                    "(int8 weights on a mesh come with serving on a mesh)")
+                    f"int8 layer leaf {name!r} on a mesh of {n} ranks does not train: "
+                    "the training path refuses int8 weights on a mesh (they serve "
+                    "on one: InferenceEngine(mesh=...))")
     T = sizes["tensor"]
     if cfg.n_heads % T or cfg.kv_heads % T:
         raise ValueError(f"tensor={T} must divide n_heads={cfg.n_heads} and "

@@ -2,7 +2,7 @@
 and its plain PyTorch version.
 
 ``y[t] = x[t] @ W[ids[t]]`` for x (T, K) and an expert stack W (E, K, N),
-with fp32 sums.  W is in x's dtype, or int8 ``q8`` with per-column fp32
+with fp32 sums; a token whose id lies outside [0, E) gets a zero row.  W is in x's dtype, or int8 ``q8`` with per-column fp32
 scales (E, 1, N) (``models/quantize``).  ``ids`` None puts every token on
 expert 0: the dense int8 product, E = 1.
 
@@ -94,8 +94,9 @@ def expert_matmul(x: torch.Tensor, w: torch.Tensor, ids: Optional[torch.Tensor],
                   scale: Optional[torch.Tensor] = None,
                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``y[t] = x[t] @ W[ids[t]]``, (T, N) in ``out_dtype`` (x's dtype when
-    None, or float32).  ids (T,) int32 must lie in [0, E) (the kernel
-    leaves a row whose id is outside unwritten); None: one expert."""
+    None, or float32).  ids (T,) int32; a row whose id lies outside [0, E)
+    (a token routed to another rank's experts) is zeros, in the kernel and
+    the plain version alike; None: one expert."""
     _check(x, w, ids, scale, out_dtype)
     if x.device.type == "cpu":
         return expert_matmul_reference(x, w, ids, scale, out_dtype)

@@ -34,6 +34,10 @@ The autograd functions are the parallel operators of the model:
 
 The pipeline's stage-to-stage hops (``parallel/pipeline.py``) are
 ``ring_shift`` forward and ``ring_shift(step=-1)`` in its own backward.
+
+Serving builds no autograd graph: its layers call ``all_reduce`` and
+``all_gather`` directly under ``torch.inference_mode()``, and the engine's
+tickets travel by ``broadcast_object`` over the mesh's gloo object group.
 """
 
 from __future__ import annotations
@@ -134,6 +138,20 @@ def ring_shift(t: torch.Tensor, mesh, axis: str, step: int = 1) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out.to(t.device)
+
+
+def broadcast_object(obj, mesh, src: int = 0):
+    """``obj`` as the mesh's rank at position ``src`` (in the mesh's rank
+    order) holds it, on every rank of the mesh: a pickled host object over
+    the mesh's gloo object group (``Mesh.object_group``), whatever the
+    mesh's backend.  ``obj`` itself on a mesh of one rank."""
+    pg = None if mesh is None else mesh.object_group()
+    if pg is None:
+        return obj
+    root = int(mesh.ranks.flat[src])
+    box = [obj if mesh.rank == root else None]
+    dist.broadcast_object_list(box, src=root, group=pg)
+    return box[0]
 
 
 def barrier(mesh) -> None:

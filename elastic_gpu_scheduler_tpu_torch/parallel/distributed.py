@@ -184,6 +184,23 @@ def initialize_for_gang(annotations: dict, coordinator: str = "", coordinator_po
         local_rank=local_rank, local_ranks=local_ranks, cpu=cpu)
 
 
+def start_ranks(fn, ranks, world_size: int, args_of, *, rendezvous: str):
+    """Start ``fn(rank, world_size, rendezvous, *args_of(rank))`` for each
+    of ``ranks`` in a fresh process (the spawn start method), so each rank
+    is sent only its own arguments.  Returns (the processes, the queue each
+    puts (rank, ok, result or traceback) on when ``fn`` ends)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world_size, rendezvous, args_of(r), results),
+                         daemon=False) for r in ranks]
+    for p in procs:
+        p.start()
+    return procs, results
+
+
 def spawn_ranks(fn, world_size: int, args: tuple = (), *, rendezvous: str,
                 timeout_s: float = 600.0) -> list:
     """Run ``fn(rank, world_size, rendezvous, *args)`` in ``world_size``
@@ -191,16 +208,11 @@ def spawn_ranks(fn, world_size: int, args: tuple = (), *, rendezvous: str,
     rank order.  ``fn`` must be importable by name and joins the process
     group itself.  A rank that fails, or a world that outlives
     ``timeout_s``, kills the others and raises."""
-    import multiprocessing as mp
     import queue
     import time
 
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, world_size, rendezvous, args, results),
-                         daemon=False) for r in range(world_size)]
-    for p in procs:
-        p.start()
+    procs, results = start_ranks(fn, range(world_size), world_size, lambda r: args,
+                                 rendezvous=rendezvous)
     out: dict[int, object] = {}
     deadline = time.monotonic() + timeout_s
     try:

@@ -141,6 +141,7 @@ class Mesh:
         self.ranks = np.vectorize(lambda d: d.id, otypes=[np.int64])(devices)
         self._coords = {int(r): idx for idx, r in np.ndenumerate(self.ranks)}
         self._groups: Optional[dict] = None
+        self._object_group = None  # gloo, over the whole mesh (``object_group``)
         self.rank: Optional[int] = None  # this process's rank, once connected
         self.backend = ""
 
@@ -201,7 +202,10 @@ class Mesh:
         than 1 (a collective call: every rank of the world makes it, in the
         same order, whether it is in this mesh or not, as
         ``torch.distributed.new_group`` needs).  Axes of size 1 take part in
-        no group: a collective over them alone is a no-op."""
+        no group: a collective over them alone is a no-op.  A mesh of more
+        than one rank also gets a gloo group over all of its ranks
+        (``object_group``), the group of every axis when the backend is
+        gloo already."""
         import torch.distributed as dist
 
         if self._groups is not None:
@@ -223,8 +227,28 @@ class Mesh:
                     pg = _process_group(sorted(ranks))
                     if self.rank in ranks:
                         groups[axes] = pg
+        if self.size > 1:
+            ranks = sorted(int(r) for r in self.ranks.flat)
+            if self.backend == "gloo":
+                self._object_group = groups.get(tuple(wide))
+            else:
+                pg = _process_group(ranks, "gloo")
+                self._object_group = pg if self.rank in ranks else None
         self._groups = groups
         return self
+
+    def object_group(self):
+        """A gloo process group over every rank of the mesh for host
+        objects, or None on a mesh of one rank: the serving engine's
+        tickets travel through it whatever the backend of the mesh's own
+        groups."""
+        if self._groups is None:
+            raise RuntimeError("mesh not connected: call Mesh.connect() on every rank")
+        if self.size == 1:
+            return None
+        if self._object_group is None:
+            raise ValueError(f"rank {self.rank} is not in {self!r}")
+        return self._object_group
 
     def group(self, axes) -> Optional[tuple]:
         """(process group, ranks ordered along ``axes``) of this rank, or
@@ -254,14 +278,18 @@ class Mesh:
 _PROCESS_GROUPS: dict = {}
 
 
-def _process_group(ranks: list[int]):
+def _process_group(ranks: list[int], backend: Optional[str] = None):
+    """The group of ``ranks`` on the world's backend, or on ``backend``
+    when it names another (a gloo group beside NCCL ones)."""
     import torch.distributed as dist
 
-    if len(ranks) == dist.get_world_size():
+    if backend == str(dist.get_backend()):
+        backend = None
+    if len(ranks) == dist.get_world_size() and backend is None:
         return dist.group.WORLD
-    key = (id(dist.group.WORLD), tuple(ranks))
+    key = (id(dist.group.WORLD), tuple(ranks), backend)
     if key not in _PROCESS_GROUPS:
-        _PROCESS_GROUPS[key] = dist.new_group(ranks)
+        _PROCESS_GROUPS[key] = dist.new_group(ranks, backend=backend)
     return _PROCESS_GROUPS[key]
 
 

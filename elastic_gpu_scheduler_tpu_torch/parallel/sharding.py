@@ -12,6 +12,11 @@ or None — leaf for leaf the reference's ``PartitionSpec``:
     norms        (L, D)        → replicated
     unembed      (D, V)        → (fsdp, tensor)
 
+A serving rank holds ``serving_specs``: these rules cut over ``tensor``
+and ``expert`` only (every other axis replicates), attention leaves whole
+unless ``tensor`` divides both head counts, each spec fitted to its leaf,
+int8 ``{q8, scale}`` leaves included.
+
 The port's counterpart of a ``NamedSharding`` is a rank's local slice of
 each leaf (``local_slice``): a dimension sharded over axes (a, b) is cut
 into size(a)·size(b) equal blocks, a major, and the rank keeps block
@@ -153,6 +158,49 @@ def shard_params(params: Any, mesh, pipeline: bool = False, strict: bool = True,
         return local_slice(tree, s, mesh, rank)
 
     return walk(params, specs, ())
+
+
+def slice_tree(params: Any, specs: Any, mesh, rank=None) -> Any:
+    """Each leaf's slice for ``rank`` (default: this rank) under a spec
+    tree of the same structure."""
+    if isinstance(params, dict):
+        return {k: slice_tree(params[k], specs[k], mesh, rank) for k in params}
+    return local_slice(params, specs, mesh, rank)
+
+
+# the axes a serving rank's weights are cut over; the attention leaves
+# are cut only where every rank keeps whole query and KV heads
+SERVING_AXES = ("tensor", "expert")
+_ATTENTION = ("wq", "wk", "wv", "wo")
+
+
+def serving_specs(params: Any, cfg, mesh) -> Any:
+    """The spec tree of a serving rank's slice (``slice_tree``): the
+    rules restricted to ``SERVING_AXES``; ``wq`` / ``wk`` / ``wv`` / ``wo``
+    replicated unless ``tensor`` divides both ``cfg.n_heads`` and
+    ``cfg.kv_heads`` (the layers' collectives need whole heads, where
+    GSPMD would cut a 48-wide ``wq`` across head boundaries); each spec
+    fitted to its leaf's shape (``_fit_spec``: a dimension that does not
+    divide replicates).  An int8 leaf's ``q8`` takes its weight's spec and
+    its ``scale`` (..., 1, N) the same, whose unit dimension replicates."""
+    T = mesh.axes_size("tensor")
+    whole_heads = cfg.n_heads % T == 0 and cfg.kv_heads % T == 0
+
+    def restrict(ax):
+        kept = tuple(a for a in axes_of(ax) if a in SERVING_AXES)
+        if not kept:
+            return None
+        return kept if isinstance(ax, (tuple, list)) else kept[0]
+
+    def walk(tree, sp, path):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], sp[k], path + (k,)) for k in tree}
+        s = tuple(restrict(ax) for ax in sp)
+        if not whole_heads and path[:1] == ("layers",) and path[1] in _ATTENTION:
+            s = (None,) * len(s)
+        return _fit_spec(s, mesh, tree.shape)
+
+    return walk(params, param_specs(params), ())
 
 
 def leaf_specs(params: Any, mesh, pipeline: bool = False) -> Any:

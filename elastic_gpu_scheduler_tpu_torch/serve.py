@@ -8,7 +8,8 @@ required:
 - ``--hf DIR``: an HF Llama / Mistral checkpoint directory (its
   ``config.json`` and ``*.safetensors``, else ``pytorch_model*.bin``),
   converted by ``models/convert.py`` on the host into a float32 model;
-- ``--init``: random weights from the model flags (seed 0).
+- ``--init``: random weights from the model flags (seed 0), drawn on the
+  host, so every ``--tensor`` serves the same model.
 
 ``--draft-hf DIR`` adds a draft model for speculative decoding (it needs
 ``--spec-k`` > 0, checked before any weight is read).  ``--int8``
@@ -27,6 +28,16 @@ the reference's knobs: ``--trace-sample`` (``TPU_TRACE_SAMPLE``),
 (``TPU_WORKLOAD_CLASS``; co-tenants from ``TPU_COTENANT_CLASSES``) and
 ``--slo-config`` (``TPU_SLO_CONFIG``).  The engine runs on the CUDA
 device unless ``--cpu`` is given.
+
+``--tensor N`` serves tensor-parallel over N local ranks (checkpoints too
+big for one card): the weights are built or imported (and quantized) on
+the host, cut there into each rank's slice (``sharding.serving_specs``),
+and ranks 1..N-1 start as processes of their own (``parallel/distributed
+.start_ranks``) that are sent only their slice and follow rank 0's
+tickets; this process is rank 0, the HTTP front end.  ``--dist-backend``
+picks the transport as the launcher's does (NCCL, one rank a card, by
+default on cards; gloo on ``--cpu``, or on cards to let ranks share one).
+Fewer cards than N without gloo exits.
 """
 
 from __future__ import annotations
@@ -102,6 +113,14 @@ def build_args(argv=None):
                    help="fleet identity reported on /v1/stats (default from POD_NAME)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU with the plain PyTorch paths (tests/dev)")
+    p.add_argument("--tensor", type=int, default=1,
+                   help="serve tensor-parallel over this many local ranks "
+                        "(checkpoints bigger than one card's memory); needs "
+                        ">= that many cards unless --dist-backend gloo")
+    p.add_argument("--dist-backend", default="", choices=["", "nccl", "gloo"],
+                   help="collective transport with --tensor: nccl (default on "
+                        "cards; one rank a card) or gloo (the CPU; on cards, "
+                        "ranks may share one)")
     p.add_argument("--trace-sample", type=float, default=None,
                    help="request-trace sampling rate (1.0 = every request, "
                         "0 = off; default from TPU_TRACE_SAMPLE, else 1.0); "
@@ -161,7 +180,7 @@ def device_generation(device) -> str:
     return torch.cuda.get_device_name(device).lower().replace(" ", "-")
 
 
-def configure_planes(args, device) -> None:
+def configure_planes(args, device, chips: int = 1) -> None:
     """Apply the observability flags: the trace and profile rates, the
     profile identity (pod from ``POD_NAMESPACE`` / ``POD_NAME``, class,
     generation, one chip, co-tenant classes) and the SLO objectives, whose
@@ -181,7 +200,7 @@ def configure_planes(args, device) -> None:
                                  os.environ.get("POD_NAME", "")) if p),
         wclass=wclass,
         generation=device_generation(device),
-        chips=1,
+        chips=chips,
         neighbors=tuple(c for c in os.environ.get("TPU_COTENANT_CLASSES", "").split(",")
                         if c),
     )
@@ -210,8 +229,15 @@ def main(argv=None) -> int:
     from .models.transformer import TransformerConfig, init_params, resolve_device
     from .server.inference import drain, serve_inference
 
+    if args.tensor < 1:
+        raise SystemExit(f"--tensor {args.tensor} must be at least 1")
+    if args.tensor > 1:
+        if role != "both":
+            raise SystemExit(f"--fleet-role {role} with --tensor {args.tensor}: the "
+                             "disaggregated verbs do not run on a mesh yet")
+        check_tensor_devices(args)
     device = resolve_device("cpu" if args.cpu else None)
-    configure_planes(args, device)
+    configure_planes(args, device, chips=args.tensor)
     if args.hf:
         # converted on the host; the engine moves the params once
         params, cfg = load_hf(args.hf)
@@ -221,30 +247,39 @@ def main(argv=None) -> int:
             n_heads=args.n_heads, d_ff=args.d_ff,
             dtype=args.dtype,
         )
-        gen = torch.Generator(device=device)
+        gen = torch.Generator()
         gen.manual_seed(0)
-        params = init_params(cfg, gen, device)
+        params = init_params(cfg, gen, "cpu")
     if args.int8:
         from .models.quantize import quantize_params
 
         params = quantize_params(params)
     draft = load_hf(args.draft_hf) if args.draft_hf else None
-    engine = InferenceEngine(
-        params, cfg, max_batch=args.max_batch, max_len=args.max_len,
+    engine_kw = dict(
+        max_batch=args.max_batch, max_len=args.max_len,
         page_size=args.page_size, n_pages=args.n_pages,
         fused_steps=args.fused_steps, kv_int8=args.kv_int8,
         prefix_cache=args.prefix_cache, paged_kernel=args.paged_kernel,
         prefill_chunk=args.prefill_chunk, spec_k=args.spec_k, draft=draft,
         overlap=args.serve_overlap == "on", logprobs_k=args.logprobs_k,
-        max_queue=args.max_queue, device=device,
+        max_queue=args.max_queue,
     )
+    followers = None
+    if args.tensor > 1:
+        engine, followers = start_mesh(args, params, cfg, engine_kw)
+        device = engine.device
+        del params
+    else:
+        engine = InferenceEngine(params, cfg, device=device, **engine_kw)
     engine.replica_name = args.replica_name or os.environ.get("POD_NAME", "")
     engine.fleet_role = role
     server, loop = serve_inference(engine, port=args.port, host=args.host)
     log.info(
-        "serving %s model (%d layers, d=%d) on %s, %s:%d",
+        "serving %s model (%d layers, d=%d) on %s%s, %s:%d",
         "hf-imported" if args.hf else "random-init",
-        cfg.n_layers, cfg.d_model, device, args.host, server.server_address[1],
+        cfg.n_layers, cfg.d_model, device,
+        f" (rank 0 of tensor={args.tensor})" if args.tensor > 1 else "",
+        args.host, server.server_address[1],
     )
     stop = threading.Event()
     signals_seen = []
@@ -266,10 +301,118 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGINT, on_signal)
     signal.signal(signal.SIGTERM, on_signal)
-    stop.wait()
+    # a mesh engine's fault stops its loop: exit non-zero, so the replica
+    # is restarted (a lone engine's loop fails the requests and serves on)
+    while not stop.wait(1.0) and not loop.failed.is_set():
+        pass
     server.shutdown()
-    loop.stop()
+    loop.stop()  # on a mesh its thread sends the followers' stop ticket
+    failed = loop.failed.is_set()
+    if followers is not None:
+        # after a fault no stop ticket comes: end the followers at once
+        stop_mesh(followers, timeout=0.0 if failed else 60.0)
+    if failed:
+        log.error("the engine on the mesh failed; exiting")
+        return 1
     return 0
+
+
+def check_tensor_devices(args) -> None:
+    """``--tensor N`` on cards needs N of them unless gloo lets ranks share."""
+    if args.cpu or args.dist_backend == "gloo":
+        return
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards < args.tensor:
+        raise SystemExit(f"--tensor {args.tensor} needs that many devices, have {cards}")
+
+
+def start_mesh(args, params, cfg, engine_kw):
+    """Cut ``params`` (whole, on the host) into each rank's slice, start
+    ranks 1..N-1 (each sent only its slice) and build rank 0's engine in
+    this process.  Returns (the engine, what ``stop_mesh`` ends)."""
+    import tempfile
+
+    from .models.serving import InferenceEngine
+    from .parallel.distributed import (
+        maybe_initialize_distributed,
+        rank_device,
+        resolve_backend,
+        start_ranks,
+    )
+    from .parallel.mesh import MeshSpec, RankDevice, make_mesh
+    from .parallel.sharding import serving_specs, slice_tree
+
+    N = args.tensor
+    try:
+        backend = resolve_backend(args.dist_backend, N, args.cpu)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    layout = make_mesh(MeshSpec(tensor=N), [RankDevice(r) for r in range(N)])
+    specs = serving_specs(params, cfg, layout)
+    slices = {r: slice_tree(params, specs, layout, r) for r in range(N)}
+    tmp = tempfile.TemporaryDirectory(prefix="torch-serve-")
+    rendezvous = "file://" + os.path.join(tmp.name, "rendezvous")
+    log.info("starting %d local ranks over %s", N, backend)
+    procs, results = start_ranks(
+        follow_rank, range(1, N), N,
+        lambda r: (slices.pop(r), cfg, engine_kw, backend, args.cpu),
+        rendezvous=rendezvous)
+    maybe_initialize_distributed(rendezvous, N, 0, backend=backend, local_rank=0,
+                                 local_ranks=N, cpu=args.cpu)
+    mesh = make_mesh(MeshSpec(tensor=N)).connect()
+    engine = InferenceEngine(slices.pop(0), cfg, mesh=mesh, sliced=True,
+                             device=rank_device(0, args.cpu), **engine_kw)
+    return engine, (procs, results, tmp)
+
+
+def follow_rank(rank, world, rendezvous, params, cfg, engine_kw, backend, cpu) -> int:
+    """A follower of ``serve --tensor``: its slice's engine follows rank
+    0's tickets until the stop ticket.  It leaves the signals to rank 0,
+    which ends it."""
+    from .models.serving import InferenceEngine
+    from .parallel.distributed import maybe_initialize_distributed, rank_device
+    from .parallel.mesh import MeshSpec, make_mesh
+
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    maybe_initialize_distributed(rendezvous, world, rank, backend=backend, local_rank=rank,
+                                 local_ranks=world, cpu=cpu)
+    mesh = make_mesh(MeshSpec(tensor=world)).connect()
+    engine = InferenceEngine(params, cfg, mesh=mesh, sliced=True,
+                             device=rank_device(rank, cpu), **engine_kw)
+    del params
+    engine.follow()
+    return 0
+
+
+def stop_mesh(followers, timeout: float = 60.0) -> None:
+    """Wait for the followers (the stop ticket ends them): their results
+    first (a process is joined only after its queue is read), then the
+    processes; kill any that outlive ``timeout`` (0: kill them now, after
+    a fault), and leave the process group."""
+    import queue
+
+    import torch.distributed as dist
+
+    procs, results, tmp = followers
+    for _ in procs:
+        try:
+            rank, ok, val = results.get(timeout=timeout)
+        except queue.Empty:
+            break
+        if not ok:
+            log.error("rank %d failed:\n%s", rank, val)
+    for p in procs:
+        p.join(timeout)
+        if p.is_alive():
+            log.warning("rank process %d is still running; killing it", p.pid)
+            p.kill()
+            p.join()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    tmp.cleanup()
 
 
 if __name__ == "__main__":

@@ -43,12 +43,22 @@ routes this slice serves (stdlib HTTP only):
     GET  /debug/slo        → this replica's journey windows and objectives
     GET  /debug/profiles   → this replica's workload profiles
     GET  /debug/policy     → the loaded ``kv`` policy, its counts, history
-    GET  /healthz          → liveness (503 while draining)
+    GET  /healthz          → liveness (503 while draining, or once a mesh
+                             engine has failed)
     GET  /version          → build version
 
 ONE engine thread (``EngineLoop``) owns all engine state and drives
 fused chunks; HTTP handler threads only submit requests and wait on them,
-and reach the data plane's primitives through ``engine.run_task``.  An
+and reach the data plane's primitives through ``engine.run_task``.  On a
+mesh (``serve --tensor N``) the loop runs on rank 0: each of its rounds
+starts with the engine's ticket (``InferenceEngine.exchange_ticket``),
+which carries the handlers' submits and cancels to the other ranks, and
+it sends an empty one every ``TICKET_HEARTBEAT_S`` while parked, so the
+followers' collective never times out.  A fault there stops the loop:
+the ranks may have parted, so no ticket follows, every waiting request
+and later submit fails at once with a 503
+(``InferenceEngine.fail_mirrored``), ``/healthz`` answers 503, and
+``serve`` exits non-zero so the replica is restarted.  An
 unknown adapter is a 400 naming the registered ones; a full bounded queue
 is a 429.  The data-plane routes answer with the reference's codes: 409
 without the prefix cache (or with no live session to migrate), 404 when
@@ -95,7 +105,13 @@ from ..metrics import (
     Gauge,
     Histogram,
 )
-from ..models.serving import DRAINING_ERROR, QUEUE_FULL_ERROR, InferenceEngine, Request
+from ..models.serving import (
+    DRAINING_ERROR,
+    ENGINE_FAILED_ERROR,
+    QUEUE_FULL_ERROR,
+    InferenceEngine,
+    Request,
+)
 from ..policy import POLICIES
 from ..policy.vm import DEFAULT_BUDGET
 from ..profile import PROFILER
@@ -167,6 +183,10 @@ SERVE_HOST_GAP = REGISTRY.register(
 # one long generation cannot flood the span ring
 STEP_SPAN_EVERY = 32
 
+# a parked loop on a mesh sends an empty ticket this often: the followers
+# wait in a collective that times out after the process group's limit
+TICKET_HEARTBEAT_S = 30.0
+
 
 def choose_kv_victim(eng: InferenceEngine) -> int:
     """The slot to preempt when every slot stalls for pages, and the
@@ -205,6 +225,10 @@ class EngineLoop:
         self._thread: Optional[threading.Thread] = None
         # set by the LOOP thread when it observes draining + idle
         self.drained = threading.Event()
+        # set by the LOOP thread when a mirrored engine faulted and it
+        # stopped: /healthz answers 503, and ``serve`` exits non-zero
+        self.failed = threading.Event()
+        self._step_seq = 0  # steps since a traced batch started (span pacing)
         self.http_inflight = 0  # handler threads still writing responses
         self._inflight_lock = threading.Lock()
 
@@ -231,53 +255,20 @@ class EngineLoop:
         # serving never differentiates: trainable parameters build no graph
         with torch.inference_mode():
             self._serve()
+            if self.engine.mirrored and not self.failed.is_set():
+                self.engine.stop_followers()
 
     def _serve(self) -> None:
         eng = self.engine
         failures = 0
-        step_seq = 0  # steps since a traced batch started (span pacing)
         while not self._stop.is_set():
             try:
-                eng._admit()
-                if any(s is not None for s in eng.slots):
-                    traced = next((s.trace_ctx for s in eng.slots
-                                   if s is not None and s.trace_ctx is not None), None)
-                    # host counters only: a clock read and the token count
-                    # (which, overlapped, moves one chunk late), never the device
-                    prof = PROFILER.enabled
-                    if prof:
-                        prof_t0 = time.perf_counter()
-                        prof_tok0 = eng.tokens_emitted
-                    if traced is not None and step_seq % STEP_SPAN_EVERY == 0:
-                        # overlapped, the step returns once the next chunk is
-                        # dispatched: the span times the host's dispatch
-                        with TRACER.span("engine.step", parent=traced, step=step_seq,
-                                         slots=sum(1 for s in eng.slots if s is not None)
-                                         ) as sp:
-                            eng.step()
-                            sp.set_attr("host_gap_ms", round(eng.last_host_gap_ms, 3))
-                            sp.set_attr("overlap", eng.overlap)
-                            if prof:
-                                wall = time.perf_counter() - prof_t0
-                                sp.set_attr("tokens_per_sec",
-                                            round((eng.tokens_emitted - prof_tok0) / wall, 1)
-                                            if wall > 0 else 0.0)
-                    else:
-                        eng.step()
-                    if prof:
-                        PROFILER.record_step(
-                            tokens=eng.tokens_emitted - prof_tok0,
-                            wall_s=time.perf_counter() - prof_t0,
-                            slots_active=sum(1 for s in eng.slots if s is not None),
-                            slots_total=eng.max_batch,
-                            host_gap_ms=eng.last_host_gap_ms,
-                            queue_depth=eng.queue.qsize(),
-                            hbm_pages=eng.n_pages - 1 - len(eng.free_pages),
-                        )
-                    step_seq = step_seq + 1 if traced is not None else 0
-                else:
-                    eng._drain_pending()
-                    if eng.draining and eng.queue.empty():
+                if eng.mirrored:
+                    eng.exchange_ticket(preempt=True)
+                # the body every follower runs too; a dry pool preempts ONE
+                # victim (overload, not a bug), on every rank of a mesh
+                if not eng.round(preempt=True, victim_fn=choose_kv_victim, step=self._step):
+                    if eng.draining and eng.queue.empty() and not eng._unticketed:
                         self.drained.set()
                     # clear → re-check → wait: a submit after the clear
                     # re-sets the event, so no wakeup is lost
@@ -285,40 +276,63 @@ class EngineLoop:
                     if (
                         eng.queue.empty()
                         and eng._tasks.empty()
+                        and not eng._unticketed
                         and not any(s is not None for s in eng.slots)
                         and not self._stop.is_set()
                     ):
                         self.idle_parks += 1
                         self.parked.set()
-                        eng._work.wait()
+                        eng._work.wait(TICKET_HEARTBEAT_S if eng.mirrored else None)
                         self.parked.clear()
                 failures = 0
-            except RuntimeError as e:
-                if "page pool exhausted" not in str(e):
-                    failures += 1
-                    self._fail_all("internal engine error", failures)
-                    continue
-                # overload, not a bug: preempt ONE victim.  Its first
-                # eviction requeues it for an exact resume; a second means
-                # it cannot fit the pool and it fails.
-                victim = choose_kv_victim(eng)
-                req = eng.slots[victim]
-                log.warning(
-                    "KV page pool exhausted; preempting priority-%d slot %d "
-                    "(%d pages held)", int(eng.priorities[victim]), victim,
-                    len(eng.slot_pages[victim]),
-                )
-                if req.pool_spills < 1:
-                    req.pool_spills += 1
-                    eng.spills += 1
-                    eng.evict_slot(victim)
-                else:
-                    req.error = "preempted: KV page pool exhausted"
-                    req.done.set()
-                    eng._release_slot(victim)
             except Exception:
                 failures += 1
                 self._fail_all("internal engine error", failures)
+                if eng.mirrored:
+                    # the ranks' mirrors may have parted: stop serving, and
+                    # let the process exit so the replica is restarted
+                    log.error("engine on a mesh failed; the replica stops")
+                    eng.fail_mirrored()
+                    self.failed.set()
+                    return
+
+    def _step(self) -> None:
+        """One engine step inside the loop's span and profile."""
+        eng = self.engine
+        traced = next((s.trace_ctx for s in eng.slots
+                       if s is not None and s.trace_ctx is not None), None)
+        # host counters only: a clock read and the token count (which,
+        # overlapped, moves one chunk late), never the device
+        prof = PROFILER.enabled
+        if prof:
+            prof_t0 = time.perf_counter()
+            prof_tok0 = eng.tokens_emitted
+        if traced is not None and self._step_seq % STEP_SPAN_EVERY == 0:
+            # overlapped, the step returns once the next chunk is
+            # dispatched: the span times the host's dispatch
+            with TRACER.span("engine.step", parent=traced, step=self._step_seq,
+                             slots=sum(1 for s in eng.slots if s is not None)) as sp:
+                eng.step()
+                sp.set_attr("host_gap_ms", round(eng.last_host_gap_ms, 3))
+                sp.set_attr("overlap", eng.overlap)
+                if prof:
+                    wall = time.perf_counter() - prof_t0
+                    sp.set_attr("tokens_per_sec",
+                                round((eng.tokens_emitted - prof_tok0) / wall, 1)
+                                if wall > 0 else 0.0)
+        else:
+            eng.step()
+        if prof:
+            PROFILER.record_step(
+                tokens=eng.tokens_emitted - prof_tok0,
+                wall_s=time.perf_counter() - prof_t0,
+                slots_active=sum(1 for s in eng.slots if s is not None),
+                slots_total=eng.max_batch,
+                host_gap_ms=eng.last_host_gap_ms,
+                queue_depth=eng.queue.qsize(),
+                hbm_pages=eng.n_pages - 1 - len(eng.free_pages),
+            )
+        self._step_seq = self._step_seq + 1 if traced is not None else 0
 
     def _fail_all(self, msg: str, failures: int = 1) -> None:
         """An engine fault must not kill the loop silently: fail every
@@ -542,9 +556,9 @@ def _logprobs_payload(req: Request) -> dict:
 
 
 def _reject_code(error: str) -> int:
-    """draining → 503 (retry elsewhere); queue full → 429 (back off);
-    everything else → 400."""
-    if error == DRAINING_ERROR:
+    """draining or a failed mesh engine → 503 (retry elsewhere); queue full
+    → 429 (back off); everything else → 400."""
+    if error in (DRAINING_ERROR, ENGINE_FAILED_ERROR):
         return 503
     if error == QUEUE_FULL_ERROR:
         return 429
@@ -604,6 +618,8 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
 
         def do_GET(self):
             if self.path == "/healthz":
+                if loop.failed.is_set():
+                    return self._json(503, {"ok": False, "failed": True})
                 if engine.draining:
                     return self._json(503, {"ok": False, "draining": True})
                 return self._json(200, {"ok": True})
@@ -643,6 +659,9 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                     "paged_kernel": eng.paged_kernel,
                     "vocab_size": eng.cfg.vocab_size,
                     "device": str(eng.device),
+                    "mesh": (None if eng.mesh is None else
+                             {"shape": {a: n for a, n in eng.mesh.shape.items() if n > 1},
+                              "ranks": eng.mesh.size}),
                     "steps_run": int(eng.steps_run),
                     "prefills_run": int(eng.prefills_run),
                     "tokens_emitted": int(eng.tokens_emitted),

@@ -1398,3 +1398,82 @@ def test_import_into_a_captured_pool_replays_the_imported_pages(cuda, kv_int8):
             assert dst.graph_replays > replays
         outs[(str(where), overlap)] = r.output
     assert len(set(map(tuple, outs.values()))) == 1
+
+
+# (T, E, K, N, dtype, int8): the ring kernel (bf16 decode runs, with and
+# without a K cluster), the wgmma kernel (grouped prefill runs) and CUDA
+# cores split over K (float32, partials and the combine kernel)
+KE_FOREIGN_CASES = [
+    (8, 4, 2048, 6912, torch.bfloat16, False),
+    (8, 4, 2048, 6912, torch.bfloat16, True),
+    (5, 4, 2048, 2048, torch.bfloat16, True),
+    (300, 4, 512, 384, torch.bfloat16, False),
+    (300, 4, 512, 384, torch.bfloat16, True),
+    (8, 4, 6912, 2048, torch.float32, False),
+    (8, 4, 6912, 2048, torch.float32, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", KE_FOREIGN_CASES, ids=str)
+def test_expert_matmul_foreign_ids_are_zero_rows(cuda, case):
+    """A token routed outside [0, E) (another rank's expert on an expert
+    mesh: local id = id - e0) gets a zero row from every route, as from the
+    plain version, and every other row is the plain version's.  The output
+    starts as NaNs, so a row the kernel left unwritten shows."""
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import (
+        expert_matmul,
+        expert_matmul_plan,
+        expert_matmul_reference,
+    )
+
+    T, E, K, N, dtype, int8 = case
+    x, w, sc = _ke_inputs(cuda, T, E, K, N, dtype, int8)
+    # as a rank of expert=2 sees its half of 2E experts: ids in [-E, 2E)
+    ids = torch.tensor(np.random.default_rng(T + K).integers(-E, 2 * E, T).tolist(),
+                       dtype=torch.int32, device=cuda)
+    foreign = (ids < 0) | (ids >= E)
+    assert bool(foreign.any()) and not bool(foreign.all())
+    plan = expert_matmul_plan(x, w, ids)
+    for out_dtype in (dtype, torch.float32):
+        # the caching allocator hands this block to the kernel's output next
+        torch.full((T, N), float("nan"), dtype=out_dtype, device=cuda)
+        got = expert_matmul(x, w, ids, scale=sc, out_dtype=out_dtype)
+        want = expert_matmul_reference(x, w, ids, sc, out_dtype)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), plan
+        assert bool((got[foreign] == 0).all()), plan
+        atol, rtol = KE_TOL[dtype]
+        d = (got.float() - want.float()).abs()
+        assert bool((d <= atol + rtol * want.float().abs()).all()), (plan, float(d.max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["bfloat16", "int8-bfloat16", "float32"])
+@pytest.mark.parametrize("W", [1, 4])
+def test_paged_kernel_on_a_head_slice_matches_plain(cuda, pool, W):
+    """K2 as a tensor=2 serving rank calls it: its half of the pool's kv
+    heads (a tensor of its own) and its half of the query heads, n_rep
+    unchanged; equal to the plain version on the slice and to the whole
+    pool's kernel output on those heads."""
+    int8 = pool.startswith("int8")
+    dtype = torch.float32 if pool.endswith("float32") else torch.bfloat16
+    q, pools, tables, lengths = _paged_case(cuda, 8, 16, W, 40, dtype, int8, seed=W)
+    kw = {}
+    if int8:
+        kw.update(scales_k=pools[2], scales_v=pools[3])
+    whole = paged_attention(q, *pools[:2], tables, lengths, **kw)
+    for half in (0, 1):
+        hq = slice(8 * half, 8 * half + 8)
+        hk = slice(4 * half, 4 * half + 4)
+        ql = q[..., hq, :].contiguous()
+        pl = [p[:, :, hk].contiguous() for p in pools]
+        kwl = {} if not int8 else dict(scales_k=pl[2], scales_v=pl[3])
+        name = "paged_attention_int8" if int8 else "paged_attention"
+        before = _build.LAUNCHES[name]
+        got = paged_attention(ql, *pl[:2], tables, lengths, **kwl)
+        assert _build.LAUNCHES[name] == before + 1
+        ref = paged_attention_reference(ql, *pl[:2], tables, lengths, **kwl)
+        torch.cuda.synchronize()
+        assert got.shape == ql.shape and _close(got, ref)
+        assert _close(got, whole[..., hq, :])

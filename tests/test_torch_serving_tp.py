@@ -1,0 +1,537 @@
+"""Serving on a mesh: the port's engine on gloo CPU ranks against the
+reference engine on one device, float32.
+
+One spawn of 4 ranks (a module fixture) runs every engine below while this
+process runs the reference engine (sequential mode, behind
+``reference_engine_copies_uploads``) on the same weights and prompts.
+Rank 0 submits and drives the engine; the other ranks ``follow`` its
+tickets.  Two tensor=2 meshes run side by side on ranks (0, 1) and (2, 3),
+then data=2,tensor=2 on all four:
+
+- greedy tokens equal the reference's, and so do its counters
+  (``steps_run``, ``prefills_run``, ``spec_passes``, ``spec_accepted``,
+  ``spills``), on the gather path, the paged kernel, the paged kernel with
+  spec_k 3, int8 KV with 3 heads (attention replicated, the MLP cut),
+  prefix cache + chunked prefill, int8 weights, mixed adapters, a draft
+  model, a spill and resume, and the overlapped loop;
+- every rank's emissions (in order), ``lengths``, tables, free pages and
+  counters are equal;
+- each rank's weight and pool slices are the reference's addressable
+  shards on the device at its mesh position, or whole where the port's
+  whole-heads rule replicates;
+- a mesh without ``tensor`` raises ``ValueError``, the paged kernel over
+  heads ``tensor`` does not divide raises, the disaggregated verbs and a
+  follower's ``submit`` are refused by name;
+- after a fault, rank 0's loop sends no further ticket, fails every
+  waiting request and later submit, and ``/healthz`` answers 503.
+
+The MoE meshes and ``serve --tensor`` are in ``test_torch_serving_mesh_moe``.
+"""
+
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from elastic_gpu_scheduler_tpu.models import serving as jax_serving
+from elastic_gpu_scheduler_tpu_torch.models.bridge import lora_from_jax, params_from_jax
+from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
+from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig
+from elastic_gpu_scheduler_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed,
+    spawn_ranks,
+)
+from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec, RankDevice, make_mesh
+from test_torch_engine import _CopyingJnp, reference_engine_copies_uploads  # noqa: F401
+
+torch.set_num_threads(1)
+
+WORLD = 4
+SPAWN_TIMEOUT = 300  # seconds a spawn of ranks may take before it is killed
+CFGS = {
+    "dense": dict(vocab_size=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                  d_ff=128, dtype="float32"),
+    "odd": dict(vocab_size=97, d_model=48, n_layers=2, n_heads=3, d_ff=96, dtype="float32"),
+    "draft": dict(vocab_size=97, d_model=32, n_layers=1, n_heads=2, d_ff=64, dtype="float32"),
+}
+PROMPTS = [[5, 17, 3], [60, 2, 9, 9], list(range(1, 17)), [42]]
+SHARED = list(range(1, 18))  # two full pages of 8
+COUNTERS = ("steps_run", "prefills_run", "spec_passes", "spec_accepted", "spills")
+BASE = dict(max_batch=4, max_len=64, page_size=8)
+LORAS = [("a1", 4, ("wq", "wv", "w_out")), ("a2", 2, ("wk", "wo", "w_in", "w_gate"))]
+
+# name → how it runs: the model (cfg) and its weights (tree, a key of
+# ``jax_trees``), engine kwargs shared by both engines, prompts, new
+# tokens, and optional flags
+DENSE = dict(cfg=CFGS["dense"], tree="dense")
+CASES = {
+    "gather": dict(DENSE, eng=BASE, keep=True),
+    "paged": dict(DENSE, eng=dict(BASE, paged_kernel=True)),
+    "paged_spec": dict(DENSE, eng=dict(BASE, paged_kernel=True, spec_k=3)),
+    "odd_int8kv": dict(cfg=CFGS["odd"], tree="odd",
+                       eng=dict(BASE, max_batch=2, max_len=32, kv_int8=True),
+                       prompts=PROMPTS[:2], new=6, keep=True),
+    "prefix_chunked": dict(DENSE, eng=dict(BASE, prefix_cache=True, prefill_chunk=4,
+                                           paged_kernel=True),
+                           prompts=[SHARED + [40], SHARED + [7, 7], [5, 17, 3], SHARED + [9]]),
+    "int8_weights": dict(DENSE, tree="dense/int8", eng=BASE, keep=True),
+    "adapters": dict(DENSE, eng=dict(BASE, fused_steps=4), adapters=True,
+                     prompts=[[5, 17, 3], [5, 17, 3], SHARED + [40], [9], [60, 2, 33, 8]],
+                     adapter_of=["", "a1", "a2", "a1", "a2"]),
+    "draft": dict(DENSE, eng=dict(BASE, max_len=96, spec_k=3), draft=True,
+                  prompts=[[5, 17, 3], [60, 2, 9, 9, 9, 9], list(range(1, 20)), [42, 5]],
+                  new=10),
+    "spill": dict(DENSE, eng=dict(max_batch=2, max_len=64, page_size=8, n_pages=6,
+                                  fused_steps=2), kind="spill"),
+    "overlapped": dict(DENSE, eng=BASE, overlap=True),
+    "refused": dict(DENSE, eng=BASE, kind="refused"),
+}
+# rounds of (mesh name, axes, ranks, cases); meshes of one round run side by side
+ROUNDS = [
+    [("tensor=2 a", dict(tensor=2), (0, 1),
+      ["gather", "paged", "paged_spec", "odd_int8kv", "prefix_chunked", "refused"]),
+     ("tensor=2 b", dict(tensor=2), (2, 3),
+      ["int8_weights", "adapters", "draft", "spill", "overlapped"])],
+    [("data=2,tensor=2", dict(data=2, tensor=2), (0, 1, 2, 3), ["gather"])],
+]
+SPILL_PROMPT, SPILL_HIGH = [3, 9, 14, 27, 5, 1, 2, 6], [2, 4, 6, 8, 10, 12, 1, 7]
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k], path + (k,))]
+    return [("/".join(path), tree)]
+
+
+def _join(rank, world, rendezvous):
+    torch.set_num_threads(1)
+    maybe_initialize_distributed(rendezvous, world, rank, backend="gloo", local_rank=rank,
+                                 local_ranks=world, cpu=True)
+
+
+def _mesh(kw, ranks):
+    return make_mesh(MeshSpec(**kw), [RankDevice(r) for r in ranks])
+
+
+def _requests(case, request_cls):
+    prompts = case.get("prompts", PROMPTS)
+    new = case.get("new", 8)
+    adapters = case.get("adapter_of", [""] * len(prompts))
+    return [request_cls(prompt=list(p), max_new_tokens=new, adapter=a)
+            for p, a in zip(prompts, adapters)]
+
+
+def _port_kwargs(case, trees):
+    kw = dict(case["eng"], overlap=case.get("overlap", False))
+    if case.get("adapters"):
+        kw["adapters"] = {n: lora_from_jax(lo, "cpu") for n, lo in trees["loras"].items()}
+    if case.get("draft"):
+        kw["draft"] = (params_from_jax(trees["draft"], "cpu"), TransformerConfig(**CFGS["draft"]))
+    return kw
+
+
+def _refusals(eng, mesh, trees):
+    """The names the mesh refuses, each as the message it raised."""
+    out = {}
+    calls = {
+        "export_prefix_pages": lambda: eng.export_prefix_pages([1, 2, 3]),
+        "import_pages": lambda: eng.import_pages({}, []),
+        "migrate_out_bundle": lambda: eng.migrate_out_bundle(0),
+        "resume_session": lambda: eng.resume_session({"prompt": [1]}),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            out[name] = str(e)
+    if not eng.leader:
+        try:
+            eng.submit(Request(prompt=[1, 2], max_new_tokens=2))
+        except RuntimeError as e:
+            out["follower_submit"] = str(e)
+    try:
+        InferenceEngine(params_from_jax(trees["odd"], "cpu"), TransformerConfig(**CFGS["odd"]),
+                        device="cpu", mesh=mesh, paged_kernel=True)
+    except ValueError as e:
+        out["paged_kernel_heads"] = str(e)
+    return out
+
+
+def run_case(name, case, mesh, trees) -> dict:
+    """One engine of ``case`` on this rank: rank 0 submits and drives, the
+    others follow.  Returns what the test holds: rank 0's tokens and
+    errors, every rank's emission log and host state, and the engine's
+    local leaves where ``keep``."""
+    cfg = TransformerConfig(**case["cfg"])
+    eng = InferenceEngine(params_from_jax(trees[case["tree"]], "cpu"), cfg, device="cpu",
+                          mesh=mesh, **_port_kwargs(case, trees))
+    log = []
+    emit = eng._emit
+
+    def logged(req, tok, *a, **k):
+        log.append((tuple(req.prompt), int(tok)))
+        emit(req, tok, *a, **k)
+
+    eng._emit = logged
+    out = {}
+    if case.get("kind") == "refused":
+        out["refused"] = _refusals(eng, mesh, trees)
+    if eng.leader:
+        if case.get("kind") == "spill":
+            victim = eng.submit(Request(prompt=list(SPILL_PROMPT), max_new_tokens=30))
+            for _ in range(40):  # rounds until the pool runs dry, the victim mid-flight
+                eng.exchange_ticket()
+                if not eng.round() or not eng.free_pages:
+                    break
+            out["pressure"] = (not victim.done.is_set(), len(eng.free_pages))
+            reqs = [victim, eng.submit(Request(prompt=list(SPILL_HIGH), max_new_tokens=8,
+                                               priority=5))]
+        elif case.get("kind") == "refused":
+            reqs = []
+        else:
+            reqs = [eng.submit(r) for r in _requests(case, Request)]
+        eng.run_until_idle(max_steps=100_000)
+        eng.stop_followers()
+        out["tokens"] = [r.output for r in reqs]
+        out["errors"] = [r.error for r in reqs]
+    else:
+        eng.follow()
+    out["log"] = log
+    out["state"] = dict({c: int(getattr(eng, c)) for c in COUNTERS},
+                        lengths=eng.lengths.tolist(), tables=eng.tables.tolist(),
+                        free_pages=sorted(eng.free_pages), tickets=eng.tickets,
+                        graph_replays=eng.graph_replays)
+    out["kv_shapes"] = {k: tuple(v.shape) for k, v in eng.kv.items()}
+    if case.get("keep"):
+        out["leaves"] = [(p, t.detach().numpy().copy()) for p, t in _flat(eng.params)]
+    return out
+
+
+def serve_worker(rank, world, rendezvous, rounds, cases, trees):
+    _join(rank, world, rendezvous)
+    out = {}
+    for rnd in rounds:
+        # every rank connects every mesh (process groups are made by the world)
+        meshes = [_mesh(kw, ranks).connect() for _, kw, ranks, _ in rnd]
+        for (mname, _kw, ranks, names), m in zip(rnd, meshes):
+            if rank not in ranks:
+                continue
+            for name in names:
+                out[(mname, name)] = run_case(name, cases[name], m, trees)
+    return out
+
+
+# -- the reference on one device ------------------------------------------------
+
+
+def jax_trees():
+    """The reference's weights (numpy leaves) by CFGS name, the dense
+    model's int8 tree ("dense/int8") and its adapters ("loras")."""
+    from elastic_gpu_scheduler_tpu.models import lora as jlora
+    from elastic_gpu_scheduler_tpu.models.quantize import quantize_params
+    from elastic_gpu_scheduler_tpu.models.transformer import (
+        TransformerConfig as JaxConfig,
+        init_params,
+    )
+
+    trees = {}
+    for n, (name, c) in enumerate(CFGS.items()):
+        trees[name] = jax.tree.map(np.asarray, init_params(jax.random.key(2 + n),
+                                                           JaxConfig(**c)))
+    dense = jax.tree.map(jnp.asarray, trees["dense"])
+    trees["dense/int8"] = jax.tree.map(np.asarray, quantize_params(dense))
+    loras = {}
+    for n, (name, rank, targets) in enumerate(LORAS):
+        lo = jlora.lora_init(jax.random.key(10 + n), dense, rank=rank, targets=targets)
+        for t, ab in lo["adapters"].items():
+            lo["adapters"][t]["b"] = jax.random.normal(jax.random.key(20 + n),
+                                                       ab["b"].shape) * 0.3
+        loras[name] = jax.tree.map(np.asarray, lo)
+    trees["loras"] = loras
+    return trees
+
+
+def jax_case(case, trees) -> dict:
+    """The reference engine on one device, sequential, on the same case."""
+    from elastic_gpu_scheduler_tpu.models.serving import InferenceEngine as JaxEngine
+    from elastic_gpu_scheduler_tpu.models.serving import Request as JaxRequest
+    from elastic_gpu_scheduler_tpu.models.transformer import TransformerConfig as JaxConfig
+
+    to_jax = lambda t: jax.tree.map(jnp.asarray, t)  # noqa: E731
+    kw = dict(case["eng"], overlap=False)
+    if case.get("adapters"):
+        kw["adapters"] = {n: to_jax(lo) for n, lo in trees["loras"].items()}
+    if case.get("draft"):
+        kw["draft"] = (to_jax(trees["draft"]), JaxConfig(**CFGS["draft"]))
+    eng = JaxEngine(to_jax(trees[case["tree"]]), JaxConfig(**case["cfg"]), **kw)
+    if case.get("kind") == "spill":
+        victim = eng.submit(JaxRequest(prompt=list(SPILL_PROMPT), max_new_tokens=30))
+        for _ in range(40):
+            eng._admit()
+            if not any(s is not None for s in eng.slots):
+                break
+            eng.step()
+            if not eng.free_pages:
+                break
+        reqs = [victim, eng.submit(JaxRequest(prompt=list(SPILL_HIGH), max_new_tokens=8,
+                                              priority=5))]
+    else:
+        reqs = [eng.submit(r) for r in _requests(case, JaxRequest)]
+    eng.run_until_idle(max_steps=100_000)
+    for r in reqs:
+        assert r.done.is_set() and not r.error, r.error
+    return {"tokens": [r.output for r in reqs],
+            "counters": {c: int(getattr(eng, c)) for c in COUNTERS}}
+
+
+def spawn_and_reference(tmp_path, rounds, cases, trees, reference):
+    """``serve_worker`` on WORLD ranks (from a thread) while this process
+    computes ``reference()``; returns (the ranks' results, the reference's)."""
+    box = {}
+
+    def run():
+        try:
+            box["res"] = spawn_ranks(serve_worker, WORLD, (rounds, cases, trees),
+                                     rendezvous=f"file://{tmp_path / 'rendezvous'}",
+                                     timeout_s=SPAWN_TIMEOUT)
+        except BaseException as e:  # re-raised below
+            box["err"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_serving, "jnp", _CopyingJnp())
+            refs = reference()
+    finally:
+        th.join()
+    if "err" in box:
+        raise box["err"]
+    return box["res"], refs
+
+
+def check_case(res, refs, mname, ranks, name, case):
+    """Rank 0's tokens and counters against the reference's; every rank's
+    emission log and host state equal."""
+    got = res[ranks[0]][(mname, name)]
+    want = refs[name]
+    assert got["errors"] == [""] * len(got["tokens"]), got["errors"]
+    assert got["tokens"] == want["tokens"], (mname, name)
+    if not case.get("overlap"):
+        state = {c: got["state"][c] for c in COUNTERS}
+        assert state == want["counters"], (mname, name)
+    assert got["log"], (mname, name)
+    for r in ranks[1:]:
+        other = res[r][(mname, name)]
+        assert other["log"] == got["log"], (mname, name, r)
+        assert other["state"] == got["state"], (mname, name, r)
+
+
+def addressable_shard(leaf, jmesh, coords):
+    """The reference leaf's shard on the device at mesh position ``coords``."""
+    dev = jmesh.devices[coords]
+    (shard,) = [s for s in leaf.addressable_shards if s.device == dev]
+    return np.asarray(shard.data)
+
+
+def check_slices(res, kw, ranks, tree, replicated=()):
+    """Each rank's leaves are the reference's addressable shards on the
+    device at its mesh position (whole for the leaves ``replicated``
+    names: the port keeps attention heads whole)."""
+    from elastic_gpu_scheduler_tpu.parallel import mesh as jmesh_mod
+
+    jmesh = jmesh_mod.make_mesh(jmesh_mod.MeshSpec(**kw), jax.devices()[:len(ranks)])
+    placed = jax_serving._shard_params_for_mesh(jax.tree.map(jnp.asarray, tree), jmesh)
+    whole = dict(_flat(tree))
+    ref = dict(_flat(placed))
+    pm = _mesh(kw, ranks)
+    for r in ranks:
+        coords = pm.coords(r)
+        for path, leaf in res[r]:
+            want = (whole[path] if any(f"/{n}/" in f"/{path}/" for n in replicated)
+                    else addressable_shard(ref[path], jmesh, coords))
+            np.testing.assert_array_equal(leaf, want, err_msg=f"{path} rank {r}")
+
+
+# -- the tests ---------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    trees = jax_trees()
+
+    def reference():
+        names = {n for rnd in ROUNDS for _, _, _, ns in rnd for n in ns}
+        return {n: jax_case(CASES[n], trees) for n in sorted(names)
+                if CASES[n].get("kind") != "refused" and not CASES[n].get("overlap")}
+
+    res, refs = spawn_and_reference(tmp_path_factory.mktemp("tp"), ROUNDS, CASES, trees,
+                                    reference)
+    refs["overlapped"] = refs["gather"]  # the same engine, the sequential reference
+    return res, refs, trees
+
+
+MESH_CASES = [(m, kw, ranks, n) for rnd in ROUNDS for m, kw, ranks, ns in rnd for n in ns
+              if CASES[n].get("kind") != "refused"]
+
+
+@pytest.mark.parametrize("case", MESH_CASES, ids=lambda c: f"{c[0]}-{c[3]}".replace(" ", ""))
+def test_mesh_engine_matches_the_reference_on_one_device(mesh_runs, case):
+    res, refs, _ = mesh_runs
+    mname, _kw, ranks, name = case
+    check_case(res, refs, mname, ranks, name, CASES[name])
+
+
+def test_spill_reached_pressure_and_resumed(mesh_runs):
+    res, _, _ = mesh_runs
+    got = res[2][("tensor=2 b", "spill")]
+    assert got["pressure"] == (True, 0)
+    assert got["state"]["spills"] >= 1 and len(got["tokens"][0]) == 30
+
+
+def test_overlapped_mesh_runs_chunks_eagerly(mesh_runs):
+    """On the CPU nothing captures; the counters say the loop ran eagerly."""
+    res, _, _ = mesh_runs
+    for r in (2, 3):
+        assert res[r][("tensor=2 b", "overlapped")]["state"]["graph_replays"] == 0
+
+
+@pytest.mark.parametrize("mname,kw,ranks", [("tensor=2 a", dict(tensor=2), (0, 1)),
+                                             ("data=2,tensor=2", dict(data=2, tensor=2),
+                                              (0, 1, 2, 3))], ids=["tensor2", "data2tensor2"])
+def test_weights_and_pool_are_the_reference_shards(mesh_runs, mname, kw, ranks):
+    res, _, trees = mesh_runs
+    leaves = {r: res[r][(mname, "gather")]["leaves"] for r in ranks}
+    check_slices(leaves, kw, ranks, trees["dense"])
+    # really cut: wq holds half its heads, the pool half its kv heads
+    wq = dict(leaves[ranks[0]])["layers/wq"]
+    assert wq.shape == (2, 64, 32)
+    for r in ranks:
+        assert res[r][(mname, "gather")]["kv_shapes"]["k"] == (2, 33, 8, 1, 16)
+
+
+def test_int8_weights_are_the_reference_shards(mesh_runs):
+    res, _, trees = mesh_runs
+    ranks = (2, 3)
+    leaves = {r: res[r][("tensor=2 b", "int8_weights")]["leaves"] for r in ranks}
+    check_slices(leaves, dict(tensor=2), ranks, trees["dense/int8"])
+    got = dict(leaves[2])
+    assert got["layers/wq/q8"].shape == (2, 64, 32) and got["layers/wq/scale"].shape == (2, 1, 32)
+    assert got["layers/wo/scale"].shape == (2, 1, 64)  # row-parallel: its scale whole
+
+
+def test_odd_heads_replicate_attention_and_cut_the_mlp(mesh_runs):
+    """3 heads on tensor=2: the attention leaves and the pool stay whole
+    (the port's whole-heads rule), the MLP, embed and unembed are the
+    reference's shards."""
+    res, _, trees = mesh_runs
+    ranks = (0, 1)
+    leaves = {r: res[r][("tensor=2 a", "odd_int8kv")]["leaves"] for r in ranks}
+    check_slices(leaves, dict(tensor=2), ranks, trees["odd"],
+                 replicated=("wq", "wk", "wv", "wo"))
+    got = dict(leaves[0])
+    assert got["layers/wq"].shape == (2, 48, 48) and got["layers/w_in"].shape == (2, 48, 48)
+    assert res[0][("tensor=2 a", "odd_int8kv")]["kv_shapes"]["ks"][-1] == 3
+
+
+def test_mesh_refusals_name_what_they_refuse(mesh_runs):
+    res, _, _ = mesh_runs
+    for r in (0, 1):
+        got = res[r][("tensor=2 a", "refused")]["refused"]
+        for verb in ("export_prefix_pages", "import_pages", "migrate_out_bundle",
+                     "resume_session"):
+            assert verb in got[verb] and "mesh of 2 ranks" in got[verb]
+        assert "divisible" in got["paged_kernel_heads"]
+    assert "tickets" in res[1][("tensor=2 a", "refused")]["refused"]["follower_submit"]
+
+
+def test_mesh_without_a_tensor_axis_raises():
+    cfg = TransformerConfig(**CFGS["dense"])
+    params = params_from_jax(jax_trees()["dense"], "cpu")
+    mesh = make_mesh(MeshSpec()).connect()
+    mesh.axis_names = ("data",)  # a mesh whose axes do not name tensor
+    with pytest.raises(ValueError, match="tensor"):
+        InferenceEngine(params, cfg, device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="connect"):
+        InferenceEngine(params, cfg, device="cpu", mesh=make_mesh(MeshSpec()))
+
+
+def test_a_follower_whose_state_parted_raises(monkeypatch):
+    """The ticket carries rank 0's host-state digest: a follower whose own
+    matches applies the ticket; one whose state parted raises, naming the
+    ticket, before it runs another round."""
+    from types import SimpleNamespace
+
+    from elastic_gpu_scheduler_tpu_torch.models import serving
+
+    eng = InferenceEngine(params_from_jax(jax_trees()["dense"], "cpu"),
+                          TransformerConfig(**CFGS["dense"]), device="cpu", **BASE)
+    eng.mirrored, eng.leader, eng.mesh = True, False, SimpleNamespace(rank=1)
+    ticket = {"new": [(0, {"prompt": [5, 17, 3], "max_new_tokens": 4})], "cancel": [],
+              "draining": False, "stop": False, "preempt": False,
+              "digest": eng._mirror_digest()}
+    monkeypatch.setattr(serving, "broadcast_object", lambda obj, mesh: ticket)
+    eng.exchange_ticket()
+    assert eng.queue.qsize() == 1 and eng.tickets == 1
+    ticket = dict(ticket, new=[], digest=eng._mirror_digest())
+    eng.lengths[0] += 1  # this rank's state parts from rank 0's
+    with pytest.raises(RuntimeError, match="parted from rank 0's before ticket 1"):
+        eng.exchange_ticket()
+
+
+def test_a_mesh_engine_that_faults_stops_serving(monkeypatch):
+    """Rank 0's ``EngineLoop`` on a mirrored engine: a fault in a round
+    fails every waiting request at once, sends no further ticket (a
+    follower may be inside a collective), and leaves the replica unhealthy
+    so it is restarted: /healthz and a later completion answer 503."""
+    import http.client
+    import json
+    from types import SimpleNamespace
+
+    from elastic_gpu_scheduler_tpu_torch.models import serving
+    from elastic_gpu_scheduler_tpu_torch.server.inference import serve_inference
+
+    eng = InferenceEngine(params_from_jax(jax_trees()["dense"], "cpu"),
+                          TransformerConfig(**CFGS["dense"]), device="cpu", **BASE)
+    eng.mirrored, eng.mesh = True, SimpleNamespace(rank=0)  # rank 0 of a mesh
+    tickets = []
+    monkeypatch.setattr(serving, "broadcast_object",
+                        lambda obj, mesh: tickets.append(obj) or obj)
+    faults = []
+
+    def admit():
+        if eng.queue.qsize():
+            faults.append(eng.queue.qsize())
+            raise RuntimeError("a collective failed")
+
+    monkeypatch.setattr(eng, "_admit", admit)
+    server, loop = serve_inference(eng, port=0, host="127.0.0.1")
+    addr = server.server_address
+    try:
+        waiting = [eng.submit(Request(prompt=list(p), max_new_tokens=4)) for p in PROMPTS[:2]]
+        assert loop.failed.wait(30)
+        loop._thread.join(30)
+        assert not loop._thread.is_alive() and len(faults) == 1
+        for r in waiting:
+            assert r.done.is_set() and r.error == serving.ENGINE_FAILED_ERROR
+        assert tickets and not any(t["stop"] for t in tickets)
+        late = eng.submit(Request(prompt=[1, 2], max_new_tokens=2))
+        assert late.done.is_set() and late.error == serving.ENGINE_FAILED_ERROR
+        conn = http.client.HTTPConnection(*addr, timeout=30)
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        assert resp.status == 503 and json.loads(resp.read())["failed"]
+        conn.request("POST", "/v1/completions",
+                     json.dumps({"prompt": [1, 2], "max_tokens": 2}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 503
+        assert json.loads(resp.read())["error"] == serving.ENGINE_FAILED_ERROR
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
