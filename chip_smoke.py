@@ -7,7 +7,8 @@ Phases, each failing the run (non-zero exit) on any fault:
 1. device and toolchain: the card's name and power limit (nvidia-smi),
    torch / CUDA / nvcc versions;
 2. build: every ``csrc/*.cu`` of the port compiled with nvcc for sm_90a
-   (ptxas registers and spills logged);
+   into the kernel library's compile-cache entry (ptxas registers and
+   spills logged);
 3. K1 (flash-attention forward) against ``mha_reference`` on the card:
    the serve-prefill shapes, the train shape and edge cases on its grid,
    each logging the kernel (and so the query tile) that ran, so that every
@@ -164,7 +165,7 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    journeys on ``/debug/slo``; ``/debug/profiles`` with the card's
    generation and the step-sampled tokens (all but each request's prefill
    token); client TTFT, e2e, time a token and queue wait beside the
-   server's; tokens/s of the same batch in 10 pairs of rounds (3 batches
+   server's; tokens/s of the same batch in 6 pairs of rounds (3 batches
    a round) with every plane on and off, the cost resolved against the
    off rounds' spread, and the idle share under torch.profiler on 2
    batches a side; the batch behind the stdlib's listen backlog of 5;
@@ -259,6 +260,23 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    decode step or verify pass, KE 7L + 1 or 3L a pass), every rank emits
    the same tokens, and a K2 row times the kernel on calls (a)'s bf16
    rank 0 gave it (8 query / 4 kv heads a rank);
+17. the warm-start plane: ``serve`` at the flagship's widths (depth cut
+   to 4 layers) in float32 on phase 6's engine shape, three times in its
+   own process: cold on a fresh
+   ``--compile-cache-dir``, warm on the same directory, and with
+   ``--warmup off``.  The first two answer /healthz 503 ``{"warming":
+   true}`` before 200, warm every point of the ``minimal`` lattice (8
+   prefill pad lengths, 3 sampling variants x 7 table-view buckets
+   captured) with no error, and capture nothing while serving 8
+   completions over those variants after ready; the cold start fills the
+   library's entry once, the warm one loads it (fills 0, loads 1, no
+   nvcc); greedy, sampled and seeded tokens equal the replica's with no
+   warm-up.  ``launcher --compile-cache`` on that directory, two ranks
+   over gloo started beside the cold start once it holds the directory's
+   build lock: each loads the library (fills 0, loads 1).  Logged:
+   the library's build and load seconds, the warm-up's wall time,
+   captures and where its host time went, reserved device memory across
+   the lattice and the first request's TTFT warmed and not;
 10. K1 and K4 at the train shape, K3 and K2 (dense and int8) with split
    keys, called twice, must give identical bytes; K1 and K4 not causal at
    the ViT's shape (B 64, 12, 197, 64, bf16) against ``mha_reference`` and
@@ -324,6 +342,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# seconds each group of phases took, in run order (the run's time limit
+# holds them all): mark(name) closes the group that ends there
+PHASE_S: dict = {}
+_PHASE_T = [time.perf_counter()]
+
+
+def mark(name: str) -> None:
+    now = time.perf_counter()
+    PHASE_S[name] = round(now - _PHASE_T[0], 1)
+    _PHASE_T[0] = now
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -376,11 +406,15 @@ def trace_kernels(prof) -> list[dict]:
 PROFILE_TRIES = 3
 
 
-def profiled(fn, what: str, cpu: bool = False, trace: list | None = None
-             ) -> tuple[float, list[dict]]:
+def profiled(fn, what: str, cpu: bool = False, trace: list | None = None,
+             lead_spin: bool = False) -> tuple[float, list[dict]]:
     """Run ``fn`` once under torch.profiler: (wall ms, device kernels);
     ``trace``, when given, receives the run's kernels (``trace_kernels``).
-    The run fails if no try of PROFILE_TRIES saw the device."""
+    ``lead_spin``: the window opens with LEAD_SPINS spins, synchronized
+    before the clock starts, so the records a window loses in its first
+    milliseconds are the spin's (left out of both results), not ``fn``'s:
+    for windows whose launches are counted exactly.  The run fails if no
+    try of PROFILE_TRIES saw the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -388,14 +422,19 @@ def profiled(fn, what: str, cpu: bool = False, trace: list | None = None
     for attempt in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
+            if lead_spin:
+                torch.cuda._sleep(LEAD_SPINS * SPIN_CYCLES)
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = device_kernels(prof)
+        if lead_spin:
+            kernels = [k for k in kernels if "spin_kernel" not in k["kernel"]]
         if kernels:
             if trace is not None:
-                trace.extend(trace_kernels(prof))
+                trace.extend(k for k in trace_kernels(prof) if not (lead_spin and k["spin"]))
             return wall_ms, kernels
         log(f"the profiler saw no device time in {what} (attempt {attempt} of {PROFILE_TRIES})")
     fail(f"the profiler saw no device time in {what} in {PROFILE_TRIES} attempts")
@@ -1522,7 +1561,7 @@ def phase_overlap_engine(dev, seq_eng, prompts, seq_reqs) -> dict:
     captured, capture_s = eng.graphs_captured, eng.graph_capture_s
     check(captured > 0, "the warm-up batch captured no CUDA graph")
     log(f"overlap warm-up batch: {warm_chunks} chunks in {warm_s:.2f} s, {captured} graphs "
-        f"captured in {capture_s:.2f} s (keys {sorted(eng._graphs)})")
+        f"captured in {capture_s:.2f} s (keys {sorted(eng.graph_keys())})")
     base = dict(warmups=eng.graph_warmups, replays=eng.graph_replays,
                 uploads=eng.device_uploads, prefills=eng.prefills_run,
                 discarded=eng.chunks_discarded, gaps=(eng.host_gap_ns, eng.host_gap_chunks))
@@ -2093,13 +2132,13 @@ def run_perf(reqs, wall, chunks) -> dict:
 
 def graph_marks(eng) -> dict:
     return {"captured": eng.graphs_captured, "capture_s": eng.graph_capture_s,
-            "keys": set(eng._graphs)}
+            "keys": eng.graph_keys()}
 
 
 def graph_delta(eng, marks) -> dict:
     return {"captured": eng.graphs_captured - marks["captured"],
             "capture_s": eng.graph_capture_s - marks["capture_s"],
-            "keys": [list(k) for k in sorted(set(eng._graphs) - marks["keys"])]}
+            "keys": [list(k) for k in sorted(eng.graph_keys() - marks["keys"])]}
 
 
 def seeded_agreement(reqs, ref_reqs) -> dict:
@@ -2131,7 +2170,7 @@ def phase_controls_engine(dev, params, cfg, prompts, seq_reqs) -> dict:
     marks = graph_marks(eng)
     drive_wall(eng, prompts, NEW_TOKENS)
     plain_graphs = graph_delta(eng, marks)
-    check(all(not any(k[3:]) for k in eng._graphs), "a plain batch captured a controls graph")
+    check(all(not any(k[3:]) for k in eng.graph_keys()), "a plain batch captured a controls graph")
     perf["plain"] = dict(run_perf(*drive_wall(eng, prompts, NEW_TOKENS)), graphs=plain_graphs)
 
     specs = control_specs(prompts, seq_reqs)
@@ -2261,7 +2300,7 @@ def chunk_profile(eng, specs, label, ke: bool = False) -> dict:
             for p, kw in specs[: eng.max_batch]]
     trace, pre = [], []
     if ke:
-        profiled(eng._admit, f"{label} prefills", trace=pre)
+        profiled(eng._admit, f"{label} prefills", trace=pre, lead_spin=True)
     else:
         eng._admit()  # the prefills, outside the window
     eng.step()
@@ -2280,8 +2319,11 @@ def chunk_profile(eng, specs, label, ke: bool = False) -> dict:
     eng._replay_chunk = spy
     cap0 = eng.graphs_captured
     try:
+        # with ``ke`` its launches are counted exactly: a lead spin takes
+        # the window's first milliseconds, whose records the profiler can
+        # lose (one KE launch of 1,536 in one run on the H100)
         wall_ms, kernels = profiled(window, f"{CONTROL_WINDOW} {label} chunks", cpu=True,
-                                    trace=trace if ke else None)
+                                    trace=trace if ke else None, lead_spin=ke)
     finally:
         del eng._replay_chunk
     check(eng.graphs_captured == cap0, f"{label}: a graph was captured inside the window")
@@ -2576,7 +2618,7 @@ def phase_lora_engine(dev, params, cfg, prompts) -> dict:
     plain = InferenceEngine(params, cfg, paged_kernel=True, device=dev, **ENGINE)
     drive_specs(plain, base_specs, NEW_TOKENS)
     preqs, pwall, pchunks = drive_specs(plain, base_specs, NEW_TOKENS)
-    plain_keys = set(plain._graphs)
+    plain_keys = plain.graph_keys()
     perf["bankless"] = dict(run_perf(preqs, pwall, pchunks), graphs=len(plain_keys))
 
     beng = InferenceEngine(params, cfg, paged_kernel=True, device=dev, adapters=adapters,
@@ -2587,8 +2629,8 @@ def phase_lora_engine(dev, params, cfg, prompts) -> dict:
     breqs, bwall, bchunks = drive_specs(beng, base_specs, NEW_TOKENS)
     check(all(a.output == b.output for a, b in zip(breqs, preqs)),
           "base rows: the bank engine's tokens on \"\" differ from the bank-less engine's")
-    check(set(beng._graphs) == plain_keys, "the bank engine captured other graph keys")
-    perf["bank_on_base"] = dict(run_perf(breqs, bwall, bchunks), graphs=len(beng._graphs),
+    check(beng.graph_keys() == plain_keys, "the bank engine captured other graph keys")
+    perf["bank_on_base"] = dict(run_perf(breqs, bwall, bchunks), graphs=len(beng.graph_keys()),
                                 tokens_equal_bankless=True, bank_mb=bank_mb)
     marks = graph_marks(beng)
     mwarm, _, _ = drive_specs(beng, mixed, NEW_TOKENS)
@@ -6553,6 +6595,258 @@ def phase_serve_mesh_http() -> dict:
     return res
 
 
+# the flagship's widths, float32 (the replicas' tokens are compared), on
+# phase 6's engine shape: 7 table-view buckets, 8 prefill pad lengths;
+# depth cut for time, as phase 16's (b)-(d) (PERF.md §6 has the figures at L 16)
+WARM_LAYERS = 4
+WARM_ARGS = ["--init", "--dtype", "float32", "--vocab-size", str(FULL["vocab_size"]),
+             "--d-model", str(FULL["d_model"]), "--n-layers", str(WARM_LAYERS),
+             "--n-heads", str(FULL["n_heads"]), "--n-kv-heads", str(FULL["n_kv_heads"]),
+             "--d-ff", str(FULL["d_ff"]), "--paged-kernel",
+             "--max-batch", str(ENGINE["max_batch"]), "--max-len", str(ENGINE["max_len"]),
+             "--page-size", str(ENGINE["page_size"]), "--fused-steps", str(ENGINE["fused_steps"])]
+WARM_NEW = 32
+WARM_POLL_S = 0.5
+
+
+def warm_bodies() -> tuple[list, list]:
+    """8 completions over the ``minimal`` variants (3 greedy, 3 sampled, 2
+    top-k / top-p sampled, none seeded) and 2 seeded sampled ones."""
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, FULL["vocab_size"], n).tolist()
+               for n in (64, 200, 96, 400, 70, 128, 256, 33, 150, 300)]
+    sampled = {"temperature": 0.8}
+    filtered = {"temperature": 0.8, "top_k": 40, "top_p": 0.9}
+    kinds = [{}, {}, sampled, filtered, {}, sampled, filtered, sampled]
+    bodies = [dict(prompt=p, max_tokens=WARM_NEW, **k) for p, k in zip(prompts, kinds)]
+    seeded = [dict(prompt=p, max_tokens=WARM_NEW, temperature=0.8, seed=1234 + i)
+              for i, p in enumerate(prompts[8:])]
+    return bodies, seeded
+
+
+def warm_start_run(sp, bodies, seeded) -> dict:
+    """One replica: /healthz polled from the process start to 200 (the
+    503 bodies seen), /v1/stats at ready; the first completion streamed
+    (TTFT and time to its second token), the other 7 one at a time, then
+    the seeded 2, /v1/stats after each group."""
+    warming = []
+    deadline = time.monotonic() + 400
+    while True:
+        try:
+            code, body = get_json(sp.addr, "/healthz")
+        except OSError:
+            code, body = None, None
+        if code == 200:
+            break
+        if code == 503:
+            warming.append(body)
+        if sp.proc.poll() is not None:
+            fail(f"serve exited with {sp.proc.returncode}:\n{sp.tail()}")
+        check(time.monotonic() < deadline, f"serve not ready in 400 s:\n{sp.tail()}")
+        # a readiness probe's pace (a kubelet's is 1-10 s): polled every
+        # 0.1 s, one card run's lattice took 44 s against 23 s at 0.5 s in
+        # another (PERF.md)
+        time.sleep(WARM_POLL_S)
+    ready_s = time.perf_counter() - sp.t0
+    _, at_ready = get_json(sp.addr, "/v1/stats")
+    t0 = time.perf_counter()
+    first, times, errors = sse(sp.addr, "/v1/completions", bodies[0])
+    check(not errors and len(first) == WARM_NEW, f"first completion: {errors}")
+    tokens = [first]
+    for b in bodies[1:]:
+        code, _, data = post_json(sp.addr, b)
+        check(code == 200, f"completion: HTTP {code} {data[:200]!r}")
+        tokens.append(json.loads(data)["tokens"])
+    _, after = get_json(sp.addr, "/v1/stats")
+    seeded_tokens = []
+    for b in seeded:
+        code, _, data = post_json(sp.addr, b)
+        check(code == 200, f"seeded completion: HTTP {code} {data[:200]!r}")
+        seeded_tokens.append(json.loads(data)["tokens"])
+    _, after_seeded = get_json(sp.addr, "/v1/stats")
+    keys = ("compile_cache", "graphs_captured", "graph_replays")
+    return {"ready_s": ready_s, "warming_503s": len(warming),
+            "warming_body": warming[0] if warming else None,
+            "at_ready": {k: at_ready[k] for k in ("warmup", *keys)},
+            "after": {k: after[k] for k in keys},
+            "after_seeded": {k: after_seeded[k] for k in keys},
+            "first_ttft_ms": (times[0] - t0) * 1e3, "first_second_token_ms": (times[1] - t0) * 1e3,
+            "first_e2e_ms": (times[-1] - t0) * 1e3, "tokens": tokens, "seeded": seeded_tokens}
+
+
+def start_launcher(cache_dir: str, log_path: str) -> subprocess.Popen:
+    """``launcher --compile-cache`` on ``cache_dir``: two local ranks over
+    gloo on the card, 2 steps of the default model at B 4, S 64; its
+    output in ``log_path`` (.out and .err)."""
+    with open(log_path + ".out", "w") as out, open(log_path + ".err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "elastic_gpu_scheduler_tpu_torch.launcher", "--steps", "2",
+             "--batch-size", "4", "--seq-len", "64", "--mesh", "tensor=2", "--dist-backend",
+             "gloo", "--compile-cache", cache_dir],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), stdout=out, stderr=err)
+
+
+def launcher_caches(proc: subprocess.Popen, cache_dir: str, log_path: str) -> list:
+    """The launcher's exit checked, and each rank's cache counters (its
+    last line)."""
+    try:
+        proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path + ".out") as f:
+        out = f.read()
+    with open(log_path + ".err") as f:
+        err = f.read()[-3000:]
+    check(proc.returncode == 0, f"launcher --compile-cache exited {proc.returncode}:\n{err}")
+    check(out.strip(), f"launcher --compile-cache printed nothing:\n{err}")
+    last = out.strip().splitlines()[-1]
+    check(last.startswith(f"compile cache {cache_dir}: "),
+          f"launcher --compile-cache printed no cache counters: {out[-500:]}")
+    return json.loads(last.split(": ", 1)[1])
+
+
+def wait_for_build(sp, cache_dir: str) -> None:
+    """Until the cold start holds (or has held) the directory's build lock."""
+    deadline = time.monotonic() + 300
+    while not os.path.exists(os.path.join(cache_dir, "build.lock")):
+        if sp.proc.poll() is not None:
+            fail(f"serve exited with {sp.proc.returncode}:\n{sp.tail()}")
+        check(time.monotonic() < deadline, f"the cold start took no build lock:\n{sp.tail()}")
+        time.sleep(0.1)
+
+
+def phase_warm_start() -> dict:
+    """17. The warm-start plane: ``serve`` at the flagship's widths (at
+    WARM_LAYERS) in float32 on phase 6's engine shape, in its own process
+    three times: (a)
+    cold on a fresh ``--compile-cache-dir`` (``--warmup auto``: lattice),
+    (b) warm on the same directory, (c) ``--warmup off`` with no directory.
+    (a) and (b) answer /healthz 503 ``{"warming": true}`` before 200;
+    (a) fills the library once, (b) loads it (fills 0, loads 1), and both
+    warm every lattice point with no error and capture nothing after ready
+    while serving the 8 ``minimal`` completions; every replica's greedy,
+    sampled and seeded tokens are equal.  ``launcher --compile-cache`` on
+    the same directory starts once the cold start has taken the
+    directory's build lock, beside it (its seconds include the launcher's
+    host work): each of its two ranks takes the lock after the cold start
+    and loads the library (fills 0, loads 1).  Logged: the library's build
+    and load seconds, warm-up wall time and captures, where the lattice's
+    host time went, the allocator's reserved memory across the lattice,
+    and each replica's first TTFT."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="warm_start_")
+    cache_dir = os.path.join(work, "cache")
+    bodies, seeded = warm_bodies()
+    runs = {}
+    t_phase = time.perf_counter()
+    launcher_log = os.path.join(work, "launcher.log")
+    launcher = None
+    try:
+        for name, args in (("cold", ["--compile-cache-dir", cache_dir]),
+                           ("warm", ["--compile-cache-dir", cache_dir]),
+                           ("off", ["--warmup", "off"])):
+            sp = ServeProcess(WARM_ARGS + args, os.path.join(work, f"{name}.log"))
+            try:
+                if name == "cold":
+                    wait_for_build(sp, cache_dir)
+                    launcher = start_launcher(cache_dir, launcher_log)
+                runs[name] = warm_start_run(sp, bodies, seeded)
+                runs[name]["exit_code"] = sp.stop()
+            finally:
+                if sp.proc.poll() is None:
+                    sp.proc.kill()
+                    sp.proc.wait()
+        ranks = launcher_caches(launcher, cache_dir, launcher_log)
+        from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+        check(os.path.exists(os.path.join(cache_dir, _build.library_key() + ".aotx")),
+              f"the library's entry is not in {cache_dir}")
+    finally:
+        if launcher is not None and launcher.poll() is None:
+            launcher.kill()
+            launcher.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    cold, warm, off = runs["cold"], runs["warm"], runs["off"]
+    check(len(ranks) == 2 and all(
+        (c["fills"], c["loads"], c["misses"]) == (0, 1, 0) for c in ranks),
+        f"launcher --compile-cache beside the cold start: {ranks}")
+    for name in ("cold", "warm"):
+        r = runs[name]
+        wu, cc = r["at_ready"]["warmup"], r["at_ready"]["compile_cache"]
+        check(r["warming_503s"] > 0 and r["warming_body"].get("warming") is True,
+              f"{name}: /healthz never answered 503 warming before 200")
+        check(wu["state"] == "ready" and wu["errors"] == 0 and wu["built"] == wu["lattice_size"]
+              and wu["lattice_size"] > 0, f"{name}: warm-up {wu}")
+        check(wu["captures"] == r["at_ready"]["graphs_captured"] == wu["lattice_size"] - 8,
+              f"{name}: {wu['captures']} captures for {wu['lattice_size']} points")
+        check(r["after"]["graphs_captured"] == r["at_ready"]["graphs_captured"]
+              and r["after"]["graph_replays"] > r["at_ready"]["graph_replays"]
+              and r["after"]["compile_cache"]["misses"] == cc["misses"],
+              f"{name}: a capture after ready: {r['at_ready']} -> {r['after']}")
+        check(r["exit_code"] == 0, f"{name}: serve exit code {r['exit_code']}")
+    check((cold["at_ready"]["compile_cache"]["fills"], cold["at_ready"]["compile_cache"]["loads"])
+          == (1, 0), f"cold start: {cold['at_ready']['compile_cache']}")
+    check((warm["at_ready"]["compile_cache"]["fills"], warm["at_ready"]["compile_cache"]["loads"])
+          == (0, 1), f"warm start: {warm['at_ready']['compile_cache']}")
+    check(warm["at_ready"]["warmup"]["lattice_size"] == cold["at_ready"]["warmup"]["lattice_size"],
+          "the warm start's lattice differs from the cold start's")
+    check(off["warming_503s"] == 0 and off["at_ready"]["warmup"] == {"state": "none"}
+          and off["exit_code"] == 0, f"--warmup off: {off['at_ready']}")
+    greedy = [i for i, b in enumerate(bodies) if "temperature" not in b]
+    same = {k: {"greedy": all(runs[k]["tokens"][i] == off["tokens"][i] for i in greedy),
+                "sampled": runs[k]["tokens"] == off["tokens"],
+                "seeded": runs[k]["seeded"] == off["seeded"]} for k in ("cold", "warm")}
+    for k, eq in same.items():
+        check(eq["greedy"] and eq["seeded"] and eq["sampled"],
+              f"{k} start against --warmup off: tokens equal {eq}")
+    res = {"card": card_line(), "args": " ".join(WARM_ARGS), "tokens_equal": same,
+           "layers": WARM_LAYERS, "launcher_caches": ranks,
+           "phase_s": time.perf_counter() - t_phase}
+    for name, r in runs.items():
+        wu = r["at_ready"]["warmup"]
+        res[name] = {
+            "ready_s": r["ready_s"], "warming_503s": r["warming_503s"],
+            "library_s": wu.get("library_s"), "warmup_wall_s": wu.get("wall_s"),
+            "lattice_size": wu.get("lattice_size"), "captures": wu.get("captures"),
+            "reserved_gb": (wu.get("reserved_before", 0) / 1e9,
+                            wu.get("reserved_after", 0) / 1e9),
+            "graphs_captured": (r["at_ready"]["graphs_captured"], r["after"]["graphs_captured"],
+                                r["after_seeded"]["graphs_captured"]),
+            "compile_cache": r["after_seeded"]["compile_cache"],
+            "first_ttft_ms": r["first_ttft_ms"],
+            "first_second_token_ms": r["first_second_token_ms"],
+            "first_e2e_ms": r["first_e2e_ms"],
+            "lattice_host": {k: wu.get(k) for k in ("queue_s", "run_s", "run_cpu_s",
+                                                   "process_cpu_s", "scratch_s", "capture_s",
+                                                   "slowest")},
+        }
+    for name in ("cold", "warm"):
+        h = res[name]["lattice_host"]
+        log(f"warm start, {name} lattice's host time: {res[name]['warmup_wall_s']} s wall "
+            f"(library {res[name]['library_s']} s); points waited {h['queue_s']} s for the "
+            f"engine thread and ran {h['run_s']} s there on {h['run_cpu_s']} s of its CPU; "
+            f"process CPU {h['process_cpu_s']} s; scratch chunks {h['scratch_s']} s, "
+            f"captures (with them) {h['capture_s']} s; slowest point {h['slowest']}")
+    log(f"warm start: launcher --compile-cache beside the cold start, each rank {ranks}")
+    log(f"warm start: library built in {res['cold']['library_s']} s (cold), loaded in "
+        f"{res['warm']['library_s']} s (warm); warm-up {res['cold']['warmup_wall_s']} / "
+        f"{res['warm']['warmup_wall_s']} s with {res['cold']['captures']} / "
+        f"{res['warm']['captures']} captures of {res['cold']['lattice_size']} points; reserved "
+        f"GB before/after the lattice {res['cold']['reserved_gb']} / {res['warm']['reserved_gb']}; "
+        f"first TTFT {res['cold']['first_ttft_ms']:.1f} / {res['warm']['first_ttft_ms']:.1f} ms "
+        f"warmed, {res['off']['first_ttft_ms']:.1f} ms with no warm-up (second token "
+        f"{res['warm']['first_second_token_ms']:.1f} vs {res['off']['first_second_token_ms']:.1f}"
+        f" ms); graphs at ready / after 8 / after seeded {res['cold']['graphs_captured']} "
+        f"{res['warm']['graphs_captured']} {res['off']['graphs_captured']}; ready in "
+        f"{res['cold']['ready_s']:.1f} / {res['warm']['ready_s']:.1f} / "
+        f"{res['off']['ready_s']:.1f} s; tokens equal {same}; {res['phase_s']:.1f} s")
+    return res
+
+
 def phase_mesh(dev) -> dict:
     """15. Training on a mesh.  (a) ``launcher.run_job`` at phase 9's model
     and batch through a one-rank NCCL process group, against the same job
@@ -6915,14 +7209,16 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, nvcc: {nvcc_v}, "
         f"capability {torch.cuda.get_device_capability(0)}")
 
-    # 2. build
+    # 2. build (the library's compile-cache entry in the package's directory)
     t0 = time.perf_counter()
-    lib_path = _build.build()
     _build.lib()
-    log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    cache = _build.library_cache()
+    log(f"build: kernel library {_build.library_key()} in {cache.cache_dir} in "
+        f"{time.perf_counter() - t0:.1f} s (cache {cache.stats()})")
     for line in _build.build_log_path().read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
+    mark("1-2 toolchain, build")
 
     # 3. to 5. the kernels against their plain versions; KE
     cost = profiler_cost()
@@ -6939,6 +7235,7 @@ def main() -> int:
     ring_rows = kernel_ring_rows(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("3-5 kernels, train/ViT/ring rows")
 
     # 6. the engine, 7. HTTP
     eng, prompts, reqs, launches, sampler, perf = phase_engine(dev)
@@ -6948,6 +7245,7 @@ def main() -> int:
     phase_profile(eng, prompts)
     kernels = [kernel_k1(eng, prompts, launches, k1_err), kernel_k2(sampler, launches, k2_err)]
     kernels[0]["path"] = kernels[1]["path"] = "serve"
+    mark("6-8 engine, HTTP, profile")
 
     # 6c. the overlapped engine, 6d. speculative decoding, on the same weights
     operf = phase_overlap_engine(dev, eng, prompts, reqs)
@@ -6976,6 +7274,7 @@ def main() -> int:
     for r in prefix_rows:
         r["path"] = "serve: prefix cache, prefill_chunk 128, int8 KV"
     kernels += prefix_rows
+    mark("6b-6f overlap, spec, controls, LoRA, prefix")
     dense_params, dense_cfg = eng.params, eng.cfg
     del eng, reqs, sampler, peng, k3_sampler, k2i_sampler
     gc.collect()
@@ -6985,6 +7284,7 @@ def main() -> int:
     dperf = {"bf16": phase_disagg(dev, dense_params, dense_cfg, kv_int8=False),
              "int8": phase_disagg(dev, dense_params, dense_cfg, kv_int8=True),
              "small_float32": phase_disagg_small_fp32(dev)}
+    mark("6j disagg")
 
     # 6g. MoE serving at full width, 6h. int8 weights, 6i. small float32
     mperf, moe_launches, moe_params, moe_cfg, moe_reqs = phase_moe_engine(dev, prompts)
@@ -7000,6 +7300,7 @@ def main() -> int:
                               "moe_int8": iperf["moe_int8"]["profile"]},
                     {"moe": moe_launches, "int8": int8_launches, "moe_int8": moe_int8_launches})
     kernels += ke_rows
+    mark("6g-6i MoE, int8")
 
     # 9. the training path, card against CPU, the launcher, a profiled step
     cfg, params, state, step, tokens, train_launches, train_perf = phase_train(dev)
@@ -7017,11 +7318,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launcher_res = phase_launcher(dev)
+    mark("9 training, launcher")
     # 7b. the observability plane on the overlapped engine behind HTTP, on
     # the same weights made again; last, so every phase before it opens its
     # profiler windows as early in the process as it did without 7b (a
     # window loses more of its first records the later it opens)
     obs = phase_observability(dev, *full_model(dev))
+    mark("7b observability")
     gc.collect()
     torch.cuda.empty_cache()
     # 11, 12. serve --hf and --draft-hf; 13. checkpoint and resume; 14. the
@@ -7029,11 +7332,17 @@ def main() -> int:
     hf = phase_hf(dev)
     resume = phase_resume(dev)
     vit = phase_vit(dev)
+    mark("11-14 hf, resume, ViT")
     # 15. training on a mesh
     mesh = phase_mesh(dev)
+    mark("15 training mesh")
     # 16. serving on a mesh
     serve_mesh = phase_serve_mesh(dev)
     kernels.append(serve_mesh.pop("k2_row"))
+    mark("16 serving mesh")
+    # 17. the warm-start plane: serve cold, warm and without a warm-up
+    warm_start = phase_warm_start()
+    mark("17 warm start")
 
     # 10. the kernels line
     for r in train_rows:
@@ -7068,6 +7377,8 @@ def main() -> int:
     log(json.dumps({"hf": hf, "resume": resume, "vit": vit}))
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"serve_mesh": serve_mesh}))
+    log(json.dumps({"warm_start": warm_start}))
+    log(json.dumps({"phase_s": PHASE_S, "total_s": round(sum(PHASE_S.values()), 1)}))
     log(card)
     print(json.dumps({"kernels": kernels}))
     # the one card this script drives (cuda:0)

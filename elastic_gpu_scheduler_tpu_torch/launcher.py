@@ -21,7 +21,15 @@ schedule (without it the pipe ranks hold the layers whole), and
 ``--mesh expert=N``; these two flags set ``TransformerConfig``'s fields of
 the same names (a ``JobSpec`` carries them in its ``model``).  Refused by
 name, and exit 2 from ``main``: MoE in the pipeline schedule on a batch cut
-over data or fsdp, and the compile cache (``--compile-cache``).
+over data or fsdp.
+
+``--compile-cache DIR`` builds or loads the
+kernel library of the job's ranks through a compile cache in DIR
+(``compilecache/``, ``ops/_build``): a restarted job, or the ranks of one,
+run ``nvcc`` once between them; the last line printed holds each local
+rank's cache counters (a restart on the directory: fills 0, loads 1).
+The reference points JAX's compilation cache there; training captures
+no graph, so the library is the whole of what the port compiles.
 
 ``--checkpoint-dir`` with ``--checkpoint-every N`` saves the params and
 optimizer state every N steps and once more, blocking, at the end
@@ -247,23 +255,34 @@ def _in_world() -> bool:
 
 
 def _train(job: JobSpec, annotations: dict, container: str, device, profile_dir: str,
-           cpu: bool) -> list[float]:
-    if not profile_dir:
-        return run_job(job, annotations, container, device)
-    from torch.profiler import ProfilerActivity, profile
+           cpu: bool, compile_cache: str = "") -> tuple[list[float], Optional[dict]]:
+    """The job's losses, and the compile cache's counters when the kernel
+    library went through one (``--compile-cache`` on a card)."""
+    cache = None
+    if compile_cache and not cpu:
+        from .compilecache import CompileCache
+        from .ops import _build
 
-    acts = [ProfilerActivity.CPU] + ([] if cpu else [ProfilerActivity.CUDA])
-    with profile(activities=acts) as prof:
+        cache = CompileCache(compile_cache)
+        _build.use_cache(cache)
+    if not profile_dir:
         losses = run_job(job, annotations, container, device)
-    os.makedirs(profile_dir, exist_ok=True)
-    trace = os.path.join(profile_dir, "trace.json")
-    prof.export_chrome_trace(trace)
-    log.info("profiler trace written to %s", trace)
-    return losses
+    else:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([] if cpu else [ProfilerActivity.CUDA])
+        with profile(activities=acts) as prof:
+            losses = run_job(job, annotations, container, device)
+        os.makedirs(profile_dir, exist_ok=True)
+        trace = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(trace)
+        log.info("profiler trace written to %s", trace)
+    return losses, cache.stats() if cache is not None else None
 
 
 def _launch_rank(rank: int, world: int, rendezvous: str, job: JobSpec, annotations: dict,
-                 container: str, backend: str, cpu: bool, profile_dir: str) -> list[float]:
+                 container: str, backend: str, cpu: bool, profile_dir: str,
+                 compile_cache: str) -> tuple[list[float], Optional[dict]]:
     """One local rank of ``main``'s spawn: join the world, train."""
     from .parallel.distributed import maybe_initialize_distributed
 
@@ -271,7 +290,7 @@ def _launch_rank(rank: int, world: int, rendezvous: str, job: JobSpec, annotatio
     maybe_initialize_distributed(rendezvous, world, rank, backend=backend, local_rank=rank,
                                  local_ranks=world, cpu=cpu)
     return _train(job, annotations, container, "cpu" if cpu else None,
-                  profile_dir if rank == 0 else "", cpu)
+                  profile_dir if rank == 0 else "", cpu, compile_cache)
 
 
 def main(argv=None) -> int:
@@ -302,7 +321,9 @@ def main(argv=None) -> int:
                         "(0: no schedule; the pipe ranks hold the layers whole)")
     p.add_argument("--n-experts", type=int, default=0,
                    help="a Switch MoE model of this many experts, split over --mesh expert=N")
-    p.add_argument("--compile-cache", default="", help="not ported yet: exits 2")
+    p.add_argument("--compile-cache", default="",
+                   help="compile-cache dir of the kernel library (fast pod restarts; "
+                        "without it TPU_COMPILE_CACHE_DIR, else the package's)")
     p.add_argument("--metrics-log", default="",
                    help="append per-step {step, loss} JSONL records to this file")
     p.add_argument("--cpu", action="store_true", help="train on the CPU (plain versions)")
@@ -313,8 +334,6 @@ def main(argv=None) -> int:
         print(f"error: {msg}", file=sys.stderr)
         return 2
 
-    if args.compile_cache:
-        return refuse("--compile-cache: the compile cache is a later slice of the port")
     annotations = {}
     if args.annotations and os.path.exists(args.annotations):
         annotations = _read_annotations(args.annotations)
@@ -363,9 +382,11 @@ def main(argv=None) -> int:
             log.info("starting %d local ranks over %s", mesh.num_devices, backend)
             results = spawn_ranks(
                 _launch_rank, mesh.num_devices,
-                (job, annotations, args.container, backend, args.cpu, args.profile_dir),
+                (job, annotations, args.container, backend, args.cpu, args.profile_dir,
+                 args.compile_cache),
                 rendezvous="file://" + os.path.join(tmp, "rendezvous"))
-        losses = results[0]
+        losses = results[0][0]
+        caches = [r[1] for r in results]
     else:
         from .parallel.distributed import maybe_initialize_distributed, process_info
 
@@ -374,9 +395,11 @@ def main(argv=None) -> int:
         except ValueError as e:
             return refuse(str(e))
         if process_info()[0] != 0:  # rank 0 reports
-            run_job(job, annotations, args.container, device)
+            _train(job, annotations, args.container, device, "", args.cpu, args.compile_cache)
             return 0
-        losses = _train(job, annotations, args.container, device, args.profile_dir, args.cpu)
+        losses, stats = _train(job, annotations, args.container, device, args.profile_dir,
+                               args.cpu, args.compile_cache)
+        caches = [stats]
     if args.metrics_log:
         with open(args.metrics_log, "a") as f:
             start = job.steps - len(losses)  # past the resumed steps
@@ -386,6 +409,9 @@ def main(argv=None) -> int:
         print(f"trained {len(losses)} steps; final loss {losses[-1]:.4f}")
     else:
         print("no steps to run (already complete or --steps 0)")
+    if any(caches):
+        # each local rank's: a restart on the same dir shows fills 0
+        print(f"compile cache {args.compile_cache}: {json.dumps(caches)}")
     return 0
 
 

@@ -7,7 +7,8 @@ and the series a replica exports, under the reference's names, help texts
 and label sets, so the reference's dashboards and fleet tooling read a port
 replica as a JAX one.  The serving series (``tpu_serve_*``) are registered
 by ``server/inference.py`` and the SLO and profile series by ``slo/`` and
-``profile/``, as in the reference.  The scheduler's series and its
+``profile/``, as in the reference; the warm-start plane's two series
+(``compilecache/``) are here, as they are there.  The scheduler's series and its
 lock-wait instrumentation are control-plane code and stay there.
 """
 
@@ -243,5 +244,30 @@ POLICY_EVENTS = REGISTRY.register(
         "(replay gate refused a worse candidate), promote, rollback "
         "(operator or automatic SLO rollback), fault",
         ("event",),
+    )
+)
+# the reference's help texts (dashboards key on them); in the port a "hit"
+# is a decode graph replayed, a "miss" a graph captured or the kernel
+# library built, "load" / "fill" the library's entry, and "fallback" is 0
+COMPILE_CACHE_EVENTS = REGISTRY.register(
+    Counter(
+        "tpu_compile_cache_events_total",
+        "Warm-start compile cache events: hit (in-memory executable "
+        "reused), load (persistent entry deserialized — no lowering), "
+        "miss (lower+compile paid), fill (entry persisted to the cache "
+        "dir), coalesced (concurrent miss parked behind the "
+        "single-flight winner), quarantined (corrupt entry moved aside, "
+        "recompiled), persist_error (serialize/write failed — compile "
+        "still served), fallback (AOT path error → jit dispatch)",
+        ("event",),
+    )
+)
+WARMUP_SECONDS = REGISTRY.register(
+    Gauge(
+        "tpu_warmup_seconds",
+        "Wall time of the shape-lattice pre-lowering phase at pod start "
+        "(0 until a warm-up has completed); the window the pod reports "
+        "healthz 503 {warming:true} and the fleet router keeps it out "
+        "of rotation",
     )
 )

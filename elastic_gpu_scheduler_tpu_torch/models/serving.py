@@ -154,12 +154,18 @@ raises "page pool exhausted".
   construction.  The disaggregated verbs are refused by name on more than
   one rank.
 
-Not ported yet, and rejected by name: the compile cache (an engine
-option).
+- **Warm start** (``compile_cache``: a ``compilecache.CompileCache``):
+  the kernel library is built or loaded through it (``ops/_build``), and
+  ``compilecache.warmup_engine`` walks ``aot_signatures`` (every prefill,
+  decode and verify shape of the engine's lattice) before the replica
+  reports ready, so no request captures a graph.  Each decode chunk's
+  CUDA graph is found through the engine's own memory-only cache
+  (``graph_cache``, through ``compilecache.aot``), with or without one.
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import hashlib
 import itertools
@@ -174,6 +180,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..compilecache import AotFunction, CompileCache
 from ..ops import _build
 from ..ops.attention import NEG_INF, flash_attention
 from ..ops.expert_matmul import expert_matmul
@@ -203,10 +210,6 @@ ENGINE_FAILED_ERROR = "engine on a mesh failed: the replica is stopping"
 log = logging.getLogger("tpu-scheduler")
 
 SCRATCH_PAGE = 0  # reserved; inactive slots write here, nobody reads it
-
-# reference engine options this slice does not serve (a truthy value raises)
-_UNPORTED_OPTIONS = ("compile_cache",)
-
 
 # -- paged KV pool -----------------------------------------------------------
 
@@ -1156,6 +1159,13 @@ class _DeviceBatchState:
         return self._dev[key]
 
 
+def _device_kind(device) -> tuple:
+    """(name, capability) of a CUDA device; ("cpu",) otherwise."""
+    if device.type != "cuda":
+        return (device.type,)
+    return torch.cuda.get_device_name(device), torch.cuda.get_device_capability(device)
+
+
 def default_n_pages(max_batch: int, max_len: int, page_size: int) -> int:
     """Capacity-equivalent to a slot-contiguous layout, plus scratch."""
     return max_batch * (-(-max_len // page_size)) + 1
@@ -1295,7 +1305,8 @@ class InferenceEngine:
         device=None,
         mesh=None,
         sliced: bool = False,
-        **unported,
+        compile_cache=None,
+        **unknown,
     ):
         """``paged_kernel``: decode attention reads the page pool in place
         (kernel K2 on CUDA) instead of gathering a contiguous copy per
@@ -1352,16 +1363,18 @@ class InferenceEngine:
         the other ranks run ``follow()`` (see the module docstring).  A
         mesh without a ``tensor`` axis raises ``ValueError``, and so does
         ``paged_kernel`` when ``tensor`` does not divide both head
-        counts."""
-        unknown = sorted(set(unported) - set(_UNPORTED_OPTIONS))
+        counts.
+
+        ``compile_cache``: a ``compilecache.CompileCache``.  On CUDA the
+        kernel library goes through it when it has a directory (else
+        through the default one), and the lattice warm-up
+        (``compilecache.warmup_engine``) runs only on an engine that has
+        one.  The decode graphs are in ``graph_cache`` either way.
+
+        Every option of the reference's engine is served; any other name
+        raises ``TypeError``."""
         if unknown:
-            raise TypeError(f"unknown engine options {unknown}")
-        asked = sorted(k for k, v in unported.items() if v)
-        if asked:
-            raise NotImplementedError(
-                f"engine options {asked} are not ported yet (later slices "
-                "of the port serve them)"
-            )
+            raise TypeError(f"unknown engine options {sorted(unknown)}")
         spec_k = max(0, spec_k)
         if draft is not None:
             dparams, dcfg = draft
@@ -1526,21 +1539,37 @@ class InferenceEngine:
         # one memory pool, captured on a stream of their own
         self._out_bufs: list = []  # two sets of {output index: pinned buffer}
         self._out_next = 0
-        self._graphs: dict = {}
         self.graphs_captured = 0
         self.graph_capture_s = 0.0
         self.graph_warmups = 0  # eager chunks run on scratch before a capture
+        self.graph_warmup_s = 0.0
+        self._warmed_variants: set = set()  # flag sets whose first capture ran one
         self.graph_replays = 0
         # decided once: a chunk holding a collective over more than one rank
         # runs eagerly, never in a graph, whatever the backend (gloo stages
         # through the host; NCCL capture across cards is untried)
         self._capture = (self.device.type == "cuda" and overlap
                          and (mesh is None or mesh.axes_size(("tensor", "expert")) == 1))
+        # the graphs: a memory-only cache of the engine's own (a graph
+        # replays this engine's tensors only), keyed by the reference's
+        # fingerprint with the device's kind in place of the JAX version and
+        # backend; a replay a hit, a capture a miss
+        self.graph_cache = self._aot_chunk = None
         if self.device.type == "cuda":
             self._out_bufs = [{}, {}]
             if self._capture:
                 self._graph_pool = torch.cuda.graph_pool_handle()
                 self._capture_stream = torch.cuda.Stream(self.device)
+                self.graph_cache = CompileCache(None)
+                self._aot_chunk = AotFunction(self._capture_chunk, self.graph_cache, (
+                    repr(cfg), max_batch, max_len, page_size, self.fused_steps, kv_int8,
+                    paged_kernel, self.logprobs_k, tuple(sorted(self.adapter_index)),
+                    tuple(sorted(mesh.shape.items())) if mesh is not None else None,
+                    _device_kind(self.device)), "serve_chunk")
+        # -- the warm-start plane (compilecache/) ------------------------------
+        self.compile_cache = compile_cache
+        if compile_cache is not None and self.device.type == "cuda":
+            _build.use_cache(compile_cache)
         # -- serving on a mesh: one host decision point, mirrored state --------
         # rank 0 takes requests and cancels; every round starts with its
         # ticket (``exchange_ticket``), which every rank applies alike
@@ -1787,6 +1816,127 @@ class InferenceEngine:
             self.step()
         raise RuntimeError("run_until_idle: step budget exhausted")
 
+    # -- the warm-start plane (compilecache/) ----------------------------------
+
+    @staticmethod
+    def _pow2_lattice(start: int, cap: int) -> list[int]:
+        """The power-of-two bucket values the dispatch paths round up to,
+        clamped at ``cap``: exactly the widths ``_prefill_dispatch`` and
+        ``_prepare_step`` can produce."""
+        out, w = [], start
+        while True:
+            out.append(min(w, cap))
+            if w >= cap:
+                break
+            w *= 2
+        return sorted(set(out))
+
+    def aot_signatures(self, variants: str = "minimal") -> list:
+        """The engine's shape lattice as warm-up points, ``[(label, build),
+        ...]``: ``build()`` runs the point on the engine's thread.  The
+        labels and lattice are the reference's:
+
+        - ``prefill:t{tpad}:p{pbucket}``: a one-pass prefill (K1 on CUDA)
+          at every pad length and the table width it needs; with
+          ``prefill_chunk`` or ``prefix_cache``, ``prefill_prefixed:t{tpad}:
+          p{width}`` (K3) at every width at least that (a chunk walks wider
+          tables at one pad length).  Each runs once on tables of the
+          scratch page;
+        - ``serve_chunk:{flags}:p{pbucket}`` at every table-view bucket: the
+          decode chunk's CUDA graph captured through the compile cache
+          (the overlapped engine on CUDA), else one chunk run on the
+          scratch page.  ``flags`` are ``_graph_key``'s six: ``minimal``
+          covers default traffic (greedy, sampled, sampled with top-k /
+          top-p: three sets), ``full`` all 64;
+        - ``verify_chunk:p{pbucket}`` (``spec_k`` > 0): one greedy verify
+          pass on the scratch page (the verify pass runs eagerly).
+
+        No point touches a live slot, a length, a page but the scratch page,
+        or the engine's generator.  An engine on a mesh of more than one
+        rank has no point: it captures no graph, and its passes run only
+        together with its followers."""
+        if self.mirrored:
+            return []
+        if variants == "full":
+            flag_sets = list(itertools.product((False, True), repeat=6))
+        else:
+            flag_sets = [(False,) * 6, (False, True) + (False,) * 4,
+                         (True, True) + (False,) * 4]
+        sigs: list = []
+        widths = self._pow2_lattice(1, self.max_pages_per_slot)
+        for tpad in self._pow2_lattice(8, self.max_len):
+            need = -(-tpad // self.page_size)
+            pbucket = min(next((w for w in widths if w >= need), widths[-1]),
+                          self.max_pages_per_slot)
+            sigs.append((f"prefill:t{tpad}:p{pbucket}",
+                         functools.partial(self._warm_prefill, tpad, pbucket, False)))
+            if self.prefill_chunk > 0 or self.prefix_cache:
+                sigs += [(f"prefill_prefixed:t{tpad}:p{w}",
+                          functools.partial(self._warm_prefill, tpad, w, True))
+                         for w in widths if w >= need]
+        for pbucket in widths:
+            for flags in flag_sets:
+                sigs.append((f"serve_chunk:{''.join(str(int(f)) for f in flags)}:p{pbucket}",
+                             functools.partial(self._warm_chunk, pbucket, flags)))
+            if self.spec_k > 0:
+                sigs.append((f"verify_chunk:p{pbucket}",
+                             functools.partial(self._warm_verify, pbucket)))
+        return sigs
+
+    def _warm_prefill(self, tpad: int, width: int, prefixed: bool) -> None:
+        """One prefill pass of ``tpad`` tokens over a table row of ``width``
+        scratch pages; the prefixed pass puts its tokens at the row's end
+        (or ``max_len``'s), behind at least one cached position."""
+        dev = self.device
+        row = torch.full((width,), SCRATCH_PAGE, dtype=torch.int32, device=dev)
+        toks = torch.zeros((1, tpad), dtype=torch.int32, device=dev)
+        ad = {} if self.mesh is None else {"mesh": self.mesh}
+        if self.lora_bank:
+            ad.update(bank=self.lora_bank, aids=torch.zeros(1, dtype=torch.int32, device=dev))
+        if prefixed:
+            total = min(width * self.page_size, self.max_len)
+            n = min(tpad, total - 1)
+            _paged_prefill_prefixed(self.params, toks, self.kv, row, total - n, n, cfg=self.cfg,
+                                    page_size=self.page_size, **ad)
+        else:
+            _paged_prefill(self.params, toks, self.kv, row, tpad, cfg=self.cfg,
+                           page_size=self.page_size, **ad)
+
+    def _warm_chunk(self, bucket: int, flags: tuple) -> None:
+        """Capture the decode graph of (``bucket``, ``flags``) on the
+        tensors a live dispatch of that key passes (the overlapped engine on
+        CUDA), else run that chunk once on the scratch page.  The batch
+        mirrors it refreshes hold what the next dispatch compares against,
+        so that dispatch refreshes whatever differs."""
+        v = dict(zip(("use_filters", "use_temp", "want_lp", "use_pen", "use_seed", "use_min"),
+                     flags))
+        if v["use_min"]:
+            self._ensure_stop_rows()
+        B = self.max_batch
+        args = self._chunk_args(v, np.full((B, bucket), SCRATCH_PAGE, np.int32),
+                                np.zeros(B, bool), self._carry_bufs)
+        static = self._static(v, n_steps=self.fused_steps)
+        if self._capture:
+            self._aot_chunk.build(self._graph_key(v, bucket), args, static)
+        else:
+            self._scratch_chunk(args, static)
+
+    def _warm_verify(self, bucket: int) -> None:
+        """One greedy verify pass over a table view of ``bucket`` scratch
+        pages, every row inactive, with a generator of its own."""
+        B, W, dev = self.max_batch, self.spec_k + 1, self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        v = dict(use_filters=False, use_temp=False, want_lp=False, use_pen=False,
+                 use_seed=False, use_min=False)
+        _fused_verify_chunk(
+            self.params, self.kv, torch.full((B, bucket), SCRATCH_PAGE, **i32),
+            torch.zeros((B, W), **i32), torch.zeros(B, **i32),
+            torch.zeros(B, dtype=torch.bool, device=dev),
+            torch.zeros(B, dtype=torch.float32, device=dev), torch.zeros(B, **i32),
+            torch.ones(B, dtype=torch.float32, device=dev), torch.Generator(device=dev),
+            *self._control_args(v, plens=True), *self._adapter_args(), **self._static(v),
+        )
+
     # -- serving on a mesh -----------------------------------------------------
 
     def exchange_ticket(self, stop: bool = False, preempt: bool = False) -> dict:
@@ -1994,6 +2144,12 @@ class InferenceEngine:
         with torch.inference_mode():
             rows[i].copy_(torch.from_numpy(row))
 
+    def _ensure_stop_rows(self) -> None:
+        """Make the device min_tokens stop rows (all zero) if not made yet."""
+        if self._stop_dev is None:
+            with torch.inference_mode(False):
+                self._stop_dev = torch.zeros_like(self._bias_dev)
+
     def _clear_bias(self, i: int) -> None:
         """Zero a released slot's bias row, only if it was set."""
         if self._bias_set[i]:
@@ -2069,9 +2225,7 @@ class InferenceEngine:
             floor = max(0, req.min_tokens - int(self.gen_before[i]))
             self.min_toks[i] = floor
             if floor > 0 and req.stop_tokens:
-                if self._stop_dev is None:
-                    with torch.inference_mode(False):
-                        self._stop_dev = torch.zeros_like(self._bias_dev)
+                self._ensure_stop_rows()
                 self._set_row(self._stop_dev, i, _stop_row_cached(req, self.cfg.vocab_size))
                 self._stop_set[i] = True
             self.emitted[i] = int(self.gen_before[i])
@@ -3159,8 +3313,7 @@ class InferenceEngine:
         self.steps_run += 1
         active, view = prepared
         v = self._variant(active)
-        ds = self._ds
-        tok_dev, len_dev = self._carry_feed()
+        carry = self._carry_feed()
         if pipelined:
             self.host_gap_chunks += 1
             self.last_host_gap_ms = 0.0
@@ -3171,22 +3324,12 @@ class InferenceEngine:
             self.host_gap_chunks += 1
             self.last_host_gap_ms = gap / 1e6
             self._gap_sample(self.last_host_gap_ms)
-        args = (
-            self.params, self.kv, ds.get("view", view), tok_dev, len_dev,
-            ds.get("active", active),
-            ds.get_versioned("prompts", self.prompts, self._prompts_version),
-            ds.get("prompt_lens", self.prompt_lens), ds.get("temps", self.temps),
-            ds.get("top_ks", self.top_ks), ds.get("top_ps", self.top_ps), self.generator,
-            # before the lengths advance below: the counts cover positions
-            # below the chunk's first
-            *self._control_args(v),
-            *self._adapter_args(),
-        )
+        # before the lengths advance below: the control counts cover
+        # positions below the chunk's first
+        args = self._chunk_args(v, view, active, carry)
         static = self._static(v, n_steps=K)
         if self._capture:
-            key = (view.shape[1], v["use_filters"], v["use_temp"], v["want_lp"],
-                   v["use_pen"], v["use_seed"], v["use_min"])
-            out = self._replay_chunk(key, args, static)
+            out = self._replay_chunk(self._graph_key(v, view.shape[1]), args, static)
         else:
             out = _chunk_in_place(*args, **static)
         host = ready = None
@@ -3211,56 +3354,95 @@ class InferenceEngine:
         return _PendingChunk(out=out, want_lp=v["want_lp"], n_steps=K, pos0=pos0,
                              pairs=pairs, host=host, ready=ready)
 
+    def _chunk_args(self, v: dict, view: np.ndarray, active: np.ndarray, carry) -> tuple:
+        """A decode chunk's positional arguments for variant ``v``: the
+        persistent device mirrors of the batch state (refreshed where the
+        host arrays changed) and the ``carry`` (tokens, lengths) tensors."""
+        ds = self._ds
+        return (
+            self.params, self.kv, ds.get("view", view), *carry, ds.get("active", active),
+            ds.get_versioned("prompts", self.prompts, self._prompts_version),
+            ds.get("prompt_lens", self.prompt_lens), ds.get("temps", self.temps),
+            ds.get("top_ks", self.top_ks), ds.get("top_ps", self.top_ps), self.generator,
+            *self._control_args(v), *self._adapter_args(),
+        )
+
+    @staticmethod
+    def _graph_key(v: dict, bucket: int) -> tuple:
+        """A decode graph's key: the table-view bucket and the six flags."""
+        return (bucket, v["use_filters"], v["use_temp"], v["want_lp"], v["use_pen"],
+                v["use_seed"], v["use_min"])
+
+    def graph_keys(self) -> set:
+        """The ``_graph_key`` of every decode graph captured so far."""
+        return set(self._aot_chunk.keys) if self._aot_chunk is not None else set()
+
     def _replay_chunk(self, key, args, static):
         """One decode chunk as a CUDA graph replay (captured at the first
-        dispatch of its static shape and controls variant: the table-view
-        bucket and the six flags of ``_variant``).  The wrappers counted the graph's
-        kernel launches once, at capture; every replay adds them to
+        dispatch of its static shape and controls variant, ``_graph_key``,
+        unless the lattice warm-up captured it).  The wrappers counted the
+        graph's kernel launches once, at capture; every replay adds them to
         ``_build.LAUNCHES``, as eager calls would."""
-        entry = self._graphs.get(key)
-        if entry is None:
-            entry = self._graphs[key] = self._capture_chunk(args, static)
-        graph, out, launches = entry
+        graph, out, launches = self._aot_chunk.build(key, args, static)
         graph.replay()
         self.graph_replays += 1
         for name, n in launches.items():
             _build.LAUNCHES[name] += n
         return out
 
-    def _capture_chunk(self, args, static):
+    def _scratch_chunk(self, args, static) -> None:
+        """Run ``_chunk_in_place`` once off the engine's state: every row
+        inactive on the scratch page, a copy of the carry, a generator of
+        its own.  It writes the scratch page only."""
+        view, tok, ln, active = args[2], args[3], args[4], args[5]
+        warm = list(args)
+        warm[2], warm[3], warm[4] = torch.zeros_like(view), tok.clone(), ln.clone()
+        warm[5] = torch.zeros_like(active)
+        warm[11] = torch.Generator(device=self.device)
+        _chunk_in_place(*warm, **static)
+
+    def _capture_chunk(self, key, args, static):
         """Capture ``_chunk_in_place`` on ``args`` (the persistent device
         tensors every replay reads) into a CUDA graph in the engine's shared
-        pool.  One eager warm-up runs first, on the capture stream and off
-        the engine's state (every row inactive on the scratch page, a copy
-        of the carry, a generator of its own), so first-use work happens
-        outside the capture.  The cyclic garbage collector is held off
-        during the capture: an unreachable engine freed mid-capture (its
+        pool.  Before the first capture of each flag set (``key`` without
+        its bucket) one eager chunk runs, on the capture stream and off the
+        engine's state (every row inactive on the scratch page, a copy of
+        the carry, a generator of its own), so first-use work (library
+        handles, first launches of the set's operators) happens outside a
+        capture; another bucket of the set differs only in the table
+        view's width.  The capture is begun and ended on the stream
+        directly: ``torch.cuda.graph``'s entry would synchronize and empty
+        the allocator's and the pinned host caches at every capture, which
+        the next chunk then refills.  The cyclic garbage collector is held
+        off during the capture: an unreachable engine freed mid-capture (its
         graphs, pool memory, events) would make CUDA calls that invalidate
         it.  No fallback: a failed capture raises."""
         t0 = time.perf_counter()
         stream = self._capture_stream
-        view, tok, ln, active = args[2], args[3], args[4], args[5]
         with torch.inference_mode():
             stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(stream):
-                warm = list(args)
-                warm[2], warm[3], warm[4] = torch.zeros_like(view), tok.clone(), ln.clone()
-                warm[5] = torch.zeros_like(active)
-                warm[11] = torch.Generator(device=self.device)
-                _chunk_in_place(*warm, **static)
-            torch.cuda.current_stream(self.device).wait_stream(stream)
-            self.graph_warmups += 1
+            if key[1:] not in self._warmed_variants:
+                with torch.cuda.stream(stream):
+                    self._scratch_chunk(args, static)
+                self._warmed_variants.add(key[1:])
+                self.graph_warmups += 1
+                self.graph_warmup_s += time.perf_counter() - t0
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(self.generator)
             before = dict(_build.LAUNCHES)
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
-                    out = _chunk_in_place(*args, **static)
+                with torch.cuda.stream(stream):
+                    graph.capture_begin(self._graph_pool)
+                    try:
+                        out = _chunk_in_place(*args, **static)
+                    finally:
+                        graph.capture_end()
             finally:
                 if collecting:
                     gc.enable()
+            torch.cuda.current_stream(self.device).wait_stream(stream)
         # the capture launched nothing: its counts move to the replays
         launches = {}
         for name, n in _build.LAUNCHES.items():

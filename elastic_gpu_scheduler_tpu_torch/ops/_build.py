@@ -6,12 +6,22 @@ shared library with a plain C interface, loaded through ``ctypes``.  No
 PyTorch header is compiled, so a build takes seconds.  The sources share
 ``csrc/*.cuh`` headers.
 
-The library is built at first use into ``_torch_kernels_build/`` inside
-the package (listed in ``.gitignore``), named by a digest of the sources,
-headers and flags, so an edited source or header rebuilds and an
-unchanged tree loads the library already there.  Nothing here runs at
-import: the CPU tests import every module of the port on a machine with
-no ``nvcc``.
+The library is one entry of a compile cache (``compilecache/cache``),
+keyed by a digest of the sources, headers and flags, ``nvcc``'s release,
+PyTorch's CUDA version and the device's capability: an edited source
+rebuilds, an unchanged tree loads.  The entry's payload is the linked
+``.so``: a load checks its CRC, writes it out as ``<key>.so`` by atomic
+rename and loads that, so a torn or bit-flipped library is quarantined and
+rebuilt, never loaded.  The cache lives in ``_torch_kernels_build/``
+inside the package (listed in ``.gitignore``) unless
+``TPU_COMPILE_CACHE_DIR`` names another directory, or an engine's or the
+launcher's cache is handed over (``use_cache``, or ``lib(cache)``) before
+the first kernel call.  A file lock in the directory serializes builders
+across processes, so a mesh's ranks or replicas sharing one directory
+build once between them.  Each build leaves the per-source ``nvcc`` output
+in ``<key>.log`` (registers, shared memory and spills by kernel), its
+objects under ``<key>.build/``.  Nothing here runs at import: the CPU
+tests import every module of the port on a machine with no ``nvcc``.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0, so a launch the card refuses (too many
@@ -33,6 +43,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..compilecache.cache import Codec, CompileCache, cache_key
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_torch_kernels_build"
@@ -48,8 +60,12 @@ LAUNCHES: dict[str, int] = {
     "flash_block_stats": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "expert_matmul": 0,
 }
 
+CACHE_DIR_ENV = "TPU_COMPILE_CACHE_DIR"
+
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_cache: CompileCache | None = None  # handed over by an engine or the launcher
+_default_cache: CompileCache | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -124,76 +140,129 @@ def _digest(files: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    """Named by a digest of the sources AND the headers they include."""
+def nvcc_release() -> str:
+    """``nvcc --version``'s release line."""
+    out = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True,
+                         check=True).stdout
+    return next((ln.strip() for ln in out.splitlines() if "release" in ln), out.strip())
+
+
+def library_key() -> str:
+    """The library's cache key: what it was built from and for."""
+    import torch
+
     files = sources() + sorted(CSRC_DIR.glob("*.cuh"))
-    return BUILD_DIR / f"libegs_kernels_{_digest(files)}.so"
+    return cache_key("kernels", _digest(files), nvcc_release(), torch.version.cuda,
+                     torch.cuda.get_device_capability())
+
+
+def use_cache(cache: CompileCache) -> None:
+    """Build or load the library through ``cache`` (one with a directory)
+    at the first kernel call of this process."""
+    global _cache
+    if cache.cache_dir:
+        _cache = cache
+
+
+def library_cache(cache: CompileCache | None = None) -> CompileCache:
+    """``cache`` if it has a directory, else the one handed to
+    ``use_cache``, else ``TPU_COMPILE_CACHE_DIR``'s or the package's."""
+    global _default_cache
+    for c in (cache, _cache):
+        if c is not None and c.cache_dir:
+            return c
+    if _default_cache is None:
+        _default_cache = CompileCache(os.environ.get(CACHE_DIR_ENV) or str(BUILD_DIR))
+    return _default_cache
 
 
 def build_log_path() -> Path:
-    return library_path().with_suffix(".log")
+    """The nvcc output of the library's build in ``library_cache()``."""
+    return Path(library_cache().path(library_key(), ".log"))
 
 
-def build() -> Path:
-    """Compile and link the kernels unless this exact build exists.  Safe
-    against concurrent builders (threads and processes): a file lock
-    serializes them and the library appears by atomic rename."""
+def _compile_and_link(root: Path, key: str) -> Path:
+    """Compile and link the kernels into ``<root>/<key>.so``."""
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    lib_path = library_path()
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lockf:
-        fcntl.flock(lockf, fcntl.LOCK_EX)
-        if lib_path.exists():
-            return lib_path
-        nvcc = nvcc_path()
-        tag = lib_path.stem
-        objs, procs = [], []
-        for s in srcs:
-            obj = BUILD_DIR / f"{tag}_{s.stem}.o"
-            objs.append(obj)
-            procs.append((s, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )))
-        log = []
-        failed = []
-        for s, p in procs:
-            out, _ = p.communicate()
-            log.append(f"== nvcc {s.name} (rc={p.returncode})\n{out}")
-            if p.returncode != 0:
-                failed.append(s.name)
-        if failed:
-            raise RuntimeError(
-                f"nvcc failed for {failed}:\n" + "\n".join(log)
-            )
-        tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
-        link = subprocess.run(
-            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+    nvcc = nvcc_path()
+    work = root / f"{key}.build"
+    work.mkdir(parents=True, exist_ok=True)
+    objs, procs = [], []
+    for s in srcs:
+        obj = work / f"{s.stem}.o"
+        objs.append(obj)
+        procs.append((s, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        log.append(f"== link (rc={link.returncode})\n{link.stdout}")
-        if link.returncode != 0:
-            raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
-        lib_path.with_suffix(".log").write_text("\n".join(log))
-        os.replace(tmp, lib_path)
+        )))
+    log = []
+    failed = []
+    for s, p in procs:
+        out, _ = p.communicate()
+        log.append(f"== nvcc {s.name} (rc={p.returncode})\n{out}")
+        if p.returncode != 0:
+            failed.append(s.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    lib_path = root / f"{key}.so"
+    tmp = work / "link.so"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    log.append(f"== link (rc={link.returncode})\n{link.stdout}")
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
+    (root / f"{key}.log").write_text("\n".join(log))
+    os.replace(tmp, lib_path)
     return lib_path
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def _open(path: Path) -> ctypes.CDLL:
+    handle = ctypes.CDLL(str(path))
+    for name, (args, res) in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = args
+        fn.restype = res
+    return handle
+
+
+def _unpack(root: Path, key: str, payload: bytes) -> ctypes.CDLL:
+    """A CRC-checked payload written out as ``<key>.so`` (atomic rename)
+    and loaded."""
+    path = root / f"{key}.so"
+    tmp = root / f"{key}.so.tmp{os.getpid()}"
+    tmp.write_bytes(payload)
+    os.replace(tmp, path)
+    return _open(path)
+
+
+def open_library(cache: CompileCache) -> ctypes.CDLL:
+    """The library through ``cache`` (which has a directory): loaded from
+    its entry, else built and persisted there, under the directory's file
+    lock (builders in other processes wait, then load)."""
+    root = Path(cache.cache_dir)
+    key = library_key()
+    codec = Codec(serialize=lambda h: Path(h._name).read_bytes(),
+                  deserialize=lambda b: _unpack(root, key, b))
+    with open(root / "build.lock", "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        return cache.get_or_compile(
+            key, lambda: _open(_compile_and_link(root, key)),
+            meta=lambda: {"tag": "kernels", "sources": [s.name for s in sources()],
+                          "nvcc": nvcc_release()},
+            codec=codec)
+
+
+def lib(cache: CompileCache | None = None) -> ctypes.CDLL:
+    """The loaded kernel library (built or loaded through
+    ``library_cache(cache)`` on the first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, (args, res) in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = args
-                fn.restype = res
-            _lib = handle
+            _lib = open_library(library_cache(cache))
         return _lib
 
 

@@ -29,6 +29,18 @@ the reference's knobs: ``--trace-sample`` (``TPU_TRACE_SAMPLE``),
 ``--slo-config`` (``TPU_SLO_CONFIG``).  The engine runs on the CUDA
 device unless ``--cpu`` is given.
 
+The warm-start plane takes the reference's flags: ``--compile-cache-dir``
+(``TPU_COMPILE_CACHE_DIR``) puts the kernel library in a CRC-checked
+compile-cache entry there (a second start on the directory loads it and
+runs no ``nvcc``), and ``--warmup`` walks the engine's shape lattice before
+the replica is ready (``compilecache/lattice``: the library, every prefill
+shape once, every decode graph captured): ``lattice`` the default traffic's
+three sampling variants, ``full`` all 64 control sets, ``auto`` (default)
+``lattice`` when a directory is set and ``off`` otherwise.  The HTTP server
+comes up first and ``/healthz`` answers 503 ``{"warming": true}`` until
+the lattice is warm.  ``--n-kv-heads`` (port-only) gives the random-init
+model grouped-query attention.
+
 ``--tensor N`` serves tensor-parallel over N local ranks (checkpoints too
 big for one card): the weights are built or imported (and quantized) on
 the host, cut there into each rank's slice (``sharding.serving_specs``),
@@ -63,6 +75,8 @@ def build_args(argv=None):
     p.add_argument("--d-model", type=int, default=512)
     p.add_argument("--n-layers", type=int, default=4)
     p.add_argument("--n-heads", type=int, default=8)
+    p.add_argument("--n-kv-heads", type=int, default=0,
+                   help="key/value heads of the --init model (0: --n-heads)")
     p.add_argument("--d-ff", type=int, default=1376)
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--int8", action="store_true",
@@ -147,6 +161,18 @@ def build_args(argv=None):
                         "/debug/slo and the queue-wait/TTFT telemetry "
                         "the fleet router folds into the client-"
                         "perceived journey records")
+    p.add_argument("--compile-cache-dir", default="",
+                   help="persistent compile-cache directory (default from "
+                        "TPU_COMPILE_CACHE_DIR): the kernel library is a CRC-checked "
+                        "entry here, and a later start on the same dir loads it "
+                        "instead of running nvcc")
+    p.add_argument("--warmup", choices=["auto", "off", "lattice", "full"], default="auto",
+                   help="shape-lattice warm-up at start: the kernel library, every "
+                        "prefill shape once and every decode-chunk graph captured "
+                        "BEFORE /healthz reports ready (503 {warming:true} meanwhile). "
+                        "'lattice' = the default-traffic sampling variants, 'full' = "
+                        "all 64 control sets, 'auto' = lattice when a compile cache "
+                        "dir is set, else off")
     p.add_argument("--drain-timeout", type=float, default=30.0,
                    help="graceful-drain window on SIGTERM/SIGINT; a second "
                         "signal hard-stops")
@@ -244,7 +270,7 @@ def main(argv=None) -> int:
     else:
         cfg = TransformerConfig(
             vocab_size=args.vocab_size, d_model=args.d_model, n_layers=args.n_layers,
-            n_heads=args.n_heads, d_ff=args.d_ff,
+            n_heads=args.n_heads, n_kv_heads=args.n_kv_heads, d_ff=args.d_ff,
             dtype=args.dtype,
         )
         gen = torch.Generator()
@@ -264,16 +290,38 @@ def main(argv=None) -> int:
         overlap=args.serve_overlap == "on", logprobs_k=args.logprobs_k,
         max_queue=args.max_queue,
     )
+    # the warm-start plane: a persistent cache when a dir is set, an
+    # in-memory one when only the warm-up is asked (its graphs then live
+    # for this process, the library in the default dir)
+    cache_dir = args.compile_cache_dir or os.environ.get("TPU_COMPILE_CACHE_DIR", "")
+    warmup = args.warmup
+    if warmup == "auto":
+        warmup = "lattice" if cache_dir else "off"
+    compile_cache = None
+    if cache_dir or warmup != "off":
+        from .compilecache import CompileCache
+
+        compile_cache = CompileCache(cache_dir or None)
     followers = None
     if args.tensor > 1:
-        engine, followers = start_mesh(args, params, cfg, engine_kw)
+        engine, followers = start_mesh(args, params, cfg, engine_kw, compile_cache)
         device = engine.device
         del params
     else:
-        engine = InferenceEngine(params, cfg, device=device, **engine_kw)
+        engine = InferenceEngine(params, cfg, device=device, compile_cache=compile_cache,
+                                 **engine_kw)
     engine.replica_name = args.replica_name or os.environ.get("POD_NAME", "")
     engine.fleet_role = role
     server, loop = serve_inference(engine, port=args.port, host=args.host)
+    if warmup != "off":
+        # the HTTP server is up: /healthz answers 503 {"warming": true}
+        # while the lattice warms; requests that arrive anyway are served
+        # between its points
+        from .compilecache import WarmupState, start_warmup_thread
+
+        loop.warmup = WarmupState()
+        start_warmup_thread(engine, loop.warmup,
+                            variants="full" if warmup == "full" else "minimal")
     log.info(
         "serving %s model (%d layers, d=%d) on %s%s, %s:%d",
         "hf-imported" if args.hf else "random-init",
@@ -328,10 +376,12 @@ def check_tensor_devices(args) -> None:
         raise SystemExit(f"--tensor {args.tensor} needs that many devices, have {cards}")
 
 
-def start_mesh(args, params, cfg, engine_kw):
+def start_mesh(args, params, cfg, engine_kw, compile_cache=None):
     """Cut ``params`` (whole, on the host) into each rank's slice, start
     ranks 1..N-1 (each sent only its slice) and build rank 0's engine in
-    this process.  Returns (the engine, what ``stop_mesh`` ends)."""
+    this process (with ``compile_cache``; each follower has a cache on the
+    same directory, so the ranks build the kernel library once between
+    them).  Returns (the engine, what ``stop_mesh`` ends)."""
     import tempfile
 
     from .models.serving import InferenceEngine
@@ -357,20 +407,25 @@ def start_mesh(args, params, cfg, engine_kw):
     log.info("starting %d local ranks over %s", N, backend)
     procs, results = start_ranks(
         follow_rank, range(1, N), N,
-        lambda r: (slices.pop(r), cfg, engine_kw, backend, args.cpu),
+        lambda r: (slices.pop(r), cfg, engine_kw, backend, args.cpu,
+                   compile_cache.cache_dir if compile_cache is not None else None),
         rendezvous=rendezvous)
     maybe_initialize_distributed(rendezvous, N, 0, backend=backend, local_rank=0,
                                  local_ranks=N, cpu=args.cpu)
     mesh = make_mesh(MeshSpec(tensor=N)).connect()
     engine = InferenceEngine(slices.pop(0), cfg, mesh=mesh, sliced=True,
-                             device=rank_device(0, args.cpu), **engine_kw)
+                             device=rank_device(0, args.cpu), compile_cache=compile_cache,
+                             **engine_kw)
     return engine, (procs, results, tmp)
 
 
-def follow_rank(rank, world, rendezvous, params, cfg, engine_kw, backend, cpu) -> int:
+def follow_rank(rank, world, rendezvous, params, cfg, engine_kw, backend, cpu,
+                cache_dir=None) -> int:
     """A follower of ``serve --tensor``: its slice's engine follows rank
-    0's tickets until the stop ticket.  It leaves the signals to rank 0,
-    which ends it."""
+    0's tickets until the stop ticket (its kernel library through a cache
+    on ``cache_dir``, when rank 0 has one).  It leaves the signals to rank
+    0, which ends it."""
+    from .compilecache import CompileCache
     from .models.serving import InferenceEngine
     from .parallel.distributed import maybe_initialize_distributed, rank_device
     from .parallel.mesh import MeshSpec, make_mesh
@@ -381,7 +436,9 @@ def follow_rank(rank, world, rendezvous, params, cfg, engine_kw, backend, cpu) -
                                  local_ranks=world, cpu=cpu)
     mesh = make_mesh(MeshSpec(tensor=world)).connect()
     engine = InferenceEngine(params, cfg, mesh=mesh, sliced=True,
-                             device=rank_device(rank, cpu), **engine_kw)
+                             device=rank_device(rank, cpu),
+                             compile_cache=CompileCache(cache_dir) if cache_dir else None,
+                             **engine_kw)
     del params
     engine.follow()
     return 0

@@ -33,7 +33,8 @@ routes this slice serves (stdlib HTTP only):
                              victim ranking
     GET  /v1/stats         → engine state (slots, pages, queue, prefix cache
                              and KV shipping counters, registered adapters,
-                             replica name and fleet role)
+                             replica name and fleet role, the warm-up's
+                             state and the compile cache's counters)
     GET  /metrics          → Prometheus text: the ``tpu_serve_*`` series,
                              the ``tpu_kv_*`` gauges set at scrape time,
                              the SLO, profile and policy series
@@ -43,8 +44,11 @@ routes this slice serves (stdlib HTTP only):
     GET  /debug/slo        → this replica's journey windows and objectives
     GET  /debug/profiles   → this replica's workload profiles
     GET  /debug/policy     → the loaded ``kv`` policy, its counts, history
-    GET  /healthz          → liveness (503 while draining, or once a mesh
-                             engine has failed)
+    GET  /healthz          → readiness (503 while draining, once a mesh
+                             engine has failed, ``{"warming": true}``
+                             while the shape lattice warms, and
+                             ``{"warmup_failed": true}`` once the warm-up
+                             could not build or load the kernel library)
     GET  /version          → build version
 
 ONE engine thread (``EngineLoop``) owns all engine state and drives
@@ -229,6 +233,10 @@ class EngineLoop:
         # stopped: /healthz answers 503, and ``serve`` exits non-zero
         self.failed = threading.Event()
         self._step_seq = 0  # steps since a traced batch started (span pacing)
+        # the warm-start plane: ``serve --warmup`` puts its WarmupState here
+        # and /healthz answers 503 {"warming": true} until it completes;
+        # None = no warm-up phase
+        self.warmup = None
         self.http_inflight = 0  # handler threads still writing responses
         self._inflight_lock = threading.Lock()
 
@@ -622,6 +630,17 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                     return self._json(503, {"ok": False, "failed": True})
                 if engine.draining:
                     return self._json(503, {"ok": False, "draining": True})
+                wu = loop.warmup
+                if wu is not None and wu.warming:
+                    # capacity is coming, not going: the fleet router holds
+                    # the replica in 'warming', distinct from draining
+                    return self._json(503, {"ok": False, "warming": True,
+                                            "warmup": wu.to_dict()})
+                if wu is not None and wu.failed:
+                    # no kernel library (or no lattice): every request
+                    # would fail at its first kernel call
+                    return self._json(503, {"ok": False, "warmup_failed": True,
+                                            "warmup": wu.to_dict()})
                 return self._json(200, {"ok": True})
             if self.path == "/version":
                 return self._json(200, {"version": __version__})
@@ -703,6 +722,15 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                         "resident_pages": int(eng.n_pages - 1 - len(eng.free_pages)),
                         "cached_pages": len(eng.page_key),
                     },
+                    # the warm-start plane: the warm-up's state and the
+                    # cache's counters (a second start on the same dir
+                    # shows fills 0), and the decode graphs captured so far
+                    "warmup": (loop.warmup.to_dict() if loop.warmup is not None
+                               else {"state": "none"}),
+                    "compile_cache": (eng.compile_cache.stats()
+                                      if eng.compile_cache is not None else None),
+                    "graphs_captured": int(eng.graphs_captured),
+                    "graph_replays": int(eng.graph_replays),
                 })
             return self._json(404, {"error": f"no route {self.path}"})
 

@@ -32,6 +32,7 @@ from elastic_gpu_scheduler_tpu.models.transformer import (
     TransformerConfig as JaxConfig,
     init_params as jax_init_params,
 )
+from elastic_gpu_scheduler_tpu_torch.compilecache import CompileCache
 from elastic_gpu_scheduler_tpu_torch.models.bridge import params_from_jax
 from elastic_gpu_scheduler_tpu_torch.models.serving import (
     QUEUE_FULL_ERROR,
@@ -175,12 +176,16 @@ def test_engine_stop_tokens_and_sampling(weights):
 
 
 def test_engine_rejects_unported_options_and_fields(weights):
-    """``compile_cache`` still raises by name; ``adapters`` is served (an
-    engine without them knows only the base model, "")."""
+    """An unknown engine option raises ``TypeError``; ``compile_cache``
+    takes a ``CompileCache`` (the engine keeps it); ``adapters`` is served
+    (an engine without them knows only the base model, "")."""
     _, _, params = weights
     cfg = TransformerConfig(**CFG)
-    with pytest.raises(NotImplementedError, match="compile_cache"):
-        InferenceEngine(params, cfg, device="cpu", compile_cache=1)
+    with pytest.raises(TypeError, match="bogus_option"):
+        InferenceEngine(params, cfg, device="cpu", bogus_option=1)
+    cache = CompileCache(None)
+    assert InferenceEngine(params, cfg, max_len=16, device="cpu",
+                           compile_cache=cache).compile_cache is cache
     eng = InferenceEngine(params, cfg, max_len=16, device="cpu")
     assert eng.adapter_index == {"": 0} and eng.lora_bank == {}
     unknown = eng.submit(Request(prompt=[1], max_new_tokens=2, adapter="a"))

@@ -512,6 +512,165 @@ def test_graph_replay_matches_eager_chunk(cuda, dtype):
 
 
 @pytest.mark.gpu
+def test_library_entry_quarantined_rebuilt_and_loaded(cuda, tmp_path):
+    """The kernel library as a compile-cache entry: a cold directory builds
+    and fills it; a flipped payload byte is quarantined to ``.bad`` and the
+    library rebuilt (never loaded from the bad entry); a third start loads
+    it, and the loaded library answers."""
+    from elastic_gpu_scheduler_tpu_torch.compilecache import CompileCache
+
+    d = str(tmp_path)
+    key = _build.library_key()
+    cold = CompileCache(d)
+    _build.open_library(cold)
+    assert (cold.misses, cold.fills, cold.loads) == (1, 1, 0)
+    path = cold.path(key)
+    blob = bytearray(open(path, "rb").read())
+    blob[-100] ^= 0xFF
+    open(path, "wb").write(bytes(blob))
+    again = CompileCache(d)
+    _build.open_library(again)
+    assert (again.quarantined, again.misses, again.fills, again.loads) == (1, 1, 1, 0)
+    assert (tmp_path / (key + ".aotx.bad")).exists()
+    warm = CompileCache(d)
+    handle = _build.open_library(warm)
+    assert (warm.misses, warm.fills, warm.loads) == (0, 0, 1)
+    assert handle.egs_error_string(0)
+    assert handle.egs_paged_attention_smem(128, 2) == _build.lib().egs_paged_attention_smem(128, 2)
+
+
+@pytest.mark.gpu
+def test_launcher_compile_cache_fills_then_loads(cuda, tmp_path):
+    """``launcher --compile-cache D`` twice, each a process of its own on
+    the card: the first builds the library and fills D's entry, the second
+    loads it (fills 0, loads 1) and runs no nvcc."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    d = str(tmp_path / "cache")
+    runs = []
+    for _ in range(2):
+        proc = subprocess.run(
+            [sys.executable, "-m", "elastic_gpu_scheduler_tpu_torch.launcher", "--steps", "1",
+             "--batch-size", "2", "--seq-len", "64", "--compile-cache", d],
+            cwd=repo, env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True,
+            timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        last = proc.stdout.strip().splitlines()[-1]
+        assert last.startswith(f"compile cache {d}: "), proc.stdout[-500:]
+        runs.append(json.loads(last.split(": ", 1)[1]))
+    assert os.path.exists(os.path.join(d, _build.library_key() + ".aotx"))
+    (cold,), (warm,) = runs
+    assert (cold["misses"], cold["fills"], cold["loads"]) == (1, 1, 0)
+    assert (warm["misses"], warm["fills"], warm["loads"]) == (0, 0, 1)
+
+
+@pytest.mark.gpu
+def test_lattice_captures_every_graph_replay_equals_eager(cuda):
+    """The warm-up captures one graph a lattice decode point (3 variants
+    x buckets), with one eager scratch chunk before each variant's first
+    capture only, leaves the generator where it was, and serving
+    afterwards captures nothing; a replay of a warmed graph and one eager
+    chunk from cloned identical state give identical tokens, carry and
+    pool bytes, for the live dispatch's graph, and then for every captured
+    graph at the live slots' state, its live rows' tokens, the carry and
+    every page but the scratch page; the tokens equal an unwarmed
+    engine's."""
+    from elastic_gpu_scheduler_tpu_torch.compilecache import CompileCache, warmup_engine
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (3, 17, 40)]
+    outs = {}
+    for warm in (True, False):
+        cache = CompileCache(None) if warm else None
+        _, _, eng = _small_engine(cuda, compile_cache=cache)
+        if warm:
+            gen0 = eng.generator.get_state().clone()
+            st = warmup_engine(eng)
+            n_chunks = sum(label.startswith("serve_chunk") for label, _ in eng.aot_signatures())
+            assert st.state == "ready" and st.errors == 0 and st.built == st.lattice_size
+            buckets = eng._pow2_lattice(1, eng.max_pages_per_slot)  # 1, 2, 4, 6
+            assert st.captures == eng.graphs_captured == eng.graph_cache.misses == n_chunks
+            assert n_chunks == 3 * len(buckets) == 12 and eng.graph_warmups == 3
+            assert torch.equal(eng.generator.get_state(), gen0)
+        reqs = [eng.submit(serving.Request(prompt=p, max_new_tokens=30)) for p in prompts]
+        eng._admit()
+        eng.step()
+        eng._drain_pending()
+        if warm:
+            seen = []
+            real = eng._replay_chunk
+
+            def spy(key, args, static):
+                seen.append((args, static, {k: v.clone() for k, v in args[1].items()},
+                             args[3].clone(), args[4].clone()))
+                return real(key, args, static)
+
+            eng._replay_chunk = spy
+            pending = eng._dispatch_chunk()
+            torch.cuda.synchronize()
+            args, static, kv0, tok0, len0 = seen[0]
+            eager_args = list(args)
+            eager_args[1], eager_args[3], eager_args[4] = kv0, tok0, len0
+            out = serving._chunk_in_place(*eager_args, **static)
+            torch.cuda.synchronize()
+            assert torch.equal(out, pending.out)
+            assert torch.equal(tok0, args[3]) and torch.equal(len0, args[4])
+            for name in eng.kv:
+                assert torch.equal(kv0[name], eng.kv[name]), name
+            eng._drain_chunk(pending)
+            eng._replay_chunk = real
+            # every captured graph, at the live slots' state: its view cut
+            # or padded with the scratch page to the graph's bucket
+            host_view = args[2].cpu().numpy()
+            active = args[5].cpu().numpy()
+            tok, ln = args[3], args[4]
+            for key in sorted(eng.graph_keys()):
+                bucket, flags = key[0], key[1:]
+                if bucket < host_view.shape[1]:
+                    continue  # it would cut a live slot's pages
+                view = np.full((eng.max_batch, bucket), serving.SCRATCH_PAGE, np.int32)
+                view[:, :host_view.shape[1]] = host_view
+                v = dict(zip(("use_filters", "use_temp", "want_lp", "use_pen", "use_seed",
+                              "use_min"), flags))
+                kargs = eng._chunk_args(v, view, active, (tok, ln))
+                kstatic = eng._static(v, n_steps=eng.fused_steps)
+                kv0 = {k: t.clone() for k, t in eng.kv.items()}
+                tok0, len0, gen0 = tok.clone(), ln.clone(), eng.generator.get_state()
+                replayed = eng._replay_chunk(key, kargs, kstatic).clone()
+                torch.cuda.synchronize()
+                after = ({k: t.clone() for k, t in eng.kv.items()}, tok.clone(), ln.clone())
+                for k in eng.kv:
+                    eng.kv[k].copy_(kv0[k])
+                tok.copy_(tok0)
+                ln.copy_(len0)
+                eng.generator.set_state(gen0)
+                eager = serving._chunk_in_place(*kargs, **kstatic)
+                torch.cuda.synchronize()
+                # the live rows and every page but the scratch page (an
+                # inactive row's sampled tokens and writes are discarded)
+                live = torch.from_numpy(active).to(cuda)
+                assert torch.equal(eager[live], replayed[live]), key
+                assert torch.equal(tok, after[1]) and torch.equal(ln, after[2]), key
+                for k in eng.kv:
+                    assert torch.equal(eng.kv[k][:, 1:], after[0][k][:, 1:]), (key, k)
+                    eng.kv[k].copy_(kv0[k])
+                tok.copy_(tok0)
+                ln.copy_(len0)
+                eng.generator.set_state(gen0)
+        eng.run_until_idle()
+        assert all(r.done.is_set() and not r.error for r in reqs)
+        if warm:
+            assert eng.graphs_captured == n_chunks
+            assert eng.graph_cache.hits == eng.graph_replays
+        outs[warm] = [r.output for r in reqs]
+    assert outs[True] == outs[False]
+
+
+@pytest.mark.gpu
 def test_overlapped_engine_on_card_matches_sequential_float32(cuda):
     """The overlapped engine (graph replays) gives the sequential engine's
     greedy tokens on the card and the CPU's, with exact launch counts."""
@@ -559,7 +718,7 @@ def test_overlapped_engine_samples_through_graphs(cuda):
         eng.run_until_idle()
         assert all(r.done.is_set() and not r.error for r in reqs)
         assert eng.graph_replays == eng.steps_run > 0
-        assert any(key[1] for key in eng._graphs)  # (bucket, use_filters, ...)
+        assert any(key[1] for key in eng.graph_keys())  # (bucket, use_filters, ...)
         outs.append([r.output for r in reqs])
     assert outs[0] == outs[1]
     assert outs[0][2] == [0] * 40  # greedy over equal logits
@@ -990,7 +1149,7 @@ def test_lora_base_rows_equal_bankless_chunks(cuda, dtype):
         reqs = _lora_requests(eng, LORA_MIX if bank else ("",) * 4)
         eng.run_until_idle()
         assert all(r.done.is_set() and not r.error for r in reqs)
-        outs[bank] = (chunks, [r.output for r in reqs], set(eng._graphs))
+        outs[bank] = (chunks, [r.output for r in reqs], eng.graph_keys())
     (plain, plain_toks, plain_keys), (mixed, mixed_toks, mixed_keys) = outs[False], outs[True]
     assert len(plain) == len(mixed) and mixed_keys == plain_keys
     base_rows = [i for i, a in enumerate(LORA_MIX) if a == ""]

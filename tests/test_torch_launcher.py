@@ -1,5 +1,5 @@
 """The port's launcher on the CPU: the command line trains and logs, and
-whatever needs more than one device or an unported module exits 2."""
+whatever it cannot tile exits 2."""
 
 import json
 import os
@@ -53,12 +53,20 @@ def test_run_job_loss_falls():
     ["--mesh", "data=2,pipe=2", "--n-microbatches", "2", "--n-experts", "2"],
     ["--mesh", "pipe=2", "--n-microbatches", "3"],  # a rank's 8 rows
     ["--mesh", "tensor=3"],  # 8 heads do not split over 3 ranks
-    ["--compile-cache", "/nonexistent/cache"],
     ["--mesh", "bogus=2"],
 ], ids=str)
 def test_unported_flags_exit_2(argv, capsys):
     assert launcher.main(["--cpu", "--steps", "1", *argv]) == 2
     assert "error:" in capsys.readouterr().err
+
+
+def test_compile_cache_flag_trains(tmp_path, capsys):
+    """``--compile-cache DIR`` is served: the job's kernel library goes
+    through a cache in DIR (on the CPU there is no library to build)."""
+    cache = tmp_path / "cache"
+    assert launcher.main(["--cpu", "--steps", "1", "--batch-size", "2", "--seq-len", "16",
+                          "--compile-cache", str(cache)]) == 0
+    assert "trained 1 steps" in capsys.readouterr().out
 
 
 def test_multi_chip_allocations_exit_2(tmp_path, monkeypatch, capsys):
