@@ -400,6 +400,12 @@ def trace_kernels(prof) -> list[dict]:
     return sorted(out, key=lambda k: k["start"])
 
 
+# A window whose launches are counted exactly opens with this many spin
+# kernels of half SPIN_CYCLES each (~80 ms in all): late in the process the
+# records a window loses at its start ran past a 4-spin lead, in one run on
+# the H100 (one or two KE launches of a window of three MoE / int8 chunks)
+COUNTED_LEAD_SPINS = 32
+
 # Now and then torch.profiler hands back no device events for a window
 # (one window in ~50 of one run on the card, cause not known); such a
 # window runs again, up to this many times in all
@@ -410,11 +416,12 @@ def profiled(fn, what: str, cpu: bool = False, trace: list | None = None,
              lead_spin: bool = False) -> tuple[float, list[dict]]:
     """Run ``fn`` once under torch.profiler: (wall ms, device kernels);
     ``trace``, when given, receives the run's kernels (``trace_kernels``).
-    ``lead_spin``: the window opens with LEAD_SPINS spins, synchronized
-    before the clock starts, so the records a window loses in its first
-    milliseconds are the spin's (left out of both results), not ``fn``'s:
-    for windows whose launches are counted exactly.  The run fails if no
-    try of PROFILE_TRIES saw the device."""
+    ``lead_spin``: the window opens with COUNTED_LEAD_SPINS spins,
+    synchronized before the clock starts, and closes with a short spin,
+    so the records a window loses in its first milliseconds or of its last
+    kernels are the spins' (left out of both results), not ``fn``'s: for
+    windows whose launches are counted exactly.  The run fails if no try of
+    PROFILE_TRIES saw the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -423,12 +430,16 @@ def profiled(fn, what: str, cpu: bool = False, trace: list | None = None,
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             if lead_spin:
-                torch.cuda._sleep(LEAD_SPINS * SPIN_CYCLES)
+                for _ in range(COUNTED_LEAD_SPINS):
+                    torch.cuda._sleep(SPIN_CYCLES // 2)
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            if lead_spin:
+                torch.cuda._sleep(SPIN_CYCLES // 10)
+                torch.cuda.synchronize()
         kernels = device_kernels(prof)
         if lead_spin:
             kernels = [k for k in kernels if "spin_kernel" not in k["kernel"]]
@@ -3198,8 +3209,19 @@ def overlapped_run(eng, prompts, label, int8=False) -> dict:
 
 
 def profile_chunks(eng, prompts, label) -> dict:
-    """Device ms, kernels and KE's share of CONTROL_WINDOW overlapped chunks."""
-    out = chunk_profile(eng, [(p, {}) for p in prompts], label, ke=True)
+    """Device ms, kernels and KE's share of CONTROL_WINDOW overlapped chunks.
+    Each chunk is a replay of one CUDA graph, so a window holds each KE
+    launch a whole number of times a chunk; a count that is not whole means
+    the profiler lost a record (one or two of 1,536 in some runs on the
+    H100), and the window runs again on a fresh batch, up to PROFILE_TRIES
+    times.  The counts are then held exactly (``ke_row_launches``)."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        out = chunk_profile(eng, [(p, {}) for p in prompts], label, ke=True)
+        counts = list(out.get("ke_launches", {}).values())  # none on a model without KE
+        if all(float(c).is_integer() for c in counts):
+            break
+        log(f"{label}: KE launches a chunk {counts} are not whole, a record lost "
+            f"(attempt {attempt} of {PROFILE_TRIES})")
     out["ke_share"] = out["ke_ms_per_chunk"] / out["device_ms_per_chunk"]
     log(f"{label}: KE {out['ke_ms_per_chunk']:.3f} device ms a chunk "
         f"({out['ke_share']:.3f} of the chunk), {out['ke_launches_per_chunk']:.0f} launches")
@@ -4357,6 +4379,18 @@ def phase_observability(dev, params, cfg, prompts) -> dict:
     del fresh
     gc.collect()
     torch.cuda.empty_cache()
+    # the greedy decode graph at every table-view bucket, as a replica's
+    # warm-up captures it (here, on this thread under inference mode, as
+    # the loop's thread runs: no loop runs the engine yet): which buckets
+    # 12 streams visit depends on when each arrives over HTTP, and the main
+    # path must capture nothing
+    captured = eng.graphs_captured
+    with torch.inference_mode():
+        for label, build in eng.aot_signatures():
+            if label.startswith("serve_chunk:000000:"):
+                build()
+    log(f"observability: {eng.graphs_captured - captured} greedy decode graphs captured "
+        f"before the main path (buckets the cold batch did not visit)")
     server, loop = serve_inference(eng, port=0, host="127.0.0.1")
     addr = server.server_address
     try:
@@ -7092,6 +7126,7 @@ def kernel_ring_rows(dev) -> list[dict]:
     rows = [{
         **reading_fields([(1, r[0]) for r in k3], "flash_stats_kernel"),
         "name": "flash_block_stats", "path": "train: ring (seq=2)", "route": "cuda",
+        "redesigned": "float32 register micro-tiles (fp32_tile.cuh)",
         "source": src + "flash_stats.cu", "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:902",
         "launches": 0, "max_abs_err": errs["k3"], "plain_ms": mean(k3, 1),
         "bound_ms": mean(k3, 3), "bound_by": k3[0][4], "library_ms": mean(k3, 2),
@@ -7104,6 +7139,7 @@ def kernel_ring_rows(dev) -> list[dict]:
                              share * mean(k4, 3)),
             "name": f"flash_bwd_{which}", "path": "train: ring hop backward (seq=2)",
             "route": "cuda", "source": src + "flash_bwd.cu",
+            "redesigned": "float32 register micro-tiles (fp32_tile.cuh)",
             "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:633",
             "launches": 0, "max_abs_err": errs[which], "plain_ms": mean(k4, 1),
             "bound_ms": share * mean(k4, 3), "bound_by": k4[0][4], "library_ms": mean(k4, 2),
@@ -7117,6 +7153,51 @@ def kernel_ring_rows(dev) -> list[dict]:
     del q, k, v, do
     torch.cuda.empty_cache()
     return rows
+
+
+# the float32 K1 row's shape: the longest prefill of phase 11's engine
+# (TinyLlama's widths, float32 as converted: 32 query heads after
+# repeat_kv, Dh 64, its 256-token prompt)
+HF_K1 = (1, TINYLLAMA["num_attention_heads"], max(HF_PROMPT_LENS),
+         TINYLLAMA["hidden_size"] // TINYLLAMA["num_attention_heads"])
+
+
+def kernel_fp32_k1_row(dev) -> dict:
+    """K1's float32 kernel at the shape of phase 11's longest float32
+    prefill (causal), held to ``mha_reference``, read as the other rows
+    are, with float32 SDPA as the library call.  Launches are phase 11's
+    engine's main path's (all four prompts' prefills), filled in after it."""
+    import torch
+    import torch.nn.functional as F
+
+    from elastic_gpu_scheduler_tpu_torch.ops.attention import flash_attention, mha_reference
+
+    B, H, S, D = HF_K1
+    g = torch.Generator(device=dev).manual_seed(29)
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev) for _ in range(3))
+    out, lse = flash_attention(q, k, v, True, None, 0, return_lse=True)
+    ref, ref_lse = mha_reference(q, k, v, True, None, 0)
+    err, lse_err = maxerr(out, ref), maxerr(lse, ref_lse)
+    check(close(out, ref, "float32") and lse_err <= 1e-4,
+          f"K1 float32 disagrees with mha_reference at the --hf prefill shape (out {err:.3g}, "
+          f"lse {lse_err:.3g})")
+    bound, by = k1_bound_ms(B, H, S, S, D, True, 0, 4)
+    rd = replay_readings(lambda: flash_attention(q, k, v, True, None, 0), 20, bound=bound)
+    plain = device_ms(lambda: mha_reference(q, k, v, True, None, 0), 5)
+    lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
+    log(f"K1 float32 at the --hf prefill shape (B={B} H={H} S={S} D={D} causal): "
+        f"{rd['ms']['']:.5f} ms (profiler {rd['profiler_ms']['']:.5f}; plain {plain:.4f}, sdpa "
+        f"{lib:.5f}, bound {bound:.5f} {by}), max|out-ref|={err:.3g} max|lse-ref|={lse_err:.3g}")
+    return {
+        **reading_fields([(1, rd)]),
+        "name": "flash_fwd", "path": "serve --hf float32 prefill", "route": "cuda",
+        "source": "elastic_gpu_scheduler_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:290",
+        "launches": 0, "max_abs_err": err, "plain_ms": plain, "bound_ms": bound,
+        "bound_by": by, "library_ms": lib,
+        "note": "float32 kernel (flash_fwd_fp32_kernel) at phase 11's longest prefill; "
+                "launches are that engine's prefills of all four prompts",
+    }
 
 
 # the PR that last rebuilt each kernel's bf16 path for Hopper
@@ -7233,6 +7314,7 @@ def main() -> int:
     train_rows = kernel_train_rows(dev, k4_err)
     vit_rows = kernel_vit_rows(dev)
     ring_rows = kernel_ring_rows(dev)
+    fp32_k1_row = kernel_fp32_k1_row(dev)
     gc.collect()
     torch.cuda.empty_cache()
     mark("3-5 kernels, train/ViT/ring rows")
@@ -7351,12 +7433,13 @@ def main() -> int:
         r["launches"] = vit["launches"][r["name"]]
     for r in ring_rows:
         r["launches"] = mesh["ring_launches"][r["name"]]
-    kernels += train_rows + vit_rows + ring_rows
+    fp32_k1_row["launches"] = hf["engine_launches"]["flash_fwd"]
+    kernels += train_rows + vit_rows + ring_rows + [fp32_k1_row]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
         k["of_bound"] = k["bound_ms"] / k["ms"]
         k["vs_library"] = k["ms"] / k["library_ms"] if k["library_ms"] else None
-        if k["name"] in REDESIGNED:
+        if k["name"] in REDESIGNED and "redesigned" not in k:
             k["redesigned"] = REDESIGNED[k["name"]]
     readings = check_readings(kernels, cost)
     log(json.dumps({"engine": perf}))

@@ -47,16 +47,36 @@
 //     past Sq, keys past Sk, causal with q_shift = Sk - Sq, window), with p
 //     = 0 set explicitly, so any Sq <= Sk runs (the TPU side needs
 //     `_fit_block`).
-// float32 keeps the first version (it carries the float32 card-vs-CPU
-// training identity): the same two kernels with plain FMA (the TPU
-// kernel's fp32 path is the "highest"-precision MXU product, and TF32
-// would not be), S and dP in registers, P, dS and the accumulators in
-// shared memory (dkv at D 128 takes ~187 KB, requested with
-// cudaFuncSetAttribute).  A later PR can move the bf16 path to wgmma.
+// float32 (every ring-attention hop's backward, whatever the model's
+// dtype, and float32 training, which carries the card-vs-CPU identity)
+// replaces the same TPU kernels at their float32 precision: full float32
+// FMAs (the TPU kernel's fp32 path is the "highest"-precision MXU product,
+// and TF32 would not be).  What bounds it on this card: operations, on the
+// CUDA cores.  At the ring hop (B 8, 16 heads, 512 queries against a 512-key
+// shard, Dh 128) the five products take 10 Dh FLOPs a kept pair against
+// 67 TFLOP/s, and the two-kernel design does seven, so its ceiling is 5/7 of
+// the bound.  The first version read both operands of every FMA from
+// unpadded shared tiles (32-way bank conflicts), kept the accumulators in
+// shared memory, copied each tile synchronously and ran four warps an SM:
+// 43x its bound.  The float32 kernels now (fp32_tile.cuh):
+//   - the same two kernels and the same tile skipping, eight warps a block:
+//     the dq kernel owns a 64-row query tile (the last ones first under
+//     causal) and streams 64-key K/V tiles, the dkv kernel owns a 64-key
+//     tile and streams 64-row Q/dO tiles with their lse and delta rows, each
+//     through a 2-stage ring of 16-byte cp.async copies;
+//   - every product as register micro-tiles in outer-product form: a
+//     thread owns 4 rows x 4 columns of S and dP (S^T and dP^T in dkv) and 4
+//     rows x Dh / 16 columns of dQ (of dK and of dV), reading 16-byte
+//     vectors of padded, conflict-free tiles; the accumulators stay in
+//     registers;
+//   - dS (dq), P^T then dS^T (dkv) go to shared memory once a tile, for the
+//     row group's own product with K, dO or Q; no atomics, every sum in a
+//     fixed order: bitwise repeatable.
 
 #include <math.h>
 
 #include "attn_common.cuh"
+#include "fp32_tile.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -369,241 +389,222 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   store_acc_rows<D>(dv + bh * Sk * D, sV, dv_acc, wrow, kw0, Sk, one, lane);
 }
 
-// -- fp32: the first version ---------------------------------------------------
+// -- fp32: register micro-tiles, cp.async, eight warps -----------------------
 
-constexpr int BT = TILE;  // rows per tile, queries and keys alike
-constexpr int NT32 = TILE_THREADS;  // four warps, each owning 16 rows
-
-// Shared-memory plan of both fp32 kernels.  Row strides in elements; tiles
-// are not padded, so the dkv kernel at D 128 fits in 227 KB.
+// dq: Q, dO, 2 stages of K and of V, dS
 template <int D>
-struct Plan {
-  static constexpr int LD = D;         // Q, K, V, dO tiles
-  static constexpr int LDP = BT + 4;   // P, dS
-  static constexpr int LDO = D;        // accumulators
-  static constexpr size_t TILE_BYTES = align128(sizeof(float) * BT * LD);
-  static constexpr size_t PT = align128(sizeof(float) * BT * LDP);
-  static constexpr size_t ACC = align128(sizeof(float) * BT * LDO);
-  static constexpr size_t ROW = align128(sizeof(float) * BT);
-};
-
-// lse and delta of rows [row0, row0 + 64); rows past the end read 0
-__device__ __forceinline__ void load_rows(float* s_lse, float* s_delta,
-                                          const float* __restrict__ lse,
-                                          const float* __restrict__ delta, int row0,
-                                          int rows_total) {
-  for (int i = threadIdx.x; i < BT; i += NT32) {
-    const int gr = row0 + i;
-    s_lse[i] = gr < rows_total ? lse[gr] : 0.f;
-    s_delta[i] = gr < rows_total ? delta[gr] : 0.f;
-  }
-}
-
-// p and dS of this warp's 16 query rows against one 64-key tile, written
-// to sP (when given) and sDS, S and dP computed here by FMA.  Lane l takes
-// keys l and l + 32.
-template <int D>
-__device__ __forceinline__ void grad_tile(float* sP, float* sDS, const float* sQ,
-                                          const float* sK, const float* sDO, const float* sV,
-                                          const float* s_lse, const float* s_delta, int wrow,
-                                          int lane, int q0, int q_shift, int k0, int Sq,
-                                          int Sk, int causal, int window, float scale) {
-  using P = Plan<D>;
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = wrow + rr;
-    const int qrow = q0 + r;
-    const int qpos = qrow + q_shift;
-    const float lse_r = s_lse[r];
-    const float delta_r = s_delta[r];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int c = lane + 32 * u;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        s += sQ[r * P::LD + d] * sK[c * P::LD + d];
-        dp += sDO[r * P::LD + d] * sV[c * P::LD + d];
-      }
-      float p = 0.f, ds = 0.f;
-      if (keep_pair(qrow, qpos, k0 + c, Sq, Sk, causal, window)) {
-        p = expf(s * scale - lse_r);
-        ds = p * (dp - delta_r) * scale;
-      }
-      if (sP != nullptr) sP[r * P::LDP + c] = p;
-      sDS[r * P::LDP + c] = ds;
-    }
-  }
-}
-
-// acc (16 rows of this warp, D cols, in shared memory) += A B, A the
-// warp's 16 x 64 rows of `a` (or the transpose of a 64 x 16 column block
-// when kTransA), B a 64 x D tile
-template <int D, bool kTransA>
-__device__ __forceinline__ void accumulate(float* acc, const float* a, const float* b, int wrow,
-                                           int lane) {
-  using P = Plan<D>;
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = wrow + rr;
-    for (int c = lane; c < D; c += 32) {
-      float s = 0.f;
-#pragma unroll 8
-      for (int kk = 0; kk < BT; ++kk) {
-        const float av = kTransA ? a[kk * P::LDP + r] : a[r * P::LDP + kk];
-        s += av * b[kk * P::LD + c];
-      }
-      acc[r * P::LDO + c] += s;
-    }
-  }
-}
-
-// write rows [row0, row0 + 64) of a shared accumulator to global memory
-template <int D>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float* acc, int row0,
-                                           int rows_total) {
-  using P = Plan<D>;
-  for (int i = threadIdx.x; i < BT * D; i += NT32) {
-    const int r = i / D, c = i % D;
-    if (row0 + r < rows_total) dst[(size_t)(row0 + r) * D + c] = acc[r * P::LDO + c];
-  }
+constexpr size_t dq_fp32_smem_bytes() {
+  return f32::smem_bytes<D>(2 + 4, 1, 0);
 }
 
 template <int D>
-struct DqSmem {
-  using P = Plan<D>;
-  static constexpr size_t Q = 0, DO = Q + P::TILE_BYTES, K = DO + P::TILE_BYTES;
-  static constexpr size_t V = K + P::TILE_BYTES, DS = V + P::TILE_BYTES;
-  static constexpr size_t ACC = DS + P::PT, LSE = ACC + P::ACC, DELTA = LSE + P::ROW;
-  static constexpr size_t BYTES = DELTA + P::ROW;
-};
-
-template <int D>
-__global__ void __launch_bounds__(NT32)
+__global__ void __launch_bounds__(f32::NT, 1)
 flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dq, int H, int Sq, int Sk, int causal, int window,
+                         float* __restrict__ dq, int Sq, int Sk, int causal, int window,
                          float scale) {
-  using M = DqSmem<D>;
-  using P = Plan<D>;
+  using namespace f32;
+  constexpr int LD = ld<D>();
   extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem + M::Q);
-  float* sDO = reinterpret_cast<float*>(smem + M::DO);
-  float* sK = reinterpret_cast<float*>(smem + M::K);
-  float* sV = reinterpret_cast<float*>(smem + M::V);
-  float* sDS = reinterpret_cast<float*>(smem + M::DS);
-  float* sAcc = reinterpret_cast<float*>(smem + M::ACC);
-  float* sLse = reinterpret_cast<float*>(smem + M::LSE);
-  float* sDelta = reinterpret_cast<float*>(smem + M::DELTA);
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sDO = sQ + BR * LD;
+  float* sK = sDO + BR * LD;     // stage s at sK + s * BC * LD
+  float* sV = sK + 2 * BC * LD;  // stage s at sV + s * BC * LD
+  float* sDS = sV + 2 * BC * LD;
 
-  const int q0 = blockIdx.x * BT;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  const int n_qt = (Sq + BR - 1) / BR;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.y : (int)blockIdx.y) * BR;
+  const size_t bh = blockIdx.x;
+  const float* kg = k + bh * Sk * D;
+  const float* vg = v + bh * Sk * D;
   const int q_shift = Sk - Sq;
   const int qpos0 = q0 + q_shift;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wrow = warp * 16;
+  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
 
-  load_tile<float, D>(sQ, q + bh * Sq * D, q0, Sq, P::LD);
-  load_tile<float, D>(sDO, dout + bh * Sq * D, q0, Sq, P::LD);
-  load_rows(sLse, sDelta, lse + bh * Sq, delta + bh * Sq, q0, Sq);
-  for (int i = tid; i < BT * P::LDO; i += NT32) sAcc[i] = 0.f;
-
-  const int n_kt = (Sk + BT - 1) / BT;
+  const int n_kt = (Sk + BC - 1) / BC;
   int kt_end = n_kt;
-  if (causal) kt_end = min(n_kt, (qpos0 + BT - 1) / BT + 1);  // above-diagonal tiles
+  if (causal) kt_end = min(n_kt, (qpos0 + BR - 1) / BC + 1);  // above-diagonal tiles
   int kt_begin = 0;
   if (window > 0) {
     const int lo = qpos0 - window + 1;  // earliest key any row of the tile keeps
-    kt_begin = lo > 0 ? lo / BT : 0;
+    kt_begin = lo > 0 ? lo / BC : 0;
+  }
+
+  cp_tile<BR, D>(sQ, q + bh * Sq * D, q0, Sq, D);
+  cp_tile<BR, D>(sDO, dout + bh * Sq * D, q0, Sq, D);
+  if (kt_begin < kt_end) {
+    cp_tile<BC, D>(sK, kg, kt_begin * BC, Sk, D);
+    cp_tile<BC, D>(sV, vg, kt_begin * BC, Sk, D);
+  }
+  cp_async_commit();
+
+  float lse_r[TR], delta_r[TR], acc[TR][D / 16];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int row = q0 + 4 * rg + i;
+    lse_r[i] = row < Sq ? lse[bh * Sq + row] : 0.f;
+    delta_r[i] = row < Sq ? delta[bh * Sq + row] : 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) acc[i][n] = 0.f;
   }
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's K/V are no longer read
-    load_tile<float, D>(sK, k + bh * Sk * D, k0, Sk, P::LD);
-    load_tile<float, D>(sV, v + bh * Sk * D, k0, Sk, P::LD);
-    __syncthreads();
-    grad_tile<D>(nullptr, sDS, sQ, sK, sDO, sV, sLse, sDelta, wrow, lane, q0, q_shift, k0, Sq,
-                 Sk, causal, window, scale);
-    __syncwarp();
-    accumulate<D, false>(sAcc, sDS, sK, wrow, lane);  // dQ += dS K
-    __syncwarp();
+    const int stg = (kt - kt_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
+    if (kt + 1 < kt_end) {
+      cp_tile<BC, D>(sK + (stg ^ 1) * BC * LD, kg, (kt + 1) * BC, Sk, D);
+      cp_tile<BC, D>(sV + (stg ^ 1) * BC * LD, vg, (kt + 1) * BC, Sk, D);
+    }
+    cp_async_commit();
+    const float* cK = sK + stg * BC * LD;
+
+    // S = Q K^T and dP = dO V^T for the thread's 4 rows x 4 keys
+    float s[TR][TC], dp[TR][TC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) s[i][j] = dp[i][j] = 0.f;
+    scores<D>(s, sQ, cK, rg, cg);
+    scores<D>(dp, sDO, sV + stg * BC * LD, rg, cg);
+
+    // dS = p (dP - delta) scale, p = 0 outside the mask
+    const int k0 = kt * BC;
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int qrow = q0 + 4 * rg + i;
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        float ds = 0.f;
+        if (keep_pair(qrow, qrow + q_shift, k0 + cg + 16 * j, Sq, Sk, causal, window))
+          ds = expf(s[i][j] * scale - lse_r[i]) * (dp[i][j] - delta_r[i]) * scale;
+        sDS[(4 * rg + i) * LDP + cg + 16 * j] = ds;
+      }
+    }
+    __syncwarp();  // the row group's dS rows are in place
+
+    // dQ += dS K
+    accumulate<D>(acc, sDS, cK, rg, cg);
   }
-  __syncthreads();  // the zeroed accumulator is visible even with no tile
-  store_rows<D>(dq + bh * Sq * D, sAcc, q0, Sq);
+
+  cp_async_wait<0>();  // no copy outlives the block
+  store_rows<D>(dq + bh * Sq * D, acc, q0, Sq, rg, cg);
+}
+
+// dkv: K, V, 2 stages of Q and of dO, P^T (then dS^T), 2 stages of the lse
+// and delta rows
+template <int D>
+constexpr size_t dkv_fp32_smem_bytes() {
+  return f32::smem_bytes<D>(2 + 4, 1, 4 * f32::BC);
 }
 
 template <int D>
-struct DkvSmem {
-  using P = Plan<D>;
-  static constexpr size_t K = 0, V = K + P::TILE_BYTES, Q = V + P::TILE_BYTES;
-  static constexpr size_t DO = Q + P::TILE_BYTES, PP = DO + P::TILE_BYTES;
-  static constexpr size_t DS = PP + P::PT, DK = DS + P::PT, DV = DK + P::ACC;
-  static constexpr size_t LSE = DV + P::ACC, DELTA = LSE + P::ROW;
-  static constexpr size_t BYTES = DELTA + P::ROW;
-};
-
-template <int D>
-__global__ void __launch_bounds__(NT32)
+__global__ void __launch_bounds__(f32::NT, 1)
 flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv, int H, int Sq, int Sk,
+                          float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
                           int causal, int window, float scale) {
-  using M = DkvSmem<D>;
-  using P = Plan<D>;
+  using namespace f32;
+  constexpr int LD = ld<D>();
   extern __shared__ __align__(128) unsigned char smem[];
-  float* sK = reinterpret_cast<float*>(smem + M::K);
-  float* sV = reinterpret_cast<float*>(smem + M::V);
-  float* sQ = reinterpret_cast<float*>(smem + M::Q);
-  float* sDO = reinterpret_cast<float*>(smem + M::DO);
-  float* sP = reinterpret_cast<float*>(smem + M::PP);
-  float* sDS = reinterpret_cast<float*>(smem + M::DS);
-  float* sDK = reinterpret_cast<float*>(smem + M::DK);
-  float* sDV = reinterpret_cast<float*>(smem + M::DV);
-  float* sLse = reinterpret_cast<float*>(smem + M::LSE);
-  float* sDelta = reinterpret_cast<float*>(smem + M::DELTA);
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + BR * LD;
+  float* sQ = sV + BR * LD;       // stage s at sQ + s * BC * LD
+  float* sDO = sQ + 2 * BC * LD;  // stage s at sDO + s * BC * LD
+  float* sP = sDO + 2 * BC * LD;
+  float* sLse = sP + BR * LDP;    // stage s at sLse + s * BC
+  float* sDelta = sLse + 2 * BC;  // stage s at sDelta + s * BC
 
-  const int k0 = blockIdx.x * BT;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
+  const int k0 = blockIdx.y * BR;  // the first key tiles are the heaviest under causal
+  const size_t bh = blockIdx.x;
+  const float* qg = q + bh * Sq * D;
+  const float* dog = dout + bh * Sq * D;
+  const float* lse_g = lse + bh * Sq;
+  const float* delta_g = delta + bh * Sq;
   const int q_shift = Sk - Sq;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wrow = warp * 16;
-
-  load_tile<float, D>(sK, k + bh * Sk * D, k0, Sk, P::LD);
-  load_tile<float, D>(sV, v + bh * Sk * D, k0, Sk, P::LD);
-  for (int i = tid; i < BT * P::LDO; i += NT32) {
-    sDK[i] = 0.f;
-    sDV[i] = 0.f;
-  }
+  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
 
   // query tiles that keep some pair with this key tile
-  const int n_qt = (Sq + BT - 1) / BT;
+  const int n_qt = (Sq + BC - 1) / BC;
   int qt_begin = 0, qt_end = n_qt;
   if (causal) {
     const int first = k0 - q_shift;  // first query row at or past key k0
-    qt_begin = first > 0 ? first / BT : 0;
+    qt_begin = first > 0 ? first / BC : 0;
   }
   if (window > 0) {
-    const int last = k0 + BT - 1 + window - 1 - q_shift;  // last row within the window
-    qt_end = last < 0 ? 0 : min(n_qt, last / BT + 1);
+    const int last = k0 + BR - 1 + window - 1 - q_shift;  // last row within the window
+    qt_end = last < 0 ? 0 : min(n_qt, last / BC + 1);
   }
 
+  auto load_q_tile = [&](int stage, int qt) {
+    cp_tile<BC, D>(sQ + stage * BC * LD, qg, qt * BC, Sq, D);
+    cp_tile<BC, D>(sDO + stage * BC * LD, dog, qt * BC, Sq, D);
+    cp_rows<BC, f32::NT>(sLse + stage * BC, lse_g, qt * BC, Sq);
+    cp_rows<BC, f32::NT>(sDelta + stage * BC, delta_g, qt * BC, Sq);
+  };
+  cp_tile<BR, D>(sK, k + bh * Sk * D, k0, Sk, D);
+  cp_tile<BR, D>(sV, v + bh * Sk * D, k0, Sk, D);
+  if (qt_begin < qt_end) load_q_tile(0, qt_begin);
+  cp_async_commit();
+
+  float dk_acc[TR][D / 16], dv_acc[TR][D / 16];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) dk_acc[i][n] = dv_acc[i][n] = 0.f;
+
   for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();  // the previous tile's Q/dO/P/dS are no longer read
-    load_tile<float, D>(sQ, q + bh * Sq * D, q0, Sq, P::LD);
-    load_tile<float, D>(sDO, dout + bh * Sq * D, q0, Sq, P::LD);
-    load_rows(sLse, sDelta, lse + bh * Sq, delta + bh * Sq, q0, Sq);
-    __syncthreads();
-    grad_tile<D>(sP, sDS, sQ, sK, sDO, sV, sLse, sDelta, wrow, lane, q0, q_shift, k0, Sq, Sk,
-                 causal, window, scale);
-    __syncthreads();  // every warp's P/dS rows are in place
-    accumulate<D, true>(sDV, sP, sDO, wrow, lane);  // dV += P^T dO
-    accumulate<D, true>(sDK, sDS, sQ, wrow, lane);  // dK += dS^T Q
+    const int stg = (qt - qt_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile qt has landed; every warp is done with tile qt - 1
+    if (qt + 1 < qt_end) load_q_tile(stg ^ 1, qt + 1);
+    cp_async_commit();
+    const int q0 = qt * BC;
+    const float* cQ = sQ + stg * BC * LD;
+    const float* cDO = sDO + stg * BC * LD;
+    const float* cLse = sLse + stg * BC;
+    const float* cDelta = sDelta + stg * BC;
+
+    // S^T = K Q^T and dP^T = V dO^T for the thread's 4 keys x 4 queries
+    float s[TR][TC], dp[TR][TC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) s[i][j] = dp[i][j] = 0.f;
+    scores<D>(s, sK, cQ, rg, cg);
+    scores<D>(dp, sV, cDO, rg, cg);
+
+    // P^T into s, dS^T = P^T (dP^T - delta) scale into dp; 0 outside the mask
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const int col = cg + 16 * j;  // query row in the tile
+      const float lse_c = cLse[col], delta_c = cDelta[col];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        float p = 0.f;
+        if (keep_pair(q0 + col, q0 + col + q_shift, k0 + 4 * rg + i, Sq, Sk, causal, window))
+          p = expf(s[i][j] * scale - lse_c);
+        s[i][j] = p;
+        dp[i][j] = p * (dp[i][j] - delta_c) * scale;
+        sP[(4 * rg + i) * LDP + col] = p;
+      }
+    }
+    __syncwarp();  // the row group's P^T rows are in place
+    accumulate<D>(dv_acc, sP, cDO, rg, cg);  // dV += P^T dO
+    __syncwarp();  // the row group has read its P^T rows
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) sP[(4 * rg + i) * LDP + cg + 16 * j] = dp[i][j];
+    __syncwarp();
+    accumulate<D>(dk_acc, sP, cQ, rg, cg);  // dK += dS^T Q
   }
-  __syncthreads();
-  store_rows<D>(dk + bh * Sk * D, sDK, k0, Sk);
-  store_rows<D>(dv + bh * Sk * D, sDV, k0, Sk);
+
+  cp_async_wait<0>();  // no copy outlives the block
+  store_rows<D>(dk + bh * Sk * D, dk_acc, k0, Sk, rg, cg);
+  store_rows<D>(dv + bh * Sk * D, dv_acc, k0, Sk, rg, cg);
 }
 
 // -- launch ----------------------------------------------------------------------
@@ -636,14 +637,15 @@ int launch_dq(const Args& a, int dtype) {
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), lse, delta,
         static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.causal, a.window, a.scale);
   } else {
-    constexpr size_t smem = DqSmem<D>::BYTES;
+    constexpr size_t smem = dq_fp32_smem_bytes<D>();
+    static_assert(smem <= 232448, "dq's float32 tiles exceed a block's shared memory");
     auto kern = flash_bwd_dq_fp32_kernel<D>;
     if (int err = prepare(kern, smem)) return err;
-    dim3 grid((a.Sq + BT - 1) / BT, a.H, a.B);
-    kern<<<grid, NT32, smem, a.stream>>>(
+    dim3 grid(a.B * a.H, (a.Sq + f32::BR - 1) / f32::BR);
+    kern<<<grid, f32::NT, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse, delta,
-        static_cast<float*>(a.dq), a.H, a.Sq, a.Sk, a.causal, a.window, a.scale);
+        static_cast<float*>(a.dq), a.Sq, a.Sk, a.causal, a.window, a.scale);
   }
   return (int)cudaGetLastError();
 }
@@ -663,16 +665,16 @@ int launch_dkv(const Args& a, int dtype) {
         static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.causal, a.window,
         a.scale);
   } else {
-    constexpr size_t smem = DkvSmem<D>::BYTES;
-    static_assert(smem <= 232448, "dkv tile plan exceeds 227 KB of shared memory");
+    constexpr size_t smem = dkv_fp32_smem_bytes<D>();
+    static_assert(smem <= 232448, "dk/dv's float32 tiles exceed a block's shared memory");
     auto kern = flash_bwd_dkv_fp32_kernel<D>;
     if (int err = prepare(kern, smem)) return err;
-    dim3 grid((a.Sk + BT - 1) / BT, a.H, a.B);
-    kern<<<grid, NT32, smem, a.stream>>>(
+    dim3 grid(a.B * a.H, (a.Sk + f32::BR - 1) / f32::BR);
+    kern<<<grid, f32::NT, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout), lse, delta,
-        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.Sq, a.Sk, a.causal,
-        a.window, a.scale);
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Sk, a.causal, a.window,
+        a.scale);
   }
   return (int)cudaGetLastError();
 }

@@ -55,9 +55,31 @@
 //     add exp(NEG_INF - m) = 0.
 // No atomics and every sum in a fixed order: bitwise repeatable.
 //
-// float32 keeps the first version (plain FMA; TF32 would not keep the
-// reference's precision): one block per (64-row query tile, head, batch),
-// K/V tiles looped in shared memory, kv-head by index, with the strides.
+// float32 (every ring-attention hop, whatever the model's dtype, and the
+// float32 engines' prefixed prefills) replaces the same TPU kernel at its
+// float32 precision: full float32 FMAs (TF32 would not keep the
+// reference's float32 einsums).  What bounds it on this card: operations,
+// on the CUDA cores.  At the ring hop (B 8, 16 heads, 512 queries against a
+// 512-key shard, Dh 128) a kept pair costs 4 Dh FLOPs against 67 TFLOP/s,
+// far above the bytes of q, k, v and the fp32 outputs.  The first version
+// read both operands of every FMA from shared memory (4-way bank
+// conflicts), kept the pv accumulator in shared memory, copied each tile
+// synchronously and ran four warps an SM: 16x its bound, 3.3x the plain
+// einsum.  The float32 path now (fp32_tile.cuh):
+//   - one block per (64-row query tile, head, batch), eight warps, the
+//     later query tiles first under causal; kv-head by index, with the
+//     strides;
+//   - 64-key K/V tiles stream through a 2-stage ring of 16-byte cp.async
+//     copies, the next tile in flight during the current one's products;
+//   - S = Q K^T and pv += P V as register micro-tiles in outer-product
+//     form: a thread owns 4 rows x 4 keys of S and 4 rows x Dh / 16
+//     columns of pv, reading 16-byte vectors of padded, conflict-free
+//     tiles; pv, m and l stay in registers, row reductions over the 16
+//     lanes of a row group; P goes to shared memory once a tile, for the
+//     row group's own P V;
+//   - the semantics above (NEG_INF for a masked key, -inf past Sk, tiles
+//     above the diagonal skipped only when every row keeps key 0), never
+//     split.
 
 #include <limits.h>
 #include <math.h>
@@ -65,6 +87,7 @@
 #include <algorithm>
 
 #include "attn_common.cuh"
+#include "fp32_tile.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -361,128 +384,125 @@ int launch_bf16(const void* q, const void* k, const void* v, void* pv, void* m, 
   return (int)cudaGetLastError();
 }
 
-// -- float32: the first version -------------------------------------------------
+// -- float32: register micro-tiles, cp.async, eight warps ----------------------
 
-constexpr int NTHREADS = TILE_THREADS;  // four warps, each owning 16 query rows
+// A block: 64 query rows of one head (f32::BR), 64-key K/V tiles (f32::BC)
+// in a 2-stage cp.async ring; Q, the ring and the P tile in shared memory.
 template <int D>
-using Layout = FwdLayout<float, D>;
+constexpr size_t fp32_smem_bytes() {
+  return f32::smem_bytes<D>(1 + 4, 1, 0);  // Q, 2 stages of K and of V; P
+}
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)  // (, 1): ptxas spilled at 40 registers
+__global__ void __launch_bounds__(f32::NT, 1)
 flash_stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ pv,
                    float* __restrict__ m_out, float* __restrict__ l_out, Strides st, int H,
                    int Hkv, int Sq, int Sk, int causal, int q_offset, int k_offset,
                    float scale) {
-  using Lay = Layout<D>;
-  constexpr int LD = Lay::LD, LDS = Lay::LDS, LDP = Lay::LDP, LDO = Lay::LDO;
+  using namespace f32;
+  constexpr int LD = ld<D>();
   extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem + Lay::Q_OFF);
-  float* sK = reinterpret_cast<float*>(smem + Lay::K_OFF);
-  float* sV = reinterpret_cast<float*>(smem + Lay::V_OFF);
-  float* sS = reinterpret_cast<float*>(smem + Lay::S_OFF);
-  float* sP = reinterpret_cast<float*>(smem + Lay::P_OFF);
-  float* sO = reinterpret_cast<float*>(smem + Lay::O_OFF);
-  float* sM = reinterpret_cast<float*>(smem + Lay::M_OFF);
-  float* sL = reinterpret_cast<float*>(smem + Lay::L_OFF);
-  float* sA = reinterpret_cast<float*>(smem + Lay::A_OFF);
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sK = sQ + BR * LD;      // stage s at sK + s * BC * LD
+  float* sV = sK + 2 * BC * LD;  // stage s at sV + s * BC * LD
+  float* sP = sV + 2 * BC * LD;
 
-  const int q0 = blockIdx.x * TILE;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
+  // the later query tiles, which keep more key tiles under causal, first
+  const int n_qt = ceil_div(Sq, BR);
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.z : (int)blockIdx.z) * BR;
+  const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (H / Hkv);  // this head's kv-head
-  const float* qg = q + b * st.qb + h * st.qh;
   const float* kg = k + b * st.kb + hk * st.kh;
   const float* vg = v + b * st.vb + hk * st.vh;
-  const int diag = q_offset - k_offset;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wrow = warp * 16;
+  const int diag = q_offset - k_offset;  // key j is kept by query i iff j <= i + diag
+  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
 
-  load_tile<float, D>(sQ, qg, q0, Sq, LD, st.qs);
-  for (int i = tid; i < TILE * LDO; i += NTHREADS) sO[i] = 0.f;
-  if (tid < TILE) {
-    sM[tid] = NEG_INF;
-    sL[tid] = 0.f;
-  }
-
-  const int n_kt = (Sk + TILE - 1) / TILE;
+  // key tiles: above the diagonal skipped only when every row keeps key 0
+  const int n_kt = ceil_div(Sk, BC);
   int kt_end = n_kt;
-  if (causal && q0 + diag >= 0) kt_end = min(n_kt, (q0 + TILE - 1 + diag) / TILE + 1);
+  if (causal && q0 + diag >= 0) kt_end = min(n_kt, (q0 + BR - 1 + diag) / BC + 1);
+
+  cp_tile<BR, D>(sQ, q + b * st.qb + h * st.qh, q0, Sq, st.qs);
+  if (kt_end > 0) {
+    cp_tile<BC, D>(sK, kg, 0, Sk, st.ks);
+    cp_tile<BC, D>(sV, vg, 0, Sk, st.vs);
+  }
+  cp_async_commit();
+
+  float o[TR][D / 16];
+  float m[TR], l[TR];  // each lane of a row group holds its rows' running max and sum
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) o[i][n] = 0.f;
+  }
 
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();  // the previous tile's K/V are no longer read
-    load_tile<float, D>(sK, kg, k0, Sk, LD, st.ks);
-    load_tile<float, D>(sV, vg, k0, Sk, LD, st.vs);
-    __syncthreads();
-
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = wrow + rr;
-      for (int c = lane; c < TILE; c += 32) {
-        float acc = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) acc += sQ[r * LD + d] * sK[c * LD + d];
-        sS[r * LDS + c] = acc;
-      }
+    const int stg = kt & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
+    if (kt + 1 < kt_end) {
+      cp_tile<BC, D>(sK + (stg ^ 1) * BC * LD, kg, (kt + 1) * BC, Sk, st.ks);
+      cp_tile<BC, D>(sV + (stg ^ 1) * BC * LD, vg, (kt + 1) * BC, Sk, st.vs);
     }
-    __syncwarp();
+    cp_async_commit();
 
-    // online softmax over this tile, one row at a time, two columns a lane;
-    // a masked key is the logit NEG_INF, a key past Sk is no key at all
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = wrow + rr;
-      const int row = q0 + r;
-      float x[2];
-      bool real[2];
+    float s[TR][TC];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int j = k0 + lane + 32 * u;
-        real[u] = j < Sk;
-        const bool kept = real[u] && (!causal || j <= row + diag);
-        x[u] = kept ? sS[r * LDS + lane + 32 * u] * scale : (real[u] ? NEG_INF : -INFINITY);
-      }
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(x[0], x[1])));
-      float p[2];
+    for (int i = 0; i < TR; ++i)
 #pragma unroll
-      for (int u = 0; u < 2; ++u) p[u] = real[u] ? expf(x[u] - m_new) : 0.f;
-      const float sum = warp_sum(p[0] + p[1]);
-#pragma unroll
-      for (int u = 0; u < 2; ++u) sP[r * LDP + lane + 32 * u] = p[u];
-      __syncwarp();  // every lane has read sM[r]
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sA[r] = alpha;
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-      }
-    }
-    __syncwarp();
+      for (int j = 0; j < TC; ++j) s[i][j] = 0.f;
+    scores<D>(s, sQ, sK + stg * BC * LD, rg, cg);
 
-    // PV = PV * alpha + P V for this warp's rows
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = wrow + rr;
-      const float a = sA[r];
-      for (int c = lane; c < D; c += 32) {
-        float acc = 0.f;
-#pragma unroll 8
-        for (int kk = 0; kk < TILE; ++kk) acc += sP[r * LDP + kk] * sV[kk * LD + c];
-        sO[r * LDO + c] = sO[r * LDO + c] * a + acc;
+    // online softmax of the thread's rows: a masked key is the logit
+    // NEG_INF, a key past Sk is no key at all (-inf, p = 0)
+    const int k0 = kt * BC;
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int row = q0 + 4 * rg + i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const int key = k0 + cg + 16 * j;
+        const bool real = key < Sk;
+        const bool kept = real && (!causal || key <= row + diag);
+        s[i][j] = kept ? s[i][j] * scale : (real ? NEG_INF : -INFINITY);
+        mx = fmaxf(mx, s[i][j]);
       }
+      const float m_new = row_max(mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        rs += p;
+        sP[(4 * rg + i) * LDP + cg + 16 * j] = p;
+      }
+      const float alpha = expf(m[i] - m_new);
+      l[i] = l[i] * alpha + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) o[i][n] *= alpha;
     }
-    __syncwarp();
+    __syncwarp();  // the row group's P rows are in place
+
+    // pv += P V
+    accumulate<D>(o, sP, sV + stg * BC * LD, rg, cg);
   }
+  cp_async_wait<0>();  // no copy outlives the block
 
-  __syncthreads();  // the initial pv/m/l writes are visible even with no tile
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = wrow + rr;
-    const int row = q0 + r;
-    if (row >= Sq) break;
-    float* og = pv + (bh * Sq + row) * D;
-    for (int c = lane; c < D; c += 32) og[c] = sO[r * LDO + c];
-    if (lane == 0) {
-      m_out[bh * Sq + row] = sM[r];
-      l_out[bh * Sq + row] = sL[r];
+  const size_t bh = (size_t)b * H + h;
+  store_rows<D>(pv + bh * Sq * D, o, q0, Sq, rg, cg);
+  if (cg == 0) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int row = q0 + 4 * rg + i;
+      if (row < Sq) {
+        m_out[bh * Sq + row] = m[i];
+        l_out[bh * Sq + row] = l[i];
+      }
     }
   }
 }
@@ -491,14 +511,14 @@ template <int D>
 int launch_fp32(const void* q, const void* k, const void* v, void* pv, void* m, void* l, int B,
                 int H, int Hkv, int Sq, int Sk, const Strides& st, int causal, int q_offset,
                 int k_offset, float scale, cudaStream_t stream) {
-  constexpr size_t smem = Layout<D>::BYTES;
-  static_assert(smem <= 232448, "K3 tile layout exceeds a block's shared memory");
+  constexpr size_t smem = fp32_smem_bytes<D>();
+  static_assert(smem <= 232448, "K3's float32 tiles exceed a block's shared memory");
   auto kern = flash_stats_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + TILE - 1) / TILE, H, B);
-  kern<<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid(H, B, ceil_div(Sq, f32::BR));
+  kern<<<grid, f32::NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(pv), static_cast<float*>(m), static_cast<float*>(l), st, H, Hkv, Sq,
       Sk, causal, q_offset, k_offset, scale);

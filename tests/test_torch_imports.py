@@ -109,3 +109,19 @@ def test_chip_smoke_imports_no_jax():
             names.add(node.module)
     assert "elastic_gpu_scheduler_tpu_torch.server.inference" in names
     assert not [m for m in names if _is_jax_package(m)]
+
+
+def test_package_data_ships_every_kernel_source_and_header():
+    """An installed copy of the port builds its kernels from its own
+    ``csrc/`` at first use, so the package data in ``pyproject.toml``
+    matches every CUDA source there and every header they include."""
+    import fnmatch
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"][port.__name__]
+    pkg = os.path.dirname(port.__file__)
+    files = sorted(os.path.join("csrc", n) for n in os.listdir(os.path.join(pkg, "csrc"))
+                   if n.endswith((".cu", ".cuh")))
+    assert any(f.endswith(".cuh") for f in files)
+    assert [f for f in files if not any(fnmatch.fnmatch(f, p) for p in data)] == []

@@ -116,15 +116,22 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
 
 
 def _kernel_names(fn, pattern) -> set:
-    """Names matching ``pattern`` of the kernels one call of ``fn``
-    launched, from torch.profiler (which now and then sees no device
-    event, so up to three tries)."""
+    """Names matching ``pattern`` of the kernels ``fn`` launches, from
+    torch.profiler (which now and then sees no device event, so up to
+    five tries).  Late in a long process a profiler window loses some of
+    its kernels' records, so, as ``chip_smoke.py``'s windows do, the
+    window opens with a ~20 ms spin on the device and calls ``fn`` twice,
+    each behind a spin, then spins again: the names are those of either
+    call (both launch the same kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            torch.cuda._sleep(40_000_000)
+            for _ in range(2):
+                fn()
+                torch.cuda._sleep(10_000_000)
             torch.cuda.synchronize()
         names = {m.group(0) for e in prof.key_averages() if (m := re.search(pattern, e.key))}
         if names:
@@ -164,7 +171,9 @@ def test_flash_kernel_route(cuda, case, kernel):
 def test_flash_kernels_bitwise_repeatable(cuda):
     """K1 and K4, K3 with its keys split, and K2 over dense and int8 pools
     with its pages split (no atomics, fixed summation and merge orders)
-    give identical bytes when called twice on the same bf16 inputs."""
+    give identical bytes when called twice on the same bf16 inputs; so do
+    K3's and K4's float32 kernels (the ring's) on the same inputs in
+    float32."""
     B, H, S, D = 2, 4, 1000, 128
     g = torch.Generator(device=cuda).manual_seed(7)
     q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=cuda).to(torch.bfloat16)
@@ -186,6 +195,16 @@ def test_flash_kernels_bitwise_repeatable(cuda):
     names = ("out", "lse", "dq", "dk", "dv", "k3 pv", "k3 m", "k3 l", "k2", "k2 int8")
     for name, a, b in zip(names, *runs):
         assert torch.equal(a, b), name
+    # float32: K3 at a diagonal and an earlier-shard offset, K4 causal
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    out, lse = mha_reference(qf, kf, vf, True, None, 0)
+    runs = [flash_block_stats(qf, kf, vf, 0, 0) + flash_block_stats(qf, kf, vf, S, 0)
+            + flash_backward(qf, kf, vf, out, lse, dof, True, None, 0) for _ in range(2)]
+    torch.cuda.synchronize()
+    names = ("k3 pv", "k3 m", "k3 l", "k3 pv shard", "k3 m shard", "k3 l shard", "dq", "dk",
+             "dv")
+    for name, a, b in zip(names, *runs):
+        assert a.dtype == torch.float32 and torch.equal(a, b), f"float32 {name}"
 
 
 @pytest.mark.gpu
@@ -210,6 +229,8 @@ K4_CASES = [c for c in K1_CASES if c[3] > 1] + [
     (1, 2, 1, 2, 64, True, 0),
     (2, 2, 1000, 1000, 128, True, 0),
     (1, 2, 130, 190, 64, True, 50),
+    (8, 16, 512, 512, 128, True, 0),  # the ring's diagonal hop (a 512-token shard)
+    (8, 16, 512, 512, 128, False, 0),  # the ring's hop on an earlier shard
 ]
 
 
@@ -766,6 +787,8 @@ K3_CASES = [
     (1, 32, 4, 40, 600, 64, 500, 0, True),  # n_rep 8: a warp spans two heads
     (1, 6, 2, 50, 300, 32, 200, 0, True),  # n_rep 3: 21 positions a block, a padding row
     (1, 16, 8, 64, 64, 128, 0, 0, True),  # one key tile: no split
+    (8, 16, 16, 512, 512, 128, 512, 512, True),  # the ring's diagonal hop
+    (8, 16, 16, 512, 512, 128, 512, 0, True),  # the ring's hop on an earlier shard
 ]
 
 
@@ -819,7 +842,7 @@ def _k3_splits(q, k, q_off, k_off, causal=True) -> int:
 @pytest.mark.parametrize("case", K3_CASES, ids=str)
 def test_block_stats_kernel_route(cuda, case):
     """bf16 K3 runs the register kernel, plus the combine kernel exactly
-    when its plan splits the keys; float32 the first version."""
+    when its plan splits the keys; float32 its register-tile kernel."""
     B, H, Hkv, Sq, Sk, D, q_off, k_off, causal = case
     q = torch.randn(B, H, Sq, D, device=cuda).to(torch.bfloat16)
     k = torch.randn(B, Hkv, Sk, D, device=cuda).to(torch.bfloat16)
