@@ -679,7 +679,7 @@ def k1_bound_ms(B, H, sq, sk, D, causal, window, itemsize) -> tuple[float, str]:
 K1_KERNELS = {
     "flash_fwd_wgmma_kernel": "bf16, wgmma + TMA, 128-row query tiles",
     "flash_fwd_bf16_kernel": "bf16, mma.sync, 64-row query tiles",
-    "flash_fwd_fp32_kernel": "float32, FMA, 64-row query tiles",
+    "flash_fwd_fp32_tile_kernel": "float32, register micro-tiles, 64- or 32-row query tiles",
 }
 
 
@@ -693,8 +693,9 @@ def k1_kernel(kernels: list[dict]) -> str:
 def phase_k1(dev):
     """K1 against mha_reference: the serve-prefill shapes (1 x 16 heads),
     the train shape and edge cases on its grid, float32.  Each call runs
-    under torch.profiler, which names the kernel that ran (and so the
-    query tile it took); every kernel of flash_fwd.cu must be held here."""
+    under torch.profiler, which names the kernel that ran and, for
+    float32, the query tile it took (checked against the grid rule, both
+    tiles held); every kernel of flash_fwd.cu must be held here."""
     import torch
 
     from elastic_gpu_scheduler_tpu_torch.ops.attention import flash_attention, mha_reference
@@ -711,8 +712,16 @@ def phase_k1(dev):
         (tb, th, 512, 512, td, torch.bfloat16, True, 100),  # a window ending mid-tile
         (2, 4, 96, 160, 64, torch.float32, True, 0),  # fp32, TF32 off
         (1, 2, 37, 37, 32, torch.float32, False, 0),  # fp32, not causal
+        (1, 16, 512, 512, 128, torch.float32, True, 0),  # fp32 D 128: phase 17's longest
+        (1, 16, 512, 512, 128, torch.float32, True, 100),  # fp32, a window ending mid-tile
+        (1, 2, 129, 200, 128, torch.float32, True, 0),  # fp32, one row past two tiles
+        (1, 2, 1, 65, 64, torch.float32, True, 0),  # fp32, Sq 1
+        (1, 8, 200, 333, 64, torch.float32, False, 0),  # fp32, not causal at D 64
+        (4, 34, 200, 300, 128, torch.float32, True, 100),  # fp32 on 64-row tiles: window, Sq < Sk
+        (4, 16, 512, 512, 64, torch.float32, False, 0),  # fp32 on 64-row tiles at D 64
     ]
-    worst, ran = 0.0, set()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, ran, tiles = 0.0, set(), set()
     for B, H, sq, sk, D, dt, causal, window in cases:
         q = torch.randn(B, H, sq, D, generator=g, device=dev).to(dt)
         k = torch.randn(B, H, sk, D, generator=g, device=dev).to(dt)
@@ -726,17 +735,25 @@ def phase_k1(dev):
         out, lse = res
         kern = k1_kernel(kernels)
         ran.add(kern)
+        full = next(k["kernel"] for k in kernels if kern in k["kernel"])  # template arguments
+        if dt == torch.float32:
+            # 32-row query tiles where 64-row tiles give under two blocks an SM
+            rows = 32 if B * H * -(-sq // 64) < 2 * sms else 64
+            check(f"{kern}<{D}, {rows}>" in full,
+                  f"K1 float32 at {(B, H, sq, sk, D)} ran {full[:80]}, not {rows}-row tiles")
+            tiles.add(rows)
         ref, ref_lse = mha_reference(q, k, v, causal, None, window)
         name = "bfloat16" if dt == torch.bfloat16 else "float32"
         e, el = maxerr(out, ref), maxerr(lse, ref_lse)
         ok = close(out, ref, name) and el <= 1e-4
         log(f"K1 B={B} H={H} Sq={sq} Sk={sk} D={D} {name} causal={causal} "
-            f"window={window}: {kern} ({K1_KERNELS[kern]}) max|out-ref|={e:.3g} "
+            f"window={window}: {full[:120]} ({K1_KERNELS[kern]}) max|out-ref|={e:.3g} "
             f"(tol {TOL[name]} + {RTOL[name]}|ref|) max|lse-ref|={el:.3g} (tol 1e-4)")
         check(ok, f"K1 disagrees with mha_reference at {(B, H, sq, sk, D, name, window)}")
         if B == 1 and dt == torch.bfloat16 and window == 0 and sq == sk:
             worst = max(worst, e)
     check(ran == set(K1_KERNELS), f"K1 cases ran {sorted(ran)}, not every kernel of flash_fwd.cu")
+    check(tiles == {32, 64}, f"K1 float32 cases ran query tiles {sorted(tiles)}, not 32 and 64")
     return worst
 
 
@@ -2942,12 +2959,14 @@ def ke_within(got, want) -> bool:
     return close(got, want, "bfloat16")
 
 
-def ke_bound_ms(T, K, N, touched, x_bytes, w_bytes, out_bytes, int8) -> tuple[float, str]:
+def ke_bound_ms(T, K, N, touched, x_bytes, w_bytes, out_bytes, int8,
+                peak=PEAK_BF16_FLOPS) -> tuple[float, str]:
     """x, ids and the touched experts' weights (and scales) read once, y
-    written once; 2 FLOPs a product at the bf16 peak."""
+    written once; 2 FLOPs a product at ``peak`` (bf16's, or float32's on
+    the CUDA cores)."""
     byts = T * K * x_bytes + T * 4 + touched * K * N * w_bytes + T * N * out_bytes
     byts += touched * N * 4 if int8 else 0
-    t_ops = 2 * T * K * N / PEAK_BF16_FLOPS * 1e3
+    t_ops = 2 * T * K * N / peak * 1e3
     t_bytes = byts / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -3160,6 +3179,76 @@ def phase_ke(dev) -> list[dict]:
         f"to eager; ptxas {json.dumps(regs)}")
     rows[0]["ptxas"] = regs
     return rows
+
+
+# KE's float32 path (its CUDA-core kernel, and the combine kernel after a
+# split): the flagship MoE decode's w_gate / w_in product in float32, as
+# phase 16(c)'s float32 MoE engines run it: T 8 tokens routed over E 8
+# experts, K 2048, N 6912
+KE_FP32 = (8, 8, 2048, 6912)
+
+
+def kernel_ke_fp32_row(dev) -> dict:
+    """KE's float32 path at KE_FP32 against its plain version, bitwise
+    repeatable, read as the other KE rows are (453 MB of experts: every
+    call finds its weights cold in L2), with float32 ``torch.bmm`` over
+    the touched experts, pre-gathered once each, as the library call.  Launches are those of
+    phase 16(c)'s one-device float32 MoE engine, filled in after it."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.ops.expert_matmul import (
+        expert_matmul,
+        expert_matmul_plan,
+        expert_matmul_reference,
+    )
+
+    T, E, K, N = KE_FP32
+    g = torch.Generator(device=dev).manual_seed(T + K)
+    x = torch.randn(T, K, generator=g, device=dev)
+    w = torch.randn(E, K, N, generator=g, device=dev) * K ** -0.5
+    ids = torch.randint(0, E, (T,), generator=g, device=dev, dtype=torch.int32)
+    got, want = expert_matmul(x, w, ids), expert_matmul_reference(x, w, ids)
+    err = maxerr(got, want)
+    check(ke_within(got, want),
+          f"KE float32: disagrees with expert_matmul_reference (max err {err:.3g})")
+    check(torch.equal(got, expert_matmul(x, w, ids)), "KE float32: not bitwise repeatable")
+    plan = expert_matmul_plan(x, w, ids)
+    check(not plan["tensor_cores"], f"KE float32 on a tensor-core kernel ({plan})")
+    touched = len(set(ids.tolist()))
+    bound, by = ke_bound_ms(T, K, N, touched, 4, 4, 4, False, PEAK_FP32_FLOPS)
+    rd = replay_readings(lambda: expert_matmul(x, w, ids), 20, ("expert_matmul",), bound=bound)
+    plain_ms = device_ms(lambda: expert_matmul_reference(x, w, ids), 3)
+    # the library call reads each touched expert once, as the kernel does:
+    # every token through every touched expert, then each token's own row
+    # (the experts' gather itself is not timed)
+    uniq, inv = torch.unique(ids.long(), return_inverse=True)
+    wu, xu = w[uniq], x[None].expand(len(uniq), T, K).contiguous()
+    tok = torch.arange(T, device=dev)
+    lib_ms = graph_ms(lambda: torch.bmm(xu, wu)[inv, tok], 5)
+    check(torch.allclose(torch.bmm(xu, wu)[inv, tok], want, rtol=1e-4, atol=1e-4),
+          "KE float32's library call computes another function")
+    del wu, xu
+    row = {
+        "name": "expert_matmul", "path": f"float32 MoE decode, w_gate / w_in (T {T}, E {E}, "
+        f"K {K}, N {N})", "route": "cuda", "source": KE_SRC, "dtype": "float32",
+        "replaces": KE_REPLACES["moe"], "launches": 0, "max_abs_err": err,
+        **reading_fields([(1, rd)], "expert_matmul"),
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+        "kernel": plan["route"], "splits": plan["splits"],
+        "note": f"no Pallas kernel: XLA's work in the reference; library: torch.bmm in float32 "
+                f"of every token through the {touched} touched experts (each pre-gathered "
+                f"once), then each token's row; "
+                f"{plan['route']}, {plan['splits']} K splits; launches are phase 16(c)'s "
+                f"one-device float32 MoE engine's (3 L a pass)",
+    }
+    log(f"KE float32 (T {T}, E {E}, K {K}, N {N}, {touched} experts touched, {plan['route']}, "
+        f"{plan['splits']} splits): graph {row['ms']:.5f} ms, profiler "
+        f"{row['profiler_ms']:.5f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.5f} ms, bound "
+        f"{bound:.5f} ms ({by}), of_bound {bound / row['ms']:.3f}, kernels a call "
+        f"{rd['kernels']}, max err {err:.3g}")
+    del x, w, ids, got, want
+    torch.cuda.empty_cache()
+    return row
 
 
 # -- phase 6g: MoE serving at full width ----------------------------------------
@@ -6468,7 +6557,8 @@ def phase_serve_mesh(dev) -> dict:
                      "resident_gb_a_rank": [p["resident_gb"] for p in per],
                      "peak_gb_a_rank": [p["peak_gb"] for p in per],
                      "one_device_peak_gb": ref["peak_gb"],
-                     "counters": lead["counters"], "launches_a_rank": [p["launches"] for p in per]}
+                     "counters": lead["counters"], "launches_a_rank": [p["launches"] for p in per],
+                     "one_device_launches": ref["launches"]}
             firsts = [a[0] == b[0] for a, b in zip(lead["tokens"], ref["tokens"])]
             entry["first_tokens_equal"] = sum(firsts)
             entry["tokens_equal"] = sum(a == b for a, b in zip(lead["tokens"], ref["tokens"]))
@@ -6698,7 +6788,8 @@ def warm_start_run(sp, bodies, seeded) -> dict:
         check(code == 200, f"seeded completion: HTTP {code} {data[:200]!r}")
         seeded_tokens.append(json.loads(data)["tokens"])
     _, after_seeded = get_json(sp.addr, "/v1/stats")
-    keys = ("compile_cache", "graphs_captured", "graph_replays")
+    keys = ("compile_cache", "graphs_captured", "graph_replays", "kernel_launches",
+            "prefills_run")
     return {"ready_s": ready_s, "warming_503s": len(warming),
             "warming_body": warming[0] if warming else None,
             "at_ready": {k: at_ready[k] for k in ("warmup", *keys)},
@@ -6842,7 +6933,16 @@ def phase_warm_start() -> dict:
            "phase_s": time.perf_counter() - t_phase}
     for name, r in runs.items():
         wu = r["at_ready"]["warmup"]
+        # the main path's K1 launches: the server's counts from ready to the
+        # last completion, L a prefill (each completion one prefill)
+        k1 = (r["after_seeded"]["kernel_launches"]["flash_fwd"]
+              - r["at_ready"]["kernel_launches"]["flash_fwd"])
+        pre = r["after_seeded"]["prefills_run"] - r["at_ready"]["prefills_run"]
+        check(pre == len(bodies) + len(seeded) and k1 == WARM_LAYERS * pre,
+              f"{name}: {k1} K1 launches over {pre} prefills of {len(bodies) + len(seeded)} "
+              f"completions at L {WARM_LAYERS}")
         res[name] = {
+            "k1_launches": k1, "prefills": pre,
             "ready_s": r["ready_s"], "warming_503s": r["warming_503s"],
             "library_s": wu.get("library_s"), "warmup_wall_s": wu.get("wall_s"),
             "lattice_size": wu.get("lattice_size"), "captures": wu.get("captures"),
@@ -7155,49 +7255,65 @@ def kernel_ring_rows(dev) -> list[dict]:
     return rows
 
 
-# the float32 K1 row's shape: the longest prefill of phase 11's engine
-# (TinyLlama's widths, float32 as converted: 32 query heads after
-# repeat_kv, Dh 64, its 256-token prompt)
+# the float32 K1 rows' shapes (B, H after repeat_kv, S, Dh), causal: the
+# longest prefill of phase 11's engine (TinyLlama's widths, float32 as
+# converted: 32 query heads, Dh 64, its 256-token prompt), and of phase 17's
+# (the flagship's widths in float32: 16 query heads, Dh 128, its 400-token
+# prompt padded to 512)
 HF_K1 = (1, TINYLLAMA["num_attention_heads"], max(HF_PROMPT_LENS),
          TINYLLAMA["hidden_size"] // TINYLLAMA["num_attention_heads"])
+WARM_K1 = (1, FULL["n_heads"], 512, FULL["d_model"] // FULL["n_heads"])
 
 
-def kernel_fp32_k1_row(dev) -> dict:
-    """K1's float32 kernel at the shape of phase 11's longest float32
-    prefill (causal), held to ``mha_reference``, read as the other rows
-    are, with float32 SDPA as the library call.  Launches are phase 11's
-    engine's main path's (all four prompts' prefills), filled in after it."""
+def kernel_fp32_k1_rows(dev) -> list[dict]:
+    """K1's float32 kernel at the shapes of phase 11's and phase 17's
+    longest float32 prefills (causal), each held to ``mha_reference``,
+    read as the other rows are, with float32 SDPA as the library call.
+    Launches are those phases' main paths' (every prompt's prefill),
+    filled in after them."""
     import torch
     import torch.nn.functional as F
 
     from elastic_gpu_scheduler_tpu_torch.ops.attention import flash_attention, mha_reference
 
-    B, H, S, D = HF_K1
-    g = torch.Generator(device=dev).manual_seed(29)
-    q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev) for _ in range(3))
-    out, lse = flash_attention(q, k, v, True, None, 0, return_lse=True)
-    ref, ref_lse = mha_reference(q, k, v, True, None, 0)
-    err, lse_err = maxerr(out, ref), maxerr(lse, ref_lse)
-    check(close(out, ref, "float32") and lse_err <= 1e-4,
-          f"K1 float32 disagrees with mha_reference at the --hf prefill shape (out {err:.3g}, "
-          f"lse {lse_err:.3g})")
-    bound, by = k1_bound_ms(B, H, S, S, D, True, 0, 4)
-    rd = replay_readings(lambda: flash_attention(q, k, v, True, None, 0), 20, bound=bound)
-    plain = device_ms(lambda: mha_reference(q, k, v, True, None, 0), 5)
-    lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
-    log(f"K1 float32 at the --hf prefill shape (B={B} H={H} S={S} D={D} causal): "
-        f"{rd['ms']['']:.5f} ms (profiler {rd['profiler_ms']['']:.5f}; plain {plain:.4f}, sdpa "
-        f"{lib:.5f}, bound {bound:.5f} {by}), max|out-ref|={err:.3g} max|lse-ref|={lse_err:.3g}")
-    return {
-        **reading_fields([(1, rd)]),
-        "name": "flash_fwd", "path": "serve --hf float32 prefill", "route": "cuda",
-        "source": "elastic_gpu_scheduler_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:290",
-        "launches": 0, "max_abs_err": err, "plain_ms": plain, "bound_ms": bound,
-        "bound_by": by, "library_ms": lib,
-        "note": "float32 kernel (flash_fwd_fp32_kernel) at phase 11's longest prefill; "
-                "launches are that engine's prefills of all four prompts",
-    }
+    check(prefill_tpad(max(len(b["prompt"]) for b in sum(warm_bodies(), [])),
+                       ENGINE["max_len"]) == WARM_K1[2],
+          "phase 17's longest prefill is not the float32 K1 row's")
+    rows = []
+    for (B, H, S, D), path, phase in ((HF_K1, "serve --hf float32 prefill", "11"),
+                                      (WARM_K1, "serve --init float32 prefill, flagship widths",
+                                       "17")):
+        g = torch.Generator(device=dev).manual_seed(29)
+        q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev) for _ in range(3))
+        out, lse = flash_attention(q, k, v, True, None, 0, return_lse=True)
+        ref, ref_lse = mha_reference(q, k, v, True, None, 0)
+        err, lse_err = maxerr(out, ref), maxerr(lse, ref_lse)
+        check(close(out, ref, "float32") and lse_err <= 1e-4,
+              f"K1 float32 disagrees with mha_reference at {(B, H, S, D)} (out {err:.3g}, "
+              f"lse {lse_err:.3g})")
+        bound, by = k1_bound_ms(B, H, S, S, D, True, 0, 4)
+        rd = replay_readings(lambda: flash_attention(q, k, v, True, None, 0), 20, bound=bound)
+        plain = device_ms(lambda: mha_reference(q, k, v, True, None, 0), 5)
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
+        log(f"K1 float32 at phase {phase}'s longest prefill (B={B} H={H} S={S} D={D} causal): "
+            f"{rd['ms']['']:.5f} ms (profiler {rd['profiler_ms']['']:.5f}; plain {plain:.4f}, "
+            f"sdpa {lib:.5f}, bound {bound:.5f} {by}), max|out-ref|={err:.3g} "
+            f"max|lse-ref|={lse_err:.3g}")
+        rows.append({
+            **reading_fields([(1, rd)]),
+            "name": "flash_fwd", "path": f"{path} {(B, H, S, D)}, causal", "route": "cuda",
+            "dtype": "float32", "source": "elastic_gpu_scheduler_tpu_torch/csrc/flash_fwd.cu",
+            "redesigned": "float32 register micro-tiles (fp32_tile.cuh), 32- or 64-row "
+                          "query tiles by grid",
+            "replaces": "elastic_gpu_scheduler_tpu/ops/attention.py:290",
+            "launches": 0, "max_abs_err": err, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib,
+            "note": f"float32 kernel (flash_fwd_fp32_tile_kernel) at phase {phase}'s longest "
+                    f"prefill; launches are that phase's prefills of every prompt",
+        })
+        del q, k, v, out, lse, ref, ref_lse
+    torch.cuda.empty_cache()
+    return rows
 
 
 # the PR that last rebuilt each kernel's bf16 path for Hopper
@@ -7314,7 +7430,8 @@ def main() -> int:
     train_rows = kernel_train_rows(dev, k4_err)
     vit_rows = kernel_vit_rows(dev)
     ring_rows = kernel_ring_rows(dev)
-    fp32_k1_row = kernel_fp32_k1_row(dev)
+    fp32_k1_rows = kernel_fp32_k1_rows(dev)
+    ke_fp32_row = kernel_ke_fp32_row(dev)
     gc.collect()
     torch.cuda.empty_cache()
     mark("3-5 kernels, train/ViT/ring rows")
@@ -7433,8 +7550,11 @@ def main() -> int:
         r["launches"] = vit["launches"][r["name"]]
     for r in ring_rows:
         r["launches"] = mesh["ring_launches"][r["name"]]
-    fp32_k1_row["launches"] = hf["engine_launches"]["flash_fwd"]
-    kernels += train_rows + vit_rows + ring_rows + [fp32_k1_row]
+    fp32_k1_rows[0]["launches"] = hf["engine_launches"]["flash_fwd"]
+    fp32_k1_rows[1]["launches"] = warm_start["warm"]["k1_launches"]
+    ke_fp32_row["launches"] = (serve_mesh["runs"]["(c) MoE expert=2"]["one_device_launches"]
+                               ["expert_matmul"])
+    kernels += train_rows + vit_rows + ring_rows + fp32_k1_rows + [ke_fp32_row]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its main path")
         k["of_bound"] = k["bound_ms"] / k["ms"]

@@ -48,11 +48,32 @@
 // reference's finite NEG_INF (-1e30), so a masked p is exactly 0 and the
 // results equal those of masking with NEG_INF.
 //
-// float32 keeps the first version (it carries the float32 card-vs-CPU
-// identities): one block per 64-row query tile, four warps, K/V through
-// shared memory, plain FMA (the TPU kernel's fp32 path is the
-// "highest"-precision MXU product, and TF32 would not be), the softmax
-// statistics and the accumulator in shared memory.
+// float32 (serve --hf, the float32 engines, float32 training) replaces the
+// same TPU kernels at their float32 precision: full float32 FMAs (the TPU
+// kernel's float32 path is the "highest"-precision MXU product; TF32 would
+// not keep it).  What bounds it on this card: operations, on the CUDA cores
+// (4 D FLOPs a kept pair at 67 TFLOP/s), and at the serving prefill shapes
+// the small grid.  The first version kept S, P, the accumulator and the
+// softmax statistics in shared memory, read both operands of every FMA from
+// shared memory, copied K/V synchronously and walked the softmax one row at
+// a time on four warps: 37x its bound at the --hf prefill.  The float32
+// path now (fp32_tile.cuh, as K3's and K4's float32 kernels):
+//   - one block per (query tile, head, batch), the later query tiles first
+//     under causal; 64-row tiles on eight warps, or 32-row tiles on four
+//     warps where 64-row tiles would give fewer than two blocks an SM
+//     (chosen by timing both tiles at the serving prefill and train shapes
+//     on the H100: PERF.md).  The tiles take ~104 KB (64 rows) or ~87 KB
+//     (32) at D <= 64, two blocks an SM; ~186 / ~161 KB at D 128, one;
+//   - 64-key K/V tiles stream through a 2-stage ring of 16-byte cp.async
+//     copies, the next tile in flight during the current one's products;
+//   - S = Q K^T and O += P V as register micro-tiles: a thread owns 4 rows
+//     x 4 keys of S and 4 rows x D / 16 columns of O, d and keys summed in
+//     order; O, m and l stay in registers, row reductions over the 16 lanes
+//     of a row group; P goes to shared memory once a tile, read back by its
+//     own row group;
+//   - a masked key, or one past Sk, is -inf inside a tile and the running
+//     max starts at NEG_INF, so its p is exactly 0.
+// No atomics and one summation order: bitwise repeatable.
 // All paths: tiles wholly above the diagonal or below the window are
 // skipped; a key past Sk is not a key; queries sit at the last Sq key
 // positions (q_shift = Sk - Sq); rows with l == 0 write 0; lse = m +
@@ -62,6 +83,7 @@
 #include <math.h>
 
 #include "attn_common.cuh"
+#include "fp32_tile.cuh"
 #include "warp_mma.cuh"
 #include "warpgroup.cuh"
 
@@ -524,149 +546,160 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o, void* ls
   return launch_bf16<D>(q, k, v, o, lse, B, H, Sq, Sk, causal, window, scale, s);
 }
 
-// -- fp32: the first version ---------------------------------------------------
+// -- fp32: register micro-tiles, cp.async, eight (or four) warps -------------
 
-constexpr int BQ32 = TILE;  // query rows per block
-constexpr int NT32 = TILE_THREADS;  // four warps, each owning 16 query rows
+// A block: ROWS query rows of one head, 64-key K/V tiles (f32::BC) in a
+// 2-stage cp.async ring; Q, the ring and the P tile in shared memory
+template <int D, int ROWS>
+constexpr size_t fp32_smem_bytes() {
+  return sizeof(float) * ((size_t)(ROWS + 4 * f32::BC) * f32::ld<D>() + (size_t)ROWS * f32::LDP);
+}
 
-template <int D>
-__global__ void __launch_bounds__(NT32)
-flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int H, int Sq, int Sk, int causal, int window,
-                      float scale) {
-  using Lay = FwdLayout<float, D>;
-  constexpr int LD = Lay::LD, LDS = Lay::LDS, LDP = Lay::LDP, LDO = Lay::LDO;
+template <int D, int ROWS>
+__global__ void __launch_bounds__(4 * ROWS, D <= 64 ? 2 : 1)
+flash_fwd_fp32_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, int H, int Sq, int Sk, int causal,
+                           int window, float scale) {
+  constexpr int THREADS = 4 * ROWS;  // a row group of 16 lanes owns 4 rows
+  constexpr int BC = f32::BC, LD = f32::ld<D>(), TR = f32::TR, TC = f32::TC;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem + Lay::Q_OFF);
-  float* sK = reinterpret_cast<float*>(smem + Lay::K_OFF);
-  float* sV = reinterpret_cast<float*>(smem + Lay::V_OFF);
-  float* sS = reinterpret_cast<float*>(smem + Lay::S_OFF);
-  float* sP = reinterpret_cast<float*>(smem + Lay::P_OFF);
-  float* sO = reinterpret_cast<float*>(smem + Lay::O_OFF);
-  float* sM = reinterpret_cast<float*>(smem + Lay::M_OFF);
-  float* sL = reinterpret_cast<float*>(smem + Lay::L_OFF);
-  float* sA = reinterpret_cast<float*>(smem + Lay::A_OFF);
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sK = sQ + ROWS * LD;    // stage s at sK + s * BC * LD
+  float* sV = sK + 2 * BC * LD;  // stage s at sV + s * BC * LD
+  float* sP = sV + 2 * BC * LD;
 
-  const int q0 = blockIdx.x * BQ32;
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const float* qg = q + bh * Sq * D;
+  // the later query tiles, which keep more key tiles under causal, first
+  const int n_qt = (Sq + ROWS - 1) / ROWS;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.z : (int)blockIdx.z) * ROWS;
+  const size_t bh = (size_t)blockIdx.y * H + blockIdx.x;
   const float* kg = k + bh * Sk * D;
   const float* vg = v + bh * Sk * D;
   const int qpos0 = q0 + (Sk - Sq);  // absolute position of query row q0
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wrow = warp * 16;  // this warp's first row in the tile
+  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
 
-  load_tile<float, D>(sQ, qg, q0, Sq, LD);
-  for (int i = tid; i < BQ32 * LDO; i += NT32) sO[i] = 0.f;
-  if (tid < BQ32) {
-    sM[tid] = NEG_INF;
-    sL[tid] = 0.f;
-  }
-
-  const int n_kt = (Sk + TILE - 1) / TILE;
+  const int n_kt = (Sk + BC - 1) / BC;
   int kt_end = n_kt;
-  if (causal) kt_end = min(n_kt, (qpos0 + BQ32 - 1) / TILE + 1);  // above-diagonal tiles
+  if (causal) kt_end = min(n_kt, (qpos0 + ROWS - 1) / BC + 1);  // above-diagonal tiles
   int kt_begin = 0;
   if (window > 0) {
     const int lo = qpos0 - window + 1;  // earliest key any row of the tile keeps
-    kt_begin = lo > 0 ? lo / TILE : 0;
+    kt_begin = lo > 0 ? lo / BC : 0;
+  }
+
+  f32::cp_tile<ROWS, D, THREADS>(sQ, q + bh * Sq * D, q0, Sq, D);
+  if (kt_begin < kt_end) {
+    f32::cp_tile<BC, D, THREADS>(sK, kg, kt_begin * BC, Sk, D);
+    f32::cp_tile<BC, D, THREADS>(sV, vg, kt_begin * BC, Sk, D);
+  }
+  cp_async_commit();
+
+  float acc[TR][D / 16];
+  float m[TR], l[TR];  // each lane of a row group holds its rows' running max and sum
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) acc[i][n] = 0.f;
   }
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();  // the previous tile's K/V are no longer read
-    load_tile<float, D>(sK, kg, k0, Sk, LD);
-    load_tile<float, D>(sV, vg, k0, Sk, LD);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows (raw dot products)
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = wrow + rr;
-      for (int c = lane; c < TILE; c += 32) {
-        float acc = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) acc += sQ[r * LD + d] * sK[c * LD + d];
-        sS[r * LDS + c] = acc;
-      }
+    const int stg = (kt - kt_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
+    if (kt + 1 < kt_end) {
+      f32::cp_tile<BC, D, THREADS>(sK + (stg ^ 1) * BC * LD, kg, (kt + 1) * BC, Sk, D);
+      f32::cp_tile<BC, D, THREADS>(sV + (stg ^ 1) * BC * LD, vg, (kt + 1) * BC, Sk, D);
     }
-    __syncwarp();
+    cp_async_commit();
 
-    // online softmax over this tile, one row at a time, two columns a lane
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = wrow + rr;
-      const int qpos = qpos0 + r;
-      float x[2];
-      bool keep[2];
+    float s[TR][TC];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int c = lane + 32 * u;
-        const int kpos = k0 + c;
-        bool kp = kpos < Sk;
-        if (causal) kp = kp && kpos <= qpos;
-        if (window > 0) kp = kp && (qpos - kpos) < window;
-        keep[u] = kp;
-        x[u] = kp ? sS[r * LDS + c] * scale : NEG_INF;
-      }
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(x[0], x[1])));
-      float p[2];
+    for (int i = 0; i < TR; ++i)
 #pragma unroll
-      for (int u = 0; u < 2; ++u) p[u] = keep[u] ? expf(x[u] - m_new) : 0.f;
-      const float sum = warp_sum(p[0] + p[1]);
-#pragma unroll
-      for (int u = 0; u < 2; ++u) sP[r * LDP + lane + 32 * u] = p[u];
-      __syncwarp();  // every lane has read sM[r]
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sA[r] = alpha;
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-      }
-    }
-    __syncwarp();
+      for (int j = 0; j < TC; ++j) s[i][j] = 0.f;
+    f32::scores<D>(s, sQ, sK + stg * BC * LD, rg, cg);
 
-    // O = O * alpha + P V for this warp's rows
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = wrow + rr;
-      const float a = sA[r];
-      for (int c = lane; c < D; c += 32) {
-        float acc = 0.f;
-#pragma unroll 8
-        for (int kk = 0; kk < TILE; ++kk) acc += sP[r * LDP + kk] * sV[kk * LD + c];
-        sO[r * LDO + c] = sO[r * LDO + c] * a + acc;
+    // online softmax of the thread's rows: a masked key or one past Sk is
+    // -inf, so its p is exactly 0
+    const int k0 = kt * BC;
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int qpos = qpos0 + 4 * rg + i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const int key = k0 + cg + 16 * j;
+        bool kept = key < Sk;
+        if (causal) kept = kept && key <= qpos;
+        if (window > 0) kept = kept && qpos - key < window;
+        s[i][j] = kept ? s[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
       }
+      const float m_new = f32::row_max(mx);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        rs += p;
+        sP[(4 * rg + i) * f32::LDP + cg + 16 * j] = p;
+      }
+      const float alpha = expf(m[i] - m_new);
+      l[i] = l[i] * alpha + f32::row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) acc[i][n] *= alpha;
     }
-    __syncwarp();
+    __syncwarp();  // the row group's P rows are in place
+
+    // O += P V
+    f32::accumulate<D>(acc, sP, sV + stg * BC * LD, rg, cg);
   }
+  cp_async_wait<0>();  // no copy outlives the block
 
-  __syncthreads();  // the initial O/m/l writes are visible even with no tile
   // out = O / l (l == 0 -> 0), lse = m + log(l)
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = wrow + rr;
-    const int row = q0 + r;
-    if (row >= Sq) break;
-    const float l = sL[r];
-    const float ls = (l == 0.f) ? 1.f : l;
-    float* og = o + (bh * Sq + row) * D;
-    for (int c = lane; c < D; c += 32) og[c] = sO[r * LDO + c] / ls;
-    if (lane == 0) lse[bh * Sq + row] = sM[r] + logf(ls);
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const float ls = l[i] == 0.f ? 1.f : l[i];
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) acc[i][n] = acc[i][n] / ls;
+  }
+  f32::store_rows<D>(o + bh * Sq * D, acc, q0, Sq, rg, cg);
+  if (cg == 0) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int row = q0 + 4 * rg + i;
+      if (row < Sq) lse[bh * Sq + row] = m[i] + logf(l[i] == 0.f ? 1.f : l[i]);
+    }
   }
 }
 
-template <int D>
-int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
-                int Sq, int Sk, int causal, int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = FwdLayout<float, D>::BYTES;
-  auto kern = flash_fwd_fp32_kernel<D>;
+template <int D, int ROWS>
+int launch_fp32_rows(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                     int H, int Sq, int Sk, int causal, int window, float scale,
+                     cudaStream_t stream) {
+  constexpr size_t smem = fp32_smem_bytes<D, ROWS>();
+  static_assert(smem <= 232448, "K1's float32 tiles exceed a block's shared memory");
+  auto kern = flash_fwd_fp32_tile_kernel<D, ROWS>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ32 - 1) / BQ32, H, B);
-  kern<<<grid, NT32, smem, stream>>>(
+  dim3 grid(H, B, (Sq + ROWS - 1) / ROWS);
+  kern<<<grid, 4 * ROWS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), static_cast<float*>(lse), H, Sq, Sk, causal, window, scale);
   return (int)cudaGetLastError();
+}
+
+// 32-row query tiles (four warps) where 64-row tiles would give fewer than
+// two blocks an SM, else 64-row tiles (eight warps)
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
+                int Sq, int Sk, int causal, int window, float scale, cudaStream_t s) {
+  if ((long)B * H * ((Sq + f32::BR - 1) / f32::BR) < 2L * sm_count())
+    return launch_fp32_rows<D, 32>(q, k, v, o, lse, B, H, Sq, Sk, causal, window, scale, s);
+  return launch_fp32_rows<D, f32::BR>(q, k, v, o, lse, B, H, Sq, Sk, causal, window, scale, s);
 }
 
 template <int D>

@@ -1,5 +1,6 @@
-// Register micro-tiles of the float32 attention kernels: K3's float32 path
-// (flash_stats.cu) and K4's float32 dq and dk/dv kernels (flash_bwd.cu).
+// Register micro-tiles of the float32 attention kernels: K1's float32 path
+// (flash_fwd.cu), K3's (flash_stats.cu) and K4's float32 dq and dk/dv
+// kernels (flash_bwd.cu).
 //
 // Products stay full float32 FMAs on the CUDA cores (no TF32: the float32
 // paths are held to the reference's float32 einsums).  A block of eight
@@ -14,6 +15,8 @@
 //     vectors of VW floats whose 16 lanes of a row group cover a row
 //     contiguously: each step of the 64-long reduction four 16-byte loads of
 //     P (or dS) and D / 16 floats of the other operand for D / 4 FMAs a row.
+// K1 also runs a block of four warps on a 32-row query tile: the same
+// layout, rg < 8 (the copies take the block's thread count).
 // The 16 lanes of a row group are half a warp, so a row's max and sum are
 // shuffles over 16 lanes, and a P / dS tile that a row group writes and then
 // reads needs only __syncwarp.  Tiles are padded to D + 4 floats a row (P and
@@ -51,15 +54,16 @@ constexpr size_t smem_bytes(int tiles, int ptiles, int words) {
 
 // rows [row0, row0 + ROWS) of a (rows_total, D) float32 matrix whose rows lie
 // src_ld elements apart (16-byte aligned) into a tile of stride D + 4, by 16-
-// byte cp.async; rows past the end are zero-filled.  The caller commits.
-template <int ROWS, int D>
+// byte cp.async by a block of THREADS threads; rows past the end are
+// zero-filled.  The caller commits.
+template <int ROWS, int D, int THREADS = NT>
 __device__ __forceinline__ void cp_tile(float* dst, const float* __restrict__ src, int row0,
                                         int rows_total, long long src_ld) {
   constexpr int CH = D / 4;
-  static_assert(ROWS * CH % NT == 0, "whole copy rounds");
+  static_assert(ROWS * CH % THREADS == 0, "whole copy rounds");
 #pragma unroll
-  for (int n = 0; n < ROWS * CH / NT; ++n) {
-    const int i = threadIdx.x + n * NT;
+  for (int n = 0; n < ROWS * CH / THREADS; ++n) {
+    const int i = threadIdx.x + n * THREADS;
     const int r = i / CH, c = i % CH;
     const bool ok = row0 + r < rows_total;
     cp_async16(dst + r * ld<D>() + c * 4, src + (ok ? row0 + r : 0) * src_ld + c * 4, ok);

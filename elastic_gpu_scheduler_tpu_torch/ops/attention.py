@@ -10,10 +10,11 @@ in registers and the products run on mma.sync, or, at head_dim 128 on a
 grid large enough for 128-row tiles, on wgmma fed by TMA) and, when a gradient
 is asked for, ``csrc/flash_bwd.cu`` (the FlashAttention-2 backward from
 the saved logsumexp: a dq kernel over query tiles and a dk/dv kernel over
-key tiles, no atomics, so bitwise repeatable).  Float32 takes K1's first,
-plain-FMA kernel, and K4's register-tile kernels (full float32 FMAs, eight
-warps, a cp.async ring).  On CPU tensors it computes ``mha_reference``
-and ``flash_backward_reference``, the same functions in plain tensor code.
+key tiles, no atomics, so bitwise repeatable).  Float32 takes K1's and
+K4's register-tile kernels (full float32 FMAs, a cp.async ring, eight
+warps, or four on K1's 32-row query tiles of a small grid).  On CPU
+tensors it computes ``mha_reference`` and ``flash_backward_reference``,
+the same functions in plain tensor code.
 Nothing else chooses between the two: a CUDA tensor a kernel does not
 take makes the wrapper raise.
 

@@ -116,6 +116,7 @@ from ..models.serving import (
     InferenceEngine,
     Request,
 )
+from ..ops import _build
 from ..policy import POLICIES
 from ..policy.vm import DEFAULT_BUDGET
 from ..profile import PROFILER
@@ -731,6 +732,9 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                                       if eng.compile_cache is not None else None),
                     "graphs_captured": int(eng.graphs_captured),
                     "graph_replays": int(eng.graph_replays),
+                    # this process's hand-written kernel launches by kernel
+                    # (none on the CPU, where the plain versions run)
+                    "kernel_launches": dict(_build.LAUNCHES),
                 })
             return self._json(404, {"error": f"no route {self.path}"})
 

@@ -30,7 +30,9 @@ torch.set_num_threads(1)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 # (B, H, Sq, Sk, D, causal, window): square, rectangular (queries at the
-# last Sq keys), sliding window, non-power-of-two lengths, non-causal
+# last Sq keys), sliding window, non-power-of-two lengths, non-causal; then
+# shapes that cross more than one 64-row tile, the CUDA kernel's edges on
+# the card (one row past a tile, a window ending mid-tile, Sq 1)
 CASES = [
     (2, 2, 64, 64, 32, True, 0),
     (1, 3, 48, 80, 64, True, 0),
@@ -38,6 +40,11 @@ CASES = [
     (2, 1, 37, 37, 32, True, 0),
     (1, 2, 21, 50, 64, True, 9),
     (1, 2, 40, 40, 32, False, 0),
+    (1, 2, 129, 200, 128, True, 0),
+    (1, 2, 150, 150, 64, True, 70),
+    (1, 1, 1, 65, 64, True, 0),
+    (1, 2, 65, 65, 32, True, 0),
+    (1, 2, 130, 190, 64, False, 0),
 ]
 
 

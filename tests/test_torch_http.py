@@ -18,6 +18,7 @@ import torch
 from elastic_gpu_scheduler_tpu_torch.models.lora import ALL_TARGETS, lora_init
 from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
 from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
+from elastic_gpu_scheduler_tpu_torch.ops import _build
 from elastic_gpu_scheduler_tpu_torch.server.inference import (
     EngineLoop,
     drain,
@@ -109,6 +110,8 @@ def test_stats_health_version_and_validation(served):
     code, stats = _get(addr, "/v1/stats")
     assert code == 200 and stats["max_batch"] == 2
     assert stats["total_pages"] == engine.n_pages - 1 and stats["device"] == "cpu"
+    # the kernels' launch counts by name: none on the CPU
+    assert stats["kernel_launches"] == dict.fromkeys(_build.LAUNCHES, 0)
     assert _get(addr, "/healthz") == (200, {"ok": True})
     code, body = _get(addr, "/version")
     assert code == 200 and body["version"]

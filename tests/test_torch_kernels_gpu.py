@@ -72,7 +72,8 @@ def _close(out, ref):
 # (B, H, Sq, Sk, D, causal, window).  Each runs in bf16 (the register
 # design: 64-row tiles on mma.sync, or 128-row tiles on wgmma at D 128 where
 # they give >= 2 blocks an SM, the cases marked "wgmma" on an H100) and in
-# float32 (the first version).
+# float32 (register micro-tiles: 32-row query tiles where 64-row tiles give
+# < 2 blocks an SM, else 64-row tiles).
 K1_CASES = [
     (2, 2, 64, 64, 32, True, 0),
     (1, 3, 48, 80, 64, True, 0),
@@ -96,9 +97,31 @@ K1_CASES = [
 ]
 
 
+# (B, H, Sq, Sk, D, causal, window): the float32 kernel's edges, as
+# chip_smoke.py's phase 3 holds them: both query tiles (32 rows on a grid
+# of 64-row tiles under two blocks an SM, else 64), windows ending
+# mid-tile, one row past a tile, Sq 1, rectangular, not causal
+K1_FP32_EDGES = [
+    (1, 16, 512, 512, 128, True, 0),  # the flagship's longest float32 prefill
+    (1, 32, 256, 256, 64, True, 0),  # the --hf prefill
+    (1, 16, 512, 512, 128, True, 100),  # a window ending mid-tile
+    (4, 34, 200, 300, 128, True, 100),  # the same on 64-row tiles, Sq < Sk
+    (1, 2, 150, 150, 64, True, 70),  # D 64, a window ending mid-tile
+    (4, 34, 150, 150, 64, True, 70),  # the same on 64-row tiles
+    (1, 2, 129, 200, 128, True, 0),  # one row past two tiles, Sq < Sk
+    (1, 2, 65, 65, 32, True, 0),  # one row past a tile, D 32
+    (1, 2, 1, 65, 64, True, 0),  # Sq 1
+    (1, 8, 200, 333, 64, False, 0),  # not causal, ragged
+    (4, 34, 129, 300, 64, False, 0),  # not causal on 64-row tiles
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("case", K1_CASES, ids=str)
+@pytest.mark.parametrize(
+    "case, dtype",
+    [pytest.param(c, dt, id=f"{c}-{dt}") for c in K1_CASES
+     for dt in (torch.float32, torch.bfloat16)]
+    + [pytest.param(c, torch.float32, id=f"{c}-{torch.float32}-edge") for c in K1_FP32_EDGES])
 def test_flash_kernel_matches_plain(cuda, case, dtype):
     B, H, Sq, Sk, D, causal, window = case
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -140,9 +163,10 @@ def _kernel_names(fn, pattern) -> set:
 
 
 def _k1_kernels(q, k, v, window) -> set:
-    """Names of the K1 kernels one causal call launched."""
+    """Names of the K1 kernels one causal call launched; the float32
+    kernel's with its template arguments ``<D, ROWS>`` (the query tile)."""
     return _kernel_names(lambda: flash_attention(q, k, v, True, None, window),
-                         r"flash_fwd_\w+?_kernel")
+                         r"flash_fwd_(?:fp32_tile_kernel<\d+, \d+>|\w+?_kernel)")
 
 
 # (B, H, S, D, window, dtype) -> the kernel that runs there on an H100
@@ -151,7 +175,8 @@ K1_ROUTES = [
     ((8, 17, 256, 128, 70, torch.bfloat16), "flash_fwd_wgmma_kernel"),
     ((1, 16, 512, 128, 0, torch.bfloat16), "flash_fwd_bf16_kernel"),  # the longest serve prefill
     ((8, 16, 1024, 64, 0, torch.bfloat16), "flash_fwd_bf16_kernel"),  # wgmma is D 128 only
-    ((8, 16, 1024, 128, 0, torch.float32), "flash_fwd_fp32_kernel"),
+    ((8, 16, 1024, 128, 0, torch.float32), "flash_fwd_fp32_tile_kernel<128, 64>"),  # 2,048 blocks
+    ((1, 32, 256, 64, 0, torch.float32), "flash_fwd_fp32_tile_kernel<64, 32>"),  # the --hf prefill
 ]
 
 
@@ -160,7 +185,8 @@ K1_ROUTES = [
 def test_flash_kernel_route(cuda, case, kernel):
     """bf16 K1 runs the wgmma kernel at D 128 while its 128-row tiles give
     >= 2 blocks an SM, the 64-row mma.sync kernel otherwise; float32 the
-    first version."""
+    register micro-tile kernel, on 64-row query tiles where they give >= 2
+    blocks an SM (132 SMs), on 32-row tiles otherwise."""
     B, H, S, D, window, dtype = case
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(B, H, S, D, generator=g, device=cuda).to(dtype) for _ in range(3))
@@ -173,7 +199,8 @@ def test_flash_kernels_bitwise_repeatable(cuda):
     with its pages split (no atomics, fixed summation and merge orders)
     give identical bytes when called twice on the same bf16 inputs; so do
     K3's and K4's float32 kernels (the ring's) on the same inputs in
-    float32."""
+    float32, and K1's float32 kernel causal on 64-row tiles (D 128) and
+    under a window on 32-row tiles (D 64)."""
     B, H, S, D = 2, 4, 1000, 128
     g = torch.Generator(device=cuda).manual_seed(7)
     q, k, v, do = (torch.randn(B, H, S, D, generator=g, device=cuda).to(torch.bfloat16)
@@ -198,11 +225,16 @@ def test_flash_kernels_bitwise_repeatable(cuda):
     # float32: K3 at a diagonal and an earlier-shard offset, K4 causal
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     out, lse = mha_reference(qf, kf, vf, True, None, 0)
+    q1, k1, v1 = (torch.randn(4, 8, 600, 128, generator=g, device=cuda) for _ in range(3))
+    q64, k64, v64 = (t[..., :64].contiguous() for t in (qf, kf, vf))
     runs = [flash_block_stats(qf, kf, vf, 0, 0) + flash_block_stats(qf, kf, vf, S, 0)
-            + flash_backward(qf, kf, vf, out, lse, dof, True, None, 0) for _ in range(2)]
+            + flash_backward(qf, kf, vf, out, lse, dof, True, None, 0)
+            + flash_attention(q1, k1, v1, True, None, 0, return_lse=True)
+            + flash_attention(q64, k64, v64, True, None, 100, return_lse=True)
+            for _ in range(2)]
     torch.cuda.synchronize()
     names = ("k3 pv", "k3 m", "k3 l", "k3 pv shard", "k3 m shard", "k3 l shard", "dq", "dk",
-             "dv")
+             "dv", "k1 out", "k1 lse", "k1 out window", "k1 lse window")
     for name, a, b in zip(names, *runs):
         assert a.dtype == torch.float32 and torch.equal(a, b), f"float32 {name}"
 
