@@ -225,7 +225,9 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    float32) and fsdp=2,tensor=2, against the single-device run; (c) the
    same meshes with a small float32 model, within 1e-5; (d) a float32 job
    saved on tensor=2 and resumed on one device, against the uninterrupted
-   run.
+   run; (e)-(g) the pipe and expert axes, the small model pipelined with
+   MoE on expert=2, data=2 and fsdp=2 beside pipe=2 within 1e-5 of one
+   device's step accumulating the same microbatches.
    Every rank's launches are held exactly; step ms and peak memory a rank
    are of ranks sharing one card, not a scaling figure.  The ring's K3
    and K4 hops get their own kernel rows (float32, B 8, 16 heads, a
@@ -255,7 +257,20 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    one-rank NCCL tensor=1 mesh: the overlapped engine captures and
    replays, tokens equal one device's; (e) ``serve --init
    --tensor 2 --dist-backend gloo`` answers 4 completions with
-   ``--tensor 1``'s tokens and exits 0 on SIGTERM.  Every rank's
+   ``--tensor 1``'s tokens, and so does a split: ``--tensor 2
+   --fleet-role prefill`` prefills each prompt and a one-device
+   ``--fleet-role decode`` replica answers it with ``X-KV-Source``, every
+   page shipped counted on both; all exit 0 on SIGTERM; (f) the
+   disaggregated verbs on tensor=2 ((b)'s float32 model, phase 6j's engine
+   shape, a float32 and an int8 pool): a one-device bundle imported and
+   exported again is the same bytes; a 256-token prefix's and a 900-token
+   prompt's pages cross both ways (one device adopting tensor=2's, tensor=2
+   one device's), tokens equal one device's cold run, pages and hits the
+   traffic's, launches exact on each adopting side (K1 none, K3 L a
+   prefixed pass, K2 L x fused_steps a chunk); a stream migrated each way
+   after one chunk keeps its unmigrated tokens; export, import and the
+   split's first token timed (median and range of 3 after a warm-up)
+   beside one device's.  Every rank's
    launches are exact (K1 L a plain prefill, K3 L a prefixed one, K2 L a
    decode step or verify pass, KE 7L + 1 or 3L a pass), every rank emits
    the same tokens, and a K2 row times the kernel on calls (a)'s bf16
@@ -302,6 +317,7 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import http.client
 import json
@@ -3751,9 +3767,9 @@ def phase_disagg(dev, params, cfg, kv_int8: bool) -> dict:
     addr = {n: s[0].server_address for n, s in servers.items()}
     source = {kvwire.KV_SOURCE_HEADER: "%s:%d" % addr["P"]}
     exports, payloads, imports = [], [], []
-    timed_calls(P, "export_prefix_pages", dev, exports)
+    timed_calls(P, "_export", dev, exports)  # the export task, as the route runs it
     timed_calls(P, "_page_payloads", dev, payloads)  # the gather and copy out, within export
-    timed_calls(D, "import_pages", dev, imports)
+    timed_calls(D, "_import", dev, imports)
     passes = {"plain": 0, "prefixed": 0}
     real = (serving._paged_prefill, serving._paged_prefill_prefixed,
             generate.flash_block_stats, serving._paged_attn_call)
@@ -4221,8 +4237,9 @@ OBS_SLO = {"classes": {"serve": {"ttft_p95_ms": 2000, "e2e_p99_ms": 10000}},
            "window_short_s": 600, "window_long_s": 1800}
 # rounds of the same HTTP batch with every plane on and every plane off,
 # in pairs ordered off-on, on-off, off-on, ...; a round times OBS_BATCHES
-# batches back to back, so host noise averages within it
-OBS_PAIRS = 10
+# batches back to back, so host noise averages within it.  6 pairs, so
+# that the run's time limit also holds phase 16(f) and (e)'s split
+OBS_PAIRS = 6
 OBS_BATCHES = 3
 OBS_ROUNDS = tuple(bool((i + i // 2) % 2) for i in range(2 * OBS_PAIRS))
 # the device's idle share is read under torch.profiler, on separate
@@ -6075,9 +6092,10 @@ MESH_PIPE = dict(n_layers=4, n_microbatches=4)
 # 2 layers (4 experts a rank)
 MESH_MOE = dict(n_layers=2, n_experts=8)
 # (g): the small float32 model on the new axes, at 4 layers where pipe is in
-# the mesh; MoE with 4 experts.  expert=2,pipe=2 routes each microbatch on
-# its own, as the reference does: its one-device run is the step that
-# accumulates the same microbatches (grad_accum = n_microbatches)
+# the mesh; MoE with 4 experts.  Pipelined MoE routes each global
+# microbatch on its own, as the reference does (over data or fsdp too): its
+# one-device run is the step that accumulates the same microbatches
+# (grad_accum = n_microbatches)
 SMALL_PIPE = dict(n_layers=4, n_microbatches=2)
 SMALL_MOE = dict(n_experts=4)
 MESH_NEW = [
@@ -6085,6 +6103,10 @@ MESH_NEW = [
     ("pipe=2,tensor=2", dict(pipe=2, tensor=2), SMALL_PIPE, 1),
     ("data=2,expert=2", dict(data=2, expert=2), SMALL_MOE, 1),
     ("expert=2,pipe=2", dict(expert=2, pipe=2), dict(SMALL_PIPE, **SMALL_MOE), 2),
+    # the batch cut over data or fsdp: each rank pipelines its share of every
+    # global microbatch, which routes over the row ranks as one
+    ("data=2,pipe=2 MoE", dict(data=2, pipe=2), dict(SMALL_PIPE, **SMALL_MOE), 2),
+    ("fsdp=2,pipe=2 MoE", dict(fsdp=2, pipe=2), dict(SMALL_PIPE, **SMALL_MOE), 2),
 ]
 # (d): float32 jobs saved at step 2 of 4 on tensor=2, pipe=2 (pipelined) and
 # expert=2 (MoE), resumed on one device
@@ -6291,6 +6313,10 @@ def serve_mesh_plan():
             run("(b) int8 weights", t2, SERVE_MESH_SMALL, 16, int8=True, sample_ke=True),
             run("(c) MoE expert=2", e2, dict(SERVE_MESH_SMALL, n_experts=8), 16,
                 sample_ke=True),
+            run("(f) disaggregated verbs, float32 pool", t2, SERVE_MESH_SMALL, DISAGG_NEW,
+                disagg=True, engine=DISAGG_MESH_ENGINE),
+            run("(f) disaggregated verbs, int8 pool", t2, SERVE_MESH_SMALL, DISAGG_NEW,
+                disagg=True, engine=dict(DISAGG_MESH_ENGINE, kv_int8=True)),
         ],
         (4, "gloo"): [run("(c) MoE expert=2,tensor=2", dict(expert=2, tensor=2),
                           dict(SERVE_MESH_SMALL, n_experts=8), 16, sample_ke=True)],
@@ -6476,6 +6502,374 @@ def ke_samples_check(calls) -> dict:
     return res
 
 
+# (f): the disaggregated verbs on tensor=2, on (b)'s float32 flagship at L 4
+# with the prefix cache, on phase 6j's engine shape (prefix cache, chunked
+# prefill of 128, page 16, 16 fused steps, sequential), over a float32 and
+# an int8 pool; against one device in this process.  Its timings are the
+# median and range of DISAGG_MESH_REPEATS fresh 900-token prompts after one
+# warm-up; its migrated streams generate DISAGG_MESH_MIG_NEW tokens.
+DISAGG_MESH_ENGINE = dict(prefix_cache=True, prefill_chunk=128, paged_kernel=True,
+                          max_batch=8, max_len=1024, page_size=16, fused_steps=16)
+DISAGG_MESH_REPEATS = 3
+DISAGG_MESH_MIG_NEW = 48
+
+
+def disagg_mesh_prompts(vocab: int) -> dict:
+    """(f)'s prompts: P a 256-token prefix and a 900-token prompt that
+    tensor=2 exports and one device adopts, Q the same shapes the other
+    way, R 900-token prompts for the timed splits (the first a warm-up), M
+    two streams to migrate (one each way)."""
+    rng = np.random.default_rng(19)
+
+    def fresh(n):
+        return rng.integers(0, vocab, n).tolist()
+
+    big = WAVE1_LENS[2]
+    return {"P": [fresh(SHARED_PREFIX), fresh(big)], "Q": [fresh(SHARED_PREFIX), fresh(big)],
+            "R": [fresh(big) for _ in range(1 + DISAGG_MESH_REPEATS)],
+            "M": [fresh(128), fresh(128)]}
+
+
+def disagg_mesh_engine(dev, run, mesh=None):
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
+
+    cfg = TransformerConfig(**run["cfg"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    return InferenceEngine(params, cfg, device=dev, mesh=mesh, **dict(run["engine"],
+                                                                      overlap=False))
+
+
+@contextlib.contextmanager
+def prefill_passes():
+    """The serving prefill passes by kind while the block runs: plain (K1)
+    and prefixed (K3), in the dict it yields."""
+    from elastic_gpu_scheduler_tpu_torch.models import serving
+
+    passes = {"plain": 0, "prefixed": 0}
+    real = (serving._paged_prefill, serving._paged_prefill_prefixed)
+
+    def counted(fn, kind):
+        def call(*args, **kw):
+            passes[kind] += 1
+            return fn(*args, **kw)
+        return call
+
+    serving._paged_prefill = counted(real[0], "plain")
+    serving._paged_prefill_prefixed = counted(real[1], "prefixed")
+    try:
+        yield passes
+    finally:
+        serving._paged_prefill, serving._paged_prefill_prefixed = real
+
+
+def disagg_greedy(eng, prompt, new):
+    """One greedy request through ``eng``: its tokens."""
+    from elastic_gpu_scheduler_tpu_torch.models.serving import Request
+
+    req = eng.submit(Request(prompt=list(prompt), max_new_tokens=new))
+    eng.run_until_idle(max_steps=100_000)
+    check(req.done.is_set() and not req.error, f"(f): a request failed: {req.error!r}")
+    return req.output
+
+
+def disagg_mesh_inputs(dev, run, work: str) -> dict:
+    """(f)'s one-device side before the spawn: every prompt's cold greedy
+    tokens; the bundles of Q and of R (each R primed as /v1/prefill
+    primes, its prefill and export timed); R's bundles imported into a
+    fresh engine (timed); a stream of M detached after one chunk.  The
+    bundles the ranks read are files under ``work``; returns the
+    readings."""
+    import torch
+
+    pr = disagg_mesh_prompts(run["cfg"]["vocab_size"])
+    new = run["new"]
+    out = {"prompts": pr, "files": {}}
+    with torch.inference_mode():
+        eng = disagg_mesh_engine(dev, run)
+        out["cold"] = {k: [disagg_greedy(eng, p, new) for p in pr[k]] for k in ("P", "Q")}
+        out["cold"]["M"] = [disagg_greedy(eng, p, DISAGG_MESH_MIG_NEW) for p in pr["M"]]
+        out["files"]["Q"] = [os.path.join(work, f"q{i}.bundle") for i in range(2)]
+        for p, path in zip(pr["Q"], out["files"]["Q"]):
+            with open(path, "wb") as f:
+                f.write(eng.export_prefix_pages(p))
+        exports, prefill_ms, out["files"]["R"] = [], [], []
+        timed_calls(eng, "_export", dev, exports)
+        for i, p in enumerate(pr["R"]):
+            t0 = time.perf_counter()
+            disagg_greedy(eng, p, 1)
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            data = eng.export_prefix_pages(p)
+            out["files"]["R"].append(os.path.join(work, f"r{i}.bundle"))
+            with open(out["files"]["R"][-1], "wb") as f:
+                f.write(data)
+        out["prefill_ms"] = prefill_ms
+        out["export_ms"] = [ms for ms, _ in exports]
+        out["bundle_bytes"] = [len(b) for _, b in exports]
+        from elastic_gpu_scheduler_tpu_torch.utils import kvwire
+
+        del eng
+        imp, imports = disagg_mesh_engine(dev, run), []
+        timed_calls(imp, "_import", dev, imports)
+        for path in out["files"]["R"]:
+            with open(path, "rb") as f:
+                imp.import_pages(*kvwire.decode_bundle(f.read()))
+        out["import_ms"] = [ms for ms, _ in imports]
+        del imp
+        from elastic_gpu_scheduler_tpu_torch.models.serving import Request
+
+        src = disagg_mesh_engine(dev, run)
+        src.submit(Request(prompt=list(pr["M"][1]), max_new_tokens=DISAGG_MESH_MIG_NEW))
+        src._admit()
+        src.step()
+        lost = src.chunks_discarded
+        out["files"]["M"] = os.path.join(work, "m1.session")
+        with open(out["files"]["M"], "wb") as f:
+            f.write(src.migrate_out_bundle(0))
+        out["source_lost"] = src.chunks_discarded - lost
+        del src
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_disagg(dev, mesh, run) -> dict:
+    """(f) on one rank: rank 0 calls every verb (each goes to the ranks in
+    a ticket of its own), the others follow, in three segments a stop
+    ticket apart: (1) Q's one-device bundles imported and exported again;
+    (2) the main path, counts at 0 just before: Q's prompts on the
+    imported pages, the passes counted by kind; (3) P primed and exported
+    (timed, the 900-token export again REPEATS times), the timed splits
+    over R's bundles (import, then the first token), a stream of M
+    detached after one chunk, and the one-device stream of M resumed."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.models.serving import Request
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+    from elastic_gpu_scheduler_tpu_torch.utils import kvwire
+
+    pr, files, new = run["prompts"], run["files"], run["new"]
+    eng = disagg_mesh_engine(dev, run, mesh)
+    L = eng.cfg.n_layers
+    log_ = []
+    emit = eng._emit
+
+    def logged(req, tok, *a, **k):
+        log_.append(int(tok))
+        emit(req, tok, *a, **k)
+
+    eng._emit = logged
+    exports, imports = [], []
+    timed_calls(eng, "_export", dev, exports)
+    timed_calls(eng, "_import", dev, imports)
+
+    def segment(fn):
+        with torch.inference_mode():
+            if not eng.leader:
+                eng.follow()
+                return None
+            got = fn()
+            eng.stop_followers()
+            return got
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    out = {}
+
+    def round_trip():
+        same = []
+        for p, path in zip(pr["Q"], files["Q"]):
+            data = read(path)
+            eng.import_pages(*kvwire.decode_bundle(data))
+            same.append(eng.export_prefix_pages(p) == data)
+        return same
+
+    out["round_trip"] = segment(round_trip)
+    base = {n: getattr(eng, n) for n in ("prefix_hit_tokens", "steps_run",
+                                         "prefix_admission_hits")}
+    sync(dev)
+    # the main path: counts at 0 just before, read just after
+    _build.reset_launches()
+    with prefill_passes() as passes:
+        out["adopted"] = segment(lambda: [disagg_greedy(eng, p, new) for p in pr["Q"]])
+        sync(dev)
+    launches = dict(_build.LAUNCHES)
+    chunks = eng.steps_run - base["steps_run"]
+    k2 = "paged_attention_int8" if eng.kv_int8 else "paged_attention"
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_block_stats": L * passes["prefixed"], k2: L * eng.fused_steps * chunks})
+    out.update(launches=launches, want=want, passes=dict(passes), chunks=chunks,
+               hit_tokens=eng.prefix_hit_tokens - base["prefix_hit_tokens"],
+               hits=eng.prefix_admission_hits - base["prefix_admission_hits"],
+               pages_imported=eng.kv_pages_imported)
+    exports.clear()
+    imports.clear()
+
+    def the_rest():
+        got = {"prefill_ms": [], "files": [], "split": []}
+        for i, p in enumerate(pr["P"]):  # tensor=2 as the prefill replica
+            t0 = time.perf_counter()
+            disagg_greedy(eng, p, 1)
+            got["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+            path = os.path.join(run["work"], f"p{i}.{mesh.rank}.bundle")
+            with open(path, "wb") as f:
+                f.write(eng.export_prefix_pages(p))
+            got["files"].append(path)
+        for _ in range(DISAGG_MESH_REPEATS):
+            eng.export_prefix_pages(pr["P"][1])
+        for p, path in zip(pr["R"], files["R"]):  # tensor=2 as the decode replica
+            t0 = time.perf_counter()
+            eng.import_pages(*kvwire.decode_bundle(read(path)))
+            disagg_greedy(eng, p, 1)
+            got["split"].append((time.perf_counter() - t0) * 1e3)
+        req = eng.submit(Request(prompt=list(pr["M"][0]), max_new_tokens=DISAGG_MESH_MIG_NEW))
+        eng.exchange_ticket()
+        eng.round()
+        lost = eng.chunks_discarded
+        got["m0"] = os.path.join(run["work"], f"m0.{mesh.rank}.session")
+        with open(got["m0"], "wb") as f:
+            f.write(eng.migrate_out_bundle(0))
+        got["lost"] = eng.chunks_discarded - lost
+        got["m0_before"] = len(req.output)
+        hdr, pages = kvwire.decode_bundle(read(files["M"]))
+        eng.import_pages(hdr, pages)
+        resumed = eng.resume_session(hdr["request"])
+        eng.run_until_idle(max_steps=100_000)
+        check(resumed.done.is_set() and not resumed.error, f"(f): resumed {resumed.error!r}")
+        got["m1"] = resumed.output
+        return got
+
+    out["rest"] = segment(the_rest)
+    out["export_ms"] = [ms for ms, _ in exports]
+    out["import_ms"] = [ms for ms, _ in imports]
+    out["bundle_bytes"] = [len(b) if b else 0 for _, b in exports]
+    out["log"] = log_
+    out["digest"] = eng._mirror_digest().hex()
+    out["counters"] = {c: int(getattr(eng, c)) for c in (
+        "kv_pages_exported", "kv_pages_imported", "kv_exports", "kv_imports",
+        "sessions_migrated_out", "sessions_migrated_in", "tickets")}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def disagg_mesh_check(dev, run, ref, per) -> dict:
+    """(f) after the spawn: every rank's launches exact on the main path
+    (K1 none, K3 L a prefixed pass, K2 L x fused_steps a chunk), its
+    emissions, counters and mirror digest rank 0's; Q's round trip the
+    same bytes, its adopted tokens one device's cold ones, pages and hits
+    the traffic's; tensor=2's P bundles adopted by a fresh one-device
+    engine (its launches exact too): one device's cold tokens; M's streams
+    migrated each way: their unmigrated tokens, at most one chunk lost.
+    Returns the readings beside one device's."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
+    from elastic_gpu_scheduler_tpu_torch.utils import kvwire
+
+    name, lead = run["name"], per[0]
+    pr, ps, L = ref["prompts"], run["engine"]["page_size"], run["cfg"]["n_layers"]
+    n_pages = sum((len(p) - 1) // ps for p in pr["Q"])
+    for r, p in enumerate(per):
+        check(p["launches"] == p["want"] and p["passes"] == {"plain": 0, "prefixed": 2}
+              and p["chunks"] > 0,
+              f"{name} rank {r}: launches {p['launches']} (want {p['want']}), passes "
+              f"{p['passes']}, chunks {p['chunks']}")
+        check(p["log"] == lead["log"] and p["digest"] == lead["digest"]
+              and p["counters"] == lead["counters"],
+              f"{name}: rank {r}'s mirror parted from rank 0's")
+    check(lead["round_trip"] == [True, True],
+          f"{name}: a bundle imported into tensor=2 and exported again changed")
+    check(lead["adopted"] == ref["cold"]["Q"], f"{name}: tensor=2's tokens over one device's "
+                                               "pages differ from one device's cold run")
+    check(lead["hits"] == 2 and lead["hit_tokens"] == n_pages * ps,
+          f"{name}: tensor=2 hit {lead['hits']} prompts, {lead['hit_tokens']} tokens")
+    rest = lead["rest"]
+    # one device adopts tensor=2's bundles of P, its launches exact
+    with torch.inference_mode():
+        eng = disagg_mesh_engine(dev, run)
+        sync(dev)
+        _build.reset_launches()
+        with prefill_passes() as passes:
+            for path in rest["files"]:
+                with open(path, "rb") as f:
+                    eng.import_pages(*kvwire.decode_bundle(f.read()))
+            adopted = [disagg_greedy(eng, p, run["new"]) for p in pr["P"]]
+            sync(dev)
+        launches = dict(_build.LAUNCHES)
+        k2 = "paged_attention_int8" if eng.kv_int8 else "paged_attention"
+        want = dict.fromkeys(launches, 0)
+        want.update({"flash_block_stats": L * passes["prefixed"],
+                     k2: L * eng.fused_steps * eng.steps_run})
+        p_pages = sum((len(p) - 1) // ps for p in pr["P"])
+        check(adopted == ref["cold"]["P"], f"{name}: one device's tokens over tensor=2's pages "
+                                           "differ from its cold run")
+        check(launches == want and passes == {"plain": 0, "prefixed": 2},
+              f"{name}: one device adopting launched {launches} (want {want}), passes {passes}")
+        check(eng.kv_pages_imported == p_pages and eng.prefix_hit_tokens == p_pages * ps,
+              f"{name}: one device imported {eng.kv_pages_imported} pages, hit "
+              f"{eng.prefix_hit_tokens} tokens (the traffic: {p_pages} pages)")
+        del eng
+        # tensor=2's stream of M resumed on one device
+        dst = disagg_mesh_engine(dev, run)
+        with open(rest["m0"], "rb") as f:
+            hdr, pages = kvwire.decode_bundle(f.read())
+        dst.import_pages(hdr, pages)
+        moved = dst.resume_session(hdr["request"])
+        dst.run_until_idle(max_steps=100_000)
+        del dst
+    check(moved.output == ref["cold"]["M"][0] and rest["m1"] == ref["cold"]["M"][1],
+          f"{name}: a migrated stream's tokens differ from its unmigrated run")
+    check(rest["lost"] <= 1 and ref["source_lost"] <= 1, f"{name}: a migration lost "
+          f"{rest['lost']} / {ref['source_lost']} chunks")
+    gc.collect()
+    torch.cuda.empty_cache()
+    warm = slice(1, None)  # each series after its warm-up
+    res = {
+        "pool": "int8" if run["engine"].get("kv_int8") else "float32",
+        "layers": L, "round_trip_identical": True, "adopted_equal_cold": True,
+        "pages_adopted_tensor2": n_pages, "pages_adopted_one_device": p_pages,
+        "bundle_mb_900": lead["bundle_bytes"][1] / 2 ** 20,
+        "tensor2_export_ms_900": spread(lead["export_ms"][2:]),
+        "one_device_export_ms_900": spread(ref["export_ms"][warm]),
+        "tensor2_import_ms_900": spread(lead["import_ms"][1:1 + DISAGG_MESH_REPEATS]),
+        "one_device_import_ms_900": spread(ref["import_ms"][warm]),
+        "tensor2_prefill_ms": rest["prefill_ms"],
+        # one device primes and exports, tensor=2 imports and answers
+        "split_first_token_ms_900": spread([a + b + c for a, b, c in zip(
+            ref["prefill_ms"][warm], ref["export_ms"][warm], rest["split"][warm])]),
+        "tensor2_import_and_first_token_ms_900": spread(rest["split"][warm]),
+        "migrated_before": rest["m0_before"], "chunks_lost": [rest["lost"], ref["source_lost"]],
+        "one_device_adopting_launches": {k: v for k, v in launches.items() if v},
+        "tensor2_launches": {k: v for k, v in lead["launches"].items() if v},
+    }
+    res["export_ratio"] = (res["tensor2_export_ms_900"]["median"]
+                           / res["one_device_export_ms_900"]["median"])
+    log(f"serve mesh {name} (tensor=2, L {L}, {res['pool']} pool): a bundle round trip "
+        f"identical; Q's {n_pages} pages adopted, tokens = one device's cold run; P's "
+        f"{p_pages} tensor=2 pages adopted on one device, tokens = its cold run; migrated "
+        f"streams = unmigrated, {res['chunks_lost']} chunks lost; launches exact on both ranks "
+        f"{res['tensor2_launches']} and on one device {res['one_device_adopting_launches']}; "
+        f"900-token bundle {res['bundle_mb_900']:.2f} MiB: export tensor=2 "
+        f"{res['tensor2_export_ms_900']['median']:.2f} ms (range "
+        f"{res['tensor2_export_ms_900']['min']:.2f}-{res['tensor2_export_ms_900']['max']:.2f}) "
+        f"vs one device {res['one_device_export_ms_900']['median']:.2f} ms "
+        f"(x{res['export_ratio']:.2f}); import tensor=2 "
+        f"{res['tensor2_import_ms_900']['median']:.2f} ms vs one device "
+        f"{res['one_device_import_ms_900']['median']:.2f} ms; split first token (one device "
+        f"prefill + export, tensor=2 import + first token) "
+        f"{res['split_first_token_ms_900']['median']:.1f} ms (range "
+        f"{res['split_first_token_ms_900']['min']:.1f}-"
+        f"{res['split_first_token_ms_900']['max']:.1f}, {DISAGG_MESH_REPEATS} runs); "
+        f"tensor=2 prefill of P {[round(x, 1) for x in rest['prefill_ms']]} ms")
+    return res
+
+
 def serve_mesh_rank(rank, world, rendezvous, runs, backend):
     """One rank of a phase-16 world (a spawned process): each run on its
     mesh, on this rank's share of the card."""
@@ -6495,9 +6889,12 @@ def serve_mesh_rank(rank, world, rendezvous, runs, backend):
     _build.lib()  # built by the parent before the spawn
     out = {}
     for run in runs:
+        t0 = time.perf_counter()
         mesh = make_mesh(MeshSpec(**run["kw"])).connect()
-        out[run["name"]] = serve_mesh_run(dev, mesh, run)
-        print(f"serve mesh rank {rank} {run['name']}: {out[run['name']]['wall_s']:.1f} s",
+        out[run["name"]] = (serve_mesh_disagg if run.get("disagg") else serve_mesh_run)(
+            dev, mesh, run)
+        print(f"serve mesh rank {rank} {run['name']}: "
+              f"{out[run['name']].get('wall_s', time.perf_counter() - t0):.1f} s",
               file=sys.stderr, flush=True)
     return out
 
@@ -6510,17 +6907,37 @@ def phase_serve_mesh(dev) -> dict:
     import shutil
     import tempfile
 
-    import torch
-
-    from elastic_gpu_scheduler_tpu_torch.parallel.distributed import spawn_ranks
-
     res: dict = {"card": card_line(), "runs": {},
                  "note": "ranks sharing one card over host-staged gloo: not a scaling figure"}
     plan = serve_mesh_plan()
     t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="serve_mesh_")
+    try:
+        return serve_mesh_worlds(dev, plan, res, work, t_phase)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def serve_mesh_worlds(dev, plan, res, work, t_phase) -> dict:
+    """Phase 16's body: the one-device side of every run, each world's
+    spawn, the checks; ``work`` holds (f)'s bundles."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.parallel.distributed import spawn_ranks
+
     refs, by_setup = {}, {}
+    t_disagg = 0.0
     for runs in plan.values():
         for run in runs:  # one reference a setup: (c)'s two meshes share one
+            if run.get("disagg"):  # (f): its one-device side, its bundles in files
+                t0 = time.perf_counter()
+                d = os.path.join(work, f"disagg{len(refs)}")
+                os.makedirs(d)
+                refs[run["name"]] = disagg_mesh_inputs(dev, run, d)
+                run.update(prompts=refs[run["name"]]["prompts"],
+                           files=refs[run["name"]]["files"], work=d)
+                t_disagg += time.perf_counter() - t0
+                continue
             key = json.dumps([run[k] for k in ("cfg", "engine", "waves", "new")]
                              + [run.get("int8", False)], sort_keys=True)
             if key not in by_setup:
@@ -6529,24 +6946,26 @@ def phase_serve_mesh(dev) -> dict:
     del by_setup
     gc.collect()
     torch.cuda.empty_cache()  # the spawned ranks share the card with this process
-    work = tempfile.mkdtemp(prefix="serve_mesh_")
     out = {}
-    try:
-        for (n, backend), runs in plan.items():
-            t0 = time.perf_counter()
-            out[n] = spawn_ranks(serve_mesh_rank, n, (runs, backend),
-                                 rendezvous=f"file://{work}/{backend}{n}", timeout_s=900)
-            res[f"spawn_{n}_{backend}_s"] = time.perf_counter() - t0
-            log(f"serve mesh: {n} {backend} rank(s) ran {[r['name'] for r in runs]} in "
-                f"{res[f'spawn_{n}_{backend}_s']:.1f} s")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    for (n, backend), runs in plan.items():
+        t0 = time.perf_counter()
+        out[n] = spawn_ranks(serve_mesh_rank, n, (runs, backend),
+                             rendezvous=f"file://{work}/{backend}{n}", timeout_s=900)
+        res[f"spawn_{n}_{backend}_s"] = time.perf_counter() - t0
+        log(f"serve mesh: {n} {backend} rank(s) ran {[r['name'] for r in runs]} in "
+            f"{res[f'spawn_{n}_{backend}_s']:.1f} s")
     k2_row = None
+    res["disagg"] = {}
     for (n, backend), runs in plan.items():
         for run in runs:
             name = run["name"]
             ref, per = refs[name], [out[n][r][name] for r in range(n)]
             lead = per[0]
+            if run.get("disagg"):
+                t0 = time.perf_counter()
+                res["disagg"][name] = disagg_mesh_check(dev, run, ref, per)
+                t_disagg += time.perf_counter() - t0
+                continue
             entry = {"axes": run["kw"], "ranks": n, "backend": backend,
                      "layers": run["cfg"]["n_layers"], "dtype": run["cfg"]["dtype"],
                      "wall_s_rank0": lead["wall_s"], "one_device_wall_s": ref["wall_s"],
@@ -6670,6 +7089,9 @@ def phase_serve_mesh(dev) -> dict:
     torch.cuda.empty_cache()
     res["http"] = phase_serve_mesh_http()
     res["phase_s"] = time.perf_counter() - t_phase
+    # (f)'s one-device side and checks in this process (its ranks' time is in
+    # the 2-rank spawn's, beside the other runs')
+    res["disagg_one_device_s"] = t_disagg
     res["k2_row"] = k2_row
     check(k2_row is not None, "(a) bf16 sampled no K2 call on rank 0")
     return res
@@ -6678,26 +7100,48 @@ def phase_serve_mesh(dev) -> dict:
 def phase_serve_mesh_http() -> dict:
     """(e) ``serve --init --tensor 2 --dist-backend gloo`` and ``--tensor
     1`` on the same seed: 4 concurrent completions each, the same tokens;
-    /v1/stats shows the mesh; SIGTERM drains and both exit 0."""
+    /v1/stats shows the mesh.  Then a split on the same seed: ``--tensor 2
+    --fleet-role prefill --prefix-cache`` as P prefills each prompt
+    (/v1/prefill), and ``--fleet-role decode --prefix-cache`` as D answers
+    it with ``X-KV-Source: P``: ``--tensor 1``'s tokens, every page
+    shipped counted on both sides.  SIGTERM drains and all four exit 0."""
     import shutil
     import tempfile
+
+    from elastic_gpu_scheduler_tpu_torch.utils.kvwire import KV_SOURCE_HEADER
 
     args = ["--init", "--dtype", "float32", "--paged-kernel", "--max-batch", "4",
             "--max-len", "256", "--page-size", "16", "--fused-steps", "8"]
     rng = np.random.default_rng(17)
     prompts = [rng.integers(0, 32000, n).tolist() for n in (24, 64, 100, 7)]
     work = tempfile.mkdtemp(prefix="serve_tensor_")
-    procs = {t: ServeProcess(args + ["--tensor", str(t)] + (["--dist-backend", "gloo"]
-                                                             if t > 1 else []),
+    gloo = ["--dist-backend", "gloo"]
+    roles = {"P": args + ["--prefix-cache", "--tensor", "2", *gloo, "--fleet-role", "prefill"],
+             "D": args + ["--prefix-cache", "--fleet-role", "decode"]}
+    procs = {t: ServeProcess(args + ["--tensor", str(t)] + (gloo if t > 1 else []),
                              os.path.join(work, f"tensor{t}.log")) for t in (1, 2)}
+    procs.update({r: ServeProcess(a, os.path.join(work, f"{r}.log")) for r, a in roles.items()})
     out = {}
     try:
-        for t, sp in procs.items():
+        for t in (1, 2):
+            sp = procs[t]
             ready = sp.wait_ready(300)
             toks, wall = http_completions(sp.addr, prompts, 16)
             code, stats = get_json(sp.addr, "/v1/stats")
             check(code == 200, f"--tensor {t}: /v1/stats {code}")
             out[t] = {"ready_s": ready, "tokens": toks, "wall_s": wall, "mesh": stats["mesh"]}
+        P, D = procs["P"], procs["D"]
+        split = {"ready_s": {"P": P.wait_ready(300), "D": D.wait_ready(300)}, "tokens": []}
+        source = {KV_SOURCE_HEADER: "%s:%d" % P.addr}
+        t0 = time.perf_counter()
+        for p in prompts:
+            code, _, data = post_json(P.addr, {"prompt": p}, path="/v1/prefill")
+            check(code == 200, f"P's /v1/prefill answered {code}: {data[:200]!r}")
+            code, _, data = post_json(D.addr, {"prompt": p, "max_tokens": 16}, headers=source)
+            check(code == 200, f"D's completion answered {code}: {data[:200]!r}")
+            split["tokens"].append(json.loads(data)["tokens"])
+        split["wall_s"] = time.perf_counter() - t0
+        split["P"], split["D"] = (get_json(sp.addr, "/v1/stats")[1] for sp in (P, D))
         codes = {t: sp.stop() for t, sp in procs.items()}
         tails = {t: sp.tail() for t, sp in procs.items()}
     finally:
@@ -6715,7 +7159,29 @@ def phase_serve_mesh_http() -> dict:
     check(res["tokens_equal"], f"serve --tensor 2 answered other tokens than --tensor 1: "
                                f"{out[1]['tokens']} vs {out[2]['tokens']}")
     check(res["mesh"] == {"shape": {"tensor": 2}, "ranks": 2}, "serve --tensor 2: no mesh")
-    check(codes == {1: 0, 2: 0}, f"serve exit codes {codes}:\n{tails}")
+    pages = sum((len(p) - 1) // 16 for p in prompts)
+    kv_p, kv_d = split["P"]["kv"], split["D"]["kv"]
+    res["split"] = {"tokens_equal": split["tokens"] == out[1]["tokens"], "pages": pages,
+                    "ready_s": split["ready_s"], "wall_s": split["wall_s"],
+                    "p_mesh": split["P"]["mesh"], "p_role": split["P"]["role"],
+                    "p_pages_exported": kv_p["pages_exported"],
+                    "d_role": split["D"]["role"], "d_pages_imported": kv_d["pages_imported"],
+                    "d_prefix_hits": kv_d["prefix_hits"]}
+    log(f"serve mesh (e) split: P = serve --tensor 2 --fleet-role prefill, D = --fleet-role "
+        f"decode, 4 prompts through P's /v1/prefill then D with X-KV-Source: P: tokens equal "
+        f"--tensor 1's {res['split']['tokens_equal']}, pages exported by P "
+        f"{kv_p['pages_exported']}, imported by D {kv_d['pages_imported']} (the prompts hold "
+        f"{pages}), D's prefix hits {kv_d['prefix_hits']}, wall {split['wall_s']:.2f} s")
+    check(res["split"]["tokens_equal"], f"the split answered other tokens than --tensor 1: "
+                                        f"{split['tokens']} vs {out[1]['tokens']}")
+    check(split["P"]["mesh"] == {"shape": {"tensor": 2}, "ranks": 2}
+          and split["P"]["role"] == "prefill" and split["D"]["role"] == "decode",
+          f"the split's replicas: P {split['P']['mesh']} {split['P']['role']}, D "
+          f"{split['D']['role']}")
+    check(kv_p["pages_exported"] == kv_d["pages_imported"] == pages,
+          f"the split shipped {kv_p['pages_exported']} pages and D imported "
+          f"{kv_d['pages_imported']}, not the prompts' {pages}")
+    check(all(c == 0 for c in codes.values()), f"serve exit codes {codes}:\n{tails}")
     return res
 
 
@@ -6993,10 +7459,11 @@ def phase_mesh(dev) -> dict:
     pipe=2 at the flagship's widths (MESH_PIPE: 2 layers a stage, 4
     microbatches) and (f) expert=2 (MESH_MOE: 8 experts, 4 a rank) within
     MESH_BF16_TOL; (g) the small float32 model on pipe=2,seq=2 (the ring
-    inside the stages), pipe=2,tensor=2, data=2,expert=2 and expert=2,pipe=2
-    within MESH_F32_TOL; (d) float32 jobs saved on tensor=2, pipe=2 and
-    expert=2 and resumed on one device against the uninterrupted mesh runs
-    within MESH_F32_TOL.  Each rank's launches are held exactly; (b)'s
+    inside the stages), pipe=2,tensor=2, data=2,expert=2 and MoE pipelined
+    on expert=2,pipe=2, data=2,pipe=2 and fsdp=2,pipe=2 (each held to one
+    device's step accumulating the microbatches) within MESH_F32_TOL; (d)
+    float32 jobs saved on tensor=2, pipe=2 and expert=2 and resumed on one
+    device against the uninterrupted mesh runs within MESH_F32_TOL.  Each rank's launches are held exactly; (b)'s
     seq=2 and (e)'s pipe=2 runs take one more step, rank 0's under
     torch.profiler.  Step ms and peak memory a rank are of ranks sharing
     one card over host-staged gloo: not a scaling figure."""

@@ -84,8 +84,8 @@ join and leave a fixed-shape batch between fused decode chunks:
   adapter never match another's prompts.
 - **Disaggregated serving data plane** (``utils/kvwire``): four
   engine-thread primitives, reached from other threads through
-  ``run_task`` (a queue of thunks drained at the top of every
-  ``_admit``): ``export_prefix_pages`` (cached prefix pages as a wire
+  ``run_verb`` (a task drained at the top of every ``_admit``):
+  ``export_prefix_pages`` (cached prefix pages as a wire
   bundle: one ``index_select`` and one device-to-host copy per pool key,
   on the engine's stream, so behind any chunk in flight),
   ``import_pages`` (a bundle's pages into free pool pages, written in
@@ -151,8 +151,19 @@ raises "page pool exhausted".
   collective over ranks of several cards is untried in one: wherever the
   ``tensor`` x ``expert`` group spans more than one rank, over either
   backend, the overlapped loop runs its chunks eagerly, decided at
-  construction.  The disaggregated verbs are refused by name on more than
-  one rank.
+  construction.
+
+  The disaggregated verbs ride the tickets too: a verb is a task of plain
+  data (``_Task``: the verb, its arguments, what rank 0 decided for it),
+  which rank 0's handlers queue (``run_verb``; a direct call on rank 0
+  sends a ticket of its own) and every rank runs at the top of its next
+  ``_admit``, in ticket order.  A bundle holds whole heads whatever the
+  mesh: where the pool holds a rank's heads, an export gathers each page's
+  heads over ``tensor`` before rank 0 joins the bytes, and an import writes
+  each rank's own heads of the whole-head pages the ticket carries.  A
+  bundle's geometry and a session's fields are refused on rank 0 before
+  the ticket, so a refusal lands nothing anywhere; a follower's own call
+  of a verb is refused by name.
 
 - **Warm start** (``compile_cache``: a ``compilecache.CompileCache``):
   the kernel library is built or loaded through it (``ops/_build``), and
@@ -340,6 +351,7 @@ class Request:
     # is then asked for, and the next ticket cancels it on every rank
     mirrored: bool = False
     cancel_asked: bool = False
+    ticket: int = -1  # its ticket id on a mirrored engine (-1: none)
 
     def cancel(self) -> None:
         """Stop generation at the next chunk boundary; any thread."""
@@ -355,6 +367,34 @@ _TICKET_FIELDS = (
     "logprobs", "frequency_penalty", "presence_penalty", "min_tokens", "seed",
     "allowed_tokens", "priority", "pool_spills", "logit_bias", "output", "cancelled",
 )
+# ... and of a session a disaggregated task moves onto every rank (a resume,
+# the requeue of a refused migration)
+_SESSION_FIELDS = _TICKET_FIELDS + ("token_logprobs", "top_logprobs")
+
+
+class _Task:
+    """A disaggregated verb (export, import, migrate out or in, resume,
+    requeue) as plain data, ``verb`` and ``args``, which a ticket carries
+    to every rank of a mirrored engine, and rank 0's own side of it:
+    ``local`` (what stays on rank 0: the session's live Request, the
+    migrate-out victim chooser) and the caller's outcome.  ``state``:
+    queued, ticketed (it runs on every rank) or abandoned (it runs on
+    none)."""
+
+    def __init__(self, verb: str, args: dict, local: Optional[dict] = None):
+        self.verb, self.args, self.local = verb, args, local or {}
+        self.state = "queued"
+        self.done = threading.Event()
+        self.result = None
+        self.error: Optional[BaseException] = None
+
+    def wire(self) -> dict:
+        return {"verb": self.verb, "args": self.args}
+
+    def outcome(self):
+        if self.error is not None:
+            raise self.error
+        return self.result
 
 
 # -- step functions ------------------------------------------------------------
@@ -1417,6 +1457,9 @@ class InferenceEngine:
         self.paged_kernel = paged_kernel
         self.kv = make_kv_pool(cfg, self.n_pages, page_size, self.device, int8=kv_int8,
                                kv_heads=heads)
+        # the pool holds this rank's kv heads only (a page's bytes are then a
+        # gather over tensor): tensor > 1 and it divides both head counts
+        self._pool_cut = 0 < heads < cfg.kv_heads
         self.free_pages = list(range(self.n_pages - 1, SCRATCH_PAGE, -1))
         self.tables = np.zeros((max_batch, self.max_pages_per_slot), np.int32)
         self.slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
@@ -1579,6 +1622,12 @@ class InferenceEngine:
         self._ticketed: dict[int, Request] = {}  # ticket id → live request
         self._ticket_ids = itertools.count()
         self.tickets = 0
+        # the disaggregated verbs (``run_verb``): rank 0's tasks waiting for
+        # a ticket, and the last ticket's, which every rank runs at the top
+        # of its next ``_admit`` (at once after a tasks-only ticket)
+        self._verb_queue: list[_Task] = []
+        self._round_tasks: list[_Task] = []
+        self._ticket_draining = False
         # -- speculative decoding ---------------------------------------------
         self.spec_k = spec_k
         self.spec_ngram = spec_ngram
@@ -1939,29 +1988,44 @@ class InferenceEngine:
 
     # -- serving on a mesh -----------------------------------------------------
 
-    def exchange_ticket(self, stop: bool = False, preempt: bool = False) -> dict:
+    def exchange_ticket(self, stop: bool = False, preempt: bool = False,
+                        tasks_only: bool = False) -> dict:
         """One round's ticket, on every rank of a mirrored engine (a
         collective over the mesh's object group): rank 0 sends the requests
         submitted since the last ticket (the fields ``_TICKET_FIELDS``
         names, under ticket ids), the ids of those whose cancel was asked
-        for, its drain flag, ``stop`` (the followers leave ``follow``) and
-        ``preempt`` (a round whose pool runs dry preempts a slot instead
-        of raising); every rank then enqueues and cancels in the ticket's
-        order.  The ticket also carries a digest of rank 0's host state
-        after the last round (``_mirror_digest``): a follower whose own
-        differs raises, naming the ticket, before it runs another round.
-        Returns the ticket."""
+        for, the disaggregated tasks queued since (``run_verb``, in order,
+        each with what rank 0 decided for it: a migrate-out's slot, a
+        session's ticket id), its drain flag, ``stop`` (the followers leave
+        ``follow``), ``preempt`` (a round whose pool runs dry preempts a
+        slot instead of raising) and ``tasks_only`` (the ranks run the
+        tasks at once and no round follows); every rank then enqueues and
+        cancels in the ticket's order, and runs the tasks at the top of its
+        next ``_admit``.  The ticket also carries a digest of rank 0's host
+        state after the last round (``_mirror_digest``): a follower whose
+        own differs raises, naming the ticket, before it runs another
+        round.  Returns the ticket."""
         digest = self._mirror_digest()
         if self.leader:
             with self._cap_lock:
                 new, self._unticketed = self._unticketed, []
+                tasks, self._verb_queue = self._verb_queue, []
+                for t in tasks:
+                    t.state = "ticketed"  # runs on every rank from here
+            self._round_tasks += tasks
+            chosen: set = set()
+            for t in tasks:
+                self._prepare_task(t, chosen)
             ids = [next(self._ticket_ids) for _ in new]
-            self._ticketed.update(zip(ids, new))
+            for i, r in zip(ids, new):
+                r.ticket = i
+                self._ticketed[i] = r
             ticket = {
                 "new": [(i, {f: getattr(r, f) for f in _TICKET_FIELDS})
                         for i, r in zip(ids, new)],
                 "cancel": [i for i, r in self._ticketed.items()
                            if r.cancel_asked and not r.cancelled],
+                "tasks": [t.wire() for t in tasks], "tasks_only": tasks_only,
                 "draining": self.draining, "stop": stop, "preempt": preempt,
                 "digest": digest,
             }
@@ -1974,25 +2038,32 @@ class InferenceEngine:
         self.tickets += 1
         for i, state in ticket["new"]:
             if not self.leader:
-                self._ticketed[i] = Request(**state)
+                self._ticketed[i] = Request(**state, ticket=i)
             self._enqueue(self._ticketed[i])
         for i in ticket["cancel"]:
             self._ticketed[i].cancelled = True
         if not self.leader:
             self.draining = ticket["draining"]
+            self._round_tasks += [_Task(**w) for w in ticket.get("tasks", ())]
+        self._ticket_draining = ticket["draining"]
         self._ticketed = {i: r for i, r in self._ticketed.items() if not r.done.is_set()}
         return ticket
 
     def _mirror_digest(self) -> bytes:
         """A digest of the host state the mirrors must share: the counters,
         each slot's length, next token and pages, the free list and the
-        queue's length (every sampled token passes through them)."""
+        queue's length (every sampled token passes through them), the
+        page refcounts, the prefix cache's size and the data plane's
+        counters (every disaggregated task moves them)."""
         h = hashlib.blake2b(digest_size=16)
-        for a in (self.lengths, self.next_token, self.emitted, self.tables):
+        for a in (self.lengths, self.next_token, self.emitted, self.tables, self.page_ref):
             h.update(a.tobytes())
         h.update(np.asarray([self.tokens_emitted, self.steps_run, self.prefills_run,
                              self.spec_accepted, self.spills, len(self.free_pages),
-                             self.queue.qsize()], np.int64).tobytes())
+                             self.queue.qsize(), len(self.prefix_entries),
+                             self.kv_pages_exported, self.kv_pages_imported, self.kv_exports,
+                             self.kv_imports, self.sessions_migrated_out,
+                             self.sessions_migrated_in], np.int64).tobytes())
         return h.digest()
 
     def round(self, preempt: bool = False, victim_fn=None, step=None) -> bool:
@@ -2024,6 +2095,9 @@ class InferenceEngine:
                 ticket = self.exchange_ticket()
                 if ticket["stop"]:
                     return
+                if ticket.get("tasks_only"):
+                    self._run_tasks()
+                    continue
                 self.round(ticket["preempt"])
 
     def stop_followers(self) -> None:
@@ -2034,13 +2108,20 @@ class InferenceEngine:
     def fail_mirrored(self) -> None:
         """Rank 0 of a mirrored engine after a fault: the ranks' host states
         may have parted, so it serves no more.  Every request not done yet
-        (queued, ticketed or waiting for a ticket) fails at once, and so
-        does every later ``submit`` (``ENGINE_FAILED_ERROR``).  No ticket is
+        (queued, ticketed or waiting for a ticket) fails at once, and so do
+        every disaggregated task not run yet and every later ``submit`` or
+        ``run_verb`` (``ENGINE_FAILED_ERROR``).  No ticket is
         sent: a follower may be inside a collective, and ends when this
         process does."""
         with self._cap_lock:
             self.failed = True
             waiting, self._unticketed = self._unticketed, []
+            tasks, self._verb_queue = self._verb_queue, []
+        for t in tasks + self._round_tasks:
+            if not t.done.is_set():
+                t.error = RuntimeError(ENGINE_FAILED_ERROR)
+                t.done.set()
+        self._round_tasks = []
         waiting += self._ticketed.values()
         self._ticketed = {}
         while True:
@@ -2074,12 +2155,6 @@ class InferenceEngine:
             req.done.set()
             self._release_slot(victim)
         return victim
-
-    def _single_rank(self, verb: str) -> None:
-        if self.mirrored:
-            raise NotImplementedError(
-                f"{verb} on a mesh of {self.mesh.size} ranks is not ported yet: a "
-                "head-sharded pool's pages are a gather over tensor that every rank joins")
 
     def step(self) -> None:
         """One engine step: every mid-chunked-prefill slot ingests one
@@ -2513,6 +2588,9 @@ class InferenceEngine:
         ``_admit``) and return its result, re-raising what it raised.  The
         caller must be another thread than the one driving the engine
         (the ``EngineLoop`` case); with no loop running this times out.
+        On a mirrored engine it runs on rank 0 only: fit for reads of the
+        mirrored host state (``cached_prefix_pages``); what changes state
+        goes through ``run_verb``.
 
         A timeout ABANDONS the thunk: the engine thread skips it if it has
         not started, so a timed-out caller may treat the task as never run
@@ -2552,13 +2630,122 @@ class InferenceEngine:
             raise box["error"]
         return box.get("result")
 
+    def run_verb(self, verb: str, *, timeout: float = 30.0, abandon_on_timeout: bool = True,
+                 local: Optional[dict] = None, **args):
+        """A disaggregated verb from another thread than the engine's (the
+        HTTP handlers), with ``run_task``'s timeout and abandon rule:
+        ``export`` (tokens, adapter, max_pages → bundle bytes or None),
+        ``import`` (header, pages → the import's counts), ``migrate_out``
+        (slot or None, ``local={"chooser": fn(engine, skip)}`` → (slot,
+        request, bundle, pages shipped) or None), ``migrate_in`` (header,
+        pages, ``local={"req": session_request(state)}`` → the live
+        request), ``requeue`` (the refused migration's ``local={"req"}``
+        and pages → None).  A bundle's geometry and a session's state are
+        checked here, before anything is queued: a refusal lands nothing.
+
+        On one device the verb runs as an engine task.  On a mirrored
+        engine it joins rank 0's next ticket: every rank runs it at the
+        same point of the round (a head-sharded pool's pages are a gather
+        over ``tensor`` that every rank joins), rank 0's result comes
+        back; abandoned before its ticket it runs on no rank."""
+        task = self._new_task(verb, args, local)
+        if not self.mirrored:
+            return self.run_task(lambda: self._run_verb(task, set()), timeout=timeout,
+                                 abandon_on_timeout=abandon_on_timeout)
+        self._leader_only(verb)
+        with self._cap_lock:
+            if self.failed:
+                raise RuntimeError(ENGINE_FAILED_ERROR)
+            self._verb_queue.append(task)
+        self._work.set()
+        if not task.done.wait(timeout):
+            with self._cap_lock:
+                queued = task.state == "queued"
+                if queued and abandon_on_timeout:
+                    self._verb_queue.remove(task)
+                    task.state = "abandoned"
+            if queued:
+                raise TimeoutError("engine task timed out (no engine loop?)")
+            task.done.wait()  # in a ticket: it runs on every rank
+        return task.outcome()
+
+    def _call_verb(self, name: str, verb: str, local: Optional[dict] = None, **args):
+        """A verb called directly by the thread that drives the engine: on
+        one device it runs here; on a mirrored engine rank 0 sends it (and
+        any verb queued before it) in a tasks-only ticket, every rank runs
+        them, and no round follows."""
+        self._leader_only(name)
+        task = self._new_task(verb, args, local)
+        if not self.mirrored:
+            return self._run_verb(task, set())
+        with self._cap_lock:
+            self._verb_queue.append(task)
+        self.exchange_ticket(tasks_only=True)
+        self._run_tasks()
+        return task.outcome()
+
+    def _leader_only(self, name: str) -> None:
+        if self.mirrored and not self.leader:
+            raise RuntimeError(
+                f"{name} on rank {self.mesh.rank}: a follower takes its requests from "
+                "rank 0's tickets")
+
+    def _new_task(self, verb: str, args: dict, local: Optional[dict]) -> _Task:
+        """The task, its refusals raised now (on the caller's thread, from
+        state that never changes: the bundle's geometry, the session's
+        fields), so a refused one is never queued."""
+        local = dict(local or {})
+        if verb == "export":
+            args["tokens"] = [int(t) for t in args["tokens"]]
+            self._chain_seed(args.get("adapter", ""))
+        if verb == "import" or (verb == "migrate_in" and args["pages"] and self.prefix_cache):
+            self._check_bundle(args["header"], args["pages"])
+        if verb in ("migrate_in", "requeue"):
+            args["session"] = {f: getattr(local["req"], f) for f in _SESSION_FIELDS}
+        return _Task(verb, args, local)
+
+    def _prepare_task(self, task: _Task, chosen: set) -> None:
+        """Rank 0's decisions a task carries to every rank: a migrate-out's
+        slot (the chooser's, past the slots ``chosen`` by earlier tasks of
+        the same ticket; -1 when no session is live), and on a mirrored
+        engine the ticket id a session enters under."""
+        if task.verb == "migrate_out":
+            slot = task.args.get("slot")
+            if slot is None:
+                live = [i for i, r in enumerate(self.slots)
+                        if r is not None and not r.done.is_set() and i not in chosen]
+                chooser = task.local.get("chooser")
+                slot = -1 if not live else chooser(self, chosen) if chooser else live[0]
+            task.args["slot"] = int(slot)
+            chosen.add(int(slot))
+        elif task.verb in ("migrate_in", "requeue") and self.mirrored:
+            task.args["id"] = next(self._ticket_ids)
+
+    def _run_verb(self, task: _Task, chosen: set):
+        """One task on this rank (rank 0: its result; a follower: None)."""
+        if not self.mirrored:
+            self._prepare_task(task, chosen)
+        return getattr(self, self._VERBS[task.verb])(task)
+
     def _run_tasks(self) -> None:
+        """The engine tasks (rank 0's thunks), then the last ticket's
+        disaggregated tasks in ticket order, each on every rank."""
         while True:
             try:
                 thunk = self._tasks.get_nowait()
             except queue.Empty:
-                return
+                break
             thunk()  # never raises: errors park in the caller's box
+        tasks, self._round_tasks = self._round_tasks, []
+        for t in tasks:
+            try:
+                t.result = self._run_verb(t, set())
+            except BaseException as e:  # re-raised on rank 0's caller's thread
+                t.error = e
+                if not self.leader:
+                    log.info("rank %d: %s task raised: %s", self.mesh.rank, t.verb, e)
+            finally:
+                t.done.set()
 
     def _chain_seed(self, adapter: str) -> bytes:
         if adapter not in self.adapter_index:
@@ -2604,18 +2791,34 @@ class InferenceEngine:
 
     def _page_payloads(self, pgs: list[int]) -> list[bytes]:
         """Pool pages ``pgs`` → each page's payload bytes (the pool keys'
-        (L, page_size, ...) slices, concatenated).  One ``index_select``
-        and one device-to-host copy per pool key, on the engine's stream:
-        the read is ordered after any chunk in flight, which writes only
-        positions past the ones exported, so the bytes are confirmed."""
+        (L, page_size, ...) slices, concatenated, every kv head); [] on a
+        follower.  One ``index_select`` and one device-to-host copy per
+        pool key, on the engine's stream: the read is ordered after any
+        chunk in flight, which writes only positions past the ones
+        exported, so the bytes are confirmed.  Where the pool holds this
+        rank's heads only, the blocks are first gathered over ``tensor``
+        (as bytes, so every dtype travels alike) and laid out along the
+        head axis, on every rank; a whole pool is read on rank 0 alone."""
+        if not (self.leader or self._pool_cut):
+            return []
         with torch.inference_mode():
             idx = torch.tensor(pgs, dtype=torch.long, device=self.device)
             per_key = {}
             for k in self._pool_keys():
-                t = self.kv[k].index_select(1, idx).cpu()
+                t = self.kv[k].index_select(1, idx)
+                if self._pool_cut:
+                    # the head axis is dim 3 of k / v and of the scales; a
+                    # scale's bytes are its head's, so dim 3 of the bytes too
+                    b = all_gather(t.contiguous().view(torch.uint8), self.mesh, "tensor", 3)
+                    t = b.view(t.dtype)
+                if not self.leader:
+                    continue
+                t = t.cpu()
                 if t.dtype == torch.bfloat16:  # numpy has no bfloat16: its bits
                     t = t.view(torch.int16)
                 per_key[k] = t.numpy()
+        if not self.leader:
+            return []
         return [
             b"".join(np.ascontiguousarray(per_key[k][:, j]).tobytes()
                      for k in self._pool_keys())
@@ -2628,8 +2831,12 @@ class InferenceEngine:
         full pages, or None when none is cached.  The receiver re-derives
         registration keys from the shipped tokens under its own adapter
         seed, so bank-index skew between replicas cannot alias pages."""
-        self._single_rank("export_prefix_pages")
-        toks = [int(t) for t in tokens]
+        return self._call_verb("export_prefix_pages", "export", tokens=tokens,
+                               adapter=adapter, max_pages=max_pages)
+
+    def _export(self, task: _Task) -> Optional[bytes]:
+        toks, adapter, max_pages = (task.args["tokens"], task.args.get("adapter", ""),
+                                    task.args.get("max_pages", 0))
         pgs = self.cached_prefix_pages(toks, adapter)
         if max_pages > 0:
             pgs = pgs[:max_pages]
@@ -2637,14 +2844,43 @@ class InferenceEngine:
             return None
         ps = self.page_size
         payloads = self._page_payloads(pgs)
-        pages = [(toks[j * ps:(j + 1) * ps], payloads[j]) for j in range(len(pgs))]
         for pg in pgs:
             self._touch(pg)  # shipped = used: kept under LRU pressure
         self.kv_exports += 1
         self.kv_pages_exported += len(pgs)
+        if not self.leader:
+            return None
+        pages = [(toks[j * ps:(j + 1) * ps], payloads[j]) for j in range(len(pgs))]
         return kvwire.encode_bundle(
             self._wire_header(adapter, "prefix"), pages, self._chain_seed(adapter)
         )
+
+    def _check_bundle(self, header: dict, pages: list) -> dict:
+        """Refuse a bundle this engine cannot take (no prefix cache, another
+        geometry, an unknown adapter, a partial page, a payload of another
+        size) before anything is allocated; returns each pool key's
+        (whole-head) page shape."""
+        if not self.prefix_cache:
+            raise ValueError("prefix cache disabled (--prefix-cache)")
+        mine = self._wire_header(str(header.get("adapter", "")), "")
+        for f in ("page_size", "n_layers", "kv_heads", "head_dim", "dtype", "kv_int8"):
+            if header.get(f) != mine[f]:
+                raise ValueError(
+                    f"incompatible KV geometry: {f} {header.get(f)!r} != {mine[f]!r}"
+                )
+        self._chain_seed(mine["adapter"])  # raises on an unknown adapter
+        ps = self.page_size
+        L, hkv, hd = self.cfg.n_layers, self.cfg.kv_heads, self.cfg.head_dim
+        shapes = {k: (L, ps, hkv, hd) if k in ("k", "v") else (L, ps, hkv)
+                  for k in self._pool_keys()}
+        payload_size = sum(int(np.prod(shapes[k])) * self.kv[k].dtype.itemsize
+                           for k in self._pool_keys())
+        for toks, payload in pages:
+            if len(toks) != ps:
+                raise ValueError("partial page in bundle")
+            if len(payload) != payload_size:
+                raise ValueError("payload size does not match geometry")
+        return shapes
 
     def import_pages(self, header: dict, pages: list) -> dict:
         """Land a decoded bundle's pages in free pool pages and register
@@ -2654,31 +2890,19 @@ class InferenceEngine:
         pressure stops the import cleanly with a leading run landed
         (later pages are useless without their predecessors).  Pages are
         written in place (``index_copy_``): the pool keeps its storage,
-        which captured decode graphs read by address.  Returns
-        {"imported", "already", "tokens", "stopped"}."""
-        self._single_rank("import_pages")
-        if not self.prefix_cache:
-            raise ValueError("prefix cache disabled (--prefix-cache)")
-        adapter = str(header.get("adapter", ""))
-        mine = self._wire_header(adapter, "")
-        for f in ("page_size", "n_layers", "kv_heads", "head_dim", "dtype", "kv_int8"):
-            if header.get(f) != mine[f]:
-                raise ValueError(
-                    f"incompatible KV geometry: {f} {header.get(f)!r} != {mine[f]!r}"
-                )
-        key = self._chain_seed(adapter)  # raises on an unknown adapter
+        which captured decode graphs read by address.  On a mirrored
+        engine every rank lands the same pages and writes its own kv
+        heads of each.  Returns {"imported", "already", "tokens",
+        "stopped"}."""
+        return self._call_verb("import_pages", "import", header=header, pages=pages)
+
+    def _import(self, task: _Task) -> dict:
+        return self._import_pages(task.args["header"], task.args["pages"])
+
+    def _import_pages(self, header: dict, pages: list) -> dict:
+        shapes = self._check_bundle(header, pages)
+        key = self._chain_seed(str(header.get("adapter", "")))
         ps = self.page_size
-        L, hkv, hd = self.cfg.n_layers, self.cfg.kv_heads, self.cfg.head_dim
-        shapes = {k: (L, ps, hkv, hd) if k in ("k", "v") else (L, ps, hkv)
-                  for k in self._pool_keys()}
-        sizes = {k: int(np.prod(shapes[k])) * self.kv[k].dtype.itemsize
-                 for k in self._pool_keys()}
-        payload_size = sum(sizes.values())
-        for toks, payload in pages:
-            if len(toks) != ps:
-                raise ValueError("partial page in bundle")
-            if len(payload) != payload_size:
-                raise ValueError("payload size does not match geometry")
         staged: list[tuple[int, bytes]] = []
         pinned: list[int] = []  # referenced while the import runs
         imported = already = covered = 0
@@ -2712,22 +2936,32 @@ class InferenceEngine:
             for pg in pinned:
                 self.page_ref[pg] -= 1  # cached, unreferenced: LRU-evictable
         if staged:
-            n = len(staged)
-            with torch.inference_mode():
-                idx = torch.tensor([pg for pg, _ in staged], dtype=torch.long,
-                                   device=self.device)
-                off = 0
-                for k in self._pool_keys():
-                    rows = np.stack([np.frombuffer(p, np.uint8, sizes[k], off)
-                                     for _, p in staged])
-                    src = (torch.from_numpy(rows).view(self.kv[k].dtype)
-                           .reshape((n,) + shapes[k]).transpose(0, 1))
-                    self.kv[k].index_copy_(1, idx, src.to(self.device))
-                    off += sizes[k]
+            self._land_pages(staged, shapes)
             self.kv_imports += 1
             self.kv_pages_imported += imported
         return {"imported": imported, "already": already, "tokens": covered,
                 "stopped": stopped}
+
+    def _land_pages(self, staged: list, shapes: dict) -> None:
+        """Write (page id, whole-head payload) pairs into the pool in place,
+        one host-to-device copy per pool key; a rank whose pool holds its
+        kv heads only writes those."""
+        n = len(staged)
+        heads = slice(None)
+        if self._pool_cut:
+            h = self.kv["k"].shape[3]
+            h0 = self.mesh.axis_index("tensor") * h
+            heads = slice(h0, h0 + h)
+        with torch.inference_mode():
+            idx = torch.tensor([pg for pg, _ in staged], dtype=torch.long, device=self.device)
+            off = 0
+            for k in self._pool_keys():
+                size = int(np.prod(shapes[k])) * self.kv[k].dtype.itemsize
+                rows = np.stack([np.frombuffer(p, np.uint8, size, off) for _, p in staged])
+                src = (torch.from_numpy(rows).view(self.kv[k].dtype)
+                       .reshape((n,) + shapes[k])[:, :, :, heads].transpose(0, 1))
+                self.kv[k].index_copy_(1, idx, src.contiguous().to(self.device))
+                off += size
 
     def migrate_out_bundle(self, slot: int) -> Optional[bytes]:
         """Detach live slot ``slot`` into a ``kind="session"`` bundle (the
@@ -2735,8 +2969,17 @@ class InferenceEngine:
         then evict it WITHOUT a local requeue: the caller owns the request
         from here and requeues it only if the destination refuses.  The
         eviction drops at most the one chunk in flight; the bundle holds
-        confirmed state only, so the destination resumes exactly."""
-        self._single_rank("migrate_out_bundle")
+        confirmed state only, so the destination resumes exactly.  On a
+        mirrored engine every rank evicts the slot."""
+        out = self._call_verb("migrate_out_bundle", "migrate_out", slot=int(slot))
+        return out[2] if out else None
+
+    def _migrate_out(self, task: _Task):
+        """(slot, request, bundle, pages shipped) on rank 0, None when the
+        slot holds no live session (and on a follower)."""
+        slot = task.args["slot"]
+        if not 0 <= slot < self.max_batch:
+            return None
         req = self.slots[slot]
         if req is None or req.done.is_set():
             return None
@@ -2746,49 +2989,55 @@ class InferenceEngine:
         # chunk in flight, but positions < len(seq) - 1 are written
         end = min(int(self.lengths[slot]), len(seq) - 1)
         n = max(0, min(end // ps, len(self.slot_pages[slot])))
-        pages = []
-        if n > 0:
-            payloads = self._page_payloads(self.slot_pages[slot][:n])
+        payloads = self._page_payloads(self.slot_pages[slot][:n]) if n > 0 else []
+        data = None
+        if self.leader:
             pages = [(seq[j * ps:(j + 1) * ps], payloads[j]) for j in range(n)]
-        header = self._wire_header(req.adapter, "session")
-        header["request"] = {
-            "prompt": [int(t) for t in req.prompt],
-            "output": [int(t) for t in req.output],
-            "max_new_tokens": int(req.max_new_tokens),
-            "temperature": float(req.temperature),
-            "top_k": int(req.top_k),
-            "top_p": float(req.top_p),
-            "adapter": req.adapter,
-            "stop_tokens": [int(t) for t in req.stop_tokens],
-            "logprobs": int(req.logprobs),
-            "token_logprobs": list(req.token_logprobs),
-            "top_logprobs": [[[int(t), float(lp)] for t, lp in top]
-                             for top in req.top_logprobs],
-            "logit_bias": {str(k): float(v) for k, v in req.logit_bias.items()},
-            "frequency_penalty": float(req.frequency_penalty),
-            "presence_penalty": float(req.presence_penalty),
-            "min_tokens": int(req.min_tokens),
-            "priority": int(req.priority),
-            "seed": req.seed,
-            "allowed_tokens": [int(t) for t in req.allowed_tokens],
-            "pool_spills": int(req.pool_spills),
-        }
-        data = kvwire.encode_bundle(header, pages, self._chain_seed(req.adapter))
+            header = self._wire_header(req.adapter, "session")
+            header["request"] = {
+                "prompt": [int(t) for t in req.prompt],
+                "output": [int(t) for t in req.output],
+                "max_new_tokens": int(req.max_new_tokens),
+                "temperature": float(req.temperature),
+                "top_k": int(req.top_k),
+                "top_p": float(req.top_p),
+                "adapter": req.adapter,
+                "stop_tokens": [int(t) for t in req.stop_tokens],
+                "logprobs": int(req.logprobs),
+                "token_logprobs": list(req.token_logprobs),
+                "top_logprobs": [[[int(t), float(lp)] for t, lp in top]
+                                 for top in req.top_logprobs],
+                "logit_bias": {str(k): float(v) for k, v in req.logit_bias.items()},
+                "frequency_penalty": float(req.frequency_penalty),
+                "presence_penalty": float(req.presence_penalty),
+                "min_tokens": int(req.min_tokens),
+                "priority": int(req.priority),
+                "seed": req.seed,
+                "allowed_tokens": [int(t) for t in req.allowed_tokens],
+                "pool_spills": int(req.pool_spills),
+            }
+            data = kvwire.encode_bundle(header, pages, self._chain_seed(req.adapter))
         self.sessions_migrated_out += 1
         self.kv_pages_exported += n
         self.evict_slot(slot, requeue=False)
-        return data
+        self._ticketed.pop(req.ticket, None)  # no longer this engine's
+        if not self.leader:
+            return None
+        # the relay owns it now: a cancel must reach it at once, not by ticket
+        req.cancelled, req.mirrored = req.cancelled or req.cancel_asked, False
+        return slot, req, data, n
 
-    def resume_session(self, state: dict, on_token=None) -> Request:
-        """Re-create a migrated session's Request and enqueue it: admission
-        feeds prompt + output and matches the imported pages, so only the
-        unshipped tail is prefilled again.  Bypasses the queue cap (a
-        migrated session is work in flight, not new traffic) and holds the
-        state to ``submit``'s rules (``_invalid_reason``).  Raises on
-        invalid state; returns the live Request."""
-        self._single_rank("resume_session")
-        if self.draining:
-            raise RuntimeError(DRAINING_ERROR)
+    def _requeue(self, task: _Task) -> None:
+        """A refused handoff: the migrated-out session is this engine's
+        again (an exact resume), the migrate-out counters rolled back."""
+        self._enter(task)
+        self.sessions_migrated_out -= 1
+        self.kv_pages_exported -= task.args["pages"]
+
+    def session_request(self, state: dict, on_token=None) -> Request:
+        """A migrated session's Request from its bundle's ``request``
+        state, held to ``submit``'s rules (``_invalid_reason``); raises
+        ValueError on invalid state."""
         prompt = [int(t) for t in (state.get("prompt") or [])]
         if not prompt:
             raise ValueError("session has an empty prompt")
@@ -2819,12 +3068,62 @@ class InferenceEngine:
                             for top in (state.get("top_logprobs") or [])]
         req.pool_spills = int(state.get("pool_spills", 0))
         req.on_token = on_token
+        req.mirrored = self.mirrored  # on a mesh its cancel waits for its ticket
+        return req
+
+    def resume_session(self, state: dict, on_token=None) -> Request:
+        """Re-create a migrated session's Request and enqueue it: admission
+        feeds prompt + output and matches the imported pages, so only the
+        unshipped tail is prefilled again.  Bypasses the queue cap (a
+        migrated session is work in flight, not new traffic) and holds the
+        state to ``submit``'s rules (``_invalid_reason``).  On a mirrored
+        engine it enters every rank as a submit does (rank 0 keeps
+        ``on_token``).  Raises on invalid state; returns the live
+        Request."""
+        self._leader_only("resume_session")
+        req = self.session_request(state, on_token)
+        return self._call_verb("resume_session", "migrate_in", local={"req": req},
+                               header={}, pages=[])
+
+    def _migrate_in(self, task: _Task) -> Request:
+        """A migrated session's pages land (when it ships any and the prefix
+        cache is on), then the session enters this engine."""
+        if task.args["pages"] and self.prefix_cache:
+            self._import_pages(task.args["header"], task.args["pages"])
+        draining = self._ticket_draining if self.mirrored else self.draining
+        if draining:
+            raise RuntimeError(DRAINING_ERROR)
+        req = self._enter(task, queue_it=False)
         self.sessions_migrated_in += 1
         if len(req.output) >= req.max_new_tokens:
             req.done.set()  # arrived complete: nothing left to generate
+            self._ticketed.pop(req.ticket, None)
             return req
         self._enqueue(req)
         return req
+
+    def _enter(self, task: _Task, queue_it: bool = True) -> Request:
+        """The task's session on this rank (rank 0's own Request, a
+        follower's from the carried fields), under its ticket id on a
+        mirrored engine, and enqueued (past the queue cap)."""
+        if self.leader:
+            req = task.local["req"]
+        else:
+            req = Request(**task.args["session"])
+        if self.mirrored:
+            # every rank starts from the carried fields; a cancel rank 0 saw
+            # since goes by the next ticket, as every later one does
+            carried = task.args["session"]["cancelled"]
+            req.cancel_asked = req.cancel_asked or (req.cancelled and not carried)
+            req.cancelled, req.ticket, req.mirrored = carried, task.args["id"], True
+            self._ticketed[req.ticket] = req
+        if queue_it:
+            self._enqueue(req)
+        return req
+
+    # verb → the method every rank runs it by
+    _VERBS = {"export": "_export", "import": "_import", "migrate_out": "_migrate_out",
+              "migrate_in": "_migrate_in", "requeue": "_requeue"}
 
     def _prepare_step(self, lookahead: int):
         """Release cancelled slots, grow live slots' pages to cover

@@ -11,7 +11,10 @@ On a mesh (``parallel/mesh.Mesh``, connected) a rank holds its slice of
 each leaf and of its moments and master (``init_sharded_state``; layer
 leaves pipe-sharded when the model is ``pipelined``), and the
 step takes its rows of the global batch (``sharding.local_batch``: cut by
-its (data, fsdp) index) with the whole sequence; the next-token targets
+its (data, fsdp) index) with the whole sequence; a pipelined MoE model
+re-cuts them into the rank's share of every global microbatch
+(``pipeline.microbatch_shares``), since the reference routes each global
+microbatch on its own.  The next-token targets
 are built from the whole sequence before it is cut over ``seq``, so a
 shard's last target is the next shard's first token.  Each rank's loss is
 its tokens' sum over the global count of valid targets (and its share of
@@ -55,6 +58,7 @@ import torch
 from ..ops.xent import chunked_softmax_xent, chunked_softmax_xent_tp
 from ..parallel.collectives import all_reduce, all_reduce_flat, axes_of, group_size
 from ..parallel.mesh import AXES
+from ..parallel.pipeline import microbatch_shares
 from ..parallel.sharding import BATCH_AXES, leaf_specs, shard_params
 from .transformer import (
     TransformerConfig,
@@ -114,11 +118,16 @@ def loss_fn(params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None) -> 
     """tokens (B, S+1): predicts tokens[:, 1:] from tokens[:, :-1].
 
     On a mesh: this rank's rows and whole sequence in, its share of the
-    global mean out (its tokens' sum over the global valid count)."""
-    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    global mean out (its tokens' sum over the global valid count).  A
+    pipelined MoE model first trades the rows for the rank's share of
+    every global microbatch (the loss is a sum over the same tokens)."""
     n_valid = None
     if mesh is not None:
         check_mesh_model(cfg, mesh, params)
+        if cfg.n_experts > 0 and pipelined(cfg, mesh):
+            tokens = microbatch_shares(tokens, cfg.n_microbatches, mesh)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if mesh is not None:
         inputs, targets = seq_shard(inputs, mesh), seq_shard(targets, mesh)
         t = targets.long()
         n_valid = all_reduce(((t >= 0) & (t < cfg.vocab_size)).sum(), mesh, BATCH_AXES)

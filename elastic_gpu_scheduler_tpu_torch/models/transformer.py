@@ -126,9 +126,8 @@ def pipelined(cfg: TransformerConfig, mesh) -> bool:
 
 def check_mesh_model(cfg: TransformerConfig, mesh, params=None) -> None:
     """Raise, by name, on what the training mesh path does not run: int8
-    weights on more than one rank (serving runs them), and MoE in the pipeline schedule where the batch
-    is cut over data or fsdp (NotImplementedError); and on what the mesh
-    cannot cut (ValueError): head counts the tensor axis cannot split,
+    weights on more than one rank (serving runs them; NotImplementedError);
+    and on what the mesh cannot cut (ValueError): head counts the tensor axis cannot split,
     layers the pipe axis cannot, experts the expert axis cannot, a sliding
     window under the ring.  ``mesh`` is a ``Mesh`` or the ``MeshSpec`` a
     job asks for."""
@@ -160,12 +159,6 @@ def check_mesh_model(cfg: TransformerConfig, mesh, params=None) -> None:
         if cfg.n_layers % P:
             raise ValueError(f"n_layers={cfg.n_layers} not divisible by pipe={P} (each "
                              "stage keeps n_layers/pipe layers)")
-        dp = sizes["data"] * sizes["fsdp"]
-        if cfg.n_experts > 0 and dp > 1:
-            raise NotImplementedError(
-                f"n_experts={cfg.n_experts} with n_microbatches={cfg.n_microbatches} on "
-                f"pipe={P} and data*fsdp={dp} is not ported yet: the reference routes each "
-                "microbatch of the global batch, which spans the data ranks' rows")
 
 
 # -- init --------------------------------------------------------------------
@@ -442,9 +435,13 @@ def hidden_with_aux(
     On a mesh, ``params`` are this rank's slices and ``tokens`` its
     (batch, sequence) shard; the hidden states are its shard's, alike on
     every ``tensor`` (and ``pipe``, ``expert``) rank.  Pipelined
-    (``pipelined``), each rank microbatches its own rows; the aux is then
-    the reference's mean over the microbatches (and seq shards, when the
-    ring runs inside the stages and each shard routes its own tokens)."""
+    (``pipelined``), each rank microbatches its rows; the aux is then the
+    reference's mean over the microbatches (and seq shards, when the ring
+    runs inside the stages and each shard routes its own tokens).  A MoE
+    model routes each microbatch over every axis its tokens are cut over,
+    so where (``data``, ``fsdp``) span more than one rank its rows must be
+    the rank's share of every global microbatch
+    (``pipeline.microbatch_shares``, as ``train.loss_fn`` cuts them)."""
     check_mesh_model(cfg, mesh, params)
     dtype = torch_dtype(cfg.dtype)
     if mesh is None:

@@ -28,6 +28,13 @@ stage runs its microbatches in the same order on all of them.  With the
 ring on (``seq_axis``, the reference's sp × pp) the layers call
 ``ring_attention`` over ``seq`` inside the stage, and the aux is the mean
 of the seq shards'.
+
+The reference's microbatch m is the global batch's rows [m·B/M,
+(m+1)·B/M), and a MoE layer routes each microbatch on its own (capacity
+from its token count, queue order over its rows).  Where the batch is cut
+over ``data`` and ``fsdp``, a MoE model's ranks therefore pipeline their
+share of every global microbatch (``microbatch_shares``), not their own
+contiguous rows, and route each microbatch over (``data``, ``fsdp``).
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ from typing import Callable, Optional
 
 import torch
 
-from .collectives import copy_to, group_size, reduce_from, ring_shift, sum_shares
+from .collectives import all_gather, copy_to, group_size, reduce_from, ring_shift, sum_shares
+
+# the axes a batch is cut over by rows (``sharding.local_batch``)
+ROW_AXES = ("data", "fsdp")
 
 
 def microbatch(x: torch.Tensor, n_micro: int) -> torch.Tensor:
@@ -49,6 +59,33 @@ def microbatch(x: torch.Tensor, n_micro: int) -> torch.Tensor:
 
 def unmicrobatch(x: torch.Tensor) -> torch.Tensor:
     return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
+def share_rows(batch: int, n_micro: int, n: int, i: int) -> list[int]:
+    """The global rows rank ``i`` of ``n`` row ranks holds so that its
+    microbatch m is its share of the global microbatch m: rows
+    m·B/M + i·B/(M·n) up to m·B/M + (i+1)·B/(M·n), for each m in order."""
+    if batch % n_micro:
+        raise ValueError(f"batch {batch} not divisible by {n_micro} microbatches")
+    mb = batch // n_micro
+    if mb % n:
+        raise ValueError(f"global microbatch of {mb} rows (batch {batch} over {n_micro} "
+                         f"microbatches) not divisible by data*fsdp={n}")
+    share = mb // n
+    return [m * mb + i * share + j for m in range(n_micro) for j in range(share)]
+
+
+def microbatch_shares(rows: torch.Tensor, n_micro: int, mesh) -> torch.Tensor:
+    """A rank's contiguous rows of the global batch (``local_batch``) →
+    its share of every global microbatch (``share_rows``), by one
+    all-gather of the rows over (``data``, ``fsdp``); the rows themselves
+    where those axes span one rank."""
+    n = group_size(mesh, ROW_AXES)
+    if n == 1:
+        return rows
+    whole = all_gather(rows, mesh, ROW_AXES, 0)
+    pick = share_rows(whole.shape[0], n_micro, n, mesh.axes_index(ROW_AXES))
+    return whole[torch.tensor(pick, device=whole.device)]
 
 
 def _flatten(tree: dict, path=()) -> list:

@@ -49,7 +49,9 @@ and ranks 1..N-1 start as processes of their own (``parallel/distributed
 tickets; this process is rank 0, the HTTP front end.  ``--dist-backend``
 picks the transport as the launcher's does (NCCL, one rank a card, by
 default on cards; gloo on ``--cpu``, or on cards to let ranks share one).
-Fewer cards than N without gloo exits.
+Fewer cards than N without gloo exits.  Every ``--fleet-role`` serves on
+such a mesh: the data-plane routes reach the engine's verbs through rank
+0's tickets, and a bundle holds whole heads, as one device's does.
 """
 
 from __future__ import annotations
@@ -238,13 +240,25 @@ def configure_planes(args, device, chips: int = 1) -> None:
     SLO.default_class = wclass
 
 
-def main(argv=None) -> int:
-    args = build_args(argv)
+def start_checks(args) -> str:
+    """The flag checks ``main`` makes before any weight is read (a wrong
+    flag must not cost a checkpoint read first); exits on a bad one and
+    returns the fleet role.  Every role runs on a mesh: ``--tensor N``
+    with ``--fleet-role prefill|decode`` ships and adopts whole-head pages
+    as one device does."""
     if args.draft_hf and args.spec_k <= 0:
-        # before any weight is read: a wrong flag pair must not cost a
-        # checkpoint read first
         raise SystemExit("--draft-hf requires --spec-k > 0")
     role = fleet_role(args)
+    if args.tensor < 1:
+        raise SystemExit(f"--tensor {args.tensor} must be at least 1")
+    if args.tensor > 1:
+        check_tensor_devices(args)
+    return role
+
+
+def main(argv=None) -> int:
+    args = build_args(argv)
+    role = start_checks(args)
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
     )
@@ -255,13 +269,6 @@ def main(argv=None) -> int:
     from .models.transformer import TransformerConfig, init_params, resolve_device
     from .server.inference import drain, serve_inference
 
-    if args.tensor < 1:
-        raise SystemExit(f"--tensor {args.tensor} must be at least 1")
-    if args.tensor > 1:
-        if role != "both":
-            raise SystemExit(f"--fleet-role {role} with --tensor {args.tensor}: the "
-                             "disaggregated verbs do not run on a mesh yet")
-        check_tensor_devices(args)
     device = resolve_device("cpu" if args.cpu else None)
     configure_planes(args, device, chips=args.tensor)
     if args.hf:

@@ -53,10 +53,11 @@ routes this slice serves (stdlib HTTP only):
 
 ONE engine thread (``EngineLoop``) owns all engine state and drives
 fused chunks; HTTP handler threads only submit requests and wait on them,
-and reach the data plane's primitives through ``engine.run_task``.  On a
-mesh (``serve --tensor N``) the loop runs on rank 0: each of its rounds
-starts with the engine's ticket (``InferenceEngine.exchange_ticket``),
-which carries the handlers' submits and cancels to the other ranks, and
+and reach the data plane's verbs through ``engine.run_verb`` (reads of
+the cache through ``engine.run_task``).  On a mesh (``serve --tensor N``)
+the loop runs on rank 0: each of its rounds starts with the engine's
+ticket (``InferenceEngine.exchange_ticket``), which carries the handlers'
+submits, cancels and data-plane verbs to the other ranks, and
 it sends an empty one every ``TICKET_HEARTBEAT_S`` while parked, so the
 followers' collective never times out.  A fault there stops the loop:
 the ranks may have parted, so no ticket follows, every waiting request
@@ -193,14 +194,15 @@ STEP_SPAN_EVERY = 32
 TICKET_HEARTBEAT_S = 30.0
 
 
-def choose_kv_victim(eng: InferenceEngine) -> int:
+def choose_kv_victim(eng: InferenceEngine, skip=()) -> int:
     """The slot to preempt when every slot stalls for pages, and the
     session ``/v1/migrate/out`` moves when no slot is named: the policy
     registry's ``kv`` verb over each live slot's priority, pages held,
     tokens emitted, index and prefix-matched tokens (a loaded policy's
     highest score), else the built-in ranking: the lowest priority, then
     most pages held, then the lowest slot.  Done-but-unreleased slots are
-    not candidates."""
+    not candidates, nor are the slots in ``skip`` (taken by an earlier
+    migration of the same ticket)."""
     return POLICIES.select_kv_victim([
         {
             "slot": float(i),
@@ -210,7 +212,7 @@ def choose_kv_victim(eng: InferenceEngine) -> int:
             "matched": float(eng.matched_toks[i]),
         }
         for i, s in enumerate(eng.slots)
-        if s is not None and not s.done.is_set()
+        if s is not None and not s.done.is_set() and i not in skip
     ])
 
 
@@ -285,6 +287,7 @@ class EngineLoop:
                     if (
                         eng.queue.empty()
                         and eng._tasks.empty()
+                        and not eng._verb_queue
                         and not eng._unticketed
                         and not any(s is not None for s in eng.slots)
                         and not self._stop.is_set()
@@ -749,7 +752,8 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
 
         def _do_post(self):
             # the disaggregated data plane: engine state is touched only
-            # through engine.run_task (the engine thread owns it)
+            # through engine.run_verb (the engine thread owns it; on a mesh
+            # the verb rides a ticket to every rank)
             route = {"/v1/prefill": self._prefill_only, "/v1/kv/export": self._kv_export,
                      "/v1/kv/adopt": self._kv_adopt, "/v1/migrate/out": self._migrate_out,
                      "/v1/migrate/in": self._migrate_in, "/policy/load": self._policy,
@@ -834,7 +838,7 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
             if status != 200:
                 return {"imported": 0, "reason": f"source answered {status}"}
             hdr, pages = kvwire.decode_bundle(data)
-            return engine.run_task(lambda: engine.import_pages(hdr, pages))
+            return engine.run_verb("import", header=hdr, pages=pages)
 
         def _policy(self):
             """The ``kv`` verb's control surface, on the reference
@@ -898,9 +902,9 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
             except (ValueError, TypeError, json.JSONDecodeError) as e:
                 return self._json(400, {"error": str(e)})
             try:
-                data = engine.run_task(
-                    lambda: engine.export_prefix_pages(tokens, adapter, max_pages))
-            except TimeoutError as e:
+                data = engine.run_verb("export", tokens=tokens, adapter=adapter,
+                                       max_pages=max_pages)
+            except (TimeoutError, RuntimeError) as e:
                 return self._json(503, {"error": str(e)})
             except ValueError as e:
                 return self._json(400, {"error": str(e)})
@@ -944,25 +948,11 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
             except (ValueError, TypeError, json.JSONDecodeError) as e:
                 return self._json(400, {"error": str(e)})
 
-            def grab():
-                i = slot
-                if i is None:
-                    if not any(s is not None and not s.done.is_set() for s in engine.slots):
-                        return None
-                    i = choose_kv_victim(engine)
-                elif not 0 <= i < engine.max_batch:
-                    return None
-                r = engine.slots[i]
-                if r is None or r.done.is_set():
-                    return None
-                before = engine.kv_pages_exported
-                data = engine.migrate_out_bundle(i)
-                return i, r, data, engine.kv_pages_exported - before
-
             try:
-                got = engine.run_task(grab)
-            except TimeoutError as e:
-                # abandoned: nothing was detached
+                got = engine.run_verb("migrate_out", slot=slot,
+                                      local={"chooser": choose_kv_victim})
+            except (TimeoutError, RuntimeError) as e:
+                # abandoned (or a failed mesh): nothing was detached
                 return self._json(503, {"error": str(e)})
             if got is None:
                 return self._json(409, {"error": "no live session to migrate"})
@@ -978,14 +968,10 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
 
                 # the session is ours again: the exact local resume, with
                 # the migrate-out counters rolled back
-                def resume_local():
-                    engine._enqueue(req)
-                    engine.sessions_migrated_out -= 1
-                    engine.kv_pages_exported -= n_pages
-
                 try:
                     # not abandonable: the requeue must run eventually
-                    engine.run_task(resume_local, abandon_on_timeout=False)
+                    engine.run_verb("requeue", local={"req": req}, pages=n_pages,
+                                    abandon_on_timeout=False)
                 except TimeoutError:
                     log.warning("local resume of a refused migration is queued behind a "
                                 "busy engine; it runs at the next admission pass")
@@ -1023,15 +1009,11 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
                 else:
                     q.put((0, tok, None, None))
 
-            def setup():
-                if pages and engine.prefix_cache:
-                    engine.import_pages(hdr, pages)
-                r = engine.resume_session(state, on_token=on_token)
-                box["req"] = r
-                return r
-
             try:
-                req = engine.run_task(setup)
+                req = engine.session_request(state, on_token=on_token)
+                box["req"] = req
+                req = engine.run_verb("migrate_in", header=hdr, pages=pages,
+                                      local={"req": req})
             except TimeoutError as e:
                 # abandoned (engine busy): nothing landed, the source keeps
                 # the session, so it never runs on two replicas

@@ -749,6 +749,7 @@ def test_http_route_status_codes(weights):
         assert serve_one_remote[0] == 200
         loop_c.stop()
         cached.run_task = functools.partial(InferenceEngine.run_task, cached, timeout=0.2)
+        cached.run_verb = functools.partial(InferenceEngine.run_verb, cached, timeout=0.2)
         assert _post(pc, "/v1/kv/export", {"tokens": PREFIX})[0] == 503
         assert _post(pc, "/v1/migrate/out", {"dest": "127.0.0.1:1"})[0] == 503
         session = kvwire.encode_bundle({"kind": "session", "request": {

@@ -6,9 +6,11 @@ One spawn of 4 ranks (a module fixture) runs everything below.
 
 - A MoE model (E 4, capacity factor 1.0, so tokens drop) on expert=2,
   data=2,expert=2, expert=2,tensor=2 and seq=2,expert=2 (the routing is the
-  whole batch's: global capacity, global queue order), expert=2,pipe=2
-  (the reference routes each microbatch: its one-device equal is the step
-  that accumulates the same microbatches, ``grad_accum`` 2) and
+  whole batch's: global capacity, global queue order), expert=2,pipe=2,
+  data=2,pipe=2 and fsdp=2,pipe=2 (the reference routes each global
+  microbatch: its one-device equal is the step that accumulates the same
+  microbatches, ``grad_accum`` 2; over data or fsdp each rank pipelines
+  its share of every global microbatch) and
   pipe=2,seq=2 with the ring (each seq shard routes its own tokens inside
   the stage, as the reference's manual region does: no one-device equal);
   a dense model on expert=2 (replicated).  Every rank's losses, gradient
@@ -75,6 +77,8 @@ ROUNDS = [
     [("expert=2,tensor=2", dict(expert=2, tensor=2), (0, 1, 2, 3), "moe")],
     [("seq=2,expert=2", dict(seq=2, expert=2), (0, 1, 2, 3), "moe")],
     [("expert=2,pipe=2", dict(expert=2, pipe=2), (0, 1, 2, 3), "moe_piped")],
+    [("data=2,pipe=2", dict(data=2, pipe=2), (0, 1, 2, 3), "moe_piped")],
+    [("fsdp=2,pipe=2", dict(fsdp=2, pipe=2), (0, 1, 2, 3), "moe_piped")],
     [("pipe=2,seq=2 ring MoE", dict(pipe=2, seq=2), (0, 1, 2, 3), "moe_ring")],
 ]
 # the one-device step equal to each config's mesh runs (by its grad_accum):

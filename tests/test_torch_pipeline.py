@@ -38,7 +38,11 @@ from elastic_gpu_scheduler_tpu_torch.parallel.distributed import (
     spawn_ranks,
 )
 from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec, RankDevice, make_mesh
-from elastic_gpu_scheduler_tpu_torch.parallel.pipeline import microbatch, unmicrobatch
+from elastic_gpu_scheduler_tpu_torch.parallel.pipeline import (
+    microbatch,
+    share_rows,
+    unmicrobatch,
+)
 from elastic_gpu_scheduler_tpu_torch.parallel.sharding import (
     leaf_specs,
     local_batch,
@@ -356,7 +360,8 @@ def test_n_microbatches_on_one_device_is_the_plain_path():
 
 def test_mesh_checks_that_stay():
     """What the mesh cannot cut is a ValueError by name; MoE pipelined over
-    a batch cut by data or fsdp is refused by name."""
+    a batch cut by data or fsdp passes, and a global microbatch its row
+    ranks cannot share is a ValueError by name."""
     from elastic_gpu_scheduler_tpu_torch.models.transformer import check_mesh_model
 
     cfg = TransformerConfig(**CFGS["m2"])
@@ -366,9 +371,33 @@ def test_mesh_checks_that_stay():
     moe = TransformerConfig(**dict(CFGS["m2"], n_experts=4))
     with pytest.raises(ValueError, match="n_experts=4 not divisible by expert=3"):
         check_mesh_model(moe, MeshSpec(expert=3))
-    with pytest.raises(NotImplementedError, match="data\\*fsdp=2"):
-        check_mesh_model(moe, MeshSpec(data=2, pipe=2))
+    check_mesh_model(moe, MeshSpec(data=2, pipe=2))
+    check_mesh_model(moe, MeshSpec(fsdp=2, pipe=2))
     check_mesh_model(moe, MeshSpec(expert=2, pipe=2))
+    with pytest.raises(ValueError, match="microbatch of 2 rows .* data\\*fsdp=4"):
+        share_rows(8, 4, 4, 0)
+    with pytest.raises(ValueError, match="batch 6 not divisible by 4 microbatches"):
+        share_rows(6, 4, 2, 0)
+
+
+@pytest.mark.parametrize("batch,n_micro,n", [(8, 2, 2), (8, 2, 4), (12, 3, 2), (8, 1, 2),
+                                             (8, 4, 2)], ids=str)
+def test_microbatch_shares_cut_the_reference_microbatches(batch, n_micro, n):
+    """Row rank i's rows (``share_rows``), microbatched, are block i of every
+    one of the reference's microbatches of the global batch, and the ranks'
+    rows together are the batch once."""
+    from elastic_gpu_scheduler_tpu.parallel.pipeline import microbatch as jax_microbatch
+
+    glob = np.arange(batch * 3).reshape(batch, 3)
+    want = np.asarray(jax_microbatch(jnp.asarray(glob), n_micro))
+    share = batch // (n_micro * n)
+    seen = []
+    for i in range(n):
+        rows = share_rows(batch, n_micro, n, i)
+        got = microbatch(torch.from_numpy(glob[rows]), n_micro).numpy()
+        np.testing.assert_array_equal(got, want[:, i * share:(i + 1) * share])
+        seen += rows
+    assert sorted(seen) == list(range(batch))
 
 
 def test_local_batch_must_divide_by_the_microbatches(tmp_path):

@@ -142,14 +142,14 @@ def _call(port, path, body=None):
         return json.loads(resp.read())
 
 
-def _serve(tensor: int):
+def _serve(tensor: int, *more):
     port = _free_port()
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     cmd = [sys.executable, "-m", "elastic_gpu_scheduler_tpu_torch.serve", "--init", "--cpu",
            "--tensor", str(tensor), "--port", str(port), "--host", "127.0.0.1",
            "--vocab-size", "97", "--d-model", "64", "--n-layers", "2", "--n-heads", "4",
            "--d-ff", "128", "--dtype", "float32", "--max-batch", "2", "--max-len", "64",
-           "--page-size", "8", "--fused-steps", "4"]
+           "--page-size", "8", "--fused-steps", "4", *more]
     env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
     proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.DEVNULL,
                             stderr=subprocess.PIPE, text=True)
@@ -210,6 +210,56 @@ def _rank_processes(pid: int) -> list[int]:
     return out
 
 
+def test_serve_tensor_2_prefill_replica_feeds_a_decode_replica():
+    """``serve --tensor 2 --fleet-role prefill`` prefills (/v1/prefill) and
+    ships whole-head pages (/v1/kv/export through rank 0's tickets); a
+    one-device ``--fleet-role decode`` replica adopts them through
+    ``X-KV-Source`` and answers with ``--tensor 1``'s tokens."""
+    from elastic_gpu_scheduler_tpu_torch.utils import kvwire
+
+    P = _serve(2, "--prefix-cache", "--fleet-role", "prefill")
+    D = _serve(1, "--prefix-cache", "--fleet-role", "decode")
+    B = _serve(1)
+    procs = [P, D, B]
+    prompts = [list(range(3, 23)), [60, 2, 9, 9] * 5 + [1]]  # 2 and 2 full pages of 8
+    try:
+        for proc, port in procs:
+            _wait_up(proc, port)
+        want = [_call(B[1], "/v1/completions", {"prompt": p, "max_tokens": 8})["tokens"]
+                for p in prompts]
+        got = []
+        for p in prompts:
+            assert _call(P[1], "/v1/prefill", {"prompt": p})["pages"] == 2
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{D[1]}/v1/completions",
+                data=json.dumps({"prompt": p, "max_tokens": 8}).encode(),
+                headers={"Content-Type": "application/json",
+                         kvwire.KV_SOURCE_HEADER: f"127.0.0.1:{P[1]}"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                got.append(json.loads(resp.read())["tokens"])
+        assert got == want
+        req = urllib.request.Request(f"http://127.0.0.1:{P[1]}/v1/kv/export",
+                                     data=json.dumps({"tokens": prompts[0]}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            hdr, pages = kvwire.decode_bundle(resp.read())
+        assert hdr["kv_heads"] == 4 and len(pages) == 2
+        sp, sd = _call(P[1], "/v1/stats"), _call(D[1], "/v1/stats")
+        assert sp["mesh"] == {"shape": {"tensor": 2}, "ranks": 2} and sp["role"] == "prefill"
+        assert sp["kv"]["pages_exported"] == 6 and sp["kv"]["export_bundles"] == 3
+        assert sd["role"] == "decode" and sd["kv"]["pages_imported"] == 4
+        assert sd["kv"]["prefix_hits"] == 2
+        for proc, _ in procs:
+            proc.send_signal(signal.SIGTERM)
+        for proc, _ in procs:
+            assert proc.wait(timeout=90) == 0, proc.stderr.read()
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def test_serve_tensor_2_exits_when_a_rank_is_lost():
     """A follower lost mid-service: rank 0's next collective fails, the
     request waiting on it is a 503 at once (not a timeout), and ``serve``
@@ -234,9 +284,12 @@ def test_serve_tensor_2_exits_when_a_rank_is_lost():
 def test_serve_tensor_refuses_what_it_cannot_run():
     from elastic_gpu_scheduler_tpu_torch import serve
 
-    with pytest.raises(SystemExit, match="fleet-role"):
-        serve.main(["--init", "--cpu", "--tensor", "2", "--prefix-cache",
-                    "--fleet-role", "prefill"])
+    for role in ("prefill", "decode"):
+        args = serve.build_args(["--init", "--cpu", "--tensor", "2", "--prefix-cache",
+                                 "--fleet-role", role])
+        assert serve.start_checks(args) == role
+    with pytest.raises(SystemExit, match="--fleet-role prefill requires --prefix-cache"):
+        serve.main(["--init", "--cpu", "--tensor", "2", "--fleet-role", "prefill"])
     with pytest.raises(SystemExit, match="at least 1"):
         serve.main(["--init", "--cpu", "--tensor", "0"])
     args = serve.build_args(["--init", "--tensor", "4"])

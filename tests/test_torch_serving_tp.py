@@ -19,9 +19,20 @@ then data=2,tensor=2 on all four:
 - each rank's weight and pool slices are the reference's addressable
   shards on the device at its mesh position, or whole where the port's
   whole-heads rule replicates;
+- the disaggregated verbs through rank 0's tickets: a bundle the
+  reference engine exported, imported into tensor=2 and exported again,
+  is the same bytes (a dense pool, an int8 pool, the odd-head whole pool)
+  and its warm hit gives the reference's tokens; a tensor=2 bundle adopted
+  by the reference engine and by the port on one device gives their own
+  warm hit's tokens; a geometry or payload refusal lands nothing; pool
+  pressure stops both ranks where it stops the reference; sessions
+  migrated tensor=2 → one device and one device → tensor=2 keep their
+  greedy tokens (the reference's), seeded draws and logprobs (the port's
+  unmigrated run's); the ranks' ``_mirror_digest`` agree after each;
 - a mesh without ``tensor`` raises ``ValueError``, the paged kernel over
-  heads ``tensor`` does not divide raises, the disaggregated verbs and a
-  follower's ``submit`` are refused by name;
+  heads ``tensor`` does not divide raises, a follower's own call of a
+  disaggregated verb or ``submit`` is refused by name while rank 0's
+  succeeds;
 - after a fault, rank 0's loop sends no further ticket, fails every
   waiting request and later submit, and ``/healthz`` answers 503.
 
@@ -45,6 +56,7 @@ from elastic_gpu_scheduler_tpu_torch.parallel.distributed import (
     spawn_ranks,
 )
 from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec, RankDevice, make_mesh
+from elastic_gpu_scheduler_tpu_torch.utils import kvwire
 from test_torch_engine import _CopyingJnp, reference_engine_copies_uploads  # noqa: F401
 
 torch.set_num_threads(1)
@@ -87,17 +99,38 @@ CASES = {
     "spill": dict(DENSE, eng=dict(max_batch=2, max_len=64, page_size=8, n_pages=6,
                                   fused_steps=2), kind="spill"),
     "overlapped": dict(DENSE, eng=BASE, overlap=True),
-    "refused": dict(DENSE, eng=BASE, kind="refused"),
+    "refused": dict(DENSE, eng=dict(BASE, prefix_cache=True), kind="refused"),
+    # the disaggregated verbs, each held against the reference engine (the
+    # one-device side of each flow runs in the test process)
+    "disagg": dict(DENSE, eng=dict(BASE, prefix_cache=True), kind="disagg", pool="dense",
+                   full=True),
+    "disagg_int8": dict(DENSE, eng=dict(BASE, prefix_cache=True, kv_int8=True),
+                        kind="disagg", pool="int8"),
+    "disagg_odd": dict(cfg=CFGS["odd"], tree="odd", eng=dict(BASE, prefix_cache=True),
+                       kind="disagg", pool="odd"),
+    "disagg_pressure": dict(DENSE, eng=dict(BASE, prefix_cache=True, n_pages=4), pool="dense",
+                            kind="pressure"),
 }
 # rounds of (mesh name, axes, ranks, cases); meshes of one round run side by side
 ROUNDS = [
     [("tensor=2 a", dict(tensor=2), (0, 1),
-      ["gather", "paged", "paged_spec", "odd_int8kv", "prefix_chunked", "refused"]),
+      ["gather", "paged", "paged_spec", "odd_int8kv", "prefix_chunked", "refused",
+       "disagg_int8", "disagg_odd", "disagg_pressure"]),
      ("tensor=2 b", dict(tensor=2), (2, 3),
-      ["int8_weights", "adapters", "draft", "spill", "overlapped"])],
+      ["int8_weights", "adapters", "draft", "spill", "overlapped", "disagg"])],
     [("data=2,tensor=2", dict(data=2, tensor=2), (0, 1, 2, 3), ["gather"])],
 ]
 SPILL_PROMPT, SPILL_HIGH = [3, 9, 14, 27, 5, 1, 2, 6], [2, 4, 6, 8, 10, 12, 1, 7]
+# the disaggregated flows: a 41-token prefix (5 full pages of 8) the
+# reference exports, a suffix after it, and two sessions that migrate
+# after one step, one greedy and one seeded with logprobs
+LONG = [(7 * i + 3) % 97 for i in range(41)]
+SUFFIX = [7, 7, 2]
+MIGRANTS = [dict(prompt=list(range(2, 23)), max_new_tokens=16),
+            dict(prompt=list(range(5, 26)), max_new_tokens=16, temperature=0.8, top_k=8,
+                 seed=777, logprobs=3)]
+# the pool each disaggregated case ships: (the model, its weights, kv_int8)
+POOLS = {"dense": ("dense", False), "int8": ("dense", True), "odd": ("odd", False)}
 
 
 def _flat(tree, path=()):
@@ -134,19 +167,23 @@ def _port_kwargs(case, trees):
 
 
 def _refusals(eng, mesh, trees):
-    """The names the mesh refuses, each as the message it raised."""
+    """A follower's own call of each disaggregated verb (and of
+    ``submit``), as the message it raised; rank 0's calls, as what they
+    returned (a resumed session then runs with the round)."""
     out = {}
+    hdr, pages = kvwire.decode_bundle(trees["bundles"]["dense"])
     calls = {
         "export_prefix_pages": lambda: eng.export_prefix_pages([1, 2, 3]),
-        "import_pages": lambda: eng.import_pages({}, []),
+        "import_pages": lambda: eng.import_pages(hdr, pages),
         "migrate_out_bundle": lambda: eng.migrate_out_bundle(0),
-        "resume_session": lambda: eng.resume_session({"prompt": [1]}),
+        "resume_session": lambda: eng.resume_session({"prompt": [1, 2], "max_new_tokens": 3}),
     }
     for name, call in calls.items():
         try:
-            call()
-        except NotImplementedError as e:
-            out[name] = str(e)
+            got = call()
+            out[name] = ("ok", got if isinstance(got, (dict, type(None))) else type(got).__name__)
+        except RuntimeError as e:
+            out[name] = ("refused", str(e))
     if not eng.leader:
         try:
             eng.submit(Request(prompt=[1, 2], max_new_tokens=2))
@@ -157,6 +194,61 @@ def _refusals(eng, mesh, trees):
                         device="cpu", mesh=mesh, paged_kernel=True)
     except ValueError as e:
         out["paged_kernel_heads"] = str(e)
+    return out
+
+
+def _import_refusals(eng, hdr, pages) -> dict:
+    """Rank 0: a bundle of another page size and a cut payload, refused
+    before a ticket; what the pool held before and after."""
+    def held():
+        return (sorted(eng.free_pages), sorted(eng.prefix_entries.values()), eng.kv_imports)
+
+    before, errors = held(), []
+    for h, p in ((dict(hdr, page_size=16), pages), (hdr, [(pages[0][0], pages[0][1][:-4])])):
+        try:
+            eng.import_pages(h, p)
+        except ValueError as e:
+            errors.append(str(e))
+    return {"errors": errors, "unchanged": held() == before}
+
+
+def _disagg_leader(eng, case, bundles) -> dict:
+    """Rank 0 of a disaggregated case: every verb is a direct call, which
+    rank 0 sends in a ticket of its own; the followers ``follow``."""
+    out = {}
+    hdr, pages = kvwire.decode_bundle(bundles[case["pool"]])
+    if case.get("kind") == "pressure":
+        out["import"] = eng.import_pages(hdr, pages)
+        out["cached"] = len(eng.cached_prefix_pages(LONG))
+        return out
+    out["import"] = eng.import_pages(hdr, pages)
+    out["round_trip"] = eng.export_prefix_pages(LONG)
+    warm = eng.submit(Request(prompt=LONG + SUFFIX, max_new_tokens=8))
+    hits = eng.prefix_hit_tokens
+    eng.run_until_idle(max_steps=100_000)
+    out["warm"] = (warm.output, eng.prefix_hit_tokens - hits, warm.error)
+    if not case.get("full"):
+        return out
+    out["refusals"] = _import_refusals(eng, hdr, pages)
+    primed = eng.submit(Request(prompt=list(SHARED), max_new_tokens=2))
+    eng.run_until_idle(max_steps=100_000)
+    out["export"] = (eng.export_prefix_pages(SHARED), primed.error)
+    # sessions out to one device after one step of this mesh ...
+    reqs = [eng.submit(Request(**m)) for m in MIGRANTS]
+    eng.exchange_ticket()
+    eng.round()
+    lost = eng.chunks_discarded
+    out["sessions"] = [eng.migrate_out_bundle(i) for i in range(len(reqs))]
+    out["lost"] = eng.chunks_discarded - lost
+    # ... and in from one device
+    resumed = []
+    for data in bundles["sessions"]:
+        h, p = kvwire.decode_bundle(data)
+        if p:
+            eng.import_pages(h, p)
+        resumed.append(eng.resume_session(h["request"]))
+    eng.run_until_idle(max_steps=100_000)
+    out["resumed"] = [(r.output, r.token_logprobs, r.top_logprobs, r.error) for r in resumed]
     return out
 
 
@@ -179,7 +271,10 @@ def run_case(name, case, mesh, trees) -> dict:
     out = {}
     if case.get("kind") == "refused":
         out["refused"] = _refusals(eng, mesh, trees)
-    if eng.leader:
+    if eng.leader and case.get("kind") in ("disagg", "pressure"):
+        out["disagg"] = _disagg_leader(eng, case, trees["bundles"])
+        eng.stop_followers()
+    elif eng.leader:
         if case.get("kind") == "spill":
             victim = eng.submit(Request(prompt=list(SPILL_PROMPT), max_new_tokens=30))
             for _ in range(40):  # rounds until the pool runs dry, the victim mid-flight
@@ -203,7 +298,7 @@ def run_case(name, case, mesh, trees) -> dict:
     out["state"] = dict({c: int(getattr(eng, c)) for c in COUNTERS},
                         lengths=eng.lengths.tolist(), tables=eng.tables.tolist(),
                         free_pages=sorted(eng.free_pages), tickets=eng.tickets,
-                        graph_replays=eng.graph_replays)
+                        graph_replays=eng.graph_replays, digest=eng._mirror_digest().hex())
     out["kv_shapes"] = {k: tuple(v.shape) for k, v in eng.kv.items()}
     if case.get("keep"):
         out["leaves"] = [(p, t.detach().numpy().copy()) for p, t in _flat(eng.params)]
@@ -287,6 +382,80 @@ def jax_case(case, trees) -> dict:
             "counters": {c: int(getattr(eng, c)) for c in COUNTERS}}
 
 
+def _jax_engine(tree, trees, **kw):
+    """The reference engine on one device, sequential, prefix-cached."""
+    from elastic_gpu_scheduler_tpu.models.serving import InferenceEngine as JaxEngine
+    from elastic_gpu_scheduler_tpu.models.transformer import TransformerConfig as JaxConfig
+
+    return JaxEngine(jax.tree.map(jnp.asarray, trees[tree]), JaxConfig(**CFGS[tree]),
+                     **dict(BASE, prefix_cache=True, overlap=False, **kw))
+
+
+def _port_engine(trees, tree="dense", **kw):
+    """The port on one device, sequential, prefix-cached."""
+    return InferenceEngine(params_from_jax(trees[tree], "cpu"), TransformerConfig(**CFGS[tree]),
+                           device="cpu", **dict(BASE, prefix_cache=True, overlap=False, **kw))
+
+
+def _run(eng, req_cls, prompt, new):
+    """One request through ``eng``: (it, the prefix tokens its admission hit)."""
+    hits = eng.prefix_hit_tokens
+    req = eng.submit(req_cls(prompt=list(prompt), max_new_tokens=new))
+    eng.run_until_idle(max_steps=100_000)
+    assert req.done.is_set() and not req.error, req.error
+    return req, eng.prefix_hit_tokens - hits
+
+
+def disagg_bundles(trees) -> dict:
+    """Before the spawn: the reference's bundle of LONG's pages from each
+    pool, and the port's one-device sessions detached after one step."""
+    from elastic_gpu_scheduler_tpu.models.serving import Request as JaxRequest
+
+    out = {}
+    for pool, (tree, int8) in POOLS.items():
+        eng = _jax_engine(tree, trees, kv_int8=int8)
+        _run(eng, JaxRequest, LONG, 2)
+        out[pool] = eng.export_prefix_pages(LONG, "")
+    src = _port_engine(trees)
+    for m in MIGRANTS:
+        src.submit(Request(**m))
+    src._admit()
+    src.step()
+    lost = src.chunks_discarded
+    out["sessions"] = [src.migrate_out_bundle(i) for i in range(len(MIGRANTS))]
+    out["sessions_lost"] = src.chunks_discarded - lost
+    return out
+
+
+def disagg_reference(trees) -> dict:
+    """While the ranks run: each pool's warm hit of LONG + SUFFIX on the
+    reference, its import into a 4-page pool, the warm hit of SHARED +
+    SUFFIX, and the migrants unmigrated (greedy on the reference; the
+    seeded one on the port, whose seeded draws are its own)."""
+    from elastic_gpu_scheduler_tpu.models.serving import Request as JaxRequest
+
+    out = {}
+    for pool, (tree, int8) in POOLS.items():
+        eng = _jax_engine(tree, trees, kv_int8=int8)
+        _run(eng, JaxRequest, LONG, 2)
+        warm, hits = _run(eng, JaxRequest, LONG + SUFFIX, 8)
+        out["warm " + pool] = (warm.output, hits)
+    eng = _jax_engine("dense", trees, n_pages=4)
+    hdr, pages = kvwire.decode_bundle(trees["bundles"]["dense"])
+    out["pressure"] = (eng.import_pages(hdr, pages), len(eng.cached_prefix_pages(LONG, "")))
+    eng = _jax_engine("dense", trees)
+    _run(eng, JaxRequest, SHARED, 2)
+    warm, hits = _run(eng, JaxRequest, SHARED + SUFFIX, 8)
+    out["warm shared"] = (warm.output, hits)
+    out["greedy"] = _run(_jax_engine("dense", trees), JaxRequest, MIGRANTS[0]["prompt"],
+                         MIGRANTS[0]["max_new_tokens"])[0].output
+    port = _port_engine(trees)
+    reqs = [port.submit(Request(**m)) for m in MIGRANTS]
+    port.run_until_idle(max_steps=100_000)
+    out["unmigrated"] = [(r.output, r.token_logprobs, r.top_logprobs) for r in reqs]
+    return out
+
+
 def spawn_and_reference(tmp_path, rounds, cases, trees, reference):
     """``serve_worker`` on WORLD ranks (from a thread) while this process
     computes ``reference()``; returns (the ranks' results, the reference's)."""
@@ -324,6 +493,13 @@ def check_case(res, refs, mname, ranks, name, case):
         state = {c: got["state"][c] for c in COUNTERS}
         assert state == want["counters"], (mname, name)
     assert got["log"], (mname, name)
+    check_mirrors(res, mname, ranks, name)
+
+
+def check_mirrors(res, mname, ranks, name):
+    """Every rank's emission log and host state (its ``_mirror_digest``
+    included) equal rank 0's."""
+    got = res[ranks[0]][(mname, name)]
     for r in ranks[1:]:
         other = res[r][(mname, name)]
         assert other["log"] == got["log"], (mname, name, r)
@@ -359,14 +535,20 @@ def check_slices(res, kw, ranks, tree, replicated=()):
 # -- the tests ---------------------------------------------------------------
 
 
+NOT_GENERATING = ("refused", "disagg", "pressure")  # kinds with flows of their own
+
+
 @pytest.fixture(scope="module")
 def mesh_runs(tmp_path_factory):
     trees = jax_trees()
+    trees["bundles"] = disagg_bundles(trees)
 
     def reference():
         names = {n for rnd in ROUNDS for _, _, _, ns in rnd for n in ns}
-        return {n: jax_case(CASES[n], trees) for n in sorted(names)
-                if CASES[n].get("kind") != "refused" and not CASES[n].get("overlap")}
+        refs = {n: jax_case(CASES[n], trees) for n in sorted(names)
+                if CASES[n].get("kind") not in NOT_GENERATING and not CASES[n].get("overlap")}
+        refs["disagg"] = disagg_reference(trees)
+        return refs
 
     res, refs = spawn_and_reference(tmp_path_factory.mktemp("tp"), ROUNDS, CASES, trees,
                                     reference)
@@ -375,7 +557,7 @@ def mesh_runs(tmp_path_factory):
 
 
 MESH_CASES = [(m, kw, ranks, n) for rnd in ROUNDS for m, kw, ranks, ns in rnd for n in ns
-              if CASES[n].get("kind") != "refused"]
+              if CASES[n].get("kind") not in NOT_GENERATING]
 
 
 @pytest.mark.parametrize("case", MESH_CASES, ids=lambda c: f"{c[0]}-{c[3]}".replace(" ", ""))
@@ -438,14 +620,138 @@ def test_odd_heads_replicate_attention_and_cut_the_mlp(mesh_runs):
 
 
 def test_mesh_refusals_name_what_they_refuse(mesh_runs):
+    """A follower's own call of each disaggregated verb is refused by
+    name (it takes its work from rank 0's tickets); rank 0's call runs,
+    through a ticket, on both ranks."""
     res, _, _ = mesh_runs
+    verbs = ("export_prefix_pages", "import_pages", "migrate_out_bundle", "resume_session")
+    lead = res[0][("tensor=2 a", "refused")]["refused"]
+    follower = res[1][("tensor=2 a", "refused")]["refused"]
+    for verb in verbs:
+        kind, msg = follower[verb]
+        assert kind == "refused" and verb in msg and "rank 0's tickets" in msg, (verb, msg)
+    assert lead["export_prefix_pages"] == ("ok", None)  # nothing cached yet
+    assert lead["import_pages"] == ("ok", {"imported": 5, "already": 0, "tokens": 40,
+                                           "stopped": None})
+    assert lead["migrate_out_bundle"] == ("ok", None)  # no live session
+    assert lead["resume_session"] == ("ok", "Request")
     for r in (0, 1):
-        got = res[r][("tensor=2 a", "refused")]["refused"]
-        for verb in ("export_prefix_pages", "import_pages", "migrate_out_bundle",
-                     "resume_session"):
-            assert verb in got[verb] and "mesh of 2 ranks" in got[verb]
-        assert "divisible" in got["paged_kernel_heads"]
-    assert "tickets" in res[1][("tensor=2 a", "refused")]["refused"]["follower_submit"]
+        assert "divisible" in res[r][("tensor=2 a", "refused")]["refused"]["paged_kernel_heads"]
+    assert "tickets" in follower["follower_submit"]
+    check_mirrors(res, "tensor=2 a", (0, 1), "refused")
+    assert res[0][("tensor=2 a", "refused")]["state"]["tickets"] >= 4
+
+
+DISAGG = {"dense": ("tensor=2 b", (2, 3), "disagg"),
+          "int8": ("tensor=2 a", (0, 1), "disagg_int8"),
+          "odd": ("tensor=2 a", (0, 1), "disagg_odd")}
+
+
+@pytest.mark.parametrize("pool", sorted(DISAGG))
+def test_disagg_round_trip_is_byte_identical(mesh_runs, pool):
+    """The reference's bundle imported into tensor=2 and exported again is
+    the same bytes (the head-sharded dense and int8 pools gather their
+    heads; the odd-head pool is whole on each rank), and the warm hit on
+    the imported pages gives the reference's tokens and hits."""
+    res, refs, trees = mesh_runs
+    mname, ranks, name = DISAGG[pool]
+    got = res[ranks[0]][(mname, name)]["disagg"]
+    assert got["import"] == {"imported": 5, "already": 0, "tokens": 40, "stopped": None}
+    assert got["round_trip"] == trees["bundles"][pool]
+    tokens, hits, err = got["warm"]
+    assert not err and (tokens, hits) == tuple(refs["disagg"]["warm " + pool])
+    assert hits == 40
+    sharded = pool != "odd"
+    heads = res[ranks[0]][(mname, name)]["kv_shapes"]["k"][3]
+    assert heads == (CFGS["dense"]["n_kv_heads"] // 2 if sharded else 3)
+    check_mirrors(res, mname, ranks, name)
+
+
+def test_disagg_tensor_bundle_adopted_by_one_device_engines(mesh_runs):
+    """A prefix primed and exported on tensor=2, adopted by the reference
+    engine and by the port on one device: each gives its own local warm
+    hit's tokens, with the same pages matched."""
+    from elastic_gpu_scheduler_tpu.models.serving import Request as JaxRequest
+
+    res, refs, trees = mesh_runs
+    data, err = res[2][("tensor=2 b", "disagg")]["disagg"]["export"]
+    assert not err and data is not None
+    want = tuple(refs["disagg"]["warm shared"])
+    assert want[1] == 16
+    hdr, pages = kvwire.decode_bundle(data)
+    assert len(pages) == 2
+    for eng, req_cls in ((_jax_engine("dense", trees), JaxRequest),
+                         (_port_engine(trees), Request)):
+        assert eng.import_pages(hdr, pages)["imported"] == 2
+        req, hits = _run(eng, req_cls, SHARED + SUFFIX, 8)
+        assert (req.output, hits) == want, type(eng)
+
+
+def test_disagg_import_refusals_land_nothing(mesh_runs):
+    """Another page size and a cut payload are refused on rank 0 before a
+    ticket: nothing lands on either rank, whose mirrors still agree."""
+    res, _, _ = mesh_runs
+    got = res[2][("tensor=2 b", "disagg")]["disagg"]["refusals"]
+    assert len(got["errors"]) == 2
+    assert "page_size" in got["errors"][0] and "payload size" in got["errors"][1]
+    assert got["unchanged"]
+    check_mirrors(res, "tensor=2 b", (2, 3), "disagg")
+
+
+def test_disagg_import_pool_pressure_stops_both_ranks_alike(mesh_runs):
+    """A 5-page bundle into a pool of 3 usable pages: both ranks stop at
+    the reference's page, with a leading run cached."""
+    res, refs, _ = mesh_runs
+    got = res[0][("tensor=2 a", "disagg_pressure")]["disagg"]
+    want, cached = refs["disagg"]["pressure"]
+    assert got["import"] == want and want["stopped"] == "page pool exhausted"
+    assert got["cached"] == cached == want["imported"] > 0
+    check_mirrors(res, "tensor=2 a", (0, 1), "disagg_pressure")
+
+
+def _same_logprobs(got, want):
+    lps, tops = got
+    wlps, wtops = want
+    assert len(lps) == len(wlps) and len(tops) == len(wtops)
+    assert all(a == b or abs(a - b) < 1e-4 for a, b in zip(lps, wlps))
+    for g, w in zip(tops, wtops):
+        assert [t for t, _ in g] == [t for t, _ in w]
+        assert all(abs(ga - wa) < 1e-4 for (_, ga), (_, wa) in zip(g, w))
+
+
+def test_disagg_sessions_migrate_across_the_mesh(mesh_runs):
+    """Sessions detached after one step, tensor=2 → one device (the port's
+    and, greedy, the reference's) and one device → tensor=2: the greedy
+    one keeps the reference's tokens, the seeded one the port's unmigrated
+    draws and logprobs, each losing at most one chunk."""
+    res, refs, trees = mesh_runs
+    got = res[2][("tensor=2 b", "disagg")]["disagg"]
+    want = refs["disagg"]["unmigrated"]
+    assert [w[0] for w in want][0] == refs["disagg"]["greedy"]
+    assert got["lost"] <= 1 and trees["bundles"]["sessions_lost"] <= 1
+    # tensor=2 → one device
+    dst = _port_engine(trees)
+    resumed = []
+    for data in got["sessions"]:
+        hdr, pages = kvwire.decode_bundle(data)
+        if pages:
+            dst.import_pages(hdr, pages)
+        resumed.append(dst.resume_session(hdr["request"]))
+    dst.run_until_idle(max_steps=100_000)
+    for r, w in zip(resumed, want):
+        assert not r.error and r.output == w[0]
+        _same_logprobs((r.token_logprobs, r.top_logprobs), w[1:])
+    jdst = _jax_engine("dense", trees)
+    hdr, pages = kvwire.decode_bundle(got["sessions"][0])
+    jdst.import_pages(hdr, pages)
+    greedy = jdst.resume_session(hdr["request"])
+    jdst.run_until_idle(max_steps=100_000)
+    assert greedy.output == refs["disagg"]["greedy"]
+    # one device → tensor=2
+    for (out, lps, tops, err), w in zip(got["resumed"], want):
+        assert not err and out == w[0]
+        _same_logprobs((lps, tops), w[1:])
+    check_mirrors(res, "tensor=2 b", (2, 3), "disagg")
 
 
 def test_mesh_without_a_tensor_axis_raises():

@@ -244,8 +244,9 @@ def test_evaluate_matches_jax():
 
 def test_mesh_and_unported_configs_refused():
     """The pipe and expert axes train now; what a mesh cannot cut is a
-    ValueError by name, MoE pipelined over a batch cut by data is refused
-    by name, and a step needs a connected mesh."""
+    ValueError by name, int8 layer leaves on a mesh are refused by name,
+    MoE pipelined over a batch cut by data passes the model's checks, and
+    a step needs a connected mesh."""
     from elastic_gpu_scheduler_tpu_torch.parallel.mesh import MeshSpec, RankDevice, make_mesh
 
     _, cfg = _cfgs(dtype="float32", n_microbatches=2)
@@ -257,8 +258,14 @@ def test_mesh_and_unported_configs_refused():
             fn()
     _, moe = _cfgs(dtype="float32", n_experts=2, n_microbatches=2)
     piped = make_mesh(MeshSpec(data=2, pipe=2), [RankDevice(i) for i in range(4)])
-    with pytest.raises(NotImplementedError, match="n_experts"):
-        train.init_state(moe, opt, torch.Generator(), "cpu", mesh=piped)
+    with pytest.raises(RuntimeError, match="connect"):  # past the model's checks
+        train.make_train_step(moe, opt, mesh=piped)
+    from elastic_gpu_scheduler_tpu_torch.models.quantize import quantize_params
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import check_mesh_model, init_params
+
+    int8 = quantize_params(init_params(moe, torch.Generator().manual_seed(0), "cpu"))
+    with pytest.raises(NotImplementedError, match="int8 layer leaf"):
+        check_mesh_model(moe, piped, int8)
     with pytest.raises(ValueError, match="n_experts=2 not divisible by expert=4"):
         train.make_train_step(moe, opt, make_mesh(MeshSpec(expert=4),
                                                   [RankDevice(i) for i in range(4)]))
