@@ -256,8 +256,12 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    ``expert_matmul_reference``, every foreign id's row zeros; (d) a
    one-rank NCCL tensor=1 mesh: the overlapped engine captures and
    replays, tokens equal one device's; (e) ``serve --init
-   --tensor 2 --dist-backend gloo`` answers 4 completions with
-   ``--tensor 1``'s tokens, and so does a split: ``--tensor 2
+   --tensor 2 --dist-backend gloo --warmup lattice`` (its compile cache a
+   directory holding this run's library) answers /healthz 503 warming
+   before 200 with every lattice point built on both ranks, then a
+   streamed completion alone and 4 one at a time (first TTFT over the
+   median of the rest, beside the unwarmed ``--tensor 1``'s) and 4
+   concurrent ones, all with ``--tensor 1``'s tokens, and so does a split: ``--tensor 2
    --fleet-role prefill`` prefills each prompt and a one-device
    ``--fleet-role decode`` replica answers it with ``X-KV-Source``, every
    page shipped counted on both; all exit 0 on SIGTERM; (f) the
@@ -270,7 +274,11 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    prefixed pass, K2 L x fused_steps a chunk); a stream migrated each way
    after one chunk keeps its unmigrated tokens; export, import and the
    split's first token timed (median and range of 3 after a warm-up)
-   beside one device's.  Every rank's
+   beside one device's; (g) a tensor=2 engine at L 4 (float32, max_len
+   256, fused_steps 8) warms its lattice twice in a row (every point a
+   ticket's task on both ranks; digests equal after each; the pool's
+   pages but the scratch page unchanged; cold and warm point seconds),
+   then answers with one device's unwarmed tokens.  Every rank's
    launches are exact (K1 L a plain prefill, K3 L a prefixed one, K2 L a
    decode step or verify pass, KE 7L + 1 or 3L a pass), every rank emits
    the same tokens, and a K2 row times the kernel on calls (a)'s bf16
@@ -292,6 +300,14 @@ KE. the expert-indexed / int8 weight product (``csrc/expert_matmul.cu``)
    the library's build and load seconds, the warm-up's wall time,
    captures and where its host time went, reserved device memory across
    the lattice and the first request's TTFT warmed and not;
+18. the node plane: the device plugin's discovery on this host against
+   ``nvidia-smi`` (its source logged), Allocate's env for 100 and 50
+   units of the card, a tenant process under exactly the 50-unit env
+   (``launcher.main``, 2 steps at L 2 in bf16, K1 and K4 L x steps, on
+   the allocated card; then 0.6 of the card's memory refused and 0.4
+   allocated), ``probe_relay`` up with the card's name and down with
+   ``NOT_GPU`` when the card is hidden, and the plugin over gRPC on a
+   unix socket where grpc and protobuf import;
 10. K1 and K4 at the train shape, K3 and K2 (dense and int8) with split
    keys, called twice, must give identical bytes; K1 and K4 not causal at
    the ViT's shape (B 64, 12, 197, 64, bf16) against ``mha_reference`` and
@@ -6272,6 +6288,9 @@ def single_device_losses(dev, cfg_kw, opt_kw, tokens, grad_accum: int = 1) -> li
 
 SERVE_MESH_ENGINE = dict(ENGINE, paged_kernel=True)
 SERVE_MESH_SMALL = dict(FULL, n_layers=4, dtype="float32")  # (b)-(d): depth cut for time
+# (g)'s engine: ENGINE's batch and page with max_len and fused_steps cut for
+# time (a lattice of 6 pad lengths and 5 x 3 decode points)
+SERVE_MESH_WARM_ENGINE = dict(max_len=256, fused_steps=8)
 SERVE_MESH_K2_EVERY = 97  # rank 0 of (a) bf16 keeps every 97th K2 call's inputs
 # (b) int8 weights and (c): every rank keeps every 37th KE call's inputs
 # (of 3L or 7L + 1 a pass: prefills and decode steps, several projections)
@@ -6305,6 +6324,10 @@ def serve_mesh_plan():
 
     return {
         (2, "gloo"): [
+            # first: its first warm-up pass is the ranks' first work (cold)
+            run("(g) warm-up twice", t2, SERVE_MESH_SMALL, 16,
+                waves=([main[i] for i in (0, 1, 4, 5)],), warm=True,
+                engine=SERVE_MESH_WARM_ENGINE),
             run("(a) float32", t2, dict(FULL, dtype="float32"), 32, logits=True),
             run("(a) bf16", t2, FULL, 64, sample_k2=True, logits=True),
             run("(b) int8 KV, prefix, chunked, spec_k 4", t2, SERVE_MESH_SMALL, 16,
@@ -6870,6 +6893,132 @@ def disagg_mesh_check(dev, run, ref, per) -> dict:
     return res
 
 
+def serve_mesh_warm(dev, mesh, run) -> dict:
+    """(g) on one rank: the engine (memory-only compile cache) warms its
+    ``minimal`` lattice twice in a row (``warmup_engine`` on rank 0: each
+    point a tasks-only ticket that every rank runs), then serves four
+    prompts.  Each rank records every point it ran with its
+    seconds to the end of its device work (the first pass cold, the
+    second warm), its mirror digest after each point, and whether the
+    pool's pages but the scratch page kept their bytes from before the
+    first point to after the last."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.compilecache import CompileCache, warmup_engine
+    from elastic_gpu_scheduler_tpu_torch.models.serving import (
+        SCRATCH_PAGE,
+        InferenceEngine,
+        Request,
+    )
+    from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig, init_params
+
+    cfg = TransformerConfig(**run["cfg"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    eng = InferenceEngine(params, cfg, device=dev, mesh=mesh, compile_cache=CompileCache(None),
+                          **run["engine"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen = {"points": [], "digests": []}
+    warm, task = eng._warm, eng._warm_task
+
+    def pages():
+        return [v[:, SCRATCH_PAGE + 1:].clone() for _, v in sorted(eng.kv.items())]
+
+    def timed(**point):
+        sync(dev)
+        t0 = time.perf_counter()
+        warm(**point)
+        sync(dev)
+        flags = "".join(str(int(f)) for f in point["flags"])
+        seen["points"].append((f"{point['kind']}:t{point['tpad']}:p{point['width']}:{flags}",
+                               time.perf_counter() - t0))
+
+    def task_digest(t):
+        if "before" not in seen:
+            seen["before"] = pages()
+        got = task(t)
+        seen["digests"].append(eng._mirror_digest().hex())
+        seen["after"] = pages()
+        return got
+
+    eng._warm, eng._warm_task = timed, task_digest
+    t0 = time.perf_counter()
+    out = {}
+    with torch.inference_mode():
+        if eng.leader:
+            out["states"] = [warmup_engine(eng).to_dict() for _ in range(2)]
+            reqs = [eng.submit(Request(prompt=list(p), max_new_tokens=run["new"]))
+                    for p in run["waves"][0]]
+            eng.run_until_idle(max_steps=100_000)
+            eng.stop_followers()
+            for r in reqs:
+                check(r.done.is_set() and not r.error, f"(g): a request failed: {r.error!r}")
+            out["tokens"] = [r.output for r in reqs]
+        else:
+            eng.follow()
+    sync(dev)
+    out.update(points=seen["points"], digests=seen["digests"], wall_s=time.perf_counter() - t0,
+               pages_kept=all(torch.equal(a, b) for a, b in zip(seen["before"], seen["after"])))
+    del eng, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_warm_check(run, ref, per) -> dict:
+    """(g) after the spawn: both passes ready with every point built on
+    both ranks; every rank ran rank 0's points in its order, twice, its
+    digests rank 0's and its pool's pages kept; the tokens after the
+    warm-ups one device's (an engine never warmed).  Returns the cold and
+    warm point seconds (rank 0's) in summary."""
+    name, lead = run["name"], per[0]
+    first, second = lead["states"]
+    n = first["lattice_size"]
+    for st in lead["states"]:
+        check(st["state"] == "ready" and st["errors"] == 0 and st["built"] == n > 0
+              and st["mesh"] == {"tensor": 2}, f"{name}: a warm-up pass ended {st}")
+        check(sorted(st["ranks"]) == ["0", "1"]
+              and all(v["built"] == n for v in st["ranks"].values()),
+              f"{name}: not every rank ran every point: {st['ranks']}")
+    labels = [label for label, _ in lead["points"]]
+    check(len(labels) == 2 * n and labels[:n] == labels[n:], f"{name}: rank 0 ran {labels}")
+    for r, p in enumerate(per):
+        check([label for label, _ in p["points"]] == labels,
+              f"{name}: rank {r} ran other points than rank 0")
+        check(p["digests"] == lead["digests"] and len(p["digests"]) == 2 * n,
+              f"{name}: rank {r}'s mirror parted from rank 0's during the warm-up")
+        check(p["pages_kept"], f"{name}: rank {r}'s pool pages changed outside the scratch page")
+    check(lead["tokens"] == ref["tokens"],
+          f"{name}: tokens after the warm-up differ from one device's unwarmed engine's")
+    cold = {label: sec for label, sec in lead["points"][:n]}
+    warm = {label: sec for label, sec in lead["points"][n:]}
+
+    def by_kind(secs):
+        kinds = {}
+        for label, sec in secs.items():
+            kinds.setdefault(label.split(":")[0], []).append(sec)
+        return {k: {"n": len(v), "sum_s": float(sum(v)), "median_s": float(np.median(v))}
+                for k, v in sorted(kinds.items())}
+
+    slowest = sorted(cold, key=cold.get, reverse=True)[:3]
+    res = {"lattice_size": n, "layers": run["cfg"]["n_layers"],
+           "cold_s": float(sum(cold.values())), "warm_s": float(sum(warm.values())),
+           "cold_by_kind": by_kind(cold), "warm_by_kind": by_kind(warm),
+           "slowest_cold": [(label, cold[label], warm[label]) for label in slowest],
+           "wall_s": [first["wall_s"], second["wall_s"]],
+           "library_s_a_rank": {r: v["library_s"] for r, v in first["ranks"].items()},
+           "tokens_equal_unwarmed": True, "pages_kept": True}
+    log(f"serve mesh {name} (tensor=2, L {res['layers']}, float32): {n} points a pass, run on "
+        f"both ranks with equal digests and the pool's pages kept; cold pass "
+        f"{res['cold_s']:.2f} s of point time ({first['wall_s']:.2f} s wall), warm pass "
+        f"{res['warm_s']:.2f} s ({second['wall_s']:.2f} s wall); by kind cold "
+        f"{res['cold_by_kind']}, warm {res['warm_by_kind']}; slowest cold points (cold s, warm "
+        f"s) {res['slowest_cold']}; tokens after the warm-ups = one device's unwarmed engine's "
+        f"(ranks sharing one card over host-staged gloo: not a scaling figure)")
+    return res
+
+
 def serve_mesh_rank(rank, world, rendezvous, runs, backend):
     """One rank of a phase-16 world (a spawned process): each run on its
     mesh, on this rank's share of the card."""
@@ -6891,8 +7040,9 @@ def serve_mesh_rank(rank, world, rendezvous, runs, backend):
     for run in runs:
         t0 = time.perf_counter()
         mesh = make_mesh(MeshSpec(**run["kw"])).connect()
-        out[run["name"]] = (serve_mesh_disagg if run.get("disagg") else serve_mesh_run)(
-            dev, mesh, run)
+        body = (serve_mesh_disagg if run.get("disagg")
+                else serve_mesh_warm if run.get("warm") else serve_mesh_run)
+        out[run["name"]] = body(dev, mesh, run)
         print(f"serve mesh rank {rank} {run['name']}: "
               f"{out[run['name']].get('wall_s', time.perf_counter() - t0):.1f} s",
               file=sys.stderr, flush=True)
@@ -6965,6 +7115,9 @@ def serve_mesh_worlds(dev, plan, res, work, t_phase) -> dict:
                 t0 = time.perf_counter()
                 res["disagg"][name] = disagg_mesh_check(dev, run, ref, per)
                 t_disagg += time.perf_counter() - t0
+                continue
+            if run.get("warm"):
+                res["warm"] = serve_mesh_warm_check(run, ref, per)
                 continue
             entry = {"axes": run["kw"], "ranks": n, "backend": backend,
                      "layers": run["cfg"]["n_layers"], "dtype": run["cfg"]["dtype"],
@@ -7097,39 +7250,96 @@ def serve_mesh_worlds(dev, plan, res, work, t_phase) -> dict:
     return res
 
 
+def healthz_until_ready(sp, timeout: float) -> tuple[float, list]:
+    """/healthz polled from the process start until 200: (the seconds to
+    ready, the 503 bodies seen on the way)."""
+    deadline, seen = time.monotonic() + timeout, []
+    while True:
+        try:
+            code, body = get_json(sp.addr, "/healthz")
+        except OSError:
+            code, body = None, None
+        if code == 200:
+            return time.perf_counter() - sp.t0, seen
+        if code == 503:
+            seen.append(body)
+        if sp.proc.poll() is not None:
+            fail(f"serve exited with {sp.proc.returncode}:\n{sp.tail()}")
+        check(time.monotonic() < deadline, f"serve not ready in {timeout} s:\n{sp.tail()}")
+        # a readiness probe's pace (a kubelet's is 1-10 s): polled every
+        # 0.1 s, one card run's lattice took 44 s against 23 s at 0.5 s in
+        # another (PERF.md)
+        time.sleep(WARM_POLL_S)
+
+
+def first_then_rest_ttft(addr, first, prompts, max_new) -> dict:
+    """One streamed completion alone, then each of ``prompts`` streamed one
+    at a time: every TTFT, and the first's over the median of the rest."""
+    ttft, tokens = [], []
+    for p in [first] + list(prompts):
+        t0 = time.perf_counter()
+        toks, times, errors = sse(addr, "/v1/completions", {"prompt": p, "max_tokens": max_new})
+        check(not errors and len(toks) == max_new, f"streamed completion: {errors}")
+        ttft.append((times[0] - t0) * 1e3)
+        tokens.append(toks)
+    return {"first_ttft_ms": ttft[0], "later_ttft_ms": ttft[1:],
+            "ratio": ttft[0] / float(np.median(ttft[1:])), "tokens": tokens}
+
+
 def phase_serve_mesh_http() -> dict:
-    """(e) ``serve --init --tensor 2 --dist-backend gloo`` and ``--tensor
-    1`` on the same seed: 4 concurrent completions each, the same tokens;
-    /v1/stats shows the mesh.  Then a split on the same seed: ``--tensor 2
-    --fleet-role prefill --prefix-cache`` as P prefills each prompt
-    (/v1/prefill), and ``--fleet-role decode --prefix-cache`` as D answers
-    it with ``X-KV-Source: P``: ``--tensor 1``'s tokens, every page
-    shipped counted on both sides.  SIGTERM drains and all four exit 0."""
+    """(e) ``serve --init --tensor 2 --dist-backend gloo --warmup lattice``
+    (its compile cache a temporary directory holding the library's entry)
+    and ``--tensor 1`` (no warm-up) on the same seed.  The mesh replica
+    answers /healthz 503 ``{"warming": true}`` before 200, and its
+    /v1/stats ``warmup`` shows every point built on both ranks.  Each
+    replica streams one completion alone, then 4 one at a time (the first
+    TTFT against the median of the rest), then answers the 4 as concurrent
+    completions: the same tokens on both; /v1/stats shows the mesh.  Then
+    a split on the same seed: ``--tensor 2 --fleet-role prefill
+    --prefix-cache`` as P prefills each prompt (/v1/prefill), and
+    ``--fleet-role decode --prefix-cache`` as D answers it with
+    ``X-KV-Source: P``: ``--tensor 1``'s tokens, every page shipped counted
+    on both sides.  SIGTERM drains and all four exit 0."""
     import shutil
     import tempfile
 
+    from elastic_gpu_scheduler_tpu_torch.ops import _build
     from elastic_gpu_scheduler_tpu_torch.utils.kvwire import KV_SOURCE_HEADER
 
     args = ["--init", "--dtype", "float32", "--paged-kernel", "--max-batch", "4",
             "--max-len", "256", "--page-size", "16", "--fused-steps", "8"]
     rng = np.random.default_rng(17)
     prompts = [rng.integers(0, 32000, n).tolist() for n in (24, 64, 100, 7)]
+    alone = rng.integers(0, 32000, 48).tolist()
     work = tempfile.mkdtemp(prefix="serve_tensor_")
+    # the mesh replica's compile cache: a directory of its own that holds
+    # the library this run built, so the ranks load it (no nvcc) and the
+    # warm-up is the lattice
+    cache_dir = os.path.join(work, "cache")
+    os.makedirs(cache_dir)
+    entry = _build.library_key() + ".aotx"
+    shutil.copy(_build.library_cache().path(_build.library_key(), ".aotx"),
+                os.path.join(cache_dir, entry))
     gloo = ["--dist-backend", "gloo"]
+    warm = ["--warmup", "lattice", "--compile-cache-dir", cache_dir]
     roles = {"P": args + ["--prefix-cache", "--tensor", "2", *gloo, "--fleet-role", "prefill"],
              "D": args + ["--prefix-cache", "--fleet-role", "decode"]}
-    procs = {t: ServeProcess(args + ["--tensor", str(t)] + (gloo if t > 1 else []),
+    procs = {t: ServeProcess(args + ["--tensor", str(t)] + (gloo + warm if t > 1 else []),
                              os.path.join(work, f"tensor{t}.log")) for t in (1, 2)}
     procs.update({r: ServeProcess(a, os.path.join(work, f"{r}.log")) for r, a in roles.items()})
     out = {}
     try:
         for t in (1, 2):
             sp = procs[t]
-            ready = sp.wait_ready(300)
+            ready, warming = healthz_until_ready(sp, 300)
+            code, at_ready = get_json(sp.addr, "/v1/stats")
+            check(code == 200, f"--tensor {t}: /v1/stats {code}")
+            ttft = first_then_rest_ttft(sp.addr, alone, prompts, 16)
             toks, wall = http_completions(sp.addr, prompts, 16)
             code, stats = get_json(sp.addr, "/v1/stats")
             check(code == 200, f"--tensor {t}: /v1/stats {code}")
-            out[t] = {"ready_s": ready, "tokens": toks, "wall_s": wall, "mesh": stats["mesh"]}
+            out[t] = {"ready_s": ready, "tokens": toks, "wall_s": wall, "mesh": stats["mesh"],
+                      "warming": warming, "warmup": at_ready["warmup"], "ttft": ttft}
         P, D = procs["P"], procs["D"]
         split = {"ready_s": {"P": P.wait_ready(300), "D": D.wait_ready(300)}, "tokens": []}
         source = {KV_SOURCE_HEADER: "%s:%d" % P.addr}
@@ -7150,15 +7360,41 @@ def phase_serve_mesh_http() -> dict:
                 sp.proc.kill()
                 sp.proc.wait()
         shutil.rmtree(work, ignore_errors=True)
+    wu = out[2]["warmup"]
     res = {"tokens_equal": out[1]["tokens"] == out[2]["tokens"], "exit_codes": codes,
            "ready_s": {t: o["ready_s"] for t, o in out.items()},
-           "wall_s": {t: o["wall_s"] for t, o in out.items()}, "mesh": out[2]["mesh"]}
-    log(f"serve mesh (e): serve --init --tensor 2 --dist-backend gloo against --tensor 1: "
-        f"4 completions equal {res['tokens_equal']}, ready in {res['ready_s']} s, wall "
-        f"{res['wall_s']} s, mesh {res['mesh']}, exit codes {codes}")
-    check(res["tokens_equal"], f"serve --tensor 2 answered other tokens than --tensor 1: "
-                               f"{out[1]['tokens']} vs {out[2]['tokens']}")
+           "wall_s": {t: o["wall_s"] for t, o in out.items()}, "mesh": out[2]["mesh"],
+           "streamed_tokens_equal": out[1]["ttft"]["tokens"] == out[2]["ttft"]["tokens"],
+           "warming_503s": len(out[2]["warming"]),
+           "warmup": {k: wu[k] for k in ("state", "lattice_size", "built", "errors", "wall_s",
+                                         "library_s", "slowest", "mesh", "ranks", "loads",
+                                         "fills")},
+           "first_ttft_ms": {t: o["ttft"]["first_ttft_ms"] for t, o in out.items()},
+           "later_ttft_ms": {t: o["ttft"]["later_ttft_ms"] for t, o in out.items()},
+           "first_over_median_ttft": {t: o["ttft"]["ratio"] for t, o in out.items()}}
+    log(f"serve mesh (e): serve --init --tensor 2 --dist-backend gloo --warmup lattice against "
+        f"--tensor 1 (no warm-up): 4 completions equal {res['tokens_equal']} (streamed one at "
+        f"a time too: {res['streamed_tokens_equal']}), ready in {res['ready_s']} s after "
+        f"{res['warming_503s']} warming 503s, warm-up {wu['state']}: {wu['built']}/"
+        f"{wu['lattice_size']} points on ranks {wu['ranks']} in {wu['wall_s']:.2f} s "
+        f"(library {wu['library_s']:.2f} s: {wu['fills']} built, {wu['loads']} loaded; slowest "
+        f"{wu['slowest']}); first TTFT {res['first_ttft_ms']} ms against the median of the 4 "
+        f"after it {dict((t, float(np.median(v))) for t, v in res['later_ttft_ms'].items())} "
+        f"ms: first / median {res['first_over_median_ttft']}; wall {res['wall_s']} s, mesh "
+        f"{res['mesh']}, exit codes {codes}")
+    check(res["tokens_equal"] and res["streamed_tokens_equal"],
+          f"serve --tensor 2 answered other tokens than --tensor 1: "
+          f"{out[1]['tokens']} vs {out[2]['tokens']}")
     check(res["mesh"] == {"shape": {"tensor": 2}, "ranks": 2}, "serve --tensor 2: no mesh")
+    check(out[2]["warming"] and all(b.get("warming") is True for b in out[2]["warming"]),
+          f"serve --tensor 2 --warmup lattice answered no 503 warming before 200: "
+          f"{out[2]['warming'][:3]}")
+    check(wu["state"] == "ready" and wu["lattice_size"] > 0 and wu["errors"] == 0
+          and wu["built"] == wu["lattice_size"] and wu["mesh"] == {"tensor": 2}
+          and sorted(wu["ranks"]) == ["0", "1"]
+          and all(v["built"] == wu["lattice_size"] for v in wu["ranks"].values()),
+          f"serve --tensor 2's warm-up: {wu}")
+    check((wu["fills"], wu["loads"]) == (0, 1), f"serve --tensor 2 built the library: {wu}")
     pages = sum((len(p) - 1) // 16 for p in prompts)
     kv_p, kv_d = split["P"]["kv"], split["D"]["kv"]
     res["split"] = {"tokens_equal": split["tokens"] == out[1]["tokens"], "pages": pages,
@@ -7219,25 +7455,7 @@ def warm_start_run(sp, bodies, seeded) -> dict:
     503 bodies seen), /v1/stats at ready; the first completion streamed
     (TTFT and time to its second token), the other 7 one at a time, then
     the seeded 2, /v1/stats after each group."""
-    warming = []
-    deadline = time.monotonic() + 400
-    while True:
-        try:
-            code, body = get_json(sp.addr, "/healthz")
-        except OSError:
-            code, body = None, None
-        if code == 200:
-            break
-        if code == 503:
-            warming.append(body)
-        if sp.proc.poll() is not None:
-            fail(f"serve exited with {sp.proc.returncode}:\n{sp.tail()}")
-        check(time.monotonic() < deadline, f"serve not ready in 400 s:\n{sp.tail()}")
-        # a readiness probe's pace (a kubelet's is 1-10 s): polled every
-        # 0.1 s, one card run's lattice took 44 s against 23 s at 0.5 s in
-        # another (PERF.md)
-        time.sleep(WARM_POLL_S)
-    ready_s = time.perf_counter() - sp.t0
+    ready_s, warming = healthz_until_ready(sp, 400)
     _, at_ready = get_json(sp.addr, "/v1/stats")
     t0 = time.perf_counter()
     first, times, errors = sse(sp.addr, "/v1/completions", bodies[0])
@@ -7444,6 +7662,229 @@ def phase_warm_start() -> dict:
         f"{res['warm']['graphs_captured']} {res['off']['graphs_captured']}; ready in "
         f"{res['cold']['ready_s']:.1f} / {res['warm']['ready_s']:.1f} / "
         f"{res['off']['ready_s']:.1f} s; tokens equal {same}; {res['phase_s']:.1f} s")
+    return res
+
+
+# phase 18's tenant: the launcher's model cut to 2 layers (its widths,
+# bf16), 2 steps; then allocations of these shares of the card
+NODE_TENANT_LAYERS = 2
+NODE_TENANT_STEPS = 2
+NODE_TENANT_SHARES = (0.6, 0.4)
+NODE_TENANT = r"""
+import functools, json, sys
+import torch
+from elastic_gpu_scheduler_tpu_torch import launcher
+from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig
+from elastic_gpu_scheduler_tpu_torch.ops import _build
+
+layers, steps, shares = json.loads(sys.argv[1])
+launcher.TransformerConfig = functools.partial(TransformerConfig, n_layers=layers)
+_build.reset_launches()
+rc = launcher.main(["--steps", str(steps)])
+launches = dict(_build.LAUNCHES)
+props = torch.cuda.get_device_properties(0)
+torch.cuda.empty_cache()
+tries = {}
+for share in shares:
+    try:
+        x = torch.empty(int(share * props.total_memory), dtype=torch.uint8, device="cuda")
+        del x
+        tries[str(share)] = "allocated"
+    except torch.OutOfMemoryError:
+        tries[str(share)] = "OutOfMemoryError"
+    torch.cuda.empty_cache()
+print(json.dumps({"rc": rc, "launches": launches, "uuid": str(props.uuid),
+                  "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+                  "total_gb": props.total_memory / 2 ** 30, "tries": tries}))
+"""
+
+
+def _bare_uuid(u: str) -> str:
+    u = u.strip().lower()
+    return u[4:] if u.startswith("gpu-") else u
+
+
+def node_plane_grpc(gpus) -> dict:
+    """18(5): the plugin served on a unix socket in a temporary directory;
+    GetDevicePluginOptions, ListAndWatch (its first response),
+    GetPreferredAllocation and Allocate over a channel, each answer held
+    to the plain functions'.  None where grpc or protobuf do not import."""
+    import shutil
+    import tempfile
+
+    try:
+        import grpc
+
+        from elastic_gpu_scheduler_tpu_torch.deviceplugin import deviceplugin_pb2 as pb
+    except ImportError as e:
+        log(f"node plane: the gRPC wiring is not served here ({e}); the CPU tests cover it")
+        return None
+    from elastic_gpu_scheduler_tpu_torch.deviceplugin.plugin import (
+        GPUDevicePlugin,
+        allocation_envs,
+        preferred_allocation,
+    )
+
+    work = tempfile.mkdtemp(prefix="dp")
+    plugin = GPUDevicePlugin(gpus=gpus)
+    try:
+        sock = os.path.join(work, "plugin.sock")
+        plugin.serve(sock)
+        with grpc.insecure_channel(f"unix://{sock}") as ch:
+            def call(method, req, resp):
+                return ch.unary_unary(f"/v1beta1.DevicePlugin/{method}",
+                                      request_serializer=type(req).SerializeToString,
+                                      response_deserializer=resp.FromString)(req, timeout=10)
+
+            opts = call("GetDevicePluginOptions", pb.Empty(), pb.DevicePluginOptions)
+            stream = ch.unary_stream("/v1beta1.DevicePlugin/ListAndWatch",
+                                     request_serializer=pb.Empty.SerializeToString,
+                                     response_deserializer=pb.ListAndWatchResponse.FromString)
+            first = next(iter(stream(pb.Empty(), timeout=10)))
+            c0 = gpus[0].coord
+            avail = [f"{g.coord}/{u}" for g in gpus for u in range(100)]
+            pref = call("GetPreferredAllocation", pb.PreferredAllocationRequest(
+                container_requests=[pb.ContainerPreferredAllocationRequest(
+                    available_device_i_ds=avail, must_include_device_i_ds=[f"{c0}/0"],
+                    allocation_size=50)]), pb.PreferredAllocationResponse)
+            ids = [f"{c0}/{u}" for u in range(50)]
+            alloc = call("Allocate", pb.AllocateRequest(container_requests=[
+                pb.ContainerAllocateRequest(devices_i_ds=ids)]), pb.AllocateResponse)
+    finally:
+        plugin.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    cresp = alloc.container_responses[0]
+    envs, specs = allocation_envs(ids, gpus)
+    got = {"options": opts.get_preferred_allocation_available and not opts.pre_start_required,
+           "devices": sorted(d.ID for d in first.devices) == sorted(avail)
+           and all(d.health == "Healthy" for d in first.devices),
+           "preferred": list(pref.container_responses[0].device_i_ds)
+           == preferred_allocation(avail, [f"{c0}/0"], 50),
+           "allocate_envs": dict(cresp.envs) == envs,
+           "allocate_specs": [(d.container_path, d.host_path, d.permissions)
+                              for d in cresp.devices] == specs}
+    check(all(got.values()), f"node plane: the gRPC answers differ from the plain functions': "
+                             f"{got}")
+    log(f"node plane: the plugin over gRPC (grpc {grpc.__version__}) on a unix socket: options, "
+        f"ListAndWatch's {len(first.devices)} devices, GetPreferredAllocation and Allocate "
+        f"equal the plain functions' answers")
+    return {"grpc": grpc.__version__, **got}
+
+
+def phase_node_plane() -> dict:
+    """18. The node plane: (1) ``discover_gpus()`` on this host finds the
+    cards ``nvidia-smi`` lists (UUIDs equal where its source gave them),
+    logging its source; (2) ``allocation_envs`` for 100 and for 50 units
+    of card 0; (3) the tenant: one ``python -c`` process under exactly the
+    50-unit allocation's env runs ``launcher.main`` for 2 steps of a 2-layer
+    bf16 model (K1 and K4 launches L x steps) on the allocated card, then
+    fails to allocate 0.6 of the card's memory and allocates 0.4; (4)
+    ``probe_relay`` up with the card's name, and down with ``NOT_GPU`` when
+    the child's ``CUDA_VISIBLE_DEVICES`` is empty; (5) the plugin over
+    gRPC where grpc and protobuf import (``node_plane_grpc``)."""
+    import torch
+
+    from elastic_gpu_scheduler_tpu_torch.deviceplugin.plugin import (
+        allocation_envs,
+        discover_gpus,
+        discovery_source,
+    )
+    from elastic_gpu_scheduler_tpu_torch.utils.tpuprobe import probe_relay
+
+    t_phase = time.perf_counter()
+    res: dict = {"card": card_line()}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=index,uuid,name", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30, check=True).stdout
+    cards = [[f.strip() for f in line.split(",")] for line in smi.strip().splitlines()]
+    # (1) discovery
+    gpus = discover_gpus()
+    source = discovery_source()
+    dev_only = discover_gpus(proc_root="/nonexistent", smi="")
+    res["discovery"] = {"source": source, "cards": len(gpus), "smi_cards": len(cards),
+                        "minors": [g.minor for g in gpus], "coords": [g.coord for g in gpus],
+                        "dev_nodes_alone": [g.minor for g in dev_only],
+                        "proc_gpus": os.path.isdir("/proc/driver/nvidia/gpus")}
+    log(f"node plane: discover_gpus read {source}: {len(gpus)} card(s), minors "
+        f"{res['discovery']['minors']}, coordinates {res['discovery']['coords']}; nvidia-smi "
+        f"lists {len(cards)}; /proc/driver/nvidia/gpus present "
+        f"{res['discovery']['proc_gpus']}; the /dev nodes alone name minors "
+        f"{res['discovery']['dev_nodes_alone']}")
+    check(len(gpus) == len(cards), f"node plane: discover_gpus found {len(gpus)} cards "
+                                   f"({source}), nvidia-smi lists {len(cards)}")
+    if source in ("proc", "smi"):
+        check(sorted(_bare_uuid(g.uuid) for g in gpus) == sorted(_bare_uuid(c[1]) for c in cards),
+              "node plane: discovery's UUIDs differ from nvidia-smi's")
+    # (2) Allocate's contract for card 0: the whole card and half of it
+    card = gpus[0]
+    envs = {units: allocation_envs([f"{card.coord}/{u}" for u in range(units)], gpus)[0]
+            for units in (100, 50)}
+    res["envs"] = {u: {k: ("<uuid>" if k == "CUDA_VISIBLE_DEVICES" and card.uuid else v)
+                       for k, v in e.items()} for u, e in envs.items()}
+    log(f"node plane: Allocate's env for 100 / 50 units of card {card.coord}: {res['envs']}")
+    for units, e in envs.items():
+        check(e["CUDA_VISIBLE_DEVICES"] == (card.uuid or str(card.minor))
+              and e["TPU_CORE_PERCENT"] == str(units) and e["TPU_VISIBLE_CHIPS"] == card.coord,
+              f"node plane: {units} units' env {e}")
+    # (3) the tenant under the 50-unit env, in its own process
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPU_", "CUDA_VISIBLE", "XLA_PYTHON"))}
+    env.update(envs[50], PYTHONPATH=HERE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the tenant's 0.6 must fit in the card's free memory, so that only its
+    # share can refuse it
+    free, total = torch.cuda.mem_get_info()
+    res["free_gb_before_tenant"] = free / 2 ** 30
+    check(free > 0.65 * total, f"node plane: {free / 2 ** 30:.1f} GiB free of "
+                               f"{total / 2 ** 30:.1f}: too little to tell the share's refusal")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", NODE_TENANT, json.dumps(
+        [NODE_TENANT_LAYERS, NODE_TENANT_STEPS, list(NODE_TENANT_SHARES)])], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=300)
+    tenant_s = time.perf_counter() - t0
+    check(p.returncode == 0, f"node plane: the tenant exited {p.returncode}:\n{p.stderr[-3000:]}")
+    lines = p.stdout.strip().splitlines()
+    check(lines and lines[-1].startswith("{"), f"node plane: the tenant printed no result: "
+                                                f"{p.stdout[-500:]}")
+    tenant = json.loads(lines[-1])
+    L, steps = NODE_TENANT_LAYERS, NODE_TENANT_STEPS
+    smi_uuid = dict((c[0], c[1]) for c in cards).get("0", "")
+    want_uuid = card.uuid or smi_uuid
+    res["tenant"] = {"rc": tenant["rc"], "launches": {k: v for k, v in
+                                                      tenant["launches"].items() if v},
+                     "count": tenant["count"], "same_card": _bare_uuid(tenant["uuid"])
+                     == _bare_uuid(want_uuid), "tries": tenant["tries"],
+                     "total_gb": tenant["total_gb"], "wall_s": tenant_s,
+                     "trained": lines[-2] if len(lines) > 1 else ""}
+    log(f"node plane: the tenant under the 50-unit env ({tenant_s:.1f} s): launcher.main "
+        f"{steps} steps at L {L}: {res['tenant']['trained']}; launches "
+        f"{res['tenant']['launches']}; {tenant['count']} card(s) visible, the allocated one "
+        f"{res['tenant']['same_card']}; allocations of {list(NODE_TENANT_SHARES)} of "
+        f"{tenant['total_gb']:.1f} GiB: {tenant['tries']}")
+    lc = tenant["launches"]
+    check(tenant["rc"] == 0 and lc.get("flash_fwd") == L * steps
+          and lc.get("flash_bwd_dq") == lc.get("flash_bwd_dkv") == L * steps,
+          f"node plane: the tenant's launches {lc} (K1 and K4 want {L * steps})")
+    check(tenant["count"] == 1 and res["tenant"]["same_card"],
+          f"node plane: the tenant ran on {tenant['count']} card(s), {tenant['uuid']!r}")
+    check(tenant["tries"] == {"0.6": "OutOfMemoryError", "0.4": "allocated"},
+          f"node plane: the tenant's allocations under its 50% share: {tenant['tries']}")
+    # (4) the device probe, up and with the card hidden (two children at once)
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        up, down = pool.map(lambda env: probe_relay(timeout=120, env=env),
+                            (None, dict(os.environ, CUDA_VISIBLE_DEVICES="")))
+    res["probe"] = {"up": up, "down": [down[0], down[1][-120:]],
+                    "s": time.perf_counter() - t0}
+    log(f"node plane: probe_relay {up}; with CUDA_VISIBLE_DEVICES='' {res['probe']['down']} "
+        f"({res['probe']['s']:.1f} s for both)")
+    check(up == (True, torch.cuda.get_device_name(0)), f"node plane: probe_relay {up}")
+    check(down[0] is False and "NOT_GPU" in down[1], f"node plane: hidden card probe {down}")
+    # (5) the gRPC wiring
+    res["grpc"] = node_plane_grpc(gpus)
+    res["phase_s"] = time.perf_counter() - t_phase
     return res
 
 
@@ -8009,6 +8450,9 @@ def main() -> int:
     # 17. the warm-start plane: serve cold, warm and without a warm-up
     warm_start = phase_warm_start()
     mark("17 warm start")
+    # 18. the node plane: the device plugin, a tenant under its share, the probe
+    node_plane = phase_node_plane()
+    mark("18 node plane")
 
     # 10. the kernels line
     for r in train_rows:
@@ -8048,6 +8492,7 @@ def main() -> int:
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"serve_mesh": serve_mesh}))
     log(json.dumps({"warm_start": warm_start}))
+    log(json.dumps({"node_plane": node_plane}))
     log(json.dumps({"phase_s": PHASE_S, "total_s": round(sum(PHASE_S.values()), 1)}))
     log(card)
     print(json.dumps({"kernels": kernels}))

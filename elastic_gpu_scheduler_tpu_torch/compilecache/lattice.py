@@ -24,6 +24,17 @@ point: if it cannot be built the state is ``error``, and ``/healthz``
 answers 503 ``{"warmup_failed": true}`` for good (the port has no
 fallback: every request would fail at its first kernel call).
 
+An engine on a mesh of several ranks (``engine.mirrored``) warms the same
+lattice, each point a task of rank 0's next ticket (``engine.run_verb
+("warm", ...)``; ``engine.warm_point`` when the caller drives the engine),
+which every rank runs in the same round: its followers loaded the library
+before they began to follow (``serve.follow_rank``).  There a failed point
+is not skipped, since the ranks would part: it ends the warm-up on every
+rank in state ``error`` (the task raises on every rank, as a round's fault
+does, and rank 0's loop stops serving).  The state then holds the mesh's
+shape and, a rank, its library seconds, the points it ran and their
+seconds.
+
 Where the lattice's time goes is in the state too: the seconds points
 waited for the engine's thread, ran on it, and spent there on its CPU, the
 process's CPU over the lattice (every thread), and the engine's eager
@@ -61,7 +72,8 @@ class WarmupState:
     the process's CPU seconds over the lattice (``process_cpu_s``); the
     engine's scratch chunks' and captures' seconds (``scratch_s``,
     ``capture_s``, the latter including the former) and the slowest
-    point."""
+    point.  On a mesh: its shape (``mesh``) and each rank's library
+    seconds, points built and their seconds (``ranks``)."""
 
     def __init__(self):
         self.state = "none"
@@ -84,6 +96,8 @@ class WarmupState:
         self.scratch_s = 0.0
         self.capture_s = 0.0
         self.slowest = ("", 0.0)
+        self.mesh: Optional[dict] = None
+        self.ranks: dict[int, dict] = {}
 
     @property
     def warming(self) -> bool:
@@ -114,6 +128,10 @@ class WarmupState:
             "scratch_s": round(self.scratch_s, 3),
             "capture_s": round(self.capture_s, 3),
             "slowest": [self.slowest[0], round(self.slowest[1], 3)],
+            "mesh": self.mesh,
+            "ranks": {str(r): {"library_s": round(v["library_s"], 3), "built": v["built"],
+                               "run_s": round(v["run_s"], 3)}
+                      for r, v in sorted(self.ranks.items())},
         }
 
 
@@ -136,6 +154,23 @@ def _timed(build: Callable) -> Callable:
     return point
 
 
+def _point_runner(engine, run: Optional[Callable]) -> Callable:
+    """``build -> (started, thread CPU seconds[, each rank's readings])``:
+    one point on one device (``build()`` through ``run``, or here), or on
+    every rank of a mirrored engine (rank 0's ticket), whose ranks'
+    readings the caller folds into the state's ``ranks``."""
+    if not engine.mirrored:
+        return lambda build: _timed(build)() if run is None else run(_timed(build),
+                                                                        timeout=POINT_TIMEOUT_S)
+
+    def on_mesh(build):
+        got = (build() if run is None
+               else engine.run_verb("warm", timeout=POINT_TIMEOUT_S, **build.keywords))
+        return got["started"], got["cpu_s"], got["ranks"]
+
+    return on_mesh
+
+
 def warmup_engine(
     engine,
     state: Optional[WarmupState] = None,
@@ -144,7 +179,8 @@ def warmup_engine(
 ) -> WarmupState:
     """Load the kernel library and warm the engine's shape lattice through
     its compile cache.  ``run(fn)`` runs one point on the engine's thread
-    (``engine.run_task``); None runs it here, for a caller that drives the
+    (``engine.run_task``; on a mirrored engine each point then goes through
+    ``engine.run_verb``); None runs it here, for a caller that drives the
     engine itself.  Returns the (possibly caller-provided) WarmupState,
     ``state.state`` in ready | error."""
     st = state if state is not None else WarmupState()
@@ -156,6 +192,8 @@ def warmup_engine(
     t0 = time.perf_counter()
     st.state = "warming"
     st.started_at = time.time()
+    if engine.mirrored:
+        st.mesh = {a: n for a, n in engine.mesh.shape.items() if n > 1}
     fills0, loads0 = cache.fills, cache.loads
     if engine.device.type == "cuda":
         from ..ops import _build
@@ -168,7 +206,7 @@ def warmup_engine(
             st.wall_s = time.perf_counter() - t0
             log.exception("warm-up: the kernel library could not be built")
             return st
-        st.library_s = time.perf_counter() - t0
+        st.library_s = engine.library_s = time.perf_counter() - t0
     st.fills = cache.fills - fills0
     st.loads = cache.loads - loads0
     try:
@@ -183,11 +221,11 @@ def warmup_engine(
     captured0 = engine.graphs_captured
     scratch0, capture0 = engine.graph_warmup_s, engine.graph_capture_s
     cpu0 = time.process_time()
+    run_point = _point_runner(engine, run)
     for label, build in sigs:
         t = time.perf_counter()
         try:
-            started, cpu = (_timed(build)() if run is None
-                            else run(_timed(build), timeout=POINT_TIMEOUT_S))
+            started, cpu, *ranks = run_point(build)
             ran = time.perf_counter() - started
             st.queue_s += started - t
             st.run_s += ran
@@ -195,9 +233,19 @@ def warmup_engine(
             if ran > st.slowest[1]:
                 st.slowest = (label, ran)
             st.built += 1
-        except Exception as e:  # noqa: BLE001 - skipped; the shape is built at first use
+            for r, got in (ranks[0] if ranks else {}).items():
+                rs = st.ranks.setdefault(int(r), {"library_s": 0.0, "built": 0, "run_s": 0.0})
+                rs["library_s"] = got["library_s"]
+                rs["built"] += 1
+                rs["run_s"] += got["run_s"]
+        except Exception as e:  # noqa: BLE001 - one device: skipped, built at first use
             st.errors += 1
             log.warning("warm-up: %s failed: %s", label, e)
+            if engine.mirrored:  # the ranks' warm-up ended with it (``_warm_task``)
+                st.state = "error"
+                st.detail = f"{label}: {e}"[:300]
+                st.wall_s = time.perf_counter() - t0
+                return st
         log.debug("warm-up: %s in %.3f s", label, time.perf_counter() - t)
         st.captures = engine.graphs_captured - captured0
         st.wall_s = time.perf_counter() - t0
@@ -207,13 +255,10 @@ def warmup_engine(
     st.reserved_after = _reserved(engine)
     st.wall_s = time.perf_counter() - t0
     st.state = "ready"
-    if not sigs and engine.mirrored:
-        st.detail = (f"an engine on a mesh of {engine.mesh.size} ranks captures no graph and "
-                     "runs every pass with its followers: the lattice holds no point")
-    else:
-        st.detail = (f"{st.built}/{st.lattice_size} lattice points warm ({st.captures} "
-                     f"graphs captured; library: {st.fills} built, {st.loads} loaded) in "
-                     f"{st.wall_s:.2f}s")
+    st.detail = (f"{st.built}/{st.lattice_size} lattice points warm "
+                 + (f"on every rank of {st.mesh} " if st.mesh else "")
+                 + f"({st.captures} graphs captured; library: {st.fills} built, "
+                 f"{st.loads} loaded) in {st.wall_s:.2f}s")
     WARMUP_SECONDS.set(value=st.wall_s)
     log.info("warm-up: %s", st.detail)
     return st

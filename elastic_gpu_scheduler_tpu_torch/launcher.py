@@ -70,6 +70,7 @@ from .parallel.mesh import (
     parse_coord,
     parse_mesh,
 )
+from .utils.devicecontract import apply_allocation
 
 log = logging.getLogger("torch-launcher")
 
@@ -258,6 +259,8 @@ def _train(job: JobSpec, annotations: dict, container: str, device, profile_dir:
            cpu: bool, compile_cache: str = "") -> tuple[list[float], Optional[dict]]:
     """The job's losses, and the compile cache's counters when the kernel
     library went through one (``--compile-cache`` on a card)."""
+    # the device plugin's share of the card, before the first allocation
+    apply_allocation(resolve_device(device))
     cache = None
     if compile_cache and not cpu:
         from .compilecache import CompileCache

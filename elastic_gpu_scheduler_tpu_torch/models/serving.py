@@ -172,6 +172,10 @@ raises "page pool exhausted".
   reports ready, so no request captures a graph.  Each decode chunk's
   CUDA graph is found through the engine's own memory-only cache
   (``graph_cache``, through ``compilecache.aot``), with or without one.
+  A mirrored engine warms the same lattice: each point is a task (verb
+  ``warm``) that rank 0's ticket carries, every rank runs it in the same
+  round, and the ranks then agree that it ran everywhere with their
+  mirrors intact, or all raise (``_warm_task``).
 """
 
 from __future__ import annotations
@@ -198,7 +202,7 @@ from ..ops.expert_matmul import expert_matmul
 from ..ops.paged_attention import dequant, paged_attention
 from ..tracing import TRACER
 from ..utils import kvwire, prefixdigest
-from ..parallel.collectives import all_gather, all_reduce, broadcast_object
+from ..parallel.collectives import all_gather, all_gather_object, all_reduce, broadcast_object
 from .generate import cached_attention, cached_attention_multi
 from .quantize import is_qtensor, wmat, wmatmul
 from .sampling import categorical, sample_batched, sample_static
@@ -372,10 +376,16 @@ _TICKET_FIELDS = (
 _SESSION_FIELDS = _TICKET_FIELDS + ("token_logprobs", "top_logprobs")
 
 
+class MeshWarmupError(RuntimeError):
+    """A warm-up point that failed on some rank of a mirrored engine (or
+    after which the ranks' mirrors parted), raised on every rank."""
+
+
 class _Task:
     """A disaggregated verb (export, import, migrate out or in, resume,
-    requeue) as plain data, ``verb`` and ``args``, which a ticket carries
-    to every rank of a mirrored engine, and rank 0's own side of it:
+    requeue) or a warm-up point (warm) as plain data, ``verb`` and
+    ``args``, which a ticket carries to every rank of a mirrored engine,
+    and rank 0's own side of it:
     ``local`` (what stays on rank 0: the session's live Request, the
     migrate-out victim chooser) and the caller's outcome.  ``state``:
     queued, ticketed (it runs on every rank) or abandoned (it runs on
@@ -1611,6 +1621,7 @@ class InferenceEngine:
                     _device_kind(self.device)), "serve_chunk")
         # -- the warm-start plane (compilecache/) ------------------------------
         self.compile_cache = compile_cache
+        self.library_s = 0.0  # seconds this rank took to load or build the kernel library
         if compile_cache is not None and self.device.type == "cuda":
             _build.use_cache(compile_cache)
         # -- serving on a mesh: one host decision point, mirrored state --------
@@ -1901,11 +1912,12 @@ class InferenceEngine:
           pass on the scratch page (the verify pass runs eagerly).
 
         No point touches a live slot, a length, a page but the scratch page,
-        or the engine's generator.  An engine on a mesh of more than one
-        rank has no point: it captures no graph, and its passes run only
-        together with its followers."""
-        if self.mirrored:
-            return []
+        or the engine's generator.  ``build``'s keywords are the point as
+        plain data (``kind``, ``tpad``, ``width``, ``flags``).  A mirrored
+        engine's lattice is its config's one-device lattice; each ``build``
+        there is ``warm_point``, which runs the point on every rank in one
+        round (no graph is captured: its chunks run eagerly)."""
+        warm = self.warm_point if self.mirrored else self._warm
         if variants == "full":
             flag_sets = list(itertools.product((False, True), repeat=6))
         else:
@@ -1918,19 +1930,73 @@ class InferenceEngine:
             pbucket = min(next((w for w in widths if w >= need), widths[-1]),
                           self.max_pages_per_slot)
             sigs.append((f"prefill:t{tpad}:p{pbucket}",
-                         functools.partial(self._warm_prefill, tpad, pbucket, False)))
+                         functools.partial(warm, kind="prefill", tpad=tpad, width=pbucket)))
             if self.prefill_chunk > 0 or self.prefix_cache:
                 sigs += [(f"prefill_prefixed:t{tpad}:p{w}",
-                          functools.partial(self._warm_prefill, tpad, w, True))
+                          functools.partial(warm, kind="prefill_prefixed", tpad=tpad, width=w))
                          for w in widths if w >= need]
         for pbucket in widths:
             for flags in flag_sets:
                 sigs.append((f"serve_chunk:{''.join(str(int(f)) for f in flags)}:p{pbucket}",
-                             functools.partial(self._warm_chunk, pbucket, flags)))
+                             functools.partial(warm, kind="serve_chunk", width=pbucket,
+                                               flags=flags)))
             if self.spec_k > 0:
                 sigs.append((f"verify_chunk:p{pbucket}",
-                             functools.partial(self._warm_verify, pbucket)))
+                             functools.partial(warm, kind="verify_chunk", width=pbucket)))
         return sigs
+
+    def _warm(self, kind: str, tpad: int = 0, width: int = 0, flags: tuple = ()) -> None:
+        """One lattice point on this rank (``aot_signatures``' kinds)."""
+        if kind == "serve_chunk":
+            self._warm_chunk(width, tuple(flags))
+        elif kind == "verify_chunk":
+            self._warm_verify(width)
+        elif kind in ("prefill", "prefill_prefixed"):
+            self._warm_prefill(tpad, width, kind == "prefill_prefixed")
+        else:
+            raise ValueError(f"unknown lattice point kind {kind!r}")
+
+    def warm_point(self, kind: str, tpad: int = 0, width: int = 0, flags: tuple = ()) -> dict:
+        """A lattice point called by the thread that drives the engine: on
+        a mirrored engine rank 0 sends it in a tasks-only ticket and every
+        rank runs it (``_warm_task``); from another thread it goes through
+        ``run_verb("warm", ...)``.  Returns the task's result."""
+        return self._call_verb("warm_point", "warm", kind=kind, tpad=tpad, width=width,
+                               flags=flags)
+
+    def _warm_task(self, task: _Task) -> dict:
+        """One lattice point as a task.  On a mirrored engine every rank
+        runs it in the same round, so the collectives inside its pass meet;
+        then the ranks exchange how it went over the object group (each
+        rank's error, seconds, kernel library seconds and mirror digest).
+        A point that raised on ANY rank, or mirrors that parted, raise
+        ``MeshWarmupError`` on every rank: the round's fault, which
+        ``_run_tasks`` passes on (rank 0's loop stops serving, a follower
+        leaves ``follow``).  A rank that raises before a collective its
+        peers are inside leaves them there until the backend's timeout or
+        this process's exit, as a round's fault does.  Returns when it
+        started, its thread's CPU seconds and each rank's readings."""
+        t, cpu = time.perf_counter(), time.thread_time()
+        error = ""
+        try:
+            self._warm(**task.args)
+        except Exception as e:  # noqa: BLE001 - exchanged, then raised on every rank
+            if not self.mirrored:
+                raise
+            error = f"{type(e).__name__}: {e}"
+        ran, cpu = time.perf_counter() - t, time.thread_time() - cpu
+        rank = self.mesh.rank if self.mirrored else 0
+        outcomes = all_gather_object((rank, error, ran, self.library_s,
+                                      self._mirror_digest().hex()), self.mesh)
+        failed = sorted((r, e) for r, e, *_ in outcomes if e)
+        point = ":".join(str(task.args[k]) for k in ("kind", "tpad", "width"))
+        if failed:
+            raise MeshWarmupError(f"warm-up point {point} failed on rank(s) "
+                                  + "; ".join(f"{r}: {e}" for r, e in failed))
+        if len({d for *_, d in outcomes}) > 1:
+            raise MeshWarmupError(f"warm-up point {point}: the ranks' host states parted")
+        return {"started": t, "cpu_s": cpu,
+                "ranks": {r: {"run_s": s, "library_s": lib} for r, _, s, lib, _ in outcomes}}
 
     def _warm_prefill(self, tpad: int, width: int, prefixed: bool) -> None:
         """One prefill pass of ``tpad`` tokens over a table row of ``width``
@@ -2695,6 +2761,10 @@ class InferenceEngine:
         state that never changes: the bundle's geometry, the session's
         fields), so a refused one is never queued."""
         local = dict(local or {})
+        if verb == "warm":  # the lattice point, every field given
+            args = dict(kind=str(args["kind"]), tpad=int(args.get("tpad", 0)),
+                        width=int(args.get("width", 0)),
+                        flags=tuple(bool(f) for f in args.get("flags", ())))
         if verb == "export":
             args["tokens"] = [int(t) for t in args["tokens"]]
             self._chain_seed(args.get("adapter", ""))
@@ -2737,11 +2807,17 @@ class InferenceEngine:
                 break
             thunk()  # never raises: errors park in the caller's box
         tasks, self._round_tasks = self._round_tasks, []
-        for t in tasks:
+        for n, t in enumerate(tasks):
             try:
                 t.result = self._run_verb(t, set())
             except BaseException as e:  # re-raised on rank 0's caller's thread
                 t.error = e
+                if t.verb == "warm" and self.mirrored:
+                    # a warm-up point's fault (``MeshWarmupError``, raised on
+                    # every rank alike) is the round's: the tasks after it
+                    # fail with the engine (``fail_mirrored``)
+                    self._round_tasks = tasks[n + 1:]
+                    raise
                 if not self.leader:
                     log.info("rank %d: %s task raised: %s", self.mesh.rank, t.verb, e)
             finally:
@@ -3123,7 +3199,7 @@ class InferenceEngine:
 
     # verb → the method every rank runs it by
     _VERBS = {"export": "_export", "import": "_import", "migrate_out": "_migrate_out",
-              "migrate_in": "_migrate_in", "requeue": "_requeue"}
+              "migrate_in": "_migrate_in", "requeue": "_requeue", "warm": "_warm_task"}
 
     def _prepare_step(self, lookahead: int):
         """Release cancelled slots, grow live slots' pages to cover

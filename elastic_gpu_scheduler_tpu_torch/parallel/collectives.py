@@ -154,6 +154,18 @@ def broadcast_object(obj, mesh, src: int = 0):
     return box[0]
 
 
+def all_gather_object(obj, mesh) -> list:
+    """``obj`` of every rank of the mesh (pickled host objects over the
+    mesh's gloo object group), in the group's rank order; ``[obj]`` on a
+    mesh of one rank."""
+    pg = None if mesh is None else mesh.object_group()
+    if pg is None:
+        return [obj]
+    out = [None] * dist.get_world_size(pg)
+    dist.all_gather_object(out, obj, group=pg)
+    return out
+
+
 def barrier(mesh) -> None:
     """Wait for every rank of ``mesh`` (a real collective whenever a
     process group exists, a one-rank world's included)."""

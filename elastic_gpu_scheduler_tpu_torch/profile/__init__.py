@@ -17,9 +17,13 @@ serving replica runs, with the reference's knob (``--profile-sample`` /
 - **Interference.**  A replica that knows its co-tenants' classes
   (``TPU_COTENANT_CLASSES``) folds its throughput into a (class,
   neighbour) matrix against its solo throughput.
+- **Chip occupancy.**  The device plugin's ``Allocate`` records one
+  sample a card (:meth:`WorkloadProfiler.record_chip`: the core units the
+  container got of it, keyed by the caller's trace id), folded into
+  per-card utilization (``chip_occupancy`` on ``/debug/profiles``).
 
-The scheduler's co-tenancy map, per-chip occupancy samples and journal
-records are control-plane code and stay in the reference.
+The scheduler's co-tenancy map and journal records are control-plane code
+and stay in the reference.
 """
 
 from __future__ import annotations
@@ -180,12 +184,15 @@ class WorkloadProfiler:
         self._id_chips = 1
         self._id_neighbors: tuple[str, ...] = ()
         self._step_buf: list[tuple] = []
+        self._chip_buf: list[tuple] = []
         self._step_n = 0  # the stride counter
         self.dropped_steps = 0
+        self.dropped_chips = 0
         self._fold_lock = threading.Lock()
         self._profiles: dict[str, _ClassProfile] = {}
         self._solo: dict[str, _Ewma] = {}  # class → solo tokens/s per chip
         self._pairs: dict[tuple[str, str], _Ewma] = {}  # (class, neighbour) → co-located
+        self._chip_occ: dict[tuple[str, str], dict] = {}  # (node, coord)
         self._folded = {"step": 0, "chip": 0}
         # one gauge carries the refresher: one run rebuilds both series sets
         PROFILE_TOKENS.refresher = self._refresh_gauges
@@ -219,11 +226,13 @@ class WorkloadProfiler:
         """Drop every buffer and aggregate (tests)."""
         with self._fold_lock:
             del self._step_buf[:]
+            del self._chip_buf[:]
             self._step_n = 0
-            self.dropped_steps = 0
+            self.dropped_steps = self.dropped_chips = 0
             self._profiles.clear()
             self._solo.clear()
             self._pairs.clear()
+            self._chip_occ.clear()
             self._folded = {"step": 0, "chip": 0}
 
     # -- hot path ------------------------------------------------------------
@@ -273,6 +282,22 @@ class WorkloadProfiler:
                 self._fold_lock.release()
         return True
 
+    def record_chip(self, node: str, coord: str, core_units: int, core_total: int,
+                    tenant: str = "") -> None:
+        """Per-chip occupancy sample from the device-plugin path (one
+        append; folded into per-chip utilization for /debug/profiles)."""
+        if not self.enabled:
+            return
+        buf = self._chip_buf
+        buf.append((node, coord, int(core_units), max(1, int(core_total)), tenant or ""))
+        if len(buf) > self._cap and self._fold_lock.acquire(blocking=False):
+            try:
+                n = self._cap // 2
+                del buf[:n]
+                self.dropped_chips += n
+            finally:
+                self._fold_lock.release()
+
     # -- fold path (reader threads) ------------------------------------------
 
     def _fold(self) -> None:
@@ -282,6 +307,9 @@ class WorkloadProfiler:
             n = len(self._step_buf)
             steps = self._step_buf[:n]
             del self._step_buf[:n]
+            m = len(self._chip_buf)
+            chips = self._chip_buf[:m]
+            del self._chip_buf[:m]
             alpha = self.ewma_alpha
             lat_batches: dict[str, list[float]] = {}
             for (_pod, wclass, gen, nchips, neighbors, tokens, wall_s, active, total, gap_ms,
@@ -306,15 +334,30 @@ class WorkloadProfiler:
                         self._solo.setdefault(wclass, _Ewma()).update(tps, alpha)
                     for nc in neighbors:
                         self._pairs.setdefault((wclass, nc), _Ewma()).update(tps, alpha)
+            for (node, coord, units, total, tenant) in chips:
+                occ = self._chip_occ.setdefault(
+                    (node, coord), {"util": _Ewma(), "samples": 0, "tenants": set()})
+                occ["util"].update(units / total, alpha)
+                occ["samples"] += 1
+                if tenant:
+                    occ["tenants"].add(tenant)
+                    if len(occ["tenants"]) > 16:
+                        occ["tenants"].pop()
             self._folded["step"] += n
+            self._folded["chip"] += m
             dropped, self.dropped_steps = self.dropped_steps, 0
+            dropped_chips, self.dropped_chips = self.dropped_chips, 0
         # the metric series outside the fold lock (their own locks suffice)
         if n:
             PROFILE_SAMPLES.inc("step", value=float(n))
+        if m:
+            PROFILE_SAMPLES.inc("chip", value=float(m))
         for wclass, vals in lat_batches.items():
             PROFILE_STEP_SECONDS.observe_batch(wclass, values=vals)
         if dropped:
             PROFILE_DROPPED.inc("step", value=float(dropped))
+        if dropped_chips:
+            PROFILE_DROPPED.inc("chip", value=float(dropped_chips))
 
     # -- read APIs -----------------------------------------------------------
 
@@ -344,14 +387,20 @@ class WorkloadProfiler:
         return out
 
     def debug_state(self) -> dict:
-        """The ``/debug/profiles`` payload (folds first).  ``chip_occupancy``
-        and ``tenancy`` are the scheduler's and stay empty in a replica."""
+        """The ``/debug/profiles`` payload (folds first).  ``tenancy`` is
+        the scheduler's and stays empty here."""
         self._fold()
         with self._fold_lock:
             profiles = self._profiles_locked()
             matrix = self._matrix_locked()
+            chip_occ = {
+                f"{node}/{coord}": {"core_util": round(occ["util"].value, 4),
+                                    "samples": occ["samples"],
+                                    "tenants": sorted(occ["tenants"])}
+                for (node, coord), occ in sorted(self._chip_occ.items())
+            }
             folded = dict(self._folded)
-            pending = len(self._step_buf)
+            pending = len(self._step_buf) + len(self._chip_buf)
             solo = {cls: round(e.value, 3) for cls, e in sorted(self._solo.items())}
         return {
             "enabled": self.enabled,
@@ -364,7 +413,7 @@ class WorkloadProfiler:
             "profiles": profiles,
             "solo_tokens_per_sec_per_chip": solo,
             "interference": matrix,
-            "chip_occupancy": {},
+            "chip_occupancy": chip_occ,
             "tenancy": {},
         }
 

@@ -52,6 +52,14 @@ default on cards; gloo on ``--cpu``, or on cards to let ranks share one).
 Fewer cards than N without gloo exits.  Every ``--fleet-role`` serves on
 such a mesh: the data-plane routes reach the engine's verbs through rank
 0's tickets, and a bundle holds whole heads, as one device's does.
+``--warmup`` warms such a mesh too: each lattice point rides a ticket and
+runs on every rank (each follower loads the kernel library before it
+follows), and ``/healthz`` answers 200 once every rank has run every
+point; a point that fails on any rank stops the replica.
+
+Every process of the replica applies the device plugin's allocation
+before its first CUDA allocation (``utils/devicecontract``: a fractional
+``TPU_CORE_PERCENT`` caps its caching allocator at that share of the card).
 """
 
 from __future__ import annotations
@@ -268,8 +276,11 @@ def main(argv=None) -> int:
     from .models.serving import InferenceEngine
     from .models.transformer import TransformerConfig, init_params, resolve_device
     from .server.inference import drain, serve_inference
+    from .utils.devicecontract import apply_allocation
 
     device = resolve_device("cpu" if args.cpu else None)
+    # the device plugin's share of the card, before the first allocation
+    apply_allocation(device)
     configure_planes(args, device, chips=args.tensor)
     if args.hf:
         # converted on the host; the engine moves the params once
@@ -319,16 +330,20 @@ def main(argv=None) -> int:
                                  **engine_kw)
     engine.replica_name = args.replica_name or os.environ.get("POD_NAME", "")
     engine.fleet_role = role
-    server, loop = serve_inference(engine, port=args.port, host=args.host)
+    state = None
     if warmup != "off":
+        from .compilecache import WarmupState
+
+        state = WarmupState()
+        state.state = "warming"
+    server, loop = serve_inference(engine, port=args.port, host=args.host, warmup=state)
+    if state is not None:
         # the HTTP server is up: /healthz answers 503 {"warming": true}
         # while the lattice warms; requests that arrive anyway are served
         # between its points
-        from .compilecache import WarmupState, start_warmup_thread
+        from .compilecache import start_warmup_thread
 
-        loop.warmup = WarmupState()
-        start_warmup_thread(engine, loop.warmup,
-                            variants="full" if warmup == "full" else "minimal")
+        start_warmup_thread(engine, state, variants="full" if warmup == "full" else "minimal")
     log.info(
         "serving %s model (%d layers, d=%d) on %s%s, %s:%d",
         "hf-imported" if args.hf else "random-init",
@@ -429,24 +444,36 @@ def start_mesh(args, params, cfg, engine_kw, compile_cache=None):
 def follow_rank(rank, world, rendezvous, params, cfg, engine_kw, backend, cpu,
                 cache_dir=None) -> int:
     """A follower of ``serve --tensor``: its slice's engine follows rank
-    0's tickets until the stop ticket (its kernel library through a cache
-    on ``cache_dir``, when rank 0 has one).  It leaves the signals to rank
-    0, which ends it."""
+    0's tickets until the stop ticket.  It applies the device plugin's
+    share of the card first, and loads (or builds) the kernel library
+    before it follows, through a cache on ``cache_dir`` when rank 0 has
+    one: no ticket's work, a warm-up point included, starts with a build.
+    It leaves the signals to rank 0, which ends it."""
     from .compilecache import CompileCache
     from .models.serving import InferenceEngine
     from .parallel.distributed import maybe_initialize_distributed, rank_device
     from .parallel.mesh import MeshSpec, make_mesh
+    from .utils.devicecontract import apply_allocation
 
     signal.signal(signal.SIGINT, signal.SIG_IGN)
     signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    device = rank_device(rank, cpu)
+    apply_allocation(device)
     maybe_initialize_distributed(rendezvous, world, rank, backend=backend, local_rank=rank,
                                  local_ranks=world, cpu=cpu)
     mesh = make_mesh(MeshSpec(tensor=world)).connect()
-    engine = InferenceEngine(params, cfg, mesh=mesh, sliced=True,
-                             device=rank_device(rank, cpu),
-                             compile_cache=CompileCache(cache_dir) if cache_dir else None,
-                             **engine_kw)
+    cache = CompileCache(cache_dir) if cache_dir else None
+    engine = InferenceEngine(params, cfg, mesh=mesh, sliced=True, device=device,
+                             compile_cache=cache, **engine_kw)
     del params
+    if device.type == "cuda":
+        import time
+
+        from .ops import _build
+
+        t0 = time.perf_counter()
+        _build.lib(cache)
+        engine.library_s = time.perf_counter() - t0
     engine.follow()
     return 0
 

@@ -48,7 +48,8 @@ routes this slice serves (stdlib HTTP only):
                              engine has failed, ``{"warming": true}``
                              while the shape lattice warms, and
                              ``{"warmup_failed": true}`` once the warm-up
-                             could not build or load the kernel library)
+                             could not build or load the kernel library,
+                             or a point failed on some rank of a mesh)
     GET  /version          → build version
 
 ONE engine thread (``EngineLoop``) owns all engine state and drives
@@ -630,11 +631,15 @@ def make_handler(loop: EngineLoop, request_timeout: float = 300.0):
 
         def do_GET(self):
             if self.path == "/healthz":
+                wu = loop.warmup
                 if loop.failed.is_set():
-                    return self._json(503, {"ok": False, "failed": True})
+                    # a warm-up point that failed on some rank of a mesh
+                    # stops the loop too: the body says which
+                    return self._json(503, dict({"ok": False, "failed": True},
+                                                **({"warmup_failed": True, "warmup": wu.to_dict()}
+                                                   if wu is not None and wu.failed else {})))
                 if engine.draining:
                     return self._json(503, {"ok": False, "draining": True})
-                wu = loop.warmup
                 if wu is not None and wu.warming:
                     # capacity is coming, not going: the fleet router holds
                     # the replica in 'warming', distinct from draining
@@ -1343,10 +1348,15 @@ def serve_inference(
     port: int = 8000,
     host: str = "0.0.0.0",
     request_timeout: float = 300.0,
+    warmup=None,
 ) -> tuple[ThreadingHTTPServer, EngineLoop]:
     """Start the engine loop and the HTTP server (daemon threads); the
-    caller owns shutdown: ``server.shutdown(); loop.stop()``."""
-    loop = EngineLoop(engine).start()
+    caller owns shutdown: ``server.shutdown(); loop.stop()``.  ``warmup``
+    (a ``WarmupState``) is the loop's before the server listens, so
+    ``/healthz`` never answers 200 ahead of the warm-up."""
+    loop = EngineLoop(engine)
+    loop.warmup = warmup
+    loop.start()
     server = _Server((host, port), make_handler(loop, request_timeout))
     threading.Thread(target=server.serve_forever, name="inference-http", daemon=True).start()
     log.info("inference server on %s:%d", host, server.server_address[1])

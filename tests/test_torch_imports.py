@@ -4,7 +4,10 @@ A fresh interpreter imports every module of the port and then lists
 ``sys.modules``.  The port's package name BEGINS with the JAX package's,
 so names are compared whole (``m == pkg or m.startswith(pkg + ".")``),
 never as bare prefixes.  The same run checks that importing starts no
-kernel build (a CPU-only machine has no nvcc).
+kernel build (a CPU-only machine has no nvcc).  Only ``deviceplugin/``
+imports ``grpc`` and ``google.protobuf`` (a GPU host may have neither):
+every other module imports without them, and the plugin's plain
+functions import and run where importing them raises.
 """
 
 import ast
@@ -79,7 +82,12 @@ def test_port_imports_no_jax_and_no_jax_package():
             "elastic_gpu_scheduler_tpu_torch.parallel.distributed",
             "elastic_gpu_scheduler_tpu_torch.parallel.collectives",
             "elastic_gpu_scheduler_tpu_torch.parallel.sharding",
-            "elastic_gpu_scheduler_tpu_torch.parallel.ring"} <= expected
+            "elastic_gpu_scheduler_tpu_torch.parallel.ring",
+            "elastic_gpu_scheduler_tpu_torch.deviceplugin.plugin",
+            "elastic_gpu_scheduler_tpu_torch.deviceplugin.deviceplugin_pb2",
+            "elastic_gpu_scheduler_tpu_torch.deviceplugin.topology",
+            "elastic_gpu_scheduler_tpu_torch.utils.tpuprobe",
+            "elastic_gpu_scheduler_tpu_torch.utils.devicecontract"} <= expected
     bad = [m for m in res["modules"] if _is_jax_package(m)]
     assert not bad, bad
     # the HF import reads checkpoints with its own code: the card's machine
@@ -88,6 +96,80 @@ def test_port_imports_no_jax_and_no_jax_package():
                 if m.split(".")[0] in ("transformers", "safetensors", "orbax")]
     assert "elastic_gpu_scheduler_tpu_torch" in res["modules"]
     assert not res["built"]
+
+
+_OUTSIDE_DEVICEPLUGIN = r"""
+import importlib, json, pkgutil, sys
+import elastic_gpu_scheduler_tpu_torch as port
+plane = port.__name__ + ".deviceplugin"
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")
+         if not (m.name == plane or m.name.startswith(plane + "."))]
+for n in names:
+    importlib.import_module(n)
+print(json.dumps({"imported": names, "modules": sorted(sys.modules)}))
+"""
+
+_GRPC_BLOCKED = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] == "grpc" or name.startswith("google.protobuf"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+sys.meta_path.insert(0, Block())
+from elastic_gpu_scheduler_tpu_torch.deviceplugin.plugin import (
+    allocation_envs, discover_gpus, preferred_allocation)
+gpus = discover_gpus(chip_count=2, host_topology="", host_offset="", dev_root="/nonexistent",
+                     proc_root="/nonexistent", smi="")
+envs, specs = allocation_envs(["1/%d" % u for u in range(50)], gpus)
+pref = preferred_allocation(["0/1", "1/0", "1/1"], ["1/0"], 2)
+try:
+    import grpc
+    blocked = False
+except ImportError:
+    blocked = True
+print(json.dumps({"envs": envs, "specs": specs, "pref": pref, "blocked": blocked,
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def _mentions_grpc(modules) -> list:
+    return [m for m in modules if m == "grpc" or m.startswith("grpc.")
+            or m == "google.protobuf" or m.startswith("google.protobuf.")]
+
+
+def test_only_the_device_plugin_imports_grpc_and_protobuf():
+    """Every module of the port outside ``deviceplugin/`` imports, and
+    leaves ``grpc`` and ``google.protobuf`` out of ``sys.modules``: a GPU
+    host may have neither package."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _OUTSIDE_DEVICEPLUGIN], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "elastic_gpu_scheduler_tpu_torch.serve" in res["imported"]
+    assert "elastic_gpu_scheduler_tpu_torch.utils.tpuprobe" in res["imported"]
+    assert not _mentions_grpc(res["modules"]), _mentions_grpc(res["modules"])
+
+
+def test_device_plugin_functions_import_with_grpc_blocked():
+    """``deviceplugin.plugin``'s plain functions (discovery, Allocate's
+    contract, the preferred allocation) import and run where importing
+    ``grpc`` or ``google.protobuf`` raises."""
+    env = dict(os.environ, PYTHONPATH=REPO, TPU_CHIP_COUNT="0")
+    out = subprocess.run(
+        [sys.executable, "-c", _GRPC_BLOCKED], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["blocked"] and not _mentions_grpc(res["modules"])
+    assert res["envs"]["TPU_VISIBLE_CHIPS"] == "1" and res["envs"]["TPU_CORE_PERCENT"] == "50"
+    assert res["envs"]["CUDA_VISIBLE_DEVICES"] == "1"
+    assert [s[0] for s in res["specs"]] == ["/dev/nvidia1", "/dev/nvidiactl", "/dev/nvidia-uvm"]
+    assert res["pref"] == ["1/0", "1/1"]
 
 
 def test_whole_name_check_tells_the_packages_apart():

@@ -14,8 +14,10 @@ reference engine:
 - each rank's slices are the reference's addressable shards; under
   expert=2 a rank holds half the experts (KE runs on them, tokens routed
   to the other rank's experts are zero rows);
-- ``serve --init --cpu --tensor 2`` answers two completions with the
-  tokens ``--tensor 1`` gives on the same seed, reports its mesh on
+- ``serve --init --cpu --tensor 2 --warmup lattice`` answers /healthz 503
+  ``{"warming": true}`` before 200, with every lattice point built on
+  both ranks by then, answers two completions with the tokens
+  ``--tensor 1`` gives on the same seed, reports its mesh on
   ``/v1/stats`` and exits 0 on SIGTERM; with a follower lost, the
   waiting request is a 503 and ``serve`` exits 1.
 """
@@ -168,10 +170,34 @@ def _wait_up(proc, port):
         time.sleep(0.2)
 
 
+def _healthz_until_ready(proc, port) -> list:
+    """/healthz polled from the start until it answers 200; the 503
+    bodies seen on the way."""
+    deadline, seen = time.monotonic() + 120, []
+    while True:
+        try:
+            _call(port, "/healthz")
+            return seen
+        except urllib.error.HTTPError as e:
+            seen.append(json.loads(e.read()))
+        except OSError:
+            pass
+        assert proc.poll() is None, proc.stderr.read()
+        assert time.monotonic() < deadline, "serve did not become ready"
+        time.sleep(0.02)
+
+
 def test_serve_tensor_2_answers_like_tensor_1():
-    procs = [_serve(1), _serve(2)]
+    procs = [_serve(1), _serve(2, "--warmup", "lattice")]
     try:
         answers, stats = [], []
+        warming = _healthz_until_ready(*procs[1])
+        assert warming and all(b["warming"] and not b["ok"] for b in warming)
+        wu = _call(procs[1][1], "/v1/stats")["warmup"]
+        assert wu["state"] == "ready" and wu["errors"] == 0 and wu["mesh"] == {"tensor": 2}
+        assert wu["lattice_size"] > 0 and wu["built"] == wu["lattice_size"]
+        assert sorted(wu["ranks"]) == ["0", "1"]
+        assert all(r["built"] == wu["lattice_size"] for r in wu["ranks"].values())
         for proc, port in procs:
             _wait_up(proc, port)
             answers.append([_call(port, "/v1/completions", {"prompt": p, "max_tokens": 8})

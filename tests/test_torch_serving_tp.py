@@ -29,10 +29,19 @@ then data=2,tensor=2 on all four:
   migrated tensor=2 → one device and one device → tensor=2 keep their
   greedy tokens (the reference's), seeded draws and logprobs (the port's
   unmigrated run's); the ranks' ``_mirror_digest`` agree after each;
+- warm-up on a mesh (``compilecache.warmup_engine``; the paged kernel,
+  prefix cache + chunked prefill + int8 KV, spec_k 3, int8 weights): the
+  lattice's labels are the one-device engine's, every rank runs every
+  point (each a ticket's task), the ranks' ``_mirror_digest`` agree after
+  each, the pool's pages but the scratch page keep their bytes across the
+  warm-up of an engine with live slots, and the tokens after it equal an
+  unwarmed mesh engine's and the reference's; a point that raises on a
+  follower ends the warm-up in ``error`` on rank 0 and ends the follower's
+  ``follow``;
 - a mesh without ``tensor`` raises ``ValueError``, the paged kernel over
   heads ``tensor`` does not divide raises, a follower's own call of a
-  disaggregated verb or ``submit`` is refused by name while rank 0's
-  succeeds;
+  disaggregated verb, of a warm-up point or of ``submit`` is refused by
+  name while rank 0's succeeds;
 - after a fault, rank 0's loop sends no further ticket, fails every
   waiting request and later submit, and ``/healthz`` answers 503.
 
@@ -48,8 +57,14 @@ import pytest
 import torch
 
 from elastic_gpu_scheduler_tpu.models import serving as jax_serving
+from elastic_gpu_scheduler_tpu_torch.compilecache import CompileCache, warmup_engine
 from elastic_gpu_scheduler_tpu_torch.models.bridge import lora_from_jax, params_from_jax
-from elastic_gpu_scheduler_tpu_torch.models.serving import InferenceEngine, Request
+from elastic_gpu_scheduler_tpu_torch.models.serving import (
+    SCRATCH_PAGE,
+    InferenceEngine,
+    MeshWarmupError,
+    Request,
+)
 from elastic_gpu_scheduler_tpu_torch.models.transformer import TransformerConfig
 from elastic_gpu_scheduler_tpu_torch.parallel.distributed import (
     maybe_initialize_distributed,
@@ -110,14 +125,23 @@ CASES = {
                        kind="disagg", pool="odd"),
     "disagg_pressure": dict(DENSE, eng=dict(BASE, prefix_cache=True, n_pages=4), pool="dense",
                             kind="pressure"),
+    # warm-up on the mesh, held against an unwarmed mesh engine and the
+    # reference; "fail" plants a fault on the follower's third point
+    "warm_paged": dict(DENSE, eng=dict(BASE, paged_kernel=True), kind="warm", fail=True),
+    "warm_prefix_int8kv": dict(DENSE, eng=dict(BASE, prefix_cache=True, prefill_chunk=4,
+                                               kv_int8=True, paged_kernel=True), kind="warm",
+                               prompts=[SHARED + [40], SHARED + [7, 7], [5, 17, 3]]),
+    "warm_spec": dict(DENSE, eng=dict(BASE, paged_kernel=True, spec_k=3), kind="warm"),
+    "warm_int8_weights": dict(DENSE, tree="dense/int8", eng=BASE, kind="warm"),
 }
 # rounds of (mesh name, axes, ranks, cases); meshes of one round run side by side
 ROUNDS = [
     [("tensor=2 a", dict(tensor=2), (0, 1),
       ["gather", "paged", "paged_spec", "odd_int8kv", "prefix_chunked", "refused",
-       "disagg_int8", "disagg_odd", "disagg_pressure"]),
+       "disagg_int8", "disagg_odd", "disagg_pressure", "warm_paged", "warm_spec"]),
      ("tensor=2 b", dict(tensor=2), (2, 3),
-      ["int8_weights", "adapters", "draft", "spill", "overlapped", "disagg"])],
+      ["int8_weights", "adapters", "draft", "spill", "overlapped", "disagg",
+       "warm_prefix_int8kv", "warm_int8_weights"])],
     [("data=2,tensor=2", dict(data=2, tensor=2), (0, 1, 2, 3), ["gather"])],
 ]
 SPILL_PROMPT, SPILL_HIGH = [3, 9, 14, 27, 5, 1, 2, 6], [2, 4, 6, 8, 10, 12, 1, 7]
@@ -159,6 +183,8 @@ def _requests(case, request_cls):
 
 def _port_kwargs(case, trees):
     kw = dict(case["eng"], overlap=case.get("overlap", False))
+    if case.get("kind") == "warm":
+        kw["compile_cache"] = CompileCache(None)
     if case.get("adapters"):
         kw["adapters"] = {n: lora_from_jax(lo, "cpu") for n, lo in trees["loras"].items()}
     if case.get("draft"):
@@ -177,11 +203,13 @@ def _refusals(eng, mesh, trees):
         "import_pages": lambda: eng.import_pages(hdr, pages),
         "migrate_out_bundle": lambda: eng.migrate_out_bundle(0),
         "resume_session": lambda: eng.resume_session({"prompt": [1, 2], "max_new_tokens": 3}),
+        "warm_point": lambda: sorted(eng.warm_point("prefill", tpad=8, width=1)["ranks"]),
     }
     for name, call in calls.items():
         try:
             got = call()
-            out[name] = ("ok", got if isinstance(got, (dict, type(None))) else type(got).__name__)
+            out[name] = ("ok", got if isinstance(got, (dict, list, type(None)))
+                         else type(got).__name__)
         except RuntimeError as e:
             out[name] = ("refused", str(e))
     if not eng.leader:
@@ -252,6 +280,98 @@ def _disagg_leader(eng, case, bundles) -> dict:
     return out
 
 
+def _watch_warmup(eng) -> dict:
+    """Record on this rank every lattice point it runs, the mirror digest
+    after each, and the pool's pages but the scratch page before the
+    first and after the last."""
+    seen = {"points": [], "digests": []}
+    warm, task = eng._warm, eng._warm_task
+
+    def pages():
+        return {k: v[:, SCRATCH_PAGE + 1:].clone() for k, v in eng.kv.items()}
+
+    def logged(**point):
+        seen["points"].append(point)
+        warm(**point)
+
+    def run_task(t):
+        seen.setdefault("before", pages())
+        got = task(t)
+        seen["digests"].append(eng._mirror_digest().hex())
+        seen["after"] = pages()
+        return got
+
+    eng._warm, eng._warm_task = logged, run_task
+    return seen
+
+
+def _lead(eng, fn):
+    """``fn()`` on rank 0, then the stop ticket; a follower follows."""
+    if not eng.leader:
+        eng.follow()
+        return None
+    got = fn()
+    eng.stop_followers()
+    return got
+
+
+def _warm_case(eng, case, mesh, trees) -> dict:
+    """A warm case: an unwarmed mesh engine's tokens; ``eng`` warmed
+    after two rounds of its batch (its slots live), then run to the end;
+    with "fail", an engine whose follower raises at its third point."""
+    cfg = TransformerConfig(**case["cfg"])
+    params = params_from_jax(trees[case["tree"]], "cpu")
+    out = {}
+
+    def run(e):
+        reqs = [e.submit(r) for r in _requests(case, Request)]
+        e.run_until_idle(max_steps=100_000)
+        return [r.output for r in reqs]
+
+    cold = InferenceEngine(params, cfg, device="cpu", mesh=mesh, **_port_kwargs(case, trees))
+    out["cold_tokens"] = _lead(cold, lambda: run(cold))
+    seen = _watch_warmup(eng)
+
+    def warmed():
+        reqs = [eng.submit(r) for r in _requests(case, Request)]
+        for _ in range(2):
+            eng.exchange_ticket()
+            eng.round()
+        st = warmup_engine(eng)
+        eng.run_until_idle(max_steps=100_000)
+        one = InferenceEngine(params, cfg, device="cpu", **_port_kwargs(case, trees))
+        return {"warmup": st.to_dict(), "tokens": [r.output for r in reqs],
+                "errors": [r.error for r in reqs],
+                "labels": [label for label, _ in eng.aot_signatures()],
+                "one_device_labels": [label for label, _ in one.aot_signatures()]}
+
+    out.update(_lead(eng, warmed) or {})
+    out["points"], out["digests"] = seen["points"], seen["digests"]
+    out["pages_kept"] = all(torch.equal(seen["before"][k], seen["after"][k])
+                            for k in seen["before"])
+    if case.get("fail"):
+        bad = InferenceEngine(params, cfg, device="cpu", mesh=mesh, **_port_kwargs(case, trees))
+        if bad.leader:
+            st = warmup_engine(bad)
+            out["fault"] = (st.state, st.detail, st.built, st.errors)
+        else:
+            warm, n = bad._warm, [0]
+
+            def planted(**point):
+                warm(**point)
+                n[0] += 1
+                if n[0] == 3:
+                    raise RuntimeError("planted fault")
+
+            bad._warm = planted
+            try:
+                bad.follow()
+                out["fault"] = "followed to the stop ticket"
+            except MeshWarmupError as e:
+                out["fault"] = str(e)
+    return out
+
+
 def run_case(name, case, mesh, trees) -> dict:
     """One engine of ``case`` on this rank: rank 0 submits and drives, the
     others follow.  Returns what the test holds: rank 0's tokens and
@@ -271,7 +391,9 @@ def run_case(name, case, mesh, trees) -> dict:
     out = {}
     if case.get("kind") == "refused":
         out["refused"] = _refusals(eng, mesh, trees)
-    if eng.leader and case.get("kind") in ("disagg", "pressure"):
+    if case.get("kind") == "warm":
+        out.update(_warm_case(eng, case, mesh, trees))
+    elif eng.leader and case.get("kind") in ("disagg", "pressure"):
         out["disagg"] = _disagg_leader(eng, case, trees["bundles"])
         eng.stop_followers()
     elif eng.leader:
@@ -624,7 +746,8 @@ def test_mesh_refusals_name_what_they_refuse(mesh_runs):
     name (it takes its work from rank 0's tickets); rank 0's call runs,
     through a ticket, on both ranks."""
     res, _, _ = mesh_runs
-    verbs = ("export_prefix_pages", "import_pages", "migrate_out_bundle", "resume_session")
+    verbs = ("export_prefix_pages", "import_pages", "migrate_out_bundle", "resume_session",
+             "warm_point")
     lead = res[0][("tensor=2 a", "refused")]["refused"]
     follower = res[1][("tensor=2 a", "refused")]["refused"]
     for verb in verbs:
@@ -635,11 +758,99 @@ def test_mesh_refusals_name_what_they_refuse(mesh_runs):
                                            "stopped": None})
     assert lead["migrate_out_bundle"] == ("ok", None)  # no live session
     assert lead["resume_session"] == ("ok", "Request")
+    assert lead["warm_point"] == ("ok", [0, 1])  # ran on both ranks
     for r in (0, 1):
         assert "divisible" in res[r][("tensor=2 a", "refused")]["refused"]["paged_kernel_heads"]
     assert "tickets" in follower["follower_submit"]
     check_mirrors(res, "tensor=2 a", (0, 1), "refused")
     assert res[0][("tensor=2 a", "refused")]["state"]["tickets"] >= 4
+
+
+WARM = {"warm_paged": ("tensor=2 a", (0, 1)), "warm_spec": ("tensor=2 a", (0, 1)),
+        "warm_prefix_int8kv": ("tensor=2 b", (2, 3)),
+        "warm_int8_weights": ("tensor=2 b", (2, 3))}
+
+
+@pytest.mark.parametrize("name", sorted(WARM))
+def test_mesh_warmup_runs_the_one_device_lattice_on_every_rank(mesh_runs, name):
+    """The mirrored engine's lattice is the one-device engine's (and so the
+    reference's labels, ``test_torch_compilecache``); every rank ran every
+    point in rank 0's order, the digests agreed after each, the pool's
+    pages but the scratch page kept their bytes, and the tokens equal an
+    unwarmed mesh engine's and the reference's."""
+    res, refs, _ = mesh_runs
+    mname, ranks = WARM[name]
+    lead = res[ranks[0]][(mname, name)]
+    n = len(lead["labels"])
+    assert n > 0 and lead["labels"] == lead["one_device_labels"]
+    wu = lead["warmup"]
+    assert wu["state"] == "ready" and wu["errors"] == 0 and wu["built"] == wu["lattice_size"] == n
+    assert wu["mesh"] == {"tensor": 2}
+    assert sorted(wu["ranks"]) == [str(r) for r in ranks]
+    assert all(v["built"] == n for v in wu["ranks"].values())
+    for r in ranks:
+        got = res[r][(mname, name)]
+        assert got["points"] == lead["points"] and len(got["points"]) == n, r
+        assert got["digests"] == lead["digests"] and len(got["digests"]) == n, r
+        assert got["pages_kept"], r
+    assert lead["errors"] == [""] * len(lead["tokens"])
+    assert lead["tokens"] == lead["cold_tokens"] == refs[name]["tokens"]
+
+
+def test_mesh_warmup_point_failing_on_a_follower_ends_it_on_every_rank(mesh_runs):
+    """A point that raises on the follower (its third) raises on both
+    ranks: rank 0's warm-up ends in ``error`` after two points, naming the
+    rank, and the follower leaves ``follow``."""
+    res, _, _ = mesh_runs
+    state, detail, built, errors = res[0][("tensor=2 a", "warm_paged")]["fault"]
+    assert (state, built, errors) == ("error", 2, 1)
+    assert "rank(s) 1: RuntimeError: planted fault" in detail
+    follower = res[1][("tensor=2 a", "warm_paged")]["fault"]
+    assert "rank(s) 1: RuntimeError: planted fault" in follower
+
+
+def test_a_mesh_warmup_point_failing_stops_the_replica(monkeypatch):
+    """Rank 0 behind HTTP: a warm-up point that a follower reports failed
+    goes through the round's fault path (the loop stops, waiting requests
+    fail); the warm-up ends in ``error`` and ``/healthz`` answers 503
+    with ``failed`` and ``warmup_failed``."""
+    import http.client
+    import json
+    from types import SimpleNamespace
+
+    from elastic_gpu_scheduler_tpu_torch.compilecache import WarmupState, start_warmup_thread
+    from elastic_gpu_scheduler_tpu_torch.models import serving
+    from elastic_gpu_scheduler_tpu_torch.server.inference import serve_inference
+
+    eng = InferenceEngine(params_from_jax(jax_trees()["dense"], "cpu"),
+                          TransformerConfig(**CFGS["dense"]), device="cpu",
+                          compile_cache=CompileCache(None), **BASE)
+    eng.mirrored, eng.mesh = True, SimpleNamespace(rank=0, shape={"tensor": 2}, size=2)
+    monkeypatch.setattr(serving, "broadcast_object", lambda obj, mesh: obj)
+    monkeypatch.setattr(serving, "all_gather_object", lambda obj, mesh: [
+        obj, (1, "RuntimeError: planted fault", 0.0, 0.0, obj[-1])])
+    monkeypatch.setattr(eng, "_warm", lambda **point: None)  # rank 0's side of the point
+    server, loop = serve_inference(eng, port=0, host="127.0.0.1")
+    try:
+        loop.warmup = WarmupState()
+        start_warmup_thread(eng, loop.warmup).join(60)
+        assert loop.failed.wait(30)
+        wu = loop.warmup
+        assert (wu.state, wu.built, wu.errors) == ("error", 0, 1)
+        assert "rank(s) 1: RuntimeError: planted fault" in wu.detail
+        conn = http.client.HTTPConnection(*server.server_address, timeout=30)
+        conn.request("GET", "/healthz")
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+        assert resp.status == 503 and body["failed"] and body["warmup_failed"]
+        assert body["warmup"]["state"] == "error"
+        late = eng.submit(Request(prompt=[1, 2], max_new_tokens=2))
+        assert late.done.is_set() and late.error == serving.ENGINE_FAILED_ERROR
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.stop()
 
 
 DISAGG = {"dense": ("tensor=2 b", (2, 3), "disagg"),
